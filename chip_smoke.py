@@ -7,19 +7,22 @@ Run from the root of a checkout, with no arguments:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
 first use), holds each kernel against its plain PyTorch version on the
-card, and drives the port's main path — ``estimate`` / ``DMLSession`` on
-the inline backend — at the paper's own configuration and at a wide
-synthetic one.  Every phase prints one JSON line; any failure raises and
-the process exits non-zero.  Without a CUDA device it exits non-zero and
-prints no result.  ``--phases a,b`` runs a subset (the lines that sum up
-the run are printed only by a full run).
+card, and drives the port's paths — ``estimate`` / ``DMLSession`` on the
+inline backend at the paper's own configuration and at a wide synthetic
+one, and on the sharded backend at a tall one (250 000 rows, more than a
+device page: the data@1 layout and its streaming Gram kernel).  Every
+phase prints one JSON line; any failure raises and the process exits
+non-zero.  Without a CUDA device it exits non-zero and prints no result.
+``--phases a,b`` runs a subset (the lines that sum up the run are printed
+only by a full run).
 
 Phases: device, build, kernels, estimate_paper, estimate_wide, session,
-same_as_cpu.
+same_as_cpu, estimate_tall.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -44,11 +47,12 @@ from repro_torch.data import (                             # noqa: E402
     TRUE_EFFECT, make_bonus_data, make_pliv_data, make_plr_data,
 )
 from repro_torch.kernels import build, megabatch, ops      # noqa: E402
+from repro_torch.launch import roofline                    # noqa: E402
 from repro_torch.learners import linear                    # noqa: E402
 from repro_torch.serverless import make_backend            # noqa: E402
 
 PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
-          "session", "same_as_cpu")
+          "session", "same_as_cpu", "estimate_tall")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
 # core) float32 FLOP/s — the kernels use plain FMA
@@ -66,23 +70,38 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/megabatch.cu",
         "replaces": "src/repro/kernels/megabatch.py:167",
     },
+    "batched_gram_blocked": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/megabatch.cu",
+        "replaces": "src/repro/kernels/megabatch.py:116",
+    },
 }
 # (B, N, P) of every launch each driven path makes: full blocks of 32
 # lanes and the aligned tail, N and P as the bucket pads them, plus the
 # intercept column.  Each path asserts after its run that it built no
 # program of another shape.
 MAIN_SHAPE = (32, 5104, 33)
+TALL_N = 250_000
 PATH_SHAPES = {
     "estimate_paper": (MAIN_SHAPE, (8, 5104, 33)),
     "estimate_wide": ((32, 60000, 257), (8, 60000, 257), (24, 60000, 257)),
     "session": ((32, 5000, 33), (8, 5000, 33), (24, 5000, 33)),
     "same_as_cpu": (MAIN_SHAPE, (8, 5104, 33)),
+    # the inline run (K1, K2) and the sharded run's predict (K2)
+    "estimate_tall": ((32, TALL_N, 33), (8, TALL_N, 33)),
 }
 # the paths' shapes, then a ragged one (odd B, N and P below a tile) and
 # one whose N is a multiple of the kernels' row step
 SHAPES = tuple(dict.fromkeys(
     [s for shapes in PATH_SHAPES.values() for s in shapes]
     + [(5, 1003, 7), (8, 65536, 257)]))
+# (B, C, Nc, P) of the streaming Gram: the tall path's launches (N 250000
+# in 4 chunks of 62504 rows, not a multiple of the 64-row step), a small
+# ragged one, and one whose chunks are whole steps, where it must be
+# bitwise batched_gram on the merged (B, C*Nc, P)
+MAIN_BLOCKED_SHAPE = (32, 4, 62504, 33)
+TALL_BLOCKED_SHAPES = (MAIN_BLOCKED_SHAPE, (8, 4, 62504, 33))
+BLOCKED_SHAPES = TALL_BLOCKED_SHAPES + ((5, 3, 1003, 7), (32, 4, 65536, 33))
 
 
 def emit(phase: str, **kw) -> None:
@@ -250,16 +269,91 @@ def phase_kernels(device):
             rows = {"batched_gram": gram, "batched_predict": pred}
         del xs, y, w, beta, valid
         torch.cuda.empty_cache()
+    blocked, rows["batched_gram_blocked"] = _blocked_kernel_rows(device, gen)
     emit("kernels", tolerance={
         "batched_gram": "rtol 1e-4, atol 1e-4*max|G| (the two sum over N in "
                         "different orders); G == G' exactly",
         "batched_predict": "rtol 1e-5, atol 1e-5; valid == 0 rows == 0 "
-                           "exactly"},
+                           "exactly",
+        "batched_gram_blocked": "as batched_gram; bitwise batched_gram on "
+                                "the merged (B, C*Nc, P) when Nc % 64 == 0"},
         timing="median of 20 single launches after 3 warm-ups, CUDA events, "
                "L2 flushed before each (ms_warm_l2: not flushed), the "
                "device kept busy while the host enqueues",
-        kernels=sorted(KERNELS), shapes=report)
+        kernels=sorted(KERNELS), shapes=report, blocked_shapes=blocked)
     return rows
+
+
+def _blocked_kernel_rows(device, gen):
+    """The streaming Gram against its plain version (and, where its chunks
+    are whole 64-row steps, bitwise against batched_gram on the merged
+    tensor) at every shape of BLOCKED_SHAPES."""
+    report, main = [], None
+    for shape in BLOCKED_SHAPES:
+        b, c, nc, p = shape
+        n = c * nc
+        xc = torch.randn(shape, generator=gen, device=device)
+        y = torch.randn((b, c, nc), generator=gen, device=device)
+        w = (torch.rand((b, c, nc), generator=gen, device=device)
+             < 0.8).float()
+        xm, wm, ym = xc.view(b, n, p), w.view(b, n), y.view(b, n)
+
+        g, bv = ops.batched_gram_blocked(xc, w, y)
+        torch.cuda.synchronize()
+        g0, b0 = megabatch.batched_gram_blocked_plain(xc, w, y)
+        g_atol = 1e-4 * float(g0.abs().max())
+        b_atol = 1e-4 * float(b0.abs().max())
+        assert torch.allclose(g, g0, rtol=1e-4, atol=g_atol), \
+            ("batched_gram_blocked G disagrees", shape, _errs(g, g0))
+        assert torch.allclose(bv, b0, rtol=1e-4, atol=b_atol), \
+            ("batched_gram_blocked b disagrees", shape, _errs(bv, b0))
+        assert torch.equal(g, g.transpose(1, 2)), \
+            ("batched_gram_blocked G is not exactly symmetric", shape)
+        g1, b1 = ops.batched_gram(xm, wm, ym)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(g, g1) and torch.equal(bv, b1)
+        if nc % 64 == 0:
+            assert bitwise, ("batched_gram_blocked is not bitwise "
+                             "batched_gram on the merged tensor", shape)
+
+        def library():
+            return (torch.bmm((xm * wm.unsqueeze(-1)).transpose(1, 2), xm),
+                    torch.bmm(xm.transpose(1, 2), (wm * ym).unsqueeze(-1)))
+
+        gl, _ = library()
+        assert torch.allclose(gl, g0, rtol=1e-3, atol=10 * g_atol)
+        g64 = torch.einsum("bnp,bn,bnq->bpq", xm.double(), wm.double(),
+                           xm.double())
+        nbytes, flops = _gram_bound(b, n, p)
+        bound, by = _bound_ms(nbytes, flops)
+        abs_g, rel_g = _errs(g, g0)
+        abs_b, rel_b = _errs(bv, b0)
+        row = {
+            "max_abs_err": max(abs_g, abs_b), "max_rel_err": max(rel_g, rel_b),
+            "max_abs_G": float(g0.abs().max()),
+            "abs_err_vs_f64": float((g.double() - g64).abs().max()),
+            "plain_abs_err_vs_f64": float((g0.double() - g64).abs().max()),
+            "bitwise_batched_gram_merged": bitwise,
+            "max_abs_diff_batched_gram_merged": float((g - g1).abs().max()),
+            "ms": _time_ms(lambda: ops.batched_gram_blocked(xc, w, y),
+                           cold=True),
+            "ms_warm_l2": _time_ms(lambda: ops.batched_gram_blocked(xc, w, y),
+                                   cold=False),
+            "batched_gram_merged_ms": _time_ms(
+                lambda: ops.batched_gram(xm, wm, ym), cold=True),
+            "plain_ms": _time_ms(
+                lambda: megabatch.batched_gram_blocked_plain(xc, w, y),
+                cold=True),
+            "library_ms": _time_ms(library, cold=True),
+            "bound_ms": bound, "bound_by": by,
+            "bytes": nbytes, "operations": flops,
+        }
+        report.append({"shape": list(shape), "batched_gram_blocked": row})
+        if shape == MAIN_BLOCKED_SHAPE:
+            main = row
+        del xc, y, w, xm, wm, ym, g, bv, g0, b0, g1, b1, gl, g64
+        torch.cuda.empty_cache()
+    return report, main
 
 
 def _compared_shapes(cache, path):
@@ -311,7 +405,8 @@ def phase_estimate_paper(device):
     wall = time.perf_counter() - t0
     launches = dict(runtime.launch_counts)
     _checked(res, None, device, TRUE_EFFECT, "estimate_paper")
-    assert launches == {"batched_gram": 32, "batched_predict": 32}, launches
+    assert launches == {"batched_gram": 32, "batched_gram_blocked": 0,
+                        "batched_predict": 32}, launches
     stats = backend.compiler.stats.summary()
     _compared_shapes(backend.compiler, "estimate_paper")
 
@@ -434,8 +529,10 @@ def phase_same_as_cpu(device):
                      dict(runtime.launch_counts))
         _compared_shapes(sess.backend.compiler, "same_as_cpu")
     (rc, pc, lc), (rg, pg, lg) = got["cpu"], got["card"]
-    assert lc == {"batched_gram": 0, "batched_predict": 0}, lc
-    assert lg == {"batched_gram": 2, "batched_predict": 2}, lg
+    assert lc == {"batched_gram": 0, "batched_gram_blocked": 0,
+                  "batched_predict": 0}, lc
+    assert lg == {"batched_gram": 2, "batched_gram_blocked": 0,
+                  "batched_predict": 2}, lg
     np.testing.assert_allclose(pg, pc, rtol=1e-4, atol=1e-5)
     rel_theta = abs(rg.theta - rc.theta) / abs(rc.theta)
     rel_se = abs(rg.se - rc.se) / rc.se
@@ -445,6 +542,143 @@ def phase_same_as_cpu(device):
          max_abs_pred_diff=float(np.abs(pg - pc).max()),
          tolerance="predictions rtol 1e-4, atol 1e-5; theta, se 1e-4 "
                    "relative")
+
+
+@contextlib.contextmanager
+def _launch_shapes():
+    """Record the operand shape of every kernel launch made inside the
+    block: each ``*_cuda`` wrapper is wrapped for the duration (the
+    launch counts are the wrappers' own and are not touched)."""
+    seen = {name: set() for name in KERNELS}
+    real = {name: getattr(megabatch, f"{name}_cuda") for name in KERNELS}
+
+    def recorder(name):
+        def call(operand, *args):
+            seen[name].add(tuple(operand.shape))
+            return real[name](operand, *args)
+        return call
+
+    for name in KERNELS:
+        setattr(megabatch, f"{name}_cuda", recorder(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(megabatch, f"{name}_cuda", fn)
+
+
+def _tall_compared(seen, what):
+    """Every launch of the tall path ran at a shape the kernels phase
+    compared."""
+    compared = {"batched_gram": set(SHAPES), "batched_predict": set(SHAPES),
+                "batched_gram_blocked": set(BLOCKED_SHAPES)}
+    for name, shapes in seen.items():
+        assert shapes <= compared[name], \
+            f"{what}: {name} launched at {sorted(shapes - compared[name])}"
+
+
+def phase_estimate_tall(device):
+    """Tall-N estimation: 250 000 rows, more than one device page, so the
+    sharded backend plans every bucket on the data axis and streams its
+    rows as N-chunks through batched_gram_blocked.  Each request runs on
+    the sharded backend (launch counts set to 0 just before, read just
+    after) and, as the yardstick, on the inline backend (one 250 000-row
+    page, batched_gram)."""
+    data = DMLData.from_dict(make_plr_data(n_obs=TALL_N, dim_x=20,
+                                           theta=0.5))
+    out, total = [], dict.fromkeys(runtime.launch_counts, 0)
+    for learner, params, n_rep in (("ridge", {"reg": 1.0}, 10),
+                                   ("lasso", {}, 4)):
+        plan = DMLPlan.for_model("plr", learner=learner,
+                                 learner_params=params, n_folds=5,
+                                 n_rep=n_rep, backend="sharded")
+        got = {}
+        for backend in ("sharded", "inline"):
+            what = f"estimate_tall/{learner}/{backend}"
+            sess = DMLSession(backend=backend, device=device)
+            linear.reset_solve_status()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runtime.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _launch_shapes() as seen:
+                rid = sess.submit(plan, data)
+                res = sess.wait(rid)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(runtime.launch_counts)
+            req = sess.request(rid)
+            _checked(res, req, device, data.theta0, what)
+            _tall_compared(seen, what)
+            decisions = sess.last_run_info.axis_plans
+            if backend == "sharded":
+                assert decisions and all(
+                    (d.axis, d.executed) == ("data", "data")
+                    for d in decisions), \
+                    [(d.axis, d.executed) for d in decisions]
+                assert launches["batched_gram_blocked"] > 0 and \
+                    launches["batched_gram"] == 0, launches
+                for name, k in launches.items():
+                    total[name] += k
+            else:
+                assert launches["batched_gram"] > 0 and \
+                    launches["batched_gram_blocked"] == 0, launches
+            got[backend] = (res, req.gathered_preds())
+            out.append({
+                "learner": learner, "n_rep": n_rep, "backend": backend,
+                "theta": res.theta, "se": res.se, "wall_s": wall,
+                "launches": launches,
+                "launch_shapes": {k: sorted(v) for k, v in seen.items()},
+                "axis_plans": [{"axis": d.axis, "executed": d.executed,
+                                "n_tasks": d.n_tasks, "n_pad": d.n_pad,
+                                "p_pad": d.p_pad, "est_s": d.est_s}
+                               for d in decisions],
+                "compile_stats": sess.backend.compiler.stats.summary(),
+                "peak_device_bytes": torch.cuda.max_memory_allocated()})
+            del sess
+            torch.cuda.empty_cache()
+        (rs, ps), (ri, pi) = got["sharded"], got["inline"]
+        diff = float(np.abs(ps - pi).max())
+        rel_theta = abs(rs.theta - ri.theta) / abs(ri.theta)
+        rel_se = abs(rs.se - ri.se) / ri.se
+        assert diff <= 5e-4, f"estimate_tall/{learner}: predictions {diff}"
+        assert rel_theta < 1e-4 and rel_se < 1e-4, (rel_theta, rel_se)
+        out[-1].update(max_abs_pred_diff_vs_sharded=diff,
+                       rel_theta_vs_sharded=rel_theta,
+                       rel_se_vs_sharded=rel_se)
+
+    # where the time goes for the ridge request on the sharded backend, on
+    # the host's clock with the device drained at each boundary
+    plan = DMLPlan.for_model("plr", learner="ridge",
+                             learner_params={"reg": 1.0}, n_folds=5,
+                             n_rep=10, backend="sharded")
+    t0 = time.perf_counter()
+    req = compile_request(plan, data)
+    t_compile = time.perf_counter() - t0
+    backend = make_backend("sharded", device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend.run_requests([req])
+    torch.cuda.synchronize()
+    t_drain = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    res = assemble_result(plan, data, req, device=device)
+    torch.cuda.synchronize()
+    t_assemble = time.perf_counter() - t0
+    assert res.theta == out[0]["theta"] and res.se == out[0]["se"], \
+        "a second run of the same tall request changed its result"
+    emit("estimate_tall", n_obs=TALL_N, dim_x=20, n_folds=5,
+         theta0=data.theta0, requests=out,
+         launch_overhead_s=roofline.launch_overhead_s(),
+         second_run={"learner": "ridge", "compile_request_s": t_compile,
+                     "drain_s": t_drain, "assemble_result_s": t_assemble,
+                     "peak_device_bytes_drain": peak,
+                     "bitwise_same_result": True},
+         tolerance="sharded vs inline on the card: predictions atol 5e-4, "
+                   "theta and se 1e-4 relative")
+    return total
 
 
 def main(argv=None) -> int:
@@ -495,6 +729,10 @@ def main(argv=None) -> int:
         phase_session(device)
     if "same_as_cpu" in phases:
         phase_same_as_cpu(device)
+    if "estimate_tall" in phases:
+        tall = phase_estimate_tall(device)
+        if launches is not None:
+            launches["batched_gram_blocked"] = tall["batched_gram_blocked"]
 
     if phases != list(PHASES):
         print(json.dumps({"ok": False, "partial": phases,

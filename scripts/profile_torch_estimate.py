@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Where one estimation request spends its time on the card.
 
-    python3 scripts/profile_torch_estimate.py [--n-rep 100] [--out DIR]
+    python3 scripts/profile_torch_estimate.py [--config paper|tall]
+                                              [--n-rep M] [--out DIR]
 
-Drives the port's main path — the paper's configuration (PLR on the bonus
-data, K = 5, ridge) through ``estimate`` on the inline backend — once to
-warm the process up, then again under ``torch.profiler`` (CPU and CUDA
-activities).  Prints one JSON object: the request's wall time on the
-host's clock (device drained), the device's busy time summed over
-kernels and copies, its idle share, and the device time by kernel name.
+Drives one of the port's paths through ``estimate`` — ``paper``: the
+paper's configuration (PLR on the bonus data, K = 5, ridge, M 100) on the
+inline backend; ``tall``: PLR on ``make_plr_data`` with 250 000 rows and
+20 covariates (K = 5, ridge, M 10) on the sharded backend, whose bucket
+streams through the blocked Gram kernel — once to warm the process up,
+then again under ``torch.profiler`` (CPU and CUDA activities).  Prints
+one JSON object: the request's wall time on the host's clock (device
+drained), the device's busy time summed over kernels and copies, its
+idle share, and the device time by kernel name.
 Needs a CUDA device; exits non-zero without one.  ``--out`` also writes
 the Chrome trace there.
 """
@@ -28,13 +32,15 @@ import torch                                               # noqa: E402
 from torch.profiler import ProfilerActivity, profile      # noqa: E402
 
 from repro_torch.core import DMLData, DMLPlan, estimate    # noqa: E402
-from repro_torch.data import make_bonus_data               # noqa: E402
+from repro_torch.data import make_bonus_data, make_plr_data  # noqa: E402
 from repro_torch.serverless import make_backend            # noqa: E402
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n-rep", type=int, default=100)
+    ap.add_argument("--config", choices=("paper", "tall"), default="paper")
+    ap.add_argument("--n-rep", type=int, default=None,
+                    help="repetitions M (default: 100 paper, 10 tall)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -44,11 +50,16 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    data = DMLData.from_dict(make_bonus_data())
+    if args.config == "paper":
+        data = DMLData.from_dict(make_bonus_data())
+        n_rep, name = args.n_rep or 100, "inline"
+    else:
+        data = DMLData.from_dict(make_plr_data(n_obs=250_000, dim_x=20))
+        n_rep, name = args.n_rep or 10, "sharded"
     plan = DMLPlan.for_model("plr", learner="ridge",
                              learner_params={"reg": 1.0}, n_folds=5,
-                             n_rep=args.n_rep, backend="inline")
-    backend = make_backend("inline")
+                             n_rep=n_rep, backend=name)
+    backend = make_backend(name)
 
     def request():
         t0 = time.perf_counter()
@@ -72,7 +83,8 @@ def main(argv=None) -> int:
                          "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
-    out = {"card": smi, "n_rep": args.n_rep, "theta": res.theta,
+    out = {"card": smi, "config": args.config, "backend": name,
+           "n_rep": n_rep, "theta": res.theta,
            "wall_cold_s": cold, "wall_warm_s": warm,
            "wall_traced_s": traced}
     if rows:
@@ -85,7 +97,8 @@ def main(argv=None) -> int:
                    note="the profiler recorded no device time")
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(args.out) / "estimate_trace.json"))
+        prof.export_chrome_trace(
+            str(Path(args.out) / f"estimate_{args.config}_trace.json"))
     print(json.dumps(out, indent=1))
     return 0
 

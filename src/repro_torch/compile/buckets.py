@@ -27,12 +27,14 @@ The aligned N rule trades program variety for waste: distinct N values
 same N values.
 
 The planner is pure bookkeeping (numpy only); execution and the warm
-program cache live in program.py.
+program cache live in program.py.  ``plan_bucket_axis`` picks each
+bucket's parallelization axis (task, data or feature) from the roofline
+prices of launch/roofline.py.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -141,3 +143,63 @@ def plan_buckets(requests: Sequence, *, min_n: int = 8,
     for req in requests:
         plan.admit(req)
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Per-bucket parallelization-axis planning
+# ---------------------------------------------------------------------------
+@dataclass
+class AxisDecision:
+    """One bucket's parallelization-axis choice plus the roofline
+    candidate table it was picked from, logged on
+    ``BackendRunInfo.axis_plans``.  The planner fields are written once;
+    ``executed`` is stamped by ``dispatch_bucket`` with the axis the
+    drain actually ran."""
+    bucket: BucketKey
+    axis: str                           # task | data | feature
+    shards: int                         # mesh devices the layout spans
+    n_tasks: int                        # pending tasks priced
+    n_pad: int
+    p_pad: int
+    mesh_devices: int                   # devices the planner could use
+    priced_by: str = "roofline"
+    # (axis, shards, est_s, executable) per candidate, planner input
+    candidate_costs: Tuple[Tuple[str, int, float, bool], ...] = ()
+    # None until the bucket's first dispatch; "task" when a data/feature
+    # plan could not execute (no mesh, a non-Gram family, a shard count
+    # that does not divide the sharded dimension)
+    executed: Optional[str] = None
+
+    @property
+    def est_s(self) -> float:
+        """The chosen candidate's priced wall-clock."""
+        for axis, shards, est, _ in self.candidate_costs:
+            if axis == self.axis and shards == self.shards:
+                return est
+        return float("nan")
+
+
+def plan_bucket_axis(key: BucketKey, *, n_tasks: int, n_devices: int,
+                     ) -> Optional[AxisDecision]:
+    """Pick the parallelization axis for one bucket on an ``n_devices``
+    mesh: the cheapest *executable* candidate of
+    ``launch/roofline.py::axis_candidate_costs`` (ties: fewer shards,
+    then the axis name).  None for a bucket without an analytic model
+    (not a registry learner).  Deterministic in (bucket, n_tasks,
+    n_devices); no device access."""
+    ident = key.learner
+    if not (isinstance(ident, tuple) and len(ident) == 2
+            and isinstance(ident[0], str)) or ident[0] == "opaque":
+        return None
+    from repro_torch.launch.roofline import axis_candidate_costs
+    learner, ptuple = ident
+    cands = axis_candidate_costs(learner, dict(ptuple), n_tasks,
+                                 key.n_pad, key.p_pad, n_devices)
+    runnable = [c for c in cands if c[3]]
+    if not runnable:                      # e.g. tall-N non-Gram family
+        runnable = [c for c in cands if c[0] == "task"]
+    axis, shards, _, _ = min(runnable, key=lambda c: (c[2], c[1], c[0]))
+    return AxisDecision(bucket=key, axis=axis, shards=shards,
+                        n_tasks=int(n_tasks), n_pad=key.n_pad,
+                        p_pad=key.p_pad, mesh_devices=int(n_devices),
+                        candidate_costs=tuple(cands))

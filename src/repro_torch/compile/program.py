@@ -16,16 +16,19 @@ program binds the learner's hyperparameters and nothing is traced.
 
 Every canonical block launches on its own, at its canonical shape: the
 block's feature pages are stacked on the host and uploaded with the
-launch.  ``dispatch_bucket`` enqueues a bucket slice's launches on the
-device without waiting for them; ``BucketDispatch.harvest`` is the one
-place that waits (one device-to-host copy per launch).  ``run_bucket``
+launch.  A bucket the axis planner put on the data or feature axis
+launches the in-mesh program of sharding/gram.py instead (the data form
+streams the rows through the CUDA ``batched_gram_blocked``).
+``dispatch_bucket`` enqueues a bucket slice's launches on the device
+without waiting for them; ``BucketDispatch.harvest`` is the one place
+that waits (one device-to-host copy per launch).  ``run_bucket``
 is the synchronous wrapper the backends call.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -384,20 +387,85 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(arr).to(device)
 
 
+def bucket_family(key: BucketKey):
+    """Learner family name of a spec-identified bucket, else None."""
+    ident = key.learner
+    if isinstance(ident, tuple) and len(ident) == 2 \
+            and isinstance(ident[0], str) and ident[0] != "opaque":
+        return ident[0]
+    return None
+
+
+def _axis_to_execute(key: BucketKey, axis_decision, mesh
+                     ) -> Optional[Tuple[str, int]]:
+    """(axis, shards) the drain can actually lower for this bucket, or
+    None for the task path.  A data/feature ``AxisDecision`` executes
+    only when the in-mesh executors apply: a Gram family, a mesh with a
+    "data" device axis, and the sharded dimension divisible by the axis
+    size; anything else runs the task path, which ``dispatch_bucket``
+    stamps on the decision."""
+    from repro_torch.launch.roofline import GRAM_FAMILIES
+    if axis_decision is None or mesh is None:
+        return None
+    axis = axis_decision.axis
+    if axis not in ("data", "feature"):
+        return None
+    if bucket_family(key) not in GRAM_FAMILIES:
+        return None
+    if "data" not in mesh.axis_names:
+        return None
+    m = int(mesh.shape["data"])
+    if axis == "data" and key.n_pad % m != 0:
+        return None
+    if axis == "feature" and key.p_pad % m != 0:
+        return None
+    return axis, m
+
+
 def dispatch_bucket(plan: MegabatchPlan, cache: ProgramCache,
                     key: BucketKey, entries: Sequence[Entry], *,
                     device: torch.device, b_align: int = 1,
-                    b_block: int = B_BLOCK) -> BucketDispatch:
+                    b_block: int = B_BLOCK, axis_decision=None,
+                    mesh=None) -> BucketDispatch:
     """Launch one bucket slice WITHOUT waiting for the device.
 
     Groups the entries' tasks into canonical launch blocks and launches
     every block on its own at its canonical shape.  Returns the
     in-flight ``BucketDispatch``; call ``.harvest()`` (or go through
     ``run_bucket``) for the results.
+
+    ``axis_decision``/``mesh``: a planner ``AxisDecision`` whose axis is
+    data/feature lowers every block through the in-mesh program of
+    sharding/gram.py on ``mesh``'s device when ``_axis_to_execute``
+    allows it; the decision's ``executed`` field is stamped with the
+    axis that ran either way.  Page stacking, task tensors, hit/miss
+    and launch booking and the padding account are the task path's.
     """
     requests = plan.requests
     n_pad, p_pad = key.n_pad, key.p_pad
     blocks = _plan_blocks(plan, key, entries, b_block, b_align)
+    axis_m = _axis_to_execute(key, axis_decision, mesh)
+    if axis_decision is not None:
+        axis_decision.executed = "task" if axis_m is None else axis_m[0]
+    if axis_m is None:
+        def program(blk: _Block, b_pad: int, d_pad: int) -> Callable:
+            seg = requests[blk.ri].segments[blk.si]
+            return cache.program(key, b_pad, d_pad,
+                                 lambda: segment_batched_fn(seg))
+    else:
+        from repro_torch.sharding.gram import (
+            axis_fit_program, axis_fit_program_cached,
+        )
+        axis, family = axis_m[0], bucket_family(key)
+        params = tuple(key.learner[1])
+        device = mesh.device
+
+        def program(blk: _Block, b_pad: int, d_pad: int) -> Callable:
+            if axis_fit_program_cached(mesh, axis, family, params):
+                cache.stats.hits += 1
+            else:
+                cache.stats.misses += 1
+            return axis_fit_program(mesh, axis, family, params)
 
     pad_acc = _PaddingAcc()
     launches: List[Launch] = []
@@ -406,9 +474,7 @@ def dispatch_bucket(plan: MegabatchPlan, cache: ProgramCache,
         pages_arr, lane_of = _launch_pages(plan, key, [lb], n_pad, p_pad)
         y, w, valid, kd = _launch_tensors(plan, lb, n_pad)
         didx = _launch_didx(lb, lane_of)
-        seg = requests[blk.ri].segments[blk.si]
-        prog = cache.program(key, lb.b_pad, int(pages_arr.shape[0]),
-                             lambda: segment_batched_fn(seg))
+        prog = program(blk, lb.b_pad, int(pages_arr.shape[0]))
         out = prog(*(_upload(a, device)
                      for a in (pages_arr, didx, y, w, valid, kd)))
         launches.append(Launch(out=out, blocks=[lb]))
@@ -429,11 +495,13 @@ def dispatch_bucket(plan: MegabatchPlan, cache: ProgramCache,
 def run_bucket(plan: MegabatchPlan, cache: ProgramCache, key: BucketKey,
                entries: Sequence[Entry], *, device: torch.device,
                b_align: int = 1, b_block: int = B_BLOCK,
+               axis_decision=None, mesh=None,
                ) -> Tuple[Dict[Entry, np.ndarray], float]:
     """Synchronous wrapper: dispatch one bucket slice and block for its
     results.  Returns ({(req_idx, inv): preds (tpi, n_obs)}, wall_s)."""
     t0 = time.perf_counter()
     bd = dispatch_bucket(plan, cache, key, entries, device=device,
-                         b_align=b_align, b_block=b_block)
+                         b_align=b_align, b_block=b_block,
+                         axis_decision=axis_decision, mesh=mesh)
     results = bd.harvest()
     return results, time.perf_counter() - t0

@@ -37,6 +37,7 @@ from repro_torch.core.crossfit import (
 )
 from repro_torch.core.scores import evaluate_score, score_se, solve_theta
 from repro_torch.core.spec import DMLData, DMLPlan, _hashable
+from repro_torch.launch.roofline import measure_launch_overhead_s
 from repro_torch.learners import resolve_params
 from repro_torch.runtime import DeviceLike, resolve_device
 from repro_torch.serverless.backends import (
@@ -218,6 +219,8 @@ class DMLSession:
                  device: DeviceLike = "cuda"):
         self.backend = make_backend(backend, pool, device=device)
         self.device = self.backend.device   # an instance keeps its own
+        # price the axis planner's launch overhead on this device
+        measure_launch_overhead_s(self.device)
         self._queue: List[_Pending] = []
         self._results: Dict[int, DMLResult] = {}
         self._requests: Dict[int, WorkRequest] = {}

@@ -7,13 +7,16 @@
 //
 //   repro_batched_gram     per-task masked normal equations
 //                          G_b = X_b' diag(w_b) X_b,  b_b = X_b'(w_b * y_b)
+//   repro_batched_gram_blocked
+//                          the same over N streamed as C chunks of Nc rows
 //   repro_batched_predict  masked GEMV epilogue
 //                          out_b = valid_b * (X_b beta_b)
 //
-// Inputs are contiguous float32 at their true (B, N, P): any P, any N, the
-// ragged edges are masked here.  Plain FMA in float32 — no TF32, no tensor
-// cores — and one fixed accumulation order per output element, so a result
-// does not depend on the launch's batch size or on the other lanes.
+// Inputs are contiguous float32 at their true (B, N, P) or (B, C, Nc, P):
+// any P, any N or Nc, the ragged edges are masked here.  Plain FMA in
+// float32 — no TF32, no tensor cores — and one fixed accumulation order per
+// output element, so a result does not depend on the launch's batch size or
+// on the other lanes.
 
 #include <cuda_runtime.h>
 
@@ -83,10 +86,76 @@ __device__ __forceinline__ void gram_fetch(
     }
 }
 
-__global__ void __launch_bounds__(GRAM_THREADS)
-batched_gram_kernel(const float* __restrict__ xs, const float* __restrict__ w,
-                    const float* __restrict__ y, float* __restrict__ g,
-                    float* __restrict__ bv, int n, int p, int n_tiles)
+// Stores the step just fetched (rows n0.. of the current chunk) into shared
+// memory, zeroing rows at or past the chunk's end nc and columns past p.
+__device__ __forceinline__ void gram_stage(
+    const GramStage& st, int n0, int nc, int lr, int lc, bool ca_ok,
+    bool cb_ok, bool diag, int tid, float* smem, float* sW, float* sWY)
+{
+#pragma unroll
+    for (int i = 0; i < STAGE; ++i) {
+        const int r = lr + i * STAGE_STRIDE;
+        const bool row_ok = n0 + r < nc;
+        smem[r * TILE + lc] = (row_ok && ca_ok) ? st.xa[i] : 0.f;
+        if (!diag)
+            smem[(GRAM_ROWS + r) * TILE + lc] =
+                (row_ok && cb_ok) ? st.xb[i] : 0.f;
+    }
+    if (tid < GRAM_ROWS) {
+        const bool row_ok = n0 + tid < nc;
+        sW[tid] = row_ok ? st.w : 0.f;
+        sWY[tid] = row_ok ? st.w * st.y : 0.f;
+    }
+}
+
+// Multiplies out the step in shared memory: group grp's 16 rows, in order,
+// into this thread's 4x4 tile of G (and, on a diagonal tile's first row of
+// threads, 4 entries of b).
+__device__ __forceinline__ void gram_step(
+    const float* sA, const float* sB, const float* sW, const float* sWY,
+    int grp, int ty, int tx, bool does_b, float (&acc)[4][4],
+    float (&bacc)[4])
+{
+#pragma unroll
+    for (int kk = 0; kk < GROUP_ROWS; ++kk) {
+        const int k = grp * GROUP_ROWS + kk;
+        const float wk = sW[k];
+        const float4 a4 =
+            *reinterpret_cast<const float4*>(sA + k * TILE + 4 * ty);
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(sB + k * TILE + 4 * tx);
+        const float a[4] = {wk * a4.x, wk * a4.y, wk * a4.z, wk * a4.w};
+        const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        if (does_b) {
+            const float wy = sWY[k];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) bacc[j] = fmaf(b[j], wy, bacc[j]);
+        }
+    }
+}
+
+// The body both Gram kernels share.  Task b's rows arrive as `n_chunks`
+// chunks of `nc` rows each, laid out one after the other ((B, C, Nc, P)
+// contiguous is (B, C*Nc, P) contiguous).  The block walks the chunks in
+// order and each chunk in steps of GRAM_ROWS rows; a chunk's last step is
+// masked at row nc, exactly as batched_gram masks its edge at row n.  The
+// prefetch of the next step crosses chunk boundaries, so the pipeline
+// never drains between chunks.  CHUNKED = false is batched_gram: one
+// chunk of n rows.  Each instance has its own walk (measured: one nested
+// walk for both cost K3 7%), but both stage and multiply out a step with
+// the same two functions, so when nc is a multiple of GRAM_ROWS the steps
+// of the chunked walk are those of the plain walk over the merged rows
+// and the two give the same bits.
+template <bool CHUNKED>
+__device__ __forceinline__ void gram_body(
+    const float* __restrict__ xs, const float* __restrict__ w,
+    const float* __restrict__ y, float* __restrict__ g,
+    float* __restrict__ bv, int n_chunks, int nc, int p, int n_tiles)
 {
     // sA, then sB; reused for the partial tiles of groups 1..3 at the end
     __shared__ __align__(16) float smem[2 * GRAM_ROWS * TILE];
@@ -105,9 +174,11 @@ batched_gram_kernel(const float* __restrict__ xs, const float* __restrict__ w,
 
     const int tid = threadIdx.x;
     const int task = blockIdx.y;
-    const float* xb = xs + (size_t)task * n * p;
-    const float* wb = w + (size_t)task * n;
-    const float* yb = y + (size_t)task * n;
+    const int chunks = CHUNKED ? n_chunks : 1;
+    const size_t rows = (size_t)chunks * nc;     // rows of one task
+    const float* xb = xs + (size_t)task * rows * p;
+    const float* wb = w + (size_t)task * rows;
+    const float* yb = y + (size_t)task * rows;
 
     // staging role: one tile column, STAGE rows STAGE_STRIDE apart
     const int lc = tid & (TILE - 1);
@@ -130,50 +201,42 @@ batched_gram_kernel(const float* __restrict__ xs, const float* __restrict__ w,
 
     GramStage st;
     st.w = st.y = 0.f;
-    gram_fetch(xb, wb, yb, n, p, 0, lr, ca, cb, diag, tid, st);
-    for (int n0 = 0; n0 < n; n0 += GRAM_ROWS) {
-#pragma unroll
-        for (int i = 0; i < STAGE; ++i) {
-            const int r = lr + i * STAGE_STRIDE;
-            const bool row_ok = n0 + r < n;
-            smem[r * TILE + lc] = (row_ok && ca_ok) ? st.xa[i] : 0.f;
-            if (!diag)
-                smem[(GRAM_ROWS + r) * TILE + lc] =
-                    (row_ok && cb_ok) ? st.xb[i] : 0.f;
-        }
-        if (tid < GRAM_ROWS) {
-            const bool row_ok = n0 + tid < n;
-            sW[tid] = row_ok ? st.w : 0.f;
-            sWY[tid] = row_ok ? st.w * st.y : 0.f;
-        }
-        __syncthreads();
-
-        if (n0 + GRAM_ROWS < n)
-            gram_fetch(xb, wb, yb, n, p, n0 + GRAM_ROWS, lr, ca, cb, diag,
-                       tid, st);
-
-#pragma unroll
-        for (int kk = 0; kk < GROUP_ROWS; ++kk) {
-            const int k = grp * GROUP_ROWS + kk;
-            const float wk = sW[k];
-            const float4 a4 =
-                *reinterpret_cast<const float4*>(sA + k * TILE + 4 * ty);
-            const float4 b4 =
-                *reinterpret_cast<const float4*>(sB + k * TILE + 4 * tx);
-            const float a[4] = {wk * a4.x, wk * a4.y, wk * a4.z, wk * a4.w};
-            const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-            if (does_b) {
-                const float wy = sWY[k];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) bacc[j] = fmaf(b[j], wy, bacc[j]);
+    gram_fetch(xb, wb, yb, nc, p, 0, lr, ca, cb, diag, tid, st);
+    if constexpr (CHUNKED) {
+        // one flat walk over (chunk c, step n0); rows are task-relative,
+        // chunk c holds [c nc, c nc + nc), and the prefetch of the next
+        // step may be the next chunk's first (the wrapper keeps C * Nc
+        // below 2^31 - 64: int rows suffice)
+        int c = 0, n0 = 0;
+        for (;;) {
+            gram_stage(st, n0, nc, lr, lc, ca_ok, cb_ok, diag, tid, smem, sW,
+                       sWY);
+            __syncthreads();
+            int c1 = c, n1 = n0 + GRAM_ROWS;
+            if (n1 >= nc) { c1 = c + 1; n1 = 0; }
+            const bool more = c1 < n_chunks;
+            if (more) {
+                const int base = c1 * nc;
+                gram_fetch(xb, wb, yb, base + nc, p, base + n1, lr, ca, cb,
+                           diag, tid, st);
             }
+            gram_step(sA, sB, sW, sWY, grp, ty, tx, does_b, acc, bacc);
+            __syncthreads();
+            if (!more) break;
+            c = c1;
+            n0 = n1;
         }
-        __syncthreads();
+    } else {
+        for (int n0 = 0; n0 < nc; n0 += GRAM_ROWS) {
+            gram_stage(st, n0, nc, lr, lc, ca_ok, cb_ok, diag, tid, smem, sW,
+                       sWY);
+            __syncthreads();
+            if (n0 + GRAM_ROWS < nc)
+                gram_fetch(xb, wb, yb, nc, p, n0 + GRAM_ROWS, lr, ca, cb,
+                           diag, tid, st);
+            gram_step(sA, sB, sW, sWY, grp, ty, tx, does_b, acc, bacc);
+            __syncthreads();
+        }
     }
 
     // add the four groups' partial tiles in a fixed order
@@ -222,6 +285,33 @@ batched_gram_kernel(const float* __restrict__ xs, const float* __restrict__ w,
             if (gj < p) bb[gj] = v;
         }
     }
+}
+
+__global__ void __launch_bounds__(GRAM_THREADS)
+batched_gram_kernel(const float* __restrict__ xs, const float* __restrict__ w,
+                    const float* __restrict__ y, float* __restrict__ g,
+                    float* __restrict__ bv, int n, int p, int n_tiles)
+{
+    gram_body<false>(xs, w, y, g, bv, 1, n, p, n_tiles);
+}
+
+// ---------------------------------------------------------------------------
+// batched_gram_blocked
+//
+// The streaming form: N arrives pre-chunked as (B, C, Nc, P) and one block
+// per (task, tile) walks all C chunks, so its accumulator persists across
+// (c, step) as the TPU kernel's output block persisted across its (c, j)
+// grid.  Same tiles, steps, register tiles and group order as
+// batched_gram (gram_body), hence the same arithmetic.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(GRAM_THREADS)
+batched_gram_blocked_kernel(const float* __restrict__ xc,
+                            const float* __restrict__ w,
+                            const float* __restrict__ y, float* __restrict__ g,
+                            float* __restrict__ bv, int n_chunks, int nc,
+                            int p, int n_tiles)
+{
+    gram_body<true>(xc, w, y, g, bv, n_chunks, nc, p, n_tiles);
 }
 
 // ---------------------------------------------------------------------------
@@ -277,6 +367,20 @@ extern "C" int repro_batched_gram(const void* xs, const void* w,
     batched_gram_kernel<<<grid, GRAM_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)xs, (const float*)w, (const float*)y, (float*)g,
         (float*)bv, n, p, n_tiles);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int repro_batched_gram_blocked(const void* xc, const void* w,
+                                          const void* y, void* g, void* bv,
+                                          int b, int c, int nc, int p,
+                                          void* stream)
+{
+    const int n_tiles = (p + TILE - 1) / TILE;
+    const dim3 grid(n_tiles * (n_tiles + 1) / 2, b);
+    batched_gram_blocked_kernel<<<grid, GRAM_THREADS, 0,
+                                  (cudaStream_t)stream>>>(
+        (const float*)xc, (const float*)w, (const float*)y, (float*)g,
+        (float*)bv, c, nc, p, n_tiles);
     return (int)cudaGetLastError();
 }
 

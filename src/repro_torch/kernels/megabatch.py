@@ -1,9 +1,9 @@
-"""The two megabatch kernels, each beside its plain PyTorch version.
+"""The three megabatch kernels, each beside its plain PyTorch version.
 
 The megabatch compiler (repro_torch/compile) stacks tasks from different
 requests — hence different datasets — into one ``(B, N, P)`` tensor, so
-every task carries its own feature page.  Two kernels cover the linear
-learners' hot path; both are CUDA C++ in ``csrc/megabatch.cu``.
+every task carries its own feature page.  Three kernels cover the linear
+learners' hot path; all are CUDA C++ in ``csrc/megabatch.cu``.
 
 ``batched_gram_cuda``
     replaces the TPU kernel ``batched_gram_pallas`` (body ``_gram_kernel``)
@@ -25,6 +25,23 @@ learners' hot path; both are CUDA C++ in ``csrc/megabatch.cu``.
     accumulation order, whatever the launch's batch size.  Only the
     upper triangle of tiles is computed and mirrored, so ``G`` is exactly
     symmetric.  Rows with ``w == 0`` contribute exact zeros.
+
+``batched_gram_blocked_cuda``
+    replaces ``batched_gram_blocked_pallas`` (body
+    ``_gram_blocked_kernel``): the same normal equations over N streamed
+    as C chunks of Nc rows, ``xc (B, C, Nc, P)``, for the tall buckets
+    of the data-parallel layout (sharding/gram.py), whose N exceeds one
+    device page.  Its bound and design are batched_gram's: the kernel
+    runs the same block body (one block per (task, tile), 64-row steps,
+    4x4 register tiles, four row groups added in a fixed order), with
+    the N walk made ``for chunk: for step in chunk``.  The accumulator
+    persists across chunks, as the TPU kernel's output block persisted
+    across its (c, j) grid; the prefetch of the next step crosses chunk
+    boundaries; each chunk's ragged last step is masked at row Nc.  When
+    Nc is a multiple of the 64-row step the steps are those of
+    batched_gram on the merged ``(B, C*Nc, P)`` tensor, so the result is
+    bitwise batched_gram's; otherwise it is within batched_gram's
+    tolerance of the plain version.
 
 ``batched_predict_cuda``
     replaces ``batched_predict_pallas`` (body ``_predict_kernel``): the
@@ -68,6 +85,15 @@ def batched_gram_plain(xs, w, y) -> Tuple[torch.Tensor, torch.Tensor]:
     return g, b
 
 
+def batched_gram_blocked_plain(xc, w, y) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xc (B,C,Nc,P); w, y (B,C,Nc) -> batched_gram_plain on the merged
+    (B, C*Nc, P) view: merging the chunk axis is a relayout, no
+    arithmetic."""
+    b, c, nc, p = xc.shape
+    return batched_gram_plain(xc.reshape(b, c * nc, p),
+                              w.reshape(b, c * nc), y.reshape(b, c * nc))
+
+
 def batched_predict_plain(xs, beta, valid) -> torch.Tensor:
     """xs (B,N,P); beta (B,P); valid (B,N) -> valid * (X beta), (B,N) f32."""
     pred = torch.einsum("bnp,bp->bn", xs.to(F32), beta.to(F32))
@@ -84,6 +110,17 @@ def check_xs(xs) -> Tuple[int, int, int]:
         raise ValueError("xs: expected a non-empty (B, N, P) torch.Tensor")
     check_operand("xs", xs, xs.shape, xs)
     return tuple(xs.shape)
+
+
+def check_xc(xc) -> Tuple[int, int, int, int]:
+    """(B, C, Nc, P) of a float32 contiguous chunked feature batch, or
+    raise."""
+    if not isinstance(xc, torch.Tensor) or xc.dim() != 4 \
+            or min(xc.shape) < 1:
+        raise ValueError("xc: expected a non-empty (B, C, Nc, P) "
+                         "torch.Tensor")
+    check_operand("xc", xc, xc.shape, xc)
+    return tuple(xc.shape)
 
 
 def check_operand(name: str, t, shape, xs: torch.Tensor) -> None:
@@ -107,13 +144,19 @@ def check_operand(name: str, t, shape, xs: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 def _check_launchable(xs: torch.Tensor) -> Tuple[int, int, int]:
     b, n, p = check_xs(xs)
-    if not xs.is_cuda:
-        raise ValueError(f"xs: the CUDA kernels take tensors on the card, "
-                         f"got {xs.device}")
-    if b > _MAX_GRID_Y or max(n, p) >= 2 ** 31:
-        raise ValueError(f"xs: shape {tuple(xs.shape)} exceeds the "
-                         "kernels' launch limits")
+    _check_on_card_within_limits("xs", xs, b, n, p)
     return b, n, p
+
+
+def _check_on_card_within_limits(name: str, t: torch.Tensor, b: int,
+                                 rows: int, p: int) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernels take tensors on the "
+                         f"card, got {t.device}")
+    # row indices (plus a 64-row step) are 32-bit ints in the kernels
+    if b > _MAX_GRID_Y or max(rows, p) >= 2 ** 31 - 64:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} exceeds the "
+                         "kernels' launch limits")
 
 
 def batched_gram_cuda(xs, w, y) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -131,6 +174,27 @@ def batched_gram_cuda(xs, w, y) -> Tuple[torch.Tensor, torch.Tensor]:
                                       y.data_ptr(), g.data_ptr(),
                                       bv.data_ptr(), b, n, p, stream)
     build.check_launch(lib, code, "batched_gram")
+    return g, bv
+
+
+def batched_gram_blocked_cuda(xc, w, y) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the streaming Gram kernel on CUDA tensors (contiguous
+    float32): xc (B, C, Nc, P), w and y (B, C, Nc)."""
+    b, c, nc, p = check_xc(xc)
+    _check_on_card_within_limits("xc", xc, b, c * nc, p)
+    check_operand("w", w, (b, c, nc), xc)
+    check_operand("y", y, (b, c, nc), xc)
+    lib = build.load_library("megabatch")
+    with torch.cuda.device(xc.device):
+        g = torch.empty((b, p, p), dtype=F32, device=xc.device)
+        bv = torch.empty((b, p), dtype=F32, device=xc.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        runtime.launch_counts["batched_gram_blocked"] += 1
+        code = lib.repro_batched_gram_blocked(xc.data_ptr(), w.data_ptr(),
+                                              y.data_ptr(), g.data_ptr(),
+                                              bv.data_ptr(), b, c, nc, p,
+                                              stream)
+    build.check_launch(lib, code, "batched_gram_blocked")
     return g, bv
 
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import megabatch
-from repro_torch.kernels.megabatch import check_operand, check_xs
+from repro_torch.kernels.megabatch import check_operand, check_xc, check_xs
 
 F32 = torch.float32
 
@@ -33,6 +33,57 @@ def batched_gram(xs, w, y, reg: float = 0.0):
         g, bv = megabatch.batched_gram_plain(xs, w, y)
     if reg:
         g = g + reg * torch.eye(p, dtype=F32, device=xs.device)
+    return g, bv
+
+
+# Blocked-Gram parity tiers.  For families whose fit is a pure function of
+# the Gram statistics (X'X, X'y), streaming N chunk by chunk adds the
+# partial sums in batched_gram's order when the chunks tile N in whole
+# 64-row steps, so results are bitwise equal; otherwise, and for families
+# whose iterations re-reduce per-row activations, there is a tolerance
+# tier instead.  (Only the first set is ported so far.)
+BLOCKED_GRAM_BITWISE_FAMILIES = frozenset({"ols", "ridge", "lasso"})
+BLOCKED_GRAM_TOLERANCE_FAMILIES = frozenset(
+    {"logistic", "kernel_ridge", "mlp"})
+
+
+def chunk_tall_n(xs, w, y, chunk_rows: int):
+    """Split a tall (B, N, P) task batch into (B, C, Nc, P) N-chunks for
+    the streaming blocked Gram.
+
+    A ragged tail (N % chunk_rows != 0) is padded with zero rows of
+    weight 0, which the Gram treats as exact no-ops; that pad is the only
+    copy made.  Otherwise a pure relayout (views), no arithmetic.
+    """
+    b, n, p = xs.shape
+    nc = int(chunk_rows)
+    pad = (-n) % nc
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
+        w = torch.nn.functional.pad(w, (0, pad))
+        y = torch.nn.functional.pad(y, (0, pad))
+    c = (n + pad) // nc
+    return (xs.reshape(b, c, nc, p), w.reshape(b, c, nc),
+            y.reshape(b, c, nc))
+
+
+def batched_gram_blocked(xc, w, y, reg: float = 0.0):
+    """Streaming blocked Gram: per-task normal equations accumulated over
+    pre-chunked N.
+
+    xc: (B, C, Nc, P); w/y: (B, C, Nc), float32 contiguous.  Returns
+    G (B,P,P) f32 and b (B,P) f32 — the contract of ``batched_gram`` on
+    the merged (B, C*Nc, P) tensor.  ``reg*I`` is added after the kernel.
+    """
+    b, c, nc, p = check_xc(xc)
+    check_operand("w", w, (b, c, nc), xc)
+    check_operand("y", y, (b, c, nc), xc)
+    if xc.is_cuda:
+        g, bv = megabatch.batched_gram_blocked_cuda(xc, w, y)
+    else:
+        g, bv = megabatch.batched_gram_blocked_plain(xc, w, y)
+    if reg:
+        g = g + reg * torch.eye(p, dtype=F32, device=xc.device)
     return g, bv
 
 

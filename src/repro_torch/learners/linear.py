@@ -14,8 +14,9 @@ predictions from ``batched_predict`` (kernels/ops.py).  The batched
 Cholesky solve and FISTA's small products are PyTorch library calls, as
 the JAX package leaves them to XLA.
 
-Nothing here synchronises with the device: the Cholesky status is kept
-on the device and read only by ``solve_failures``.
+Nothing here synchronises with the device: the status of the Cholesky
+factorisations (and of the LU solves of sharding/gram.py) is kept on the
+device and read only by ``solve_failures``.
 """
 from __future__ import annotations
 
@@ -28,13 +29,13 @@ from repro_torch.kernels import ops
 
 F32 = torch.float32
 
-# device -> running maximum of cholesky_ex's ``info`` (0: every
+# device -> running maximum of the factorisations' ``info`` (0: every
 # factorisation so far succeeded)
 _solve_status: Dict[torch.device, torch.Tensor] = {}
 
 
 def solve_failures(device) -> int:
-    """Largest Cholesky ``info`` seen on ``device`` since the last
+    """Largest factorisation ``info`` seen on ``device`` since the last
     ``reset_solve_status`` (0 = all factorisations succeeded).  Reading
     it waits for the device; the fit path itself never does."""
     status = _solve_status.get(torch.device(device))
@@ -51,6 +52,15 @@ def _augment_b(xs):
     return torch.cat([xs, ones], dim=-1)
 
 
+def _note_solve_status(info, live=None) -> None:
+    """Fold a batched factorisation's ``info`` (B,) into the device's
+    running maximum, counting only the ``live`` lanes when given."""
+    worst = (info if live is None else info * live.to(info.dtype)).max()
+    prev = _solve_status.get(info.device)
+    _solve_status[info.device] = worst if prev is None \
+        else torch.maximum(prev, worst)
+
+
 def _solve_spd(g, b, live=None):
     """Batched SPD solve via Cholesky: g (B,P,P), b (B,P) -> (B,P).
 
@@ -61,10 +71,7 @@ def _solve_spd(g, b, live=None):
     fail — in float32 the intercept fix-up leaves an exact 0 on their
     diagonal — and nothing ever reads them."""
     chol, info = torch.linalg.cholesky_ex(g)
-    worst = (info if live is None else info * live.to(info.dtype)).max()
-    prev = _solve_status.get(g.device)
-    _solve_status[g.device] = worst if prev is None \
-        else torch.maximum(prev, worst)
+    _note_solve_status(info, live)
     beta = torch.cholesky_solve(b.unsqueeze(-1), chol).squeeze(-1)
     beta = beta.masked_fill(info.ne(0).unsqueeze(-1), float("nan"))
     return beta.contiguous()

@@ -26,7 +26,8 @@ if torch.backends.cuda.matmul.allow_tf32 is not False:
 DeviceLike = Union[str, torch.device]
 
 # kernel name -> launches since the last reset (see kernels/megabatch.py)
-launch_counts: Dict[str, int] = {"batched_gram": 0, "batched_predict": 0}
+launch_counts: Dict[str, int] = {"batched_gram": 0, "batched_gram_blocked": 0,
+                                 "batched_predict": 0}
 
 
 def reset_launch_counts() -> None:

@@ -18,10 +18,18 @@ everything, step until idle).
 
   InlineBackend   each pending bucket drained by one synchronous
                   ``run_bucket`` call per step — the reference scheduler.
+  ShardedBackend  the same drain over a device mesh (launch/mesh.py):
+                  every bucket's parallelization axis is roofline-priced
+                  (compile/buckets.py::plan_bucket_axis), logged on
+                  ``BackendRunInfo.axis_plans`` and executed — a bucket
+                  taller than one device page streams its rows through
+                  the blocked Gram kernel (sharding/gram.py).  Only the
+                  one-device mesh exists so far; there its task path is
+                  the inline task path, bit for bit.
 
-``BACKEND_NAMES`` also lists ``wave``, ``sharded`` and ``topology`` so
-that plans and payloads carry across; asking ``make_backend`` for one of
-them raises ``NotImplementedError`` until it is ported.
+``BACKEND_NAMES`` also lists ``wave`` and ``topology`` so that plans and
+payloads carry across; asking ``make_backend`` for one of them raises
+``NotImplementedError`` until it is ported.
 
 All backends emit the same ``RunReport``/``TaskLedger`` artifacts, and
 each holds a persistent spec-keyed ``ProgramCache`` so repeat traffic
@@ -353,6 +361,9 @@ class BackendRunInfo:
     wave_members: List[List[object]] = field(default_factory=list)
     buckets: int = 0                    # distinct megabatch buckets drained
     compile: Optional[CompileStats] = None   # backend's warm-cache stats
+    # per-bucket parallelization-axis decisions: one
+    # compile.buckets.AxisDecision per (bucket, mesh size) the drain priced
+    axis_plans: List[object] = field(default_factory=list)
 
     @property
     def shared_waves(self) -> int:
@@ -374,6 +385,10 @@ class DrainState:
     info: BackendRunInfo
     seen_buckets: set = field(default_factory=set)
     finalized: set = field(default_factory=set)
+    # (bucket key, n_devices) -> AxisDecision memo: each bucket's
+    # parallelization axis is priced once per drain per mesh size; the
+    # decisions are also appended to info.axis_plans
+    axis_planned: Dict = field(default_factory=dict)
 
     @property
     def requests(self) -> List[WorkRequest]:
@@ -482,18 +497,32 @@ class _BucketStreamBackend(_StreamBackend):
     """Synchronous stepping: each step takes the first pending bucket,
     marks its rows running, runs it to completion and books it."""
 
+    def _plan_axis(self, state: DrainState, bkey, entries):
+        """Parallelization-axis planning hook: a single-device stream
+        has nothing to shard, so the default plans nothing; a mesh-owning
+        backend prices the candidates, logs the decision and returns it
+        for ``run_bucket`` to execute."""
+        return None
+
+    def _axis_mesh(self):
+        """The mesh data/feature decisions lower onto; None keeps every
+        bucket on the task axis."""
+        return None
+
     def step(self, state: DrainState) -> bool:
         groups = state.plan.pending_by_bucket()
         if not groups:
             return False
         bkey, entries = next(iter(groups.items()))
+        decision = self._plan_axis(state, bkey, entries)
         running: Dict[int, List[int]] = {}
         for ri, inv in entries:
             running.setdefault(ri, []).append(inv)
         for ri, invs in running.items():
             state.requests[ri].ledger.mark_running(invs)
         results, wall = _compile().run_bucket(
-            state.plan, self.compiler, bkey, entries, device=self.device)
+            state.plan, self.compiler, bkey, entries, device=self.device,
+            axis_decision=decision, mesh=self._axis_mesh())
         per_req = self._book_direct(state, entries, results, wall)
         self._note_wave(state, list(per_req), wall)
         self._checkpoint(state)
@@ -520,9 +549,52 @@ class InlineBackend(_BucketStreamBackend):
 
 
 # ---------------------------------------------------------------------------
+# ShardedBackend — the bucket drain over a device mesh
+# ---------------------------------------------------------------------------
+class ShardedBackend(_BucketStreamBackend):
+    """The megabatch drain over ``mesh`` (default: the one-device mesh on
+    ``device``).  Every bucket's parallelization axis is roofline-priced
+    once per drain (compile/buckets.py::plan_bucket_axis), logged on
+    ``BackendRunInfo.axis_plans`` and executed: on one device a bucket
+    whose N_pad fits one device page runs the task program — the inline
+    backend's, from the same kind of ``ProgramCache``, bit for bit — and
+    a taller Gram-family bucket runs the data@1 program, which streams
+    its rows as N-chunks through ``batched_gram_blocked``."""
+    name = "sharded"
+
+    def __init__(self, pool: Optional[PoolConfig] = None,
+                 device: DeviceLike = "cuda", mesh=None):
+        from repro_torch.launch.mesh import make_host_mesh
+        self.pool = pool or PoolConfig()
+        _check_pool_supported(self.pool)
+        self.mesh = make_host_mesh(device) if mesh is None else mesh
+        self.device = self.mesh.device
+        self.compiler = _compile().ProgramCache()
+
+    def _n_shards(self) -> int:
+        return int(self.mesh.shape["data"])
+
+    def _plan_axis(self, state: DrainState, bkey, entries):
+        """Price the bucket's axis candidates on this mesh, log the
+        decision (once per bucket per drain), and return it."""
+        memo_key = (bkey, self._n_shards())
+        if memo_key not in state.axis_planned:
+            from repro_torch.compile.buckets import plan_bucket_axis
+            decision = plan_bucket_axis(
+                bkey, n_tasks=len(entries), n_devices=self._n_shards())
+            state.axis_planned[memo_key] = decision
+            if decision is not None:
+                state.info.axis_plans.append(decision)
+        return state.axis_planned[memo_key]
+
+    def _axis_mesh(self):
+        return self.mesh
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
-BACKENDS = {"inline": InlineBackend}
+BACKENDS = {"inline": InlineBackend, "sharded": ShardedBackend}
 # every name a plan or payload may carry; only those in BACKENDS run
 BACKEND_NAMES = ("wave", "inline", "sharded", "topology")
 

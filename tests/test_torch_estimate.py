@@ -88,7 +88,9 @@ def test_estimate_matches_reference(case):
     assert rt.report.wave_sizes == rj.report.wave_sizes
     assert st.request(0).ledger.complete
     # the CPU path ran the plain versions: no kernel was launched
-    assert runtime.launch_counts == {"batched_gram": 0, "batched_predict": 0}
+    assert runtime.launch_counts == {"batched_gram": 0,
+                                     "batched_gram_blocked": 0,
+                                     "batched_predict": 0}
 
 
 def test_one_shot_estimate_equals_session_estimate():
@@ -224,7 +226,7 @@ def test_tf32_stays_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
-@pytest.mark.parametrize("name", ["wave", "sharded", "topology"])
+@pytest.mark.parametrize("name", ["wave", "topology"])
 def test_unported_backends_raise(name):
     assert name in BACKEND_NAMES and "inline" in BACKEND_NAMES
     with pytest.raises(NotImplementedError):

@@ -14,7 +14,7 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.megabatch import (
-    batched_gram_pallas, batched_predict_pallas,
+    batched_gram_blocked_pallas, batched_gram_pallas, batched_predict_pallas,
 )
 from repro_torch import runtime
 from repro_torch.kernels import megabatch, ops
@@ -167,7 +167,11 @@ def test_cpu_tensors_never_launch_a_kernel():
     xs, w, y, beta, valid = _inputs(2, 16, 3, seed=1)
     ops.batched_gram(*_t(xs, w, y))
     ops.batched_predict(*_t(xs, beta, valid))
-    assert runtime.launch_counts == {"batched_gram": 0, "batched_predict": 0}
+    ops.batched_gram_blocked(*_t(xs.reshape(2, 2, 8, 3), w.reshape(2, 2, 8),
+                                 y.reshape(2, 2, 8)))
+    assert runtime.launch_counts == {"batched_gram": 0,
+                                     "batched_gram_blocked": 0,
+                                     "batched_predict": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "ndim"])
@@ -199,3 +203,99 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
         megabatch.batched_gram_cuda(xs, w, y)
     with pytest.raises(ValueError):
         megabatch.batched_predict_cuda(xs, beta, valid)
+
+
+# ---------------------------------------------------------------------------
+# the streaming blocked Gram (K3)
+# ---------------------------------------------------------------------------
+# (B, C, Nc, P): Nc a multiple of the reference's 256-row block (exact
+# tiling), a multiple of 8 only, and ragged
+BLOCKED_SHAPES = [(8, 2, 256, 8), (3, 4, 64, 5), (5, 3, 37, 7),
+                  (2, 1, 100, 33), (9, 2, 13, 3)]
+
+
+def _pallas_gram_blocked(xc, w, y):
+    """batched_gram_blocked_pallas in interpret mode, padded as the
+    reference wrapper pads: P to 128 lanes, Nc to the row block (256 when
+    it tiles Nc exactly, else 8), B to 8."""
+    b, c, nc, p = xc.shape
+    bn = 256 if nc % 256 == 0 and nc >= 256 else 8
+    xp = _pad(_pad(_pad(xc, 3, 128), 2, bn), 0, 8)
+    wp = _pad(_pad(w, 2, bn), 0, 8)
+    yp = _pad(_pad(y, 2, bn), 0, 8)
+    g, bv = batched_gram_blocked_pallas(jnp.asarray(xp), jnp.asarray(wp),
+                                        jnp.asarray(yp), block_b=8,
+                                        block_n=bn, interpret=True)
+    return np.asarray(g)[:b, :p, :p], np.asarray(bv)[:b, :p]
+
+
+def _blocked_inputs(b, c, nc, p, seed):
+    xs, w, y, _, _ = _inputs(b, c * nc, p, seed)
+    return xs.reshape(b, c, nc, p), w.reshape(b, c, nc), y.reshape(b, c, nc)
+
+
+@pytest.mark.parametrize("b,c,nc,p", BLOCKED_SHAPES)
+def test_batched_gram_blocked_matches_pallas_interpret(b, c, nc, p):
+    xc, w, y = _blocked_inputs(b, c, nc, p, seed=b + c + nc + p)
+    g, bv = ops.batched_gram_blocked(*_t(xc, w, y))
+    assert g.dtype == torch.float32 and tuple(g.shape) == (b, p, p)
+    assert bv.dtype == torch.float32 and tuple(bv.shape) == (b, p)
+    g0, b0 = _pallas_gram_blocked(xc, w, y)
+    _close(g.numpy(), g0)
+    _close(bv.numpy(), b0)
+
+
+@pytest.mark.parametrize("b,c,nc,p", BLOCKED_SHAPES)
+def test_batched_gram_blocked_is_batched_gram_on_the_merged_tensor(b, c, nc,
+                                                                    p):
+    """The plain version merges the chunk axis, a relayout: bitwise
+    ``batched_gram`` on (B, C*Nc, P), and equal to the jnp oracle."""
+    xc, w, y = _blocked_inputs(b, c, nc, p, seed=3 * b + nc)
+    g, bv = ops.batched_gram_blocked(*_t(xc, w, y), reg=0.5)
+    g1, b1 = ops.batched_gram(*_t(xc.reshape(b, c * nc, p),
+                                  w.reshape(b, c * nc), y.reshape(b, c * nc)),
+                              reg=0.5)
+    assert torch.equal(g, g1) and torch.equal(bv, b1)
+    g0, b0 = ref.batched_gram_blocked_ref(jnp.asarray(xc), jnp.asarray(w),
+                                          jnp.asarray(y), 0.5)
+    _close(g.numpy(), np.asarray(g0))
+    _close(bv.numpy(), np.asarray(b0))
+
+
+def test_batched_gram_blocked_padding_chunks_are_inert():
+    """chunk_tall_n pads a ragged tail with w == 0 rows: poison them."""
+    xs, w, y, _, _ = _inputs(4, 90, 6, seed=9)
+    xc, wc, yc = ops.chunk_tall_n(*_t(xs, w, y), 32)
+    assert tuple(xc.shape) == (4, 3, 32, 6)
+    g0, b0 = ops.batched_gram_blocked(xc, wc, yc)
+    poisoned = xc.clone()
+    poisoned.view(4, 96, 6)[:, 90:] = 1e6
+    g1, b1 = ops.batched_gram_blocked(poisoned, wc, yc)
+    assert torch.equal(g0, g1) and torch.equal(b0, b1)
+    g2, b2 = _pallas_gram_blocked(poisoned.numpy(), wc.numpy(), yc.numpy())
+    _close(g1.numpy(), g2)
+    _close(b1.numpy(), b2)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "ndim"])
+def test_blocked_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    xc, w, y = _t(*_blocked_inputs(2, 2, 8, 4, seed=2))
+    if bad == "dtype":
+        with pytest.raises(TypeError):
+            ops.batched_gram_blocked(xc, w.double(), y)
+    elif bad == "shape":
+        with pytest.raises(ValueError):
+            ops.batched_gram_blocked(xc, w[:, :, :-1], y)
+    elif bad == "strides":
+        with pytest.raises(ValueError):
+            ops.batched_gram_blocked(
+                xc.transpose(2, 3).contiguous().transpose(2, 3), w, y)
+    else:
+        with pytest.raises(ValueError):
+            ops.batched_gram_blocked(xc[0], w, y)
+
+
+def test_blocked_cuda_wrapper_raises_on_cpu_tensors():
+    xc, w, y = _t(*_blocked_inputs(2, 2, 8, 4, seed=3))
+    with pytest.raises(ValueError, match="card"):
+        megabatch.batched_gram_blocked_cuda(xc, w, y)
