@@ -10,14 +10,17 @@ first use), holds each kernel against its plain PyTorch version on the
 card, and drives the port's paths — ``estimate`` / ``DMLSession`` on the
 inline backend at the paper's own configuration and at a wide synthetic
 one, and on the sharded backend at a tall one (250 000 rows, more than a
-device page: the data@1 layout and its streaming Gram kernel).  Every
-phase prints one JSON line; any failure raises and the process exits
-non-zero.  Without a CUDA device it exits non-zero and prints no result.
-``--phases a,b`` runs a subset (the lines that sum up the run are printed
-only by a full run).
+device page: the data@1 layout and its streaming Gram kernel); the
+shared-X learners (``get_learner``, one ``crossfit_gram`` launch for the
+paper's 1000 tasks) and the opaque-learner drain (``compile_raw_request``)
+at the paper's configuration; and the default IRM plan, whose propensity
+is the logistic learner.  Every phase prints one JSON line; any failure
+raises and the process exits non-zero.  Without a CUDA device it exits
+non-zero and prints no result.  ``--phases a,b`` runs a subset (the lines
+that sum up the run are printed only by a full run).
 
 Phases: device, build, kernels, estimate_paper, estimate_wide, session,
-same_as_cpu, estimate_tall.
+same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm.
 """
 from __future__ import annotations
 
@@ -41,18 +44,22 @@ from repro_torch.core import (                             # noqa: E402
     DMLData, DMLPlan, DMLSession, estimate,
 )
 from repro_torch.core.session import (                     # noqa: E402
-    assemble_result, compile_request,
+    assemble_result, compile_raw_request, compile_request,
 )
 from repro_torch.data import (                             # noqa: E402
-    TRUE_EFFECT, make_bonus_data, make_pliv_data, make_plr_data,
+    TRUE_EFFECT, make_bonus_data, make_irm_data, make_pliv_data,
+    make_plr_data,
 )
-from repro_torch.kernels import build, megabatch, ops      # noqa: E402
+from repro_torch.kernels import (                          # noqa: E402
+    build, crossfit_gram, megabatch, ops,
+)
 from repro_torch.launch import roofline                    # noqa: E402
-from repro_torch.learners import linear                    # noqa: E402
+from repro_torch.learners import get_learner, linear       # noqa: E402
 from repro_torch.serverless import make_backend            # noqa: E402
 
 PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
-          "session", "same_as_cpu", "estimate_tall")
+          "session", "same_as_cpu", "estimate_tall", "shared_x",
+          "raw_request", "estimate_irm")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
 # core) float32 FLOP/s — the kernels use plain FMA
@@ -75,7 +82,16 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/megabatch.cu",
         "replaces": "src/repro/kernels/megabatch.py:116",
     },
+    "crossfit_gram": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/megabatch.cu",
+        "replaces": "src/repro/kernels/crossfit_gram.py:45",
+    },
 }
+# the wrapper module of each kernel (its ``<name>_cuda`` launches it)
+KERNEL_MODULES = {"batched_gram": megabatch, "batched_predict": megabatch,
+                  "batched_gram_blocked": megabatch,
+                  "crossfit_gram": crossfit_gram}
 # (B, N, P) of every launch each driven path makes: full blocks of 32
 # lanes and the aligned tail, N and P as the bucket pads them, plus the
 # intercept column.  Each path asserts after its run that it built no
@@ -102,6 +118,16 @@ SHAPES = tuple(dict.fromkeys(
 MAIN_BLOCKED_SHAPE = (32, 4, 62504, 33)
 TALL_BLOCKED_SHAPES = (MAIN_BLOCKED_SHAPE, (8, 4, 62504, 33))
 BLOCKED_SHAPES = TALL_BLOCKED_SHAPES + ((5, 3, 1003, 7), (32, 4, 65536, 33))
+# (T, N, P) of the shared-X Gram: the paper request's 1000 tasks in one
+# call (P 17 plus the intercept), a wide one (make_plr_data(60000, 200) at
+# M 4 x K 5 x L 2), a ragged one, and the opaque drain's per-lane call;
+# then one whose N is a multiple of the 64-row step, where it must be
+# bitwise batched_gram on x broadcast to (T, N, P)
+MAIN_XFIT_SHAPE = (1000, 5099, 18)
+LANE_XFIT_SHAPE = (1, 5099, 18)
+XFIT_BITWISE_SHAPE = (32, 65536, 33)
+XFIT_SHAPES = (MAIN_XFIT_SHAPE, (40, 60000, 201), (5, 1003, 7),
+               LANE_XFIT_SHAPE, XFIT_BITWISE_SHAPE)
 
 
 def emit(phase: str, **kw) -> None:
@@ -151,6 +177,13 @@ def _gram_bound(b, n, p):
     nbytes = 4 * (b * n * p + 2 * b * n + b * p * p + b * p)
     # w*x, the upper triangle of G (mirrored, not recomputed), w*y, b
     flops = b * n * (p + p * (p + 1) + 1 + 2 * p)
+    return nbytes, flops
+
+
+def _crossfit_bound(t, n, p):
+    # the shared X read once, w and y of every task, G and b written
+    nbytes = 4 * (n * p + 2 * t * n + t * p * p + t * p)
+    flops = t * n * (p + p * (p + 1) + 1 + 2 * p)
     return nbytes, flops
 
 
@@ -270,17 +303,22 @@ def phase_kernels(device):
         del xs, y, w, beta, valid
         torch.cuda.empty_cache()
     blocked, rows["batched_gram_blocked"] = _blocked_kernel_rows(device, gen)
+    xfit, rows["crossfit_gram"] = _xfit_kernel_rows(device, gen)
     emit("kernels", tolerance={
         "batched_gram": "rtol 1e-4, atol 1e-4*max|G| (the two sum over N in "
                         "different orders); G == G' exactly",
         "batched_predict": "rtol 1e-5, atol 1e-5; valid == 0 rows == 0 "
                            "exactly",
         "batched_gram_blocked": "as batched_gram; bitwise batched_gram on "
-                                "the merged (B, C*Nc, P) when Nc % 64 == 0"},
+                                "the merged (B, C*Nc, P) when Nc % 64 == 0",
+        "crossfit_gram": "as batched_gram; bitwise batched_gram on x "
+                         "broadcast to (T, N, P) at "
+                         f"{list(XFIT_BITWISE_SHAPE)}"},
         timing="median of 20 single launches after 3 warm-ups, CUDA events, "
                "L2 flushed before each (ms_warm_l2: not flushed), the "
                "device kept busy while the host enqueues",
-        kernels=sorted(KERNELS), shapes=report, blocked_shapes=blocked)
+        kernels=sorted(KERNELS), shapes=report, blocked_shapes=blocked,
+        crossfit_shapes=xfit)
     return rows
 
 
@@ -356,6 +394,76 @@ def _blocked_kernel_rows(device, gen):
     return report, main
 
 
+def _xfit_kernel_rows(device, gen):
+    """The shared-X Gram against its plain version, and against
+    batched_gram on x broadcast to (T, N, P), at every shape of
+    XFIT_SHAPES."""
+    report, main = [], None
+    for shape in XFIT_SHAPES:
+        t, n, p = shape
+        x = torch.randn((n, p), generator=gen, device=device)
+        y = torch.randn((t, n), generator=gen, device=device)
+        w = (torch.rand((t, n), generator=gen, device=device) < 0.8).float()
+        g, bv = ops.crossfit_gram(x, w, y)
+        torch.cuda.synchronize()
+        g0, b0 = crossfit_gram.crossfit_gram_plain(x, w, y)
+        g_atol = 1e-4 * float(g0.abs().max())
+        b_atol = 1e-4 * float(b0.abs().max())
+        assert torch.allclose(g, g0, rtol=1e-4, atol=g_atol), \
+            ("crossfit_gram G disagrees", shape, _errs(g, g0))
+        assert torch.allclose(bv, b0, rtol=1e-4, atol=b_atol), \
+            ("crossfit_gram b disagrees", shape, _errs(bv, b0))
+        assert torch.equal(g, g.transpose(1, 2)), \
+            ("crossfit_gram G is not exactly symmetric", shape)
+        xe = x.expand(t, n, p)                 # a view: X is not copied
+        xb = xe.contiguous()                   # K1 takes (T, N, P) pages
+        g1, b1 = ops.batched_gram(xb, w, y)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(g, g1) and torch.equal(bv, b1)
+        if shape == XFIT_BITWISE_SHAPE:
+            assert bitwise, ("crossfit_gram is not bitwise batched_gram on "
+                             "the broadcast tensor", shape)
+
+        def library():
+            return (torch.bmm((xe * w.unsqueeze(-1)).transpose(1, 2), xe),
+                    torch.bmm(xe.transpose(1, 2), (w * y).unsqueeze(-1)))
+
+        gl, _ = library()
+        assert torch.allclose(gl, g0, rtol=1e-3, atol=10 * g_atol)
+        g64 = torch.einsum("np,tn,nq->tpq", x.double(), w.double(),
+                           x.double())
+        nbytes, flops = _crossfit_bound(t, n, p)
+        bound, by = _bound_ms(nbytes, flops)
+        abs_g, rel_g = _errs(g, g0)
+        abs_b, rel_b = _errs(bv, b0)
+        row = {
+            "max_abs_err": max(abs_g, abs_b), "max_rel_err": max(rel_g, rel_b),
+            "max_abs_G": float(g0.abs().max()),
+            "abs_err_vs_f64": float((g.double() - g64).abs().max()),
+            "plain_abs_err_vs_f64": float((g0.double() - g64).abs().max()),
+            "bitwise_batched_gram_broadcast": bitwise,
+            "max_abs_diff_batched_gram_broadcast":
+                float((g - g1).abs().max()),
+            "ms": _time_ms(lambda: ops.crossfit_gram(x, w, y), cold=True),
+            "ms_warm_l2": _time_ms(lambda: ops.crossfit_gram(x, w, y),
+                                   cold=False),
+            "batched_gram_broadcast_ms": _time_ms(
+                lambda: ops.batched_gram(xb, w, y), cold=True),
+            "plain_ms": _time_ms(
+                lambda: crossfit_gram.crossfit_gram_plain(x, w, y),
+                cold=True),
+            "library_ms": _time_ms(library, cold=True),
+            "bound_ms": bound, "bound_by": by,
+            "bytes": nbytes, "operations": flops,
+        }
+        report.append({"shape": list(shape), "crossfit_gram": row})
+        if shape == MAIN_XFIT_SHAPE:
+            main = row
+        del x, y, w, g, bv, g0, b0, xe, xb, g1, b1, gl, g64
+        torch.cuda.empty_cache()
+    return report, main
+
+
 def _compared_shapes(cache, path):
     """Every program the path built ran the kernels at a shape the
     kernels phase compared (the learners add the intercept column)."""
@@ -406,7 +514,7 @@ def phase_estimate_paper(device):
     launches = dict(runtime.launch_counts)
     _checked(res, None, device, TRUE_EFFECT, "estimate_paper")
     assert launches == {"batched_gram": 32, "batched_gram_blocked": 0,
-                        "batched_predict": 32}, launches
+                        "batched_predict": 32, "crossfit_gram": 0}, launches
     stats = backend.compiler.stats.summary()
     _compared_shapes(backend.compiler, "estimate_paper")
 
@@ -530,9 +638,9 @@ def phase_same_as_cpu(device):
         _compared_shapes(sess.backend.compiler, "same_as_cpu")
     (rc, pc, lc), (rg, pg, lg) = got["cpu"], got["card"]
     assert lc == {"batched_gram": 0, "batched_gram_blocked": 0,
-                  "batched_predict": 0}, lc
+                  "batched_predict": 0, "crossfit_gram": 0}, lc
     assert lg == {"batched_gram": 2, "batched_gram_blocked": 0,
-                  "batched_predict": 2}, lg
+                  "batched_predict": 2, "crossfit_gram": 0}, lg
     np.testing.assert_allclose(pg, pc, rtol=1e-4, atol=1e-5)
     rel_theta = abs(rg.theta - rc.theta) / abs(rc.theta)
     rel_se = abs(rg.se - rc.se) / rc.se
@@ -550,28 +658,33 @@ def _launch_shapes():
     block: each ``*_cuda`` wrapper is wrapped for the duration (the
     launch counts are the wrappers' own and are not touched)."""
     seen = {name: set() for name in KERNELS}
-    real = {name: getattr(megabatch, f"{name}_cuda") for name in KERNELS}
+    real = {name: getattr(KERNEL_MODULES[name], f"{name}_cuda")
+            for name in KERNELS}
 
     def recorder(name):
         def call(operand, *args):
-            seen[name].add(tuple(operand.shape))
+            shape = tuple(operand.shape)
+            if name == "crossfit_gram":         # (T,) of w, then x's (N, P)
+                shape = (int(args[0].shape[0]),) + shape
+            seen[name].add(shape)
             return real[name](operand, *args)
         return call
 
     for name in KERNELS:
-        setattr(megabatch, f"{name}_cuda", recorder(name))
+        setattr(KERNEL_MODULES[name], f"{name}_cuda", recorder(name))
     try:
         yield seen
     finally:
         for name, fn in real.items():
-            setattr(megabatch, f"{name}_cuda", fn)
+            setattr(KERNEL_MODULES[name], f"{name}_cuda", fn)
 
 
-def _tall_compared(seen, what):
-    """Every launch of the tall path ran at a shape the kernels phase
+def _launches_compared(seen, what):
+    """Every launch of a path ran at a shape the kernels phase
     compared."""
     compared = {"batched_gram": set(SHAPES), "batched_predict": set(SHAPES),
-                "batched_gram_blocked": set(BLOCKED_SHAPES)}
+                "batched_gram_blocked": set(BLOCKED_SHAPES),
+                "crossfit_gram": set(XFIT_SHAPES)}
     for name, shapes in seen.items():
         assert shapes <= compared[name], \
             f"{what}: {name} launched at {sorted(shapes - compared[name])}"
@@ -609,7 +722,7 @@ def phase_estimate_tall(device):
             launches = dict(runtime.launch_counts)
             req = sess.request(rid)
             _checked(res, req, device, data.theta0, what)
-            _tall_compared(seen, what)
+            _launches_compared(seen, what)
             decisions = sess.last_run_info.axis_plans
             if backend == "sharded":
                 assert decisions and all(
@@ -681,6 +794,192 @@ def phase_estimate_tall(device):
     return total
 
 
+def _task_preds(req, preds):
+    """(T, N) predictions of a drained request in flat task order."""
+    _, tm, tk, tl = req._index_maps()[:4]
+    return preds[tm, tk, tl]
+
+
+def _book_shared_preds(req, preds):
+    """Book (T, N) shared-X predictions into ``req``'s ledger, invocation
+    by invocation, so that ``assemble_result`` stitches and scores them."""
+    invs = np.arange(req.ledger.n_invocations)
+    req.ledger.record_successes(
+        invs, np.stack([preds[req.invocation_tasks(i)] for i in invs]))
+
+
+def _warm_ms(fn, runs: int = 5) -> float:
+    """Median wall ms of ``fn`` on the host's clock, device drained."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_shared_x(device):
+    """The shared-X learner forms at the paper's full width and depth: the
+    request's 1000 tasks (y, w from ``wave_arrays``) in ONE call of
+    ``get_learner(...)`` — one crossfit_gram launch — for ridge and lasso,
+    held against the inline megabatch drain of the same request: the
+    predictions of every task, and theta through the port's scores.
+    Launch counts are set to 0 just before each call and read just
+    after."""
+    data = DMLData.from_dict(make_bonus_data())
+    x = torch.as_tensor(data.x, device=device)
+    out, total = [], 0
+    for learner, params in (("ridge", {"reg": 1.0}), ("lasso", {})):
+        plan = DMLPlan.for_model("plr", learner=learner, learner_params=params,
+                                 n_folds=5, n_rep=100, seed=42,
+                                 backend="inline")
+        # the yardstick: the megabatch drain (K1 + K2) of the same request
+        req_mb = compile_request(plan, data)
+        make_backend("inline", device=device).run_requests([req_mb])
+        res_mb = assemble_result(plan, data, req_mb, device=device)
+        want = _task_preds(req_mb, req_mb.gathered_preds())
+
+        req = compile_request(plan, data)
+        y, w = req.wave_arrays(np.arange(req.grid.n_tasks))
+        y = torch.as_tensor(y, device=device)
+        w = torch.as_tensor(w, device=device)
+        fn = get_learner(learner, params)
+        linear.reset_solve_status()
+        torch.cuda.synchronize()
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _launch_shapes() as seen:
+            preds = fn(x, y, w, None)
+            torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(runtime.launch_counts)
+        assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
+                            "batched_predict": 0, "crossfit_gram": 1}, \
+            launches
+        assert seen["crossfit_gram"] == {MAIN_XFIT_SHAPE}, seen
+        _launches_compared(seen, f"shared_x/{learner}")
+        total += launches["crossfit_gram"]
+        got = preds.cpu().numpy()
+        assert got.shape == want.shape == (1000, data.n_obs)
+        assert np.isfinite(got).all(), f"shared_x/{learner}: not finite"
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        _book_shared_preds(req, got)
+        res = assemble_result(plan, data, req, device=device)
+        if learner == "ridge":                # the paper's own learner
+            _checked(res, req, device, TRUE_EFFECT, "shared_x/ridge")
+        assert np.isfinite([res.theta, res.se]).all()
+        rel_theta = abs(res.theta - res_mb.theta) / abs(res_mb.theta)
+        rel_se = abs(res.se - res_mb.se) / res_mb.se
+        assert rel_theta < 1e-4 and rel_se < 1e-4, (rel_theta, rel_se)
+        out.append({"learner": learner, "tasks": int(w.shape[0]),
+                    "launches": launches, "first_call_ms": first_ms,
+                    "warm_call_ms": _warm_ms(lambda: fn(x, y, w, None)),
+                    "theta": res.theta, "se": res.se,
+                    "theta_megabatch": res_mb.theta, "rel_theta": rel_theta,
+                    "rel_se": rel_se,
+                    "max_abs_pred_diff_vs_megabatch":
+                        float(np.abs(got - want).max())})
+        del preds, y, w
+        torch.cuda.empty_cache()
+    emit("shared_x", n_obs=data.n_obs, dim_x=data.dim_x, n_folds=5,
+         n_rep=100, calls=out,
+         tolerance="predictions rtol 1e-4, atol 1e-5 of the megabatch "
+                   "drain's; theta and se 1e-4 relative")
+    return total
+
+
+def phase_raw_request(device):
+    """The opaque-learner drain at the paper's configuration:
+    ``compile_raw_request`` with the shared-X ridge callable, drained by
+    the inline backend at exact shapes; ``as_batched`` calls the learner
+    once per lane, one crossfit_gram launch each (T = 1).  Held against
+    the registry drain of the same request."""
+    data = DMLData.from_dict(make_bonus_data())
+    plan = _paper_plan()
+    req_mb = compile_request(plan, data)
+    make_backend("inline", device=device).run_requests([req_mb])
+    res_mb = assemble_result(plan, data, req_mb, device=device)
+
+    raw = compile_raw_request(req_mb.grid, req_mb.scaling, data.x,
+                              req_mb.targets, req_mb.train_w,
+                              get_learner("ridge", {"reg": 1.0}), 42)
+    backend = make_backend("inline", device=device)
+    linear.reset_solve_status()
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _launch_shapes() as seen:
+        backend.run_requests([raw])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launch_counts)
+    stats = backend.compiler.stats.summary()
+    lanes = stats["padded_tasks"]              # live and padding lanes
+    assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
+                        "batched_predict": 0, "crossfit_gram": lanes}, \
+        (launches, lanes)
+    assert seen["crossfit_gram"] == {LANE_XFIT_SHAPE}, seen
+    _launches_compared(seen, "raw_request")
+    info = linear.solve_failures(device)
+    assert info == 0, f"raw_request: a live lane's Cholesky failed ({info})"
+    got, want = raw.gathered_preds(), req_mb.gathered_preds()
+    assert raw.ledger.complete and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    raw.fold_masks = req_mb.fold_masks
+    res = assemble_result(plan, data, raw, device=device)
+    rel_theta = abs(res.theta - res_mb.theta) / abs(res_mb.theta)
+    assert rel_theta < 1e-4, rel_theta
+    emit("raw_request", n_obs=data.n_obs, dim_x=data.dim_x, n_folds=5,
+         n_rep=100, tasks=raw.grid.n_tasks, lanes=lanes, launches=launches,
+         drain_s=wall, theta=res.theta, theta_registry=res_mb.theta,
+         rel_theta=rel_theta,
+         max_abs_pred_diff_vs_registry=float(np.abs(got - want).max()),
+         compile_stats=stats,
+         tolerance="predictions rtol 1e-4, atol 1e-5 of the registry "
+                   "drain's; theta 1e-4 relative")
+    return launches["crossfit_gram"]
+
+
+def phase_estimate_irm(device):
+    """The default IRM plan — ridge outcome regressions, logistic
+    propensity (IRLS on the megabatch bucket) — on the card and on the
+    CPU."""
+    data = DMLData.from_dict(make_irm_data(n_obs=5000, dim_x=20))
+    plan = DMLPlan.for_model("irm", learner="ridge", n_folds=5, n_rep=10,
+                             backend="inline")
+    assert [ns.learner for ns in plan.nuisances] == \
+        ["ridge", "ridge", "logistic"]
+    got = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        sess = DMLSession(backend="inline", device=dev)
+        linear.reset_solve_status()
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        rid = sess.submit(plan, data)
+        res = sess.wait(rid)
+        if name == "card":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _checked(res, sess.request(rid), dev, data.theta0,
+                 f"estimate_irm/{name}")
+        got[name] = (res, wall, dict(runtime.launch_counts),
+                     sess.backend.compiler.stats.summary())
+    (rg, wg, lg, sg), (rc, wc, lc, _) = got["card"], got["cpu"]
+    assert lg["batched_gram"] > 0 and lg["batched_predict"] > 0, lg
+    assert not any(lc.values()), lc
+    rel_theta = abs(rg.theta - rc.theta) / abs(rc.theta)
+    rel_se = abs(rg.se - rc.se) / rc.se
+    assert rel_theta < 1e-4 and rel_se < 1e-4, (rel_theta, rel_se)
+    emit("estimate_irm", n_obs=5000, dim_x=20, n_folds=5, n_rep=10,
+         learners=[ns.learner for ns in plan.nuisances],
+         theta=rg.theta, se=rg.se, theta0=data.theta0, theta_cpu=rc.theta,
+         se_cpu=rc.se, rel_theta=rel_theta, rel_se=rel_se, wall_s=wg,
+         wall_cpu_s=wc, launches=lg, compile_stats=sg,
+         tolerance="card vs CPU: theta and se 1e-4 relative")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -733,6 +1032,14 @@ def main(argv=None) -> int:
         tall = phase_estimate_tall(device)
         if launches is not None:
             launches["batched_gram_blocked"] = tall["batched_gram_blocked"]
+    if "shared_x" in phases:
+        xfit = phase_shared_x(device)
+        if launches is not None:
+            launches["crossfit_gram"] = xfit
+    if "raw_request" in phases:
+        phase_raw_request(device)
+    if "estimate_irm" in phases:
+        phase_estimate_irm(device)
 
     if phases != list(PHASES):
         print(json.dumps({"ok": False, "partial": phases,

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where one estimation request spends its time on the card.
 
-    python3 scripts/profile_torch_estimate.py [--config paper|tall]
+    python3 scripts/profile_torch_estimate.py [--config paper|tall|irm]
                                               [--n-rep M] [--out DIR]
 
 Drives one of the port's paths through ``estimate`` — ``paper``: the
 paper's configuration (PLR on the bonus data, K = 5, ridge, M 100) on the
 inline backend; ``tall``: PLR on ``make_plr_data`` with 250 000 rows and
 20 covariates (K = 5, ridge, M 10) on the sharded backend, whose bucket
-streams through the blocked Gram kernel — once to warm the process up,
-then again under ``torch.profiler`` (CPU and CUDA activities).  Prints
+streams through the blocked Gram kernel; ``irm``: the default IRM plan
+(ridge, logistic propensity) on ``make_irm_data`` with 5000 rows and 20
+covariates (K = 5, M 10) on the inline backend — once to warm the process
+up, then again under ``torch.profiler`` (CPU and CUDA activities).  Prints
 one JSON object: the request's wall time on the host's clock (device
 drained), the device's busy time summed over kernels and copies, its
-idle share, and the device time by kernel name.
+idle share, and the device time and launches by kernel name.  For
+``irm`` it also traces one 32-lane logistic block alone (the IRLS
+program at the request's bucket shape) and counts its launches.
 Needs a CUDA device; exits non-zero without one.  ``--out`` also writes
 the Chrome trace there.
 """
@@ -32,15 +36,60 @@ import torch                                               # noqa: E402
 from torch.profiler import ProfilerActivity, profile      # noqa: E402
 
 from repro_torch.core import DMLData, DMLPlan, estimate    # noqa: E402
-from repro_torch.data import make_bonus_data, make_plr_data  # noqa: E402
+from repro_torch.data import (                             # noqa: E402
+    make_bonus_data, make_irm_data, make_plr_data,
+)
+from repro_torch.learners import get_batched_learner       # noqa: E402
 from repro_torch.serverless import make_backend            # noqa: E402
+
+
+def _device_rows(prof):
+    """Device time and launches by kernel (and copy) name."""
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        # operator rows ("aten::...") repeat the time of the kernels and
+        # copies they launch: keep the device-side rows only
+        if dev_us > 0 and not ev.key.startswith("aten::"):
+            rows.append({"name": ev.key[:80], "calls": ev.count,
+                         "device_ms": dev_us / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
+def _irls_block(data):
+    """One 32-lane logistic block at the IRM bucket's shape (N 5000, P 20
+    padded to 32, plus the intercept), warm, traced alone: the IRLS
+    program's launches and device time."""
+    gen = torch.Generator().manual_seed(0)
+    n, p = data.x.shape
+    xs = torch.zeros((32, n, 32))
+    xs[:, :, :p] = torch.as_tensor(data.x)
+    y = torch.as_tensor(data.d).expand(32, n).contiguous()
+    w = (torch.rand((32, n), generator=gen) < 0.8).float()
+    args = [a.cuda() for a in (xs, y, w, torch.ones((32, n)),
+                               torch.zeros((32, 2), dtype=torch.int64))]
+    fn = get_batched_learner("logistic", {"reg": 1.0})
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    return {"shape": [32, n, 33], "n_iter": 32, "wall_s": wall,
+            "device_ms": sum(r["device_ms"] for r in rows),
+            "launches": sum(r["calls"] for r in rows), "by_kernel": rows}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", choices=("paper", "tall"), default="paper")
+    ap.add_argument("--config", choices=("paper", "tall", "irm"),
+                    default="paper")
     ap.add_argument("--n-rep", type=int, default=None,
-                    help="repetitions M (default: 100 paper, 10 tall)")
+                    help="repetitions M (default: 100 paper, 10 tall, irm)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -50,13 +99,17 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    model = "plr"
     if args.config == "paper":
         data = DMLData.from_dict(make_bonus_data())
         n_rep, name = args.n_rep or 100, "inline"
-    else:
+    elif args.config == "tall":
         data = DMLData.from_dict(make_plr_data(n_obs=250_000, dim_x=20))
         n_rep, name = args.n_rep or 10, "sharded"
-    plan = DMLPlan.for_model("plr", learner="ridge",
+    else:
+        data = DMLData.from_dict(make_irm_data(n_obs=5000, dim_x=20))
+        n_rep, name, model = args.n_rep or 10, "inline", "irm"
+    plan = DMLPlan.for_model(model, learner="ridge",
                              learner_params={"reg": 1.0}, n_folds=5,
                              n_rep=n_rep, backend=name)
     backend = make_backend(name)
@@ -72,16 +125,7 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res, traced = request()
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        # operator rows ("aten::...") repeat the time of the kernels and
-        # copies they launch: keep the device-side rows only
-        if dev_us > 0 and not ev.key.startswith("aten::"):
-            rows.append({"name": ev.key[:80], "calls": ev.count,
-                         "device_ms": dev_us / 1e3})
-    rows.sort(key=lambda r: -r["device_ms"])
+    rows = _device_rows(prof)
     busy_ms = sum(r["device_ms"] for r in rows)
     out = {"card": smi, "config": args.config, "backend": name,
            "n_rep": n_rep, "theta": res.theta,
@@ -90,11 +134,14 @@ def main(argv=None) -> int:
     if rows:
         out.update(device_busy_ms=busy_ms,
                    device_idle_share=1.0 - busy_ms / 1e3 / traced,
+                   device_launches=sum(r["calls"] for r in rows),
                    by_kernel=rows[:25])
     else:
         out.update(device_busy_ms="not measured",
                    device_idle_share="not measured",
                    note="the profiler recorded no device time")
+    if args.config == "irm":
+        out["irls_block"] = _irls_block(data)
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(

@@ -20,7 +20,9 @@ Padding rules per learner family:
     <2x; P stays pow2-bucketed for the feature-pad-safe families (the
     long tail of widths collapses onto a handful of programs);
   * families outside ``FEATURE_PAD_SAFE`` (e.g. mlp, whose init scale
-    depends on the true P): N aligned, P exact.
+    depends on the true P): N aligned, P exact;
+  * opaque callables (``compile_raw_request``): exact shapes — nothing
+    proves that an arbitrary callable is padding-invariant.
 
 The aligned N rule trades program variety for waste: distinct N values
 8 apart no longer share a program, but steady serving re-presents the
@@ -47,7 +49,7 @@ Entry = Tuple[int, int]                 # (request index, invocation id)
 @dataclass(frozen=True)
 class BucketKey:
     """Identity of one megabatch program family."""
-    learner: object                     # Segment.bucket_id (learner spec)
+    learner: object                     # Segment.bucket_id (spec or opaque)
     n_pad: int
     p_pad: int
 
@@ -78,9 +80,12 @@ class MegabatchPlan:
         n = int(req.ledger.n_obs)
         p = int(req.x.shape[1])
         for si, seg in enumerate(req.segments):
-            n_pad = aligned_bucket(n, self.min_n)
-            p_pad = pow2_bucket(p, self.min_p) \
-                if seg.learner in FEATURE_PAD_SAFE else p
+            if seg.learner is None:            # opaque callable: exact shapes
+                n_pad, p_pad = n, p
+            else:
+                n_pad = aligned_bucket(n, self.min_n)
+                p_pad = pow2_bucket(p, self.min_p) \
+                    if seg.learner in FEATURE_PAD_SAFE else p
             key = BucketKey(seg.bucket_id, n_pad, p_pad)
             self.bucket_of[(ri, si)] = key
             # first-wins: if two segments of one request collapse onto one

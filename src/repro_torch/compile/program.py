@@ -8,7 +8,8 @@ A **program** is one cached callable per (bucket, padded batch shape):
 It gathers every task's feature page and calls the learner family's
 ``batched_fit_predict`` — on the linear path that bottoms out in the
 hand-written CUDA kernels (``batched_gram`` / ``batched_predict`` in
-kernels/ops.py).  The batch axis B is aligned to the lane quantum and the
+kernels/ops.py) — or, for an opaque callable's exact-shape bucket, calls
+the callable once per lane through ``learners.as_batched``.  The batch axis B is aligned to the lane quantum and the
 page axis D is pow2-bucketed, so repeat traffic of *any* composition hits
 a previously built program: the warm cache is keyed by spec, never by
 object identity or request.  PyTorch runs eagerly, so "building" a
@@ -37,7 +38,7 @@ from repro_torch.compile.buckets import BucketKey, Entry, MegabatchPlan
 from repro_torch.core.crossfit import (
     PaddingStats, aligned_bucket, pow2_bucket,
 )
-from repro_torch.learners import get_batched_learner
+from repro_torch.learners import as_batched, get_batched_learner
 from repro_torch.runtime import bounded_put
 
 
@@ -74,8 +75,11 @@ class CompileStats:
 
 
 def segment_batched_fn(seg) -> Callable:
-    """Resolve a segment's megabatch implementation from the registry."""
-    return get_batched_learner(seg.learner, dict(seg.params))
+    """Resolve a segment's megabatch implementation: registry learners get
+    their native batched form, opaque callables the per-lane adapter."""
+    if seg.learner is not None:
+        return get_batched_learner(seg.learner, dict(seg.params))
+    return as_batched(seg.learner_fn)
 
 
 class ProgramCache:
@@ -320,12 +324,14 @@ class _PaddingAcc:
         for f in self.__slots__:
             setattr(self, f, 0)
 
-    def book_part(self, key: BucketKey, blk: _Block):
+    def book_part(self, key: BucketKey, blk: _Block, exact_shapes: bool):
         """Per-canonical-block terms: true work and N/P-axis lanes."""
+        # opaque exact-shape buckets never padded N under either rule
+        n_pow2 = blk.n if exact_shapes else pow2_bucket(blk.n, 8)
         self.true_cells += blk.k * blk.n
         self.tasks += blk.k
         self.lane_cells += blk.k * key.n_pad
-        self.lane_cells_pow2 += blk.k * pow2_bucket(blk.n, 8)
+        self.lane_cells_pow2 += blk.k * n_pow2
         self.true_feats += blk.k * blk.p
         self.padded_feats += blk.k * key.p_pad
 
@@ -480,7 +486,8 @@ def dispatch_bucket(plan: MegabatchPlan, cache: ProgramCache,
         launches.append(Launch(out=out, blocks=[lb]))
         cache.stats.launches += 1
         cache.stats.blocks += len(lb.parts)
-        pad_acc.book_part(key, blk)
+        pad_acc.book_part(key, blk,
+                          requests[blk.ri].segments[blk.si].learner is None)
         pad_acc.book_launch(key, lb)
 
     total_tasks = sum(blk.k for blk in blocks)

@@ -3,6 +3,7 @@
 from repro_torch.core.crossfit import (
     TaskGrid, draw_fold_masks, stitch_predictions,
 )
+from repro_torch.core.dml import DoubleMLServerless
 from repro_torch.core.scores import (
     SPECS, evaluate_score, score_se, solve_theta,
 )
@@ -13,6 +14,7 @@ from repro_torch.core.spec import (
 
 __all__ = [
     "TaskGrid", "draw_fold_masks", "stitch_predictions", "DMLResult",
+    "DoubleMLServerless",
     "SPECS", "evaluate_score", "score_se", "solve_theta",
     "DMLData", "DMLPlan", "NuisanceSpec", "ResamplingSpec", "InferenceSpec",
     "DMLSession", "estimate",

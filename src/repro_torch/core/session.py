@@ -139,6 +139,22 @@ def compile_request(plan: DMLPlan, data: DMLData,
     return req
 
 
+def compile_raw_request(grid: TaskGrid, scaling: str, x, targets, train_w,
+                        learner_fn, key: int, *, ledger=None, report=None,
+                        tag: object = None) -> WorkRequest:
+    """Lower a raw-array request (an opaque user-supplied shared-X learner
+    callable over explicit grid arrays) onto the same execution path as
+    plan-built requests: one opaque-callable segment, run at exact shapes
+    by the megabatch compiler through ``as_batched``.  ``key`` is the
+    segment's integer seed (the reference takes a JAX key here).  Pure
+    numpy, like ``compile_request``: the backend that drains the request
+    picks the device."""
+    seg = Segment(learner_fn=learner_fn,
+                  l_ids=tuple(range(grid.n_nuisance)), key=int(key))
+    return WorkRequest.create(grid, scaling, x, targets, train_w, [seg],
+                              ledger=ledger, report=report, tag=tag)
+
+
 def assemble_result(plan: DMLPlan, data: DMLData, req: WorkRequest,
                     request_id: Optional[int] = None,
                     device: DeviceLike = "cuda") -> DMLResult:

@@ -40,6 +40,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # xc, w, y, g, b, B, C, Nc, P, stream
         "repro_batched_gram_blocked": (_PTR, _PTR, _PTR, _PTR, _PTR,
                                        _INT, _INT, _INT, _INT, _PTR),
+        # x, w, y, g, b, T, N, P, stream
+        "repro_crossfit_gram": (_PTR, _PTR, _PTR, _PTR, _PTR,
+                                _INT, _INT, _INT, _PTR),
         # xs, beta, valid, out, B, N, P, stream
         "repro_batched_predict": (_PTR, _PTR, _PTR, _PTR,
                                   _INT, _INT, _INT, _PTR),

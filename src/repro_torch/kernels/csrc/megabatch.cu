@@ -9,10 +9,13 @@
 //                          G_b = X_b' diag(w_b) X_b,  b_b = X_b'(w_b * y_b)
 //   repro_batched_gram_blocked
 //                          the same over N streamed as C chunks of Nc rows
+//   repro_crossfit_gram    the same for T tasks over one shared X (N, P)
+//                          G_t = X' diag(w_t) X,  b_t = X'(w_t * y_t)
 //   repro_batched_predict  masked GEMV epilogue
 //                          out_b = valid_b * (X_b beta_b)
 //
-// Inputs are contiguous float32 at their true (B, N, P) or (B, C, Nc, P):
+// Inputs are contiguous float32 at their true (B, N, P), (B, C, Nc, P) or
+// (N, P) with (T, N):
 // any P, any N or Nc, the ragged edges are masked here.  Plain FMA in
 // float32 — no TF32, no tensor cores — and one fixed accumulation order per
 // output element, so a result does not depend on the launch's batch size or
@@ -315,6 +318,288 @@ batched_gram_blocked_kernel(const float* __restrict__ xc,
 }
 
 // ---------------------------------------------------------------------------
+// crossfit_gram
+//
+// The shared-X form: T tasks over ONE feature matrix x (N, P), per-task
+// weights and targets w, y (T, N):  G_t = X' diag(w_t) X,  b_t = X'(w_t y_t).
+// The TPU kernel kept an X tile in VMEM and accumulated a block of 8 tasks
+// over it, so one read of X served the block.  Here one thread block per
+// (block of 4 nq tasks, 32x32 tile pair ti <= tj) walks N in batched_gram's
+// 64-row steps: a step's X columns are staged in shared memory once, beside
+// the block's w and w * y rows.  Each thread keeps batched_gram's 4x4
+// register tile for four tasks: per row, two 16-byte loads of X and four
+// 4-byte loads of w feed 4 x 16 FMAs (batched_gram: three loads for 16).
+// At small P most of a 32x32 tile's products fall outside G, so only the
+// useful 4x4 sub-tiles of the pair get threads: those that meet [0, P)^2
+// and, on a diagonal tile, the upper triangle (at the paper's P 18: 15
+// sub-tiles of 64).  There the block runs one warp per scheduler and is
+// bound by instruction latency, at 8x its operations bound (PERF.md).  Each of the four row groups gives every (sub-tile, task quad) item
+// one thread; nq (1 to 4 quads a block) is chosen at launch so that a
+// group's items fill its 64 threads without leaving the card short of
+// blocks.  A block whose tasks end at T = 1 multiplies out one task.
+//
+// Per task, every element is summed over the same rows, in the same four
+// groups and the same order as batched_gram, and the groups are added in
+// its order ((g0 + g1) + g2) + g3: crossfit_gram(x, w, y) is bitwise
+// batched_gram on x broadcast to (T, N, P).  Lanes past T load task T-1's
+// rows and store nothing.  The partial tiles are added one task at a time
+// through the X slab, so shared memory stays under 28 KB.
+// ---------------------------------------------------------------------------
+constexpr int XF_TASKS = 4;             // tasks a thread accumulates
+constexpr int XF_MAX_QUADS = 4;         // quads of tasks a block takes
+constexpr int XF_SLOTS = GRAM_THREADS / GRAM_GROUPS;   // threads a group
+constexpr int XF_SUB = TILE / 4;        // 4x4 sub-tiles along a tile edge
+constexpr int XF_WSTRIDE = GRAM_ROWS + 1;   // a task's staged row, padded
+constexpr int XF_MIN_BLOCKS = 100;      // fewer quads below this many blocks
+static_assert(XF_SLOTS == GRAM_ROWS && XF_SLOTS * 16 * (GRAM_GROUPS - 1)
+              <= 2 * GRAM_ROWS * TILE, "partial tiles fit the X slab");
+
+struct XfitStage {
+    float xa[STAGE], xb[STAGE];
+    // row (tid & 63) of the block's tasks (tid >> 6) + 4 i, i < nq
+    float w[XF_MAX_QUADS], y[XF_MAX_QUADS];
+};
+
+// The useful 4x4 sub-tiles of tile pair (ti, tj): sub-rows sy < sy_n and
+// sub-columns sx < sx_n that meet [0, P), and sx >= sy on a diagonal tile.
+__host__ __device__ inline int xfit_subtiles(int ti, int tj, int p,
+                                             int& sy_n, int& sx_n)
+{
+    const int rows = (p - ti * TILE + 3) / 4, cols = (p - tj * TILE + 3) / 4;
+    sy_n = rows < XF_SUB ? rows : XF_SUB;
+    sx_n = cols < XF_SUB ? cols : XF_SUB;
+    return ti == tj ? sy_n * (sy_n + 1) / 2 : sy_n * sx_n;
+}
+
+__device__ __forceinline__ void xfit_fetch(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ y, int t_total, int task0, int nq, int n,
+    int p, int n0, int lr, int ca, int cb, bool diag, int tid,
+    XfitStage& st)
+{
+    const int ca_c = min(ca, p - 1), cb_c = min(cb, p - 1);
+#pragma unroll
+    for (int i = 0; i < STAGE; ++i) {
+        const int row = min(n0 + lr + i * STAGE_STRIDE, n - 1);
+        const float* xr = x + (size_t)row * p;
+        st.xa[i] = xr[ca_c];
+        if (!diag) st.xb[i] = xr[cb_c];
+    }
+    const int row = min(n0 + (tid & (GRAM_ROWS - 1)), n - 1);
+#pragma unroll
+    for (int i = 0; i < XF_MAX_QUADS; ++i) {
+        if (i < nq) {
+            const size_t task = (size_t)min(task0 + (tid >> 6) + 4 * i,
+                                            t_total - 1);
+            st.w[i] = w[task * n + row];
+            st.y[i] = y[task * n + row];
+        }
+    }
+}
+
+__device__ __forceinline__ void xfit_stage(
+    const XfitStage& st, int n0, int n, int nq, int lr, int lc, bool ca_ok,
+    bool cb_ok, bool diag, int tid, float* smem, float* sW, float* sWY)
+{
+#pragma unroll
+    for (int i = 0; i < STAGE; ++i) {
+        const int r = lr + i * STAGE_STRIDE;
+        const bool row_ok = n0 + r < n;
+        smem[r * TILE + lc] = (row_ok && ca_ok) ? st.xa[i] : 0.f;
+        if (!diag)
+            smem[(GRAM_ROWS + r) * TILE + lc] =
+                (row_ok && cb_ok) ? st.xb[i] : 0.f;
+    }
+    const int r = tid & (GRAM_ROWS - 1);
+    const bool row_ok = n0 + r < n;
+#pragma unroll
+    for (int i = 0; i < XF_MAX_QUADS; ++i) {
+        if (i < nq) {
+            const int s = ((tid >> 6) + 4 * i) * XF_WSTRIDE + r;
+            sW[s] = row_ok ? st.w[i] : 0.f;
+            sWY[s] = row_ok ? st.w[i] * st.y[i] : 0.f;
+        }
+    }
+}
+
+// Multiplies out the step: group grp's 16 rows, in order, into the 4x4
+// tiles at sub-tile (sy, sx) of the first NT tasks of the thread's quad,
+// whose staged rows start at sWq / sWYq.
+template <int NT>
+__device__ __forceinline__ void xfit_step(
+    const float* sA, const float* sB, const float* sWq, const float* sWYq,
+    int grp, int sy, int sx, bool does_b, float (&acc)[XF_TASKS][4][4],
+    float (&bacc)[XF_TASKS][4])
+{
+#pragma unroll
+    for (int kk = 0; kk < GROUP_ROWS; ++kk) {
+        const int k = grp * GROUP_ROWS + kk;
+        const float4 a4 =
+            *reinterpret_cast<const float4*>(sA + k * TILE + 4 * sy);
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(sB + k * TILE + 4 * sx);
+        const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+            const float wk = sWq[t * XF_WSTRIDE + k];
+            const float a[4] = {wk * a4.x, wk * a4.y, wk * a4.z, wk * a4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    acc[t][i][j] = fmaf(a[i], b[j], acc[t][i][j]);
+        }
+        if (does_b) {
+#pragma unroll
+            for (int t = 0; t < NT; ++t) {
+                const float wy = sWYq[t * XF_WSTRIDE + k];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    bacc[t][j] = fmaf(b[j], wy, bacc[t][j]);
+            }
+        }
+    }
+}
+
+__global__ void __launch_bounds__(GRAM_THREADS)
+crossfit_gram_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ y, float* __restrict__ g,
+                     float* __restrict__ bv, int t_total, int n, int p,
+                     int n_tiles, int nq)
+{
+    // sA, then sB; reused for one task's partial tiles of groups 1..3
+    __shared__ __align__(16) float smem[2 * GRAM_ROWS * TILE];
+    __shared__ float sW[XF_TASKS * XF_MAX_QUADS * XF_WSTRIDE];
+    __shared__ float sWY[XF_TASKS * XF_MAX_QUADS * XF_WSTRIDE];
+    __shared__ float sBred[GRAM_GROUPS - 1][XF_SLOTS * 4];
+
+    // blockIdx.y walks the upper triangle of tile pairs row by row
+    int tp = blockIdx.y;
+    int ti = 0;
+    for (int len = n_tiles; tp >= len; --len) { tp -= len; ++ti; }
+    const int tj = ti + tp;
+    const bool diag = (ti == tj);
+    const float* sA = smem;
+    const float* sB = diag ? smem : smem + GRAM_ROWS * TILE;
+
+    const int tid = threadIdx.x;
+    const int task0 = blockIdx.x * XF_TASKS * nq;
+
+    // staging role: one X tile column, STAGE rows STAGE_STRIDE apart, and
+    // one row of w and y for each task quad
+    const int lc = tid & (TILE - 1);
+    const int lr = tid / TILE;
+    const int ca = ti * TILE + lc;
+    const int cb = tj * TILE + lc;
+    const bool ca_ok = ca < p, cb_ok = cb < p;
+
+    // compute role: group grp, item slot = (useful sub-tile u, quad q)
+    const int grp = tid >> 6;
+    const int slot = tid & (XF_SLOTS - 1);
+    int sy_n, sx_n;
+    const int n_sub = xfit_subtiles(ti, tj, p, sy_n, sx_n);
+    const int q = slot % nq;
+    const int tq = task0 + XF_TASKS * q;          // first task of the quad
+    const int nt = min(XF_TASKS, t_total - tq);   // its tasks below T
+    const bool active = slot < n_sub * nq && nt > 0;
+    int u = slot / nq, sy = 0;
+    if (diag) {
+        for (int len = sy_n; u >= len && len > 0; --len) { u -= len; ++sy; }
+    } else {
+        sy = u / sx_n;
+        u -= sy * sx_n;
+    }
+    const int sx = diag ? sy + u : u;
+    const bool does_b = active && diag && sy == 0;
+    const float* sWq = sW + XF_TASKS * q * XF_WSTRIDE;
+    const float* sWYq = sWY + XF_TASKS * q * XF_WSTRIDE;
+
+    float acc[XF_TASKS][4][4];
+    float bacc[XF_TASKS][4];
+#pragma unroll
+    for (int t = 0; t < XF_TASKS; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            bacc[t][i] = 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[t][i][j] = 0.f;
+        }
+
+    XfitStage st;
+    xfit_fetch(x, w, y, t_total, task0, nq, n, p, 0, lr, ca, cb, diag, tid,
+               st);
+    for (int n0 = 0; n0 < n; n0 += GRAM_ROWS) {
+        xfit_stage(st, n0, n, nq, lr, lc, ca_ok, cb_ok, diag, tid, smem, sW,
+                   sWY);
+        __syncthreads();
+        if (n0 + GRAM_ROWS < n)
+            xfit_fetch(x, w, y, t_total, task0, nq, n, p, n0 + GRAM_ROWS, lr,
+                       ca, cb, diag, tid, st);
+        if (active) {
+            if (nt == 1)
+                xfit_step<1>(sA, sB, sWq, sWYq, grp, sy, sx, does_b, acc,
+                             bacc);
+            else
+                xfit_step<XF_TASKS>(sA, sB, sWq, sWYq, grp, sy, sx, does_b,
+                                    acc, bacc);
+        }
+        __syncthreads();
+    }
+
+    // per task: add the four groups' partial tiles in batched_gram's order
+    // (the same slot holds the same item in every group)
+#pragma unroll
+    for (int t = 0; t < XF_TASKS; ++t) {
+        if (active && grp > 0) {
+            float* red = smem + ((grp - 1) * XF_SLOTS + slot) * 16;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) red[4 * i + j] = acc[t][i][j];
+            if (does_b) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    sBred[grp - 1][4 * slot + j] = bacc[t][j];
+            }
+        }
+        __syncthreads();
+        const int task = tq + t;
+        if (active && grp == 0 && task < t_total) {
+            float* gb = g + (size_t)task * p * p;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    float v = acc[t][i][j];
+#pragma unroll
+                    for (int r = 0; r < GRAM_GROUPS - 1; ++r)
+                        v += smem[(r * XF_SLOTS + slot) * 16 + 4 * i + j];
+                    const int gi = ti * TILE + 4 * sy + i;
+                    const int gj = tj * TILE + 4 * sx + j;
+                    if (gi < p && gj < p && (!diag || gi <= gj)) {
+                        gb[(size_t)gi * p + gj] = v;
+                        gb[(size_t)gj * p + gi] = v;
+                    }
+                }
+            }
+            if (does_b) {
+                float* bb = bv + (size_t)task * p;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    float v = bacc[t][j];
+#pragma unroll
+                    for (int r = 0; r < GRAM_GROUPS - 1; ++r)
+                        v += sBred[r][4 * slot + j];
+                    const int gj = tj * TILE + 4 * sx + j;
+                    if (gj < p) bb[gj] = v;
+                }
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// ---------------------------------------------------------------------------
 // batched_predict
 //
 // One thread block per (task b, PRED_ROWS consecutive rows), beta_b staged
@@ -381,6 +666,32 @@ extern "C" int repro_batched_gram_blocked(const void* xc, const void* w,
                                   (cudaStream_t)stream>>>(
         (const float*)xc, (const float*)w, (const float*)y, (float*)g,
         (float*)bv, c, nc, p, n_tiles);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int repro_crossfit_gram(const void* x, const void* w,
+                                   const void* y, void* g, void* bv,
+                                   int t, int n, int p, void* stream)
+{
+    const int n_tiles = (p + TILE - 1) / TILE;
+    const int pairs = n_tiles * (n_tiles + 1) / 2;
+    // task quads a block takes: as many as the pair with the most useful
+    // sub-tiles leaves threads for, fewer while the card is short of blocks
+    int most = 1;
+    for (int ti = 0; ti < n_tiles; ++ti)
+        for (int tj = ti; tj < n_tiles; ++tj) {
+            int sy_n, sx_n;
+            const int n_sub = xfit_subtiles(ti, tj, p, sy_n, sx_n);
+            most = n_sub > most ? n_sub : most;
+        }
+    int nq = XF_SLOTS / most < XF_MAX_QUADS ? XF_SLOTS / most : XF_MAX_QUADS;
+    while (nq > 1 && (long long)((t + XF_TASKS * nq - 1) / (XF_TASKS * nq))
+                         * pairs < XF_MIN_BLOCKS)
+        --nq;
+    const dim3 grid((t + XF_TASKS * nq - 1) / (XF_TASKS * nq), pairs);
+    crossfit_gram_kernel<<<grid, GRAM_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)w, (const float*)y, (float*)g,
+        (float*)bv, t, n, p, n_tiles, nq);
     return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Public wrappers of the megabatch kernels.
+"""Public wrappers of the Gram and predict kernels.
 
 Routing is by where the tensors lie, and by nothing else: tensors on a
 CUDA device go through the hand-written kernel (a build or a launch that
@@ -10,10 +10,29 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import crossfit_gram as crossfit_gram_mod
 from repro_torch.kernels import megabatch
+from repro_torch.kernels.crossfit_gram import check_task_rows
 from repro_torch.kernels.megabatch import check_operand, check_xc, check_xs
 
 F32 = torch.float32
+
+
+def crossfit_gram(x, w, y, reg: float = 0.0):
+    """Batched masked normal equations over one shared feature matrix.
+
+    x: (N, P); w/y: (T, N), float32 contiguous.  Returns G (T,P,P) f32 =
+    X' diag(w_t) X + reg*I and b (T,P) f32 = X'(w_t*y_t).  ``reg*I`` is
+    added after the kernel, as the reference wrapper adds it.
+    """
+    _, _, p = check_task_rows(x, w, y)
+    if x.is_cuda:
+        g, bv = crossfit_gram_mod.crossfit_gram_cuda(x, w, y)
+    else:
+        g, bv = crossfit_gram_mod.crossfit_gram_plain(x, w, y)
+    if reg:
+        g = g + reg * torch.eye(p, dtype=F32, device=x.device)
+    return g, bv
 
 
 def batched_gram(xs, w, y, reg: float = 0.0):

@@ -1,35 +1,53 @@
-"""Learner registry (megabatch forms).
+"""Learner registry.
 
-Every family registers one pure function on tensors:
+Every family registers two pure functions on tensors:
 
+  shared-X form   fn(x (N,P), y (T,N), w (T,N), key) -> preds (T,N)
+                  the fold-mask task batch over one dataset (paper: one
+                  scikit-learn fit per lambda; here: one fused call, whose
+                  normal equations are one ``crossfit_gram`` launch).
   megabatch form  fn(xs (B,N,P), y (B,N), w (B,N), valid (B,N), keys (B,2))
                   -> preds (B,N) — per-task feature pages with padding
                   masks, executed by the bucketed programs the compiler
                   (repro_torch/compile) builds.  ``keys`` is the per-task
-                  key table (segment seed, flat task id); the linear
-                  families ignore it.
+                  key table (segment seed, flat task id).
 
-``get_batched_learner`` binds hyperparameters.  ``resolve_params`` binds
-data-dependent defaults at *compile* time so padded execution is
-padding-invariant.  The linear families accept ``classify=True`` via
-params (a linear probability model for IRM/IIVM propensities).
+The families ported so far (ols, ridge, lasso, logistic) ignore ``key`` and
+``keys``.  ``get_learner`` / ``get_batched_learner`` bind hyperparameters;
+``as_batched`` adapts an opaque shared-X callable to the megabatch form.
+``resolve_params`` binds data-dependent defaults at *compile* time so
+padded execution is padding-invariant.  The linear regression families
+accept ``classify=True`` via params (a linear probability model for
+IRM/IIVM propensities).
 """
 from __future__ import annotations
 
 import functools
 from typing import Callable, Dict, Mapping
 
+import torch
+
 from repro_torch.learners.linear import (
-    lasso_batched_fit_predict, ols_batched_fit_predict,
-    ridge_batched_fit_predict,
+    lasso_batched_fit_predict, lasso_fit_predict,
+    logistic_batched_fit_predict, logistic_fit_predict,
+    ols_batched_fit_predict, ols_fit_predict, on_one_device,
+    ridge_batched_fit_predict, ridge_fit_predict,
 )
 
 LearnerFn = Callable
+
+LEARNERS: Dict[str, Callable] = {
+    "ols": ols_fit_predict,
+    "ridge": ridge_fit_predict,
+    "lasso": lasso_fit_predict,
+    "logistic": logistic_fit_predict,
+}
 
 BATCHED_LEARNERS: Dict[str, Callable] = {
     "ols": ols_batched_fit_predict,
     "ridge": ridge_batched_fit_predict,
     "lasso": lasso_batched_fit_predict,
+    "logistic": logistic_batched_fit_predict,
 }
 
 # Families whose megabatch form is invariant to zero-padded feature lanes
@@ -71,6 +89,30 @@ def _bind(table: Dict[str, Callable], name: str,
     return fn
 
 
+def get_learner(name: str, params: Mapping | None = None) -> LearnerFn:
+    """Resolve the shared-X form: fn(x, y, w, key) -> preds."""
+    return _bind(LEARNERS, name, params)
+
+
 def get_batched_learner(name: str, params: Mapping | None = None) -> LearnerFn:
     """Resolve the megabatch form: fn(xs, y, w, valid, keys) -> preds."""
     return _bind(BATCHED_LEARNERS, name, params)
+
+
+def as_batched(fn: Callable) -> Callable:
+    """Adapt an opaque shared-X learner callable to the megabatch
+    signature: lane b is ``fn(xs[b], y[b:b+1], w[b:b+1], keys[b])[0]``,
+    and the lanes' predictions are stacked.  ``valid`` is not applied, as
+    in the reference: the opaque buckets have exact shapes.
+
+    The reference maps the lanes with one ``jax.vmap``.  ``torch.func.vmap``
+    cannot trace through a kernel launched with ctypes, so here the lanes
+    are a Python loop on the device the tensors lie on: a shared-X learner
+    that launches ``crossfit_gram`` launches it once per lane (T = 1), B
+    times per block — the same math, more launches.  Operands that are not
+    tensors go to the card, so on a machine without one they raise."""
+    def batched(xs, y, w, valid, keys):
+        xs, y, w, keys = on_one_device(xs, y, w, keys)
+        return torch.stack([fn(xs[b], y[b:b + 1], w[b:b + 1], keys[b])[0]
+                            for b in range(xs.shape[0])])
+    return batched

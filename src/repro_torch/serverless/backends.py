@@ -44,7 +44,7 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass, field
 from typing import (
-    TYPE_CHECKING, Dict, List, Optional, Protocol, Sequence, Tuple,
+    TYPE_CHECKING, Callable, Dict, List, Optional, Protocol, Sequence, Tuple,
 )
 
 import numpy as np
@@ -186,9 +186,12 @@ class Segment:
 
     ``learner``/``params`` name a registry learner with compile-time
     resolved hyperparameters — the megabatch compiler buckets on them and
-    resolves the family's ``batched_fit_predict``.  ``cache_key`` is the
-    hashable spec identity — requests built from equal specs share warm
-    programs.
+    resolves the family's ``batched_fit_predict``.  ``learner_fn`` is the
+    opaque-callable path (``compile_raw_request``): such segments run a
+    shared-X callable through ``as_batched`` at exact shapes.
+    ``cache_key`` is the hashable spec identity — requests built from
+    equal specs share warm programs; when absent, buckets fall back to
+    object identity.
 
     ``key`` is the segment's integer seed: task t's key is the pair
     (key, t), fixed at compile time so no schedule can perturb the
@@ -200,10 +203,14 @@ class Segment:
     learner: Optional[str] = None
     params: Tuple = ()
     key_ref: Optional[Tuple] = None
+    learner_fn: Optional[Callable] = None
 
     @property
     def bucket_id(self):
-        return self.cache_key
+        """Value identity when the spec is known, object identity else."""
+        if self.cache_key is not None:
+            return self.cache_key
+        return ("opaque", id(self.learner_fn))
 
 
 def fingerprint_array(x) -> Tuple[str, Tuple[int, ...]]:

@@ -476,7 +476,7 @@ def test_port_file_list_is_not_empty():
     names = {p.name for p in PORT_FILES}
     assert {"runtime.py", "megabatch.py", "ops.py", "linear.py", "session.py",
             "program.py", "backends.py", "chip_smoke.py", "roofline.py",
-            "mesh.py", "gram.py"} <= names
+            "mesh.py", "gram.py", "crossfit_gram.py", "dml.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -90,7 +90,8 @@ def test_estimate_matches_reference(case):
     # the CPU path ran the plain versions: no kernel was launched
     assert runtime.launch_counts == {"batched_gram": 0,
                                      "batched_gram_blocked": 0,
-                                     "batched_predict": 0}
+                                     "batched_predict": 0,
+                                     "crossfit_gram": 0}
 
 
 def test_one_shot_estimate_equals_session_estimate():
@@ -261,7 +262,7 @@ def test_bootstrap_raises():
         repro_torch.estimate(plan, dt, device="cpu")
 
 
-@pytest.mark.parametrize("learner", ["logistic", "kernel_ridge", "mlp"])
+@pytest.mark.parametrize("learner", ["kernel_ridge", "mlp"])
 def test_unported_learners_raise_the_registry_key_error(learner):
     (_, dt), _ = _both(CASES[0])
     plan = tcore.DMLPlan.for_model("plr", learner=learner, n_folds=3,
@@ -270,10 +271,15 @@ def test_unported_learners_raise_the_registry_key_error(learner):
         repro_torch.estimate(plan, dt, device="cpu")
 
 
-def test_irm_default_propensity_needs_an_override():
+def test_irm_default_propensity_needs_no_override():
+    """The default IRM plan puts ``logistic`` on the propensity; it runs
+    with no ``overrides=`` and lands the reference's estimate."""
     raw = make_irm_data(n_obs=200, dim_x=4, seed=2)
-    plan = tcore.DMLPlan.for_model("irm", learner="ridge", n_folds=3,
-                                   n_rep=2, backend="inline")
-    assert plan.nuisances[2].learner == "logistic"
-    with pytest.raises(KeyError, match="unknown learner"):
-        repro_torch.estimate(plan, raw, device="cpu")
+    plans = [core.DMLPlan.for_model("irm", learner="ridge", n_folds=3,
+                                    n_rep=2, backend="inline")
+             for core in (tcore, rcore)]
+    assert plans[0].nuisances[2].learner == "logistic"
+    rt = repro_torch.estimate(plans[0], raw, device="cpu")
+    rj = rcore.estimate(plans[1], rcore.DMLData.from_dict(raw))
+    assert _rel(rt.theta, rj.theta) < 1e-4 and _rel(rt.se, rj.se) < 1e-4
+    np.testing.assert_allclose(rt.thetas, rj.thetas, rtol=1e-4)

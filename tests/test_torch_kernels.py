@@ -169,9 +169,11 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.batched_predict(*_t(xs, beta, valid))
     ops.batched_gram_blocked(*_t(xs.reshape(2, 2, 8, 3), w.reshape(2, 2, 8),
                                  y.reshape(2, 2, 8)))
+    ops.crossfit_gram(*_t(xs[0], w, y))
     assert runtime.launch_counts == {"batched_gram": 0,
                                      "batched_gram_blocked": 0,
-                                     "batched_predict": 0}
+                                     "batched_predict": 0,
+                                     "crossfit_gram": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "ndim"])

@@ -187,9 +187,9 @@ def test_augment_adds_the_intercept_column():
 
 def test_registry_holds_the_linear_families():
     from repro.learners import FEATURE_PAD_SAFE as jax_safe
-    assert set(BATCHED_LEARNERS) == {"ols", "ridge", "lasso"}
+    assert set(BATCHED_LEARNERS) == {"ols", "ridge", "lasso", "logistic"}
     assert FEATURE_PAD_SAFE == jax_safe
-    for name in ("logistic", "kernel_ridge", "mlp", "nope"):
+    for name in ("kernel_ridge", "mlp", "nope"):
         with pytest.raises(KeyError):
             get_batched_learner(name)
     # classify=True is accepted and ignored by the linear families
