@@ -13,24 +13,30 @@ one, and on the sharded backend at a tall one (250 000 rows, more than a
 device page: the data@1 layout and its streaming Gram kernel); the
 shared-X learners (``get_learner``, one ``crossfit_gram`` launch for the
 paper's 1000 tasks) and the opaque-learner drain (``compile_raw_request``)
-at the paper's configuration; and the default IRM plan, whose propensity
-is the logistic learner.  Every phase prints one JSON line; any failure
-raises and the process exits non-zero.  Without a CUDA device it exits
-non-zero and prints no result.  ``--phases a,b`` runs a subset (the lines
+at the paper's configuration; the default IRM plan, whose propensity is
+the logistic learner; and the language-model serving path: the full
+zamba2-7b (81 layer slots, full width, random weights from a seed) served
+through ``Engine.serve_requests``, whose prefills run the flash-attention
+and SSD-scan kernels, and its card route held against its CPU route.
+Every phase prints one JSON line; any failure raises and the process exits
+non-zero.  Without a CUDA device it exits non-zero and prints no result.  ``--phases a,b`` runs a subset (the lines
 that sum up the run are printed only by a full run).
 
 Phases: device, build, kernels, estimate_paper, estimate_wide, session,
-same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm.
+same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
+serve_zamba2, same_as_cpu_lm.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -50,21 +56,30 @@ from repro_torch.data import (                             # noqa: E402
     TRUE_EFFECT, make_bonus_data, make_irm_data, make_pliv_data,
     make_plr_data,
 )
+from repro_torch.configs import get_arch                  # noqa: E402
 from repro_torch.kernels import (                          # noqa: E402
-    build, crossfit_gram, megabatch, ops,
+    build, crossfit_gram, flash_attention, megabatch, ops, ssd_scan,
 )
 from repro_torch.launch import roofline                    # noqa: E402
 from repro_torch.learners import get_learner, linear       # noqa: E402
+from repro_torch.models import (                           # noqa: E402
+    build_model, init_tree, param_count,
+)
+from repro_torch.models.param import cast_floating, tree_map  # noqa: E402
 from repro_torch.serverless import make_backend            # noqa: E402
+from repro_torch.serving import Engine, grow_cache         # noqa: E402
 
 PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "session", "same_as_cpu", "estimate_tall", "shared_x",
-          "raw_request", "estimate_irm")
+          "raw_request", "estimate_irm", "serve_zamba2", "same_as_cpu_lm")
+LIBRARIES = ("megabatch", "lm")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
 # core) float32 FLOP/s — the kernels use plain FMA
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+# dense bf16 tensor-core rate: the least time for K5's bf16 operands
+PEAK_BF16_TC_FLOP_S = 989e12
 
 KERNELS = {
     "batched_gram": {
@@ -87,11 +102,22 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/megabatch.cu",
         "replaces": "src/repro/kernels/crossfit_gram.py:45",
     },
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lm.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+    },
+    "ssd_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lm.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:52",
+    },
 }
 # the wrapper module of each kernel (its ``<name>_cuda`` launches it)
 KERNEL_MODULES = {"batched_gram": megabatch, "batched_predict": megabatch,
                   "batched_gram_blocked": megabatch,
-                  "crossfit_gram": crossfit_gram}
+                  "crossfit_gram": crossfit_gram,
+                  "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 # (B, N, P) of every launch each driven path makes: full blocks of 32
 # lanes and the aligned tail, N and P as the bucket pads them, plus the
 # intercept column.  Each path asserts after its run that it built no
@@ -128,6 +154,45 @@ LANE_XFIT_SHAPE = (1, 5099, 18)
 XFIT_BITWISE_SHAPE = (32, 65536, 33)
 XFIT_SHAPES = (MAIN_XFIT_SHAPE, (40, 60000, 201), (5, 1003, 7),
                LANE_XFIT_SHAPE, XFIT_BITWISE_SHAPE)
+# serve_zamba2: prompts of ragged length <= SERVE_LEN, left-padded into
+# SERVE_BATCH slots, SERVE_GEN tokens generated for each
+SERVE_BATCH, SERVE_LEN, SERVE_GEN, SERVE_PROMPTS = 4, 2048, 16, 8
+# (BH, Sq, Skv, D, type, causal, window) of flash attention: serve_zamba2's
+# prefills (B 4 x 32 heads, S 2048, D 112, bf16, the config's window 32768;
+# again in float32, held at the f32 tier) and its consistency check (B 1 at S 2048, then 2049); same_as_cpu_lm's
+# reduced model (B 2 x 4 heads, S 100, D 32, window 64) and its full-width
+# group in float32 (B 1, S 512); then a window shorter than S, non-causal,
+# Sq < Skv (queries aligned to the keys' suffix) and ragged S, in both types
+MAIN_ATTN_SHAPE = (128, 2048, 2048, 112, "bf16", True, 32768)
+ATTN_SHAPES = (MAIN_ATTN_SHAPE, (128, 2048, 2048, 112, "f32", True, 32768),
+               (32, 2048, 2048, 112, "bf16", True, 32768),
+               (32, 2049, 2049, 112, "bf16", True, 32768),
+               (8, 100, 100, 32, "bf16", True, 64),
+               (32, 512, 512, 112, "f32", True, 32768),
+               (64, 1024, 1024, 112, "bf16", True, 256),
+               (64, 1024, 1024, 112, "f32", True, 256),
+               (32, 512, 512, 112, "bf16", False, None),
+               (32, 512, 512, 112, "f32", False, None),
+               (32, 64, 256, 112, "bf16", True, None),
+               (32, 64, 256, 112, "f32", True, None),
+               (16, 1000, 1000, 112, "bf16", True, 300),
+               (16, 1000, 1000, 112, "f32", True, None))
+# (BH, S, P, N, chunk, heads) of the SSD scan, for the same runs (112 SSM
+# heads of 64 a batch row, state 64, chunk 256; the reduced model 8 heads of
+# 16, state 16, chunk 16), then a ragged S; "strong" decay is la = -50
+MAIN_SSD_SHAPE = (448, 2048, 64, 64, 256, 112)
+SSD_SHAPES = ((MAIN_SSD_SHAPE, "slow"), ((112, 2048, 64, 64, 256, 112), "slow"),
+              ((112, 2049, 64, 64, 256, 112), "slow"),
+              ((16, 100, 16, 16, 16, 8), "slow"),
+              ((112, 512, 64, 64, 256, 112), "slow"),
+              ((64, 1000, 64, 64, 256, 16), "slow"),
+              ((32, 512, 64, 64, 256, 8), "strong"))
+TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+TYPE_NAMES = {v: k for k, v in TYPES.items()}
+# attention tolerance: the reference's own (tests/test_kernels.py TOL)
+ATTN_TOL = {"f32": 2e-4, "bf16": 2e-2}
+# and per element in bf16: |o - o0| <= 2 bf16 steps at |o0| + 1e-4
+BF16_ULPS = 2.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -304,6 +369,8 @@ def phase_kernels(device):
         torch.cuda.empty_cache()
     blocked, rows["batched_gram_blocked"] = _blocked_kernel_rows(device, gen)
     xfit, rows["crossfit_gram"] = _xfit_kernel_rows(device, gen)
+    attn, rows["flash_attention"] = _attn_kernel_rows(device, gen)
+    ssd, rows["ssd_scan"] = _ssd_kernel_rows(device, gen)
     emit("kernels", tolerance={
         "batched_gram": "rtol 1e-4, atol 1e-4*max|G| (the two sum over N in "
                         "different orders); G == G' exactly",
@@ -313,12 +380,19 @@ def phase_kernels(device):
                                 "the merged (B, C*Nc, P) when Nc % 64 == 0",
         "crossfit_gram": "as batched_gram; bitwise batched_gram on x "
                          "broadcast to (T, N, P) at "
-                         f"{list(XFIT_BITWISE_SHAPE)}"},
+                         f"{list(XFIT_BITWISE_SHAPE)}",
+        "flash_attention": "max abs error 2e-4 (float32), 2e-2 (bf16): "
+                           "the reference's own tolerance",
+        "ssd_scan": "y within 2e-4 of max|y|, the final state within "
+                    "2e-4 of max|state|: the reference's own tolerance"},
         timing="median of 20 single launches after 3 warm-ups, CUDA events, "
                "L2 flushed before each (ms_warm_l2: not flushed), the "
-               "device kept busy while the host enqueues",
+               "device kept busy while the host enqueues; ssd_scan's "
+               "plain_ms (2048 sequential steps): median of 5 after 1",
         kernels=sorted(KERNELS), shapes=report, blocked_shapes=blocked,
-        crossfit_shapes=xfit)
+        crossfit_shapes=xfit, attention_shapes=attn, ssd_shapes=ssd,
+        bound_rates={"bytes_s": PEAK_BYTES_S, "f32_flop_s": PEAK_F32_FLOP_S,
+                     "bf16_tensor_core_flop_s": PEAK_BF16_TC_FLOP_S})
     return rows
 
 
@@ -464,6 +538,148 @@ def _xfit_kernel_rows(device, gen):
     return report, main
 
 
+def _attn_pairs(sq, skv, causal, window):
+    """(query, key) pairs the mask leaves visible, queries aligned to the
+    keys' suffix: the work this call's inputs need."""
+    qa = np.arange(sq, dtype=np.int64) + (skv - sq)
+    lo = np.maximum(0, qa - window + 1) if window else np.zeros_like(qa)
+    hi = np.minimum(skv, qa + 1) if causal else np.full_like(qa, skv)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _attn_bound(bh, sq, skv, d, dtype, causal, window):
+    # QK' and PV: 2 D operations each per visible pair; q, k, v read once
+    # and o written once
+    flops = bh * _attn_pairs(sq, skv, causal, window) * 4 * d
+    nbytes = TYPES[dtype].itemsize * bh * d * (2 * sq + 2 * skv)
+    peak = PEAK_BF16_TC_FLOP_S if dtype == "bf16" else PEAK_F32_FLOP_S
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / peak * 1e3
+    bound = max(t_bytes, t_ops)
+    return (nbytes, flops, bound, "bytes" if t_bytes >= t_ops
+            else "operations", max(t_bytes, flops / PEAK_F32_FLOP_S * 1e3))
+
+
+def _ssd_bound(bh, s, p, n, chunk, heads):
+    # the function, not the chunked schedule (``chunk`` is tiling): per
+    # lane and row the decay of the (N, P) state (NP), the outer product
+    # b x' added to it (2NP) and y = c'S (2NP)
+    flops = bh * s * 5 * n * p
+    nbytes = 4 * (2 * bh * s * p + bh * s + 2 * (bh // heads) * s * n
+                  + bh * n * p)
+    return (nbytes, flops) + _bound_ms(nbytes, flops)
+
+
+def _bf16_ulps(o, o0):
+    """Largest |o - o0| in units of one bf16 step at |o0| (both sides are
+    float32 sums rounded to bf16 once, so a right kernel stays within a
+    step or two), with 1e-4 absolute below the smallest normal steps."""
+    _, e = torch.frexp(o0.float())
+    ulp = torch.ldexp(torch.ones_like(o0, dtype=torch.float32), e - 8)
+    return float(((o.float() - o0.float()).abs() - 1e-4).div(ulp).max())
+
+
+def _attn_kernel_rows(device, gen):
+    """Flash attention against its plain version (and, at the serve
+    path's shape, against scaled_dot_product_attention, timed only) at
+    every shape of ATTN_SHAPES."""
+    report, main = [], None
+    for shape in ATTN_SHAPES:
+        bh, sq, skv, d, dtype, causal, window = shape
+        q = torch.randn((bh, sq, d), generator=gen, device=device) \
+            .to(TYPES[dtype])
+        k = torch.randn((bh, skv, d), generator=gen, device=device) \
+            .to(TYPES[dtype])
+        v = torch.randn((bh, skv, d), generator=gen, device=device) \
+            .to(TYPES[dtype])
+        o = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        o0 = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                   window=window)
+        err = float((o.float() - o0.float()).abs().max())
+        assert torch.isfinite(o).all() and err < ATTN_TOL[dtype], \
+            ("flash_attention disagrees", shape, err)
+        # per element in bf16: the flat tier alone would pass a fault
+        # confined to the late query rows, whose outputs are small
+        ulps = _bf16_ulps(o, o0) if dtype == "bf16" else None
+        assert ulps is None or ulps <= BF16_ULPS, \
+            ("flash_attention disagrees per element", shape, ulps)
+        nbytes, flops, bound, by, bound_f32 = _attn_bound(*shape)
+        row = {
+            "max_abs_err": err, "max_abs_out": float(o0.float().abs().max()),
+            "max_err_bf16_steps": ulps,
+            "ms": _time_ms(lambda: ops.flash_attention(
+                q, k, v, causal=causal, window=window), cold=True),
+            "plain_ms": _time_ms(lambda: flash_attention.flash_attention_plain(
+                q, k, v, causal=causal, window=window), cold=True),
+            "library_ms": None,
+            "bound_ms": bound, "bound_by": by,
+            "bound_ms_at_f32_fma": bound_f32,
+            "bytes": nbytes, "operations": flops,
+        }
+        if shape == MAIN_ATTN_SHAPE:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+
+            def library():          # (1, BH, S, D): the fused backends
+                return sdpa(q[None], k[None], v[None], is_causal=True)[0]
+
+            lib_err = float((library().float() - o0.float()).abs().max())
+            assert lib_err < ATTN_TOL[dtype], ("sdpa disagrees", lib_err)
+            row["library_ms"] = _time_ms(library, cold=True)
+            row["library"] = ("scaled_dot_product_attention(is_causal=True) "
+                              "on (1, BH, S, D)")
+            main = row
+        report.append({"shape": list(shape), "flash_attention": row})
+        del q, k, v, o, o0
+        torch.cuda.empty_cache()
+    return report, main
+
+
+def _ssd_kernel_rows(device, gen):
+    """The SSD scan against its plain sequential version — y and the final
+    state — at every shape of SSD_SHAPES.  No single PyTorch call computes
+    the scan: library_ms is None."""
+    report, main = [], None
+    for shape, decay in SSD_SHAPES:
+        bh, s, p, n, chunk, heads = shape
+        x = torch.randn((bh, s, p), generator=gen, device=device)
+        if decay == "strong":
+            la = torch.full((bh, s), -50.0, device=device)
+        else:
+            la = -0.1 * torch.rand((bh, s), generator=gen, device=device)
+        bm = torch.randn((bh // heads, s, n), generator=gen, device=device)
+        cm = torch.randn((bh // heads, s, n), generator=gen, device=device)
+        y, st = ops.ssd_scan(x, la, bm, cm, chunk=chunk, heads=heads)
+        torch.cuda.synchronize()
+        y0, st0 = ssd_scan.ssd_scan_plain(x, la, bm, cm, heads=heads)
+        err_y = float((y - y0).abs().max())
+        err_s = float((st - st0).abs().max())
+        scale_y = float(y0.abs().max())
+        scale_s = float(st0.abs().max())
+        assert err_y <= 2e-4 * scale_y and err_s <= 2e-4 * scale_s, \
+            ("ssd_scan disagrees", shape, decay, err_y, scale_y, err_s,
+             scale_s)
+        nbytes, flops, bound, by = _ssd_bound(*shape)
+        row = {
+            "decay": decay, "max_abs_err": max(err_y, err_s),
+            "max_abs_err_y": err_y, "max_abs_y": scale_y,
+            "max_abs_err_state": err_s, "max_abs_state": scale_s,
+            "ms": _time_ms(lambda: ops.ssd_scan(x, la, bm, cm, chunk=chunk,
+                                                heads=heads), cold=True),
+            "plain_ms": None, "library_ms": None,
+            "bound_ms": bound, "bound_by": by,
+            "bytes": nbytes, "operations": flops,
+        }
+        if shape == MAIN_SSD_SHAPE:
+            row["plain_ms"] = _time_ms(lambda: ssd_scan.ssd_scan_plain(
+                x, la, bm, cm, heads=heads), cold=True, runs=5, warmup=1)
+            main = row
+        report.append({"shape": list(shape), "ssd_scan": row})
+        del x, la, bm, cm, y, st, y0, st0
+        torch.cuda.empty_cache()
+    return report, main
+
+
 def _compared_shapes(cache, path):
     """Every program the path built ran the kernels at a shape the
     kernels phase compared (the learners add the intercept column)."""
@@ -514,7 +730,8 @@ def phase_estimate_paper(device):
     launches = dict(runtime.launch_counts)
     _checked(res, None, device, TRUE_EFFECT, "estimate_paper")
     assert launches == {"batched_gram": 32, "batched_gram_blocked": 0,
-                        "batched_predict": 32, "crossfit_gram": 0}, launches
+                        "batched_predict": 32, "crossfit_gram": 0,
+                        "flash_attention": 0, "ssd_scan": 0}, launches
     stats = backend.compiler.stats.summary()
     _compared_shapes(backend.compiler, "estimate_paper")
 
@@ -638,9 +855,11 @@ def phase_same_as_cpu(device):
         _compared_shapes(sess.backend.compiler, "same_as_cpu")
     (rc, pc, lc), (rg, pg, lg) = got["cpu"], got["card"]
     assert lc == {"batched_gram": 0, "batched_gram_blocked": 0,
-                  "batched_predict": 0, "crossfit_gram": 0}, lc
+                  "batched_predict": 0, "crossfit_gram": 0,
+                  "flash_attention": 0, "ssd_scan": 0}, lc
     assert lg == {"batched_gram": 2, "batched_gram_blocked": 0,
-                  "batched_predict": 2, "crossfit_gram": 0}, lg
+                  "batched_predict": 2, "crossfit_gram": 0,
+                  "flash_attention": 0, "ssd_scan": 0}, lg
     np.testing.assert_allclose(pg, pc, rtol=1e-4, atol=1e-5)
     rel_theta = abs(rg.theta - rc.theta) / abs(rc.theta)
     rel_se = abs(rg.se - rc.se) / rc.se
@@ -662,12 +881,19 @@ def _launch_shapes():
             for name in KERNELS}
 
     def recorder(name):
-        def call(operand, *args):
+        def call(operand, *args, **kw):
             shape = tuple(operand.shape)
             if name == "crossfit_gram":         # (T,) of w, then x's (N, P)
                 shape = (int(args[0].shape[0]),) + shape
+            elif name == "flash_attention":     # ATTN_SHAPES' key
+                shape = (shape[0], shape[1], int(args[0].shape[1]), shape[2],
+                         TYPE_NAMES[operand.dtype], bool(kw["causal"]),
+                         kw["window"])
+            elif name == "ssd_scan":            # SSD_SHAPES' key
+                shape = shape + (int(args[1].shape[-1]), int(kw["chunk"]),
+                                 int(kw["heads"]))
             seen[name].add(shape)
-            return real[name](operand, *args)
+            return real[name](operand, *args, **kw)
         return call
 
     for name in KERNELS:
@@ -684,7 +910,9 @@ def _launches_compared(seen, what):
     compared."""
     compared = {"batched_gram": set(SHAPES), "batched_predict": set(SHAPES),
                 "batched_gram_blocked": set(BLOCKED_SHAPES),
-                "crossfit_gram": set(XFIT_SHAPES)}
+                "crossfit_gram": set(XFIT_SHAPES),
+                "flash_attention": set(ATTN_SHAPES),
+                "ssd_scan": {shape for shape, _ in SSD_SHAPES}}
     for name, shapes in seen.items():
         assert shapes <= compared[name], \
             f"{what}: {name} launched at {sorted(shapes - compared[name])}"
@@ -856,8 +1084,8 @@ def phase_shared_x(device):
         first_ms = (time.perf_counter() - t0) * 1e3
         launches = dict(runtime.launch_counts)
         assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
-                            "batched_predict": 0, "crossfit_gram": 1}, \
-            launches
+                            "batched_predict": 0, "crossfit_gram": 1,
+                            "flash_attention": 0, "ssd_scan": 0}, launches
         assert seen["crossfit_gram"] == {MAIN_XFIT_SHAPE}, seen
         _launches_compared(seen, f"shared_x/{learner}")
         total += launches["crossfit_gram"]
@@ -918,7 +1146,8 @@ def phase_raw_request(device):
     stats = backend.compiler.stats.summary()
     lanes = stats["padded_tasks"]              # live and padding lanes
     assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
-                        "batched_predict": 0, "crossfit_gram": lanes}, \
+                        "batched_predict": 0, "crossfit_gram": lanes,
+                        "flash_attention": 0, "ssd_scan": 0}, \
         (launches, lanes)
     assert seen["crossfit_gram"] == {LANE_XFIT_SHAPE}, seen
     _launches_compared(seen, "raw_request")
@@ -980,6 +1209,223 @@ def phase_estimate_irm(device):
          tolerance="card vs CPU: theta and se 1e-4 relative")
 
 
+LM_SEED = 20241115
+
+
+def _card_copy(tree, device):
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _logit_recorder(bundle):
+    """Wrap the bundle's prefill and decode so that every step records,
+    on the device, whether all its logits are finite."""
+    flags = []
+    prefill, decode = bundle.prefill_fn, bundle.decode_fn
+
+    def prefill_fn(params, batch):
+        logits, cache = prefill(params, batch)
+        flags.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    def decode_fn(params, cache, batch):
+        logits, cache = decode(params, cache, batch)
+        flags.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    bundle.prefill_fn, bundle.decode_fn = prefill_fn, decode_fn
+    return flags
+
+
+def _consistency(bundle, params, prompt, device):
+    """The reference's prefill/decode check (tests/test_models_smoke.py):
+    the greedy token of prefill(prompt), decoded once from the cache,
+    against prefill(prompt + token): the same argmax, logits within the
+    hybrid tier, 0.10 of max|logits|."""
+    cfg = bundle.arch
+    tokens = torch.as_tensor(prompt[None], dtype=torch.int32, device=device)
+    with torch.inference_mode():
+        logits1, cache = bundle.prefill_fn(params, {"tokens": tokens})
+        cache = grow_cache(cfg, cache, 4)
+        tok = torch.argmax(logits1, dim=-1)[:, None].to(torch.int32)
+        logits2, _ = bundle.decode_fn(params, cache, {"tokens": tok})
+        del cache
+        logits3, _ = bundle.prefill_fn(
+            params, {"tokens": torch.cat([tokens, tok], dim=1)})
+    a, b = logits2.float().cpu().numpy(), logits3.float().cpu().numpy()
+    assert np.isfinite(a).all() and np.isfinite(b).all() and \
+        np.isfinite(logits1.float().cpu().numpy()).all()
+    rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1.0))
+    same = bool((a.argmax(-1) == b.argmax(-1)).all())
+    assert same, ("prefill/decode argmax differs", a.argmax(-1),
+                  b.argmax(-1))
+    assert rel < 0.10, ("prefill/decode logits differ", rel)
+    return {"prompt_len": int(prompt.shape[0]), "same_argmax": same,
+            "max_abs_diff_over_max_abs_logits": rel,
+            "max_abs_logits": float(np.abs(b).max())}
+
+
+def phase_serve_zamba2(device):
+    """The LM serving path at full width and depth: zamba2-7b (81 slots:
+    13 groups of 5 Mamba2 blocks and the shared attention block, 3 tail
+    blocks), bf16 weights drawn on the card from a seeded generator,
+    ``Engine.serve_requests`` over 8 prompts of ragged length <= 2048 in
+    slots of 4 (2 prefills, 30 decode steps).  Launch counts are set to 0
+    just before the serve and read just after."""
+    cfg = get_arch("zamba2-7b")
+    bundle = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = init_tree(bundle.decls, gen, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = torch.cuda.memory_allocated()
+    engine = Engine(bundle, params, device=device)
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(SERVE_LEN // 2, SERVE_LEN + 1, size=SERVE_PROMPTS)
+    lens[0] = SERVE_LEN
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lens]
+    flags = _logit_recorder(bundle)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _launch_shapes() as seen:
+        results = engine.serve_requests(prompts, batch_size=SERVE_BATCH,
+                                        prompt_len=SERVE_LEN,
+                                        n_gen=SERVE_GEN)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    n_bursts = -(-SERVE_PROMPTS // SERVE_BATCH)
+    # a prefill applies the shared block 13 times and runs 13 x 5 + 3 = 68
+    # Mamba2 blocks: 26 and 136 launches over the two prefills
+    groups = cfg.n_layers // cfg.shared_attn_every
+    n_mamba = cfg.n_layers - groups
+    assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
+                        "batched_predict": 0, "crossfit_gram": 0,
+                        "flash_attention": n_bursts * groups,
+                        "ssd_scan": n_bursts * n_mamba}, launches
+    _launches_compared(seen, "serve_zamba2")
+    assert bool(torch.stack(flags).all()), "serve_zamba2: a logit is not finite"
+    assert len(flags) == n_bursts * SERVE_GEN
+    assert len(results) == SERVE_PROMPTS and all(
+        r.shape == (SERVE_GEN,) and r.min() >= 0 and r.max() < cfg.vocab_size
+        for r in results)
+    bursts = [{"prefill_s": r.prefill_s, "decode_s": r.decode_s,
+               "decode_tokens_per_s": r.tokens_per_s,
+               "prefill_tokens_per_s": SERVE_BATCH * SERVE_LEN / r.prefill_s}
+              for r in engine.last_results]
+    consistency = _consistency(bundle, params, prompts[0], device)
+    emit("serve_zamba2", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, params=param_count(bundle.decls),
+         param_bytes_on_card=param_bytes, init_s=init_s,
+         prompts=SERVE_PROMPTS, prompt_lens=[int(n) for n in lens],
+         batch=SERVE_BATCH, prompt_len=SERVE_LEN, n_gen=SERVE_GEN,
+         wall_s=wall, bursts=bursts, peak_device_bytes=peak,
+         launches=launches,
+         launch_shapes={k: sorted(map(str, v)) for k, v in seen.items() if v},
+         consistency=consistency,
+         first_tokens=[r[:4].tolist() for r in results])
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _lm_run(bundle, params, tokens, device, n_decode, feed=None):
+    """Prefill, then ``n_decode`` greedy decode steps (fed ``feed``'s
+    tokens when given: teacher forcing).  Returns the logits of each step,
+    the tokens fed, the prefill cache's states and the launch counts."""
+    cfg = bundle.arch
+    runtime.reset_launch_counts()
+    with torch.inference_mode():
+        toks = torch.as_tensor(tokens, device=device)
+        logits, cache = bundle.prefill_fn(params, {"tokens": toks})
+        # copies: decode updates the cache in place
+        states = {"m_ssm": cache["m_ssm"].to("cpu", torch.float32, copy=True),
+                  "k": cache["shared_kv"]["k"].to("cpu", torch.float32,
+                                                  copy=True)}
+        cache = grow_cache(cfg, cache, n_decode)
+        out, fed = [logits.float().cpu()], []
+        for i in range(n_decode):
+            tok = torch.argmax(out[-1], dim=-1)[:, None].to(torch.int32) \
+                if feed is None else feed[i]
+            fed.append(tok)
+            logits, cache = bundle.decode_fn(params, cache,
+                                             {"tokens": tok.to(device)})
+            out.append(logits.float().cpu())
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, fed, states, dict(runtime.launch_counts)
+
+
+def _lm_compare(cpu, card, tier, what):
+    (lc, _, sc, _), (lg, _, sg, _) = cpu, card
+    diffs = [float((g - c).abs().max() / c.abs().max()) for c, g in
+             zip(lc, lg)]
+    same = [bool((g.argmax(-1) == c.argmax(-1)).all()) for c, g in
+            zip(lc, lg)]
+    state = {k: float((sg[k] - sc[k]).abs().max() / sc[k].abs().max())
+             for k in sc}
+    assert all(np.isfinite(diffs)) and max(diffs) < tier and all(same), \
+        (what, diffs, same)
+    assert max(state.values()) < tier, (what, state)
+    return {"logits_rel_err_by_step": diffs, "same_argmax_by_step": same,
+            "state_rel_err": state, "tier": tier}
+
+
+def phase_same_as_cpu_lm(device):
+    """The card route (K5, K6) against the CPU route (the reference's jnp
+    math, ported) on the same parameters and tokens.  (a) the reduced
+    zamba2 (d 64, window 64, chunk 16) at S 100, so that the window, a
+    ragged SSD chunk and a ragged attention chunk are live, in bf16 as
+    declared: prefill and two decode steps.  (b) full width with the depth
+    cut to one group (6 slots: 5 Mamba2 blocks and the shared block), B 1,
+    S 512, parameters cast to float32 on both sides.  Decode steps are fed
+    the CPU's greedy tokens on both sides."""
+    out = {}
+    rng = np.random.default_rng(LM_SEED)
+    cases = (
+        ("reduced_bf16", get_arch("zamba2-7b", reduced=True), 2, 100, None,
+         32, 0.08),
+        ("full_width_one_group_f32",
+         dataclasses.replace(get_arch("zamba2-7b"), n_layers=6), 1, 512,
+         torch.float32, 1024, 1e-3),
+    )
+    for name, cfg, batch, seq, cast, attn_chunk, tier in cases:
+        bundle = build_model(cfg, attn_chunk=attn_chunk)
+        t0 = time.perf_counter()
+        params = init_tree(bundle.decls,
+                           torch.Generator().manual_seed(LM_SEED), "cpu")
+        if cast is not None:
+            params = cast_floating(params, cast)
+        tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+        cpu = _lm_run(bundle, params, tokens, torch.device("cpu"), 2)
+        cpu_s = time.perf_counter() - t0
+        card = _lm_run(bundle, _card_copy(params, device), tokens, device, 2,
+                       feed=cpu[1])
+        groups = cfg.n_layers // cfg.shared_attn_every
+        n_mamba = cfg.n_layers - groups
+        assert not any(cpu[3].values()), cpu[3]
+        assert card[3]["flash_attention"] == groups and \
+            card[3]["ssd_scan"] == n_mamba, card[3]
+        out[name] = {"batch": batch, "seq": seq, "n_layers": cfg.n_layers,
+                     "d_model": cfg.d_model,
+                     "dtype": "float32" if cast else "bf16 as declared",
+                     "cpu_side_s": cpu_s, "card_launches": card[3],
+                     **_lm_compare(cpu, card, tier, name)}
+        del params, cpu, card
+        torch.cuda.empty_cache()
+    emit("same_as_cpu_lm", cases=out,
+         cut="(b): depth 81 -> 6 slots (one group), B 1, S 512, to keep the "
+             "CPU side under a minute",
+         tolerance="logits and prefill states (m_ssm, shared k) within the "
+                   "tier of max|CPU|, the same argmax at every step: (a) "
+                   "0.08 (bf16), (b) 1e-3 (float32)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1012,11 +1458,20 @@ def main(argv=None) -> int:
              count=torch.cuda.device_count())
     if "build" in phases:
         t0 = time.perf_counter()
-        build.load_library("megabatch", verbose=args.verbose_build)
-        nvcc_s, path = build.build_log["megabatch"]
-        emit("build", library=str(Path(path).relative_to(ROOT))
-             if Path(path).is_relative_to(ROOT) else path,
-             nvcc_s=nvcc_s, build_and_load_s=time.perf_counter() - t0)
+        # one nvcc per source, all started together
+        with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+            list(pool.map(lambda name: build.build_library(
+                name, verbose=args.verbose_build), LIBRARIES))
+        libraries = {}
+        for name in LIBRARIES:
+            build.load_library(name)
+            nvcc_s, path = build.build_log[name]
+            libraries[name] = {
+                "library": str(Path(path).relative_to(ROOT))
+                if Path(path).is_relative_to(ROOT) else path,
+                "nvcc_s": nvcc_s}
+        emit("build", libraries=libraries,
+             build_and_load_s=time.perf_counter() - t0)
     rows, launches = None, None
     if "kernels" in phases:
         rows = phase_kernels(device)
@@ -1040,6 +1495,13 @@ def main(argv=None) -> int:
         phase_raw_request(device)
     if "estimate_irm" in phases:
         phase_estimate_irm(device)
+    if "serve_zamba2" in phases:
+        served = phase_serve_zamba2(device)
+        if launches is not None:
+            for name in ("flash_attention", "ssd_scan"):
+                launches[name] = served[name]
+    if "same_as_cpu_lm" in phases:
+        phase_same_as_cpu_lm(device)
 
     if phases != list(PHASES):
         print(json.dumps({"ok": False, "partial": phases,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where one estimation request spends its time on the card.
+"""Where one estimation request — or one served burst of zamba2-7b —
+spends its time on the card.
 
-    python3 scripts/profile_torch_estimate.py [--config paper|tall|irm]
-                                              [--n-rep M] [--out DIR]
+    python3 scripts/profile_torch_estimate.py
+        [--config paper|tall|irm|zamba2] [--n-rep M] [--out DIR]
 
 Drives one of the port's paths through ``estimate`` — ``paper``: the
 paper's configuration (PLR on the bonus data, K = 5, ridge, M 100) on the
@@ -17,8 +18,14 @@ drained), the device's busy time summed over kernels and copies, its
 idle share, and the device time and launches by kernel name.  For
 ``irm`` it also traces one 32-lane logistic block alone (the IRLS
 program at the request's bucket shape) and counts its launches.
-Needs a CUDA device; exits non-zero without one.  ``--out`` also writes
-the Chrome trace there.
+``zamba2``: the full zamba2-7b (bf16 weights from a seed) serving one
+burst at ``chip_smoke.py``'s serve shape (B 4, prompts of 2048 tokens, 16
+generated): one warm ``Engine.generate``, then its prefill and its 15
+decode steps traced apart, each with its wall time, device busy time, idle
+share and launches, and the device time split into the flash-attention
+kernel, the SSD-scan kernel, matrix products (cuBLAS/CUTLASS) and the
+rest.  Needs a CUDA device; exits non-zero without one.  ``--out`` also
+writes the Chrome trace there.
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ from repro_torch.data import (                             # noqa: E402
 )
 from repro_torch.learners import get_batched_learner       # noqa: E402
 from repro_torch.serverless import make_backend            # noqa: E402
+
+GEMM_MARKS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "gemv", "nvjet")
 
 
 def _device_rows(prof):
@@ -84,9 +93,87 @@ def _irls_block(data):
             "launches": sum(r["calls"] for r in rows), "by_kernel": rows}
 
 
+def _busy(rows, wall_s):
+    busy_ms = sum(r["device_ms"] for r in rows)
+    if not rows:
+        return {"device_busy_ms": "not measured",
+                "device_idle_share": "not measured"}
+    split = {"flash_attention": 0.0, "ssd_scan": 0.0, "matmul": 0.0,
+             "other": 0.0}
+    for r in rows:
+        name = r["name"].lower()
+        if "flash_attention_kernel" in name:
+            split["flash_attention"] += r["device_ms"]
+        elif "ssd_scan_kernel" in name:
+            split["ssd_scan"] += r["device_ms"]
+        elif any(m in name for m in GEMM_MARKS):
+            split["matmul"] += r["device_ms"]
+        else:
+            split["other"] += r["device_ms"]
+    return {"wall_s": wall_s, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / 1e3 / wall_s,
+            "device_launches": sum(r["calls"] for r in rows),
+            "device_ms_by_kind": split, "by_kernel": rows[:25]}
+
+
+def _zamba2(smi, out_dir):
+    """One warm burst of the full zamba2-7b, prefill and decode traced
+    apart."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, init_tree
+    from repro_torch.serving import Engine, grow_cache
+    import numpy as np
+
+    batch, prompt_len, n_gen = 4, 2048, 16
+    cfg = get_arch("zamba2-7b")
+    bundle = build_model(cfg)
+    params = init_tree(bundle.decls,
+                       torch.Generator(device="cuda").manual_seed(20241115),
+                       "cuda")
+    engine = Engine(bundle, params)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    warm = engine.generate({"tokens": tokens}, n_gen=n_gen)
+    toks = torch.as_tensor(tokens, device="cuda")
+    out = {"card": smi, "config": "zamba2", "arch": cfg.name,
+           "batch": batch, "prompt_len": prompt_len, "n_gen": n_gen,
+           "warm_generate": {"prefill_s": warm.prefill_s,
+                             "decode_s": warm.decode_s,
+                             "decode_tokens_per_s": warm.tokens_per_s}}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_p:
+            t0 = time.perf_counter()
+            logits, cache = bundle.prefill_fn(params, {"tokens": toks})
+            cache = grow_cache(cfg, cache, n_gen)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_d:
+            t0 = time.perf_counter()
+            for _ in range(n_gen - 1):
+                logits, cache = bundle.decode_fn(params, cache,
+                                                 {"tokens": tok})
+                tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+    out["prefill"] = _busy(_device_rows(prof_p), prefill_s)
+    out["decode"] = _busy(_device_rows(prof_d), decode_s)
+    out["decode"]["steps"] = n_gen - 1
+    if out_dir:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        prof_p.export_chrome_trace(str(Path(out_dir)
+                                       / "zamba2_prefill_trace.json"))
+        prof_d.export_chrome_trace(str(Path(out_dir)
+                                       / "zamba2_decode_trace.json"))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", choices=("paper", "tall", "irm"),
+    ap.add_argument("--config", choices=("paper", "tall", "irm", "zamba2"),
                     default="paper")
     ap.add_argument("--n-rep", type=int, default=None,
                     help="repetitions M (default: 100 paper, 10 tall, irm)")
@@ -99,6 +186,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    if args.config == "zamba2":
+        print(json.dumps(_zamba2(smi, args.out), indent=1))
+        return 0
     model = "plr"
     if args.config == "paper":
         data = DMLData.from_dict(make_bonus_data())

@@ -6,7 +6,8 @@ compiles a source for ``sm_90a`` at first use into
 ``build/repro_torch/lib<name>-<hash of the source>.so`` (an edit to the
 source changes the name, hence rebuilds), loads it with ``ctypes`` and
 sets the ``argtypes`` of its entry points: ``c_void_p`` for every pointer
-and for the stream, ``c_int`` for sizes.
+and for the stream, ``c_int`` for sizes and flags, ``c_float`` for a
+scale.
 
 A build or a load that fails raises; nothing here gives way to a plain
 PyTorch version.
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library name -> {entry point: argtypes}; every entry point returns the
 # launch's cudaError_t as an int
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
@@ -46,6 +47,15 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # xs, beta, valid, out, B, N, P, stream
         "repro_batched_predict": (_PTR, _PTR, _PTR, _PTR,
                                   _INT, _INT, _INT, _PTR),
+    },
+    "lm": {
+        # q, k, v, o, BH, Sq, Skv, D, causal, window (-1: none), scale,
+        # is_bf16, stream
+        "repro_flash_attention": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                                  _INT, _INT, _INT, _FLT, _INT, _PTR),
+        # xbar, la, bm, cm, y, state, BH, S, P, N, chunk, heads, stream
+        "repro_ssd_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+                           _INT, _INT, _INT, _INT, _PTR),
     },
 }
 

@@ -1,4 +1,4 @@
-"""Public wrappers of the Gram and predict kernels.
+"""Public wrappers of the Gram, predict, attention and SSD-scan kernels.
 
 Routing is by where the tensors lie, and by nothing else: tensors on a
 CUDA device go through the hand-written kernel (a build or a launch that
@@ -8,10 +8,14 @@ on one device.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import crossfit_gram as crossfit_gram_mod
+from repro_torch.kernels import flash_attention as flash_attention_mod
 from repro_torch.kernels import megabatch
+from repro_torch.kernels import ssd_scan as ssd_scan_mod
 from repro_torch.kernels.crossfit_gram import check_task_rows
 from repro_torch.kernels.megabatch import check_operand, check_xc, check_xs
 
@@ -118,3 +122,28 @@ def batched_predict(xs, beta, valid):
     if xs.is_cuda:
         return megabatch.batched_predict_cuda(xs, beta, valid)
     return megabatch.batched_predict_plain(xs, beta, valid)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None):
+    """Forward attention over folded heads: q (BH, Sq, D), k/v (BH, Skv,
+    D), float32 or bfloat16, queries aligned to the keys' suffix.  Returns
+    (BH, Sq, D) in q's type."""
+    flash_attention_mod.check_qkv(q, k, v, window)
+    if q.is_cuda:
+        return flash_attention_mod.flash_attention_cuda(
+            q, k, v, causal=causal, window=window)
+    return flash_attention_mod.flash_attention_plain(
+        q, k, v, causal=causal, window=window)
+
+
+def ssd_scan(xbar, la, bm, cm, *, chunk: int = 256, heads: int = 1):
+    """Mamba-2 SSD scan: xbar (BH, S, P), la (BH, S), bm/cm (BH / heads,
+    S, N), float32.  Returns (y (BH, S, P), final state (BH, N, P)).  The
+    plain version steps through time; ``chunk`` is the kernel's tiling and
+    does not change the function."""
+    ssd_scan_mod.check_ssd(xbar, la, bm, cm, chunk, heads)
+    if xbar.is_cuda:
+        return ssd_scan_mod.ssd_scan_cuda(xbar, la, bm, cm, chunk=chunk,
+                                          heads=heads)
+    return ssd_scan_mod.ssd_scan_plain(xbar, la, bm, cm, heads=heads)

@@ -25,10 +25,12 @@ if torch.backends.cuda.matmul.allow_tf32 is not False:
 
 DeviceLike = Union[str, torch.device]
 
-# kernel name -> launches since the last reset (see kernels/megabatch.py
-# and kernels/crossfit_gram.py)
+# kernel name -> launches since the last reset (see kernels/megabatch.py,
+# kernels/crossfit_gram.py, kernels/flash_attention.py and
+# kernels/ssd_scan.py)
 launch_counts: Dict[str, int] = {"batched_gram": 0, "batched_gram_blocked": 0,
-                                 "batched_predict": 0, "crossfit_gram": 0}
+                                 "batched_predict": 0, "crossfit_gram": 0,
+                                 "flash_attention": 0, "ssd_scan": 0}
 
 
 def reset_launch_counts() -> None:

@@ -91,7 +91,9 @@ def test_estimate_matches_reference(case):
     assert runtime.launch_counts == {"batched_gram": 0,
                                      "batched_gram_blocked": 0,
                                      "batched_predict": 0,
-                                     "crossfit_gram": 0}
+                                     "crossfit_gram": 0,
+                                     "flash_attention": 0,
+                                     "ssd_scan": 0}
 
 
 def test_one_shot_estimate_equals_session_estimate():

@@ -173,7 +173,9 @@ def test_cpu_tensors_never_launch_a_kernel():
     assert runtime.launch_counts == {"batched_gram": 0,
                                      "batched_gram_blocked": 0,
                                      "batched_predict": 0,
-                                     "crossfit_gram": 0}
+                                     "crossfit_gram": 0,
+                                     "flash_attention": 0,
+                                     "ssd_scan": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "ndim"])

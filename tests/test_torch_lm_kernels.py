@@ -1,0 +1,274 @@
+"""The port's attention (K5) and SSD-scan (K6) kernel wrappers against the
+JAX package's.
+
+On the CPU the port's ``ops`` wrappers run each kernel's plain PyTorch
+version; the reference side runs the Pallas kernels in interpret mode and
+the jnp oracles of ``repro.kernels.ref``, on the reference's own sweeps.
+Inputs come from numpy with a seed; bf16 inputs are rounded from the same
+float32 arrays on both sides.  Tolerances are the reference's own
+(``tests/test_kernels.py``): max abs error 2e-4 in float32 and 2e-2 in
+bf16 for attention; 2e-4 of max|y| for the scan (and of max|state| for its
+final state).  The card's routes — heads folded into the kernels' lanes,
+bm/cm shared by the heads of a batch row — are exercised here too: on CPU
+tensors ``ops`` hands the folded operands to the plain versions.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.ssd_scan import ssd_scan_pallas
+from repro_torch import runtime
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd_mod
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+
+TOL = {"f32": 2e-4, "bf16": 2e-2}
+JT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+TT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _pair(a, dtype):
+    """The same float32 numpy array as a jax and a torch array of
+    ``dtype`` (both round to nearest even)."""
+    return (jnp.asarray(a).astype(JT[dtype]),
+            torch.from_numpy(a).to(TT[dtype]))
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (K5)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("sq,skv,d,bq,bk", [
+    (128, 128, 32, 64, 64), (256, 256, 64, 64, 128),
+    (64, 256, 32, 32, 64),                       # chunked-prefill shape
+])
+@pytest.mark.parametrize("causal,window", [
+    (True, None), (True, 48), (False, None),
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_plain_matches_reference(sq, skv, d, bq, bk, causal,
+                                                 window, dtype):
+    rng = np.random.default_rng(sq + skv + d)
+    jq, tq = _pair(rng.standard_normal((3, sq, d), dtype=np.float32), dtype)
+    jk, tk = _pair(rng.standard_normal((3, skv, d), dtype=np.float32), dtype)
+    jv, tv = _pair(rng.standard_normal((3, skv, d), dtype=np.float32), dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == TT[dtype] and got.shape == (3, sq, d)
+    want = ref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    pallas = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                    block_q=bq, block_k=bk, interpret=True)
+    assert np.abs(_f32(got) - _f32(want)).max() < TOL[dtype]
+    assert np.abs(_f32(got) - _f32(pallas)).max() < TOL[dtype]
+    plain = fa_mod.flash_attention_plain(tq, tk, tv, causal=causal,
+                                         window=window)
+    assert torch.equal(got, plain)
+
+
+def test_flash_attention_uniform_values():
+    """With identical V rows the output equals V regardless of scores."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 64, 16), dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 64, 16), dtype=np.float32))
+    v = torch.arange(16, dtype=torch.float32).expand(2, 64, 16).contiguous()
+    o = ops.flash_attention(q, k, v, causal=True, window=None)
+    torch.testing.assert_close(o, v, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None), (False, 16)])
+def test_card_attention_route_matches_attention_core(causal, window):
+    """The card's route (heads folded into BH, the suffix-aligned kernel
+    contract) against the reference's chunked jnp math on the CPU."""
+    rng = np.random.default_rng(7)
+    b, s, h, d = 2, 100, 4, 32
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d),
+                                                    dtype=np.float32))
+               for _ in range(3))
+    pos = torch.arange(s, dtype=torch.int32).expand(b, s)
+    got = L.flash_attention_heads(q, k, v, None, causal=causal,
+                                  window=window)
+    for chunk in (32, 1024):
+        want = L.attention_core(q, k, v, pos, pos, causal=causal,
+                                window=window, chunk=chunk)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_card_attention_route_refuses_other_positions():
+    """The route takes only positions=None (arange(S)): a positions tensor
+    and keys of another length raise."""
+    q = torch.zeros((1, 8, 2, 16))
+    shifted = torch.arange(8, dtype=torch.int32)[None] + 3
+    with pytest.raises(ValueError, match="arange"):
+        L.flash_attention_heads(q, q, q, shifted, causal=True, window=None)
+    with pytest.raises(ValueError, match="arange"):
+        L.flash_attention_heads(q, torch.zeros((1, 9, 2, 16)),
+                                torch.zeros((1, 9, 2, 16)), causal=True,
+                                window=None)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan (K6)
+# ---------------------------------------------------------------------------
+def _ssd_inputs(rng, bh, s, p, n, groups=None, decay=2.0):
+    g = bh if groups is None else groups
+    xb = rng.standard_normal((bh, s, p), dtype=np.float32)
+    la = (-rng.random((bh, s)) * decay).astype(np.float32)
+    bm = rng.standard_normal((g, s, n), dtype=np.float32)
+    cm = rng.standard_normal((g, s, n), dtype=np.float32)
+    return xb, la, bm, cm
+
+
+@pytest.mark.parametrize("s,p,n,chunk", [
+    (128, 16, 8, 32), (256, 64, 16, 64), (64, 32, 32, 64),
+])
+def test_ssd_scan_plain_matches_reference(s, p, n, chunk):
+    rng = np.random.default_rng(s + p + n)
+    xb, la, bm, cm = _ssd_inputs(rng, 2, s, p, n)
+    y, state = ops.ssd_scan(*map(torch.from_numpy, (xb, la, bm, cm)),
+                            chunk=chunk)
+    assert y.shape == (2, s, p) and state.shape == (2, n, p)
+    y0, state0 = ref.ssd_scan_ref(*map(jnp.asarray, (xb, la, bm, cm)))
+    y0, state0 = np.asarray(y0), np.asarray(state0)
+    scale = max(np.abs(y0).max(), 1.0)
+    assert np.abs(y.numpy() - y0).max() / scale < 2e-4
+    sscale = max(np.abs(state0).max(), 1.0)
+    assert np.abs(state.numpy() - state0).max() / sscale < 2e-4
+    yp = np.asarray(ssd_scan_pallas(*map(jnp.asarray, (xb, la, bm, cm)),
+                                    chunk=chunk, interpret=True))
+    assert np.abs(y.numpy() - yp).max() / scale < 2e-4
+
+
+@pytest.mark.parametrize("heads", [2, 4])
+def test_ssd_scan_shared_bc_matches_broadcast(heads):
+    """bm/cm (BH/heads, S, N) shared by a row's heads == the broadcast
+    (BH, S, N) form, lane by lane."""
+    rng = np.random.default_rng(heads)
+    xb, la, bm, cm = _ssd_inputs(rng, 3 * heads, 48, 8, 4, groups=3)
+    t = [torch.from_numpy(a) for a in (xb, la, bm, cm)]
+    y, state = ops.ssd_scan(*t, chunk=16, heads=heads)
+    rep = [a.repeat_interleave(heads, dim=0) for a in t[2:]]
+    y1, state1 = ops.ssd_scan(t[0], t[1], *rep, chunk=16)
+    torch.testing.assert_close(y, y1, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(state, state1, rtol=1e-6, atol=1e-6)
+    y0, s0 = ref.ssd_scan_ref(jnp.asarray(xb), jnp.asarray(la),
+                              *(jnp.asarray(r.numpy()) for r in rep))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y0), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(state.numpy(), np.asarray(s0), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_ssd_zero_decay_is_cumulative_outer_product():
+    """la = 0 => S_t = sum_j<=t B_j x_j^T: y_t = C_t . cumsum."""
+    rng = np.random.default_rng(0)
+    xb, _, bm, cm = _ssd_inputs(rng, 1, 32, 4, 3)
+    la = np.zeros((1, 32), np.float32)
+    y, state = ops.ssd_scan(*map(torch.from_numpy, (xb, la, bm, cm)),
+                            chunk=16)
+    states = np.cumsum(np.einsum("bsn,bsp->bsnp", bm, xb), axis=1)
+    y0 = np.einsum("bsn,bsnp->bsp", cm, states)
+    np.testing.assert_allclose(y.numpy(), y0, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(state.numpy(), states[:, -1], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [2, 64, 500])
+def test_ssd_strong_decay_forgets(seed):
+    """la = -50: the state resets, y_t = C_t.(B_t x_t^T) only."""
+    rng = np.random.default_rng(seed)
+    xb, _, bm, cm = _ssd_inputs(rng, 1, 64, 8, 4)
+    la = np.full((1, 64), -50.0, np.float32)
+    y, _ = ops.ssd_scan(*map(torch.from_numpy, (xb, la, bm, cm)), chunk=16)
+    y0 = np.einsum("bsn,bsn,bsp->bsp", cm, bm, xb)
+    np.testing.assert_allclose(y.numpy(), y0, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("s,chunk", [(100, 16), (64, 64), (37, 256)])
+def test_card_ssd_route_matches_chunked(s, chunk):
+    """ssd_chunked's card route (heads folded into lanes, B and C shared
+    per batch row, one scan call) against its chunked CPU math, ragged S
+    included."""
+    rng = np.random.default_rng(s)
+    b, h, p, n = 2, 3, 8, 4
+    xbar = torch.from_numpy(rng.standard_normal((b, s, h, p),
+                                                dtype=np.float32))
+    la = torch.from_numpy((-rng.random((b, s, h)) * 2).astype(np.float32))
+    bm, cm = (torch.from_numpy(rng.standard_normal((b, s, n),
+                                                   dtype=np.float32))
+              for _ in range(2))
+    y, st = S._ssd_kernel_route(xbar, la, bm, cm, chunk)
+    y0, st0 = S.ssd_chunked(xbar, la, bm, cm, chunk)
+    torch.testing.assert_close(y, y0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st0, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# routing and the wrappers' checks
+# ---------------------------------------------------------------------------
+def test_cpu_tensors_never_launch_a_kernel():
+    runtime.reset_launch_counts()
+    q = torch.zeros((2, 8, 16))
+    ops.flash_attention(q, q, q, causal=True, window=None)
+    x = torch.zeros((2, 8, 4))
+    ops.ssd_scan(x, torch.zeros((2, 8)), torch.zeros((1, 8, 3)),
+                 torch.zeros((1, 8, 3)), chunk=4, heads=2)
+    assert set(runtime.launch_counts.values()) == {0}
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "window"])
+def test_flash_attention_refuses_what_the_kernel_does_not_take(bad):
+    q = torch.zeros((2, 8, 16))
+    k = torch.zeros((2, 8, 16))
+    window = None
+    if bad == "dtype":
+        k = k.to(torch.float64)
+    elif bad == "shape":
+        k = torch.zeros((2, 8, 8))
+    elif bad == "strides":
+        k = torch.zeros((2, 16, 8)).transpose(1, 2)
+    else:
+        window = 0
+    with pytest.raises((TypeError, ValueError)):
+        ops.flash_attention(q, k, k, causal=True, window=window)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "la", "heads", "bm", "chunk"])
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(bad):
+    x, la = torch.zeros((4, 8, 4)), torch.zeros((4, 8))
+    bm = torch.zeros((2, 8, 3))
+    heads, chunk = 2, 4
+    if bad == "dtype":
+        x = x.to(torch.bfloat16)
+    elif bad == "la":
+        la = torch.zeros((4, 7))
+    elif bad == "heads":
+        heads = 3
+    elif bad == "bm":
+        bm = torch.zeros((4, 8, 3))
+    else:
+        chunk = 0
+    with pytest.raises((TypeError, ValueError)):
+        ops.ssd_scan(x, la, bm, torch.zeros((2, 8, 3)), chunk=chunk,
+                     heads=heads)
+
+
+def test_cuda_wrappers_take_only_card_tensors():
+    """The kernels' wrappers refuse CPU tensors before building anything:
+    on the card a wrapper launches or raises, it never falls back."""
+    q = torch.zeros((2, 8, 16))
+    with pytest.raises(ValueError, match="card"):
+        fa_mod.flash_attention_cuda(q, q, q, causal=True)
+    x = torch.zeros((2, 8, 4))
+    with pytest.raises(ValueError, match="card"):
+        ssd_mod.ssd_scan_cuda(x, torch.zeros((2, 8)), torch.zeros((2, 8, 3)),
+                              torch.zeros((2, 8, 3)), chunk=4)
