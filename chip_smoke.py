@@ -162,7 +162,9 @@ SERVE_BATCH, SERVE_LEN, SERVE_GEN, SERVE_PROMPTS = 4, 2048, 16, 8
 # again in float32, held at the f32 tier) and its consistency check (B 1 at S 2048, then 2049); same_as_cpu_lm's
 # reduced model (B 2 x 4 heads, S 100, D 32, window 64) and its full-width
 # group in float32 (B 1, S 512); then a window shorter than S, non-causal,
-# Sq < Skv (queries aligned to the keys' suffix) and ragged S, in both types
+# Sq < Skv (queries aligned to the keys' suffix) and ragged S, in both
+# types; last D 120 (h2o-danube-3-4b's heads), which the bfloat16 kernel
+# pads to a depth of 128
 MAIN_ATTN_SHAPE = (128, 2048, 2048, 112, "bf16", True, 32768)
 ATTN_SHAPES = (MAIN_ATTN_SHAPE, (128, 2048, 2048, 112, "f32", True, 32768),
                (32, 2048, 2048, 112, "bf16", True, 32768),
@@ -176,7 +178,8 @@ ATTN_SHAPES = (MAIN_ATTN_SHAPE, (128, 2048, 2048, 112, "f32", True, 32768),
                (32, 64, 256, 112, "bf16", True, None),
                (32, 64, 256, 112, "f32", True, None),
                (16, 1000, 1000, 112, "bf16", True, 300),
-               (16, 1000, 1000, 112, "f32", True, None))
+               (16, 1000, 1000, 112, "f32", True, None),
+               (32, 1024, 1024, 120, "bf16", True, None))
 # (BH, S, P, N, chunk, heads) of the SSD scan, for the same runs (112 SSM
 # heads of 64 a batch row, state 64, chunk 256; the reduced model 8 heads of
 # 16, state 16, chunk 16), then a ragged S; "strong" decay is la = -50
@@ -382,7 +385,9 @@ def phase_kernels(device):
                          "broadcast to (T, N, P) at "
                          f"{list(XFIT_BITWISE_SHAPE)}",
         "flash_attention": "max abs error 2e-4 (float32), 2e-2 (bf16): "
-                           "the reference's own tolerance",
+                           "the reference's own tolerance; bf16 also per "
+                           "element within 2 bf16 steps at |o0| after "
+                           "1e-4",
         "ssd_scan": "y within 2e-4 of max|y|, the final state within "
                     "2e-4 of max|state|: the reference's own tolerance"},
         timing="median of 20 single launches after 3 warm-ups, CUDA events, "
@@ -617,17 +622,23 @@ def _attn_kernel_rows(device, gen):
             "bound_ms_at_f32_fma": bound_f32,
             "bytes": nbytes, "operations": flops,
         }
-        if shape == MAIN_ATTN_SHAPE:
+        if shape[:4] == MAIN_ATTN_SHAPE[:4]:
+            # the serve path's shape in both types (the window 32768 is
+            # longer than S: causal alone)
             sdpa = torch.nn.functional.scaled_dot_product_attention
 
             def library():          # (1, BH, S, D): the fused backends
                 return sdpa(q[None], k[None], v[None], is_causal=True)[0]
 
             lib_err = float((library().float() - o0.float()).abs().max())
-            assert lib_err < ATTN_TOL[dtype], ("sdpa disagrees", lib_err)
+            # float32: recorded only (the fused backends may take TF32)
+            assert dtype == "f32" or lib_err < ATTN_TOL[dtype], \
+                ("sdpa disagrees", lib_err)
             row["library_ms"] = _time_ms(library, cold=True)
             row["library"] = ("scaled_dot_product_attention(is_causal=True) "
                               "on (1, BH, S, D)")
+            row["library_max_abs_err"] = lib_err
+        if shape == MAIN_ATTN_SHAPE:
             main = row
         report.append({"shape": list(shape), "flash_attention": row})
         del q, k, v, o, o0

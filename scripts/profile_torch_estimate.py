@@ -102,7 +102,8 @@ def _busy(rows, wall_s):
              "other": 0.0}
     for r in rows:
         name = r["name"].lower()
-        if "flash_attention_kernel" in name:
+        if any(k in name for k in ("flash_attention_kernel",
+                                   "flash_attention_tc_kernel")):
             split["flash_attention"] += r["device_ms"]
         elif "ssd_scan_kernel" in name:
             split["ssd_scan"] += r["device_ms"]

@@ -15,26 +15,18 @@
 //                          S, N) float32 -> y (BH, S, P) and the final
 //                          state (BH, N, P)
 //
-// Both are the simple first versions: plain float32 FMA from shared
-// memory, no tensor cores, no TMA.  Any Sq, Skv, S: ragged edges are masked
-// here, with no padding in the wrapper.
+// bfloat16 attention runs on the tensor cores (mma.sync m16n8k16, bf16
+// operands, float32 accumulators) from K/V tiles staged by cp.async;
+// float32 attention and the scan are plain float32 FMA from shared memory
+// (the port keeps TF32 off).  No TMA yet.  Any Sq, Skv, S: ragged edges are
+// masked here, with no padding in the wrapper.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v)
-{
-    return __bfloat162float(v);
-}
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v)
-{
-    *p = __float2bfloat16(v);
-}
 
 // sum (or max) over the 16 lanes of a half-warp that share a tile row
 __device__ __forceinline__ float half_warp_sum(float v)
@@ -53,10 +45,12 @@ __device__ __forceinline__ float half_warp_max(float v)
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention
+// flash_attention, float32
 //
 // Replaces flash_attention_pallas (src/repro/kernels/flash_attention.py,
-// body _kernel).  One block of 256 threads per (lane, 64-query tile) stages
+// body _kernel) for float32 operands; bfloat16 ones take
+// flash_attention_tc_kernel below.  One block of 256 threads per (lane,
+// 64-query tile) stages
 // the tile's queries once (scaled by 1/sqrt(D), float32) and walks the
 // 64-key tiles that the causal mask and the window leave visible to any of
 // its queries, so the windowed case costs O(S*W) as the TPU kernel's
@@ -66,14 +60,14 @@ __device__ __forceinline__ float half_warp_max(float v)
 // the running max and sum are half-warp shuffles; the probabilities go
 // through shared memory to the P V product.  Running (m, l, acc) in
 // float32, masked scores are -inf (a row that has seen no key yet keeps
-// m = -inf and adds nothing), the output is acc / l in q's type.
+// m = -inf and adds nothing), the output is acc / l.
 //
-// Bound on an H100: at the serve path's (BH 128, S 2048, D 112) bf16
-// causal it does 4 D operations per visible (query, key) pair, 120 GFLOP,
-// and moves 235 MB: operations bound (0.12 ms at the 989 TFLOP/s bf16
-// tensor-core rate).  This version runs on the float32 FMA pipes fed from
-// shared memory (two loads per four FMAs in the score loop); tensor cores
-// and TMA are a later version's.
+// Bound on an H100: at the serve path's (BH 128, S 2048, D 112) causal it
+// does 4 D operations per visible (query, key) pair, 120 GFLOP, and moves
+// 470 MB in float32: operations bound, 1.80 ms at the 67 TFLOP/s float32
+// FMA rate (TF32 stays off).  It runs on the FMA pipes fed from shared
+// memory (two loads per four FMAs in the score loop): 8.02 ms there on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
 // ---------------------------------------------------------------------------
 constexpr int FA_BQ = 64;
 constexpr int FA_BK = 64;
@@ -90,10 +84,10 @@ inline size_t fa_smem_bytes(int d)
     return sizeof(float) * ((size_t)(FA_BQ + 2 * FA_BK) * dp + FA_BQ * FA_PS);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        int sq, int skv, int d, int causal, int window,
                        float scale)
 {
@@ -108,17 +102,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int ti = tid >> 4, tj = tid & 15;
     const int q0 = blockIdx.x * FA_BQ;
     const long long lane = blockIdx.y;
-    const T* ql = q + lane * sq * d;
-    const T* kl = k + lane * skv * d;
-    const T* vl = v + lane * skv * d;
-    T* ol = o + lane * sq * d;
+    const float* ql = q + lane * sq * d;
+    const float* kl = k + lane * skv * d;
+    const float* vl = v + lane * skv * d;
+    float* ol = o + lane * sq * d;
     const int offset = skv - sq;
     const int nq = min(FA_BQ, sq - q0);
 
     for (int idx = tid; idx < FA_BQ * d; idx += FA_THREADS) {
         const int r = idx / d, c = idx - r * d;
-        qs[r * dp + c] = r < nq ? to_f32(ql[(long long)(q0 + r) * d + c])
-                                      * scale
+        qs[r * dp + c] = r < nq ? ql[(long long)(q0 + r) * d + c] * scale
                                 : 0.f;
     }
     // keys visible to some query of the tile: [k_lo, k_hi)
@@ -143,8 +136,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int idx = tid; idx < FA_BK * d; idx += FA_THREADS) {
             const int r = idx / d, c = idx - r * d;
             const long long g = (long long)(k0 + r) * d + c;
-            ks[r * dp + c] = r < nk ? to_f32(kl[g]) : 0.f;
-            vs[r * dp + c] = r < nk ? to_f32(vl[g]) : 0.f;
+            ks[r * dp + c] = r < nk ? kl[g] : 0.f;
+            vs[r * dp + c] = r < nk ? vl[g] : 0.f;
         }
         __syncthreads();
 
@@ -226,7 +219,318 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < FA_DSLOTS; ++c) {
             const int col = tj + 16 * c;
             if (col < d)
-                store_as(&ol[(long long)(q0 + i) * d + col], acc[r][c] * inv);
+                ol[(long long)(q0 + i) * d + col] = acc[r][c] * inv;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// flash_attention, bfloat16: flash_attention_tc_kernel
+//
+// Replaces flash_attention_pallas (src/repro/kernels/flash_attention.py,
+// body _kernel) for bfloat16 operands, which is what the serve path passes.
+//
+// Bound on an H100: at the serve path's (BH 128, S 2048, D 112) causal the
+// function does 4 D operations per visible (query, key) pair, 120 GFLOP,
+// and moves 235 MB: operations bound, 0.122 ms at the 989 TFLOP/s bf16
+// tensor-core rate.  With P split in two (below) the tensor cores do 6 D
+// operations a pair, 180 GFLOP: 0.18 ms.  The float32-FMA version it
+// replaces took 8.00 ms there (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+//
+// Design, in the FlashAttention-2 form with mma.sync.m16n8k16 (bf16 in,
+// float32 accumulators):
+// - one block of 8 warps per (lane, 128-query tile), each warp owning 16
+//   query rows; blockIdx.x is the lane and blockIdx.y is walked backwards,
+//   so the heaviest causal tiles of every lane start first;
+// - the Q tile is copied once, K and V tiles of 64 keys are copied by
+//   cp.async (16-byte chunks) into a two-stage ring, stored as bf16 with a
+//   row stride of DK + 8 elements (conflict-free ldmatrix reads); tile k+1
+//   is in flight while tile k is multiplied.  Rows past Sq or Skv are
+//   zero-filled by the copy and depth columns [D, DK) are zeroed once, so
+//   D only needs to be a multiple of 8 (DK rounds it up to 16);
+// - S = Q K' from ldmatrix fragments into float32, then scaled by
+//   log2(e)/sqrt(D) in float32 (no bf16 rounding of a scaled q), masked to
+//   -inf (causal, window, ragged Skv) on the tiles that need it; the block
+//   skips the tiles none of its queries can see, a warp those none of its
+//   rows can see;
+// - the online softmax keeps (m, l) per row in float32 with quad
+//   shuffles; a row that has seen no key yet subtracts 0 (no NaN); l sums
+//   the float32 P;
+// - P V: the S accumulators become A fragments in registers.  P is split
+//   into P_hi = bf16(P) and P_lo = bf16(P - P_hi), two mma.sync into the
+//   same float32 accumulator: one bf16 rounding of P puts outputs near 0
+//   thousands of bf16 steps off the float32 softmax, the split keeps them
+//   within one;
+// - O / l is written in bf16, masked at Sq and D.
+// ---------------------------------------------------------------------------
+constexpr int TC_BQ = 128;
+constexpr int TC_BK = 64;
+constexpr int TC_WARPS = TC_BQ / 16;
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr float TC_LOG2E = 1.4426950408889634f;
+
+inline size_t tc_smem_bytes(int dk)
+{
+    // the Q tile and a two-stage ring of K and V tiles, row stride dk + 8
+    return sizeof(__nv_bfloat16) * (size_t)(TC_BQ + 4 * TC_BK) * (dk + 8);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p)
+{
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !full
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool full)
+{
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_1()
+{
+    asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr)
+{
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+                 "{%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr)
+{
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+                 "{%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1)
+{
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+                 "{%0, %1, %2, %3};\n"
+                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                   "r"(b0), "r"(b1));
+}
+
+// (x0, x1) -> bf16 pairs hi = bf16(x), lo = bf16(x - hi); x0 in the low half
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo)
+{
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+template <int DK>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ o, int sq, int skv,
+                          int d, int causal, int window, float scale_log2)
+{
+    constexpr int RS = DK + 8;              // row stride in elements
+    constexpr int KSTEPS = DK / 16;         // depth steps of Q K'
+    constexpr int DTILES = DK / 8;          // 8-column tiles of O
+    extern __shared__ __align__(16) unsigned char tc_smem[];
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+    __nv_bfloat16* ks = qs + TC_BQ * RS;    // 2 stages x TC_BK x RS
+    __nv_bfloat16* vs = ks + 2 * TC_BK * RS;
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const long long bh = blockIdx.x;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;
+    const __nv_bfloat16* ql = q + bh * sq * d;
+    const __nv_bfloat16* kl = k + bh * skv * d;
+    const __nv_bfloat16* vl = v + bh * skv * d;
+    __nv_bfloat16* ol = o + bh * sq * d;
+    const int offset = skv - sq;
+    const int nq = min(TC_BQ, sq - q0);
+    const int chunks = d >> 3;              // 16-byte chunks of a row
+
+    if (d < DK) {       // depth padding: never written by the copies
+        const int pad = (DK - d) >> 3;
+        for (int idx = tid; idx < (TC_BQ + 4 * TC_BK) * pad;
+             idx += TC_THREADS) {
+            const int r = idx / pad, c = idx - r * pad;
+            *reinterpret_cast<uint4*>(qs + r * RS + d + 8 * c) =
+                make_uint4(0u, 0u, 0u, 0u);
+        }
+    }
+    for (int idx = tid; idx < TC_BQ * chunks; idx += TC_THREADS) {
+        const int r = idx / chunks, c = idx - r * chunks;
+        const bool in = r < nq;
+        cp_async_16(smem_addr(qs + r * RS + 8 * c),
+                    ql + (long long)(in ? q0 + r : 0) * d + 8 * c, in);
+    }
+    auto load_kv = [&](int k0, int stage) {
+        __nv_bfloat16* kd = ks + stage * TC_BK * RS;
+        __nv_bfloat16* vd = vs + stage * TC_BK * RS;
+        for (int idx = tid; idx < TC_BK * chunks; idx += TC_THREADS) {
+            const int r = idx / chunks, c = idx - r * chunks;
+            const bool in = k0 + r < skv;
+            const long long off = (long long)(in ? k0 + r : 0) * d + 8 * c;
+            cp_async_16(smem_addr(kd + r * RS + 8 * c), kl + off, in);
+            cp_async_16(smem_addr(vd + r * RS + 8 * c), vl + off, in);
+        }
+    };
+
+    // keys visible to some query of the block: [k_lo, k_hi)
+    const int qa_lo = q0 + offset, qa_hi = q0 + nq - 1 + offset;
+    int k_lo = 0, k_hi = skv;
+    if (window > 0) k_lo = max(0, qa_lo - window + 1);
+    if (causal) k_hi = min(skv, qa_hi + 1);
+    k_lo = (k_lo / TC_BK) * TC_BK;
+    // this warp's rows, as positions among the keys
+    const int wr0 = q0 + 16 * warp;
+    const bool w_rows = wr0 < sq;
+    const int w_lo = wr0 + offset, w_hi = min(wr0 + 15, sq - 1) + offset;
+
+    float acc[DTILES][4];
+#pragma unroll
+    for (int j = 0; j < DTILES; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    load_kv(k_lo, 0);
+    cp_async_commit();                      // Q and the first tile
+    int stage = 0;
+    for (int k0 = k_lo; k0 < k_hi; k0 += TC_BK, stage ^= 1) {
+        if (k0 + TC_BK < k_hi) load_kv(k0 + TC_BK, stage ^ 1);
+        cp_async_commit();                  // possibly empty: uniform wait
+        cp_async_wait_1();                  // this tile has landed
+        __syncthreads();
+
+        bool sees = w_rows;
+        if (causal) sees = sees && k0 <= w_hi;
+        if (window > 0) sees = sees && k0 + TC_BK - 1 > w_lo - window;
+        if (sees) {
+            const __nv_bfloat16* kt = ks + stage * TC_BK * RS;
+            const __nv_bfloat16* vt = vs + stage * TC_BK * RS;
+            float s[TC_BK / 8][4];
+#pragma unroll
+            for (int j = 0; j < TC_BK / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < KSTEPS; ++kk) {
+                uint32_t a[4];
+                ldsm_x4(a, smem_addr(qs + (16 * warp + (lane & 15)) * RS
+                                     + 16 * kk + 8 * (lane >> 4)));
+#pragma unroll
+                for (int jp = 0; jp < TC_BK / 16; ++jp) {
+                    uint32_t b[4];
+                    ldsm_x4(b, smem_addr(
+                        kt + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * RS
+                        + 16 * kk + 8 * ((lane >> 3) & 1)));
+                    mma_bf16(s[2 * jp], a, b[0], b[1]);
+                    mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
+                }
+            }
+
+            // scale in float32, mask, online softmax (rows g and g + 8)
+            const bool edge = k0 + TC_BK > skv
+                || (causal && k0 + TC_BK - 1 > w_lo)
+                || (window > 0 && k0 <= w_hi - window);
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int j = 0; j < TC_BK / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float x = s[j][e] * scale_log2;
+                    if (edge) {
+                        const int qa = w_lo + g + 8 * (e >> 1);
+                        const int ka = k0 + 8 * j + 2 * t4 + (e & 1);
+                        bool ok = ka < skv;
+                        if (causal) ok = ok && ka <= qa;
+                        if (window > 0) ok = ok && ka > qa - window;
+                        x = ok ? x : -INFINITY;
+                    }
+                    s[j][e] = x;
+                    mx[e >> 1] = fmaxf(mx[e >> 1], x);
+                }
+            float mu[2], corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+                const float m_new = fmaxf(m[r], mx[r]);
+                mu[r] = m_new == -INFINITY ? 0.f : m_new;
+                corr[r] = exp2f(m[r] - mu[r]);
+                m[r] = m_new;
+            }
+#pragma unroll
+            for (int j = 0; j < TC_BK / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float p = exp2f(s[j][e] - mu[e >> 1]);
+                    s[j][e] = p;
+                    rs[e >> 1] += p;
+                }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+            for (int j = 0; j < DTILES; ++j) {
+                acc[j][0] *= corr[0];
+                acc[j][1] *= corr[0];
+                acc[j][2] *= corr[1];
+                acc[j][3] *= corr[1];
+            }
+
+            // O += P_hi V + P_lo V, 16 keys a step
+#pragma unroll
+            for (int kk = 0; kk < TC_BK / 16; ++kk) {
+                uint32_t ah[4], al[4];
+                split_bf16(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+                split_bf16(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+                split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+                split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+                for (int dp = 0; dp < KSTEPS; ++dp) {
+                    uint32_t b[4];
+                    ldsm_x4_trans(b, smem_addr(
+                        vt + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1))
+                        * RS + 16 * dp + 8 * (lane >> 4)));
+                    mma_bf16(acc[2 * dp], ah, b[0], b[1]);
+                    mma_bf16(acc[2 * dp], al, b[0], b[1]);
+                    mma_bf16(acc[2 * dp + 1], ah, b[2], b[3]);
+                    mma_bf16(acc[2 * dp + 1], al, b[2], b[3]);
+                }
+            }
+        }
+        __syncthreads();                    // the stage is free to refill
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = wr0 + g + 8 * r;
+        if (row >= sq) continue;
+        const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+        __nv_bfloat16* orow = ol + (long long)row * d;
+#pragma unroll
+        for (int j = 0; j < DTILES; ++j) {
+            const int col = 8 * j + 2 * t4;
+            if (col < d)
+                *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                    __floats2bfloat162_rn(acc[j][2 * r] * inv,
+                                          acc[j][2 * r + 1] * inv);
         }
     }
 }
@@ -526,34 +830,59 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted)
     return err;
 }
 
+// launch the bfloat16 kernel at depth DK (D rounded up to 16)
+template <int DK>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      int bh, int sq, int skv, int d, int causal, int window,
+                      float scale, cudaStream_t stream)
+{
+    static size_t granted = 0;
+    const size_t smem = tc_smem_bytes(DK);
+    const cudaError_t err = allow_smem(flash_attention_tc_kernel<DK>, smem,
+                                       &granted);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(bh, (sq + TC_BQ - 1) / TC_BQ);
+    flash_attention_tc_kernel<DK><<<grid, TC_THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, sq, skv, d, causal,
+        window, scale * TC_LOG2E);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
+// float32 operands take the FMA kernel; bfloat16 ones the tensor-core
+// kernel, which needs D % 8 == 0, D <= 128 and Sq <= Skv (the wrapper
+// checks; anything else is refused here too)
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int bh, int sq,
                                      int skv, int d, int causal, int window,
                                      float scale, int is_bf16, void* stream)
 {
-    static size_t granted_f32 = 0, granted_bf16 = 0;
-    const size_t smem = fa_smem_bytes(d);
-    const dim3 grid((sq + FA_BQ - 1) / FA_BQ, bh);
-    cudaError_t err;
+    const cudaStream_t st = (cudaStream_t)stream;
     if (is_bf16) {
-        err = allow_smem(flash_attention_kernel<__nv_bfloat16>, smem,
-                         &granted_bf16);
-        if (err != cudaSuccess) return (int)err;
-        flash_attention_kernel<__nv_bfloat16>
-            <<<grid, FA_THREADS, smem, (cudaStream_t)stream>>>(
-                (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-                (const __nv_bfloat16*)v, (__nv_bfloat16*)o, sq, skv, d,
-                causal, window, scale);
-    } else {
-        err = allow_smem(flash_attention_kernel<float>, smem, &granted_f32);
-        if (err != cudaSuccess) return (int)err;
-        flash_attention_kernel<float>
-            <<<grid, FA_THREADS, smem, (cudaStream_t)stream>>>(
-                (const float*)q, (const float*)k, (const float*)v, (float*)o,
-                sq, skv, d, causal, window, scale);
+        if (d % 8 != 0 || d > 128 || sq > skv)
+            return (int)cudaErrorInvalidValue;
+#define TC_CASE(n)                                                      \
+    case n / 16:                                                        \
+        return (int)launch_tc<n>(q, k, v, o, bh, sq, skv, d, causal,    \
+                                 window, scale, st)
+        switch ((d + 15) / 16) {
+            TC_CASE(16); TC_CASE(32); TC_CASE(48); TC_CASE(64);
+            TC_CASE(80); TC_CASE(96); TC_CASE(112); TC_CASE(128);
+        }
+#undef TC_CASE
+        return (int)cudaErrorInvalidValue;
     }
+    static size_t granted = 0;
+    const size_t smem = fa_smem_bytes(d);
+    const cudaError_t err = allow_smem(flash_attention_kernel, smem,
+                                       &granted);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((sq + FA_BQ - 1) / FA_BQ, bh);
+    flash_attention_kernel<<<grid, FA_THREADS, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, sq,
+        skv, d, causal, window, scale);
     return (int)cudaGetLastError();
 }
 

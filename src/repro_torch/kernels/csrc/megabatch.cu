@@ -22,6 +22,7 @@
 // on the other lanes.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -602,42 +603,153 @@ crossfit_gram_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // ---------------------------------------------------------------------------
 // batched_predict
 //
-// One thread block per (task b, PRED_ROWS consecutive rows), beta_b staged
-// in shared memory; one warp per output row at a time, lanes striding over
-// P so the row is read coalesced, then a warp-shuffle tree.  The product
-// with `valid` comes last, as in the reference kernel, so a zero padding
-// row of a page yields an exact 0.
+// Replaces batched_predict_pallas (src/repro/kernels/megabatch.py, body
+// _predict_kernel): out_b = valid_b * (X_b beta_b).
+//
+// Bound on an H100: it reads B N P floats of X once and does 2 operations
+// per 4 bytes, so it is bound by bytes: 0.00683 ms at the paper path's
+// (32, 5104, 33) (21.6 MB at 3.35 TB/s).  The version it replaces (one
+// warp per row reading X from device memory, one row's load in flight per
+// warp) took 0.0317 ms there (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+//
+// Design: the rows a block takes of one task are one contiguous span of X,
+// about PRED_SPAN floats.  The block stages the span into shared memory
+// with 16-byte loads, PRED_UNROLL in flight per thread, after a scalar head
+// that brings the address to a 16-byte boundary and before a scalar tail
+// (P is odd on the paper path, and any B, N, P is taken).  Each row then
+// gets a group of G consecutive threads, G chosen from P alone
+// (pred_layout: 4 at P 33, 32 at P 257): thread j of a group sums columns
+// j, j + G, ... in order, and the group adds its G partial sums with a
+// fixed xor-shuffle tree.  So every output element has one accumulation
+// order that depends on P alone, and no sequential chain is longer than
+// 16 terms while P <= 512 (8 threads a row, 33 terms each, came out
+// 1.5e-5 off the plain version at (8, 60000, 257) on the card, over its
+// 1e-5 tolerance; at G = 32 the order is the one-warp-a-row version's).
+// Rows sit in shared memory at a stride of G times an odd number, so the
+// rows a warp reads fall in distinct banks.  The product with `valid`
+// comes last, as in the reference kernel, so a zero padding row of a page
+// yields an exact 0.
 // ---------------------------------------------------------------------------
 constexpr int PRED_THREADS = 256;
-constexpr int PRED_WARPS = PRED_THREADS / 32;
-constexpr int PRED_ROWS = 64;
+constexpr int PRED_UNROLL = 4;
+constexpr int PRED_COLS = 16;               // most columns a thread sums
+constexpr int PRED_SPAN = 8192;             // floats of X a block stages
+constexpr int PRED_SMEM_MAX = 232448;       // an H100 block's shared memory
+
+struct PredLayout {
+    int g;          // threads a row, a power of two <= 32
+    int rows;       // rows a block
+    int stride;     // row stride in shared memory: g times an odd number
+    int threads;    // threads a block
+};
+
+inline size_t pred_smem_bytes(int rows, int stride, int p)
+{
+    return sizeof(float) * ((size_t)rows * stride + p);
+}
+
+// G: the least power of two (at most 32) that leaves each thread at most
+// PRED_COLS columns.  Rows: a whole number of passes of PRED_THREADS / G
+// rows, as many as bring the staged span near `span` floats; fewer while
+// the block's shared memory would pass PRED_SMEM_MAX, down to one row of
+// one warp (the wrapper bounds P)
+inline PredLayout pred_layout(int p, int span)
+{
+    PredLayout lay;
+    lay.g = 1;
+    while (lay.g < 32 && (long long)lay.g * PRED_COLS < p) lay.g *= 2;
+    lay.stride = ((p + lay.g - 1) / lay.g) * lay.g;
+    if ((lay.stride / lay.g) % 2 == 0) lay.stride += lay.g;
+    const int pass = PRED_THREADS / lay.g;
+    const long long reps = (long long)span / ((long long)pass * lay.stride);
+    lay.rows = pass * (int)(reps > 1 ? reps : 1);
+    while (lay.rows * lay.g > 32
+           && pred_smem_bytes(lay.rows, lay.stride, p) > PRED_SMEM_MAX)
+        lay.rows = lay.rows > pass ? lay.rows - pass : lay.rows / 2;
+    lay.threads = lay.rows < pass ? lay.rows * lay.g : PRED_THREADS;
+    return lay;
+}
 
 __global__ void __launch_bounds__(PRED_THREADS)
 batched_predict_kernel(const float* __restrict__ xs,
                        const float* __restrict__ beta,
                        const float* __restrict__ valid,
-                       float* __restrict__ out, int n, int p)
+                       float* __restrict__ out, int n, int p, int g,
+                       int rows, int stride)
 {
-    extern __shared__ float sbeta[];
+    extern __shared__ float pred_smem[];
+    float* sx = pred_smem;                  // rows x stride
+    float* sb = sx + rows * stride;         // beta_b
     const int task = blockIdx.y;
-    const int tid = threadIdx.x;
-    for (int c = tid; c < p; c += PRED_THREADS)
-        sbeta[c] = beta[(size_t)task * p + c];
+    const int tid = threadIdx.x, nthreads = blockDim.x;
+    const int row0 = blockIdx.x * rows;
+    const int nr = min(rows, n - row0);
+    const long long lin0 = (long long)task * n + row0;
+    const float* src = xs + lin0 * p;
+    const int len = nr * p;
+    const float inv_p = 1.f / (float)p;
+
+    for (int c = tid; c < p; c += nthreads)
+        sb[c] = beta[(long long)task * p + c];
+
+    // span element e -> sx[row * stride + col], row = e / p (a float
+    // estimate, corrected by one step: e < 2^24)
+    auto row_col = [&](int e, int& r, int& c) {
+        r = __float2int_rz((float)e * inv_p);
+        c = e - r * p;
+        if (c < 0) { --r; c += p; }
+        else if (c >= p) { ++r; c -= p; }
+    };
+    const int head = min(len, (int)((16 - ((uintptr_t)src & 15)) & 15) >> 2);
+    const int n4 = (len - head) >> 2;
+    const int tail = head + 4 * n4;
+    for (int e = tid; e < head; e += nthreads) {
+        int r, c;
+        row_col(e, r, c);
+        sx[r * stride + c] = src[e];
+    }
+    for (int e = tail + tid; e < len; e += nthreads) {
+        int r, c;
+        row_col(e, r, c);
+        sx[r * stride + c] = src[e];
+    }
+    const float4* src4 = reinterpret_cast<const float4*>(src + head);
+    for (int i0 = tid; i0 < n4; i0 += PRED_UNROLL * nthreads) {
+        float4 val[PRED_UNROLL];
+#pragma unroll
+        for (int u = 0; u < PRED_UNROLL; ++u) {
+            const int i = i0 + u * nthreads;
+            if (i < n4) val[u] = __ldg(src4 + i);
+        }
+#pragma unroll
+        for (int u = 0; u < PRED_UNROLL; ++u) {
+            const int i = i0 + u * nthreads;
+            if (i >= n4) break;
+            int r, c;
+            row_col(head + 4 * i, r, c);
+            const float f[4] = {val[u].x, val[u].y, val[u].z, val[u].w};
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+                sx[r * stride + c] = f[t];
+                if (++c == p) { c = 0; ++r; }
+            }
+        }
+    }
     __syncthreads();
 
-    const int warp = tid >> 5, lane = tid & 31;
-    const int row0 = blockIdx.x * PRED_ROWS;
-    for (int r = warp; r < PRED_ROWS; r += PRED_WARPS) {
-        const int row = row0 + r;
-        if (row >= n) break;                       // uniform across the warp
-        const size_t lin = (size_t)task * n + row;
-        const float* xr = xs + lin * p;
+    // rows is a whole number of passes of nthreads / g, so every thread
+    // of a warp takes the loop (and its shuffles) equally often
+    const int j = tid % g;
+    for (int rr = tid / g; rr < rows; rr += nthreads / g) {
         float s = 0.f;
-        for (int c = lane; c < p; c += 32) s = fmaf(xr[c], sbeta[c], s);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
+        if (rr < nr) {
+            const float* xr = sx + rr * stride;
+            for (int c = j; c < p; c += g) s = fmaf(xr[c], sb[c], s);
+        }
+        for (int off = g >> 1; off > 0; off >>= 1)
             s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) out[lin] = s * valid[lin];
+        if (j == 0 && rr < nr)
+            out[lin0 + rr] = s * valid[lin0 + rr];
     }
 }
 
@@ -699,11 +811,22 @@ extern "C" int repro_batched_predict(const void* xs, const void* beta,
                                      const void* valid, void* out,
                                      int b, int n, int p, void* stream)
 {
-    const dim3 grid((n + PRED_ROWS - 1) / PRED_ROWS, b);
-    batched_predict_kernel<<<grid, PRED_THREADS, (size_t)p * sizeof(float),
+    static size_t granted = 0;
+    const PredLayout lay = pred_layout(p, PRED_SPAN);
+    const size_t smem = pred_smem_bytes(lay.rows, lay.stride, p);
+    if (smem > (size_t)PRED_SMEM_MAX) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024 && smem > granted) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            batched_predict_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        granted = smem;
+    }
+    const dim3 grid((n + lay.rows - 1) / lay.rows, b);
+    batched_predict_kernel<<<grid, lay.threads, smem,
                              (cudaStream_t)stream>>>(
         (const float*)xs, (const float*)beta, (const float*)valid,
-        (float*)out, n, p);
+        (float*)out, n, p, lay.g, lay.rows, lay.stride);
     return (int)cudaGetLastError();
 }
 

@@ -11,14 +11,19 @@ accumulator are float32; the output is in q's type.  Tiles that the mask
 hides from every query of a block are skipped, so the windowed case costs
 O(S * W).
 
-The kernel (``flash_attention_kernel`` in ``csrc/lm.cu``) is the simple
-first version: one block per (lane, 64-query tile), 64-key tiles staged in
-shared memory as float32, plain FMA, online softmax with half-warp
-shuffles.  At the serve path's (128, 2048, 112) bf16 causal call it does
-120 GFLOP and moves 235 MB, so it is bound by operations (0.12 ms at the
-card's 989 TFLOP/s bf16 tensor-core rate); this version runs on the
-float32 FMA pipes and is far from that bound (PERF.md).  Any Sq, Skv and
-D <= 128, float32 or bfloat16; ragged tiles are masked in the kernel.
+Two kernels in ``csrc/lm.cu``, chosen by the operands' type.  bfloat16
+operands (what the serve path passes) take ``flash_attention_tc_kernel``:
+one block of 8 warps per (lane, 128-query tile), 64-key K/V tiles copied
+by ``cp.async`` into a two-stage bf16 ring, Q K' and P V on the tensor
+cores (``mma.sync`` m16n8k16, float32 accumulators), online softmax in
+registers, P split into bf16 hi + lo for P V so that every output stays
+within a bf16 step of the float32 softmax.  At the serve path's (128,
+2048, 112) causal call the function does 120 GFLOP and moves 235 MB, so it
+is bound by operations: 0.12 ms at the card's 989 TFLOP/s bf16 rate
+(PERF.md has its time).  It takes D % 8 == 0, D <= 128 and Sq <= Skv.
+float32 operands take ``flash_attention_kernel``: 64-query tiles staged
+in shared memory as float32, plain FMA (the port keeps TF32 off), any
+D <= 128 and any Sq, Skv.  Both mask ragged tiles in the kernel.
 
 ``flash_attention_cuda`` adds one to ``runtime.launch_counts
 ["flash_attention"]`` where it launches, and nowhere else.
@@ -38,6 +43,7 @@ from repro_torch.kernels import build
 F32 = torch.float32
 MAX_D = 128
 _MAX_GRID_Y = 65535
+_MAX_TC_SQ = 65535 * 128       # the bfloat16 kernel: grid y of 128-query tiles
 _TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -87,17 +93,39 @@ def check_qkv(q, k, v, window: Optional[int]):
     return bh, sq, skv, d
 
 
+def check_kernel_shape(bh: int, sq: int, skv: int, d: int,
+                       dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` naming the limit when the kernel for ``dtype``
+    does not take a (BH, Sq, Skv, D) call."""
+    if d > MAX_D or max(sq, skv) * d >= 2 ** 31:
+        raise ValueError(f"flash_attention: shape (BH {bh}, Sq {sq}, "
+                         f"Skv {skv}, D {d}) exceeds the kernels' limits "
+                         f"(D <= {MAX_D}, S * D < 2**31)")
+    if dtype != torch.bfloat16:
+        if bh > _MAX_GRID_Y:
+            raise ValueError(f"flash_attention: the float32 kernel takes "
+                             f"BH <= {_MAX_GRID_Y}, got {bh}")
+        return
+    if d % 8 or sq > skv or sq > _MAX_TC_SQ:
+        raise ValueError(f"flash_attention: the bfloat16 kernel takes "
+                         f"D % 8 == 0 and Sq <= Skv, Sq <= "
+                         f"{_MAX_TC_SQ}; got D {d}, Sq {sq}, "
+                         f"Skv {skv}")
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
-    """Launch the flash-attention kernel on CUDA tensors."""
+    """Launch the flash-attention kernel for q's type on CUDA tensors."""
     bh, sq, skv, d = check_qkv(q, k, v, window)
     if not q.is_cuda:
         raise ValueError(f"q: the CUDA kernels take tensors on the card, "
                          f"got {q.device}")
-    if d > MAX_D or bh > _MAX_GRID_Y or max(sq, skv) * d >= 2 ** 31:
-        raise ValueError(f"flash_attention: shape (BH {bh}, Sq {sq}, "
-                         f"Skv {skv}, D {d}) exceeds the kernel's limits "
-                         f"(D <= {MAX_D}, BH <= {_MAX_GRID_Y})")
+    check_kernel_shape(bh, sq, skv, d, q.dtype)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:      # cp.async copies 16-byte chunks
+                raise ValueError(f"{name}: the bfloat16 kernel needs a "
+                                 "16-byte aligned tensor")
     lib = build.load_library("lm")
     with torch.cuda.device(q.device):
         o = torch.empty_like(q)

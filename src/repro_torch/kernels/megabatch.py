@@ -46,10 +46,14 @@ learners' hot path; all are CUDA C++ in ``csrc/megabatch.cu``.
 ``batched_predict_cuda``
     replaces ``batched_predict_pallas`` (body ``_predict_kernel``): the
     masked GEMV epilogue ``valid_b * (X_b beta_b)``.  Bound by bytes (two
-    operations per four bytes read); the design reads every row of X
-    exactly once, coalesced along P by one warp per row, with ``beta_b``
-    in shared memory and a warp-shuffle reduction, and multiplies by
-    ``valid`` last so padding rows come out exactly 0.
+    operations per four bytes read), so the design keeps bytes in flight:
+    a block stages the contiguous span of X its rows occupy into shared
+    memory with 16-byte loads, four in flight a thread (a scalar head and
+    tail where the span is not 16-byte aligned), then each row is summed
+    by a group of 1-32 threads chosen from P alone, in one fixed order per
+    output element, and multiplied by ``valid`` last so padding rows come
+    out exactly 0.  P is at most 28672 (one row and ``beta_b`` in a
+    block's shared memory).
 
 The TPU kernels' 128-lane padding of P, 8-sublane padding of B and
 ``block_n`` padding of N were that machine's layout, not the contract:
@@ -71,7 +75,7 @@ from repro_torch.kernels import build
 
 F32 = torch.float32
 _MAX_GRID_Y = 65535
-_MAX_PREDICT_P = 48 * 1024 // 4        # beta_b must fit static-limit smem
+_MAX_PREDICT_P = 28672                 # a row and beta_b in one block's smem
 
 
 # ---------------------------------------------------------------------------

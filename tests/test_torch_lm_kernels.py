@@ -116,6 +116,111 @@ def test_card_attention_route_refuses_other_positions():
                                 window=None)
 
 
+def _tc_schedule(q, k, v, *, causal, window, split=True, block_k=64):
+    """Plain emulation of the bfloat16 tensor-core kernel's arithmetic
+    (``flash_attention_tc_kernel`` in ``csrc/lm.cu``): 64-key tiles in
+    order, S from the bf16 operands summed in float32 and then scaled by
+    log2(e)/sqrt(D) in float32, online softmax with exp2 (a row that has
+    seen no key subtracts 0), l summed from the float32 P, and P V with P
+    split into bf16 hi + lo (``split=False``: one bf16 rounding of P)."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale_log2 = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32) \
+        * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    qpos = torch.arange(sq)[:, None] + (skv - sq)
+    m = torch.full((bh, sq), float("-inf"))
+    l = torch.zeros((bh, sq))
+    acc = torch.zeros((bh, sq, d))
+    for k0 in range(0, skv, block_k):
+        kpos = torch.arange(k0, min(k0 + block_k, skv))[None, :]
+        x = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k0 + block_k]) \
+            * scale_log2
+        ok = torch.ones((sq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        x = x.masked_fill(~ok[None], float("-inf"))
+        m_new = torch.maximum(m, x.max(dim=-1).values)
+        mu = torch.where(m_new == float("-inf"), torch.zeros_like(m_new),
+                         m_new)
+        corr = torch.exp2(m - mu)
+        p = torch.exp2(x - mu[..., None])
+        l = l * corr + p.sum(dim=-1)
+        hi = p.to(torch.bfloat16).float()
+        pv = torch.einsum("bqk,bkd->bqd", hi, vf[:, k0:k0 + block_k])
+        if split:
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = pv + torch.einsum("bqk,bkd->bqd", lo,
+                                   vf[:, k0:k0 + block_k])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / l[..., None]).to(torch.bfloat16)
+
+
+def _bf16_steps(o, o0):
+    """Largest |o - o0| in bf16 steps at |o0|, after 1e-4 absolute (the
+    per-element measure chip_smoke.py holds the kernel to)."""
+    o, o0 = o.astype(np.float32), o0.astype(np.float32)
+    _, e = np.frexp(o0)
+    step = np.ldexp(np.float32(1.0), e - 8)
+    return float(((np.abs(o - o0) - 1e-4) / step).max())
+
+
+@pytest.mark.parametrize("split,bh,sq,skv,d,causal,window", [
+    (True, 4, 128, 128, 32, True, None),
+    (True, 4, 200, 200, 120, True, None),         # D 120: padded depth
+    (True, 4, 256, 256, 64, True, 48),            # window inside a tile
+    (True, 4, 100, 160, 32, True, 64),            # ragged Sq < Skv
+    (True, 4, 130, 130, 120, False, None),        # ragged, non-causal
+    (True, 2, 64, 300, 112, False, 100),
+    (False, 4, 256, 256, 64, True, None),         # one rounding of P
+])
+def test_tensor_core_schedule_matches_reference_per_element(
+        split, bh, sq, skv, d, causal, window):
+    """The bf16 kernel's schedule against the JAX reference, per element:
+    with P split it stays within one bf16 step (plus 1e-4); one bf16
+    rounding of P is more than two steps off, which is why the kernel
+    splits it."""
+    rng = np.random.default_rng(bh * sq + skv + d)
+    jq, tq = _pair(rng.standard_normal((bh, sq, d), dtype=np.float32), "bf16")
+    jk, tk = _pair(rng.standard_normal((bh, skv, d), dtype=np.float32),
+                   "bf16")
+    jv, tv = _pair(rng.standard_normal((bh, skv, d), dtype=np.float32),
+                   "bf16")
+    got = _f32(_tc_schedule(tq, tk, tv, causal=causal, window=window,
+                            split=split))
+    want = _f32(ref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                        window=window))
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() < TOL["bf16"]
+    steps = _bf16_steps(got, want)
+    if split:
+        assert steps <= 1.0, steps
+    else:
+        assert steps > 2.0, steps
+
+
+@pytest.mark.parametrize("d,sq,skv,dtype,ok", [
+    (112, 2048, 2048, "bf16", True), (120, 64, 256, "bf16", True),
+    (8, 5, 5, "bf16", True), (128, 1, 1, "bf16", True),
+    (12, 8, 8, "bf16", False),                    # D % 8 != 0
+    (136, 8, 8, "bf16", False),                   # D > 128
+    (64, 9, 8, "bf16", False),                    # Sq > Skv
+    (12, 9, 8, "f32", True),                      # the float32 kernel
+    (136, 8, 8, "f32", False),
+])
+def test_flash_attention_kernel_shape_limits(d, sq, skv, dtype, ok):
+    """The shapes each card kernel takes: the bfloat16 tensor-core kernel
+    D % 8 == 0, D <= 128, Sq <= Skv; the float32 one any D <= 128."""
+    if ok:
+        fa_mod.check_kernel_shape(4, sq, skv, d, TT[dtype])
+    else:
+        with pytest.raises(ValueError, match="D|Sq"):
+            fa_mod.check_kernel_shape(4, sq, skv, d, TT[dtype])
+
+
 # ---------------------------------------------------------------------------
 # ssd_scan (K6)
 # ---------------------------------------------------------------------------
