@@ -75,11 +75,15 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
 LIBRARIES = ("megabatch", "lm")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
-# core) float32 FLOP/s — the kernels use plain FMA
+# core) float32 FLOP/s — K1-K4 and K6 use plain FMA
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 # dense bf16 tensor-core rate: the least time for K5's bf16 operands
 PEAK_BF16_TC_FLOP_S = 989e12
+# dense TF32 tensor-core rate; K5's float32 kernel does each product in
+# three TF32 passes (hi/lo split), so its float32-grade rate is a third
+PEAK_TF32_TC_FLOP_S = 495e12
+TF32_SPLIT_PASSES = 3
 
 KERNELS = {
     "batched_gram": {
@@ -163,8 +167,9 @@ SERVE_BATCH, SERVE_LEN, SERVE_GEN, SERVE_PROMPTS = 4, 2048, 16, 8
 # reduced model (B 2 x 4 heads, S 100, D 32, window 64) and its full-width
 # group in float32 (B 1, S 512); then a window shorter than S, non-causal,
 # Sq < Skv (queries aligned to the keys' suffix) and ragged S, in both
-# types; last D 120 (h2o-danube-3-4b's heads), which the bfloat16 kernel
-# pads to a depth of 128
+# types; then D 120 (h2o-danube-3-4b's heads), which the bfloat16 kernel
+# pads to a depth of 128; last a float32 call only that kernel takes: D not
+# a multiple of 4 (4-byte copies) and more queries than keys
 MAIN_ATTN_SHAPE = (128, 2048, 2048, 112, "bf16", True, 32768)
 ATTN_SHAPES = (MAIN_ATTN_SHAPE, (128, 2048, 2048, 112, "f32", True, 32768),
                (32, 2048, 2048, 112, "bf16", True, 32768),
@@ -179,7 +184,8 @@ ATTN_SHAPES = (MAIN_ATTN_SHAPE, (128, 2048, 2048, 112, "f32", True, 32768),
                (32, 64, 256, 112, "f32", True, None),
                (16, 1000, 1000, 112, "bf16", True, 300),
                (16, 1000, 1000, 112, "f32", True, None),
-               (32, 1024, 1024, 120, "bf16", True, None))
+               (32, 1024, 1024, 120, "bf16", True, None),
+               (8, 300, 100, 18, "f32", False, None))
 # (BH, S, P, N, chunk, heads) of the SSD scan, for the same runs (112 SSM
 # heads of 64 a batch row, state 64, chunk 256; the reduced model 8 heads of
 # 16, state 16, chunk 16), then a ragged S; "strong" decay is la = -50
@@ -194,6 +200,9 @@ TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 TYPE_NAMES = {v: k for k, v in TYPES.items()}
 # attention tolerance: the reference's own (tests/test_kernels.py TOL)
 ATTN_TOL = {"f32": 2e-4, "bf16": 2e-2}
+# and, for float32, the split-TF32 kernel's own tier: a product within
+# about 2^-21 of float32 (one TF32 rounding is about 1e-3 off)
+ATTN_F32_SPLIT_TOL = 2e-5
 # and per element in bf16: |o - o0| <= 2 bf16 steps at |o0| + 1e-4
 BF16_ULPS = 2.0
 
@@ -383,10 +392,12 @@ def phase_kernels(device):
                                 "the merged (B, C*Nc, P) when Nc % 64 == 0",
         "crossfit_gram": "as batched_gram; bitwise batched_gram on x "
                          "broadcast to (T, N, P) at "
-                         f"{list(XFIT_BITWISE_SHAPE)}",
+                         f"{list(XFIT_BITWISE_SHAPE)}; on operands off a "
+                         "16-byte boundary bitwise the aligned result",
         "flash_attention": "max abs error 2e-4 (float32), 2e-2 (bf16): "
-                           "the reference's own tolerance; bf16 also per "
-                           "element within 2 bf16 steps at |o0| after "
+                           "the reference's own tolerance; float32 also "
+                           "within 2e-5 (the split-TF32 tier); bf16 also "
+                           "per element within 2 bf16 steps at |o0| after "
                            "1e-4",
         "ssd_scan": "y within 2e-4 of max|y|, the final state within "
                     "2e-4 of max|state|: the reference's own tolerance"},
@@ -397,7 +408,9 @@ def phase_kernels(device):
         kernels=sorted(KERNELS), shapes=report, blocked_shapes=blocked,
         crossfit_shapes=xfit, attention_shapes=attn, ssd_shapes=ssd,
         bound_rates={"bytes_s": PEAK_BYTES_S, "f32_flop_s": PEAK_F32_FLOP_S,
-                     "bf16_tensor_core_flop_s": PEAK_BF16_TC_FLOP_S})
+                     "bf16_tensor_core_flop_s": PEAK_BF16_TC_FLOP_S,
+                     "tf32_tensor_core_flop_s": PEAK_TF32_TC_FLOP_S,
+                     "tf32_split_passes": TF32_SPLIT_PASSES})
     return rows
 
 
@@ -476,8 +489,9 @@ def _blocked_kernel_rows(device, gen):
 def _xfit_kernel_rows(device, gen):
     """The shared-X Gram against its plain version, and against
     batched_gram on x broadcast to (T, N, P), at every shape of
-    XFIT_SHAPES."""
-    report, main = [], None
+    XFIT_SHAPES.  The main row carries the opaque drain's lane shape
+    beside it (``lane``)."""
+    report, main, lane = [], None, None
     for shape in XFIT_SHAPES:
         t, n, p = shape
         x = torch.randn((n, p), generator=gen, device=device)
@@ -503,12 +517,17 @@ def _xfit_kernel_rows(device, gen):
             assert bitwise, ("crossfit_gram is not bitwise batched_gram on "
                              "the broadcast tensor", shape)
 
-        def library():
+        def library():              # the faster single-call form
+            return (torch.einsum("np,tn,nq->tpq", x, w, x),
+                    torch.einsum("tn,np->tp", w * y, x))
+
+        def bmm_expand():           # the bmm pair on the broadcast view
             return (torch.bmm((xe * w.unsqueeze(-1)).transpose(1, 2), xe),
                     torch.bmm(xe.transpose(1, 2), (w * y).unsqueeze(-1)))
 
-        gl, _ = library()
-        assert torch.allclose(gl, g0, rtol=1e-3, atol=10 * g_atol)
+        for gl, _ in (library(), bmm_expand()):
+            assert torch.allclose(gl, g0, rtol=1e-3, atol=10 * g_atol)
+        del gl
         g64 = torch.einsum("np,tn,nq->tpq", x.double(), w.double(),
                            x.double())
         nbytes, flops = _crossfit_bound(t, n, p)
@@ -532,14 +551,44 @@ def _xfit_kernel_rows(device, gen):
                 lambda: crossfit_gram.crossfit_gram_plain(x, w, y),
                 cold=True),
             "library_ms": _time_ms(library, cold=True),
+            "library": "einsum('np,tn,nq->tpq') and einsum('tn,np->tp')",
+            "bmm_expand_ms": _time_ms(bmm_expand, cold=True),
             "bound_ms": bound, "bound_by": by,
             "bytes": nbytes, "operations": flops,
+            "plan": crossfit_gram.launch_plan(t, n, p)._asdict(),
         }
         report.append({"shape": list(shape), "crossfit_gram": row})
         if shape == MAIN_XFIT_SHAPE:
-            main = row
-        del x, y, w, g, bv, g0, b0, xe, xb, g1, b1, gl, g64
+            main = dict(row)
+        if shape == LANE_XFIT_SHAPE:
+            lane = row
+        del x, y, w, g, bv, g0, b0, xe, xb, g1, b1, g64
         torch.cuda.empty_cache()
+    # operands that start off a 16-byte boundary (as_batched hands the
+    # kernel such views of w and y): the same bits as aligned copies
+    for t, n, p in ((5, 1003, 7), (3, 517, 45)):
+        x = torch.randn((n, p), generator=gen, device=device)
+        y = torch.randn((t, n), generator=gen, device=device)
+        w = (torch.rand((t, n), generator=gen, device=device) < 0.8).float()
+        views = [torch.empty(a.numel() + k, device=device)[k:].view(a.shape)
+                 .copy_(a) for a, k in ((x, 1), (w, 2), (y, 3))]
+        assert all(v.data_ptr() % 16 for v in views)
+        g, bv = ops.crossfit_gram(x, w, y)
+        gv, bvv = ops.crossfit_gram(*views)
+        torch.cuda.synchronize()
+        assert torch.equal(g, gv) and torch.equal(bv, bvv), \
+            ("crossfit_gram differs on unaligned operands", (t, n, p))
+        g0, _ = crossfit_gram.crossfit_gram_plain(x, w, y)
+        assert torch.allclose(gv, g0, rtol=1e-4,
+                              atol=1e-4 * float(g0.abs().max()))
+        report.append({"shape": [t, n, p], "crossfit_gram": {
+            "unaligned_operands_bitwise_aligned": True,
+            "max_abs_err": float((gv - g0).abs().max())}})
+        del x, y, w, views, g, bv, gv, bvv, g0
+    main["lane"] = {"shape": list(LANE_XFIT_SHAPE),
+                    **{k: lane[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms", "bmm_expand_ms")}}
     return report, main
 
 
@@ -554,10 +603,13 @@ def _attn_pairs(sq, skv, causal, window):
 
 def _attn_bound(bh, sq, skv, d, dtype, causal, window):
     # QK' and PV: 2 D operations each per visible pair; q, k, v read once
-    # and o written once
+    # and o written once.  bf16 at the bf16 tensor-core rate; float32 at
+    # the TF32 rate over the split's three passes (the FMA figure is kept
+    # beside it as bound_ms_at_f32_fma)
     flops = bh * _attn_pairs(sq, skv, causal, window) * 4 * d
     nbytes = TYPES[dtype].itemsize * bh * d * (2 * sq + 2 * skv)
-    peak = PEAK_BF16_TC_FLOP_S if dtype == "bf16" else PEAK_F32_FLOP_S
+    peak = PEAK_BF16_TC_FLOP_S if dtype == "bf16" \
+        else PEAK_TF32_TC_FLOP_S / TF32_SPLIT_PASSES
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / peak * 1e3
     bound = max(t_bytes, t_ops)
@@ -587,8 +639,9 @@ def _bf16_ulps(o, o0):
 def _attn_kernel_rows(device, gen):
     """Flash attention against its plain version (and, at the serve
     path's shape, against scaled_dot_product_attention, timed only) at
-    every shape of ATTN_SHAPES."""
-    report, main = [], None
+    every shape of ATTN_SHAPES.  The main (bf16) row carries the float32
+    kernel's row at the same shape beside it (``f32``)."""
+    report, main, f32 = [], None, None
     for shape in ATTN_SHAPES:
         bh, sq, skv, d, dtype, causal, window = shape
         q = torch.randn((bh, sq, d), generator=gen, device=device) \
@@ -604,6 +657,10 @@ def _attn_kernel_rows(device, gen):
         err = float((o.float() - o0.float()).abs().max())
         assert torch.isfinite(o).all() and err < ATTN_TOL[dtype], \
             ("flash_attention disagrees", shape, err)
+        # float32: the split-TF32 kernel's own, stricter tier besides
+        assert dtype == "bf16" or err <= ATTN_F32_SPLIT_TOL, \
+            ("flash_attention float32 outside the split-TF32 tier", shape,
+             err)
         # per element in bf16: the flat tier alone would pass a fault
         # confined to the late query rows, whose outputs are small
         ulps = _bf16_ulps(o, o0) if dtype == "bf16" else None
@@ -639,10 +696,17 @@ def _attn_kernel_rows(device, gen):
                               "on (1, BH, S, D)")
             row["library_max_abs_err"] = lib_err
         if shape == MAIN_ATTN_SHAPE:
-            main = row
+            main = dict(row)
+        elif shape[:4] == MAIN_ATTN_SHAPE[:4]:
+            f32 = row
         report.append({"shape": list(shape), "flash_attention": row})
         del q, k, v, o, o0
         torch.cuda.empty_cache()
+    main["f32"] = {"shape": list(MAIN_ATTN_SHAPE[:4]) + ["f32"],
+                   **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms",
+                                          "bound_ms_at_f32_fma")}}
     return report, main
 
 
@@ -1429,12 +1493,15 @@ def phase_same_as_cpu_lm(device):
                      **_lm_compare(cpu, card, tier, name)}
         del params, cpu, card
         torch.cuda.empty_cache()
+    f32_launches = out["full_width_one_group_f32"]["card_launches"][
+        "flash_attention"]
     emit("same_as_cpu_lm", cases=out,
          cut="(b): depth 81 -> 6 slots (one group), B 1, S 512, to keep the "
              "CPU side under a minute",
          tolerance="logits and prefill states (m_ssm, shared k) within the "
                    "tier of max|CPU|, the same argmax at every step: (a) "
                    "0.08 (bf16), (b) 1e-3 (float32)")
+    return f32_launches
 
 
 def main(argv=None) -> int:
@@ -1502,8 +1569,9 @@ def main(argv=None) -> int:
         xfit = phase_shared_x(device)
         if launches is not None:
             launches["crossfit_gram"] = xfit
+    raw_lanes = None
     if "raw_request" in phases:
-        phase_raw_request(device)
+        raw_lanes = phase_raw_request(device)
     if "estimate_irm" in phases:
         phase_estimate_irm(device)
     if "serve_zamba2" in phases:
@@ -1511,8 +1579,9 @@ def main(argv=None) -> int:
         if launches is not None:
             for name in ("flash_attention", "ssd_scan"):
                 launches[name] = served[name]
+    f32_launches = None
     if "same_as_cpu_lm" in phases:
-        phase_same_as_cpu_lm(device)
+        f32_launches = phase_same_as_cpu_lm(device)
 
     if phases != list(PHASES):
         print(json.dumps({"ok": False, "partial": phases,
@@ -1525,9 +1594,15 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # K4 at the opaque drain's lane shape (raw_request's launches), K5's
+    # float32 kernel at the serve shape (same_as_cpu_lm (b)'s launches)
+    extra = {"crossfit_gram": {"lane": {**rows["crossfit_gram"]["lane"],
+                                        "launches": raw_lanes}},
+             "flash_attention": {"f32": {**rows["flash_attention"]["f32"],
+                                         "launches": f32_launches}}}
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
-         **{k: rows[name][k] for k in keys}}
+         **{k: rows[name][k] for k in keys}, **extra.get(name, {})}
         for name, meta in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

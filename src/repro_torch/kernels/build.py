@@ -41,8 +41,10 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # xc, w, y, g, b, B, C, Nc, P, stream
         "repro_batched_gram_blocked": (_PTR, _PTR, _PTR, _PTR, _PTR,
                                        _INT, _INT, _INT, _INT, _PTR),
-        # x, w, y, g, b, T, N, P, stream
+        # x, w, y, g, b, T, N, P, then the launch plan (sub, tt, slots,
+        # packs, chunks, ring, m: kernels/crossfit_gram.py), stream
         "repro_crossfit_gram": (_PTR, _PTR, _PTR, _PTR, _PTR,
+                                _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                 _INT, _INT, _INT, _PTR),
         # xs, beta, valid, out, B, N, P, stream
         "repro_batched_predict": (_PTR, _PTR, _PTR, _PTR,

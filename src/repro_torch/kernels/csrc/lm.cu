@@ -15,11 +15,13 @@
 //                          S, N) float32 -> y (BH, S, P) and the final
 //                          state (BH, N, P)
 //
-// bfloat16 attention runs on the tensor cores (mma.sync m16n8k16, bf16
-// operands, float32 accumulators) from K/V tiles staged by cp.async;
-// float32 attention and the scan are plain float32 FMA from shared memory
-// (the port keeps TF32 off).  No TMA yet.  Any Sq, Skv, S: ragged edges are
-// masked here, with no padding in the wrapper.
+// Attention runs on the tensor cores from K/V tiles staged by cp.async:
+// bfloat16 operands through mma.sync m16n8k16 (float32 accumulators),
+// float32 ones through mma.sync m16n8k8 TF32 with every operand split
+// into a TF32 hi and lo part, three products each, which keeps float32
+// grade (no TF32 mode: the port keeps TF32 off).  The scan is plain
+// float32 FMA from shared memory.  No TMA yet.  Any Sq, Skv, S: ragged
+// edges are masked here, with no padding in the wrapper.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -27,202 +29,6 @@
 #include <stdint.h>
 
 namespace {
-
-// sum (or max) over the 16 lanes of a half-warp that share a tile row
-__device__ __forceinline__ float half_warp_sum(float v)
-{
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-    return v;
-}
-__device__ __forceinline__ float half_warp_max(float v)
-{
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    return v;
-}
-
-// ---------------------------------------------------------------------------
-// flash_attention, float32
-//
-// Replaces flash_attention_pallas (src/repro/kernels/flash_attention.py,
-// body _kernel) for float32 operands; bfloat16 ones take
-// flash_attention_tc_kernel below.  One block of 256 threads per (lane,
-// 64-query tile) stages
-// the tile's queries once (scaled by 1/sqrt(D), float32) and walks the
-// 64-key tiles that the causal mask and the window leave visible to any of
-// its queries, so the windowed case costs O(S*W) as the TPU kernel's
-// pl.when skip does.  Thread (ti, tj) = (tid / 16, tid % 16) owns query
-// rows ti + 16r (r < 4): the 4 x 4 scores of keys tj + 16c, and the output
-// columns tj + 16c (c < D/16).  A row's 16 threads are one half-warp, so
-// the running max and sum are half-warp shuffles; the probabilities go
-// through shared memory to the P V product.  Running (m, l, acc) in
-// float32, masked scores are -inf (a row that has seen no key yet keeps
-// m = -inf and adds nothing), the output is acc / l.
-//
-// Bound on an H100: at the serve path's (BH 128, S 2048, D 112) causal it
-// does 4 D operations per visible (query, key) pair, 120 GFLOP, and moves
-// 470 MB in float32: operations bound, 1.80 ms at the 67 TFLOP/s float32
-// FMA rate (TF32 stays off).  It runs on the FMA pipes fed from shared
-// memory (two loads per four FMAs in the score loop): 8.02 ms there on an
-// NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
-// ---------------------------------------------------------------------------
-constexpr int FA_BQ = 64;
-constexpr int FA_BK = 64;
-constexpr int FA_THREADS = 256;
-constexpr int FA_MAX_D = 128;
-constexpr int FA_DSLOTS = FA_MAX_D / 16;
-constexpr int FA_PS = FA_BK + 1;            // row stride of the P tile
-
-inline int fa_row_stride(int d) { return d | 1; }   // odd: no bank conflict
-
-inline size_t fa_smem_bytes(int d)
-{
-    const int dp = fa_row_stride(d);
-    return sizeof(float) * ((size_t)(FA_BQ + 2 * FA_BK) * dp + FA_BQ * FA_PS);
-}
-
-__global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int sq, int skv, int d, int causal, int window,
-                       float scale)
-{
-    extern __shared__ float fa_smem[];
-    const int dp = d | 1;
-    float* qs = fa_smem;                    // FA_BQ x dp, pre-scaled
-    float* ks = qs + FA_BQ * dp;            // FA_BK x dp
-    float* vs = ks + FA_BK * dp;            // FA_BK x dp
-    float* ps = vs + FA_BK * dp;            // FA_BQ x FA_PS
-
-    const int tid = threadIdx.x;
-    const int ti = tid >> 4, tj = tid & 15;
-    const int q0 = blockIdx.x * FA_BQ;
-    const long long lane = blockIdx.y;
-    const float* ql = q + lane * sq * d;
-    const float* kl = k + lane * skv * d;
-    const float* vl = v + lane * skv * d;
-    float* ol = o + lane * sq * d;
-    const int offset = skv - sq;
-    const int nq = min(FA_BQ, sq - q0);
-
-    for (int idx = tid; idx < FA_BQ * d; idx += FA_THREADS) {
-        const int r = idx / d, c = idx - r * d;
-        qs[r * dp + c] = r < nq ? ql[(long long)(q0 + r) * d + c] * scale
-                                : 0.f;
-    }
-    // keys visible to some query of the tile: [k_lo, k_hi)
-    const int qa_lo = q0 + offset, qa_hi = q0 + nq - 1 + offset;
-    int k_lo = 0, k_hi = skv;
-    if (window > 0) k_lo = max(0, qa_lo - window + 1);
-    if (causal) k_hi = min(skv, qa_hi + 1);
-    k_lo = (k_lo / FA_BK) * FA_BK;
-
-    float m[4], l[4], acc[4][FA_DSLOTS];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        m[r] = -INFINITY;
-        l[r] = 0.f;
-#pragma unroll
-        for (int c = 0; c < FA_DSLOTS; ++c) acc[r][c] = 0.f;
-    }
-
-    for (int k0 = k_lo; k0 < k_hi; k0 += FA_BK) {
-        const int nk = min(FA_BK, skv - k0);
-        __syncthreads();            // the last tile's K, V and P are read
-        for (int idx = tid; idx < FA_BK * d; idx += FA_THREADS) {
-            const int r = idx / d, c = idx - r * d;
-            const long long g = (long long)(k0 + r) * d + c;
-            ks[r * dp + c] = r < nk ? kl[g] : 0.f;
-            vs[r * dp + c] = r < nk ? vl[g] : 0.f;
-        }
-        __syncthreads();
-
-        float s[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-        for (int e = 0; e < d; ++e) {
-            float qv[4], kv[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) qv[r] = qs[(ti + 16 * r) * dp + e];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) kv[c] = ks[(tj + 16 * c) * dp + e];
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-                for (int c = 0; c < 4; ++c)
-                    s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-        }
-
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int i = ti + 16 * r;
-            const int qa = q0 + i + offset;
-            float mx = -INFINITY;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                const int j = tj + 16 * c;
-                const int ka = k0 + j;
-                bool ok = j < nk;
-                if (causal) ok = ok && ka <= qa;
-                if (window > 0) ok = ok && ka > qa - window;
-                s[r][c] = ok ? s[r][c] : -INFINITY;
-                mx = fmaxf(mx, s[r][c]);
-            }
-            mx = half_warp_max(mx);
-            const float m_new = fmaxf(m[r], mx);
-            const float m_use = m_new == -INFINITY ? 0.f : m_new;
-            const float corr = expf(m[r] - m_use);
-            float rs = 0.f;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                const float pv = expf(s[r][c] - m_use);
-                ps[i * FA_PS + tj + 16 * c] = pv;
-                rs += pv;
-            }
-            rs = half_warp_sum(rs);
-            l[r] = l[r] * corr + rs;
-            m[r] = m_new;
-#pragma unroll
-            for (int c = 0; c < FA_DSLOTS; ++c) acc[r][c] *= corr;
-        }
-        __syncthreads();
-
-        for (int j = 0; j < nk; ++j) {
-            float pv[4], vv[FA_DSLOTS];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) pv[r] = ps[(ti + 16 * r) * FA_PS + j];
-#pragma unroll
-            for (int c = 0; c < FA_DSLOTS; ++c) {
-                const int col = tj + 16 * c;
-                vv[c] = col < d ? vs[j * dp + col] : 0.f;
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-                for (int c = 0; c < FA_DSLOTS; ++c)
-                    acc[r][c] = fmaf(pv[r], vv[c], acc[r][c]);
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int i = ti + 16 * r;
-        if (i >= nq) continue;
-        const float inv = 1.f / l[r];
-#pragma unroll
-        for (int c = 0; c < FA_DSLOTS; ++c) {
-            const int col = tj + 16 * c;
-            if (col < d)
-                ol[(long long)(q0 + i) * d + col] = acc[r][c] * inv;
-        }
-    }
-}
 
 // ---------------------------------------------------------------------------
 // flash_attention, bfloat16: flash_attention_tc_kernel
@@ -531,6 +337,367 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 *reinterpret_cast<__nv_bfloat162*>(orow + col) =
                     __floats2bfloat162_rn(acc[j][2 * r] * inv,
                                           acc[j][2 * r + 1] * inv);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// flash_attention, float32: flash_attention_tf32_kernel
+//
+// Replaces flash_attention_pallas (src/repro/kernels/flash_attention.py,
+// body _kernel) for float32 operands; bfloat16 ones take
+// flash_attention_tc_kernel below.
+//
+// Bound on an H100: at the serve path's (BH 128, S 2048, D 112) causal the
+// function does 4 D operations per visible (query, key) pair, 120 GFLOP,
+// and moves 470 MB in float32.  On the FMA pipes (67 TFLOP/s) that is
+// 1.80 ms; the tensor cores' float32-grade route below does each product
+// in three TF32 passes, so its least time is 120 GFLOP at 495 / 3 TFLOP/s,
+// 0.73 ms.  Measured (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): 2.77 ms
+// there, against 8.03 for the FMA kernel it replaces and 3.22 for
+// scaled_dot_product_attention.  It is bound by the rate of mma.sync's
+// TF32 products (one pass instead of three runs much faster; the split
+// itself costs little), and wgmma is the way past that rate.
+//
+// Design: the bf16 kernel's structure with TF32 products split three ways.
+// - Each float32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+//   (cvt.rna), and each product is formed as A_lo B_hi + A_hi B_lo +
+//   A_hi B_hi: three mma.sync.m16n8k8 tf32 -> float32 into one float32
+//   accumulator, each pass laid over independent output tiles so that the
+//   three do not wait on one another.  The dropped A_lo B_lo and the rounding of the lo parts
+//   keep a product within about 2^-21 of float32 (a single TF32 rounding
+//   is 2^-11 off).  This is not a TF32 mode: the port keeps TF32 off, and
+//   chip_smoke.py holds every float32 row within 2e-5 of the plain version.
+// - One block of 8 warps per (lane, 128-query tile), each warp owning 16
+//   query rows; blockIdx.x is the lane, and the query tiles are walked
+//   from the last (the heaviest under a causal mask), several a block when
+//   they pass the grid's 65535.  The block skips the key tiles none of its
+//   queries can see, a warp those none of its rows can see.
+// - Q, K and V tiles are float32 in shared memory at a row stride of DK + 4
+//   floats (DK: D rounded up to 16), which makes both reads conflict-free:
+//   ldmatrix (8 rows of 16 bytes) for the A fragments of Q and the B
+//   fragments of K (a b16 8x8 matrix is an 8x4 float matrix), and 32-bit
+//   loads for V.  K and V tiles of 64 keys come by cp.async (16-byte
+//   chunks when D % 4 == 0 and the operands are 16-byte aligned, else 4
+//   bytes) into a two-stage ring, rows past Sq or Skv zero-filled by the
+//   copy, depth columns [D, DK) zeroed once.
+// - S = Q K' into float32, scaled by log2(e)/sqrt(D) in float32, masked
+//   to -inf (causal, window, ragged Skv); online softmax with quad
+//   shuffles, (m, l) in float32, a row that has seen no key subtracts 0.
+// - P V with P from the S accumulators in registers: an m16n8k8 A
+//   fragment wants columns t and t + 4 of a thread's row, the accumulator
+//   holds columns 2t and 2t + 1, so the k index of step j maps to key
+//   8 j + 2t (and t + 4 to 8 j + 2t + 1), and V's fragments are read at
+//   those rows.  Since P V sums over keys, the order of keys within a step
+//   changes nothing.
+// - O / l is written in float32, masked at Sq and D (a row that sees no
+//   key gives 0 / 0, as the plain version's softmax does).
+// ---------------------------------------------------------------------------
+constexpr int TF_BQ = 128;
+constexpr int TF_BK = 64;
+constexpr int TF_WARPS = TF_BQ / 16;
+constexpr int TF_THREADS = 32 * TF_WARPS;
+constexpr float TF_LOG2E = 1.4426950408889634f;
+
+inline size_t tf_smem_bytes(int dk)
+{
+    // the Q tile and a two-stage ring of K and V tiles, row stride dk + 4
+    return sizeof(float) * (size_t)(TF_BQ + 4 * TF_BK) * (dk + 4);
+}
+
+// global -> shared, 16 or 4 bytes, zero-filled when !full
+__device__ __forceinline__ void tf_cp_async(uint32_t dst, const void* src,
+                                            bool vec4, bool full)
+{
+    if (vec4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(dst), "l"(src), "r"(full ? 16 : 0));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                     :: "r"(dst), "l"(src), "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_0()
+{
+    asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// x -> hi = tf32(x), lo = tf32(x - hi), both as float32 bit patterns
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo)
+{
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+    const float rest = x - __uint_as_float(hi);
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// c (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col).  Not volatile:
+// the compiler may interleave independent products (three passes into one
+// accumulator are a chain)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1)
+{
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int DK>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+flash_attention_tf32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ o, int sq, int skv, int d,
+                            int causal, int window, float scale_log2,
+                            int vec4)
+{
+    constexpr int RS = DK + 4;              // row stride in floats
+    constexpr int KSTEPS = DK / 8;          // depth steps of Q K'
+    constexpr int DTILES = DK / 8;          // 8-column tiles of O
+    extern __shared__ __align__(16) float tf_smem[];
+    float* qs = tf_smem;                    // TF_BQ x RS
+    float* ks = qs + TF_BQ * RS;            // 2 stages x TF_BK x RS
+    float* vs = ks + 2 * TF_BK * RS;
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const long long head = blockIdx.x;
+    const float* ql = q + head * sq * d;
+    const float* kl = k + head * skv * d;
+    const float* vl = v + head * skv * d;
+    float* ol = o + head * sq * d;
+    const int offset = skv - sq;
+    const int n_qt = (sq + TF_BQ - 1) / TF_BQ;
+    const int cw = vec4 ? 4 : 1;            // floats a copy moves
+    const int per_row = d / cw;
+
+    if (d < DK) {       // depth padding: never written by the copies
+        const int pad = DK - d;
+        for (int idx = tid; idx < (TF_BQ + 4 * TF_BK) * pad;
+             idx += TF_THREADS) {
+            const int r = idx / pad;
+            qs[r * RS + d + idx - r * pad] = 0.f;
+        }
+    }
+    // rows [row0, row0 + n_rows) of a (len, d) operand into dst, rows at or
+    // past len zero-filled
+    auto copy_rows = [&](float* dst, const float* src, int row0, int n_rows,
+                         int len) {
+        int r = tid / per_row, c = tid - r * per_row;
+        const int dr = TF_THREADS / per_row, dc = TF_THREADS - dr * per_row;
+        for (; r < n_rows;) {
+            const bool in = row0 + r < len;
+            tf_cp_async(smem_addr(dst + r * RS + c * cw),
+                        src + (long long)(in ? row0 + r : 0) * d + c * cw,
+                        vec4, in);
+            r += dr;
+            c += dc;
+            if (c >= per_row) { c -= per_row; ++r; }
+        }
+    };
+
+    for (int qt = blockIdx.y; qt < n_qt; qt += gridDim.y) {
+        const int q0 = (n_qt - 1 - qt) * TF_BQ;
+        const int nq = min(TF_BQ, sq - q0);
+        // keys visible to some query of the block: [k_lo, k_hi)
+        const int qa_lo = q0 + offset, qa_hi = q0 + nq - 1 + offset;
+        int k_lo = 0, k_hi = skv;
+        if (window > 0) k_lo = max(0, qa_lo - window + 1);
+        if (causal) k_hi = min(skv, qa_hi + 1);
+        k_lo = (k_lo / TF_BK) * TF_BK;
+        // this warp's rows, as positions among the keys
+        const int wr0 = q0 + 16 * warp;
+        const bool w_rows = wr0 < sq;
+        const int w_lo = wr0 + offset, w_hi = min(wr0 + 15, sq - 1) + offset;
+
+        __syncthreads();                    // the last tile's Q is read
+        copy_rows(qs, ql, q0, TF_BQ, sq);
+        if (k_lo < k_hi) {
+            copy_rows(ks, kl, k_lo, TF_BK, skv);
+            copy_rows(vs, vl, k_lo, TF_BK, skv);
+        }
+        cp_async_commit();                  // Q and the first tile
+
+        float acc[DTILES][4];
+#pragma unroll
+        for (int j = 0; j < DTILES; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+        int stage = 0;
+        for (int k0 = k_lo; k0 < k_hi; k0 += TF_BK, stage ^= 1) {
+            if (k0 + TF_BK < k_hi) {
+                copy_rows(ks + (stage ^ 1) * TF_BK * RS, kl, k0 + TF_BK,
+                          TF_BK, skv);
+                copy_rows(vs + (stage ^ 1) * TF_BK * RS, vl, k0 + TF_BK,
+                          TF_BK, skv);
+            }
+            cp_async_commit();              // possibly empty: uniform wait
+            cp_async_wait_1();              // this tile has landed
+            __syncthreads();
+
+            bool sees = w_rows;
+            if (causal) sees = sees && k0 <= w_hi;
+            if (window > 0) sees = sees && k0 + TF_BK - 1 > w_lo - window;
+            if (sees) {
+                const float* kt = ks + stage * TF_BK * RS;
+                const float* vt = vs + stage * TF_BK * RS;
+                float s[TF_BK / 8][4];
+#pragma unroll
+                for (int j = 0; j < TF_BK / 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+                for (int kk = 0; kk < KSTEPS; ++kk) {
+                    // A: rows 0-7 / 8-15 at depth 0-3, then at depth 4-7
+                    uint32_t a[4], ah[4], al[4];
+                    ldsm_x4(a, smem_addr(
+                        qs + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1))
+                        * RS + 8 * kk + 4 * (lane >> 4)));
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        split_tf32(__uint_as_float(a[e]), ah[e], al[e]);
+                    // B of the 8 key tiles: keys 16 jp + 0-7 at depth 0-3
+                    // and 4-7, then keys 16 jp + 8-15
+                    uint32_t bh[TF_BK / 16][4], bl[TF_BK / 16][4];
+#pragma unroll
+                    for (int jp = 0; jp < TF_BK / 16; ++jp) {
+                        uint32_t b[4];
+                        ldsm_x4(b, smem_addr(
+                            kt + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * RS
+                            + 8 * kk + 4 * ((lane >> 3) & 1)));
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            split_tf32(__uint_as_float(b[e]), bh[jp][e],
+                                       bl[jp][e]);
+                    }
+                    // the three passes, each over the 8 independent tiles
+#pragma unroll
+                    for (int jp = 0; jp < TF_BK / 16; ++jp) {
+                        mma_tf32(s[2 * jp], al, bh[jp][0], bh[jp][1]);
+                        mma_tf32(s[2 * jp + 1], al, bh[jp][2], bh[jp][3]);
+                    }
+#pragma unroll
+                    for (int jp = 0; jp < TF_BK / 16; ++jp) {
+                        mma_tf32(s[2 * jp], ah, bl[jp][0], bl[jp][1]);
+                        mma_tf32(s[2 * jp + 1], ah, bl[jp][2], bl[jp][3]);
+                    }
+#pragma unroll
+                    for (int jp = 0; jp < TF_BK / 16; ++jp) {
+                        mma_tf32(s[2 * jp], ah, bh[jp][0], bh[jp][1]);
+                        mma_tf32(s[2 * jp + 1], ah, bh[jp][2], bh[jp][3]);
+                    }
+                }
+
+                // scale in float32, mask, online softmax (rows g and g + 8)
+                const bool edge = k0 + TF_BK > skv
+                    || (causal && k0 + TF_BK - 1 > w_lo)
+                    || (window > 0 && k0 <= w_hi - window);
+                float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+                for (int j = 0; j < TF_BK / 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        float x = s[j][e] * scale_log2;
+                        if (edge) {
+                            const int qa = w_lo + g + 8 * (e >> 1);
+                            const int ka = k0 + 8 * j + 2 * t4 + (e & 1);
+                            bool ok = ka < skv;
+                            if (causal) ok = ok && ka <= qa;
+                            if (window > 0) ok = ok && ka > qa - window;
+                            x = ok ? x : -INFINITY;
+                        }
+                        s[j][e] = x;
+                        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+                    }
+                float mu[2], corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    mx[r] = fmaxf(mx[r],
+                                  __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                    mx[r] = fmaxf(mx[r],
+                                  __shfl_xor_sync(0xffffffffu, mx[r], 2));
+                    const float m_new = fmaxf(m[r], mx[r]);
+                    mu[r] = m_new == -INFINITY ? 0.f : m_new;
+                    corr[r] = exp2f(m[r] - mu[r]);
+                    m[r] = m_new;
+                }
+#pragma unroll
+                for (int j = 0; j < TF_BK / 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float p = exp2f(s[j][e] - mu[e >> 1]);
+                        s[j][e] = p;
+                        rs[e >> 1] += p;
+                    }
+#pragma unroll
+                for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+                for (int j = 0; j < DTILES; ++j) {
+                    acc[j][0] *= corr[0];
+                    acc[j][1] *= corr[0];
+                    acc[j][2] *= corr[1];
+                    acc[j][3] *= corr[1];
+                }
+
+                // O += P V, 8 keys a step: the k index t is key 8 j + 2t,
+                // t + 4 is key 8 j + 2t + 1
+#pragma unroll
+                for (int j = 0; j < TF_BK / 8; ++j) {
+                    uint32_t ph[4], pl[4];
+                    split_tf32(s[j][0], ph[0], pl[0]);
+                    split_tf32(s[j][2], ph[1], pl[1]);
+                    split_tf32(s[j][1], ph[2], pl[2]);
+                    split_tf32(s[j][3], ph[3], pl[3]);
+                    const float* v0 = vt + (8 * j + 2 * t4) * RS + g;
+                    // O's tiles four at a time: the three passes over four
+                    // independent accumulators
+#pragma unroll
+                    for (int d0 = 0; d0 < DTILES; d0 += 4) {
+                        uint32_t vh[4][2], vl[4][2];
+#pragma unroll
+                        for (int u = 0; u < 4; ++u)
+                            if (d0 + u < DTILES) {
+                                split_tf32(v0[8 * (d0 + u)], vh[u][0],
+                                           vl[u][0]);
+                                split_tf32(v0[RS + 8 * (d0 + u)], vh[u][1],
+                                           vl[u][1]);
+                            }
+#pragma unroll
+                        for (int u = 0; u < 4; ++u)
+                            if (d0 + u < DTILES)
+                                mma_tf32(acc[d0 + u], pl, vh[u][0], vh[u][1]);
+#pragma unroll
+                        for (int u = 0; u < 4; ++u)
+                            if (d0 + u < DTILES)
+                                mma_tf32(acc[d0 + u], ph, vl[u][0], vl[u][1]);
+#pragma unroll
+                        for (int u = 0; u < 4; ++u)
+                            if (d0 + u < DTILES)
+                                mma_tf32(acc[d0 + u], ph, vh[u][0], vh[u][1]);
+                    }
+                }
+            }
+            __syncthreads();                // the stage is free to refill
+        }
+        cp_async_wait_0();                  // nothing left in flight
+
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+            const int row = wr0 + g + 8 * r;
+            if (row >= sq) continue;
+            const float inv = 1.f / l[r];
+            float* orow = ol + (long long)row * d;
+#pragma unroll
+            for (int j = 0; j < DTILES; ++j) {
+                const int col = 8 * j + 2 * t4;
+                if (col < d) orow[col] = acc[j][2 * r] * inv;
+                if (col + 1 < d) orow[col + 1] = acc[j][2 * r + 1] * inv;
+            }
         }
     }
 }
@@ -849,11 +1016,33 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
     return cudaGetLastError();
 }
 
+// launch the float32 kernel at depth DK (D rounded up to 16); query tiles
+// past the grid's 65535 are walked by the blocks in turn
+template <int DK>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
+                        int bh, int sq, int skv, int d, int causal,
+                        int window, float scale, bool vec4,
+                        cudaStream_t stream)
+{
+    static size_t granted = 0;
+    const size_t smem = tf_smem_bytes(DK);
+    const cudaError_t err = allow_smem(flash_attention_tf32_kernel<DK>, smem,
+                                       &granted);
+    if (err != cudaSuccess) return err;
+    const int n_qt = (sq + TF_BQ - 1) / TF_BQ;
+    const dim3 grid(bh, n_qt < 65535 ? n_qt : 65535);
+    flash_attention_tf32_kernel<DK><<<grid, TF_THREADS, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, sq,
+        skv, d, causal, window, scale * TF_LOG2E, (int)vec4);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-// float32 operands take the FMA kernel; bfloat16 ones the tensor-core
-// kernel, which needs D % 8 == 0, D <= 128 and Sq <= Skv (the wrapper
-// checks; anything else is refused here too)
+// float32 operands take the split-TF32 kernel (any D <= 128, any Sq and
+// Skv); bfloat16 ones the bf16 tensor-core kernel, which needs D % 8 == 0,
+// D <= 128 and Sq <= Skv (the wrapper checks; anything else is refused
+// here too)
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int bh, int sq,
                                      int skv, int d, int causal, int window,
@@ -874,16 +1063,18 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 #undef TC_CASE
         return (int)cudaErrorInvalidValue;
     }
-    static size_t granted = 0;
-    const size_t smem = fa_smem_bytes(d);
-    const cudaError_t err = allow_smem(flash_attention_kernel, smem,
-                                       &granted);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((sq + FA_BQ - 1) / FA_BQ, bh);
-    flash_attention_kernel<<<grid, FA_THREADS, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, sq,
-        skv, d, causal, window, scale);
-    return (int)cudaGetLastError();
+    const bool vec4 = d % 4 == 0
+        && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0;
+#define TF_CASE(n)                                                      \
+    case n / 16:                                                        \
+        return (int)launch_tf32<n>(q, k, v, o, bh, sq, skv, d, causal,  \
+                                   window, scale, vec4, st)
+    switch ((d + 15) / 16) {
+        TF_CASE(16); TF_CASE(32); TF_CASE(48); TF_CASE(64);
+        TF_CASE(80); TF_CASE(96); TF_CASE(112); TF_CASE(128);
+    }
+#undef TF_CASE
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int repro_ssd_scan(const void* xbar, const void* la,

@@ -19,7 +19,9 @@
 // any P, any N or Nc, the ragged edges are masked here.  Plain FMA in
 // float32 — no TF32, no tensor cores — and one fixed accumulation order per
 // output element, so a result does not depend on the launch's batch size or
-// on the other lanes.
+// on the other lanes.  batched_gram and batched_gram_blocked stage a step
+// through registers; crossfit_gram keeps a ring of steps in flight with
+// cp.async, its launch plan chosen in Python (kernels/crossfit_gram.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -321,189 +323,347 @@ batched_gram_blocked_kernel(const float* __restrict__ xc,
 // ---------------------------------------------------------------------------
 // crossfit_gram
 //
-// The shared-X form: T tasks over ONE feature matrix x (N, P), per-task
-// weights and targets w, y (T, N):  G_t = X' diag(w_t) X,  b_t = X'(w_t y_t).
-// The TPU kernel kept an X tile in VMEM and accumulated a block of 8 tasks
-// over it, so one read of X served the block.  Here one thread block per
-// (block of 4 nq tasks, 32x32 tile pair ti <= tj) walks N in batched_gram's
-// 64-row steps: a step's X columns are staged in shared memory once, beside
-// the block's w and w * y rows.  Each thread keeps batched_gram's 4x4
-// register tile for four tasks: per row, two 16-byte loads of X and four
-// 4-byte loads of w feed 4 x 16 FMAs (batched_gram: three loads for 16).
-// At small P most of a 32x32 tile's products fall outside G, so only the
-// useful 4x4 sub-tiles of the pair get threads: those that meet [0, P)^2
-// and, on a diagonal tile, the upper triangle (at the paper's P 18: 15
-// sub-tiles of 64).  There the block runs one warp per scheduler and is
-// bound by instruction latency, at 8x its operations bound (PERF.md).  Each of the four row groups gives every (sub-tile, task quad) item
-// one thread; nq (1 to 4 quads a block) is chosen at launch so that a
-// group's items fill its 64 threads without leaving the card short of
-// blocks.  A block whose tasks end at T = 1 multiplies out one task.
+// Replaces crossfit_gram_pallas (src/repro/kernels/crossfit_gram.py, body
+// _kernel).  The shared-X form: T tasks over ONE feature matrix x (N, P),
+// per-task weights and targets w, y (T, N):
+// G_t = X' diag(w_t) X,  b_t = X'(w_t y_t).
 //
-// Per task, every element is summed over the same rows, in the same four
-// groups and the same order as batched_gram, and the groups are added in
-// its order ((g0 + g1) + g2) + g3: crossfit_gram(x, w, y) is bitwise
-// batched_gram on x broadcast to (T, N, P).  Lanes past T load task T-1's
-// rows and store nothing.  The partial tiles are added one task at a time
-// through the X slab, so shared memory stays under 28 KB.
+// Per task, every element is summed in batched_gram's order: 64-row steps
+// in order, four groups of 16 rows each summed in order as
+// fmaf(w x_i (rounded once), x_j, acc), the groups added ((g0 + g1) + g2)
+// + g3.  So crossfit_gram(x, w, y) is bitwise batched_gram on x broadcast
+// to (T, N, P).  The order fixes one chain per (task, element, group) over
+// all of N: N is never split across blocks, and nothing is accumulated
+// with atomics.  What the design chooses is which thread owns which
+// chains, and how a step reaches shared memory.
+//
+// - Items.  A thread owns one SUB x SUB sub-tile of a 32x32 tile pair (ti
+//   <= tj) of G for TT tasks and one row group: (SUB, TT) is (4, 2), (4, 4),
+//   (2, 2) or (2, 1).
+//   Only the sub-tiles that meet [0, P)^2 and, on a diagonal pair, the
+//   upper triangle are items (15 of 64 at the paper's P 18 with SUB 4).  A
+//   block is 4 groups of `slots` threads (32 or 64); a group's slots hold
+//   (item, task pack) pairs densely: `packs` packs of TT tasks each when a
+//   pair's items fit the slots, else `chunks` blocks share the pair's
+//   items.  The launch plan (SUB, TT, slots, packs, chunks, ring, m) comes
+//   from kernels/crossfit_gram.py::launch_plan, which picks it from T, N
+//   and P with a model of the card checked against every plan's time
+//   (scripts/bench_crossfit_plans.py).
+// - A ring of `ring` slots (2 to 8) of m (2 or 4) 64-row steps each in
+//   shared memory, filled by cp.async, so a slot costs its FMAs and one barrier,
+//   not a load latency: slot i + ring - 1 is in flight while slot i is
+//   multiplied out.  At P <= 32 (a SPAN instance) a row's P floats go to a
+//   row of 32, in the widest copies (16, 8 or 4 bytes) that x's address
+//   and 4 P allow.  Above, each row's 32 columns of a tile are copied as
+//   the 9 aligned 16-byte chunks around them (row r at 36 r plus its
+//   shift, (r P + x's first float) mod 4).  A task's w and y of a slot are
+//   the aligned 16-byte chunks around its 64 m values.  The chunks are
+//   aligned to the operands' addresses (a view may start anywhere on a
+//   float; the aligned chunk around its first values lies in its storage)
+//   and zero-fill what lies past a row, past N or past T, so any N, P and
+//   alignment is taken.  Copies of 4 bytes, one a value, cost about a
+//   microsecond a step (PERF.md).
+// - The row stride is a constant of the instance and a tile's shift has
+//   four phases taken once, so every offset in the 16-row loop is an
+//   immediate; reads are float4 (a span; a tile at shift 0), float2 (a
+//   tile at even shifts) or one float at a time.  The b products (the
+//   diagonal pairs' sub-tiles of row 0) are a second pass over the rows,
+//   so the main loop has no branch.
+// - Registers: at most 16 accumulators of G a thread under
+//   __launch_bounds__(256, 2), so that two 256-thread blocks fit an SM;
+//   the instances with 32 or 64 (SUB 4, TT 2 or 4: the paper's T 1000
+//   and wide P, where a block's slab from L2 has to serve more tasks) run
+//   one block an SM.
+//
+// Bound on an H100: at the paper's (T 1000, N 5099, P 18) the function
+// moves 42.5 MB and does 2.0 GFLOP: 0.030 ms at the 67 TFLOP/s plain
+// float32 rate.  Measured (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
+// 0.133 ms there (the earlier kernel, one-step register prefetch and four
+// tasks a thread at 186 registers: 0.245; the einsum pair 0.156), 0.062
+// ms at the opaque drain's T = 1 (0.0868; einsum 0.027: a lane's 367 KB
+// of X passes through one SM's copies, and the same warps compute), 1.10
+// ms at (32, 65536, 33) (2.97; K1 on the broadcast tensor 1.08), 6.2 ms at
+// (40, 60000, 201) (7.31).
+//
+// Only the upper triangle is computed; every stored G[i][j], i <= j, is
+// written to both [i][j] and [j][i], so G is exactly symmetric.
 // ---------------------------------------------------------------------------
-constexpr int XF_TASKS = 4;             // tasks a thread accumulates
-constexpr int XF_MAX_QUADS = 4;         // quads of tasks a block takes
-constexpr int XF_SLOTS = GRAM_THREADS / GRAM_GROUPS;   // threads a group
-constexpr int XF_SUB = TILE / 4;        // 4x4 sub-tiles along a tile edge
-constexpr int XF_WSTRIDE = GRAM_ROWS + 1;   // a task's staged row, padded
-constexpr int XF_MIN_BLOCKS = 100;      // fewer quads below this many blocks
-static_assert(XF_SLOTS == GRAM_ROWS && XF_SLOTS * 16 * (GRAM_GROUPS - 1)
-              <= 2 * GRAM_ROWS * TILE, "partial tiles fit the X slab");
+constexpr int XF_MAX_THREADS = 256;
+constexpr int XF_XR = 36;                   // a staged tile row: 9 chunks
+constexpr int XF_MAX_RING = 8;
+constexpr int XF_MAX_M = 8;                 // 64-row steps a ring slot
+constexpr int XF_SMEM_MAX = 232448;         // an H100 block's shared memory
 
-struct XfitStage {
-    float xa[STAGE], xb[STAGE];
-    // row (tid & 63) of the block's tasks (tid >> 6) + 4 i, i < nq
-    float w[XF_MAX_QUADS], y[XF_MAX_QUADS];
-};
+__device__ __forceinline__ uint32_t xf_smem_addr(const void* p)
+{
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-// The useful 4x4 sub-tiles of tile pair (ti, tj): sub-rows sy < sy_n and
-// sub-columns sx < sx_n that meet [0, P), and sx >= sy on a diagonal tile.
-__host__ __device__ inline int xfit_subtiles(int ti, int tj, int p,
+// `size` (4, 8 or 16) bytes global -> shared, of which the first `bytes`
+// are read and the rest zero-filled
+__device__ __forceinline__ void xf_cp_async(uint32_t dst, const void* src,
+                                            int size, int bytes)
+{
+    if (size == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(dst), "l"(src), "r"(bytes));
+    else if (size == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                     :: "r"(dst), "l"(src), "r"(bytes));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                     :: "r"(dst), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void xf_cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most `pending` of this thread's copy groups are in flight
+__device__ __forceinline__ void xf_cp_async_wait(int pending)
+{
+    switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::); break;
+    }
+}
+
+// bytes of a 16-byte chunk at float index `at` that lie before `end`
+__device__ __forceinline__ int xf_chunk_bytes(long long at, long long end)
+{
+    const long long left = end - at;
+    return left >= 4 ? 16 : (left > 0 ? 4 * (int)left : 0);
+}
+
+// The items of tile pair (ti, tj) at sub-tile edge `sub`: sub-rows sy <
+// sy_n and sub-columns sx < sx_n that meet [0, P), and sx >= sy on a
+// diagonal pair (kernels/crossfit_gram.py::subtiles is the same count).
+__host__ __device__ inline int xfit_subtiles(int ti, int tj, int p, int sub,
                                              int& sy_n, int& sx_n)
 {
-    const int rows = (p - ti * TILE + 3) / 4, cols = (p - tj * TILE + 3) / 4;
-    sy_n = rows < XF_SUB ? rows : XF_SUB;
-    sx_n = cols < XF_SUB ? cols : XF_SUB;
+    const int edge = TILE / sub;
+    const int rows = (p - ti * TILE + sub - 1) / sub;
+    const int cols = (p - tj * TILE + sub - 1) / sub;
+    sy_n = rows < edge ? rows : edge;
+    sx_n = cols < edge ? cols : edge;
     return ti == tj ? sy_n * (sy_n + 1) / 2 : sy_n * sx_n;
 }
 
-__device__ __forceinline__ void xfit_fetch(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ y, int t_total, int task0, int nq, int n,
-    int p, int n0, int lr, int ca, int cb, bool diag, int tid,
-    XfitStage& st)
+// A ring slot holds m steps of 64 rows: the X slab (P <= 32: the rows at a
+// stride of 32; above: two tiles of rows of XF_XR), then w and y of the
+// block's tasks (64 m values and a chunk for the shift)
+__host__ __device__ inline int xfit_x_floats(int p, int m)
 {
-    const int ca_c = min(ca, p - 1), cb_c = min(cb, p - 1);
+    return (p <= TILE ? TILE : 2 * XF_XR) * GRAM_ROWS * m;
+}
+__host__ __device__ inline int xfit_w_stride(int m)
+{
+    return GRAM_ROWS * m + 4;
+}
+__host__ __device__ inline int xfit_stage_floats(int p, int tasks, int m)
+{
+    return xfit_x_floats(p, m) + 2 * tasks * xfit_w_stride(m);
+}
+
+template <int SUB, int VEC>
+__device__ __forceinline__ void xfit_load(const float* s, float (&v)[SUB])
+{
+    if constexpr (VEC == 4 && SUB == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(s);
+        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else if constexpr (VEC >= 2) {
 #pragma unroll
-    for (int i = 0; i < STAGE; ++i) {
-        const int row = min(n0 + lr + i * STAGE_STRIDE, n - 1);
-        const float* xr = x + (size_t)row * p;
-        st.xa[i] = xr[ca_c];
-        if (!diag) st.xb[i] = xr[cb_c];
-    }
-    const int row = min(n0 + (tid & (GRAM_ROWS - 1)), n - 1);
-#pragma unroll
-    for (int i = 0; i < XF_MAX_QUADS; ++i) {
-        if (i < nq) {
-            const size_t task = (size_t)min(task0 + (tid >> 6) + 4 * i,
-                                            t_total - 1);
-            st.w[i] = w[task * n + row];
-            st.y[i] = y[task * n + row];
+        for (int i = 0; i < SUB; i += 2) {
+            const float2 t = *reinterpret_cast<const float2*>(s + i);
+            v[i] = t.x; v[i + 1] = t.y;
         }
+    } else {
+#pragma unroll
+        for (int i = 0; i < SUB; ++i) v[i] = s[i];
     }
 }
 
-__device__ __forceinline__ void xfit_stage(
-    const XfitStage& st, int n0, int n, int nq, int lr, int lc, bool ca_ok,
-    bool cb_ok, bool diag, int tid, float* smem, float* sW, float* sWY)
+// Multiplies out 16 rows, in order, of a ring slot: rows r0 .. r0 + 15
+// (one row group of one 64-row step) into the SUB x SUB tiles of the
+// thread's TT tasks.  Row r of the A (B) tile is read at sA + xoff(r)
+// (sB + xoff(r)), already offset by the thread's sub-tile: xoff(r) = 32 r
+// in a span (SPAN), else 36 r + ((r P + xsh) & 3), whose four phases are
+// taken once.  Task t's w is at sw[w_off[t] + r], its y at sw[y_off[t] +
+// r].  Every offset within the 16 rows is then a constant.
+template <int SUB, int TT, int VEC, bool SPAN>
+__device__ __forceinline__ void xfit_rows(
+    const float* sA, const float* sB, const float* sw, const int (&w_off)[TT],
+    const int (&y_off)[TT], int r0, int p, int xsh, bool does_b,
+    float (&acc)[TT][SUB][SUB], float (&bacc)[TT][SUB])
 {
+    constexpr int XS = SPAN ? TILE : XF_XR;
+    int sh[4];
 #pragma unroll
-    for (int i = 0; i < STAGE; ++i) {
-        const int r = lr + i * STAGE_STRIDE;
-        const bool row_ok = n0 + r < n;
-        smem[r * TILE + lc] = (row_ok && ca_ok) ? st.xa[i] : 0.f;
-        if (!diag)
-            smem[(GRAM_ROWS + r) * TILE + lc] =
-                (row_ok && cb_ok) ? st.xb[i] : 0.f;
-    }
-    const int r = tid & (GRAM_ROWS - 1);
-    const bool row_ok = n0 + r < n;
+    for (int j = 0; j < 4; ++j)
+        sh[j] = SPAN ? 0 : (((r0 + j) * p + xsh) & 3);
+    const float* a0 = sA + r0 * XS;
+    const float* b0 = sB + r0 * XS;
+    const float* w0 = sw + r0;
+    // the rows' operands are loaded AHEAD rows at a time before they are
+    // multiplied out, so that one warp has many loads in flight (the
+    // opaque drain's T = 1 lanes run one warp a scheduler)
+    constexpr int AHEAD = (2 * SUB + TT) * GROUP_ROWS <= 96 ? GROUP_ROWS : 4;
 #pragma unroll
-    for (int i = 0; i < XF_MAX_QUADS; ++i) {
-        if (i < nq) {
-            const int s = ((tid >> 6) + 4 * i) * XF_WSTRIDE + r;
-            sW[s] = row_ok ? st.w[i] : 0.f;
-            sWY[s] = row_ok ? st.w[i] * st.y[i] : 0.f;
+    for (int k0 = 0; k0 < GROUP_ROWS; k0 += AHEAD) {
+        float a[AHEAD][SUB], b[AHEAD][SUB], wk[AHEAD][TT];
+#pragma unroll
+        for (int kk = 0; kk < AHEAD; ++kk) {
+            const int off = (k0 + kk) * XS + sh[(k0 + kk) & 3];
+            xfit_load<SUB, VEC>(a0 + off, a[kk]);
+            xfit_load<SUB, VEC>(b0 + off, b[kk]);
+#pragma unroll
+            for (int t = 0; t < TT; ++t) wk[kk][t] = w0[w_off[t] + k0 + kk];
         }
+#pragma unroll
+        for (int kk = 0; kk < AHEAD; ++kk)
+#pragma unroll
+            for (int t = 0; t < TT; ++t)
+#pragma unroll
+                for (int i = 0; i < SUB; ++i) {
+                    const float ai = wk[kk][t] * a[kk][i];
+#pragma unroll
+                    for (int j = 0; j < SUB; ++j)
+                        acc[t][i][j] = fmaf(ai, b[kk][j], acc[t][i][j]);
+                }
     }
-}
-
-// Multiplies out the step: group grp's 16 rows, in order, into the 4x4
-// tiles at sub-tile (sy, sx) of the first NT tasks of the thread's quad,
-// whose staged rows start at sWq / sWYq.
-template <int NT>
-__device__ __forceinline__ void xfit_step(
-    const float* sA, const float* sB, const float* sWq, const float* sWYq,
-    int grp, int sy, int sx, bool does_b, float (&acc)[XF_TASKS][4][4],
-    float (&bacc)[XF_TASKS][4])
-{
+    if (does_b) {
 #pragma unroll
-    for (int kk = 0; kk < GROUP_ROWS; ++kk) {
-        const int k = grp * GROUP_ROWS + kk;
-        const float4 a4 =
-            *reinterpret_cast<const float4*>(sA + k * TILE + 4 * sy);
-        const float4 b4 =
-            *reinterpret_cast<const float4*>(sB + k * TILE + 4 * sx);
-        const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+        for (int kk = 0; kk < GROUP_ROWS; ++kk) {
+            float b[SUB];
+            xfit_load<SUB, VEC>(b0 + kk * XS + sh[kk & 3], b);
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
-            const float wk = sWq[t * XF_WSTRIDE + k];
-            const float a[4] = {wk * a4.x, wk * a4.y, wk * a4.z, wk * a4.w};
+            for (int t = 0; t < TT; ++t) {
+                const float wy = w0[w_off[t] + kk] * w0[y_off[t] + kk];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[t][i][j] = fmaf(a[i], b[j], acc[t][i][j]);
-        }
-        if (does_b) {
-#pragma unroll
-            for (int t = 0; t < NT; ++t) {
-                const float wy = sWYq[t * XF_WSTRIDE + k];
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
+                for (int j = 0; j < SUB; ++j)
                     bacc[t][j] = fmaf(b[j], wy, bacc[t][j]);
             }
         }
     }
 }
 
-__global__ void __launch_bounds__(GRAM_THREADS)
+template <int SUB, int TT, bool SPAN>
+__global__ void __launch_bounds__(XF_MAX_THREADS, SUB * SUB * TT >= 32 ? 1 : 2)
 crossfit_gram_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ y, float* __restrict__ g,
                      float* __restrict__ bv, int t_total, int n, int p,
-                     int n_tiles, int nq)
+                     int n_tiles, int slots, int packs, int chunks, int ring,
+                     int m)
 {
-    // sA, then sB; reused for one task's partial tiles of groups 1..3
-    __shared__ __align__(16) float smem[2 * GRAM_ROWS * TILE];
-    __shared__ float sW[XF_TASKS * XF_MAX_QUADS * XF_WSTRIDE];
-    __shared__ float sWY[XF_TASKS * XF_MAX_QUADS * XF_WSTRIDE];
-    __shared__ float sBred[GRAM_GROUPS - 1][XF_SLOTS * 4];
+    constexpr int SUB2 = SUB * SUB;
+    extern __shared__ __align__(16) float xf_smem[];
+    const int tasks = packs * TT;               // tasks a block
+    constexpr bool span = SPAN;                 // P <= 32
+    constexpr int xs = SPAN ? TILE : XF_XR;     // row stride of the slab
+    const int x_floats = xfit_x_floats(p, m);
+    const int ws = xfit_w_stride(m);
+    const int stage_floats = xfit_stage_floats(p, tasks, m);
+    const int rows = GRAM_ROWS * m;             // rows a ring slot
 
     // blockIdx.y walks the upper triangle of tile pairs row by row
-    int tp = blockIdx.y;
-    int ti = 0;
+    int tp = blockIdx.y, ti = 0;
     for (int len = n_tiles; tp >= len; --len) { tp -= len; ++ti; }
     const int tj = ti + tp;
-    const bool diag = (ti == tj);
-    const float* sA = smem;
-    const float* sB = diag ? smem : smem + GRAM_ROWS * TILE;
-
-    const int tid = threadIdx.x;
-    const int task0 = blockIdx.x * XF_TASKS * nq;
-
-    // staging role: one X tile column, STAGE rows STAGE_STRIDE apart, and
-    // one row of w and y for each task quad
-    const int lc = tid & (TILE - 1);
-    const int lr = tid / TILE;
-    const int ca = ti * TILE + lc;
-    const int cb = tj * TILE + lc;
-    const bool ca_ok = ca < p, cb_ok = cb < p;
-
-    // compute role: group grp, item slot = (useful sub-tile u, quad q)
-    const int grp = tid >> 6;
-    const int slot = tid & (XF_SLOTS - 1);
+    const bool diag = ti == tj;
     int sy_n, sx_n;
-    const int n_sub = xfit_subtiles(ti, tj, p, sy_n, sx_n);
-    const int q = slot % nq;
-    const int tq = task0 + XF_TASKS * q;          // first task of the quad
-    const int nt = min(XF_TASKS, t_total - tq);   // its tasks below T
-    const bool active = slot < n_sub * nq && nt > 0;
-    int u = slot / nq, sy = 0;
+    const int n_sub = xfit_subtiles(ti, tj, p, SUB, sy_n, sx_n);
+    const int per_block = slots / packs;        // items a block
+    const int chunk = blockIdx.x % chunks;
+    const int task0 = (blockIdx.x / chunks) * tasks;
+    if (chunk * per_block >= n_sub) return;     // a chunk past this pair's
+
+    const int tid = threadIdx.x, nthreads = blockDim.x;
+    const int n_slots = (n + rows - 1) / rows;
+    // Chunks are aligned to the operands' addresses: an operand that is a
+    // view may start anywhere on a float, and the aligned chunk around its
+    // first values lies in its storage (which starts 16-byte aligned).
+    // xsh, wsh, ysh: each operand's first float mod 4
+    const int xsh = (int)(((uintptr_t)x >> 2) & 3);
+    const int wsh = (int)(((uintptr_t)w >> 2) & 3);
+    const int ysh = (int)(((uintptr_t)y >> 2) & 3);
+    // copy size of a span row: the largest of 16, 8, 4 bytes that divides
+    // both x's address and a row's 4 P bytes
+    const int align = (int)((uintptr_t)x & 15) | (4 * p & 15);
+    const int gran = (align & 7) ? 4 : ((align & 15) ? 8 : 16);
+    const int cpr = 4 * p / gran;               // copies a span row
+    const int wpr = ws / 4;                     // chunks a task's w row
+
+    auto issue = [&](int slot_i, int stage) {
+        float* st = xf_smem + stage * stage_floats;
+        const int n0 = slot_i * rows;
+        if (span) {
+            // row r: cpr copies of gran bytes to st + r xs; (r, c) walked
+            // without a division
+            int r = tid / cpr, c = tid - r * cpr;
+            const int dr = nthreads / cpr, dc = nthreads - dr * cpr;
+            for (; r < rows;) {
+                const int row = n0 + r;
+                const bool ok = row < n;
+                const int f = c * (gran / 4);
+                xf_cp_async(xf_smem_addr(st + r * xs + f),
+                            x + (ok ? (long long)row * p + f : 0), gran,
+                            ok ? gran : 0);
+                r += dr;
+                c += dc;
+                if (c >= cpr) { c -= cpr; ++r; }
+            }
+        } else {
+            // each row's tile columns as the 9 aligned chunks around them
+            for (int half = 0; half < (diag ? 1 : 2); ++half) {
+                const int tile = half ? tj : ti;
+                float* dst = st + half * rows * XF_XR;
+                for (int idx = tid; idx < rows * 9; idx += nthreads) {
+                    const int r = idx / 9, c = idx - r * 9;
+                    const int row = n0 + r;
+                    const long long seg = (long long)row * p + tile * TILE;
+                    const long long end = (long long)row * p
+                        + min(p, tile * TILE + TILE);
+                    const long long at = ((seg + xsh) & ~3LL) - xsh + 4 * c;
+                    const int bytes = row < n ? xf_chunk_bytes(at, end) : 0;
+                    xf_cp_async(xf_smem_addr(dst + r * XF_XR + 4 * c),
+                                x + (bytes ? at : 0), 16, bytes);
+                }
+            }
+        }
+        // w and y: the aligned chunks around each task's values
+        float* dw = st + x_floats;
+        int tl = tid / wpr, c = tid - tl * wpr;
+        const int dt = nthreads / wpr, dc = nthreads - dt * wpr;
+        for (; tl < tasks;) {
+            const int task = task0 + tl;
+            const long long row0 = (long long)task * n;
+            const long long aw = ((row0 + n0 + wsh) & ~3LL) - wsh + 4 * c;
+            const long long ay = ((row0 + n0 + ysh) & ~3LL) - ysh + 4 * c;
+            const bool live = task < t_total;
+            const int bw = live ? xf_chunk_bytes(aw, row0 + n) : 0;
+            const int by = live ? xf_chunk_bytes(ay, row0 + n) : 0;
+            float* d = dw + tl * ws + 4 * c;
+            xf_cp_async(xf_smem_addr(d), w + (bw ? aw : 0), 16, bw);
+            xf_cp_async(xf_smem_addr(d + tasks * ws), y + (by ? ay : 0), 16,
+                        by);
+            tl += dt;
+            c += dc;
+            if (c >= wpr) { c -= wpr; ++tl; }
+        }
+    };
+
+    // compute role: group grp, slot = (item li, task pack q)
+    const int grp = tid / slots;
+    const int slot = tid - grp * slots;
+    const int li = slot / packs, q = slot - li * packs;
+    int u = chunk * per_block + li;
+    const int tq = task0 + q * TT;              // the pack's first task
+    const bool active = li < per_block && u < n_sub && tq < t_total;
+    int sy = 0;
     if (diag) {
         for (int len = sy_n; u >= len && len > 0; --len) { u -= len; ++sy; }
     } else {
@@ -512,55 +672,89 @@ crossfit_gram_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
     const int sx = diag ? sy + u : u;
     const bool does_b = active && diag && sy == 0;
-    const float* sWq = sW + XF_TASKS * q * XF_WSTRIDE;
-    const float* sWYq = sWY + XF_TASKS * q * XF_WSTRIDE;
+    // where this thread reads a ring slot: X row r at r xs (+ (r P + xsh)
+    // mod 4 in a tile, whose rows start at an aligned chunk) and column
+    // SUB sy (SUB sx) of its tiles; task t's w and y at their shifts within
+    // the chunks (slots start at multiples of 64 rows, so a shift is
+    // (task N + the operand's own shift) mod 4)
+    const int a_off = SUB * sy;
+    const int b_off = SUB * sx + (diag || span ? 0 : rows * XF_XR);
+    int w_off[TT], y_off[TT];
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+        const long long row0 = (long long)(tq + t) * n;
+        w_off[t] = (q * TT + t) * ws + (int)((row0 + wsh) & 3);
+        y_off[t] = (tasks + q * TT + t) * ws + (int)((row0 + ysh) & 3);
+    }
+    // reads of a row: a span's rows are 16-byte aligned; a tile's are when
+    // its shift is always 0 (P % 4 == 0 and x aligned), even when P and x's
+    // shift are even
+    const int vec = SPAN || ((p | xsh) & 3) == 0 ? 4
+        : (((p | xsh) & 1) == 0 ? 2 : 1);
 
-    float acc[XF_TASKS][4][4];
-    float bacc[XF_TASKS][4];
+    float acc[TT][SUB][SUB];
+    float bacc[TT][SUB];
 #pragma unroll
-    for (int t = 0; t < XF_TASKS; ++t)
+    for (int t = 0; t < TT; ++t)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < SUB; ++i) {
             bacc[t][i] = 0.f;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[t][i][j] = 0.f;
+            for (int j = 0; j < SUB; ++j) acc[t][i][j] = 0.f;
         }
 
-    XfitStage st;
-    xfit_fetch(x, w, y, t_total, task0, nq, n, p, 0, lr, ca, cb, diag, tid,
-               st);
-    for (int n0 = 0; n0 < n; n0 += GRAM_ROWS) {
-        xfit_stage(st, n0, n, nq, lr, lc, ca_ok, cb_ok, diag, tid, smem, sW,
-                   sWY);
-        __syncthreads();
-        if (n0 + GRAM_ROWS < n)
-            xfit_fetch(x, w, y, t_total, task0, nq, n, p, n0 + GRAM_ROWS, lr,
-                       ca, cb, diag, tid, st);
-        if (active) {
-            if (nt == 1)
-                xfit_step<1>(sA, sB, sWq, sWYq, grp, sy, sx, does_b, acc,
-                             bacc);
-            else
-                xfit_step<XF_TASKS>(sA, sB, sWq, sWYq, grp, sy, sx, does_b,
-                                    acc, bacc);
-        }
-        __syncthreads();
+    for (int s = 0; s < ring - 1; ++s) {
+        if (s < n_slots) issue(s, s);
+        xf_cp_async_commit();                   // possibly empty: uniform
     }
+    for (int i = 0; i < n_slots; ++i) {
+        xf_cp_async_wait(ring - 2);             // slot i has landed here
+        __syncthreads();                        // ... everywhere; slot i-1
+                                                // is multiplied out
+        const int next = i + ring - 1;
+        if (next < n_slots) issue(next, next % ring);
+        xf_cp_async_commit();
+        if (active) {
+            const float* st = xf_smem + (i % ring) * stage_floats;
+            const float* sw = st + x_floats;
+            const int steps = min(m, (n - i * rows + GRAM_ROWS - 1)
+                                     / GRAM_ROWS);
+            for (int s = 0; s < steps; ++s) {
+                const int r0 = s * GRAM_ROWS + grp * GROUP_ROWS;
+                if (SPAN || vec == 4)
+                    xfit_rows<SUB, TT, 4, SPAN>(st + a_off, st + b_off, sw,
+                                                w_off, y_off, r0, p, xsh,
+                                                does_b, acc, bacc);
+                else if (vec == 2)
+                    xfit_rows<SUB, TT, (SPAN ? 4 : 2), SPAN>(st + a_off, st + b_off, sw,
+                                                w_off, y_off, r0, p, xsh,
+                                                does_b, acc, bacc);
+                else
+                    xfit_rows<SUB, TT, (SPAN ? 4 : 1), SPAN>(st + a_off, st + b_off, sw,
+                                                w_off, y_off, r0, p, xsh,
+                                                does_b, acc, bacc);
+            }
+        }
+    }
+    xf_cp_async_wait(0);
+    __syncthreads();
 
     // per task: add the four groups' partial tiles in batched_gram's order
-    // (the same slot holds the same item in every group)
+    // (the same slot holds the same item in every group), through the ring
+    float* red = xf_smem;                           // [3][slots][SUB2]
+    float* bred = red + 3 * slots * SUB2;           // [3][slots][SUB]
 #pragma unroll
-    for (int t = 0; t < XF_TASKS; ++t) {
+    for (int t = 0; t < TT; ++t) {
         if (active && grp > 0) {
-            float* red = smem + ((grp - 1) * XF_SLOTS + slot) * 16;
+            float* r = red + ((grp - 1) * slots + slot) * SUB2;
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < SUB; ++i)
 #pragma unroll
-                for (int j = 0; j < 4; ++j) red[4 * i + j] = acc[t][i][j];
+                for (int j = 0; j < SUB; ++j) r[i * SUB + j] = acc[t][i][j];
             if (does_b) {
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    sBred[grp - 1][4 * slot + j] = bacc[t][j];
+                for (int j = 0; j < SUB; ++j)
+                    bred[((grp - 1) * slots + slot) * SUB + j] = bacc[t][j];
             }
         }
         __syncthreads();
@@ -568,15 +762,15 @@ crossfit_gram_kernel(const float* __restrict__ x, const float* __restrict__ w,
         if (active && grp == 0 && task < t_total) {
             float* gb = g + (size_t)task * p * p;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < SUB; ++i) {
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
+                for (int j = 0; j < SUB; ++j) {
                     float v = acc[t][i][j];
 #pragma unroll
                     for (int r = 0; r < GRAM_GROUPS - 1; ++r)
-                        v += smem[(r * XF_SLOTS + slot) * 16 + 4 * i + j];
-                    const int gi = ti * TILE + 4 * sy + i;
-                    const int gj = tj * TILE + 4 * sx + j;
+                        v += red[(r * slots + slot) * SUB2 + i * SUB + j];
+                    const int gi = ti * TILE + SUB * sy + i;
+                    const int gj = tj * TILE + SUB * sx + j;
                     if (gi < p && gj < p && (!diag || gi <= gj)) {
                         gb[(size_t)gi * p + gj] = v;
                         gb[(size_t)gj * p + gi] = v;
@@ -586,18 +780,42 @@ crossfit_gram_kernel(const float* __restrict__ x, const float* __restrict__ w,
             if (does_b) {
                 float* bb = bv + (size_t)task * p;
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
+                for (int j = 0; j < SUB; ++j) {
                     float v = bacc[t][j];
 #pragma unroll
                     for (int r = 0; r < GRAM_GROUPS - 1; ++r)
-                        v += sBred[r][4 * slot + j];
-                    const int gj = tj * TILE + 4 * sx + j;
+                        v += bred[(r * slots + slot) * SUB + j];
+                    const int gj = tj * TILE + SUB * sx + j;
                     if (gj < p) bb[gj] = v;
                 }
             }
         }
         __syncthreads();
     }
+}
+
+// launch one instance; dynamic shared memory above 48 KB is opted in once
+template <int SUB, int TT, bool SPAN>
+cudaError_t launch_xfit(const void* x, const void* w, const void* y, void* g,
+                        void* bv, int t, int n, int p, int n_tiles,
+                        int slots, int packs, int chunks, int ring, int m,
+                        size_t smem, cudaStream_t stream)
+{
+    static size_t granted = 0;
+    if (smem > 48 * 1024 && smem > granted) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            crossfit_gram_kernel<SUB, TT, SPAN>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        granted = smem;
+    }
+    const int tasks = packs * TT;
+    const dim3 grid(chunks * ((t + tasks - 1) / tasks),
+                    n_tiles * (n_tiles + 1) / 2);
+    crossfit_gram_kernel<SUB, TT, SPAN><<<grid, 4 * slots, smem, stream>>>(
+        (const float*)x, (const float*)w, (const float*)y, (float*)g,
+        (float*)bv, t, n, p, n_tiles, slots, packs, chunks, ring, m);
+    return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -781,30 +999,39 @@ extern "C" int repro_batched_gram_blocked(const void* xc, const void* w,
     return (int)cudaGetLastError();
 }
 
+// The launch plan (sub, tt, slots, packs, chunks, ring, m) comes from
+// kernels/crossfit_gram.py::launch_plan; a plan this file has no instance
+// of, or whose ring does not fit a block's shared memory, is refused
 extern "C" int repro_crossfit_gram(const void* x, const void* w,
                                    const void* y, void* g, void* bv,
-                                   int t, int n, int p, void* stream)
+                                   int t, int n, int p, int sub, int tt,
+                                   int slots, int packs, int chunks,
+                                   int ring, int m, void* stream)
 {
+    if ((slots != 32 && slots != 64) || packs < 1 || packs > slots
+        || chunks < 1 || ring < 2 || ring > XF_MAX_RING || m < 1
+        || m > XF_MAX_M)
+        return (int)cudaErrorInvalidValue;
     const int n_tiles = (p + TILE - 1) / TILE;
-    const int pairs = n_tiles * (n_tiles + 1) / 2;
-    // task quads a block takes: as many as the pair with the most useful
-    // sub-tiles leaves threads for, fewer while the card is short of blocks
-    int most = 1;
-    for (int ti = 0; ti < n_tiles; ++ti)
-        for (int tj = ti; tj < n_tiles; ++tj) {
-            int sy_n, sx_n;
-            const int n_sub = xfit_subtiles(ti, tj, p, sy_n, sx_n);
-            most = n_sub > most ? n_sub : most;
-        }
-    int nq = XF_SLOTS / most < XF_MAX_QUADS ? XF_SLOTS / most : XF_MAX_QUADS;
-    while (nq > 1 && (long long)((t + XF_TASKS * nq - 1) / (XF_TASKS * nq))
-                         * pairs < XF_MIN_BLOCKS)
-        --nq;
-    const dim3 grid((t + XF_TASKS * nq - 1) / (XF_TASKS * nq), pairs);
-    crossfit_gram_kernel<<<grid, GRAM_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)w, (const float*)y, (float*)g,
-        (float*)bv, t, n, p, n_tiles, nq);
-    return (int)cudaGetLastError();
+    const size_t smem = sizeof(float) * (size_t)ring
+        * xfit_stage_floats(p, packs * tt, m);
+    // the ring also holds the partial tiles of groups 1..3 at the end
+    const size_t red = sizeof(float) * 3 * (size_t)slots * (sub * sub + sub);
+    if (smem > (size_t)XF_SMEM_MAX || smem < red)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+#define XF_CASE(s, k)                                                     \
+    if (sub == s && tt == k)                                              \
+        return (int)(p <= TILE                                            \
+            ? launch_xfit<s, k, true>(x, w, y, g, bv, t, n, p, n_tiles,   \
+                                      slots, packs, chunks, ring, m,      \
+                                      smem, st)                           \
+            : launch_xfit<s, k, false>(x, w, y, g, bv, t, n, p, n_tiles,  \
+                                       slots, packs, chunks, ring, m,     \
+                                       smem, st))
+    XF_CASE(4, 2); XF_CASE(4, 4); XF_CASE(2, 1); XF_CASE(2, 2);
+#undef XF_CASE
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int repro_batched_predict(const void* xs, const void* beta,

@@ -11,19 +11,26 @@ accumulator are float32; the output is in q's type.  Tiles that the mask
 hides from every query of a block are skipped, so the windowed case costs
 O(S * W).
 
-Two kernels in ``csrc/lm.cu``, chosen by the operands' type.  bfloat16
-operands (what the serve path passes) take ``flash_attention_tc_kernel``:
-one block of 8 warps per (lane, 128-query tile), 64-key K/V tiles copied
-by ``cp.async`` into a two-stage bf16 ring, Q K' and P V on the tensor
-cores (``mma.sync`` m16n8k16, float32 accumulators), online softmax in
-registers, P split into bf16 hi + lo for P V so that every output stays
-within a bf16 step of the float32 softmax.  At the serve path's (128,
-2048, 112) causal call the function does 120 GFLOP and moves 235 MB, so it
-is bound by operations: 0.12 ms at the card's 989 TFLOP/s bf16 rate
-(PERF.md has its time).  It takes D % 8 == 0, D <= 128 and Sq <= Skv.
-float32 operands take ``flash_attention_kernel``: 64-query tiles staged
-in shared memory as float32, plain FMA (the port keeps TF32 off), any
-D <= 128 and any Sq, Skv.  Both mask ragged tiles in the kernel.
+Two kernels in ``csrc/lm.cu``, chosen by the operands' type, both on the
+tensor cores with ``mma.sync``, float32 accumulators, online softmax in
+registers, 64-key K/V tiles copied by ``cp.async`` into a two-stage ring,
+one block of 8 warps per (lane, 128-query tile), heaviest causal tiles
+first.  bfloat16 operands (what the serve path passes) take
+``flash_attention_tc_kernel``: m16n8k16 bf16 products, P split into bf16
+hi + lo for P V so that every output stays within a bf16 step of the
+float32 softmax.  At the serve path's (128, 2048, 112) causal call the
+function does 120 GFLOP and moves 235 MB, so it is bound by operations:
+0.12 ms at the card's 989 TFLOP/s bf16 rate.  It takes D % 8 == 0, D <=
+128 and Sq <= Skv.  float32 operands take ``flash_attention_tf32_kernel``:
+every operand (q, k, P, v) split into TF32 hi + lo, each product formed as
+lo hi + hi lo + hi hi, three m16n8k8 TF32 passes into a float32
+accumulator, which keeps a product within about 2^-21 of float32 (one TF32
+rounding is 2^-11 off).  This is float32 grade, not a TF32 mode: the port
+keeps TF32 off (``runtime.py``), and ``chip_smoke.py`` holds it within
+2e-5 of the plain version.  It takes any D <= 128 (zero-filled in shared
+memory to a multiple of 16), any Sq and Skv, and any alignment of a float;
+its bound at the serve shape is 0.73 ms (495 TFLOP/s TF32 over three
+passes).  Both mask ragged tiles in the kernel.  PERF.md has their times.
 
 ``flash_attention_cuda`` adds one to ``runtime.launch_counts
 ["flash_attention"]`` where it launches, and nowhere else.

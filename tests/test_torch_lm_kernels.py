@@ -202,6 +202,114 @@ def test_tensor_core_schedule_matches_reference_per_element(
         assert steps > 2.0, steps
 
 
+def _tf32(x):
+    """Round float32 to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero: the card's ``cvt.rna.tf32.f32``."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tf32_product(eq, a, b, split):
+    """``einsum(eq, a, b)`` from TF32 operands summed in float32: with
+    ``split`` the three passes a_lo b_hi + a_hi b_lo + a_hi b_hi of the
+    float32 kernel, else one TF32 rounding of each operand."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if not split:
+        return torch.einsum(eq, ah, bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) \
+        + torch.einsum(eq, ah, bh)
+
+
+def _tf32_schedule(q, k, v, *, causal, window, split=True, block_k=64):
+    """Plain emulation of the float32 kernel's arithmetic
+    (``flash_attention_tf32_kernel`` in ``csrc/lm.cu``): 64-key tiles in
+    order, S from TF32 parts of q and k summed in float32 and then scaled by
+    log2(e)/sqrt(D) in float32, online softmax with exp2 (a row that has
+    seen no key subtracts 0), l summed from the float32 P, and P V from TF32
+    parts of P and v (``split=False``: one TF32 rounding of each)."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    scale_log2 = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32) \
+        * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    qpos = torch.arange(sq)[:, None] + (skv - sq)
+    m = torch.full((bh, sq), float("-inf"))
+    l = torch.zeros((bh, sq))
+    acc = torch.zeros((bh, sq, d))
+    for k0 in range(0, skv, block_k):
+        kpos = torch.arange(k0, min(k0 + block_k, skv))[None, :]
+        x = _tf32_product("bqd,bkd->bqk", q, k[:, k0:k0 + block_k],
+                          split) * scale_log2
+        ok = torch.ones((sq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        x = x.masked_fill(~ok[None], float("-inf"))
+        m_new = torch.maximum(m, x.max(dim=-1).values)
+        mu = torch.where(m_new == float("-inf"), torch.zeros_like(m_new),
+                         m_new)
+        corr = torch.exp2(m - mu)
+        p = torch.exp2(x - mu[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + _tf32_product(
+            "bqk,bkd->bqd", p, v[:, k0:k0 + block_k], split)
+        m = m_new
+    return acc / l[..., None]
+
+
+@pytest.mark.parametrize("split,bh,sq,skv,d,causal,window", [
+    (True, 4, 128, 128, 32, True, None),
+    (True, 4, 200, 200, 120, True, None),         # D 120: padded depth
+    (True, 4, 96, 96, 20, True, None),            # D not a multiple of 8
+    (True, 4, 256, 256, 64, True, 48),            # window inside a tile
+    (True, 4, 100, 160, 36, True, 64),            # ragged Sq < Skv
+    (True, 4, 130, 130, 120, False, None),        # ragged, non-causal
+    (True, 2, 64, 300, 112, False, 100),
+    (False, 4, 256, 256, 64, True, None),         # one TF32 rounding
+])
+def test_split_tf32_schedule_matches_reference(split, bh, sq, skv, d,
+                                               causal, window):
+    """The float32 kernel's schedule against the JAX reference: with every
+    operand split into TF32 hi + lo it stays within 2e-5 (the tier
+    chip_smoke.py holds the kernel to on the card); one TF32 rounding of
+    each operand does not, which is why the kernel splits them."""
+    rng = np.random.default_rng(bh * sq + skv + d + 1)
+    jq, tq = _pair(rng.standard_normal((bh, sq, d), dtype=np.float32), "f32")
+    jk, tk = _pair(rng.standard_normal((bh, skv, d), dtype=np.float32),
+                   "f32")
+    jv, tv = _pair(rng.standard_normal((bh, skv, d), dtype=np.float32),
+                   "f32")
+    got = _f32(_tf32_schedule(tq, tk, tv, causal=causal, window=window,
+                              split=split))
+    want = _f32(ref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                        window=window))
+    assert np.isfinite(got).all()
+    err = float(np.abs(got - want).max())
+    if split:
+        assert err <= 2e-5, err
+    else:
+        assert err > 2e-5, err
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11,
+                      1.0 + 2.0 ** -11 + 2.0 ** -20, -(1.0 + 2.0 ** -11),
+                      3.0e-30, 0.0], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                         float(np.float32(3.0e-30)), 0.0])
+    got = _tf32(x)
+    assert torch.equal(got[[0, 1, 2, 3, 4, 6]], want[[0, 1, 2, 3, 4, 6]])
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    hi, lo = _split(x)
+    assert ((hi + lo) - x).abs().max() <= 2.0 ** -21
+
+
 @pytest.mark.parametrize("d,sq,skv,dtype,ok", [
     (112, 2048, 2048, "bf16", True), (120, 64, 256, "bf16", True),
     (8, 5, 5, "bf16", True), (128, 1, 1, "bf16", True),

@@ -35,6 +35,7 @@ from repro_torch.compile import plan_buckets
 from repro_torch.core.crossfit import TaskGrid, draw_fold_masks
 from repro_torch.core.session import compile_raw_request, compile_request
 from repro_torch.kernels import ops
+from repro_torch.kernels import crossfit_gram as xfit
 from repro_torch.kernels.crossfit_gram import crossfit_gram_plain
 from repro_torch.learners import (
     LEARNERS, as_batched, get_batched_learner, get_learner,
@@ -132,6 +133,85 @@ def test_cpu_tensors_never_launch_crossfit_gram():
     ops.crossfit_gram(x, w, y)
     get_learner("ridge")(x, y, w, None)
     assert runtime.launch_counts["crossfit_gram"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K4's launch plan (kernels/crossfit_gram.py): the kernel's index
+# arithmetic, mirrored by block_items, checked on the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("p", [7, 18, 33, 201])
+@pytest.mark.parametrize("t", [1, 5, 32, 1000, 1001])
+def test_crossfit_launch_plan_covers_every_chain_once(t, p):
+    """Every (task, tile pair, useful sub-tile) is owned by exactly one
+    thread slot of one block of the plan's grid, and the sub-tiles cover
+    each task's upper triangle of G, diagonal included, exactly once."""
+    plan = xfit.launch_plan(t, 5099, p)
+    owned = [item for bx in range(plan.grid[0]) for by in range(plan.grid[1])
+             for item in xfit.block_items(plan, t, p, bx, by)]
+    assert len(owned) == len(set(owned))
+    want = {(task, ti, tj, sy, sx)
+            for ti, tj in xfit.tile_pairs(p)
+            for sy, sx in _useful_subtiles(ti, tj, p, plan.sub)
+            for task in range(t)}
+    assert set(owned) == want
+    # the sub-tiles of one task tile the upper triangle exactly once
+    cover = np.zeros((p, p), np.int64)
+    for task, ti, tj, sy, sx in owned:
+        if task:
+            continue
+        r0, c0 = ti * 32 + plan.sub * sy, tj * 32 + plan.sub * sx
+        for i in range(r0, min(r0 + plan.sub, p)):
+            for j in range(c0, min(c0 + plan.sub, p)):
+                if i <= j:
+                    cover[i, j] += 1
+    assert (cover[np.triu_indices(p)] == 1).all()
+
+
+def _useful_subtiles(ti, tj, p, sub):
+    _, sy_n, sx_n = xfit.subtiles(ti, tj, p, sub)
+    return [(sy, sx) for sy in range(sy_n) for sx in range(sx_n)
+            if ti != tj or sx >= sy]
+
+
+@pytest.mark.parametrize("n", [1, 64, 1003, 5099, 65536])
+@pytest.mark.parametrize("p", [7, 18, 33, 201])
+@pytest.mark.parametrize("t", [1, 5, 32, 1000, 1001])
+def test_crossfit_launch_plan_fits_the_card(t, n, p):
+    """The plan is one of the kernel's instances, its blocks fit the
+    card's limits, the accumulators a thread holds stay in the register
+    budget of its launch bounds, and two blocks share an SM where the
+    instance runs two."""
+    plan = xfit.launch_plan(t, n, p)
+    assert (plan.sub, plan.tt) in xfit.CONFIGS
+    assert plan.slots in xfit.SLOTS and plan.m in xfit.STEPS
+    assert plan.threads <= xfit.MAX_THREADS
+    assert plan.tt * plan.sub ** 2 <= xfit.MAX_ACC
+    assert 2 <= plan.ring <= xfit.MAX_RING
+    assert plan.smem_bytes <= xfit.SMEM_MAX
+    assert plan.smem_bytes == 4 * plan.ring * xfit.stage_floats(
+        p, plan.tasks, plan.m)
+    # the ring holds the partial tiles of three row groups at the end
+    assert plan.smem_bytes >= 4 * 3 * plan.slots * (plan.sub ** 2
+                                                     + plan.sub)
+    assert 1 <= plan.packs <= plan.slots and plan.chunks >= 1
+    assert plan.grid[1] == len(list(xfit.tile_pairs(p))) <= 65535
+    if plan.tt * plan.sub ** 2 < 32:        # two blocks an SM
+        # blocks with items (a chunk past its pair's items exits at once)
+        blocks = -(-t // plan.tasks) * sum(
+            -(-xfit.subtiles(ti, tj, p, plan.sub)[0] // plan.per_block)
+            for ti, tj in xfit.tile_pairs(p))
+        assert blocks <= xfit.SM_COUNT \
+            or 2 * (plan.smem_bytes + 1024) <= 233472
+
+
+def test_crossfit_launch_plan_fills_the_card_at_every_t():
+    """Small T takes small sub-tiles (more threads for one task), large T
+    the 4 x 4 register tile; the paper's 1000 tasks give the card more
+    than one block an SM's worth of blocks' threads to work with."""
+    assert xfit.launch_plan(1, 5099, 18).sub == 2
+    big = xfit.launch_plan(1000, 5099, 18)
+    assert big.sub == 4
+    assert big.grid[0] * big.grid[1] * big.threads >= xfit.SM_COUNT * 128
 
 
 # ---------------------------------------------------------------------------
