@@ -55,9 +55,10 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # is_bf16, stream
         "repro_flash_attention": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                                   _INT, _INT, _INT, _FLT, _INT, _PTR),
-        # xbar, la, bm, cm, y, state, BH, S, P, N, chunk, heads, stream
-        "repro_ssd_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
-                           _INT, _INT, _INT, _INT, _PTR),
+        # xbar, la, bm, cm, y, state, then the scratch cb, states, decay,
+        # BH, S, P, N, chunk, heads, stream
+        "repro_ssd_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                           _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR),
     },
 }
 

@@ -13,15 +13,20 @@
 //   repro_ssd_scan         the Mamba-2 SSD chunked scan over BH lanes:
 //                          xbar (BH, S, P), la (BH, S), bm/cm (BH/heads,
 //                          S, N) float32 -> y (BH, S, P) and the final
-//                          state (BH, N, P)
+//                          state (BH, N, P), through scratch the caller
+//                          allocates
 //
 // Attention runs on the tensor cores from K/V tiles staged by cp.async:
 // bfloat16 operands through mma.sync m16n8k16 (float32 accumulators),
 // float32 ones through mma.sync m16n8k8 TF32 with every operand split
 // into a TF32 hi and lo part, three products each, which keeps float32
-// grade (no TF32 mode: the port keeps TF32 off).  The scan is plain
-// float32 FMA from shared memory.  No TMA yet.  Any Sq, Skv, S: ragged
-// edges are masked here, with no padding in the wrapper.
+// grade (no TF32 mode: the port keeps TF32 off).  The scan runs in four
+// launches parallel over chunks (scores once per batch row, the chunks'
+// own states, the state passing, the outputs), its products through the
+// same split-TF32 mma.sync from tiles staged by cp.async; its decays,
+// cumsum and state passing are float32 FMA.  No TMA or wgmma yet.  Any
+// Sq, Skv, S: ragged edges are masked here, with no padding in the
+// wrapper (the scan's scratch is allocated by its wrapper).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -703,287 +708,568 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// ssd_scan
+// ssd_scan: four kernels, parallel over chunks
 //
 // Replaces ssd_scan_pallas (src/repro/kernels/ssd_scan.py, body _kernel),
 // and also returns the final state, which the reference wrapper recomputed
-// with its sequential oracle.  One block of 256 threads per lane walks the
-// chunks of Q rows in order with the lane's (N, P) state in shared memory
-// (the TPU kernel's VMEM scratch across its sequential chunk grid).  Per
-// chunk: a block scan gives cl = cumsum(la); the chunk's output rows are
-// taken 64 at a time: y_i = exp(cl_i) C_i S (the state entering the chunk)
-// plus, for each 64-row key sub-tile j <= i, the masked decayed scores
-// W = tril(C B^T * exp(clip(cl_i - cl_j, -60, 0))) through shared memory
-// and W x; then S <- exp(cl_last) S + (B * exp(cl_last - cl))^T x, each
-// thread holding 16 entries of S in registers.  Thread (ti, tj) owns rows
-// ti + 16r and columns tj + 16c (r, c < 4) of every 64 x 64 tile, so N and
-// P are at most 64.  bm and cm are shared by the `heads` consecutive lanes
-// of one batch row: lane b reads row b / heads.
+// with its sequential oracle.  The TPU kernel walks a lane's chunks in
+// order with the (N, P) state in VMEM; here the chunks run in parallel by
+// Dao & Gu's state passing (arXiv:2405.21060, section 7), chunks of Q rows,
+// cl = cumsum(la) within a chunk:
+//   (a) ssd_scores_kernel, per (batch row, chunk, 64 x 64 sub-tile on or
+//       below the diagonal): the scores C B^T into an L2-resident scratch
+//       (BH / heads, S / Q, Qp, Qp), Qp = Q rounded up to 64.  bm and cm
+//       are shared by the `heads` lanes of a batch row (n_groups 1), so the
+//       scores are computed once for all of them;
+//   (b) ssd_states_kernel, per (lane, chunk): the chunk's own state
+//       (B * exp(cl_Q - cl))^T x (N x P) into a scratch (BH, S / Q, N, P),
+//       and the chunk's decay exp(cl_Q) into (BH, S / Q);
+//   (c) ssd_pass_kernel, per lane and state entry, in chunk order:
+//       S_c = exp(cl_Q,c-1) S_c-1 + local_c-1, written over the scratch as
+//       the state entering each chunk; the last one is the final state;
+//   (d) ssd_out_kernel, per (lane, chunk, 128-row tile, the heaviest
+//       first): y = exp(cl_i) C_i S_c + tril(C B^T * exp(clip(cl_i - cl_j,
+//       -60, 0))) x, the scores read back from (a).
+// Every product (C B^T, C S, W x, (B * tail)^T x) runs on the tensor cores
+// as mma.sync m16n8k8 TF32 with each float32 operand split into a TF32 hi
+// and lo part (cvt.rna's rounding, split_tf32_int), three passes lo*hi +
+// hi*lo + hi*hi into float32: float32 grade without a TF32 mode.  W is
+// formed and decayed in float32 and then split; the cumsum, the decays and
+// the state passing are float32 FMA.  In (b) and (d) a warp owns 32 output
+// rows (two m-tiles) and all 64 columns, so each B fragment loaded and
+// split from shared memory feeds two m-tiles, which halves the loads and
+// splits per product.  N, P are at most 64.  Operands come in slices
+// 32 deep by cp.async (16-byte chunks when N, P % 4 == 0 and the operands
+// are 16-byte aligned, else 4 bytes) into a two-stage ring: the next
+// slice's copy overlaps the current product.  Row strides of 4 mod 32
+// floats (fragments read along rows) and 8 mod 32 (read down columns) keep
+// the fragment loads free of bank conflicts.  Rows past a ragged chunk's
+// end are zero-filled by the copies and masked; columns past N or P are
+// zeroed once.
 //
-// Bound on an H100: at the serve path's (BH 448, S 2048, P 64, N 64, Q 256)
-// the function needs 5 N P operations a row and lane (decay the state, add
-// b x', read c'S), 18.8 GFLOP, and moves 485 MB: operations bound (0.28 ms
-// at 67 TFLOP/s plain float32; TF32 stays off).  The chunked schedule does
-// more (the square-in-chunk products) to expose parallelism.  This version runs on the FMA pipes fed from shared
-// memory and reloads the B, x sub-tiles of a chunk from L2 for each row
-// sub-tile.
+// Bound on an H100: at the serve path's (BH 448, S 2048, P 64, N 64, Q 256,
+// heads 112) the function needs 5 N P operations a row and lane, 18.8
+// GFLOP, and moves 485 MB: bound by bytes (0.145 ms at 3.35 TB/s; the
+// operations take 0.114 ms at the TF32 rate over the split's three
+// passes, 0.28 ms at the plain float32 FMA rate).  The chunked schedule
+// does about 34 GFLOP (the square-in-chunk products) and moves the chunks'
+// states through device memory four times besides (written, passed in
+// place, read back: about 235 MB).
 // ---------------------------------------------------------------------------
-constexpr int SSD_THREADS = 256;
-constexpr int SSD_T = 64;                   // rows of a sub-tile; N, P <= 64
-constexpr int SSD_WS = SSD_T + 1;           // row stride of the W tile
-
-inline size_t ssd_smem_bytes(int n, int p, int q)
+// x -> hi, lo as split_tf32 (round to nearest, ties away from zero, each
+// part), the rounding done as an integer add and mask: the same bits for
+// finite x, in two instructions where the compiler spends three on each
+// cvt.rna.tf32.f32 (a test for infinity, an add, a mask)
+__device__ __forceinline__ void split_tf32_int(float x, uint32_t& hi,
+                                               uint32_t& lo)
 {
-    const int ns = n | 1;
-    return sizeof(float) * ((size_t)2 * SSD_T * ns + (size_t)SSD_T * SSD_WS
-                            + (size_t)SSD_T * p + (size_t)n * p
-                            + 2 * (size_t)q + 8);
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
-// inclusive prefix sum of la[0..len) into out[0..len), one row a thread:
-// len <= SSD_THREADS, the largest chunk the wrapper passes
-__device__ void block_cumsum(const float* __restrict__ la, int len,
-                             float* out, float* wsum)
+constexpr int SSD_T = 64;                   // N, P and (a)'s sub-tile
+constexpr int SSD_THREADS = 128;            // 4 warps
+constexpr int SSD_MAXQ = 256;               // longest chunk: 8 rows a lane
+constexpr int SSD_RT = 128;                 // rows of (d)'s output tile
+constexpr int SSD_KT = 32;                  // depth of a slice in (b), (d)
+constexpr int SSD_RA = SSD_T + 4;           // (a)'s tiles, read along rows
+constexpr int SSD_RK = SSD_KT + 4;          // (d)'s A slices, along rows
+constexpr int SSD_RB = SSD_T + 8;           // slices read down columns
+constexpr int SSD_PASS_THREADS = 256;
+
+// the two-stage rings of (b) and (d), and the chunk's cumsum: 37 KB and
+// 55 KB, so with at most 128 registers a thread four blocks of (d) share
+// an SM (a third stage costs one of them, and ran slower)
+constexpr size_t SSD_STATES_SMEM =
+    sizeof(float) * (2 * 2 * SSD_KT * SSD_RB + SSD_MAXQ);
+constexpr size_t SSD_OUT_SMEM =
+    sizeof(float) * (2 * (SSD_RT * SSD_RK + SSD_KT * SSD_RB) + SSD_MAXQ);
+
+// rows [0, rows) of a tile whose row r starts at src + r * ld, w floats
+// wide, into dst (row stride rs) by cp.async; rows at or past `valid`
+// (>= 1) are zero-filled.  Columns [w, rs) of dst are not written
+__device__ __forceinline__ void ssd_copy(float* dst, int rs, const float* src,
+                                         long long ld, int rows, int valid,
+                                         int w, bool vec4)
 {
-    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-    float v = tid < len ? la[tid] : 0.f;
+    const int cw = vec4 ? 4 : 1;
+    const int per_row = w / cw;
+    // one division a thread, then steps of SSD_THREADS chunks
+    int r = threadIdx.x / per_row, c = threadIdx.x - r * per_row;
+    const int dr = SSD_THREADS / per_row, dc = SSD_THREADS - dr * per_row;
+    while (r < rows) {
+        const bool in = r < valid;
+        tf_cp_async(smem_addr(dst + r * rs + c * cw),
+                    src + (in ? r : 0) * ld + c * cw, vec4, in);
+        r += dr;
+        c += dc;
+        if (c >= per_row) { c -= per_row; ++r; }
+    }
+}
+
+// zero columns [w, width) of rows [0, rows) (never written by the copies)
+__device__ __forceinline__ void ssd_zero_cols(float* dst, int rs, int rows,
+                                              int w, int width)
+{
+    const int pad = width - w;
+    if (pad <= 0) return;
+    for (int idx = threadIdx.x; idx < rows * pad; idx += SSD_THREADS) {
+        const int r = idx / pad;
+        dst[r * rs + w + idx - r * pad] = 0.f;
+    }
+}
+
+// cl[0, SSD_MAXQ) = inclusive prefix sums of la[0, len), la taken as 0 past
+// len.  Warp 0 alone, 8 rows a lane; the caller synchronises.  (b) and (d)
+// both call it, so they see the same bits of cl
+__device__ __forceinline__ void ssd_cumsum(const float* __restrict__ la,
+                                           int len, float* cl)
+{
+    const int lane = threadIdx.x & 31;
+    float v[SSD_MAXQ / 32];
+    float run = 0.f;
+#pragma unroll
+    for (int e = 0; e < SSD_MAXQ / 32; ++e) {
+        const int i = (SSD_MAXQ / 32) * lane + e;
+        run += i < len ? la[i] : 0.f;
+        v[e] = run;
+    }
+    float incl = run;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += t;
+        const float t = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += t;
     }
-    if (lane == 31) wsum[w] = v;
-    __syncthreads();
-    if (w == 0) {
-        float ws = lane < SSD_THREADS / 32 ? wsum[lane] : 0.f;
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0.f;
 #pragma unroll
-        for (int off = 1; off < SSD_THREADS / 32; off <<= 1) {
-            const float t = __shfl_up_sync(0xffffffffu, ws, off);
-            if (lane >= off) ws += t;
-        }
-        if (lane < SSD_THREADS / 32) wsum[lane] = ws;
-    }
-    __syncthreads();
-    if (w > 0) v += wsum[w - 1];
-    if (tid < len) out[tid] = v;
-    __syncthreads();
+    for (int e = 0; e < SSD_MAXQ / 32; ++e)
+        cl[(SSD_MAXQ / 32) * lane + e] = excl + v[e];
 }
 
-__global__ void __launch_bounds__(SSD_THREADS)
-ssd_scan_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
-                const float* __restrict__ bm, const float* __restrict__ cm,
-                float* __restrict__ y, float* __restrict__ state_out,
-                int s, int p, int n, int q, int heads)
+// acc[m][j] (16 x 8) += A_m (16 x 8) B_j (8 x 8) for M m-tiles and the 64
+// columns of one depth step, B read from a slice stored [k][n] (row stride
+// SSD_RB: b0 = (k t, n g), b1 = (k t + 4, n g)) and split four n-tiles at
+// a time; three passes, each over the independent tiles
+template <int M>
+__device__ __forceinline__ void ssd_mma_row(float (&acc)[M][8][4],
+                                            const uint32_t (&ah)[M][4],
+                                            const uint32_t (&al)[M][4],
+                                            const float* bslice, int kk,
+                                            int g, int t)
 {
-    extern __shared__ float ssd_smem[];
-    const int ns = n | 1;
-    float* cs = ssd_smem;                   // SSD_T x ns   C rows
-    float* bs = cs + SSD_T * ns;            // SSD_T x ns   B rows
-    float* ws = bs + SSD_T * ns;            // SSD_T x SSD_WS
-    float* xs = ws + SSD_T * SSD_WS;        // SSD_T x p
-    float* st = xs + SSD_T * p;             // n x p        the state
-    float* cl = st + n * p;                 // q            cumsum of la
-    float* tl = cl + q;                     // q            decay to chunk end
-    float* wsum = tl + q;                   // 8
-
-    const int tid = threadIdx.x;
-    const int ti = tid >> 4, tj = tid & 15;
-    const long long lane = blockIdx.x;
-    const long long grp = lane / heads;
-    const float* xl = xbar + lane * s * p;
-    const float* lal = la + lane * s;
-    const float* bl = bm + grp * s * n;
-    const float* cml = cm + grp * s * n;
-    float* yl = y + lane * s * p;
-
-    for (int idx = tid; idx < n * p; idx += SSD_THREADS) st[idx] = 0.f;
-
-    for (int t0 = 0; t0 < s; t0 += q) {
-        const int len = min(q, s - t0);
-        block_cumsum(lal + t0, len, cl, wsum);     // ends with a barrier
-        const float cl_last = cl[len - 1];
-        for (int j = tid; j < len; j += SSD_THREADS)
-            tl[j] = expf(cl_last - cl[j]);
-
-        for (int ib = 0; ib < len; ib += SSD_T) {
-            const int ni = min(SSD_T, len - ib);
-            __syncthreads();        // cs of the last sub-tile is read
-            for (int idx = tid; idx < SSD_T * n; idx += SSD_THREADS) {
-                const int r = idx / n, c = idx - r * n;
-                cs[r * ns + c] = r < ni
-                    ? cml[(long long)(t0 + ib + r) * n + c] : 0.f;
-            }
-            __syncthreads();
-
-            // the state entering the chunk: exp(cl_i) C_i S
-            float acc[4][4];
+    const float* r0 = bslice + (8 * kk + t) * SSD_RB + g;
 #pragma unroll
-            for (int r = 0; r < 4; ++r)
+    for (int j0 = 0; j0 < 8; j0 += 4) {
+        uint32_t bh[4][2], bl[4][2];
 #pragma unroll
-                for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-            for (int e = 0; e < n; ++e) {
-                float cv[4], sv[4];
-#pragma unroll
-                for (int r = 0; r < 4; ++r) cv[r] = cs[(ti + 16 * r) * ns + e];
-#pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const int col = tj + 16 * c;
-                    sv[c] = col < p ? st[e * p + col] : 0.f;
-                }
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-#pragma unroll
-                    for (int c = 0; c < 4; ++c)
-                        acc[r][c] = fmaf(cv[r], sv[c], acc[r][c]);
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const int i = ti + 16 * r;
-                const float dec = i < ni ? expf(cl[ib + i]) : 0.f;
-#pragma unroll
-                for (int c = 0; c < 4; ++c) acc[r][c] *= dec;
-            }
-
-            // within the chunk: W x over the key sub-tiles up to this one
-            for (int jb = 0; jb <= ib; jb += SSD_T) {
-                const int nj = min(SSD_T, len - jb);
-                __syncthreads();    // bs, xs, ws of the last sub-tile read
-                for (int idx = tid; idx < SSD_T * n; idx += SSD_THREADS) {
-                    const int r = idx / n, c = idx - r * n;
-                    bs[r * ns + c] = r < nj
-                        ? bl[(long long)(t0 + jb + r) * n + c] : 0.f;
-                }
-                for (int idx = tid; idx < SSD_T * p; idx += SSD_THREADS) {
-                    const int r = idx / p;
-                    xs[idx] = r < nj
-                        ? xl[(long long)(t0 + jb) * p + idx] : 0.f;
-                }
-                __syncthreads();
-                float sc[4][4];
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) sc[r][c] = 0.f;
-                for (int e = 0; e < n; ++e) {
-                    float cv[4], bv[4];
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-                        cv[r] = cs[(ti + 16 * r) * ns + e];
-#pragma unroll
-                    for (int c = 0; c < 4; ++c)
-                        bv[c] = bs[(tj + 16 * c) * ns + e];
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-#pragma unroll
-                        for (int c = 0; c < 4; ++c)
-                            sc[r][c] = fmaf(cv[r], bv[c], sc[r][c]);
-                }
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                    const int i = ti + 16 * r;
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) {
-                        const int j = tj + 16 * c;
-                        float wv = 0.f;
-                        if (i < ni && j < nj && ib + i >= jb + j) {
-                            const float diff = fminf(fmaxf(
-                                cl[ib + i] - cl[jb + j], -60.f), 0.f);
-                            wv = sc[r][c] * expf(diff);
-                        }
-                        ws[i * SSD_WS + j] = wv;
-                    }
-                }
-                __syncthreads();
-                for (int j = 0; j < nj; ++j) {
-                    float wv[4], xv[4];
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-                        wv[r] = ws[(ti + 16 * r) * SSD_WS + j];
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) {
-                        const int col = tj + 16 * c;
-                        xv[c] = col < p ? xs[j * p + col] : 0.f;
-                    }
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-#pragma unroll
-                        for (int c = 0; c < 4; ++c)
-                            acc[r][c] = fmaf(wv[r], xv[c], acc[r][c]);
-                }
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const int i = ti + 16 * r;
-                if (i >= ni) continue;
-#pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const int col = tj + 16 * c;
-                    if (col < p)
-                        yl[(long long)(t0 + ib + i) * p + col] = acc[r][c];
-                }
-            }
+        for (int u = 0; u < 4; ++u) {
+            split_tf32_int(r0[8 * (j0 + u)], bh[u][0], bl[u][0]);
+            split_tf32_int(r0[4 * SSD_RB + 8 * (j0 + u)], bh[u][1], bl[u][1]);
         }
-
-        // the state leaving the chunk
-        const float dec_all = expf(cl_last);
-        float sr[4][4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int row = ti + 16 * r;
+        for (int m = 0; m < M; ++m)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                const int col = tj + 16 * c;
-                sr[r][c] = row < n && col < p ? st[row * p + col] * dec_all
-                                              : 0.f;
-            }
-        }
-        for (int jb = 0; jb < len; jb += SSD_T) {
-            const int nj = min(SSD_T, len - jb);
-            __syncthreads();        // bs, xs (and st above) are read
-            for (int idx = tid; idx < SSD_T * n; idx += SSD_THREADS) {
-                const int r = idx / n, c = idx - r * n;
-                bs[r * ns + c] = r < nj
-                    ? bl[(long long)(t0 + jb + r) * n + c] * tl[jb + r] : 0.f;
-            }
-            for (int idx = tid; idx < SSD_T * p; idx += SSD_THREADS) {
-                const int r = idx / p;
-                xs[idx] = r < nj ? xl[(long long)(t0 + jb) * p + idx] : 0.f;
-            }
-            __syncthreads();
-            for (int j = 0; j < nj; ++j) {
-                float bv[4], xv[4];
+            for (int u = 0; u < 4; ++u)
+                mma_tf32(acc[m][j0 + u], al[m], bh[u][0], bh[u][1]);
 #pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                    const int row = ti + 16 * r;
-                    bv[r] = row < n ? bs[j * ns + row] : 0.f;
-                }
+        for (int m = 0; m < M; ++m)
 #pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const int col = tj + 16 * c;
-                    xv[c] = col < p ? xs[j * p + col] : 0.f;
-                }
+            for (int u = 0; u < 4; ++u)
+                mma_tf32(acc[m][j0 + u], ah[m], bl[u][0], bl[u][1]);
 #pragma unroll
-                for (int r = 0; r < 4; ++r)
+        for (int m = 0; m < M; ++m)
 #pragma unroll
-                    for (int c = 0; c < 4; ++c)
-                        sr[r][c] = fmaf(bv[r], xv[c], sr[r][c]);
-            }
-        }
-        __syncthreads();            // every read of the old state is done
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const int row = ti + 16 * r;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                const int col = tj + 16 * c;
-                if (row < n && col < p) st[row * p + col] = sr[r][c];
-            }
-        }
-        __syncthreads();
+            for (int u = 0; u < 4; ++u)
+                mma_tf32(acc[m][j0 + u], ah[m], bh[u][0], bh[u][1]);
     }
+}
 
-    float* so = state_out + lane * n * p;
-    for (int idx = tid; idx < n * p; idx += SSD_THREADS) so[idx] = st[idx];
+// one m-tile's accumulators (row g: e 0, 1; row g + 8: e 2, 3; columns
+// 8 j + 2 t, + 1) into out (row stride ld), rows < rows, columns < cols
+__device__ __forceinline__ void ssd_store(float* out, long long ld,
+                                          int rows, int cols,
+                                          const float (&acc)[8][4], int g,
+                                          int t, bool pairs)
+{
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = g + 8 * h;
+        if (r >= rows) continue;
+        float* row = out + r * ld;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int c = 8 * j + 2 * t;
+            if (pairs && c + 1 < cols) {
+                *reinterpret_cast<float2*>(row + c) =
+                    make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+            } else {
+                if (c < cols) row[c] = acc[j][2 * h];
+                if (c + 1 < cols) row[c + 1] = acc[j][2 * h + 1];
+            }
+        }
+    }
+}
+
+// (a) the scores C B^T of one (batch row, chunk), sub-tile (ti, tj), tj <=
+// ti; blockIdx.x = batch row * nc + chunk, blockIdx.y walks the lower
+// triangle of sub-tiles row by row.  A warp owns 16 rows of the sub-tile
+__global__ void __launch_bounds__(SSD_THREADS)
+ssd_scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
+                  float* __restrict__ cb, int s, int n, int q, int qp,
+                  int nc, int vec4)
+{
+    __shared__ __align__(16) float cs[SSD_T * SSD_RA];
+    __shared__ __align__(16) float bs[SSD_T * SSD_RA];
+    const int grp = blockIdx.x / nc, c = blockIdx.x - grp * nc;
+    int ti = 0, tj = blockIdx.y;
+    while (tj > ti) { tj -= ti + 1; ++ti; }
+    const int t0 = c * q, len = min(q, s - t0);
+    if (SSD_T * ti >= len) return;          // past a ragged chunk's end
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const float* cml = cm + ((long long)grp * s + t0) * n;
+    const float* bml = bm + ((long long)grp * s + t0) * n;
+    ssd_zero_cols(cs, SSD_RA, SSD_T, n, SSD_T);
+    ssd_zero_cols(bs, SSD_RA, SSD_T, n, SSD_T);
+    ssd_copy(cs, SSD_RA, cml + (long long)SSD_T * ti * n, n, SSD_T,
+             len - SSD_T * ti, n, vec4);
+    ssd_copy(bs, SSD_RA, bml + (long long)SSD_T * tj * n, n, SSD_T,
+             len - SSD_T * tj, n, vec4);
+    cp_async_commit();
+    cp_async_wait_0();
+    __syncthreads();
+
+    float acc[8][4] = {};
+    const float* a0 = cs + (16 * warp + g) * SSD_RA + t;
+    for (int kk = 0; kk < (n + 7) / 8; ++kk) {
+        uint32_t ah[4], al[4], bh[8][2], bl[8][2];
+        split_tf32_int(a0[8 * kk], ah[0], al[0]);
+        split_tf32_int(a0[8 * SSD_RA + 8 * kk], ah[1], al[1]);
+        split_tf32_int(a0[8 * kk + 4], ah[2], al[2]);
+        split_tf32_int(a0[8 * SSD_RA + 8 * kk + 4], ah[3], al[3]);
+        // B stored [key][state]: b0 = (k t, key g)
+        const float* b0 = bs + g * SSD_RA + 8 * kk + t;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            split_tf32_int(b0[8 * j * SSD_RA], bh[j][0], bl[j][0]);
+            split_tf32_int(b0[8 * j * SSD_RA + 4], bh[j][1], bl[j][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
+    }
+    float* out = cb + (((long long)grp * nc + c) * qp + SSD_T * ti
+                       + 16 * warp) * qp + SSD_T * tj;
+    ssd_store(out, qp, 16, SSD_T, acc, g, t, true);
+}
+
+// (b) the state of one (lane, chunk) alone, (B * exp(cl_Q - cl))^T x, and
+// the chunk's decay exp(cl_Q); blockIdx.x = lane * nc + chunk.  Warp
+// w owns state rows [32 (w & 1), + 32) and depth steps 2 (w >> 1), + 1 of
+// each 32-key slice; the two halves of the sum meet in shared memory
+__global__ void __launch_bounds__(SSD_THREADS)
+ssd_states_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
+                  const float* __restrict__ bm, float* __restrict__ states,
+                  float* __restrict__ decay, int s, int p, int n, int q,
+                  int nc, int heads, int vec4)
+{
+    extern __shared__ __align__(16) float ssd_smem[];
+    float* bs = ssd_smem;                   // 2 stages x SSD_KT x SSD_RB
+    float* xs = bs + 2 * SSD_KT * SSD_RB;   // 2 stages x SSD_KT x SSD_RB
+    float* tl = xs + 2 * SSD_KT * SSD_RB;   // SSD_MAXQ: cl, then the tail
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const long long ln = blockIdx.x / nc;
+    const int c = (int)(blockIdx.x - ln * nc);
+    const int t0 = c * q, len = min(q, s - t0);
+    const float* xl = xbar + (ln * s + t0) * p;
+    const float* bl = bm + ((ln / heads) * s + t0) * n;
+    const int n_ks = (len + SSD_KT - 1) / SSD_KT;
+    const int r0 = 32 * (warp & 1), kh = warp >> 1;
+
+    for (int st = 0; st < 2; ++st) {
+        ssd_zero_cols(bs + st * SSD_KT * SSD_RB, SSD_RB, SSD_KT, n, SSD_T);
+        ssd_zero_cols(xs + st * SSD_KT * SSD_RB, SSD_RB, SSD_KT, p, SSD_T);
+    }
+    ssd_copy(bs, SSD_RB, bl, n, SSD_KT, len, n, vec4);
+    ssd_copy(xs, SSD_RB, xl, p, SSD_KT, len, p, vec4);
+    cp_async_commit();
+    if (warp == 0) ssd_cumsum(la + ln * s + t0, len, tl);
+    __syncthreads();
+    const float cl_last = tl[len - 1];
+    __syncthreads();                        // every thread has cl_last
+    for (int i = tid; i < SSD_MAXQ; i += SSD_THREADS)
+        tl[i] = i < len ? expf(cl_last - tl[i]) : 0.f;
+    if (tid == 0) decay[ln * nc + c] = expf(cl_last);
+
+    float acc[2][8][4] = {};
+    const bool rows = r0 < n;               // this warp's state rows exist
+    for (int ks = 0; ks < n_ks; ++ks) {
+        const int stage = ks & 1;
+        if (ks + 1 < n_ks) {
+            const int k1 = SSD_KT * (ks + 1);
+            ssd_copy(bs + (stage ^ 1) * SSD_KT * SSD_RB, SSD_RB,
+                     bl + (long long)k1 * n, n, SSD_KT, len - k1, n, vec4);
+            ssd_copy(xs + (stage ^ 1) * SSD_KT * SSD_RB, SSD_RB,
+                     xl + (long long)k1 * p, p, SSD_KT, len - k1, p, vec4);
+        }
+        cp_async_commit();                  // possibly empty: uniform wait
+        cp_async_wait_1();
+        __syncthreads();                    // the slice (and the tail) landed
+        if (rows) {
+            const float* bt = bs + stage * SSD_KT * SSD_RB;
+            const float* xt = xs + stage * SSD_KT * SSD_RB;
+            const float* tk = tl + SSD_KT * ks;
+#pragma unroll
+            for (int kq = 0; kq < 2; ++kq) {
+                const int kk = 2 * kh + kq;
+                if (SSD_KT * ks + 8 * kk >= len) break;
+                // A = (B * tail)^T, stored [key][state]: a0 = (state g,
+                // key t)
+                const float* a0 = bt + (8 * kk + t) * SSD_RB + r0 + g;
+                const float tk0 = tk[8 * kk + t], tk1 = tk[8 * kk + t + 4];
+                uint32_t ah[2][4], al[2][4];
+#pragma unroll
+                for (int m = 0; m < 2; ++m) {
+                    split_tf32_int(a0[16 * m] * tk0, ah[m][0], al[m][0]);
+                    split_tf32_int(a0[16 * m + 8] * tk0, ah[m][1], al[m][1]);
+                    split_tf32_int(a0[4 * SSD_RB + 16 * m] * tk1, ah[m][2],
+                               al[m][2]);
+                    split_tf32_int(a0[4 * SSD_RB + 16 * m + 8] * tk1, ah[m][3],
+                               al[m][3]);
+                }
+                ssd_mma_row<2>(acc, ah, al, xt, kk, g, t);
+            }
+        }
+        __syncthreads();                    // the stage is free to refill
+    }
+    cp_async_wait_0();
+    // the depth halves meet: warps 2, 3 hand theirs to warps 0, 1 through
+    // the ring, lane-minor (conflict-free), and those add and store
+    float* red = ssd_smem + (warp & 1) * 64 * 32 + lane;
+    if (kh == 1 && rows) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    red[((m * 8 + j) * 4 + e) * 32] = acc[m][j][e];
+    }
+    __syncthreads();
+    if (kh == 0 && rows) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    acc[m][j][e] += red[((m * 8 + j) * 4 + e) * 32];
+            if (r0 + 16 * m < n)
+                ssd_store(states + ((ln * nc + c) * n + r0 + 16 * m) * p, p,
+                          n - r0 - 16 * m, p, acc[m], g, t, (p & 1) == 0);
+        }
+    }
+}
+
+// (c) the state entering each chunk, in place over the chunks' own states,
+// and the final state; one thread per (lane, V state entries), V = 4
+// (float4) when N P % 4 == 0; blockIdx.x = lane, blockIdx.y = block of
+// entries.  Eight chunks' loads are in flight at once
+__device__ __forceinline__ float ssd_axpy(float a, float x, float y)
+{
+    return a * x + y;
+}
+__device__ __forceinline__ float4 ssd_axpy(float a, float4 x, float4 y)
+{
+    return make_float4(a * x.x + y.x, a * x.y + y.y, a * x.z + y.z,
+                       a * x.w + y.w);
+}
+
+template <typename V>
+__global__ void __launch_bounds__(SSD_PASS_THREADS)
+ssd_pass_kernel(V* __restrict__ states, const float* __restrict__ decay,
+                V* __restrict__ state_out, int nv, int nc)
+{
+    constexpr int PF = 8;
+    const int idx = blockIdx.y * SSD_PASS_THREADS + threadIdx.x;
+    if (idx >= nv) return;
+    const long long ln = blockIdx.x;
+    V* st = states + ln * nc * nv + idx;
+    const float* dl = decay + ln * nc;
+    V run = {};
+    for (int c0 = 0; c0 < nc; c0 += PF) {
+        V local[PF];
+        float d[PF];
+#pragma unroll
+        for (int u = 0; u < PF; ++u)
+            if (c0 + u < nc) {
+                local[u] = st[(long long)(c0 + u) * nv];
+                d[u] = dl[c0 + u];
+            }
+#pragma unroll
+        for (int u = 0; u < PF; ++u)
+            if (c0 + u < nc) {
+                st[(long long)(c0 + u) * nv] = run;
+                run = ssd_axpy(d[u], run, local[u]);
+            }
+    }
+    state_out[ln * nv + idx] = run;
+}
+
+// (d) the outputs of one (lane, chunk, 128-row tile): first exp(cl_i) C_i
+// S_c from the state entering the chunk (slices of 32 state rows), then
+// W x over the 32-key slices up to the tile's last row, W = C B^T from (a)
+// decayed and masked in float32.  Warp w owns rows [32 w, + 32) of the
+// tile.  One 1-D grid, the tiles with the most key slices first
+__global__ void __launch_bounds__(SSD_THREADS)
+ssd_out_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
+               const float* __restrict__ cm, const float* __restrict__ cb,
+               const float* __restrict__ states, float* __restrict__ y,
+               int bh, int s, int p, int n, int q, int qp, int nc, int heads,
+               int vec4)
+{
+    extern __shared__ __align__(16) float ssd_smem[];
+    float* as = ssd_smem;                   // 2 stages x SSD_RT x SSD_RK
+    float* bs = as + 2 * SSD_RT * SSD_RK;   // 2 stages x SSD_KT x SSD_RB
+    float* cl = bs + 2 * SSD_KT * SSD_RB;   // SSD_MAXQ
+
+    const int nsub = (qp + SSD_RT - 1) / SSD_RT;
+    const long long items = (long long)bh * nc;
+    const int sub = nsub - 1 - (int)(blockIdx.x / items);
+    const long long item = blockIdx.x - (long long)(nsub - 1 - sub) * items;
+    const long long ln = item / nc;
+    const int c = (int)(item - ln * nc);
+    const int t0 = c * q, len = min(q, s - t0), ib = SSD_RT * sub;
+    if (ib >= len) return;                  // past a ragged chunk's end
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const long long grp = ln / heads;
+    const int n_rows = min(SSD_RT, len - ib);
+    const float* xl = xbar + (ln * s + t0) * p;
+    const float* cml = cm + (grp * s + t0 + ib) * n;
+    const float* stl = states + (ln * nc + c) * n * p;
+    const float* cbl = cb + ((grp * nc + c) * qp + ib) * qp;
+    const int n_cs = (n + SSD_KT - 1) / SSD_KT;         // C S slices
+    const int n_items = n_cs + (ib + n_rows + SSD_KT - 1) / SSD_KT;
+
+    auto fetch = [&](int it, int stage) {
+        float* a = as + stage * SSD_RT * SSD_RK;
+        float* b = bs + stage * SSD_KT * SSD_RB;
+        if (it < n_cs) {
+            const int k0 = SSD_KT * it;
+            ssd_copy(a, SSD_RK, cml + k0, n, SSD_RT, n_rows,
+                     min(SSD_KT, n - k0), vec4);
+            ssd_copy(b, SSD_RB, stl + (long long)k0 * p, p, SSD_KT, n - k0,
+                     p, vec4);
+        } else {
+            const int kb = SSD_KT * (it - n_cs);
+            ssd_copy(a, SSD_RK, cbl + kb, qp, SSD_RT, n_rows, SSD_KT, true);
+            ssd_copy(b, SSD_RB, xl + (long long)kb * p, p, SSD_KT, len - kb,
+                     p, vec4);
+        }
+    };
+    // C's columns past N in the stages its slices take first; x's and S's
+    // columns past P in both
+    for (int st = 0; st < 2; ++st) {
+        if (st < n_cs)
+            ssd_zero_cols(as + st * SSD_RT * SSD_RK, SSD_RK, SSD_RT,
+                          min(SSD_KT, n - SSD_KT * st), SSD_KT);
+        ssd_zero_cols(bs + st * SSD_KT * SSD_RB, SSD_RB, SSD_KT, p, SSD_T);
+    }
+    fetch(0, 0);
+    cp_async_commit();
+    if (warp == 0) ssd_cumsum(la + ln * s + t0, len, cl);
+
+    const int r0 = 32 * warp;               // this warp's rows in the tile
+    const int row_lo = ib + r0, row_hi = ib + r0 + 31;  // chunk positions
+    const bool rows = row_lo < len;
+    float acc[2][8][4] = {};
+    float cli[2][2] = {};
+    for (int it = 0; it < n_items; ++it) {
+        const int stage = it & 1;
+        if (it + 1 < n_items) fetch(it + 1, stage ^ 1);
+        cp_async_commit();                  // possibly empty: uniform wait
+        cp_async_wait_1();
+        __syncthreads();                    // the slice (and cl) landed
+        const float* at = as + stage * SSD_RT * SSD_RK;
+        const float* bt = bs + stage * SSD_KT * SSD_RB;
+        const float* a0 = at + (r0 + g) * SSD_RK + t;
+        if (rows && it < n_cs) {
+            // C S: A = C's columns [32 it, + 32), B = S's rows
+#pragma unroll
+            for (int kk = 0; kk < SSD_KT / 8; ++kk) {
+                uint32_t ah[2][4], al[2][4];
+#pragma unroll
+                for (int m = 0; m < 2; ++m)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        split_tf32_int(a0[(16 * m + 8 * (e & 1)) * SSD_RK
+                                      + 8 * kk + 4 * (e >> 1)],
+                                   ah[m][e], al[m][e]);
+                ssd_mma_row<2>(acc, ah, al, bt, kk, g, t);
+            }
+            if (it == n_cs - 1) {           // times exp(cl_i)
+#pragma unroll
+                for (int m = 0; m < 2; ++m)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        cli[m][h] = cl[row_lo + 16 * m + g + 8 * h];
+                        const float e = expf(cli[m][h]);
+#pragma unroll
+                        for (int j = 0; j < 8; ++j) {
+                            acc[m][j][2 * h] *= e;
+                            acc[m][j][2 * h + 1] *= e;
+                        }
+                    }
+            }
+        } else if (rows) {
+            const int kb = SSD_KT * (it - n_cs);
+            // depth steps holding a key at or before this warp's last row,
+            // and whether some key of the slice lies past some row
+            const int ksteps = kb > row_hi ? 0
+                : min(SSD_KT / 8, (row_hi - kb) / 8 + 1);
+            const bool mask = kb + SSD_KT - 1 > row_lo;
+            for (int kk = 0; kk < ksteps; ++kk) {
+                const int kj = kb + 8 * kk + t;
+                const float clj[2] = {cl[kj], cl[kj + 4]};
+                uint32_t ah[2][4], al[2][4];
+#pragma unroll
+                for (int m = 0; m < 2; ++m)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        // a0..a3: (g, t), (g + 8, t), (g, t + 4), (g + 8,
+                        // t + 4)
+                        const int dr = 16 * m + 8 * (e & 1);
+                        const int dk = 4 * (e >> 1);
+                        const float sc = a0[dr * SSD_RK + 8 * kk + dk];
+                        const float d = fminf(fmaxf(
+                            cli[m][e & 1] - clj[e >> 1], -60.f), 0.f);
+                        const float wv = (!mask || kj + dk <= row_lo + g + dr)
+                            ? sc * expf(d) : 0.f;
+                        split_tf32_int(wv, ah[m][e], al[m][e]);
+                    }
+                ssd_mma_row<2>(acc, ah, al, bt, kk, g, t);
+            }
+        }
+        __syncthreads();                    // the stage is free to refill
+    }
+    cp_async_wait_0();
+    if (rows) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+            if (row_lo + 16 * m < len)
+                ssd_store(y + (ln * s + t0 + row_lo + 16 * m) * p, p,
+                          len - row_lo - 16 * m, p, acc[m], g, t,
+                          (p & 1) == 0);
+    }
 }
 
 // dynamic shared memory above the 48 KB default needs an opt-in per kernel
@@ -1077,18 +1363,62 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
 }
 
+// the SSD scan in four launches, (a)-(d) above, on the scratch the wrapper
+// allocates: cb (BH / heads, nc, Qp, Qp), states (BH, nc, N, P) and decay
+// (BH, nc), nc = ceil(S / Q), Qp = Q rounded up to 64.  N, P <= 64, Q <= 256,
+// and the largest grid, (d)'s BH nc ceil(Qp / 128) blocks on x, under 2^31
 extern "C" int repro_ssd_scan(const void* xbar, const void* la,
                               const void* bm, const void* cm, void* y,
-                              void* state, int bh, int s, int p, int n,
+                              void* state, void* cb, void* states,
+                              void* decay, int bh, int s, int p, int n,
                               int q, int heads, void* stream)
 {
-    static size_t granted = 0;
-    const size_t smem = ssd_smem_bytes(n, p, q);
-    const cudaError_t err = allow_smem(ssd_scan_kernel, smem, &granted);
+    if (n < 1 || n > SSD_T || p < 1 || p > SSD_T || q < 1 || q > SSD_MAXQ
+        || heads < 1 || bh % heads != 0)
+        return (int)cudaErrorInvalidValue;
+    const int nc = (s + q - 1) / q, qp = (q + SSD_T - 1) / SSD_T * SSD_T;
+    const int nsub = qp / SSD_T, n_rt = (qp + SSD_RT - 1) / SSD_RT;
+    if ((long long)bh * nc * n_rt >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    static size_t granted_states = 0, granted_out = 0;
+    cudaError_t err = allow_smem(ssd_states_kernel, SSD_STATES_SMEM,
+                                 &granted_states);
+    if (err == cudaSuccess)
+        err = allow_smem(ssd_out_kernel, SSD_OUT_SMEM, &granted_out);
     if (err != cudaSuccess) return (int)err;
-    ssd_scan_kernel<<<bh, SSD_THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)xbar, (const float*)la, (const float*)bm,
-        (const float*)cm, (float*)y, (float*)state, s, p, n, q, heads);
+    const cudaStream_t st = (cudaStream_t)stream;
+    const bool vec4 = n % 4 == 0 && p % 4 == 0
+        && (((uintptr_t)xbar | (uintptr_t)bm | (uintptr_t)cm
+             | (uintptr_t)states) & 15) == 0;
+    const float* xf = (const float*)xbar;
+    const float* laf = (const float*)la;
+    ssd_scores_kernel<<<dim3((bh / heads) * nc, nsub * (nsub + 1) / 2),
+                        SSD_THREADS, 0, st>>>(
+        (const float*)bm, (const float*)cm, (float*)cb, s, n, q, qp, nc,
+        (int)vec4);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_states_kernel<<<(unsigned)((long long)bh * nc), SSD_THREADS,
+                        SSD_STATES_SMEM, st>>>(
+        xf, laf, (const float*)bm, (float*)states, (float*)decay, s, p, n, q,
+        nc, heads, (int)vec4);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const int np = n * p;
+    if (np % 4 == 0 && (((uintptr_t)states | (uintptr_t)state) & 15) == 0)
+        ssd_pass_kernel<float4><<<dim3(bh, (np / 4 + SSD_PASS_THREADS - 1)
+                                           / SSD_PASS_THREADS),
+                                  SSD_PASS_THREADS, 0, st>>>(
+            (float4*)states, (const float*)decay, (float4*)state, np / 4,
+            nc);
+    else
+        ssd_pass_kernel<float><<<dim3(bh, (np + SSD_PASS_THREADS - 1)
+                                          / SSD_PASS_THREADS),
+                                 SSD_PASS_THREADS, 0, st>>>(
+            (float*)states, (const float*)decay, (float*)state, np, nc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_out_kernel<<<(unsigned)((long long)bh * nc * n_rt), SSD_THREADS,
+                     SSD_OUT_SMEM, st>>>(
+        xf, laf, (const float*)cm, (const float*)cb, (const float*)states,
+        (float*)y, bh, s, p, n, q, qp, nc, heads, (int)vec4);
     return (int)cudaGetLastError();
 }
 

@@ -425,6 +425,154 @@ def test_card_ssd_route_matches_chunked(s, chunk):
     torch.testing.assert_close(st, st0, rtol=1e-4, atol=1e-4)
 
 
+def _ssd_schedule(xb, la, bm, cm, *, chunk, heads, split=True):
+    """Plain emulation of the SSD kernels' passes (``ssd_*_kernel`` in
+    ``csrc/lm.cu``), every product from TF32 parts summed in float32
+    (``split=False``: one TF32 rounding of each operand): (a) the scores
+    C B^T once per (batch row, chunk); (b) each (lane, chunk)'s own state
+    (B * exp(cl_Q - cl))^T x and decay exp(cl_Q); (c) the states entering
+    the chunks, passed in order; (d) y = exp(cl) * (C S) + W x with W the
+    scores decayed by exp(clip(cl_i - cl_j, -60, 0)) and masked in
+    float32.  Returns y (BH, S, P) and the final state (BH, N, P)."""
+    x, a, b, c = (torch.from_numpy(t) for t in (xb, la, bm, cm))
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    grp = torch.arange(bh) // heads
+    q = min(chunk, s)
+    chunks = [slice(t0, min(s, t0 + q)) for t0 in range(0, s, q)]
+    scores, cls, local, decay = [], [], [], []
+    for sl in chunks:
+        cl = torch.cumsum(a[:, sl], dim=1)
+        cls.append(cl)
+        scores.append(_tf32_product("gin,gjn->gij", c[:, sl], b[:, sl],
+                                    split))
+        tail = torch.exp(cl[:, -1:] - cl)
+        local.append(_tf32_product("hjn,hjp->hnp",
+                                   b[grp, sl] * tail[..., None], x[:, sl],
+                                   split))
+        decay.append(torch.exp(cl[:, -1]))
+    state = torch.zeros((bh, n, p))
+    entering = []
+    for dec, loc in zip(decay, local):
+        entering.append(state)
+        state = dec[:, None, None] * state + loc
+    ys = []
+    for sl, cl, sc, st in zip(chunks, cls, scores, entering):
+        ln = cl.shape[1]
+        d = torch.clamp(cl[:, :, None] - cl[:, None, :], -60.0, 0.0)
+        w = torch.where(torch.ones((ln, ln), dtype=torch.bool).tril(),
+                        sc[grp] * torch.exp(d), torch.zeros(()))
+        ys.append(torch.exp(cl)[..., None]
+                  * _tf32_product("hin,hnp->hip", c[grp, sl], st, split)
+                  + _tf32_product("hij,hjp->hip", w, x[:, sl], split))
+    return torch.cat(ys, dim=1), state
+
+
+def _ssd_reference(xb, la, bm, cm, *, chunk, heads):
+    """y and the final state of ``ssd_scan_ref``, and y of
+    ``ssd_scan_pallas`` in interpret mode (S padded to a multiple of the
+    chunk with rows that leave y and the state as they are), on bm/cm
+    broadcast to every head."""
+    bmh, cmh = (np.repeat(t, heads, axis=0) for t in (bm, cm))
+    y0, st0 = ref.ssd_scan_ref(*map(jnp.asarray, (xb, la, bmh, cmh)))
+    s = xb.shape[1]
+    q = min(chunk, s)
+    pad = -s % q
+    padded = [np.pad(t, [(0, 0), (0, pad)] + [(0, 0)] * (t.ndim - 2))
+              for t in (xb, la, bmh, cmh)]
+    yp = ssd_scan_pallas(*map(jnp.asarray, padded), chunk=q, interpret=True)
+    return np.asarray(y0), np.asarray(st0), np.asarray(yp)[:, :s]
+
+
+# (BH, heads, S, P, N, chunk, la): S a multiple of Q, ragged S, S < Q (one
+# partial chunk), heads sharing bm/cm and heads = 1, strong decay, and the
+# serve path's widths (P = N = 64, Q 256) on a few lanes
+SSD_SCHEDULE_CASES = [
+    (6, 3, 128, 16, 8, 32, "slow"),
+    (4, 2, 100, 16, 16, 32, "slow"),
+    (3, 3, 40, 8, 16, 64, "slow"),
+    (2, 1, 96, 32, 16, 32, "slow"),
+    (4, 2, 64, 16, 8, 16, "strong"),
+    (4, 2, 300, 64, 64, 256, "slow"),
+]
+
+
+def _schedule_inputs(bh, heads, s, p, n, decay):
+    rng = np.random.default_rng(bh * s + p + n)
+    xb, _, bm, cm = _ssd_inputs(rng, bh, s, p, n, groups=bh // heads)
+    if decay == "strong":
+        la = np.full((bh, s), -50.0, np.float32)
+    else:
+        la = (-0.1 * rng.random((bh, s))).astype(np.float32)
+    return xb, la, bm, cm
+
+
+@pytest.mark.parametrize("bh,heads,s,p,n,chunk,decay", SSD_SCHEDULE_CASES)
+def test_ssd_split_tf32_schedule_matches_reference(bh, heads, s, p, n, chunk,
+                                                   decay):
+    """The redesigned SSD kernels' schedule against the JAX reference
+    (the sequential oracle and the Pallas kernel): y within 2e-5 of max|y|
+    and the final state within 2e-5 of max|state|, the split-TF32 tier
+    chip_smoke.py holds the kernels to on the card."""
+    xb, la, bm, cm = _schedule_inputs(bh, heads, s, p, n, decay)
+    y, st = _ssd_schedule(xb, la, bm, cm, chunk=chunk, heads=heads)
+    y0, st0, yp = _ssd_reference(xb, la, bm, cm, chunk=chunk, heads=heads)
+    y, st = y.numpy(), st.numpy()
+    assert np.isfinite(y).all() and np.isfinite(st).all()
+    scale_y, scale_s = np.abs(y0).max(), np.abs(st0).max()
+    assert np.abs(y - y0).max() <= 2e-5 * scale_y
+    assert np.abs(y - yp).max() <= 2e-5 * scale_y
+    assert np.abs(st - st0).max() <= 2e-5 * scale_s
+
+
+def test_ssd_one_tf32_rounding_leaves_the_tier():
+    """One TF32 rounding of each operand, at the serve path's widths, puts
+    y more than 2e-5 of max|y| off the reference: why the kernels split
+    every operand into hi and lo."""
+    bh, heads, s, p, n, chunk, decay = SSD_SCHEDULE_CASES[-1]
+    xb, la, bm, cm = _schedule_inputs(bh, heads, s, p, n, decay)
+    y, _ = _ssd_schedule(xb, la, bm, cm, chunk=chunk, heads=heads,
+                         split=False)
+    y0, _, _ = _ssd_reference(xb, la, bm, cm, chunk=chunk, heads=heads)
+    assert np.abs(y.numpy() - y0).max() > 2e-5 * np.abs(y0).max()
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk,heads,want", [
+    (448, 2048, 64, 64, 256, 112,
+     ((4, 8, 256, 256), (448, 8, 64, 64), (448, 8))),
+    (112, 200, 64, 64, 256, 112,
+     ((1, 1, 256, 256), (112, 1, 64, 64), (112, 1))),
+    (16, 100, 16, 16, 16, 8, ((2, 7, 64, 64), (16, 7, 16, 16), (16, 7))),
+    (8, 777, 64, 64, 256, 1, ((8, 4, 256, 256), (8, 4, 64, 64), (8, 4))),
+])
+def test_ssd_scratch_shapes(bh, s, p, n, chunk, heads, want):
+    """The wrapper's scratch: scores per (batch row, chunk) with the chunk
+    padded to 64 rows, a state and a decay per (lane, chunk)."""
+    assert ssd_mod.scratch_shapes(bh, s, p, n, chunk, heads) == want
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk,ok", [
+    (448, 2048, 64, 64, 256, True),
+    # 586 sequences of zamba2's 112 heads: past 65536 lanes
+    (586 * 112, 2048, 64, 64, 256, True),
+    (2 ** 20, 777, 64, 64, 256, True),
+    (8, 777, 65, 64, 256, False),
+    (8, 777, 64, 65, 256, False),
+    (8, 777, 64, 64, 257, False),
+    (8, 200, 64, 64, 257, True),          # the chunk is cut to S
+    (1, 2 ** 25, 64, 64, 256, False),     # S * max(N, P) reaches 2**31
+    (2 ** 20, 2 ** 12, 1, 1, 1, False),   # 2**32 blocks of the outputs
+])
+def test_ssd_kernel_shape_limits(bh, s, p, n, chunk, ok):
+    """The kernels take any BH while their grids fit: only N, P, the chunk
+    and the index ranges are limited."""
+    if ok:
+        ssd_mod.check_kernel_shape(bh, s, p, n, chunk)
+    else:
+        with pytest.raises(ValueError, match="limits"):
+            ssd_mod.check_kernel_shape(bh, s, p, n, chunk)
+
+
 # ---------------------------------------------------------------------------
 # routing and the wrappers' checks
 # ---------------------------------------------------------------------------
