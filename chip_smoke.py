@@ -141,9 +141,12 @@ PATH_SHAPES = {
 SHAPES = tuple(dict.fromkeys(
     [s for shapes in PATH_SHAPES.values() for s in shapes]
     + [(5, 1003, 7), (8, 65536, 257)]))
+# a page too wide for whole rows in a block: the Gram kernel reads column
+# panels (no path runs it; checked and timed like SHAPES)
+WIDE_GRAM_SHAPES = ((2, 1000, 2600),)
 # (B, C, Nc, P) of the streaming Gram: the tall path's launches (N 250000
 # in 4 chunks of 62504 rows, not a multiple of the 64-row step), a small
-# ragged one, and one whose chunks are whole steps, where it must be
+# ragged one, and one whose chunks are whole steps; at every one it must be
 # bitwise batched_gram on the merged (B, C*Nc, P)
 MAIN_BLOCKED_SHAPE = (32, 4, 62504, 33)
 TALL_BLOCKED_SHAPES = (MAIN_BLOCKED_SHAPE, (8, 4, 62504, 33))
@@ -316,7 +319,7 @@ def phase_kernels(device):
     gen = torch.Generator(device=device).manual_seed(20210104)
     rows = {}
     report = []
-    for shape in SHAPES:
+    for shape in SHAPES + WIDE_GRAM_SHAPES:
         b, n, p = shape
         xs = torch.randn(shape, generator=gen, device=device)
         y = torch.randn((b, n), generator=gen, device=device)
@@ -339,6 +342,23 @@ def phase_kernels(device):
             ("batched_gram b disagrees", shape, _errs(bv, b0))
         assert torch.equal(g, g.transpose(1, 2)), \
             ("batched_gram G is not exactly symmetric", shape)
+        # another launch plan: the order of summation is the plan's own,
+        # so the bits are the same
+        plan, alt = megabatch.gram_plans(b, n, p)[:2]
+        ga, ba = megabatch.batched_gram_cuda(xs, w, y, plan=alt)
+        torch.cuda.synchronize()
+        assert torch.equal(g, ga) and torch.equal(bv, ba), \
+            ("batched_gram differs under another launch plan", shape, alt)
+        # column panels against whole rows, where both fit (P > PANEL)
+        other = next((q for q in megabatch.gram_plans(b, n, p)
+                      if q.panel != plan.panel), None)
+        if other is not None:
+            ga, ba = megabatch.batched_gram_cuda(xs, w, y, plan=other)
+            torch.cuda.synchronize()
+            assert torch.equal(g, ga) and torch.equal(bv, ba), \
+                ("batched_gram differs between whole rows and column "
+                 "panels", shape, other)
+        del ga, ba
 
         def gram_library():
             return (torch.bmm((xs * w.unsqueeze(-1)).transpose(1, 2), xs),
@@ -368,6 +388,8 @@ def phase_kernels(device):
             "library_ms": _time_ms(gram_library, cold=True),
             "bound_ms": bound, "bound_by": by,
             "bytes": nbytes, "operations": flops,
+            "plan": plan._asdict(), "bitwise_plan": alt._asdict(),
+            "bitwise_panel_plan": other and other._asdict(),
         }
         del g, bv, g0, b0, g64
 
@@ -401,6 +423,22 @@ def phase_kernels(device):
             "bytes": nbytes, "operations": flops,
         }
         del out, out0
+        if shape == MAIN_SHAPE:
+            # one wrapper call (one count): its CUDA launches (the Gram
+            # kernel and the combine) as the profiler sees them, and the
+            # scratch of partial tiles it allocates beside G and b as the
+            # device allocator counts it (the peak of the call less what
+            # stays allocated after it)
+            traced = _device_kernels(lambda: ops.batched_gram(xs, w, y))
+            gram["cuda_launches_per_call"] = sum(k for k, _ in traced.values())
+            assert gram["cuda_launches_per_call"] >= 1, traced
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            g, bv = ops.batched_gram(xs, w, y)
+            torch.cuda.synchronize()
+            gram["scratch_bytes"] = (torch.cuda.max_memory_allocated()
+                                     - torch.cuda.memory_allocated())
+            del g, bv
         entry["batched_gram"] = gram
         entry["batched_predict"] = pred
         report.append(entry)
@@ -408,17 +446,22 @@ def phase_kernels(device):
             rows = {"batched_gram": gram, "batched_predict": pred}
         del xs, y, w, beta, valid
         torch.cuda.empty_cache()
+    report += _gram_unaligned_rows(device, gen)
     blocked, rows["batched_gram_blocked"] = _blocked_kernel_rows(device, gen)
     xfit, rows["crossfit_gram"] = _xfit_kernel_rows(device, gen)
     attn, rows["flash_attention"] = _attn_kernel_rows(device, gen)
     ssd, rows["ssd_scan"] = _ssd_kernel_rows(device, gen)
     emit("kernels", tolerance={
-        "batched_gram": "rtol 1e-4, atol 1e-4*max|G| (the two sum over N in "
-                        "different orders); G == G' exactly",
         "batched_predict": "rtol 1e-5, atol 1e-5; valid == 0 rows == 0 "
                            "exactly",
+        "batched_gram": "rtol 1e-4, atol 1e-4*max|G| (the two sum over N in "
+                        "different orders); G == G' exactly; bitwise under "
+                        "a second launch plan, and column panels bitwise "
+                        "whole rows where P > 128; on operands off a "
+                        "16-byte boundary bitwise the aligned result",
         "batched_gram_blocked": "as batched_gram; bitwise batched_gram on "
-                                "the merged (B, C*Nc, P) when Nc % 64 == 0",
+                                "the merged (B, C*Nc, P) at every shape, and "
+                                "under a second launch plan",
         "crossfit_gram": "as batched_gram; bitwise batched_gram on x "
                          "broadcast to (T, N, P) at "
                          f"{list(XFIT_BITWISE_SHAPE)}; on operands off a "
@@ -444,10 +487,36 @@ def phase_kernels(device):
     return rows
 
 
+def _gram_unaligned_rows(device, gen):
+    """batched_gram on operands that start off a 16-byte boundary (a task's
+    rows then start anywhere on a float): the same bits as aligned copies."""
+    report = []
+    for b, n, p in ((5, 1003, 7), (3, 517, 45)):
+        xs = torch.randn((b, n, p), generator=gen, device=device)
+        y = torch.randn((b, n), generator=gen, device=device)
+        w = (torch.rand((b, n), generator=gen, device=device) < 0.8).float()
+        views = [torch.empty(a.numel() + k, device=device)[k:].view(a.shape)
+                 .copy_(a) for a, k in ((xs, 1), (w, 2), (y, 3))]
+        assert all(v.data_ptr() % 16 for v in views)
+        g, bv = ops.batched_gram(xs, w, y)
+        gv, bvv = ops.batched_gram(*views)
+        torch.cuda.synchronize()
+        assert torch.equal(g, gv) and torch.equal(bv, bvv), \
+            ("batched_gram differs on unaligned operands", (b, n, p))
+        g0, _ = megabatch.batched_gram_plain(xs, w, y)
+        assert torch.allclose(gv, g0, rtol=1e-4,
+                              atol=1e-4 * float(g0.abs().max()))
+        report.append({"shape": [b, n, p], "batched_gram": {
+            "unaligned_operands_bitwise_aligned": True,
+            "max_abs_err": float((gv - g0).abs().max())}})
+        del xs, y, w, views, g, bv, gv, bvv, g0
+    return report
+
+
 def _blocked_kernel_rows(device, gen):
-    """The streaming Gram against its plain version (and, where its chunks
-    are whole 64-row steps, bitwise against batched_gram on the merged
-    tensor) at every shape of BLOCKED_SHAPES."""
+    """The streaming Gram against its plain version, bitwise against
+    batched_gram on the merged tensor and under a second launch plan, at
+    every shape of BLOCKED_SHAPES."""
     report, main = [], None
     for shape in BLOCKED_SHAPES:
         b, c, nc, p = shape
@@ -470,11 +539,16 @@ def _blocked_kernel_rows(device, gen):
         assert torch.equal(g, g.transpose(1, 2)), \
             ("batched_gram_blocked G is not exactly symmetric", shape)
         g1, b1 = ops.batched_gram(xm, wm, ym)
+        plan, alt = megabatch.gram_plans(b, n, p)[:2]
+        ga, ba = megabatch.batched_gram_blocked_cuda(xc, w, y, plan=alt)
         torch.cuda.synchronize()
         bitwise = torch.equal(g, g1) and torch.equal(bv, b1)
-        if nc % 64 == 0:
-            assert bitwise, ("batched_gram_blocked is not bitwise "
-                             "batched_gram on the merged tensor", shape)
+        assert bitwise, ("batched_gram_blocked is not bitwise batched_gram "
+                         "on the merged tensor", shape)
+        assert torch.equal(g, ga) and torch.equal(bv, ba), \
+            ("batched_gram_blocked differs under another launch plan",
+             shape, alt)
+        del ga, ba
 
         def library():
             return (torch.bmm((xm * wm.unsqueeze(-1)).transpose(1, 2), xm),
@@ -507,6 +581,7 @@ def _blocked_kernel_rows(device, gen):
             "library_ms": _time_ms(library, cold=True),
             "bound_ms": bound, "bound_by": by,
             "bytes": nbytes, "operations": flops,
+            "plan": plan._asdict(), "bitwise_plan": alt._asdict(),
         }
         report.append({"shape": list(shape), "batched_gram_blocked": row})
         if shape == MAIN_BLOCKED_SHAPE:
@@ -1660,11 +1735,13 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # K4 at the opaque drain's lane shape (raw_request's launches), K5's
-    # float32 kernel at the serve shape (same_as_cpu_lm (b)'s launches),
-    # K6's FMA-rate bound, and the CUDA launches of one counted call and
-    # its scratch bytes, both measured by the kernels phase
-    extra = {"crossfit_gram": {"lane": {**rows["crossfit_gram"]["lane"],
+    # K1's and K6's CUDA launches of one counted call and their scratch
+    # bytes, measured by the kernels phase; K4 at the opaque drain's lane
+    # shape (raw_request's launches), K5's float32 kernel at the serve shape
+    # (same_as_cpu_lm (b)'s launches), K6's FMA-rate bound
+    extra = {"batched_gram": {k: rows["batched_gram"][k] for k in (
+                 "cuda_launches_per_call", "scratch_bytes")},
+             "crossfit_gram": {"lane": {**rows["crossfit_gram"]["lane"],
                                         "launches": raw_lanes}},
              "flash_attention": {"f32": {**rows["flash_attention"]["f32"],
                                          "launches": f32_launches}},

@@ -35,12 +35,13 @@ _PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launch's cudaError_t as an int
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "megabatch": {
-        # xs, w, y, g, b, B, N, P, stream
-        "repro_batched_gram": (_PTR, _PTR, _PTR, _PTR, _PTR,
-                               _INT, _INT, _INT, _PTR),
-        # xc, w, y, g, b, B, C, Nc, P, stream
-        "repro_batched_gram_blocked": (_PTR, _PTR, _PTR, _PTR, _PTR,
-                                       _INT, _INT, _INT, _INT, _PTR),
+        # xs, w, y, g, b, the scratch of partial tiles, the plan's table of
+        # windows and items, B, N, P, then the launch plan (si, sj, chunks,
+        # smem_bytes, a pointer to its layout's ints: kernels/megabatch.py
+        # GramPlan), stream
+        "repro_batched_gram": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                               _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                               _PTR, _PTR),
         # x, w, y, g, b, T, N, P, then the launch plan (sub, tt, slots,
         # packs, chunks, ring, m: kernels/crossfit_gram.py), stream
         "repro_crossfit_gram": (_PTR, _PTR, _PTR, _PTR, _PTR,

@@ -56,15 +56,13 @@ import torch
 
 from repro_torch import runtime
 from repro_torch.kernels import build
-from repro_torch.kernels.megabatch import check_operand
+# the card the plan is sized for: an H100's SMs, and the shared memory a
+# block may hold (csrc/megabatch.cu XF_SMEM_MAX, GRAM_SMEM_MAX)
+from repro_torch.kernels.megabatch import SM_COUNT, SMEM_MAX, check_operand
 
 F32 = torch.float32
 _MAX_GRID_Y = 65535
 
-# the card the plan is sized for: an H100's SMs, and the shared memory a
-# block may hold (csrc/megabatch.cu XF_SMEM_MAX)
-SM_COUNT = 132
-SMEM_MAX = 232448
 TILE, ROWS, GROUPS = 32, 64, 4         # K1's tile edge, row step, groups
 X_STRIDE = 36                          # a staged tile row: 9 chunks
 MAX_THREADS = 256

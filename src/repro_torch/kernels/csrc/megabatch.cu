@@ -6,22 +6,21 @@
 // not synchronise and returns cudaGetLastError().
 //
 //   repro_batched_gram     per-task masked normal equations
-//                          G_b = X_b' diag(w_b) X_b,  b_b = X_b'(w_b * y_b)
-//   repro_batched_gram_blocked
-//                          the same over N streamed as C chunks of Nc rows
+//                          G_b = X_b' diag(w_b) X_b,  b_b = X_b'(w_b * y_b);
+//                          batched_gram_blocked's (B, C, Nc, P) is launched
+//                          as its merged (B, C Nc, P) rows
 //   repro_crossfit_gram    the same for T tasks over one shared X (N, P)
 //                          G_t = X' diag(w_t) X,  b_t = X'(w_t * y_t)
 //   repro_batched_predict  masked GEMV epilogue
 //                          out_b = valid_b * (X_b beta_b)
 //
-// Inputs are contiguous float32 at their true (B, N, P), (B, C, Nc, P) or
-// (N, P) with (T, N):
-// any P, any N or Nc, the ragged edges are masked here.  Plain FMA in
-// float32 — no TF32, no tensor cores — and one fixed accumulation order per
-// output element, so a result does not depend on the launch's batch size or
-// on the other lanes.  batched_gram and batched_gram_blocked stage a step
-// through registers; crossfit_gram keeps a ring of steps in flight with
-// cp.async, its launch plan chosen in Python (kernels/crossfit_gram.py).
+// Inputs are contiguous float32 at their true (B, N, P) or (N, P) with
+// (T, N): any N, the ragged edges are masked here.  Plain FMA in float32 —
+// no TF32, no tensor cores — and one fixed accumulation order per output
+// element, so a result does not depend on the launch's batch size, its
+// launch plan or the other lanes.  The Gram kernels keep a ring of row
+// blocks in flight with cp.async, their launch plans chosen in Python
+// (kernels/megabatch.py, kernels/crossfit_gram.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,295 +28,578 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// batched_gram
+// batched_gram (K1) and batched_gram_blocked (K3)
 //
-// One thread block per (task b, 32x32 output tile (ti, tj) with ti <= tj).
-// The block walks N in steps of GRAM_ROWS rows staged through shared memory
-// as  sA = x[:, ti-tile],  sB = x[:, tj-tile],  sW = w,  sWY = w * y.  On a
-// diagonal tile the two slabs are the same columns and only sA is staged.
-// The N loop lives inside the block: N is never split across blocks and
-// nothing is accumulated with atomics.
+// Replace batched_gram_pallas and batched_gram_blocked_pallas
+// (src/repro/kernels/megabatch.py, bodies _gram_kernel and
+// _gram_blocked_kernel): per task b, G_b = X_b' diag(w_b) X_b and b_b =
+// X_b'(w_b y_b) over xs (B, N, P).  K3's (B, C, Nc, P) is contiguous, so
+// its rows already lie as the merged (B, C Nc, P): the wrapper launches
+// this kernel on that view, and K3 is K1 on the merged rows, bit for bit.
 //
-// The 256 threads form four groups of 64.  Group g multiplies out rows
-// [16 g, 16 g + 16) of every step; each of its 8x8 threads keeps a 4x4
-// register tile of the float32 sum, fed per row by two 16-byte
-// shared-memory loads and the row's weight: 4 multiplies (w * x_i, rounded
-// once) and 16 FMAs.  After the last step the four partial tiles are added
-// in the fixed order ((g0 + g1) + g2) + g3.  So every output element has
-// one fixed accumulation order, whatever the launch's batch size.
+// The order of summation.  Every output element is four chains, one per
+// row group g in 0..3: group g takes rows [16 g, 16 g + 16) of every
+// 64-row step, in order; a G term is fmaf(w x_i (rounded once), x_j, acc)
+// for i <= j, a b term fmaf(w y (rounded once), x_j, acc).  Rows at or past
+// N are zero (w 0, x 0) up to the end of the last 64-row step, as the
+// kernel before this one staged them.  The four chains are added as
+// ((g0 + g1) + g2) + g3.  crossfit_gram (K4) sums in the same order, so
+// K4 is bitwise K1 on x broadcast to (T, N, P).  Each chain is whole in
+// one thread of one block; what is split across blocks is the set of
+// chains: the four row groups of a task run in four blocks, and a row
+// group's elements may be split over `chunks` blocks.  The row groups meet
+// in a second launch, which adds their partial tiles in the fixed order.
+// Nothing is accumulated with atomics.
 //
-// The block is bound by its load/store pipe, so the design issues few
-// loads and stores: w and y of a step are loaded once (by 64 threads),
-// not once per thread, and nothing is loaded twice.  The next step's rows
-// are fetched into registers while the current step is multiplied out of
-// shared memory; the fetch reads from clamped addresses, without a branch
-// and without using a loaded value, so all its loads are in flight
-// together, and the ragged edges are masked at the store into shared
-// memory.
+// Bound on an H100: P/2 float32 operations per byte of X.  At the paper's
+// (32, 5104, 33) and the tall path's (32, 250016, 33) bound by bytes
+// (0.00687 and 0.334 ms at 3.35 TB/s), at the wide P 257 by operations
+// (1.92 ms at 67 TFLOP/s at (32, 60000, 257)).
 //
-// Only the upper triangle of tiles is computed; every element G[i][j] with
-// i <= j is computed once and stored to both [i][j] and [j][i], so G comes
-// out exactly symmetric.  The diagonal tiles also produce b[ti-tile].
+// - Blocks.  Grid (4 chunks, B): block (4 c + g, b) walks only row group
+//   g of task b, so each row of X is read once (once per chunk from L2).
+//   At the paper's 32 tasks that is 128 blocks, at 8 tasks 4 chunks of
+//   each row group; a launch of at most 132 blocks asks for more than half
+//   an SM's shared memory, so that each runs on an SM of its own.
+//   (Clusters of the four row groups, meeting in distributed shared
+//   memory, were tried: at one block an SM the card holds 30 such
+//   clusters, 120 SMs.)
+// - Items.  A thread owns an SI x SJ sub-tile of the (P + 1) x P matrix M
+//   whose rows 0..P-1 are w x_i and whose row P is w y: M[i][j] is G[i][j]
+//   for i <= j < P, and b[j] for i = P.  The items are the sub-tiles that
+//   meet the upper triangle, and every sub-tile of the last sub-row (the
+//   one holding row P): 53 items of 4 x 4 at P 33, 848 FMAs a row where
+//   the 32 x 32 tiles of the kernel before executed 3072.  The launch plan
+//   (kernels/megabatch.py::gram_launch_plan) picks (SI, SJ), the chunks,
+//   the ring and the layout from (B, N, P), and gives the kernel a table:
+//   each chunk's items and the columns they read.
+// - Windows.  A chunk reads columns [a0, a0 + na) of M's rows (w x, w y)
+//   and [b0, b0 + nb) of x.  Up to about 2400 columns both are the whole
+//   row; wider, the items are grouped by column panels (a pair of 128-
+//   column panels a chunk, 8 x 8 items; the instance PANELS), so that a
+//   block stages two panels of each row and its buffers do not grow with
+//   P.
+// - Warps.  The consumers (the first warps, one thread an item) multiply
+//   out; four producer warps feed them: warp 0 keeps a ring of `ring`
+//   slots of `srows` rows of the group full with 1-D bulk copies, warps
+//   1..3 turn each slot into two padded row buffers, w x (with w y as
+//   column P) and x, at strides that are multiples of 16 bytes, so that a
+//   consumer's reads are float2 or float4 and w x_i is rounded once per
+//   element, not once per thread.  With one or two consumer warps the
+//   producers sit on the other schedulers.  mbarriers count a slot's bytes
+//   in and its release; named barriers hand the two buffers over.
+// - Copies.  A slot is pieces of min(srows, 16) rows, each contiguous in X
+//   (4 P bytes a row): a piece's X, w and y are each one bulk copy of the
+//   aligned 16-byte chunks around it (a task's base may start anywhere on
+//   a float; a piece starts a multiple of 4 rows into the task, so its
+//   shift is the task's), cut at the task's N; the rows past N are written
+//   as zeros by the producers.  With panels each row's two windows are a
+//   bulk copy each, every row at its own shift.
+// - Only i <= j is stored, to both [i][j] and [j][i], so G is exactly
+//   symmetric.  Rows with w == 0 add exact zeros.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/bench_gram.py,
+// PERF.md's kernel table): 0.0345 ms at (32, 5104, 33) (the kernel
+// before: 0.0903), 1.063 ms at K3's (32, 4, 62504, 33) (3.942), 6.63 ms
+// at (32, 60000, 257) (8.35); on column panels 1.27 ms at (2, 1000, 2600),
+// slower than the kernel before (0.709).
 // ---------------------------------------------------------------------------
-constexpr int TILE = 32;            // output tile edge
-constexpr int GRAM_ROWS = 64;       // rows of N staged per step
-constexpr int GRAM_THREADS = 256;
-constexpr int GRAM_GROUPS = 4;      // thread groups splitting a step's rows
+constexpr int TILE = 32;            // K4's output tile edge
+constexpr int GRAM_ROWS = 64;       // rows of N a step
+constexpr int GRAM_GROUPS = 4;      // row groups of a step: blocks a task
 constexpr int GROUP_ROWS = GRAM_ROWS / GRAM_GROUPS;
-constexpr int STAGE = GRAM_ROWS * TILE / GRAM_THREADS;   // values per thread
-constexpr int STAGE_STRIDE = GRAM_THREADS / TILE;        // 8 rows apart
+constexpr int GRAM_MAX_CONSUMERS = 256;    // threads that own sub-tiles
+constexpr int GRAM_PRODUCER_THREADS = 128; // a warp that copies, and
+constexpr int GRAM_PREPARERS = 96;         // three that prepare the rows
+constexpr int GRAM_MAX_THREADS = GRAM_MAX_CONSUMERS + GRAM_PRODUCER_THREADS;
+// warps of a block with wc consumer warps: with one or two, the producer
+// warps sit on the other schedulers, past one or two idle warps
+__host__ __device__ inline int gram_warps(int wc)
+{
+    return wc + 4 + (wc <= 2 ? wc : 0);
+}
+constexpr int GRAM_MAX_RING = 8;
+constexpr int GRAM_MAX_SROWS = 128; // rows of the group a ring slot
+constexpr int GRAM_SMEM_MAX = 232448;
+// the ring's mbarriers: per ring slot one that its copies complete, one
+// that the preparers are done with it (8 bytes each)
+constexpr int GRAM_BAR_FLOATS = 4 * GRAM_MAX_RING;
 
-struct GramStage {
-    float xa[STAGE], xb[STAGE];
-    float w, y;                     // threads 0..GRAM_ROWS-1: one row each
+// A block's shared memory and its share of the items, as the launch plan
+// lays them out (kernels/megabatch.py::gram_layout owns every number; the
+// C entry only checks that the pieces fit and do not overlap).  From float
+// 0 a ring of `ring` slots, each srows / pr staged pieces of blk floats: a
+// piece is pr rows of the group, their X (whole rows, or with column
+// panels, seg floats a row for its A then its B window) followed by w at
+// wa and y at wa + pr + 8.  From pad_at two padded buffers of srows rows:
+// w x at stride ws, then x at stride xs.  From bar_at the mbarriers.
+struct GramLayout {
+    int per_cta, ring, srows, pr, ws, xs, blk, wa, seg, pad_at, bar_at;
 };
+constexpr int GRAM_LAYOUT_INTS = 11;
+static_assert(sizeof(GramLayout) == GRAM_LAYOUT_INTS * sizeof(int), "");
 
-__device__ __forceinline__ void gram_fetch(
-    const float* __restrict__ xb, const float* __restrict__ wb,
-    const float* __restrict__ yb, int n, int p, int n0, int lr,
-    int ca, int cb, bool diag, int tid, GramStage& st)
+template <int S>
+__device__ __forceinline__ void gram_load(const float* s, float (&v)[S])
 {
-    const int ca_c = min(ca, p - 1), cb_c = min(cb, p - 1);
-#pragma unroll
-    for (int i = 0; i < STAGE; ++i) {
-        const int row = min(n0 + lr + i * STAGE_STRIDE, n - 1);
-        const float* xr = xb + (size_t)row * p;
-        st.xa[i] = xr[ca_c];
-        if (!diag) st.xb[i] = xr[cb_c];
-    }
-    if (tid < GRAM_ROWS) {
-        const int row = min(n0 + tid, n - 1);
-        st.w = wb[row];
-        st.y = yb[row];
-    }
-}
-
-// Stores the step just fetched (rows n0.. of the current chunk) into shared
-// memory, zeroing rows at or past the chunk's end nc and columns past p.
-__device__ __forceinline__ void gram_stage(
-    const GramStage& st, int n0, int nc, int lr, int lc, bool ca_ok,
-    bool cb_ok, bool diag, int tid, float* smem, float* sW, float* sWY)
-{
-#pragma unroll
-    for (int i = 0; i < STAGE; ++i) {
-        const int r = lr + i * STAGE_STRIDE;
-        const bool row_ok = n0 + r < nc;
-        smem[r * TILE + lc] = (row_ok && ca_ok) ? st.xa[i] : 0.f;
-        if (!diag)
-            smem[(GRAM_ROWS + r) * TILE + lc] =
-                (row_ok && cb_ok) ? st.xb[i] : 0.f;
-    }
-    if (tid < GRAM_ROWS) {
-        const bool row_ok = n0 + tid < nc;
-        sW[tid] = row_ok ? st.w : 0.f;
-        sWY[tid] = row_ok ? st.w * st.y : 0.f;
-    }
-}
-
-// Multiplies out the step in shared memory: group grp's 16 rows, in order,
-// into this thread's 4x4 tile of G (and, on a diagonal tile's first row of
-// threads, 4 entries of b).
-__device__ __forceinline__ void gram_step(
-    const float* sA, const float* sB, const float* sW, const float* sWY,
-    int grp, int ty, int tx, bool does_b, float (&acc)[4][4],
-    float (&bacc)[4])
-{
-#pragma unroll
-    for (int kk = 0; kk < GROUP_ROWS; ++kk) {
-        const int k = grp * GROUP_ROWS + kk;
-        const float wk = sW[k];
-        const float4 a4 =
-            *reinterpret_cast<const float4*>(sA + k * TILE + 4 * ty);
-        const float4 b4 =
-            *reinterpret_cast<const float4*>(sB + k * TILE + 4 * tx);
-        const float a[4] = {wk * a4.x, wk * a4.y, wk * a4.z, wk * a4.w};
-        const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        if (does_b) {
-            const float wy = sWY[k];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) bacc[j] = fmaf(b[j], wy, bacc[j]);
-        }
-    }
-}
-
-// The body both Gram kernels share.  Task b's rows arrive as `n_chunks`
-// chunks of `nc` rows each, laid out one after the other ((B, C, Nc, P)
-// contiguous is (B, C*Nc, P) contiguous).  The block walks the chunks in
-// order and each chunk in steps of GRAM_ROWS rows; a chunk's last step is
-// masked at row nc, exactly as batched_gram masks its edge at row n.  The
-// prefetch of the next step crosses chunk boundaries, so the pipeline
-// never drains between chunks.  CHUNKED = false is batched_gram: one
-// chunk of n rows.  Each instance has its own walk (measured: one nested
-// walk for both cost K3 7%), but both stage and multiply out a step with
-// the same two functions, so when nc is a multiple of GRAM_ROWS the steps
-// of the chunked walk are those of the plain walk over the merged rows
-// and the two give the same bits.
-template <bool CHUNKED>
-__device__ __forceinline__ void gram_body(
-    const float* __restrict__ xs, const float* __restrict__ w,
-    const float* __restrict__ y, float* __restrict__ g,
-    float* __restrict__ bv, int n_chunks, int nc, int p, int n_tiles)
-{
-    // sA, then sB; reused for the partial tiles of groups 1..3 at the end
-    __shared__ __align__(16) float smem[2 * GRAM_ROWS * TILE];
-    __shared__ float sW[GRAM_ROWS];
-    __shared__ float sWY[GRAM_ROWS];
-    __shared__ float sBred[GRAM_GROUPS - 1][TILE];
-
-    // blockIdx.x walks the upper triangle of tile pairs row by row
-    int t = blockIdx.x;
-    int ti = 0;
-    for (int len = n_tiles; t >= len; --len) { t -= len; ++ti; }
-    const int tj = ti + t;
-    const bool diag = (ti == tj);
-    const float* sA = smem;
-    const float* sB = diag ? smem : smem + GRAM_ROWS * TILE;
-
-    const int tid = threadIdx.x;
-    const int task = blockIdx.y;
-    const int chunks = CHUNKED ? n_chunks : 1;
-    const size_t rows = (size_t)chunks * nc;     // rows of one task
-    const float* xb = xs + (size_t)task * rows * p;
-    const float* wb = w + (size_t)task * rows;
-    const float* yb = y + (size_t)task * rows;
-
-    // staging role: one tile column, STAGE rows STAGE_STRIDE apart
-    const int lc = tid & (TILE - 1);
-    const int lr = tid / TILE;
-    const int ca = ti * TILE + lc;
-    const int cb = tj * TILE + lc;
-    const bool ca_ok = ca < p, cb_ok = cb < p;
-
-    // compute role: group grp, 4x4 outputs at rows 4 ty.., columns 4 tx..
-    const int grp = tid >> 6;
-    const int ty = (tid & 63) >> 3, tx = tid & 7;
-    const bool does_b = diag && ty == 0;
-
-    float acc[4][4];
-    float bacc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    GramStage st;
-    st.w = st.y = 0.f;
-    gram_fetch(xb, wb, yb, nc, p, 0, lr, ca, cb, diag, tid, st);
-    if constexpr (CHUNKED) {
-        // one flat walk over (chunk c, step n0); rows are task-relative,
-        // chunk c holds [c nc, c nc + nc), and the prefetch of the next
-        // step may be the next chunk's first (the wrapper keeps C * Nc
-        // below 2^31 - 64: int rows suffice)
-        int c = 0, n0 = 0;
-        for (;;) {
-            gram_stage(st, n0, nc, lr, lc, ca_ok, cb_ok, diag, tid, smem, sW,
-                       sWY);
-            __syncthreads();
-            int c1 = c, n1 = n0 + GRAM_ROWS;
-            if (n1 >= nc) { c1 = c + 1; n1 = 0; }
-            const bool more = c1 < n_chunks;
-            if (more) {
-                const int base = c1 * nc;
-                gram_fetch(xb, wb, yb, base + nc, p, base + n1, lr, ca, cb,
-                           diag, tid, st);
-            }
-            gram_step(sA, sB, sW, sWY, grp, ty, tx, does_b, acc, bacc);
-            __syncthreads();
-            if (!more) break;
-            c = c1;
-            n0 = n1;
-        }
+    if constexpr (S == 2) {
+        const float2 t = *reinterpret_cast<const float2*>(s);
+        v[0] = t.x; v[1] = t.y;
     } else {
-        for (int n0 = 0; n0 < nc; n0 += GRAM_ROWS) {
-            gram_stage(st, n0, nc, lr, lc, ca_ok, cb_ok, diag, tid, smem, sW,
-                       sWY);
-            __syncthreads();
-            if (n0 + GRAM_ROWS < nc)
-                gram_fetch(xb, wb, yb, nc, p, n0 + GRAM_ROWS, lr, ca, cb,
-                           diag, tid, st);
-            gram_step(sA, sB, sW, sWY, grp, ty, tx, does_b, acc, bacc);
-            __syncthreads();
+#pragma unroll
+        for (int k = 0; k < S; k += 4) {
+            const float4 t = *reinterpret_cast<const float4*>(s + k);
+            v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
         }
     }
+}
 
-    // add the four groups' partial tiles in a fixed order
-    if (grp > 0) {
-        float* red = smem + (grp - 1) * TILE * TILE;
+__device__ __forceinline__ uint32_t gram_smem_addr(const void* p)
+{
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// mbarriers and 1-D bulk copies (the TMA's plain form): a copy of `bytes`
+// (a multiple of 16, both addresses 16-byte aligned) completes on an
+// mbarrier that was told to expect that many bytes
+__device__ __forceinline__ void gram_mbar_init(uint32_t bar, int count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void gram_mbar_arrive(uint32_t bar)
+{
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar)
+                 : "memory");
+}
+__device__ __forceinline__ void gram_mbar_expect(uint32_t bar, uint32_t bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void gram_mbar_wait(uint32_t bar, uint32_t parity)
+{
+    uint32_t done = 0;
+    while (!done)
+        asm volatile("{\n\t.reg .pred p;\n\t"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void gram_bulk_copy(uint32_t dst, const void* src,
+                                               uint32_t bytes, uint32_t bar)
+{
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+                 "::bytes [%0], [%1], %2, [%3];\n"
+                 :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// One column c of a staged piece of PR whole rows -> the padded buffers:
+// x (column P: none) and w x (column P: w y); rows at or past N (rr >= nr)
+// are zero, as the kernel before this one staged them
+template <int PR>
+__device__ __forceinline__ void gram_prepare_col(
+    const float* px, const float* pw, const float* py, int p, int c, int nr,
+    float* dwx, float* dx, int ws, int xs)
+{
+    float v[PR], wv[PR];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int r = 0; r < PR; ++r) {
+        wv[r] = pw[r];
+        v[r] = c < p ? px[r * p] : py[r];
+    }
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-                red[(4 * ty + i) * TILE + 4 * tx + j] = acc[i][j];
-        if (does_b) {
+    for (int r = 0; r < PR; ++r) {
+        const float xv = r < nr ? v[r] : 0.f;
+        const float wr = r < nr ? wv[r] : 0.f;
+        if (c < p) dx[r * xs] = xv;
+        dwx[r * ws] = wr * xv;
+    }
+}
+
+// The same with column panels: column c of one window of a piece, whose
+// rows are segments `seg` floats apart, row r's first value sh0 + r P
+// floats (mod 4) into its segment; ycol: the column is P (w y); with
+// pw the column is multiplied by w (the A window), without it is x (B)
+template <int PR>
+__device__ __forceinline__ void gram_prepare_panel(
+    const float* px, int seg, int sh0, int p, int c, bool ycol,
+    const float* pw, const float* py, int nr, float* d, int stride)
+{
+    float v[PR];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) sBred[grp - 1][4 * tx + j] = bacc[j];
+    for (int r = 0; r < PR; ++r)
+        v[r] = ycol ? py[r] : px[r * seg + ((sh0 + r * (p & 3)) & 3) + c];
+#pragma unroll
+    for (int r = 0; r < PR; ++r) {
+        const float xv = r < nr ? v[r] : 0.f;
+        if (pw) d[r * stride] = (r < nr ? pw[r] : 0.f) * xv;
+        else d[r * stride] = xv;
+    }
+}
+
+// D rows of the group, loaded (a: the thread's w x columns of the first
+// row, b: its x columns) and multiplied out in order
+template <int SI, int SJ, int D>
+__device__ __forceinline__ void gram_load_rows(const float* a, const float* b,
+                                               int ws, int xs,
+                                               float (&av)[D][SI],
+                                               float (&bv)[D][SJ])
+{
+#pragma unroll
+    for (int r = 0; r < D; ++r) {
+        gram_load<SI>(a + r * ws, av[r]);
+        gram_load<SJ>(b + r * xs, bv[r]);
+    }
+}
+template <int SI, int SJ, int D>
+__device__ __forceinline__ void gram_fma_rows(const float (&av)[D][SI],
+                                              const float (&bv)[D][SJ],
+                                              float (&acc)[SI][SJ])
+{
+#pragma unroll
+    for (int r = 0; r < D; ++r)
+#pragma unroll
+        for (int i = 0; i < SI; ++i)
+#pragma unroll
+            for (int j = 0; j < SJ; ++j)
+                acc[i][j] = fmaf(av[r][i], bv[r][j], acc[i][j]);
+}
+
+// named barriers: bar.sync waits for `n` threads (itself included) at
+// barrier `id`, bar.arrive counts itself and goes on; both order the
+// shared-memory accesses before them for the threads that wait
+__device__ __forceinline__ void gram_bar_sync(int id, int n)
+{
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void gram_bar_arrive(int id, int n)
+{
+    asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+constexpr int GRAM_BAR_PROD = 1;            // the producers, once
+constexpr int GRAM_BAR_FULL = 2;            // + buffer: ready to multiply
+constexpr int GRAM_BAR_EMPTY = 4;           // + buffer: multiplied out
+
+template <int SI, int SJ, bool PANELS>
+__global__ void __launch_bounds__(GRAM_MAX_THREADS, 1)
+batched_gram_kernel(const float* __restrict__ xs, const float* __restrict__ w,
+                    const float* __restrict__ y, float* __restrict__ part,
+                    const int* __restrict__ table, int n, int p,
+                    const GramLayout L)
+{
+    extern __shared__ __align__(16) float gm_smem[];
+    // rows a consumer loads ahead: fewer for wider sub-tiles (registers)
+    constexpr int D = SI * SJ <= 16 ? 4 : 1;
+    const int grp = blockIdx.x & (GRAM_GROUPS - 1);    // row group
+    const int chunk = blockIdx.x / GRAM_GROUPS;
+    const int chunks = gridDim.x / GRAM_GROUPS;
+    const int task = blockIdx.y;
+    const int tid = threadIdx.x;
+    const int ncons = (L.per_cta + 31) / 32 * 32;
+    // warp roles: the consumers first; the four producer warps (pw 0: the
+    // copies, 1..3: the rows) on schedulers (warp % 4) the consumers leave
+    // free while there are at most two consumer warps (gram_warps)
+    const int warp = tid >> 5, wc = ncons >> 5;
+    int pw = -1;
+    if (warp >= wc) {
+        pw = warp - wc;
+        if (wc <= 2) {
+            pw = 0;
+            for (int v = wc; v < warp; ++v) pw += (v & 3) >= wc;
+            if ((warp & 3) < wc) pw = -1;
         }
     }
-    __syncthreads();
-    if (grp > 0) return;
+    // the chunk's windows: columns [a0, a0 + na) of the (P + 1)-column
+    // rows w x (column P: w y) and [b0, b0 + nb) of x; whole rows, or one
+    // column panel each
+    const int4 win = reinterpret_cast<const int4*>(table)[chunk];
+    const int pr = L.pr, slot_f = (L.srows / pr) * L.blk;
+    const int pad_f = L.srows * (L.ws + L.xs);
+    float* raw = gm_smem;
+    float* pad = gm_smem + L.pad_at;            // two buffers of pad_f
+    // the group's rows: 16 of every 64-row step, up to the last step's end
+    const int qn = (n + GRAM_ROWS - 1) / GRAM_ROWS * GROUP_ROWS;
+    const int n_slots = (qn + L.srows - 1) / L.srows;
 
-    float* gb = g + (size_t)task * p * p;
+    // each operand's first float mod 4, and where a task's staged pieces
+    // start within their first chunk (a piece starts 4 k P floats into
+    // the task, a multiple of 16 bytes, so the shift is the task's)
+    const long long row_base = (long long)task * n;
+    const int xsh = (int)(((uintptr_t)xs >> 2) & 3);
+    const int wsh = (int)(((uintptr_t)w >> 2) & 3);
+    const int ysh = (int)(((uintptr_t)y >> 2) & 3);
+    const int shx = (int)((row_base * p + xsh) & 3);
+    const int shw = (int)((row_base + wsh) & 3);
+    const int shy = (int)((row_base + ysh) & 3);
+
+    float acc[SI][SJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < SI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int lo = (4 * ty + i) * TILE + 4 * tx + j;
-            float v = acc[i][j];
-#pragma unroll
-            for (int q = 0; q < GRAM_GROUPS - 1; ++q)
-                v += smem[q * TILE * TILE + lo];
-            const int gi = ti * TILE + 4 * ty + i;
-            const int gj = tj * TILE + 4 * tx + j;
-            // store (i, j) and its mirror; a diagonal tile keeps i <= j
-            if (gi < p && gj < p && (!diag || gi <= gj)) {
-                gb[(size_t)gi * p + gj] = v;
-                gb[(size_t)gj * p + gi] = v;
+        for (int j = 0; j < SJ; ++j) acc[i][j] = 0.f;
+    // the thread's item: sub-tile (it, jt) of the (P + 1) x P matrix, or
+    // none (it < 0)
+    int2 item = make_int2(-1, 0);
+    if (tid < L.per_cta)
+        item = reinterpret_cast<const int2*>(table + 4 * chunks)[
+            (size_t)chunk * L.per_cta + tid];
+    const bool active = item.x >= 0;
+
+    if (pw >= 0) {
+        // ---- producers: warp 0 copies slots into the ring with bulk
+        // copies; warps 1..3 turn each slot into the padded w x and x rows
+        // of buffer s & 1
+        const int pt = 32 * pw + (tid & 31);
+        const uint32_t bar0 = gram_smem_addr(gm_smem + L.bar_at);
+        // piece k of slot s: group row q0 is task row 64 (q0 / 16) + 16 grp
+        // + q0 % 16; nr of its pr rows lie before N
+        auto piece_rows = [&](int s, int k, long long& r0) {
+            const int q0 = s * L.srows + k * pr;
+            r0 = (long long)(q0 >> 4) * GRAM_ROWS + grp * GROUP_ROWS
+                + (q0 & (GROUP_ROWS - 1));
+            return q0 >= qn || n - r0 <= 0 ? 0
+                : (n - r0 < pr ? (int)(n - r0) : pr);
+        };
+        // [first, end) floats of an operand whose first float is `sh0` mod
+        // 4, widened to whole aligned 16-byte chunks
+        auto span = [](long long first, long long end, int sh0,
+                       long long& at, uint32_t& bytes) {
+            at = first - ((first + sh0) & 3);
+            const long long e = end + ((4 - ((end + sh0) & 3)) & 3);
+            bytes = (uint32_t)(4 * (e - at));
+        };
+        // copy ci of slot s into ring slot q (its bytes, 0 for none): per
+        // piece, whole rows: its X, w, y; panels: each row's A segment,
+        // each row's B segment, then w, y
+        const int per_piece = PANELS ? 2 * pr + 2 : 3;
+        const int n_copies = (L.srows / pr) * per_piece;
+        auto copy_of = [&](int s, int q, int ci, const float*& src,
+                           uint32_t& dst) -> uint32_t {
+            const int k = ci / per_piece, o = ci - k * per_piece;
+            if (k >= L.srows / pr) return 0;
+            long long r0;
+            const int nr = piece_rows(s, k, r0);
+            float* d = raw + q * slot_f + k * L.blk;
+            const float* op = xs;
+            long long first, end;
+            int sh0 = xsh;
+            if (o >= per_piece - 2) {                    // w, then y
+                const int v = o - (per_piece - 2);
+                if (!nr) return 0;
+                first = row_base + r0;
+                end = first + nr;
+                sh0 = v ? ysh : wsh;
+                op = v ? y : w;
+                d += L.wa + v * (pr + 8);
+            } else if constexpr (!PANELS) {              // the piece's X
+                if (!nr) return 0;
+                first = (row_base + r0) * p;
+                end = (row_base + r0 + nr) * p;
+            } else {                                     // a row's window
+                const int r = o < pr ? o : o - pr;
+                const int c0 = o < pr ? win.x : win.z;
+                const int cn = o < pr ? min(win.y, p - win.x) : win.w;
+                if (r >= nr || cn <= 0) return 0;
+                first = (row_base + r0 + r) * p + c0;
+                end = first + cn;
+                d += o * L.seg;
+            }
+            long long at;
+            uint32_t bytes;
+            span(first, end, sh0, at, bytes);
+            src = op + at;
+            dst = gram_smem_addr(d);
+            return bytes;
+        };
+        // (warp 0) copy slot s into ring slot q: lane 0 tells the slot's
+        // mbarrier how many bytes to expect, then the lanes issue the
+        // copies (whole rows: at most 8 pieces, one copy a lane)
+        auto issue = [&](int s, int q) {
+            const uint32_t bar = bar0 + 8 * q;
+            const float* src = xs;
+            uint32_t dst = 0, mine = 0;
+            if constexpr (!PANELS) {
+                mine = copy_of(s, q, pt, src, dst);
+            } else {
+                for (int ci = pt; ci < n_copies; ci += 32)
+                    mine += copy_of(s, q, ci, src, dst);
+            }
+            const uint32_t total = __reduce_add_sync(0xffffffffu, mine);
+            if (pt == 0) gram_mbar_expect(bar, total);
+            __syncwarp();
+            if constexpr (!PANELS) {
+                if (mine) gram_bulk_copy(dst, src, mine, bar);
+            } else {
+                for (int ci = pt; ci < n_copies; ci += 32) {
+                    const uint32_t bytes = copy_of(s, q, ci, src, dst);
+                    if (bytes) gram_bulk_copy(dst, src, bytes, bar);
+                }
+            }
+        };
+        // slot s (ring slot q) -> buffer `buf`: a task is one column c of
+        // one piece k, its rows unrolled; whole rows: x and w x of column c
+        // at once, panels: the A window's columns, then the B window's
+        const int cols = PANELS ? win.y + win.w : p + 1;
+        auto prepare = [&](int s, int q, int buf) {
+            float* dwx = pad + buf * pad_f;
+            float* dx = dwx + L.srows * L.ws;
+            const int pieces = (min(L.srows, qn - s * L.srows) + pr - 1) / pr;
+            for (int t = pt - 32; t < pieces * cols; t += GRAM_PREPARERS) {
+                const int k = t / cols, c = t - k * cols;
+                long long r0;
+                const int nr = piece_rows(s, k, r0);
+                const float* src = raw + q * slot_f + k * L.blk;
+                const float* sw = src + L.wa + shw;
+                const float* sy = src + L.wa + pr + 8 + shy;
+                if constexpr (!PANELS) {
+                    const float* sx = src + shx + c;
+                    float* a = dwx + k * pr * L.ws + c;
+                    float* b = dx + k * pr * L.xs + c;
+                    if (pr == GROUP_ROWS)
+                        gram_prepare_col<GROUP_ROWS>(sx, sw, sy, p, c, nr, a,
+                                                     b, L.ws, L.xs);
+                    else if (pr == 8)
+                        gram_prepare_col<8>(sx, sw, sy, p, c, nr, a, b, L.ws,
+                                            L.xs);
+                    else
+                        gram_prepare_col<4>(sx, sw, sy, p, c, nr, a, b, L.ws,
+                                            L.xs);
+                    continue;
+                }
+                const bool in_a = c < win.y;
+                const int cc = in_a ? c : c - win.y;
+                const int c0 = in_a ? win.x : win.z;
+                const float* sx = src + (in_a ? 0 : pr * L.seg);
+                const int sh0 = (int)(((row_base + r0) * p + c0 + xsh) & 3);
+                const bool ycol = in_a && c0 + cc == p;
+                float* d = in_a ? dwx + k * pr * L.ws + cc
+                                : dx + k * pr * L.xs + cc;
+                const int stride = in_a ? L.ws : L.xs;
+                const float* pwv = in_a ? sw : nullptr;
+                if (pr == GROUP_ROWS)
+                    gram_prepare_panel<GROUP_ROWS>(sx, L.seg, sh0, p, cc, ycol,
+                                                   pwv, sy, nr, d, stride);
+                else if (pr == 8)
+                    gram_prepare_panel<8>(sx, L.seg, sh0, p, cc, ycol, pwv,
+                                          sy, nr, d, stride);
+                else
+                    gram_prepare_panel<4>(sx, L.seg, sh0, p, cc, ycol, pwv,
+                                          sy, nr, d, stride);
+            }
+        };
+
+        const uint32_t free0 = bar0 + 8 * GRAM_MAX_RING;
+        if (pt == 0) {
+            for (int q = 0; q < L.ring; ++q) {
+                gram_mbar_init(bar0 + 8 * q, 1);
+                gram_mbar_init(free0 + 8 * q, GRAM_PREPARERS);
+            }
+            asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        }
+        gram_bar_sync(GRAM_BAR_PROD, GRAM_PRODUCER_THREADS);
+        const int ring = L.ring;
+        if (pt < 32) {
+            // warp 0 keeps the ring full: slot s + ring goes into ring
+            // slot s % ring once every preparer is done with slot s
+            for (int s = 0; s < ring && s < n_slots; ++s) issue(s, s);
+            for (int s = 0; s + ring < n_slots; ++s) {
+                gram_mbar_wait(free0 + 8 * (s % ring), (s / ring) & 1);
+                issue(s + ring, s % ring);
+            }
+        } else {
+            const int nbar = ncons + GRAM_PREPARERS;
+            for (int s = 0; s < n_slots; ++s) {
+                gram_mbar_wait(bar0 + 8 * (s % ring), (s / ring) & 1);
+                if (s >= 2)                     // slot s - 2 multiplied out
+                    gram_bar_sync(GRAM_BAR_EMPTY + (s & 1), nbar);
+                prepare(s, s % ring, s & 1);
+                gram_bar_arrive(GRAM_BAR_FULL + (s & 1), nbar);
+                if (s + ring < n_slots)         // ring slot s % ring is free
+                    gram_mbar_arrive(free0 + 8 * (s % ring));
             }
         }
-    }
-    if (does_b) {
-        float* bb = bv + (size_t)task * p;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            float v = bacc[j];
-#pragma unroll
-            for (int q = 0; q < GRAM_GROUPS - 1; ++q) v += sBred[q][4 * tx + j];
-            const int gj = tj * TILE + 4 * tx + j;
-            if (gj < p) bb[gj] = v;
+    } else if (warp < wc) {
+        // ---- consumers: the thread's item, D rows loaded ahead; its
+        // columns counted from the windows' first
+        const int ai = SI * item.x - win.x, bj = SJ * item.y - win.z;
+        const int ws = L.ws, xst = L.xs;
+        for (int s = 0; s < n_slots; ++s) {
+            gram_bar_sync(GRAM_BAR_FULL + (s & 1), ncons + GRAM_PREPARERS);
+            if (active) {
+                const float* a = pad + (s & 1) * pad_f + ai;
+                const float* b = pad + (s & 1) * pad_f + L.srows * ws + bj;
+                const int rows = min(L.srows, qn - s * L.srows);
+                float a0[D][SI], b0[D][SJ], a1[D][SI], b1[D][SJ];
+                // rows is a multiple of 2 D, or is D (4-row slots)
+                gram_load_rows<SI, SJ, D>(a, b, ws, xst, a0, b0);
+                int r = 0;
+                for (; r + 2 * D < rows; r += 2 * D) {
+                    gram_load_rows<SI, SJ, D>(a + (r + D) * ws,
+                                              b + (r + D) * xst, ws, xst,
+                                              a1, b1);
+                    gram_fma_rows<SI, SJ, D>(a0, b0, acc);
+                    gram_load_rows<SI, SJ, D>(a + (r + 2 * D) * ws,
+                                              b + (r + 2 * D) * xst, ws, xst,
+                                              a0, b0);
+                    gram_fma_rows<SI, SJ, D>(a1, b1, acc);
+                }
+                if (r + D < rows)
+                    gram_load_rows<SI, SJ, D>(a + (r + D) * ws,
+                                              b + (r + D) * xst, ws, xst,
+                                              a1, b1);
+                gram_fma_rows<SI, SJ, D>(a0, b0, acc);
+                if (r + D < rows) gram_fma_rows<SI, SJ, D>(a1, b1, acc);
+            }
+            if (s + 2 < n_slots)                // the preparers wait for it
+                gram_bar_arrive(GRAM_BAR_EMPTY + (s & 1),
+                                ncons + GRAM_PREPARERS);
         }
     }
+    // the partial tile of this row group: element e of consumer t at
+    // part[(((task chunks + chunk) 4 + grp) SI SJ + e) ncons + t]
+    if (warp < wc) {
+        float* dst = part + ((((size_t)task * chunks + chunk) * GRAM_GROUPS
+                              + grp) * (SI * SJ)) * ncons + tid;
+#pragma unroll
+        for (int i = 0; i < SI; ++i)
+#pragma unroll
+            for (int j = 0; j < SJ; ++j)
+                dst[(size_t)(i * SJ + j) * ncons] = acc[i][j];
+    }
 }
 
-__global__ void __launch_bounds__(GRAM_THREADS)
-batched_gram_kernel(const float* __restrict__ xs, const float* __restrict__ w,
-                    const float* __restrict__ y, float* __restrict__ g,
-                    float* __restrict__ bv, int n, int p, int n_tiles)
+// The four row groups' partial tiles added in the fixed order ((g0 + g1) +
+// g2) + g3 and stored: G[i][j] and G[j][i] for i <= j < P, b[j] for i = P.
+// Block (chunk, task, e), a thread an item: element e of its sub-tile.
+template <int SI, int SJ>
+__global__ void __launch_bounds__(GRAM_MAX_CONSUMERS)
+batched_gram_combine_kernel(const float* __restrict__ part,
+                            const int* __restrict__ table,
+                            float* __restrict__ g, float* __restrict__ bv,
+                            int p, int per_cta)
 {
-    gram_body<false>(xs, w, y, g, bv, 1, n, p, n_tiles);
-}
-
-// ---------------------------------------------------------------------------
-// batched_gram_blocked
-//
-// The streaming form: N arrives pre-chunked as (B, C, Nc, P) and one block
-// per (task, tile) walks all C chunks, so its accumulator persists across
-// (c, step) as the TPU kernel's output block persisted across its (c, j)
-// grid.  Same tiles, steps, register tiles and group order as
-// batched_gram (gram_body), hence the same arithmetic.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(GRAM_THREADS)
-batched_gram_blocked_kernel(const float* __restrict__ xc,
-                            const float* __restrict__ w,
-                            const float* __restrict__ y, float* __restrict__ g,
-                            float* __restrict__ bv, int n_chunks, int nc,
-                            int p, int n_tiles)
-{
-    gram_body<true>(xc, w, y, g, bv, n_chunks, nc, p, n_tiles);
+    const int chunk = blockIdx.x, task = blockIdx.y, e = blockIdx.z;
+    const int chunks = gridDim.x;
+    const int tid = threadIdx.x, ncons = blockDim.x;
+    if (tid >= per_cta) return;
+    const int2 item = reinterpret_cast<const int2*>(table + 4 * chunks)[
+        (size_t)chunk * per_cta + tid];
+    if (item.x < 0) return;
+    const int gi = SI * item.x + e / SJ, gj = SJ * item.y + e % SJ;
+    if (gj >= p || gi > p || (gi < p && gi > gj)) return;
+    const size_t grp_f = (size_t)SI * SJ * ncons;  // one group's tile
+    const float* src = part + ((size_t)task * chunks + chunk)
+        * GRAM_GROUPS * grp_f + (size_t)e * ncons + tid;
+    float v = src[0] + src[grp_f];
+    v += src[2 * grp_f];
+    v += src[3 * grp_f];
+    if (gi < p) {
+        g[((size_t)task * p + gi) * p + gj] = v;
+        g[((size_t)task * p + gj) * p + gi] = v;
+    } else {
+        bv[(size_t)task * p + gj] = v;
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -971,32 +1253,87 @@ batched_predict_kernel(const float* __restrict__ xs,
     }
 }
 
-}  // namespace
-
-extern "C" int repro_batched_gram(const void* xs, const void* w,
-                                  const void* y, void* g, void* bv,
-                                  int b, int n, int p, void* stream)
+// launch one instance and its combine; dynamic shared memory above 48 KB
+// is opted in once
+template <int SI, int SJ, bool PANELS>
+cudaError_t launch_gram(const void* xs, const void* w, const void* y, void* g,
+                        void* bv, void* part, const int* table, int b, int n,
+                        int p, int chunks, const GramLayout& lay, size_t smem,
+                        cudaStream_t stream)
 {
-    const int n_tiles = (p + TILE - 1) / TILE;
-    const dim3 grid(n_tiles * (n_tiles + 1) / 2, b);
-    batched_gram_kernel<<<grid, GRAM_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)xs, (const float*)w, (const float*)y, (float*)g,
-        (float*)bv, n, p, n_tiles);
-    return (int)cudaGetLastError();
+    static size_t granted = 0;
+    if (smem > 48 * 1024 && smem > granted) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            batched_gram_kernel<SI, SJ, PANELS>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        granted = smem;
+    }
+    const int wc = (lay.per_cta + 31) / 32;
+    batched_gram_kernel<SI, SJ, PANELS><<<dim3(GRAM_GROUPS * chunks, b),
+                                  32 * gram_warps(wc), smem, stream>>>(
+        (const float*)xs, (const float*)w, (const float*)y, (float*)part,
+        table, n, p, lay);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    batched_gram_combine_kernel<SI, SJ><<<dim3(chunks, b, SI * SJ), 32 * wc,
+                                          0, stream>>>(
+        (const float*)part, table, (float*)g, (float*)bv, p, lay.per_cta);
+    return cudaGetLastError();
 }
 
-extern "C" int repro_batched_gram_blocked(const void* xc, const void* w,
-                                          const void* y, void* g, void* bv,
-                                          int b, int c, int nc, int p,
-                                          void* stream)
+}  // namespace
+
+// The launch plan comes from kernels/megabatch.py::gram_launch_plan: the
+// (si, sj) instance, `chunks` blocks a row group, the block's shared
+// memory and `layout`, GRAM_LAYOUT_INTS ints in GramLayout's order.
+// `table` (on the card) holds per chunk its windows (a0, na, b0, nb), then
+// per chunk per_cta items (it, jt), it < 0 for none.  `part` is the
+// wrapper's scratch of B chunks 4 SI SJ 32 ceil(per_cta / 32) floats: the
+// row groups' partial tiles, added by the second launch.  A plan this file
+// has no instance of, or whose buffers overlap or do not fit a block's
+// shared memory, is refused.  batched_gram_blocked launches this on its
+// merged (B, C Nc, P) rows.
+extern "C" int repro_batched_gram(const void* xs, const void* w,
+                                  const void* y, void* g, void* bv,
+                                  void* part, const void* table, int b, int n,
+                                  int p, int si, int sj, int chunks,
+                                  int smem_bytes, const void* layout,
+                                  void* stream)
 {
-    const int n_tiles = (p + TILE - 1) / TILE;
-    const dim3 grid(n_tiles * (n_tiles + 1) / 2, b);
-    batched_gram_blocked_kernel<<<grid, GRAM_THREADS, 0,
-                                  (cudaStream_t)stream>>>(
-        (const float*)xc, (const float*)w, (const float*)y, (float*)g,
-        (float*)bv, c, nc, p, n_tiles);
-    return (int)cudaGetLastError();
+    const int* l = (const int*)layout;
+    const GramLayout L{l[0], l[1], l[2], l[3], l[4], l[5], l[6], l[7], l[8],
+                       l[9], l[10]};
+    // the instances: (4, 2), (4, 4), (8, 8) on whole rows, (8, 8) on panels
+    const bool tile = (si == 4 && sj == 2 && !L.seg)
+        || (si == 4 && sj == 4 && !L.seg) || (si == 8 && sj == 8);
+    const bool piece = (L.pr == 4 || L.pr == 8 || L.pr == GROUP_ROWS)
+        && L.srows % L.pr == 0 && L.srows <= GRAM_MAX_SROWS;
+    // 16-byte aligned pieces, rows and copies
+    const bool aligned = L.ws % (si > 4 ? si : 4) == 0
+        && L.xs % (sj > 4 ? sj : 4) == 0 && L.blk % 4 == 0 && L.wa % 4 == 0
+        && L.seg % 4 == 0 && L.pad_at % 4 == 0 && L.bar_at % 4 == 0;
+    const long long ring_f = (long long)L.ring * (L.srows / L.pr) * L.blk;
+    const long long pad_f = 2LL * L.srows * (L.ws + L.xs);
+    const bool fits = L.wa + 2LL * L.pr + 16 <= L.blk && ring_f <= L.pad_at
+        && L.pad_at + pad_f <= L.bar_at
+        && 4LL * (L.bar_at + GRAM_BAR_FLOATS) <= smem_bytes
+        && smem_bytes <= GRAM_SMEM_MAX;
+    if (!tile || !piece || !aligned || !fits || L.per_cta < 1
+        || L.per_cta > GRAM_MAX_CONSUMERS || chunks < 1 || L.ring < 2
+        || L.ring > GRAM_MAX_RING || L.seg < 0)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)smem_bytes;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int* tab = (const int*)table;
+#define GRAM_CASE(a, c, panels)                                           \
+    if (si == a && sj == c && (L.seg > 0) == panels)                      \
+        return (int)launch_gram<a, c, panels>(xs, w, y, g, bv, part, tab, \
+                                              b, n, p, chunks, L, smem, st)
+    GRAM_CASE(4, 2, false); GRAM_CASE(4, 4, false); GRAM_CASE(8, 8, false);
+    GRAM_CASE(8, 8, true);
+#undef GRAM_CASE
+    return (int)cudaErrorInvalidValue;
 }
 
 // The launch plan (sub, tt, slots, packs, chunks, ring, m) comes from

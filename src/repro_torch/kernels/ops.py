@@ -60,11 +60,10 @@ def batched_gram(xs, w, y, reg: float = 0.0):
 
 
 # Blocked-Gram parity tiers.  For families whose fit is a pure function of
-# the Gram statistics (X'X, X'y), streaming N chunk by chunk adds the
-# partial sums in batched_gram's order when the chunks tile N in whole
-# 64-row steps, so results are bitwise equal; otherwise, and for families
-# whose iterations re-reduce per-row activations, there is a tolerance
-# tier instead.  (Only the first set is ported so far.)
+# the Gram statistics (X'X, X'y), the streaming Gram is batched_gram on the
+# merged rows, so results are bitwise equal at any chunking; for families
+# whose iterations re-reduce per-row activations there is a tolerance tier
+# instead.  (Only the first set is ported so far.)
 BLOCKED_GRAM_BITWISE_FAMILIES = frozenset({"ols", "ridge", "lasso"})
 BLOCKED_GRAM_TOLERANCE_FAMILIES = frozenset(
     {"logistic", "kernel_ridge", "mlp"})
