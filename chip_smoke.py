@@ -17,14 +17,19 @@ at the paper's configuration; the default IRM plan, whose propensity is
 the logistic learner; and the language-model serving path: the full
 zamba2-7b (81 layer slots, full width, random weights from a seed) served
 through ``Engine.serve_requests``, whose prefills run the flash-attention
-and SSD-scan kernels, and its card route held against its CPU route.
+and SSD-scan kernels, and its card route held against its CPU route.  The
+API's default backend, the paper's wave scheduler: the paper request on
+it cold and warm beside the inline backend, the paper's Figure 3 sweep
+(both scaling levels x four worker memories, simulated Lambda billing)
+and one drain under the fault model (failures, stragglers, hedged
+re-dispatch), and a default ``DMLSession`` with continuous admission.
 Every phase prints one JSON line; any failure raises and the process exits
 non-zero.  Without a CUDA device it exits non-zero and prints no result.  ``--phases a,b`` runs a subset (the lines
 that sum up the run are printed only by a full run).
 
 Phases: device, build, kernels, estimate_paper, estimate_wide, session,
 same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
-serve_zamba2, same_as_cpu_lm.
+estimate_wave, wave_pool, session_wave, serve_zamba2, same_as_cpu_lm.
 """
 from __future__ import annotations
 
@@ -56,7 +61,11 @@ from repro_torch.data import (                             # noqa: E402
     TRUE_EFFECT, make_bonus_data, make_irm_data, make_pliv_data,
     make_plr_data,
 )
+from repro_torch.compile import plan_buckets, program    # noqa: E402
 from repro_torch.configs import get_arch                  # noqa: E402
+from repro_torch.configs.dml_plr_bonus import (            # noqa: E402
+    CONFIG, FIG3_MEMORY_GRID, FIG3_SCALING_GRID, USD_PER_GB_S,
+)
 from repro_torch.kernels import (                          # noqa: E402
     build, crossfit_gram, flash_attention, megabatch, ops, ssd_scan,
 )
@@ -66,12 +75,13 @@ from repro_torch.models import (                           # noqa: E402
     build_model, init_tree, param_count,
 )
 from repro_torch.models.param import cast_floating, tree_map  # noqa: E402
-from repro_torch.serverless import make_backend            # noqa: E402
+from repro_torch.serverless import PoolConfig, make_backend  # noqa: E402
 from repro_torch.serving import Engine, grow_cache         # noqa: E402
 
 PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "session", "same_as_cpu", "estimate_tall", "shared_x",
-          "raw_request", "estimate_irm", "serve_zamba2", "same_as_cpu_lm")
+          "raw_request", "estimate_irm", "estimate_wave", "wave_pool",
+          "session_wave", "serve_zamba2", "same_as_cpu_lm")
 LIBRARIES = ("megabatch", "lm")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
@@ -135,6 +145,12 @@ PATH_SHAPES = {
     "same_as_cpu": (MAIN_SHAPE, (8, 5104, 33)),
     # the inline run (K1, K2) and the sharded run's predict (K2)
     "estimate_tall": ((32, TALL_N, 33), (8, TALL_N, 33)),
+    # the wave backend: the paper request's blocks, and the PLIV request
+    # of session_wave (150 tasks: 4 full blocks and a tail of 22 -> 24)
+    "estimate_wave": (MAIN_SHAPE, (8, 5104, 33)),
+    "wave_pool": (MAIN_SHAPE, (8, 5104, 33)),
+    "session_wave": (MAIN_SHAPE, (8, 5104, 33), (32, 5000, 33),
+                     (24, 5000, 33)),
 }
 # the paths' shapes, then a ragged one (odd B, N and P below a tile) and
 # one whose N is a multiple of the kernels' row step
@@ -1215,11 +1231,13 @@ def phase_estimate_tall(device):
     backend = make_backend("sharded", device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    _reset_pinned_host()
     t0 = time.perf_counter()
     backend.run_requests([req])
     torch.cuda.synchronize()
     t_drain = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    pinned = _pinned_host()
     t0 = time.perf_counter()
     res = assemble_result(plan, data, req, device=device)
     torch.cuda.synchronize()
@@ -1232,10 +1250,25 @@ def phase_estimate_tall(device):
          second_run={"learner": "ridge", "compile_request_s": t_compile,
                      "drain_s": t_drain, "assemble_result_s": t_assemble,
                      "peak_device_bytes_drain": peak,
+                     "pinned_host_drain": pinned,
                      "bitwise_same_result": True},
          tolerance="sharded vs inline on the card: predictions atol 5e-4, "
                    "theta and se 1e-4 relative")
     return total
+
+
+def _reset_pinned_host():
+    torch.cuda.reset_peak_host_memory_stats()
+    torch.cuda.reset_accumulated_host_memory_stats()
+
+
+def _pinned_host() -> dict:
+    """PyTorch's pinned host allocator since the last reset: bytes held
+    (current, peak) and the pinning calls it made, the host side of the
+    staged uploads and result copies."""
+    return {k: v for k, v in torch.cuda.host_memory_stats().items()
+            if k.startswith(("allocated_bytes", "reserved_bytes",
+                             "num_host_alloc", "host_alloc_time"))}
 
 
 def _task_preds(req, preds):
@@ -1401,11 +1434,13 @@ def phase_estimate_irm(device):
         sess = DMLSession(backend="inline", device=dev)
         linear.reset_solve_status()
         runtime.reset_launch_counts()
+        _reset_pinned_host()
         t0 = time.perf_counter()
         rid = sess.submit(plan, data)
         res = sess.wait(rid)
         if name == "card":
             torch.cuda.synchronize()
+            pinned = _pinned_host()
         wall = time.perf_counter() - t0
         _checked(res, sess.request(rid), dev, data.theta0,
                  f"estimate_irm/{name}")
@@ -1422,7 +1457,275 @@ def phase_estimate_irm(device):
          theta=rg.theta, se=rg.se, theta0=data.theta0, theta_cpu=rc.theta,
          se_cpu=rc.se, rel_theta=rel_theta, rel_se=rel_se, wall_s=wg,
          wall_cpu_s=wc, launches=lg, compile_stats=sg,
+         pinned_host_card=pinned,
          tolerance="card vs CPU: theta and se 1e-4 relative")
+
+
+# ---------------------------------------------------------------------------
+# the wave backend: the API's default, the paper's scheduler (§4, §5)
+# ---------------------------------------------------------------------------
+def _paper_default_plan(seed: int = CONFIG.seed, **kw) -> DMLPlan:
+    # the paper's §5 request (configs/dml_plr_bonus.py) as a user writes
+    # it: no backend= (the wave backend) and the default PoolConfig (8
+    # workers x 4 lanes, n_rep scaling: 32 invocations of 5 tasks a wave)
+    kw.setdefault("scaling", CONFIG.scaling)
+    return DMLPlan.for_model(CONFIG.model, learner=CONFIG.learner,
+                             learner_params=dict(CONFIG.learner_params),
+                             n_folds=CONFIG.n_folds, n_rep=CONFIG.n_rep,
+                             seed=seed, **kw)
+
+
+def _planned_wave_launches(req, wave_sizes):
+    """Launches of each kernel that ``_plan_blocks`` gives for the waves
+    of a fault-free one-request drain: wave w carries the next
+    ``wave_sizes[w]`` invocations in ascending order."""
+    bplan = plan_buckets([req])
+    (key,) = bplan.buckets
+    total, start = 0, 0
+    for size in wave_sizes:
+        entries = [(0, inv) for inv in range(start, start + size)]
+        total += len(program._plan_blocks(bplan, key, entries,
+                                          program.B_BLOCK, 1))
+        start += size
+    assert start == req.ledger.n_invocations
+    return total
+
+
+def _agree(got, want, preds_got, preds_want, what):
+    """Float tier of the CPU tests: predictions rtol 1e-4 / atol 1e-5,
+    theta and se 1e-4 relative.  Returns whether the bits are equal."""
+    np.testing.assert_allclose(preds_got, preds_want, rtol=1e-4, atol=1e-5,
+                               err_msg=what)
+    rel = (abs(got.theta - want.theta) / abs(want.theta),
+           abs(got.se - want.se) / want.se)
+    assert max(rel) < 1e-4, f"{what}: theta, se off by {rel}"
+    return bool(np.array_equal(preds_got, preds_want)
+                and got.theta == want.theta and got.se == want.se)
+
+
+def _timed_estimate(sess, plan, data):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sess.estimate(plan, data)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_estimate_wave(device):
+    """The paper's request on the API's defaults — the wave backend —
+    at full width and depth: cold through ``estimate``, then warm on a
+    session, beside the inline backend on the same data in the same
+    call.  Launch counts are set to 0 just before each drain."""
+    data = DMLData.from_dict(make_bonus_data())
+    plan = _paper_default_plan()
+    assert plan.backend == "wave" and plan.pool is None
+    linear.reset_solve_status()
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    cold = estimate(plan, data)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = dict(runtime.launch_counts)
+    _checked(cold, None, device, TRUE_EFFECT, "estimate_wave (cold)")
+    sizes = cold.report.wave_sizes
+    assert sizes == [32] * 6 + [8], sizes
+    planned = _planned_wave_launches(compile_request(plan, data), sizes)
+    assert planned == 32, planned
+    assert launches == {"batched_gram": planned, "batched_gram_blocked": 0,
+                        "batched_predict": planned, "crossfit_gram": 0,
+                        "flash_attention": 0, "ssd_scan": 0}, launches
+
+    sessions = {"wave": DMLSession(device=device),
+                "inline": DMLSession(backend="inline", device=device)}
+    assert sessions["wave"].backend.name == "wave"
+    pool = sessions["wave"].backend.pool
+    assert pool == PoolConfig()
+    out = {name: {"warm_s": []} for name in sessions}
+    for name, sess in sessions.items():                  # warm-up drains
+        sess.estimate(plan, data)
+    for _ in range(3):                                   # in turns
+        for name, sess in sessions.items():
+            linear.reset_solve_status()
+            runtime.reset_launch_counts()
+            _reset_pinned_host()
+            res, wall = _timed_estimate(sess, plan, data)
+            rid = sess.completion_order[-1]
+            _checked(res, sess.request(rid), device, TRUE_EFFECT,
+                     f"estimate_wave ({name}, warm)")
+            info = sess.last_run_info
+            out[name]["warm_s"].append(wall)
+            out[name].update(
+                res=res, preds=sess.request(rid).gathered_preds(),
+                launches=dict(runtime.launch_counts), waves=info.waves,
+                dispatch=dataclasses.asdict(info.dispatch),
+                pinned_host=_pinned_host())
+    _compared_shapes(sessions["wave"].backend.compiler, "estimate_wave")
+    w, i = out["wave"], out["inline"]
+    assert w["launches"] == launches, w["launches"]
+    assert w["waves"] == 7 and w["dispatch"]["dispatched"] == 7, w
+    bitwise = _agree(w["res"], i["res"], w["preds"], i["preds"],
+                     "estimate_wave: wave vs inline")
+    cold_same = _agree(cold, w["res"], w["preds"], w["preds"],
+                       "estimate_wave: cold vs warm")
+    emit("estimate_wave", n_obs=data.n_obs, dim_x=data.dim_x, n_folds=5,
+         n_rep=100, learner="ridge", backend=plan.backend,
+         pool={"n_workers": pool.n_workers,
+               "lanes_per_worker": pool.lanes_per_worker(),
+               "pipeline_depth": pool.pipeline_depth,
+               "scaling": plan.scaling},
+         theta=w["res"].theta, se=w["res"].se, theta_inline=i["res"].theta,
+         se_inline=i["res"].se, bitwise_equal_to_inline=bitwise,
+         cold_equals_warm=cold_same, wave_sizes=sizes,
+         launches=launches, planned_launches=planned, cold_s=cold_s,
+         warm_s={"wave": w["warm_s"], "inline": i["warm_s"]},
+         dispatch={"wave": w["dispatch"], "inline": i["dispatch"]},
+         pinned_host={"wave": w["pinned_host"], "inline": i["pinned_host"]},
+         tolerance="wave vs inline: predictions rtol 1e-4 / atol 1e-5, "
+                   "theta and se 1e-4 relative")
+    return launches
+
+
+def phase_wave_pool(device):
+    """The paper's Figure 3 sweep on the card: both scaling levels x four
+    worker memories, simulated Lambda durations (``simulate=True``,
+    ``base_work_s`` 0.35, 10 000 workers, as examples/serverless_scaling.py
+    runs it) on the full paper request; then one drain of the paper
+    request under the fault model (failures, stragglers with a held
+    tail, hedged re-dispatch), which must land the fault-free estimate."""
+    data = DMLData.from_dict(make_bonus_data())
+    rows = []
+    for scaling in FIG3_SCALING_GRID:
+        for mem in FIG3_MEMORY_GRID:
+            pool = PoolConfig(n_workers=10_000, memory_mb=mem,
+                              simulate=True, base_work_s=0.35, seed=0)
+            plan = _paper_default_plan(scaling=scaling, pool=pool)
+            linear.reset_solve_status()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = estimate(plan, data)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            _checked(res, None, device, TRUE_EFFECT,
+                     f"wave_pool ({scaling}, {mem} MB)")
+            rep = res.report
+            assert rep.waves == 1 and rep.failures == 0, rep.summary()
+            rows.append({
+                "scaling": scaling, "memory_mb": mem,
+                "response_time_s": rep.response_time_s,
+                "modeled_wave_s": max(b.duration_s for b in rep.bill.records)
+                + pool.dispatch_overhead_s,
+                "fit_time_s": rep.fit_time_s,
+                "billed_gb_s": rep.bill.total_gb_s,
+                "usd": rep.bill.total_gb_s * USD_PER_GB_S,
+                "invocations": rep.bill.n_invocations, "wall_s": wall,
+                "theta": res.theta})
+    # the example's claim (Fig 3): time falls with memory at n_rep scaling
+    t_split = [r["response_time_s"] for r in rows if r["scaling"] == "n_rep"]
+    assert all(b < a for a, b in zip(t_split, t_split[1:])), t_split
+    per_fold = [r for r in rows if r["scaling"] != "n_rep"]
+    per_split = [r for r in rows if r["scaling"] == "n_rep"]
+    faster = sum(f["response_time_s"] < s["response_time_s"]
+                 for f, s in zip(per_fold, per_split))
+
+    clean_plan = _paper_default_plan()
+    clean = DMLSession(device=device)
+    clean_res = clean.estimate(clean_plan, data)
+    chaos_pool = PoolConfig(failure_rate=0.3, straggler_rate=0.2,
+                            max_retries=10, seed=5, straggler_hold_s=0.05,
+                            hedge=True, hedge_after_s=0.01)
+    sess = DMLSession(pool=chaos_pool, device=device)
+    linear.reset_solve_status()
+    res, wall = _timed_estimate(sess, clean_plan, data)
+    _checked(res, sess.request(0), device, TRUE_EFFECT, "wave_pool (chaos)")
+    d = sess.last_run_info.dispatch
+    rep = res.report
+    assert rep.failures > 0 and d.hedges >= 1, (rep.summary(), d)
+    assert d.cancelled == d.hedges and \
+        d.harvested == d.dispatched - d.cancelled, d
+    assert rep.bill.n_invocations == sess.request(0).ledger.n_invocations
+    bitwise = _agree(res, clean_res, sess.request(0).gathered_preds(),
+                     clean.request(0).gathered_preds(),
+                     "wave_pool: chaos vs fault-free")
+    emit("wave_pool", n_obs=data.n_obs, dim_x=data.dim_x, n_folds=5,
+         n_rep=100, base_work_s=0.35, n_workers=10_000, points=rows,
+         time_falls_with_memory=True,
+         per_fold_faster_at=f"{faster}/{len(per_split)}",
+         chaos={"pool": {"failure_rate": 0.3, "straggler_rate": 0.2,
+                         "max_retries": 10, "seed": 5,
+                         "straggler_hold_s": 0.05, "hedge": True,
+                         "hedge_after_s": 0.01},
+                "failures": rep.failures, "stragglers": rep.stragglers,
+                "retries_billed": sum(1 for b in rep.bill.records
+                                      if b.retry),
+                "waves": rep.waves, "wall_s": wall,
+                "dispatch": dataclasses.asdict(d),
+                "theta": res.theta, "se": res.se,
+                "theta_fault_free": clean_res.theta,
+                "bitwise_equal_to_fault_free": bitwise},
+         tolerance="chaos vs fault-free: predictions rtol 1e-4 / atol "
+                   "1e-5, theta and se 1e-4 relative")
+
+
+def phase_session_wave(device):
+    """``DMLSession()`` on its default backend: two paper requests, and a
+    PLIV request submitted from the first one's ``on_complete``
+    (continuous admission); each result held against its own inline
+    drain."""
+    bonus = DMLData.from_dict(make_bonus_data())
+    pliv = DMLData.from_dict(make_pliv_data(n_obs=5000, dim_x=20))
+    jobs = [(_paper_default_plan(42), bonus), (_paper_default_plan(43), bonus),
+            (DMLPlan.for_model("pliv", learner="ridge", n_folds=5, n_rep=10),
+             pliv)]
+    sess = DMLSession(device=device)
+    assert sess.backend.name == "wave"
+    late = []
+
+    def first_done(res):
+        if not late:
+            late.append(sess.submit(*jobs[2]))
+
+    linear.reset_solve_status()
+    runtime.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [sess.submit(*jobs[0], on_complete=first_done),
+            sess.submit(*jobs[1])]
+    results = sess.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launch_counts)
+    info = sess.last_run_info
+    assert late, "the first request never completed"
+    rids.append(late[0])
+    assert sess.completion_order == [rids[0], rids[2], rids[1]], \
+        sess.completion_order
+    assert info.shared_waves >= 1, info.wave_members
+    _compared_shapes(sess.backend.compiler, "session_wave")
+    inline = DMLSession(backend="inline", device=device)
+    agree = []
+    for rid, (plan, data) in zip(rids, jobs):
+        res = sess.result(rid)
+        truth = TRUE_EFFECT if data is bonus else data.theta0
+        _checked(res, sess.request(rid), device, truth,
+                 f"session_wave/request {rid}")
+        ref = inline.estimate(plan, data)
+        agree.append(_agree(res, ref, sess.request(rid).gathered_preds(),
+                            inline.request(inline.completion_order[-1])
+                            .gathered_preds(),
+                            f"session_wave/request {rid} vs inline"))
+    assert [r.request_id for r in results] == rids[:2]
+    emit("session_wave", requests=["plr paper seed 42", "plr paper seed 43",
+                                   "pliv 5000 x 20, K 5, M 10 (submitted "
+                                   "from request 0's on_complete)"],
+         completion_order=sess.completion_order, waves=info.waves,
+         shared_waves=info.shared_waves,
+         wave_members=[len(m) for m in info.wave_members],
+         thetas=[sess.result(r).theta for r in rids],
+         bitwise_equal_to_inline=agree, wall_s=wall, launches=launches,
+         dispatch=dataclasses.asdict(info.dispatch),
+         tolerance="each request vs its inline drain: predictions rtol "
+                   "1e-4 / atol 1e-5, theta and se 1e-4 relative")
 
 
 LM_SEED = 20241115
@@ -1715,6 +2018,13 @@ def main(argv=None) -> int:
         raw_lanes = phase_raw_request(device)
     if "estimate_irm" in phases:
         phase_estimate_irm(device)
+    wave_launches = None
+    if "estimate_wave" in phases:
+        wave_launches = phase_estimate_wave(device)
+    if "wave_pool" in phases:
+        phase_wave_pool(device)
+    if "session_wave" in phases:
+        phase_session_wave(device)
     if "serve_zamba2" in phases:
         served = phase_serve_zamba2(device)
         if launches is not None:
@@ -1741,6 +2051,7 @@ def main(argv=None) -> int:
     # (same_as_cpu_lm (b)'s launches), K6's FMA-rate bound
     extra = {"batched_gram": {k: rows["batched_gram"][k] for k in (
                  "cuda_launches_per_call", "scratch_bytes")},
+             "batched_predict": {},
              "crossfit_gram": {"lane": {**rows["crossfit_gram"]["lane"],
                                         "launches": raw_lanes}},
              "flash_attention": {"f32": {**rows["flash_attention"]["f32"],
@@ -1748,6 +2059,9 @@ def main(argv=None) -> int:
              "ssd_scan": {k: rows["ssd_scan"][k] for k in (
                  "bound_ms_at_f32_fma", "cuda_launches_per_call",
                  "scratch_bytes")}}
+    # K1's and K2's launches on the wave path too (estimate_wave, cold)
+    for name in ("batched_gram", "batched_predict"):
+        extra[name]["launches_estimate_wave"] = wave_launches[name]
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          **{k: rows[name][k] for k in keys}, **extra.get(name, {})}

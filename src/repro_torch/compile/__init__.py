@@ -17,11 +17,11 @@ from repro_torch.compile.buckets import (
 )
 from repro_torch.compile.program import (
     BucketDispatch, CompileStats, ProgramCache, dispatch_bucket,
-    run_bucket, segment_batched_fn,
+    segment_batched_fn,
 )
 
 __all__ = [
     "BucketKey", "Entry", "MegabatchPlan", "plan_buckets",
     "BucketDispatch", "CompileStats", "ProgramCache", "dispatch_bucket",
-    "run_bucket", "segment_batched_fn",
+    "segment_batched_fn",
 ]

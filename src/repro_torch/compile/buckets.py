@@ -91,7 +91,7 @@ class MegabatchPlan:
             # first-wins: if two segments of one request collapse onto one
             # bucket (their *resolved* params are equal), either resolves
             # the same batched fn — per-task PRNG streams are looked up
-            # via segment_of_inv in run_bucket, never through this map
+            # via segment_of_inv in dispatch_bucket, never through this map
             self.seg_of.setdefault((ri, key), si)
         return ri
 
@@ -132,11 +132,18 @@ class MegabatchPlan:
                 groups.setdefault(key, []).append((ri, int(inv)))
         return groups
 
-    def pending_by_bucket(self) -> Dict[BucketKey, List[Entry]]:
-        """Every not-yet-DONE invocation of every request, bucketed."""
+    def pending_by_bucket(self, exclude=None) -> Dict[BucketKey, List[Entry]]:
+        """Every not-yet-DONE invocation of every request, bucketed.
+
+        ``exclude`` is the dispatched-but-unharvested entry set of the
+        caller's in-flight queue: those invocations are on the device
+        already and must not be re-dispatched while their launch is
+        pending."""
+        exclude = exclude or ()
         entries: List[Entry] = []
         for ri, req in enumerate(self.requests):
-            entries.extend((ri, int(inv)) for inv in req.ledger.pending())
+            entries.extend(e for inv in req.ledger.pending()
+                           if (e := (ri, int(inv))) not in exclude)
         return self.group_entries(entries)
 
 

@@ -21,13 +21,16 @@ launch.  A bucket the axis planner put on the data or feature axis
 launches the in-mesh program of sharding/gram.py instead (the data form
 streams the rows through the CUDA ``batched_gram_blocked``).
 ``dispatch_bucket`` enqueues a bucket slice's launches on the device
-without waiting for them; ``BucketDispatch.harvest`` is the one place
-that waits (one device-to-host copy per launch).  ``run_bucket``
-is the synchronous wrapper the backends call.
+without waiting for them: operands are staged through pinned host
+buffers and copied ``non_blocking``, and each launch's result is copied
+back, also ``non_blocking``, into a pinned buffer with a CUDA event
+recorded after the copy.  ``BucketDispatch.ready`` polls those events;
+``harvest`` (book the results) and ``discard`` (drop a cancelled
+dispatch) are the places that wait, and only one of them may run.  The
+backends hold dispatches in queues (serverless/dispatch.py).
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -157,9 +160,37 @@ class _LaunchBlock:
 @dataclass(eq=False)            # identity equality: comparing in-flight
 class Launch:                   # tensors elementwise would be wrong
     """One device dispatch: ``out`` is the (B, N_pad) result tensor,
-    possibly still being computed on the device."""
+    possibly still being computed on the device.  On a CUDA device
+    ``host`` is the pinned buffer ``out`` is copied into (queued right
+    after the launch, ``non_blocking``) and ``done`` the event recorded
+    after that copy; on the CPU both are None and ``out`` is final."""
     out: torch.Tensor
     blocks: List[_LaunchBlock]
+    host: Optional[torch.Tensor] = None
+    done: Optional["torch.cuda.Event"] = None
+
+    @classmethod
+    def queue(cls, out: torch.Tensor,
+              blocks: List[_LaunchBlock]) -> "Launch":
+        """Wrap a launch's output, queueing its copy to the host."""
+        if out.device.type != "cuda":
+            return cls(out=out, blocks=blocks)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return cls(out=out, blocks=blocks, host=host, done=done)
+
+    def is_ready(self) -> bool:
+        """Non-blocking poll: has the result reached the host?"""
+        return self.done is None or self.done.query()
+
+    def wait(self) -> np.ndarray:
+        """Block until the result is on the host; return it."""
+        if self.done is None:
+            return self.out.numpy()
+        self.done.synchronize()
+        return self.host.numpy()
 
 
 @dataclass(eq=False)            # identity equality (holds Launches)
@@ -168,20 +199,36 @@ class BucketDispatch:
 
     An invocation's rows can straddle two canonical blocks (and so two
     launches with different tail shapes), so booking is only legal once
-    ALL launches have landed — ``harvest`` is the bucket-level barrier.
+    ALL launches have landed — ``harvest`` is the bucket-level barrier,
+    and the dispatch queue (serverless/dispatch.py) tracks these whole,
+    never individual launches.  A dispatch is armed once: ``harvest``
+    and ``discard`` each disarm it, and a second of either raises, so a
+    discarded dispatch can never be booked.
     """
     key: BucketKey
     launches: List[Launch]
     entries: List[Entry]
     n_tasks: int
+    armed: bool = True
+
+    def ready(self) -> bool:
+        """Non-blocking poll: have all launches landed on the host?"""
+        return all(launch.is_ready() for launch in self.launches)
+
+    def _disarm(self, what: str) -> None:
+        if not self.armed:
+            raise RuntimeError(
+                f"{what} of a bucket dispatch that was already harvested "
+                "or discarded")
+        self.armed = False
 
     def harvest(self) -> Dict[Entry, np.ndarray]:
-        """Wait for every launch (one device-to-host copy each); scatter
-        predictions back per invocation.  Returns
-        {(req_idx, inv): preds (tpi, n_obs)}."""
+        """Wait for every launch; scatter predictions back per
+        invocation.  Returns {(req_idx, inv): preds (tpi, n_obs)}."""
+        self._disarm("harvest")
         results: Dict[Entry, np.ndarray] = {}
         for launch in self.launches:
-            out = launch.out.cpu().numpy()
+            out = launch.wait()
             for lb in launch.blocks:
                 for blk, ofs in zip(lb.parts, lb.offsets):
                     for lane, (_, inv, row) in enumerate(blk.members):
@@ -191,6 +238,14 @@ class BucketDispatch:
                                 np.empty((blk.tpi, blk.n), np.float32)
                         buf[row] = out[ofs + lane, :blk.n]
         return results
+
+    def discard(self) -> None:
+        """Retire a cancelled dispatch without building results: wait
+        the launches out and drop them."""
+        self._disarm("discard")
+        for launch in self.launches:
+            launch.wait()
+        self.launches = []
 
 
 # Structural cache of per-request block layouts: the canonical-block
@@ -388,9 +443,18 @@ def _launch_didx(lb: _LaunchBlock, lane_of: Dict[object, int]) -> np.ndarray:
 
 
 def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Blocking host-to-device copy of a (pageable) numpy array; on the
-    CPU device the tensor aliases the array."""
-    return torch.as_tensor(arr).to(device)
+    """Host-to-device copy of a numpy array that does not wait: staged
+    through a pinned buffer that PyTorch allocated and copied
+    ``non_blocking``.  PyTorch's host allocator keeps the staging buffer
+    alive until the copy's event, which a pinned view of memory it did
+    not allocate would not be.  On the CPU device the tensor aliases the
+    array."""
+    src = torch.as_tensor(arr)
+    if device.type != "cuda":
+        return src
+    staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    staged.copy_(src)
+    return staged.to(device, non_blocking=True)
 
 
 def bucket_family(key: BucketKey):
@@ -437,8 +501,7 @@ def dispatch_bucket(plan: MegabatchPlan, cache: ProgramCache,
 
     Groups the entries' tasks into canonical launch blocks and launches
     every block on its own at its canonical shape.  Returns the
-    in-flight ``BucketDispatch``; call ``.harvest()`` (or go through
-    ``run_bucket``) for the results.
+    in-flight ``BucketDispatch``; call ``.harvest()`` for the results.
 
     ``axis_decision``/``mesh``: a planner ``AxisDecision`` whose axis is
     data/feature lowers every block through the in-mesh program of
@@ -483,7 +546,7 @@ def dispatch_bucket(plan: MegabatchPlan, cache: ProgramCache,
         prog = program(blk, lb.b_pad, int(pages_arr.shape[0]))
         out = prog(*(_upload(a, device)
                      for a in (pages_arr, didx, y, w, valid, kd)))
-        launches.append(Launch(out=out, blocks=[lb]))
+        launches.append(Launch.queue(out, [lb]))
         cache.stats.launches += 1
         cache.stats.blocks += len(lb.parts)
         pad_acc.book_part(key, blk,
@@ -497,18 +560,3 @@ def dispatch_bucket(plan: MegabatchPlan, cache: ProgramCache,
         pad_acc.stats(pow2_bucket(total_tasks, 8)))
     return BucketDispatch(key=key, launches=launches,
                           entries=list(entries), n_tasks=total_tasks)
-
-
-def run_bucket(plan: MegabatchPlan, cache: ProgramCache, key: BucketKey,
-               entries: Sequence[Entry], *, device: torch.device,
-               b_align: int = 1, b_block: int = B_BLOCK,
-               axis_decision=None, mesh=None,
-               ) -> Tuple[Dict[Entry, np.ndarray], float]:
-    """Synchronous wrapper: dispatch one bucket slice and block for its
-    results.  Returns ({(req_idx, inv): preds (tpi, n_obs)}, wall_s)."""
-    t0 = time.perf_counter()
-    bd = dispatch_bucket(plan, cache, key, entries, device=device,
-                         b_align=b_align, b_block=b_block,
-                         axis_decision=axis_decision, mesh=mesh)
-    results = bd.harvest()
-    return results, time.perf_counter() - t0

@@ -10,9 +10,9 @@ translates its constructor kwargs into a ``DMLPlan`` and delegates to
                              n_folds=5, n_rep=100, seed=42)
     res = estimate(plan, DMLData.from_dict(data))
 
-Its default ``backend="wave"`` raises ``NotImplementedError`` at ``fit``
-until the wave backend is ported; pass ``backend="inline"`` (or
-``"sharded"``).  ``device`` is where ``fit`` runs: the card by default.
+Its default ``backend="wave"`` runs the paper's wave scheduler;
+``"inline"`` and ``"sharded"`` run too.  ``device`` is where ``fit``
+runs: the card by default.
 """
 from __future__ import annotations
 

@@ -3,12 +3,21 @@
 ``DMLSession`` is the multi-request front door, built around a
 **continuous-admission drain engine**: ``submit()`` enqueues a request
 immediately; the engine admits queued requests into the backend's live
-``DrainState`` (extending the megabatch bucket plan incrementally), steps
-the backend one bucket at a time, and completes each request's
+``DrainState`` (extending the megabatch bucket plan incrementally),
+dispatches waves without a global barrier, and completes each request's
 ``TaskLedger`` the moment its buckets land — early requests deliver their
 ``DMLResult`` (and fire ``on_complete`` callbacks) while later ones are
-still executing.  ``poll()`` advances the engine by one step; ``run()``
+still executing.  ``poll()`` advances the engine by one step (a wave on
+the default wave backend, a bucket slice on inline/sharded); ``run()``
 and ``estimate()`` are blocking wrappers over the same event loop.
+
+Dispatch is **non-blocking**: a ``step()`` launches its buckets and
+returns with the results still in flight on the device; the ledgers are
+booked by a later step's harvest (each step first books any landed
+buckets, blocking only when nothing is left to dispatch), so admission,
+autoscaling, result assembly and callbacks overlap device execution.
+``last_run_info.dispatch`` reports the measured overlap.  On the wave
+backend the requests' task grids share dispatch waves.
 
 ``estimate(plan, data)`` is the one-shot convenience for a single request.
 
@@ -42,7 +51,7 @@ from repro_torch.learners import resolve_params
 from repro_torch.runtime import DeviceLike, resolve_device
 from repro_torch.serverless.backends import (
     BackendRunInfo, DrainState, ExecutionBackend, PoolConfig, RunReport,
-    Segment, WorkRequest, make_backend,
+    Segment, WorkRequest, make_backend, retire_drain,
 )
 from repro_torch.serverless.ledger import TaskLedger
 
@@ -205,10 +214,10 @@ class DMLSession:
     """Serves many estimation requests from one warm execution backend
     through a continuous-admission drain engine.
 
-    >>> sess = DMLSession(backend="inline")
+    >>> sess = DMLSession(pool=PoolConfig(n_workers=8))
     >>> a = sess.submit(plan_a, data_a)
     >>> b = sess.submit(plan_b, data_b)
-    >>> results = sess.run()            # [DMLResult, DMLResult]
+    >>> results = sess.run()            # shared waves; [DMLResult, DMLResult]
     >>> sess.result(a).theta
 
     ``submit()`` only enqueues; admission into the backend's live
@@ -222,7 +231,10 @@ class DMLSession:
     ledger fills, while other requests are still executing.
 
     The backend persists across ``run()`` calls (warm program cache).
-    ``last_run_info`` exposes cross-request accounting.
+    ``last_run_info`` exposes cross-request accounting:
+    ``.shared_waves`` (waves that carried 2+ requests), ``.dispatch``
+    (the in-flight queue's ``DispatchStats``) and ``.autoscale`` (the
+    autoscaler's decisions).
 
     If the backend aborts mid-drain, the incomplete requests stay queued
     with their partially-completed ledgers; a later ``run()`` resumes
@@ -314,6 +326,7 @@ class DMLSession:
         admission bookkeeping and its telemetry, already exposed via
         ``last_run_info``, retire)."""
         if not self._queue and self._state is not None:
+            retire_drain(self._state, "session retire")
             self._state = None
             self._state_backend = None
 

@@ -132,6 +132,30 @@ def invocation_roofline_s(learner: str, params, tasks_per_invocation: int,
         + amortized_launches * launch_overhead_s()
 
 
+# Hedge-deadline shape (the reference's formula, priced at this card's
+# rates): a bucket is declared overdue — and a duplicate dispatch raced
+# against it — once its in-flight age exceeds FACTOR x the roofline
+# estimate of the whole slice, floored so that sub-millisecond serving
+# buckets are not hedged on scheduler jitter.
+HEDGE_DEADLINE_FACTOR = 4.0
+HEDGE_DEADLINE_FLOOR_S = 0.05
+
+
+def bucket_deadline_s(learner: str, params, tasks_per_invocation: int,
+                      n_pad: int, p_pad: int, n_entries: int,
+                      n_workers: int = 1) -> float:
+    """Roofline-derived hedge deadline for one dispatched bucket slice:
+    FACTOR x the estimated wall of its ``n_entries`` invocations over
+    ``n_workers`` lanes (plus one launch overhead), floored.  Backends
+    cap this by ``PoolConfig.timeout_s``."""
+    per_inv = invocation_roofline_s(learner, params, tasks_per_invocation,
+                                    n_pad, p_pad)
+    lanes = max(int(n_workers), 1)
+    waves = -(-max(int(n_entries), 1) // lanes)      # ceil division
+    est = waves * per_inv + launch_overhead_s()
+    return max(HEDGE_DEADLINE_FACTOR * est, HEDGE_DEADLINE_FLOOR_S)
+
+
 # ---------------------------------------------------------------------------
 # Parallelization-axis pricing (the per-bucket axis planner)
 # ---------------------------------------------------------------------------

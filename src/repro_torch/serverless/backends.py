@@ -16,8 +16,17 @@ whose request set can grow between steps (continuous admission from the
 session layer), with ``run_requests`` kept as the batch wrapper (admit
 everything, step until idle).
 
-  InlineBackend   each pending bucket drained by one synchronous
-                  ``run_bucket`` call per step — the reference scheduler.
+  WaveBackend     the serverless-analogue wave scheduler (paper §4):
+                  capacity-limited waves of invocations filled in whole
+                  buckets, two waves in flight, identity-keyed fault
+                  injection + backoff retries (serverless/chaos.py),
+                  deadline-based hedged re-dispatch, elastic worker
+                  schedules or the occupancy autoscaler
+                  (serverless/autoscale.py), Lambda billing in
+                  GB-seconds, measured or simulated.  Waves are SHARED
+                  across requests.
+  InlineBackend   one pending bucket slice dispatched per step — the
+                  reference scheduler.
   ShardedBackend  the same drain over a device mesh (launch/mesh.py):
                   every bucket's parallelization axis is roofline-priced
                   (compile/buckets.py::plan_bucket_axis), logged on
@@ -27,8 +36,14 @@ everything, step until idle).
                   one-device mesh exists so far; there its task path is
                   the inline task path, bit for bit.
 
-``BACKEND_NAMES`` also lists ``wave`` and ``topology`` so that plans and
-payloads carry across; asking ``make_backend`` for one of them raises
+Dispatch is **non-blocking**: a step launches its buckets and returns
+with the results still in flight (compile/program.py::dispatch_bucket);
+each drain stream queues them (serverless/dispatch.py) and books a
+bucket at a later step's harvest, so host booking overlaps device
+execution.
+
+``BACKEND_NAMES`` also lists ``topology`` so that plans and payloads
+carry across; asking ``make_backend`` for it raises
 ``NotImplementedError`` until it is ported.
 
 All backends emit the same ``RunReport``/``TaskLedger`` artifacts, and
@@ -37,11 +52,12 @@ through a ``DMLSession`` never rebuilds a program.
 
 Determinism contract: a task's key — (segment seed, flat task id) — is
 fixed at *compile* time, so predictions are independent of backend,
-bucket composition, schedule and admission order.
+bucket composition, schedule, admission order and fault pattern.
 """
 from __future__ import annotations
 
 import hashlib
+import time
 from dataclasses import dataclass, field
 from typing import (
     TYPE_CHECKING, Callable, Dict, List, Optional, Protocol, Sequence, Tuple,
@@ -51,8 +67,15 @@ import numpy as np
 import torch
 
 from repro_torch.runtime import DeviceLike, bounded_put, resolve_device
-from repro_torch.serverless.cost import Bill, BillingRecord
-from repro_torch.serverless.ledger import TaskLedger
+from repro_torch.serverless.autoscale import (
+    AutoscaleDecision, OccupancyAutoscaler,
+)
+from repro_torch.serverless.chaos import chaos_plan
+from repro_torch.serverless.cost import Bill, BillingRecord, speedup_of
+from repro_torch.serverless.dispatch import (
+    BookFn, DispatchQueue, DispatchStats, HedgePair, PendingBucket,
+)
+from repro_torch.serverless.ledger import DONE, TaskLedger
 
 if TYPE_CHECKING:       # avoid the core <-> serverless import cycle
     from repro_torch.compile import CompileStats, MegabatchPlan, ProgramCache
@@ -90,7 +113,7 @@ class PoolConfig:
     machinery behind them is not ported: ``fuse`` and ``coalesce`` are
     off and ``page_pool_bytes`` is 0, so every canonical block launches
     on its own with host-stacked pages.  A backend raises
-    ``NotImplementedError`` for a pool that asks for more.
+    ``NotImplementedError`` for a pool that asks for one of them.
     """
     n_workers: int = 8                  # concurrent lambda-analogue workers
     memory_mb: int = 1024               # Lambda memory knob
@@ -146,8 +169,7 @@ class PoolConfig:
 
 def _check_pool_supported(pool: PoolConfig) -> None:
     """Refuse pool settings whose machinery is not ported."""
-    for name in ("fuse", "coalesce", "page_pool_bytes",
-                 "failure_rate", "straggler_rate", "hedge"):
+    for name in ("fuse", "coalesce", "page_pool_bytes"):
         if getattr(pool, name):
             raise NotImplementedError(
                 f"PoolConfig.{name}={getattr(pool, name)!r} is not "
@@ -336,7 +358,8 @@ class ExecutionBackend(Protocol):
     The streaming contract is three primitives: ``begin_drain()`` opens a
     ``DrainState``; ``admit(state, req)`` lowers one request into the live
     bucket plan (legal at any point, including mid-drain); ``step(state)``
-    performs one scheduling quantum — one bucket slice — books
+    performs one scheduling quantum — a wave (WaveBackend) or one bucket
+    slice (Inline/Sharded) — books
     ledgers/billing, and returns False once nothing is pending.
     ``run_requests`` is the batch wrapper: after it returns, every
     request's ledger is complete (or an exception was raised), its report
@@ -368,6 +391,8 @@ class BackendRunInfo:
     wave_members: List[List[object]] = field(default_factory=list)
     buckets: int = 0                    # distinct megabatch buckets drained
     compile: Optional[CompileStats] = None   # backend's warm-cache stats
+    autoscale: List[AutoscaleDecision] = field(default_factory=list)
+    dispatch: Optional[DispatchStats] = None  # in-flight queue accounting
     # per-bucket parallelization-axis decisions: one
     # compile.buckets.AxisDecision per (bucket, mesh size) the drain priced
     axis_plans: List[object] = field(default_factory=list)
@@ -384,14 +409,27 @@ class DrainState:
     """Mutable state of one continuous drain.
 
     Owns the incremental ``MegabatchPlan`` (its request list is the
-    admission order) and the cross-request ``BackendRunInfo``.  The
-    session layer holds one of these per live drain and interleaves
-    ``admit`` with ``step``.
+    admission order), the pool's fault plan (``chaos``,
+    serverless/chaos.py — None for fault-free pools, whose hot path
+    then pays nothing), the retry-backoff gates, the in-flight dispatch
+    ``queue`` and the cross-request ``BackendRunInfo``.  The session
+    layer holds one of these per live drain and interleaves ``admit``
+    with ``step``.
     """
     plan: "MegabatchPlan"
     info: BackendRunInfo
+    chaos: Optional[object] = None      # serverless/chaos.py::ChaosPlan
+    # (req slot, invocation) -> perf_counter time before which a failed
+    # row may not be re-dispatched (capped exponential backoff)
+    retry_at: Dict[Tuple[int, int], float] = field(default_factory=dict)
+    wave: int = 0
     seen_buckets: set = field(default_factory=set)
     finalized: set = field(default_factory=set)
+    queue: Optional[DispatchQueue] = None    # in-flight buckets (one stream)
+    # pipelined waves dispatched but not yet settled (WaveBackend): each
+    # settles — books ledgers, bills, finalizes — when its last bucket
+    # lands; a drain retires only with none left
+    waves_inflight: List = field(default_factory=list)
     # (bucket key, n_devices) -> AxisDecision memo: each bucket's
     # parallelization axis is priced once per drain per mesh size; the
     # decisions are also appended to info.axis_plans
@@ -402,9 +440,61 @@ class DrainState:
         return self.plan.requests
 
 
+def retire_drain(state: DrainState, where: str) -> None:
+    """Retire a drain whose requests have all completed: discard the
+    losing hedge legs still in flight, then check that nothing else was
+    left behind."""
+    if state.queue is not None:
+        state.queue.discard_cancelled()
+    assert_drained(state, where)
+
+
+def assert_drained(state: DrainState, where: str) -> None:
+    """A drain may only retire with its dispatch queue empty and every
+    pipelined wave settled: an in-flight bucket or unsettled wave left
+    behind is work billed but never booked."""
+    n = len(state.queue) if state.queue is not None else 0
+    assert n == 0, f"{where}: drain retiring with {n} bucket(s) in flight"
+    assert not state.waves_inflight, \
+        f"{where}: drain retiring with {len(state.waves_inflight)} " \
+        "pipelined wave(s) unsettled"
+
+
 # ---------------------------------------------------------------------------
 # helpers shared by backends
 # ---------------------------------------------------------------------------
+def _raise_exhausted(inv: Optional[int]) -> None:
+    if inv is not None:
+        raise RuntimeError(f"invocation {inv} exceeded retry budget")
+
+
+def roofline_pending_inv_s(requests, groups) -> Optional[float]:
+    """Mean roofline-modeled invocation duration over bucketed pending
+    entries (launch/roofline.py) — the autoscaler's cold-start pricing
+    signal, replacing the unit-work model before any duration has been
+    observed.  Opaque-callable buckets carry no analytic model and are
+    skipped; returns None when nothing could be priced."""
+    from repro_torch.launch.roofline import invocation_roofline_s
+    total, n = 0.0, 0
+    for key, entries in groups.items():
+        ident = key.learner
+        if not (isinstance(ident, tuple) and len(ident) == 2
+                and isinstance(ident[0], str)) or ident[0] == "opaque":
+            continue
+        learner, ptuple = ident
+        for ri, _ in entries:
+            req = requests[ri]
+            total += invocation_roofline_s(
+                learner, dict(ptuple),
+                req.grid.tasks_per_invocation(req.scaling),
+                key.n_pad, key.p_pad,
+                # each invocation carries an amortized share of its
+                # bucket's launch overhead
+                amortized_launches=1.0 / len(entries))
+            n += 1
+    return total / n if n else None
+
+
 def _fill_rows(req: WorkRequest, inv_ids: np.ndarray, wall: float,
                pool: PoolConfig):
     """Record successful rows with measured billing."""
@@ -416,7 +506,8 @@ def _fill_rows(req: WorkRequest, inv_ids: np.ndarray, wall: float,
 
 class _StreamBackend:
     """Shared streaming machinery: drain-state lifecycle, admission,
-    completion finalization, checkpoints, and the batch wrapper."""
+    completion finalization, checkpoints, fault-tolerant dispatch and
+    the batch wrapper."""
     name: str
     pool: PoolConfig
     compiler: "ProgramCache"
@@ -425,10 +516,17 @@ class _StreamBackend:
     def begin_drain(self) -> DrainState:
         info = BackendRunInfo(backend=self.name)
         info.compile = self.compiler.stats
-        return DrainState(plan=_compile().MegabatchPlan(), info=info)
+        state = DrainState(plan=_compile().MegabatchPlan(), info=info)
+        state.chaos = chaos_plan(self.pool)
+        state.queue = DispatchQueue(self.pool.max_inflight)
+        info.dispatch = state.queue.stats
+        return state
 
     def admit(self, state: DrainState, req: WorkRequest) -> int:
-        """Lower one request into the live plan."""
+        """Lower one request into the live plan.  The admission slot is
+        the request's identity in the drain's fault plan
+        (serverless/chaos.py): verdicts are drawn per (slot, invocation,
+        attempt), so no schedule can perturb the fault pattern."""
         ri = state.plan.admit(req)
         self._finalize_request(state, ri)   # resumed-complete ledgers
         return ri
@@ -439,11 +537,15 @@ class _StreamBackend:
             self.admit(state, req)
         while self.step(state):
             pass
-        for ri in range(len(state.requests)):
-            self._finalize_request(state, ri)
+        self._finish(state)
         return state.info
 
     # ------------------------------------------------------------------
+    def _finish(self, state: DrainState):
+        assert_drained(state, "backend finish")
+        for ri in range(len(state.requests)):
+            self._finalize_request(state, ri)
+
     def _finalize_request(self, state: DrainState, ri: int):
         """Close out one request's report the moment its ledger completes
         (the early-result hook the session's event loop polls)."""
@@ -467,10 +569,42 @@ class _StreamBackend:
                 else f"{self.pool.checkpoint_path}.r{i}"
             req.ledger.save(path)
 
+    def _dispatch(self, state: DrainState, bkey, entries, **kw):
+        """Launch one bucket slice on this backend's device, unwaited."""
+        return _compile().dispatch_bucket(
+            state.plan, self.compiler, bkey, entries, device=self.device,
+            **kw)
+
     def _book_direct(self, state: DrainState, entries, results, wall: float):
-        """Record one bucket launch: ledger bookings and billing,
-        batch-booked per request (fault-free pools only)."""
+        """Record one bucket launch: ledger bookings, billing, retries.
+
+        Fault-free pools (``state.chaos is None``) batch-book everything
+        with zero per-invocation work.  Chaos pools consult the fault
+        plan per entry: a failed verdict books a failure (retry-budget
+        checked) and arms a backoff gate in ``state.retry_at`` so the row
+        re-enters the pending view only once its gate matures; survivors
+        book normally.  Verdicts are identity-keyed, so this booking is
+        legal in ANY order."""
         n_launch = max(len(entries), 1)
+        plan = state.chaos
+        exhausted: Optional[int] = None
+        if plan is not None:
+            now = time.perf_counter()
+            ok: List[Tuple[int, int]] = []
+            for ri, inv in entries:
+                req = state.requests[ri]
+                ledger = req.ledger
+                if ledger.status[inv] == DONE:
+                    continue             # lost a re-dispatch race (resume)
+                v = plan.verdict(ri, inv, int(ledger.attempts[inv]))
+                if v.straggler:
+                    req.report.stragglers += 1
+                if v.failed:
+                    if not self._book_failure(state, ri, inv, now):
+                        exhausted = inv
+                    continue
+                ok.append((ri, inv))
+            entries = ok
         per_req: Dict[int, List[int]] = {}
         for ri, inv in entries:
             per_req.setdefault(ri, []).append(inv)
@@ -482,11 +616,30 @@ class _StreamBackend:
                        wall * len(invs) / n_launch, self.pool)
             req.report.waves += 1
             req.report.wave_sizes.append(len(invs))
+        _raise_exhausted(exhausted)
         return per_req
 
+    def _book_failure(self, state: DrainState, ri: int, inv: int,
+                      now: float) -> bool:
+        """Book one failed attempt and arm its retry gate (capped
+        exponential backoff from ``now``).  False when the retry budget
+        is spent: the caller defers the abort until the slice's sibling
+        successes have booked (completed work is durable)."""
+        req = state.requests[ri]
+        ledger = req.ledger
+        if ledger.attempts[inv] >= self.pool.max_retries:
+            return False
+        ledger.record_failure(inv)
+        req.report.failures += 1
+        if state.chaos is not None:
+            state.retry_at[(ri, int(inv))] = \
+                now + state.chaos.backoff_s(int(ledger.attempts[inv]))
+        return True
+
     def _note_wave(self, state: DrainState, ris, step_wall: float):
-        """Close out one step: the tag-deduped member list, per-request
-        wall-time accounting, and early finalization."""
+        """Close out one direct-scheduler wave: the tag-deduped member
+        list, per-request wall-time accounting, and early finalization
+        (the wave backend has its own fault-aware variant)."""
         members = []
         for ri in ris:
             tag = state.requests[ri].tag
@@ -499,16 +652,166 @@ class _StreamBackend:
             state.requests[ri].report.response_time_s += step_wall
             self._finalize_request(state, ri)
 
+    # ---- fault-tolerant dispatch --------------------------------------
+    def _hedge_armed(self, state: DrainState) -> bool:
+        """Hedged re-dispatch is on when the pool says so, else when a
+        fault plan is active (chaos is what makes tails long) and a
+        duplicate can win: on a CUDA device both legs run on the one
+        stream in FIFO order, so the duplicate only beats an original
+        that a synthetic straggler hold keeps not-ready."""
+        if self.pool.hedge is not None:
+            return self.pool.hedge
+        if state.chaos is None:
+            return False
+        return self.device.type != "cuda" or self.pool.straggler_hold_s > 0
+
+    def _deadline_for(self, state: DrainState, bkey,
+                      entries) -> Optional[float]:
+        """Overdue threshold for one dispatched bucket slice: the pool's
+        fixed override, else the roofline-derived deadline capped by
+        timeout_s.  None disarms hedging for this bucket."""
+        if not self._hedge_armed(state) or not entries:
+            return None
+        pool = self.pool
+        if pool.hedge_after_s is not None:
+            return pool.hedge_after_s
+        ident = bkey.learner
+        if not (isinstance(ident, tuple) and len(ident) == 2
+                and isinstance(ident[0], str)) or ident[0] == "opaque":
+            # no analytic model: the Lambda cap is the only deadline
+            return pool.timeout_s
+        from repro_torch.launch.roofline import bucket_deadline_s
+        learner, ptuple = ident
+        req = state.requests[entries[0][0]]
+        d = bucket_deadline_s(learner, dict(ptuple),
+                              req.grid.tasks_per_invocation(req.scaling),
+                              bkey.n_pad, bkey.p_pad, len(entries),
+                              n_workers=len(entries))
+        return min(d, pool.timeout_s)
+
+    def _hold_for(self, state: DrainState, entries) -> float:
+        """Synthetic straggler tail: when the pool opts in
+        (straggler_hold_s > 0) and any entry of the slice draws a
+        straggler verdict, the bucket reports not-ready for the hold —
+        the long tail a hedged duplicate then beats."""
+        plan = state.chaos
+        hold = self.pool.straggler_hold_s
+        if plan is None or hold <= 0:
+            return 0.0
+        for ri, inv in entries:
+            att = int(state.requests[ri].ledger.attempts[inv])
+            if plan.verdict(ri, inv, att).straggler:
+                return hold
+        return 0.0
+
+    def _push_bucket(self, state: DrainState, q: DispatchQueue, bd,
+                     book) -> PendingBucket:
+        """Wrap one dispatched bucket with its fault-tolerance context
+        (deadline, straggler hold) and enqueue it."""
+        hold = self._hold_for(state, bd.entries)
+        pb = PendingBucket(
+            dispatch=bd,
+            deadline_s=self._deadline_for(state, bd.key, bd.entries),
+            not_ready_before=(time.perf_counter() + hold) if hold else 0.0)
+        q.push(pb, book)
+        return pb
+
+    def _hedge_dispatch_kwargs(self, state: DrainState, bkey,
+                               entries) -> Dict:
+        """Extra dispatch kwargs a hedge must replicate so both legs run
+        the identical program (bitwise race)."""
+        return {}
+
+    def _maybe_hedge(self, state: DrainState) -> int:
+        """Duplicate-dispatch every overdue in-flight bucket (one stream:
+        the duplicate lands on the same queue)."""
+        q = state.queue
+        if q is None or not self._hedge_armed(state):
+            return 0
+        n = 0
+        for pb in q.overdue():
+            self._hedge_bucket(state, pb, q)
+            n += 1
+        return n
+
+    def _hedge_bucket(self, state: DrainState, pb: PendingBucket,
+                      q: DispatchQueue) -> PendingBucket:
+        """Launch the duplicate leg of an overdue bucket and wire the
+        race: same key, same entries, same per-task keys — so whichever
+        leg lands first books bitwise-identical results.  The winner's
+        harvest settles the pair (``HedgePair.settle``, the sole cancel
+        performer) and the loser is discarded unbooked."""
+        running: Dict[int, List[int]] = {}
+        for ri, inv in pb.entries:
+            running.setdefault(ri, []).append(inv)
+        for ri, invs in running.items():
+            # RUNNING -> RUNNING (legal re-mark): a checkpoint taken
+            # mid-race must still re-queue these rows on restart
+            state.requests[ri].ledger.mark_running(invs)
+        bd = self._dispatch(
+            state, pb.key, list(pb.entries),
+            **self._hedge_dispatch_kwargs(state, pb.key, pb.entries))
+        pair = HedgePair()
+        hpb = PendingBucket(dispatch=bd, book=pb.book, is_hedge=True,
+                            pair=pair)
+        pair.legs = [(pb, q), (hpb, q)]
+        pb.state = "HEDGED"
+        pb.pair = pair
+        q.stats.hedges += 1
+        q.push(hpb)
+        return hpb
+
+    def _drain_tail(self, state: DrainState, gate_wait: Optional[float],
+                    book: Optional[BookFn] = None) -> bool:
+        """A step with nothing to dispatch: book the in-flight tail, or
+        wait out the earliest retry gate.  False once nothing is left."""
+        q = state.queue
+        if not q.empty and self._hedge_armed(state):
+            # poll instead of blocking: a held straggler leg must not
+            # stall the tail drain while its hedged duplicate can land
+            # first and win the race
+            self._maybe_hedge(state)
+            if q.harvest_ready(book) == 0:
+                time.sleep(0.001)
+            return True
+        if q.harvest_next(book):            # drain the in-flight tail
+            return True
+        if gate_wait is not None:
+            # every pending row is backoff-gated: wait the earliest gate
+            # out instead of spinning (or stalling the drain)
+            time.sleep(min(gate_wait, 0.05))
+            return True
+        return False
+
+    def _backoff_filter(self, state: DrainState,
+                        entries) -> Tuple[List, Optional[float]]:
+        """Drop entries whose retry gate has not matured; purge matured
+        gates.  Returns (dispatchable entries, seconds until the
+        earliest still-armed gate — None when nothing is gated)."""
+        if not state.retry_at:
+            return list(entries), None
+        now = time.perf_counter()
+        for e, t in list(state.retry_at.items()):
+            if t <= now:
+                del state.retry_at[e]
+        if not state.retry_at:
+            return list(entries), None
+        out = [e for e in entries if (e[0], int(e[1])) not in state.retry_at]
+        wait = min(state.retry_at.values()) - now
+        return out, max(wait, 0.0)
+
 
 class _BucketStreamBackend(_StreamBackend):
-    """Synchronous stepping: each step takes the first pending bucket,
-    marks its rows running, runs it to completion and books it."""
+    """Inline/Sharded stepping: one pending bucket slice dispatched per
+    step, harvested on a later step (non-blocking dispatch) — the step
+    that dispatches bucket k+1 books bucket k's results while the device
+    executes, so host booking overlaps device execution."""
 
     def _plan_axis(self, state: DrainState, bkey, entries):
         """Parallelization-axis planning hook: a single-device stream
         has nothing to shard, so the default plans nothing; a mesh-owning
         backend prices the candidates, logs the decision and returns it
-        for ``run_bucket`` to execute."""
+        for ``dispatch_bucket`` to execute."""
         return None
 
     def _axis_mesh(self):
@@ -516,10 +819,37 @@ class _BucketStreamBackend(_StreamBackend):
         bucket on the task axis."""
         return None
 
+    def _book_harvest(self, state: DrainState, pb: PendingBucket,
+                      results: Dict, elapsed: float):
+        """Booking callback the queue fires at harvest: ledgers, bills,
+        wave accounting, early finalization, checkpoint."""
+        per_req = self._book_direct(state, pb.entries, results, elapsed)
+        if per_req:     # chaos can fail a whole slice — nothing to book
+            self._note_wave(state, list(per_req), elapsed)
+        self._checkpoint(state)
+
+    def _hedge_dispatch_kwargs(self, state: DrainState, bkey,
+                               entries) -> Dict:
+        return {"axis_decision": self._plan_axis(state, bkey, entries),
+                "mesh": self._axis_mesh()}
+
     def step(self, state: DrainState) -> bool:
-        groups = state.plan.pending_by_bucket()
+        q = state.queue
+        book = lambda pb, res, el: self._book_harvest(state, pb, res, el)
+        q.harvest_ready(book)               # opportunistic booking
+        self._maybe_hedge(state)
+        groups = state.plan.pending_by_bucket(
+            exclude=q.in_flight_entries())
+        gate_wait: Optional[float] = None
+        if groups and state.retry_at:
+            filtered = {}
+            for bkey, entries in groups.items():
+                ents, gate_wait = self._backoff_filter(state, entries)
+                if ents:
+                    filtered[bkey] = ents
+            groups = filtered
         if not groups:
-            return False
+            return self._drain_tail(state, gate_wait, book)
         bkey, entries = next(iter(groups.items()))
         decision = self._plan_axis(state, bkey, entries)
         running: Dict[int, List[int]] = {}
@@ -527,12 +857,9 @@ class _BucketStreamBackend(_StreamBackend):
             running.setdefault(ri, []).append(inv)
         for ri, invs in running.items():
             state.requests[ri].ledger.mark_running(invs)
-        results, wall = _compile().run_bucket(
-            state.plan, self.compiler, bkey, entries, device=self.device,
-            axis_decision=decision, mesh=self._axis_mesh())
-        per_req = self._book_direct(state, entries, results, wall)
-        self._note_wave(state, list(per_req), wall)
-        self._checkpoint(state)
+        bd = self._dispatch(state, bkey, entries, axis_decision=decision,
+                            mesh=self._axis_mesh())
+        self._push_bucket(state, q, bd, book)
         state.seen_buckets.add(bkey)
         state.info.buckets = len(state.seen_buckets)
         state.info.waves += 1
@@ -543,8 +870,8 @@ class _BucketStreamBackend(_StreamBackend):
 # InlineBackend — direct bucket drain, the reference scheduler
 # ---------------------------------------------------------------------------
 class InlineBackend(_BucketStreamBackend):
-    """Every pending bucket in one direct program call.  No faults, no
-    capacity limit: the oracle the other schedulers must agree with."""
+    """Every pending bucket in one direct program call.  No capacity
+    limit: the oracle the other schedulers must agree with."""
     name = "inline"
 
     def __init__(self, pool: Optional[PoolConfig] = None,
@@ -599,11 +926,356 @@ class ShardedBackend(_BucketStreamBackend):
 
 
 # ---------------------------------------------------------------------------
+# WaveBackend — the serverless-analogue scheduler, multi-request
+# ---------------------------------------------------------------------------
+@dataclass
+class _Entry:
+    """One dispatched lane: (request, invocation, speculative?)."""
+    req_idx: int
+    inv: int
+    speculative: bool = False
+
+
+@dataclass(eq=False)            # identity equality: removed by list.remove
+class _WaveLatch:
+    """One pipelined wave awaiting settlement (double-buffered dispatch).
+
+    A wave does not barrier at the end of its step: its buckets stay in
+    flight while the next wave is filled and stacked.  The latch
+    accumulates the wave's results and frontier-attributed wall shares
+    as each bucket's booking continuation fires, and the wave
+    **settles** (ledgers booked, bills recorded, requests finalized,
+    checkpoint written) the moment its last bucket lands.
+    """
+    dispatch: List[_Entry]
+    outstanding: int                    # buckets still in flight
+    results: Dict = field(default_factory=dict)
+    wall_of_req: Dict = field(default_factory=dict)
+
+
+class WaveBackend(_StreamBackend):
+    """The paper's wave scheduler (§4) generalized to a request stream.
+
+    One *invocation* = the paper's lambda call; each ``step`` dispatches
+    one wave of up to ``n_workers * lanes_per_worker`` invocations drawn
+    round-robin from every admitted request's pending set, so concurrent
+    estimations share dispatch cycles (fused waves).  A wave's lanes are
+    then grouped by megabatch bucket and executed as one bucket dispatch
+    each — one warm program serves every task of a bucket regardless of
+    which request it came from.  Per wave the scheduler:
+
+      * books fault verdicts from the drain's identity-keyed fault plan
+        (serverless/chaos.py) and re-queues failures with capped
+        exponential backoff (Lambda retry, injected failures
+        first-attempt-only so retries converge),
+      * hedges overdue in-flight buckets with a duplicate dispatch
+        (deadline from launch/roofline.py::bucket_deadline_s, capped by
+        timeout_s) — first-landing wins, the losing leg is cancelled
+        and never booked nor billed,
+      * re-sizes the pool — static ``worker_schedule`` if given, else the
+        occupancy autoscaler (queue depth x padding waste priced through
+        the Lambda cost model) when ``pool.autoscale`` is set,
+      * checkpoints every participating ledger.
+
+    Billing: measured (a request's share of its buckets' wall time
+    divided over its lanes) or modeled via the Lambda memory/vCPU curve
+    (simulate=True).
+    """
+    name = "wave"
+
+    def __init__(self, pool: Optional[PoolConfig] = None,
+                 device: DeviceLike = "cuda"):
+        self.pool = pool or PoolConfig()
+        _check_pool_supported(self.pool)
+        self.device = resolve_device(device)
+        self.compiler = _compile().ProgramCache()
+        self.autoscaler = OccupancyAutoscaler(self.pool) \
+            if self.pool.autoscale else None
+
+    # ------------------------------------------------------------------
+    def _wave_workers(self, state: DrainState,
+                      pendings: List[np.ndarray]) -> int:
+        pool = self.pool
+        if pool.worker_schedule is not None:           # static ramp
+            return pool.worker_schedule[
+                min(state.wave, len(pool.worker_schedule) - 1)]
+        if self.autoscaler is not None:
+            depth = sum(len(p) for p in pendings)
+            tasks = sum(
+                len(p) * req.grid.tasks_per_invocation(req.scaling)
+                for p, req in zip(pendings, state.requests))
+            # lazy thunk: the autoscaler invokes it only when no
+            # higher-priority pricing signal (simulate model, EMA) exists
+            decision = self.autoscaler.decide(
+                depth,
+                tasks_per_invocation=max(1, tasks // max(depth, 1)),
+                padding_waste=self.compiler.stats.padding.waste_frac,
+                in_flight=state.queue.in_flight,
+                # pipelined waves can leave the queue non-empty here, so
+                # the pricing view excludes in-flight entries — they are
+                # occupancy, not dispatchable depth
+                roofline_inv_s=lambda: roofline_pending_inv_s(
+                    state.requests, state.plan.pending_by_bucket(
+                        exclude=state.queue.in_flight_entries())))
+            state.info.autoscale.append(decision)
+            return decision.n_workers
+        return pool.n_workers
+
+    def _fill_bucket_coherent(self, state: DrainState,
+                              pendings: List[np.ndarray],
+                              capacity: int) -> List[_Entry]:
+        """Fill a pipelined wave in whole-bucket units.
+
+        Round-robin admission is fair but fragments a bucket's canonical
+        tail blocks across waves: a 24-lane bucket cut 6/18 by the
+        capacity limit pads to 8 + 24 lanes instead of one 24-lane
+        launch.  So buckets small enough to ever travel whole are taken
+        whole (in round-robin first-appearance order) or deferred to the
+        next wave; only buckets larger than a full wave are split, and
+        those split round-robin across each other so concurrent oversize
+        requests still share dispatch cycles."""
+        rr: List[_Entry] = []
+        cursors = [0] * len(pendings)
+        while True:
+            progressed = False
+            for ri, p in enumerate(pendings):
+                if cursors[ri] < len(p):
+                    rr.append(_Entry(ri, int(p[cursors[ri]])))
+                    cursors[ri] += 1
+                    progressed = True
+            if not progressed:
+                break
+        groups = state.plan.group_entries([(e.req_idx, e.inv) for e in rr])
+        batch: List[_Entry] = []
+        oversized: List[List[Tuple[int, int]]] = []
+        for ents in groups.values():           # first-appearance order
+            if len(ents) > capacity:
+                oversized.append(ents)         # can never travel whole
+            elif len(ents) <= capacity - len(batch):
+                batch.extend(_Entry(ri, inv) for ri, inv in ents)
+            # else: whole-bucket sized but no room left — defer intact
+        cur = [0] * len(oversized)
+        while len(batch) < capacity:
+            progressed = False
+            for gi, ents in enumerate(oversized):
+                if cur[gi] < len(ents) and len(batch) < capacity:
+                    ri, inv = ents[cur[gi]]
+                    batch.append(_Entry(ri, inv))
+                    cur[gi] += 1
+                    progressed = True
+            if not progressed:
+                break
+        return batch
+
+    def step(self, state: DrainState) -> bool:
+        """Dispatch one wave and pipeline it: the wave's buckets stay in
+        flight while the next step fills and stacks wave k+1, up to
+        ``pool.pipeline_depth`` unsettled waves — under chaos too, since
+        fault verdicts are identity-keyed (serverless/chaos.py) and so
+        immune to dispatch order.  Books via per-wave latches
+        (book-at-push); False once nothing is pending and the pipeline
+        has drained."""
+        pool = self.pool
+        requests = state.requests
+        q = state.queue
+        # opportunistic booking: settle any wave whose buckets all
+        # landed while the host was filling the previous wave; then
+        # duplicate-dispatch anything overdue
+        q.harvest_ready()
+        self._maybe_hedge(state)
+        # ledger.pending() includes RUNNING rows, so the wave fill must
+        # exclude every entry still in flight: on the queue OR in an
+        # unsettled wave latch — a harvested bucket leaves the queue
+        # before its wave settles (and books), and re-dispatching its
+        # rows would double-book them.  Failed rows under backoff stay
+        # out until their retry gate matures.
+        inflight = q.in_flight_entries()
+        for latch in state.waves_inflight:
+            inflight.update((e.req_idx, e.inv) for e in latch.dispatch)
+        free = [(ri, int(i)) for ri, req in enumerate(requests)
+                for i in req.ledger.pending() if (ri, int(i)) not in inflight]
+        free, gate_wait = self._backoff_filter(state, free)
+        by_req: List[List[int]] = [[] for _ in requests]
+        for ri, inv in free:
+            by_req[ri].append(inv)
+        pendings = [np.asarray(p, np.int64) for p in by_req]
+        if all(len(p) == 0 for p in pendings):
+            return self._drain_tail(state, gate_wait)
+        n_workers = self._wave_workers(state, pendings)
+        capacity = max(1, n_workers * pool.lanes_per_worker())
+
+        # ---- fill the wave (whole-bucket units) --------------------------
+        dispatch = self._fill_bucket_coherent(state, pendings, capacity)
+
+        # ---- execute: one bucket dispatch per bucket in the wave ---------
+        members: List[object] = []
+        for e in dispatch:
+            tag = requests[e.req_idx].tag
+            tag = e.req_idx if tag is None else tag
+            if tag not in members:
+                members.append(tag)
+        state.info.wave_members.append(members)
+        unique: Dict[Tuple[int, int], None] = {}
+        for e in dispatch:
+            unique.setdefault((e.req_idx, e.inv))
+        running: Dict[int, List[int]] = {}
+        for ri, inv in unique:
+            running.setdefault(ri, []).append(inv)
+        for ri, invs in running.items():
+            requests[ri].ledger.mark_running(invs)
+        # dispatch every bucket of the wave without waiting; the wave's
+        # buckets carry a latch that settles (books + bills) when its last
+        # bucket lands — possibly steps later, while wave k+1 is filling
+        groups = state.plan.group_entries(list(unique))
+        ctx = _WaveLatch(dispatch=dispatch, outstanding=len(groups))
+        state.waves_inflight.append(ctx)
+
+        def book(pb, res, elapsed):
+            ctx.results.update(res)
+            per = elapsed / max(len(pb.entries), 1)
+            for ri, _ in pb.entries:
+                ctx.wall_of_req[ri] = ctx.wall_of_req.get(ri, 0.0) + per
+            ctx.outstanding -= 1
+            if ctx.outstanding == 0:
+                self._settle_wave(state, ctx)
+
+        for bkey, ents in groups.items():
+            state.seen_buckets.add(bkey)
+            self._push_bucket(state, q, self._dispatch(state, bkey, ents),
+                              book)
+        state.wave += 1
+        state.info.buckets = len(state.seen_buckets)
+        state.info.waves = state.wave
+        # bound the pipeline: harvest the oldest buckets until at most
+        # pipeline_depth waves remain unsettled
+        depth = max(1, pool.pipeline_depth)
+        if self._hedge_armed(state):
+            # poll, don't block: a blocked harvest picks the held
+            # straggler and sleeps out the very hold the hedged
+            # duplicate exists to beat
+            while len(state.waves_inflight) > depth and not q.empty:
+                self._maybe_hedge(state)
+                if q.harvest_ready() == 0:
+                    time.sleep(0.001)
+        else:
+            while len(state.waves_inflight) > depth and q.harvest_next():
+                pass
+        return True
+
+    def _settle_wave(self, state: DrainState, ctx: _WaveLatch):
+        """Book one pipelined wave the moment its last bucket lands:
+        ledgers, bills, per-request wall attribution, finalization,
+        checkpoint.  Wall time uses the queue's non-overlapping
+        attribution frontier, so concurrent waves' billed spans sum to
+        the true elapsed wall instead of double-charging overlap."""
+        pool = self.pool
+        requests = state.requests
+        state.waves_inflight.remove(ctx)
+        touched = []
+        for ri, req in enumerate(requests):
+            entries = [e for e in ctx.dispatch if e.req_idx == ri]
+            if not entries:
+                continue
+            self._book_request_wave(state, req, ri, entries, ctx.results,
+                                    pool, ctx.wall_of_req.get(ri, 0.0))
+            touched.append(ri)
+        if self.autoscaler is not None and ctx.dispatch:
+            total = sum(ctx.wall_of_req.values())
+            if total > 0:
+                self.autoscaler.observe(total / len(ctx.dispatch))
+        for ri in touched:
+            wall = ctx.wall_of_req.get(ri, 0.0)
+            requests[ri].report.response_time_s += wall
+            requests[ri].report.fit_time_s += wall
+            self._finalize_request(state, ri)
+        self._checkpoint(state)
+
+    # ------------------------------------------------------------------
+    def _book_request_wave(self, state: DrainState, req: WorkRequest,
+                           ri: int, entries: List[_Entry], results: Dict,
+                           pool: PoolConfig, wall: float):
+        """Book one request's share of a wave: billing, fault verdicts,
+        retries.  Predictions were already computed by the wave's bucket
+        launches (``results``) — chaos can only reorder or repeat work,
+        never change an estimate.
+
+        A fault-free pool consults nothing and batch-books (no draws, no
+        per-invocation loop); a chaos pool sees the same fault schedule
+        whatever order waves, hedges or retries book in."""
+        tpi = req.grid.tasks_per_invocation(req.scaling)
+        n_obs = req.ledger.n_obs
+        ledger, report = req.ledger, req.report
+        inv_arr = np.array([e.inv for e in entries], np.int64)
+
+        preds_rows = np.empty((len(entries), tpi, n_obs), np.float32)
+        for i, e in enumerate(entries):
+            preds_rows[i] = results[(ri, e.inv)]
+
+        plan = state.chaos
+        if plan is None:
+            # fault-free fast path: batch-book everything unless the
+            # measured wall tripped the timeout cap — then fall through
+            # to the general machinery
+            per = wall / max(len(entries), 1)
+            if per <= pool.timeout_s:
+                ledger.record_successes(inv_arr, preds_rows)
+                for e in entries:
+                    report.bill.add(BillingRecord(
+                        invocation=int(e.inv), duration_s=per,
+                        memory_mb=pool.memory_mb))
+                report.wave_sizes.append(len(entries))
+                report.waves += 1
+                return
+            durs = np.full(len(entries), per)
+            failed = durs > pool.timeout_s                # lambda cap
+        else:
+            # --- per-invocation verdicts and durations -------------------
+            atts = ledger.attempts[inv_arr]
+            verdicts = [plan.verdict(ri, int(e.inv), int(atts[i]))
+                        for i, e in enumerate(entries)]
+            if pool.simulate:
+                base = pool.base_work_s * tpi / speedup_of(pool.memory_mb)
+                durs = base * np.array([v.noise for v in verdicts])
+            else:
+                durs = np.full(len(entries), wall / max(len(entries), 1))
+            is_strag = np.array([v.straggler for v in verdicts], bool)
+            durs = np.where(is_strag, durs * pool.straggler_slowdown, durs)
+            report.stragglers += int(is_strag.sum())
+            # injected failures fire on attempt 0 only (retries converge)
+            failed = np.array([v.failed for v in verdicts], bool)
+            failed |= durs > pool.timeout_s               # lambda cap
+
+        now = time.perf_counter()
+        exhausted = None
+        for i, e in enumerate(entries):
+            if ledger.status[e.inv] == DONE:   # duplicate lost the race
+                continue
+            if failed[i]:
+                if not self._book_failure(state, ri, e.inv, now):
+                    exhausted = int(e.inv)
+                continue
+            ledger.record_success(int(e.inv), preds_rows[i])
+            report.bill.add(BillingRecord(
+                invocation=int(e.inv), duration_s=float(durs[i]),
+                memory_mb=pool.memory_mb,
+                retry=int(ledger.attempts[e.inv]),
+                speculative=e.speculative))
+        report.wave_sizes.append(len(entries))
+        report.waves += 1
+        if pool.simulate:
+            # response time = slowest invocation in flight this wave
+            report.response_time_s += float(np.max(durs)) \
+                + pool.dispatch_overhead_s
+        _raise_exhausted(exhausted)
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
-BACKENDS = {"inline": InlineBackend, "sharded": ShardedBackend}
+BACKENDS = {"wave": WaveBackend, "inline": InlineBackend,
+            "sharded": ShardedBackend}
 # every name a plan or payload may carry; only those in BACKENDS run
-BACKEND_NAMES = ("wave", "inline", "sharded", "topology")
+BACKEND_NAMES = tuple(BACKENDS) + ("topology",)
 
 
 def make_backend(backend, pool: Optional[PoolConfig] = None,

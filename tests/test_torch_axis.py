@@ -467,9 +467,22 @@ def test_sharded_backend_device_rule():
 @pytest.mark.parametrize("field,value", [("fuse", True),
                                          ("failure_rate", 0.1)])
 def test_sharded_backend_refuses_unported_pool_settings(field, value):
+    """``fuse`` is still refused; fault injection (ported since) runs on
+    the sharded backend and leaves the predictions as they are."""
     from repro_torch.serverless import PoolConfig
-    with pytest.raises(NotImplementedError, match=field):
-        ShardedBackend(PoolConfig(**{field: value}), device="cpu")
+    if field == "fuse":
+        with pytest.raises(NotImplementedError, match=field):
+            ShardedBackend(PoolConfig(**{field: value}), device="cpu")
+        return
+    (dt, _), (pt, _) = _data(104, seed=3), _plans("ridge", seed=3)
+    preds = []
+    for pool in (PoolConfig(**{field: value, "max_retries": 10, "seed": 0}),
+                 PoolConfig()):
+        req = compile_request(pt, dt)
+        ShardedBackend(pool, device="cpu").run_requests([req])
+        preds.append((req.gathered_preds(), req.report.failures))
+    assert np.array_equal(preds[0][0], preds[1][0])
+    assert preds[0][1] > 0 and preds[1][1] == 0
 
 
 def test_axis_plans_are_memoized_per_drain(tall_pages):

@@ -231,13 +231,24 @@ def test_tf32_stays_off():
 
 @pytest.mark.parametrize("name", ["wave", "topology"])
 def test_unported_backends_raise(name):
+    """``topology`` is still not ported and raises; ``wave`` (ported
+    since) runs, bitwise the inline backend's estimate."""
     assert name in BACKEND_NAMES and "inline" in BACKEND_NAMES
+    (pt, dt), _ = _both(CASES[0])
+    if name == "wave":
+        make_backend(name, device="cpu")
+        sess = tcore.DMLSession(backend=name, device="cpu")
+        got = repro_torch.estimate(pt.replace(backend=name), dt, device="cpu")
+        want = repro_torch.estimate(pt, dt, device="cpu")     # inline
+        assert sess.backend.name == "wave"
+        assert (got.theta, got.se) == (want.theta, want.se)
+        assert np.array_equal(got.psi[1], want.psi[1])
+        return
     with pytest.raises(NotImplementedError):
         make_backend(name, device="cpu")
     with pytest.raises(NotImplementedError):
         tcore.DMLSession(backend=name, device="cpu")
-    (pt, dt), _ = _both(CASES[0])
-    with pytest.raises(NotImplementedError):           # wave is not inline
+    with pytest.raises(NotImplementedError):           # topology is not inline
         repro_torch.estimate(pt.replace(backend=name), dt, device="cpu")
 
 
@@ -251,9 +262,22 @@ def test_unknown_backend_is_a_key_error():
     ("failure_rate", 0.1), ("straggler_rate", 0.2), ("hedge", True),
 ])
 def test_unported_pool_settings_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        InlineBackend(PoolConfig(**{field: value}), device="cpu")
-    InlineBackend(PoolConfig(hedge=False, n_workers=3), device="cpu")
+    """``fuse``, ``coalesce`` and ``page_pool_bytes`` are still refused;
+    the fault settings (ported since) run on the inline backend and
+    leave the estimate as it is."""
+    if field in ("fuse", "coalesce", "page_pool_bytes"):
+        with pytest.raises(NotImplementedError, match=field):
+            InlineBackend(PoolConfig(**{field: value}), device="cpu")
+        InlineBackend(PoolConfig(hedge=False, n_workers=3), device="cpu")
+        return
+    (pt, dt), _ = _both(CASES[1])
+    pool = PoolConfig(**{field: value, "max_retries": 10, "seed": 0})
+    got = tcore.DMLSession(backend="inline", pool=pool,
+                           device="cpu").estimate(pt, dt)
+    want = repro_torch.estimate(pt, dt, device="cpu")
+    assert (got.theta, got.se) == (want.theta, want.se)
+    if field == "failure_rate":
+        assert got.report.failures > 0
 
 
 def test_bootstrap_raises():

@@ -547,8 +547,14 @@ def test_double_ml_serverless_shim_equals_estimate():
 
 
 def test_double_ml_serverless_default_backend_is_not_ported():
+    """The default backend (wave) is ported now: ``fit`` runs on it and
+    lands the inline backend's estimate bit for bit."""
+    raw = make_plr_data(n_obs=50, dim_x=3, seed=0)
     with pytest.warns(DeprecationWarning):
         est = tcore.DoubleMLServerless("plr", n_folds=2, n_rep=1,
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="wave"):
-        est.fit(make_plr_data(n_obs=50, dim_x=3, seed=0))
+    assert est.plan.backend == "wave"
+    res = est.fit(raw)
+    want = repro_torch.estimate(est.plan.replace(backend="inline"), raw,
+                                device="cpu")
+    assert (res.theta, res.se) == (want.theta, want.se)
