@@ -27,9 +27,18 @@ Every phase prints one JSON line; any failure raises and the process exits
 non-zero.  Without a CUDA device it exits non-zero and prints no result.  ``--phases a,b`` runs a subset (the lines
 that sum up the run are printed only by a full run).
 
+The compile layer's warm path: each ported learner family's fused and
+morphed launches against its per-block ones, bit for bit (the two family
+sets of ``compile/program.py`` decide the form and the tier), and the
+device-resident page pool (warm drains upload nothing and get the same
+stack tensors back; a one-page budget evicts).  The paths run on the
+defaults (fused, coalesced, pages pooled) and, where they count
+per-block launches, on the per-block pool as well, bit for bit.
+
 Phases: device, build, kernels, estimate_paper, estimate_wide, session,
 same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
-estimate_wave, wave_pool, session_wave, serve_zamba2, same_as_cpu_lm.
+estimate_wave, wave_pool, session_wave, fusion, page_pool, serve_zamba2,
+same_as_cpu_lm.
 """
 from __future__ import annotations
 
@@ -81,7 +90,8 @@ from repro_torch.serving import Engine, grow_cache         # noqa: E402
 PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "session", "same_as_cpu", "estimate_tall", "shared_x",
           "raw_request", "estimate_irm", "estimate_wave", "wave_pool",
-          "session_wave", "serve_zamba2", "same_as_cpu_lm")
+          "session_wave", "fusion", "page_pool", "serve_zamba2",
+          "same_as_cpu_lm")
 LIBRARIES = ("megabatch", "lm")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
@@ -134,21 +144,33 @@ KERNEL_MODULES = {"batched_gram": megabatch, "batched_predict": megabatch,
                   "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 # (B, N, P) of every launch each driven path makes: full blocks of 32
 # lanes and the aligned tail, N and P as the bucket pads them, plus the
-# intercept column.  Each path asserts after its run that it built no
-# program of another shape.
+# intercept column; then the fused launches of the default pool, whose
+# lanes are the G blocks' laid end to end.  Each path asserts after its
+# run that it built no program of another block shape; launches at a
+# fused shape not listed here are held against the plain versions right
+# after the path that made them (``_launches_compared``).
 MAIN_SHAPE = (32, 5104, 33)
+# the paper request on the defaults: inline, all 32 blocks (the tail of 8
+# morphed to 32) in one launch; the wave backend, 5 blocks a wave, then
+# the last full block and the morphed tail
+FUSED_PAPER_SHAPE = (1024, 5104, 33)
+FUSED_WAVE_SHAPES = ((160, 5104, 33), (64, 5104, 33))
 TALL_N = 250_000
+# the pool that launches every canonical block on its own, with pages
+# stacked on the host: the drains whose checks count per-block launches
+PER_BLOCK_POOL = PoolConfig(fuse=False, coalesce=False, page_pool_bytes=0)
 PATH_SHAPES = {
-    "estimate_paper": (MAIN_SHAPE, (8, 5104, 33)),
+    "estimate_paper": (MAIN_SHAPE, (8, 5104, 33), FUSED_PAPER_SHAPE),
     "estimate_wide": ((32, 60000, 257), (8, 60000, 257), (24, 60000, 257)),
     "session": ((32, 5000, 33), (8, 5000, 33), (24, 5000, 33)),
-    "same_as_cpu": (MAIN_SHAPE, (8, 5104, 33)),
-    # the inline run (K1, K2) and the sharded run's predict (K2)
-    "estimate_tall": ((32, TALL_N, 33), (8, TALL_N, 33)),
+    "same_as_cpu": (MAIN_SHAPE, (8, 5104, 33), (64, 5104, 33)),
+    # the inline run (K1, K2) and the sharded run's predict (K2); fused
+    # inline, two 32-lane blocks a call (a block gathers 1.02 GB)
+    "estimate_tall": ((32, TALL_N, 33), (8, TALL_N, 33), (64, TALL_N, 33)),
     # the wave backend: the paper request's blocks, and the PLIV request
     # of session_wave (150 tasks: 4 full blocks and a tail of 22 -> 24)
-    "estimate_wave": (MAIN_SHAPE, (8, 5104, 33)),
-    "wave_pool": (MAIN_SHAPE, (8, 5104, 33)),
+    "estimate_wave": (MAIN_SHAPE, (8, 5104, 33)) + FUSED_WAVE_SHAPES,
+    "wave_pool": (MAIN_SHAPE, (8, 5104, 33), FUSED_PAPER_SHAPE),
     "session_wave": (MAIN_SHAPE, (8, 5104, 33), (32, 5000, 33),
                      (24, 5000, 33)),
 }
@@ -459,7 +481,9 @@ def phase_kernels(device):
         entry["batched_predict"] = pred
         report.append(entry)
         if shape == MAIN_SHAPE:
-            rows = {"batched_gram": gram, "batched_predict": pred}
+            rows.update(batched_gram=gram, batched_predict=pred)
+        if shape == FUSED_PAPER_SHAPE:
+            rows["fused"] = {"batched_gram": gram, "batched_predict": pred}
         del xs, y, w, beta, valid
         torch.cuda.empty_cache()
     report += _gram_unaligned_rows(device, gen)
@@ -945,56 +969,153 @@ def _paper_plan(n_rep: int = 100) -> DMLPlan:
                              n_rep=n_rep, seed=42, backend="inline")
 
 
+def _planned_launches(req, wave_sizes=None, pool=PoolConfig()):
+    """What the port's scheduler plans for a fault-free one-request drain
+    (``wave_sizes``: the waves of the wave backend, each the next
+    invocations in ascending order; None: one slice of everything):
+    program launches, fused launches, blocks and kernel calls (K1 = K2),
+    from ``_plan_blocks``, ``_coalesce`` and ``fused_spans``."""
+    bplan = plan_buckets([req])
+    (key,) = bplan.buckets
+    n_inv = req.ledger.n_invocations
+    sizes = wave_sizes or [n_inv]
+    family = program.bucket_family(key)
+    out = dict.fromkeys(("launches", "fused_launches", "blocks",
+                         "kernel_calls"), 0)
+    start = 0
+    for size in sizes:
+        entries = [(0, inv) for inv in range(start, start + size)]
+        start += size
+        blocks = program._plan_blocks(bplan, key, entries, program.B_BLOCK,
+                                      1)
+        morph = pool.coalesce and program.morph_allowed(
+            key, pool.morph_tolerance)
+        lblocks = program._coalesce(blocks, program.B_BLOCK, 1, morph,
+                                    pool.fuse)
+        groups = {}
+        for lb in lblocks:
+            groups.setdefault(lb.b_pad, []).append(lb)
+        out["blocks"] += len(blocks)
+        for b_pad, group in groups.items():
+            if pool.fuse and len(group) > 1:
+                out["launches"] += 1
+                out["fused_launches"] += 1
+                out["kernel_calls"] += len(program.fused_spans(
+                    len(group), b_pad, key.n_pad, key.p_pad,
+                    family in program.FUSED_CONCAT_FAMILIES))
+                continue
+            for lb in group:
+                out["launches"] += 1
+                out["fused_launches"] += len(lb.parts) > 1
+                out["kernel_calls"] += 1
+    assert start == n_inv
+    return out
+
+
+def _page_bytes(plan, data):
+    """Bytes of the one feature page of a one-bucket request."""
+    (key,) = plan_buckets([compile_request(plan, data)]).buckets
+    return key.n_pad * key.p_pad * 4
+
+
+def _counts(launches, calls):
+    """The launch counts of a linear-learner drain: ``calls`` of K1 and of
+    K2, no other kernel."""
+    return launches == {"batched_gram": calls, "batched_gram_blocked": 0,
+                        "batched_predict": calls, "crossfit_gram": 0,
+                        "flash_attention": 0, "ssd_scan": 0}
+
+
+def _same_bits(res, res_ref, preds, preds_ref):
+    return bool(res.theta == res_ref.theta and res.se == res_ref.se
+                and np.array_equal(res.psi[1], res_ref.psi[1])
+                and np.array_equal(preds, preds_ref))
+
+
 def phase_estimate_paper(device):
     """The main path: one request at the paper's configuration, full width
-    and depth.  Launch counts are set to 0 just before and read just
-    after."""
+    and depth, on the defaults (same-shape blocks fused, the tail morphed,
+    the page pool on) and on the per-block pool.  Launch counts are set to
+    0 just before each drain and read just after."""
     data = DMLData.from_dict(make_bonus_data())
     plan = _paper_plan()
-    backend = make_backend("inline", device=device)
-    linear.reset_solve_status()
-    torch.cuda.synchronize()
-    runtime.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = estimate(plan, data, backend=backend)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(runtime.launch_counts)
-    _checked(res, None, device, TRUE_EFFECT, "estimate_paper")
-    assert launches == {"batched_gram": 32, "batched_gram_blocked": 0,
-                        "batched_predict": 32, "crossfit_gram": 0,
-                        "flash_attention": 0, "ssd_scan": 0}, launches
-    stats = backend.compiler.stats.summary()
-    _compared_shapes(backend.compiler, "estimate_paper")
+    runs = {}
+    for name, pool in (("per_block", PER_BLOCK_POOL),
+                       ("defaults", PoolConfig())):
+        backend = make_backend("inline", pool, device=device)
+        linear.reset_solve_status()
+        torch.cuda.synchronize()
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _launch_shapes() as seen:
+            res = estimate(plan, data, backend=backend)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(runtime.launch_counts)
+        _checked(res, None, device, TRUE_EFFECT, f"estimate_paper ({name})")
+        _launches_compared(seen, f"estimate_paper ({name})")
+        _compared_shapes(backend.compiler, "estimate_paper")
+        runs[name] = {"res": res, "wall_s": wall, "launches": launches,
+                      "backend": backend,
+                      "stats": backend.compiler.stats.summary()}
+    per, dft = runs["per_block"], runs["defaults"]
+    assert _counts(per["launches"], 32), per["launches"]
+    planned = _planned_launches(compile_request(plan, data))
+    stats = dft["stats"]
+    assert planned == {"launches": 1, "fused_launches": 1, "blocks": 32,
+                       "kernel_calls": 1}, planned
+    assert (stats["launches"], stats["fused_launches"], stats["blocks"]) \
+        == (planned["launches"], planned["fused_launches"],
+            planned["blocks"]), stats
+    assert _counts(dft["launches"], planned["kernel_calls"]), \
+        dft["launches"]
+    pages = dft["backend"].pages.stats
+    assert (pages.misses, pages.bytes_h2d) == (1, _page_bytes(plan, data)), \
+        pages
 
     # where the time goes, on the host's clock with the device drained at
     # each boundary: lowering, the drain (uploads, launches, harvest,
-    # booking), the score
-    t0 = time.perf_counter()
-    req2 = compile_request(plan, data)
-    t_compile = time.perf_counter() - t0
-    backend = make_backend("inline", device=device)
-    t0 = time.perf_counter()
-    backend.run_requests([req2])
-    torch.cuda.synchronize()
-    t_drain = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res2 = assemble_result(plan, data, req2, device=device)
-    torch.cuda.synchronize()
-    t_assemble = time.perf_counter() - t0
-    _checked(res2, req2, device, TRUE_EFFECT, "estimate_paper (second run)")
-    assert res2.theta == res.theta and res2.se == res.se and \
-        np.array_equal(res2.psi[1], res.psi[1]), \
-        "a second run of the same request changed its result"
+    # booking), the score; on the defaults, then on the per-block pool
+    second = {}
+    preds = {}
+    for name, pool in (("defaults", PoolConfig()),
+                       ("per_block", PER_BLOCK_POOL)):
+        t0 = time.perf_counter()
+        req2 = compile_request(plan, data)
+        t_compile = time.perf_counter() - t0
+        backend = make_backend("inline", pool, device=device)
+        t0 = time.perf_counter()
+        backend.run_requests([req2])
+        torch.cuda.synchronize()
+        t_drain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res2 = assemble_result(plan, data, req2, device=device)
+        torch.cuda.synchronize()
+        t_assemble = time.perf_counter() - t0
+        _checked(res2, req2, device, TRUE_EFFECT,
+                 f"estimate_paper (second run, {name})")
+        res = runs[name]["res"]
+        assert res2.theta == res.theta and res2.se == res.se and \
+            np.array_equal(res2.psi[1], res.psi[1]), \
+            "a second run of the same request changed its result"
+        preds[name] = (res2, req2.gathered_preds())
+        second[name] = {"compile_request_s": t_compile, "drain_s": t_drain,
+                        "assemble_result_s": t_assemble,
+                        "bitwise_same_result": True}
+    (rd, pd), (rp, pp) = preds["defaults"], preds["per_block"]
+    fused_bits = _same_bits(rd, rp, pd, pp)
+    assert fused_bits, "estimate_paper: the fused drain is not bit for bit " \
+        "the per-block drain"
     emit("estimate_paper", n_obs=data.n_obs, dim_x=data.dim_x, n_folds=5,
          n_rep=100, learner="ridge", tasks=req2.grid.n_tasks,
-         theta=res.theta, se=res.se, planted=TRUE_EFFECT,
-         wall_s=wall, launches=launches,
-         compile_stats=stats,
-         second_run={"compile_request_s": t_compile, "drain_s": t_drain,
-                     "assemble_result_s": t_assemble,
-                     "bitwise_same_result": True})
-    return launches, {"wall_s": wall, "drain_s": t_drain}
+         theta=dft["res"].theta, se=dft["res"].se, planted=TRUE_EFFECT,
+         wall_s=dft["wall_s"], launches=dft["launches"],
+         compile_stats=stats, planned=planned,
+         page_stats=pages.summary(),
+         per_block={"wall_s": per["wall_s"], "launches": per["launches"],
+                    "compile_stats": per["stats"]},
+         fused_bitwise_per_block=fused_bits, second_run=second)
+    return dft["launches"], per["launches"]
 
 
 def phase_estimate_wide(device):
@@ -1013,17 +1134,23 @@ def phase_estimate_wide(device):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rid = sess.submit(plan, data)
-        res = sess.wait(rid)
-        torch.cuda.synchronize()
+        with _launch_shapes() as seen:
+            rid = sess.submit(plan, data)
+            res = sess.wait(rid)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launches = dict(runtime.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
         _checked(res, sess.request(rid), device, data.theta0,
                  f"estimate_wide/{learner}")
         _compared_shapes(sess.backend.compiler, "estimate_wide")
+        held = _launches_compared(seen, f"estimate_wide/{learner}", device)
         out.append({"learner": learner, "n_rep": n_rep, "theta": res.theta,
-                    "se": res.se, "wall_s": wall,
-                    "launches": dict(runtime.launch_counts),
-                    "peak_device_bytes": torch.cuda.max_memory_allocated()})
+                    "se": res.se, "wall_s": wall, "launches": launches,
+                    "launch_shapes": sorted(seen["batched_gram"]),
+                    "fused_shapes_held": held,
+                    "compile_stats": sess.backend.compiler.stats.summary(),
+                    "peak_device_bytes": peak})
         del sess
         torch.cuda.empty_cache()
     emit("estimate_wide", n_obs=60000, dim_x=200, n_folds=5,
@@ -1051,10 +1178,13 @@ def phase_session(device):
         runtime.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rids = [sess.submit(p, d) for p, d in jobs]
-        results = sess.run()
-        torch.cuda.synchronize()
+        with _launch_shapes() as seen:
+            rids = [sess.submit(p, d) for p, d in jobs]
+            results = sess.run()
+            torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        counts = dict(runtime.launch_counts)
+        held = _launches_compared(seen, "session", device)
         for rid, res, (_, d) in zip(rids, results, jobs):
             _checked(res, sess.request(rid), device, d.theta0,
                      f"session/request {rid}")
@@ -1067,40 +1197,51 @@ def phase_session(device):
     assert thetas[0] == thetas[1], "the second drain changed a theta"
     emit("session", requests=3, completion_order=sess.completion_order,
          thetas=thetas[0], wall_s=walls, programs_built=misses,
-         launches_second_drain=dict(runtime.launch_counts),
+         fused_shapes_held=held,
+         launches_second_drain=counts,
          compile_stats=sess.backend.compiler.stats.summary())
 
 
 def phase_same_as_cpu(device):
     """The paper request at M = 4: the plain versions on the CPU against
-    the kernels on the card."""
+    the kernels on the card, on the per-block pool (two blocks, two
+    launches) and on the defaults (the tail morphed, one fused launch)."""
     data = DMLData.from_dict(make_bonus_data())
     plan = _paper_plan(n_rep=4)
-    got = {}
-    for name, dev in (("cpu", "cpu"), ("card", device)):
-        sess = DMLSession(backend="inline", device=dev)
-        runtime.reset_launch_counts()
-        rid = sess.submit(plan, data)
-        res = sess.wait(rid)
-        got[name] = (res, sess.request(rid).gathered_preds(),
-                     dict(runtime.launch_counts))
-        _compared_shapes(sess.backend.compiler, "same_as_cpu")
-    (rc, pc, lc), (rg, pg, lg) = got["cpu"], got["card"]
-    assert lc == {"batched_gram": 0, "batched_gram_blocked": 0,
-                  "batched_predict": 0, "crossfit_gram": 0,
-                  "flash_attention": 0, "ssd_scan": 0}, lc
-    assert lg == {"batched_gram": 2, "batched_gram_blocked": 0,
-                  "batched_predict": 2, "crossfit_gram": 0,
-                  "flash_attention": 0, "ssd_scan": 0}, lg
-    np.testing.assert_allclose(pg, pc, rtol=1e-4, atol=1e-5)
-    rel_theta = abs(rg.theta - rc.theta) / abs(rc.theta)
-    rel_se = abs(rg.se - rc.se) / rc.se
-    assert rel_theta < 1e-4 and rel_se < 1e-4, (rel_theta, rel_se)
-    emit("same_as_cpu", theta_cpu=rc.theta, theta_card=rg.theta,
-         se_cpu=rc.se, se_card=rg.se, rel_theta=rel_theta, rel_se=rel_se,
-         max_abs_pred_diff=float(np.abs(pg - pc).max()),
+    out = {}
+    for pool_name, pool, calls in (("per_block", PER_BLOCK_POOL, 2),
+                                   ("defaults", PoolConfig(), 1)):
+        got = {}
+        for name, dev in (("cpu", "cpu"), ("card", device)):
+            sess = DMLSession(backend="inline", pool=pool, device=dev)
+            runtime.reset_launch_counts()
+            rid = sess.submit(plan, data)
+            res = sess.wait(rid)
+            got[name] = (res, sess.request(rid).gathered_preds(),
+                         dict(runtime.launch_counts))
+            _compared_shapes(sess.backend.compiler, "same_as_cpu")
+        (rc, pc, lc), (rg, pg, lg) = got["cpu"], got["card"]
+        assert _counts(lc, 0), lc
+        assert _counts(lg, calls), lg
+        np.testing.assert_allclose(pg, pc, rtol=1e-4, atol=1e-5)
+        rel_theta = abs(rg.theta - rc.theta) / abs(rc.theta)
+        rel_se = abs(rg.se - rc.se) / rc.se
+        assert rel_theta < 1e-4 and rel_se < 1e-4, (rel_theta, rel_se)
+        out[pool_name] = dict(
+            theta_cpu=rc.theta, theta_card=rg.theta, se_cpu=rc.se,
+            se_card=rg.se, rel_theta=rel_theta, rel_se=rel_se,
+            max_abs_pred_diff=float(np.abs(pg - pc).max()), launches=lg,
+            preds=(rc, pc, rg, pg))
+    (rc0, pc0, rg0, pg0), (rc1, pc1, rg1, pg1) = \
+        out["per_block"].pop("preds"), out["defaults"].pop("preds")
+    assert _same_bits(rc1, rc0, pc1, pc0), \
+        "same_as_cpu: fused on the CPU is not bit for bit per-block"
+    assert _same_bits(rg1, rg0, pg1, pg0), \
+        "same_as_cpu: fused on the card is not bit for bit per-block"
+    emit("same_as_cpu", **out["per_block"], defaults=out["defaults"],
+         fused_bitwise_per_block={"cpu": True, "card": True},
          tolerance="predictions rtol 1e-4, atol 1e-5; theta, se 1e-4 "
-                   "relative")
+                   "relative; fused vs per-block: bit for bit")
 
 
 @contextlib.contextmanager
@@ -1137,17 +1278,57 @@ def _launch_shapes():
             setattr(KERNEL_MODULES[name], f"{name}_cuda", fn)
 
 
-def _launches_compared(seen, what):
-    """Every launch of a path ran at a shape the kernels phase
-    compared."""
+def _hold_megabatch(shape, device):
+    """K1 and K2 against their plain versions at one (B, N, P), with the
+    kernels phase's inputs and tolerances (no timing)."""
+    gen = torch.Generator(device=device).manual_seed(20210104)
+    b, n, p = shape
+    xs = torch.randn(shape, generator=gen, device=device)
+    y = torch.randn((b, n), generator=gen, device=device)
+    w = (torch.rand((b, n), generator=gen, device=device) < 0.8).float()
+    beta = torch.randn((b, p), generator=gen, device=device)
+    valid = (torch.rand((b, n), generator=gen, device=device) < 0.9).float()
+    g, bv = ops.batched_gram(xs, w, y)
+    g0, b0 = megabatch.batched_gram_plain(xs, w, y)
+    assert torch.allclose(g, g0, rtol=1e-4,
+                          atol=1e-4 * float(g0.abs().max())), \
+        ("batched_gram G disagrees", shape, _errs(g, g0))
+    assert torch.allclose(bv, b0, rtol=1e-4,
+                          atol=1e-4 * float(b0.abs().max())), \
+        ("batched_gram b disagrees", shape, _errs(bv, b0))
+    assert torch.equal(g, g.transpose(1, 2)), shape
+    del g, g0, bv, b0
+    out = ops.batched_predict(xs, beta, valid)
+    out0 = megabatch.batched_predict_plain(xs, beta, valid)
+    assert torch.allclose(out, out0, rtol=1e-5, atol=1e-5), \
+        ("batched_predict disagrees", shape, _errs(out, out0))
+    assert bool((out[valid == 0] == 0).all()), shape
+    del xs, y, w, beta, valid, out, out0
+    torch.cuda.empty_cache()
+
+
+def _launches_compared(seen, what, device=None):
+    """Every launch of a path ran at a shape the kernels phase compared.
+    With ``device``, a K1 or K2 launch at another (fused) shape is held
+    against the plain versions now instead (not counted: the counts of
+    the path were read before); returns those shapes."""
     compared = {"batched_gram": set(SHAPES), "batched_predict": set(SHAPES),
                 "batched_gram_blocked": set(BLOCKED_SHAPES),
                 "crossfit_gram": set(XFIT_SHAPES),
                 "flash_attention": set(ATTN_SHAPES),
                 "ssd_scan": {shape for shape, _ in SSD_SHAPES}}
+    held = set()
+    if device is not None:
+        held = (seen["batched_gram"] | seen["batched_predict"]) \
+            - compared["batched_gram"]
+        for shape in sorted(held):
+            _hold_megabatch(shape, device)
+        compared["batched_gram"] |= held
+        compared["batched_predict"] |= held
     for name, shapes in seen.items():
         assert shapes <= compared[name], \
             f"{what}: {name} launched at {sorted(shapes - compared[name])}"
+    return sorted(held)
 
 
 def phase_estimate_tall(device):
@@ -1475,22 +1656,6 @@ def _paper_default_plan(seed: int = CONFIG.seed, **kw) -> DMLPlan:
                              seed=seed, **kw)
 
 
-def _planned_wave_launches(req, wave_sizes):
-    """Launches of each kernel that ``_plan_blocks`` gives for the waves
-    of a fault-free one-request drain: wave w carries the next
-    ``wave_sizes[w]`` invocations in ascending order."""
-    bplan = plan_buckets([req])
-    (key,) = bplan.buckets
-    total, start = 0, 0
-    for size in wave_sizes:
-        entries = [(0, inv) for inv in range(start, start + size)]
-        total += len(program._plan_blocks(bplan, key, entries,
-                                          program.B_BLOCK, 1))
-        start += size
-    assert start == req.ledger.n_invocations
-    return total
-
-
 def _agree(got, want, preds_got, preds_want, what):
     """Float tier of the CPU tests: predictions rtol 1e-4 / atol 1e-5,
     theta and se 1e-4 relative.  Returns whether the bits are equal."""
@@ -1513,31 +1678,48 @@ def _timed_estimate(sess, plan, data):
 
 def phase_estimate_wave(device):
     """The paper's request on the API's defaults — the wave backend —
-    at full width and depth: cold through ``estimate``, then warm on a
-    session, beside the inline backend on the same data in the same
-    call.  Launch counts are set to 0 just before each drain."""
+    at full width and depth: cold through ``estimate`` on the per-block
+    pool and on the defaults, then warm on sessions, beside the inline
+    backend on the same data in the same call.  Launch counts are set to
+    0 just before each drain."""
     data = DMLData.from_dict(make_bonus_data())
     plan = _paper_default_plan()
     assert plan.backend == "wave" and plan.pool is None
-    linear.reset_solve_status()
-    torch.cuda.synchronize()
-    runtime.reset_launch_counts()
-    t0 = time.perf_counter()
-    cold = estimate(plan, data)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    launches = dict(runtime.launch_counts)
-    _checked(cold, None, device, TRUE_EFFECT, "estimate_wave (cold)")
-    sizes = cold.report.wave_sizes
-    assert sizes == [32] * 6 + [8], sizes
-    planned = _planned_wave_launches(compile_request(plan, data), sizes)
-    assert planned == 32, planned
-    assert launches == {"batched_gram": planned, "batched_gram_blocked": 0,
-                        "batched_predict": planned, "crossfit_gram": 0,
-                        "flash_attention": 0, "ssd_scan": 0}, launches
+    cold = {}
+    for name, cold_plan in (
+            ("per_block", _paper_default_plan(pool=PER_BLOCK_POOL)),
+            ("defaults", plan)):
+        linear.reset_solve_status()
+        torch.cuda.synchronize()
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _launch_shapes() as seen:
+            res = estimate(cold_plan, data)
+            torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = dict(runtime.launch_counts)
+        _checked(res, None, device, TRUE_EFFECT,
+                 f"estimate_wave (cold, {name})")
+        _launches_compared(seen, f"estimate_wave (cold, {name})")
+        sizes = res.report.wave_sizes
+        assert sizes == [32] * 6 + [8], sizes
+        cold[name] = {"res": res, "cold_s": cold_s, "launches": launches}
+    req = compile_request(plan, data)
+    planned_per_block = _planned_launches(req, sizes, PER_BLOCK_POOL)
+    assert planned_per_block["kernel_calls"] == 32, planned_per_block
+    assert _counts(cold["per_block"]["launches"], 32), \
+        cold["per_block"]["launches"]
+    planned = _planned_launches(req, sizes)
+    assert planned == {"launches": 7, "fused_launches": 7, "blocks": 32,
+                       "kernel_calls": 7}, planned
+    assert _counts(cold["defaults"]["launches"], planned["kernel_calls"]), \
+        cold["defaults"]["launches"]
+    launches = cold["defaults"]["launches"]
 
     sessions = {"wave": DMLSession(device=device),
-                "inline": DMLSession(backend="inline", device=device)}
+                "inline": DMLSession(backend="inline", device=device),
+                "wave_per_block": DMLSession(pool=PER_BLOCK_POOL,
+                                             device=device)}
     assert sessions["wave"].backend.name == "wave"
     pool = sessions["wave"].backend.pool
     assert pool == PoolConfig()
@@ -1549,41 +1731,66 @@ def phase_estimate_wave(device):
             linear.reset_solve_status()
             runtime.reset_launch_counts()
             _reset_pinned_host()
+            stats0 = dataclasses.replace(sess.backend.compiler.stats)
+            pool_t = sess.backend.pages
+            pages0 = pool_t and pool_t.stats.snapshot()
             res, wall = _timed_estimate(sess, plan, data)
             rid = sess.completion_order[-1]
             _checked(res, sess.request(rid), device, TRUE_EFFECT,
                      f"estimate_wave ({name}, warm)")
             info = sess.last_run_info
+            st = info.compile
             out[name]["warm_s"].append(wall)
             out[name].update(
                 res=res, preds=sess.request(rid).gathered_preds(),
                 launches=dict(runtime.launch_counts), waves=info.waves,
+                program_launches=st.launches - stats0.launches,
+                fused_launches=st.fused_launches - stats0.fused_launches,
                 dispatch=dataclasses.asdict(info.dispatch),
+                page_stats=pool_t and pool_t.stats.delta(pages0).summary(),
                 pinned_host=_pinned_host())
     _compared_shapes(sessions["wave"].backend.compiler, "estimate_wave")
-    w, i = out["wave"], out["inline"]
+    w, i, wp = out["wave"], out["inline"], out["wave_per_block"]
     assert w["launches"] == launches, w["launches"]
+    assert (w["program_launches"], w["fused_launches"]) == \
+        (planned["launches"], planned["fused_launches"]), w
+    assert _counts(wp["launches"], 32), wp["launches"]
     assert w["waves"] == 7 and w["dispatch"]["dispatched"] == 7, w
+    # a warm drain of the same data uploads no page
+    assert w["page_stats"]["page_misses"] == 0 and \
+        w["page_stats"]["page_bytes_h2d"] == 0, w["page_stats"]
     bitwise = _agree(w["res"], i["res"], w["preds"], i["preds"],
                      "estimate_wave: wave vs inline")
-    cold_same = _agree(cold, w["res"], w["preds"], w["preds"],
-                       "estimate_wave: cold vs warm")
+    fused_bits = _same_bits(w["res"], wp["res"], w["preds"], wp["preds"])
+    assert fused_bits, "estimate_wave: the fused drain is not bit for bit " \
+        "the per-block drain"
+    cold_same = _agree(cold["defaults"]["res"], w["res"], w["preds"],
+                       w["preds"], "estimate_wave: cold vs warm")
     emit("estimate_wave", n_obs=data.n_obs, dim_x=data.dim_x, n_folds=5,
          n_rep=100, learner="ridge", backend=plan.backend,
          pool={"n_workers": pool.n_workers,
                "lanes_per_worker": pool.lanes_per_worker(),
                "pipeline_depth": pool.pipeline_depth,
-               "scaling": plan.scaling},
+               "scaling": plan.scaling, "fuse": pool.fuse,
+               "coalesce": pool.coalesce,
+               "page_pool_bytes": pool.page_pool_bytes},
          theta=w["res"].theta, se=w["res"].se, theta_inline=i["res"].theta,
          se_inline=i["res"].se, bitwise_equal_to_inline=bitwise,
+         fused_bitwise_per_block=fused_bits,
          cold_equals_warm=cold_same, wave_sizes=sizes,
-         launches=launches, planned_launches=planned, cold_s=cold_s,
-         warm_s={"wave": w["warm_s"], "inline": i["warm_s"]},
-         dispatch={"wave": w["dispatch"], "inline": i["dispatch"]},
-         pinned_host={"wave": w["pinned_host"], "inline": i["pinned_host"]},
+         launches=launches, planned=planned,
+         launches_per_block=cold["per_block"]["launches"],
+         planned_per_block=planned_per_block,
+         cold_s={k: v["cold_s"] for k, v in cold.items()},
+         warm_s={k: v["warm_s"] for k, v in out.items()},
+         program_launches={k: v["program_launches"] for k, v in out.items()},
+         dispatch={k: v["dispatch"] for k, v in out.items()},
+         page_stats={k: v["page_stats"] for k, v in out.items()},
+         pinned_host={k: v["pinned_host"] for k, v in out.items()},
          tolerance="wave vs inline: predictions rtol 1e-4 / atol 1e-5, "
-                   "theta and se 1e-4 relative")
-    return launches
+                   "theta and se 1e-4 relative; fused vs per-block: bit "
+                   "for bit")
+    return launches, cold["per_block"]["launches"]
 
 
 def phase_wave_pool(device):
@@ -1636,7 +1843,9 @@ def phase_wave_pool(device):
                             hedge=True, hedge_after_s=0.01)
     sess = DMLSession(pool=chaos_pool, device=device)
     linear.reset_solve_status()
-    res, wall = _timed_estimate(sess, clean_plan, data)
+    with _launch_shapes() as seen:
+        res, wall = _timed_estimate(sess, clean_plan, data)
+    held = _launches_compared(seen, "wave_pool (chaos)", device)
     _checked(res, sess.request(0), device, TRUE_EFFECT, "wave_pool (chaos)")
     d = sess.last_run_info.dispatch
     rep = res.report
@@ -1662,22 +1871,17 @@ def phase_wave_pool(device):
                 "dispatch": dataclasses.asdict(d),
                 "theta": res.theta, "se": res.se,
                 "theta_fault_free": clean_res.theta,
-                "bitwise_equal_to_fault_free": bitwise},
+                "bitwise_equal_to_fault_free": bitwise,
+                "fused_shapes_held": held},
          tolerance="chaos vs fault-free: predictions rtol 1e-4 / atol "
                    "1e-5, theta and se 1e-4 relative")
 
 
-def phase_session_wave(device):
-    """``DMLSession()`` on its default backend: two paper requests, and a
-    PLIV request submitted from the first one's ``on_complete``
-    (continuous admission); each result held against its own inline
-    drain."""
-    bonus = DMLData.from_dict(make_bonus_data())
-    pliv = DMLData.from_dict(make_pliv_data(n_obs=5000, dim_x=20))
-    jobs = [(_paper_default_plan(42), bonus), (_paper_default_plan(43), bonus),
-            (DMLPlan.for_model("pliv", learner="ridge", n_folds=5, n_rep=10),
-             pliv)]
-    sess = DMLSession(device=device)
+def _session_wave_run(device, jobs, bonus, pool):
+    """One default-plan session drain of ``jobs`` on ``pool``: two paper
+    requests, and a PLIV request submitted from the first one's
+    ``on_complete``.  Launch counts are set to 0 just before."""
+    sess = DMLSession(pool=pool, device=device)
     assert sess.backend.name == "wave"
     late = []
 
@@ -1689,10 +1893,11 @@ def phase_session_wave(device):
     runtime.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rids = [sess.submit(*jobs[0], on_complete=first_done),
-            sess.submit(*jobs[1])]
-    results = sess.run()
-    torch.cuda.synchronize()
+    with _launch_shapes() as seen:
+        rids = [sess.submit(*jobs[0], on_complete=first_done),
+                sess.submit(*jobs[1])]
+        results = sess.run()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(runtime.launch_counts)
     info = sess.last_run_info
@@ -1701,20 +1906,53 @@ def phase_session_wave(device):
     assert sess.completion_order == [rids[0], rids[2], rids[1]], \
         sess.completion_order
     assert info.shared_waves >= 1, info.wave_members
+    assert [r.request_id for r in results] == rids[:2]
     _compared_shapes(sess.backend.compiler, "session_wave")
-    inline = DMLSession(backend="inline", device=device)
-    agree = []
     for rid, (plan, data) in zip(rids, jobs):
-        res = sess.result(rid)
         truth = TRUE_EFFECT if data is bonus else data.theta0
-        _checked(res, sess.request(rid), device, truth,
+        _checked(sess.result(rid), sess.request(rid), device, truth,
                  f"session_wave/request {rid}")
+    held = _launches_compared(seen, "session_wave", device)
+    return sess, rids, {"wall_s": wall, "launches": launches,
+                        "held": held, "info": info}
+
+
+def phase_session_wave(device):
+    """``DMLSession()`` on its default backend: two paper requests, and a
+    PLIV request submitted from the first one's ``on_complete``
+    (continuous admission); on the per-block pool and on the defaults,
+    each result held against its own inline drain and the defaults'
+    bit for bit against the per-block pool's."""
+    bonus = DMLData.from_dict(make_bonus_data())
+    pliv = DMLData.from_dict(make_pliv_data(n_obs=5000, dim_x=20))
+    jobs = [(_paper_default_plan(42), bonus), (_paper_default_plan(43), bonus),
+            (DMLPlan.for_model("pliv", learner="ridge", n_folds=5, n_rep=10),
+             pliv)]
+    per_sess, per_rids, per = _session_wave_run(device, jobs, bonus,
+                                                PER_BLOCK_POOL)
+    sess, rids, dft = _session_wave_run(device, jobs, bonus, PoolConfig())
+    assert per["launches"]["batched_gram"] == \
+        per["info"].compile.launches, per["launches"]
+    info = dft["info"]
+    st = info.compile
+    assert st.fused_launches >= 1 and st.launches < per["info"].compile.launches
+    assert dft["launches"]["batched_gram"] == \
+        dft["launches"]["batched_predict"] > 0, dft["launches"]
+    assert _counts(dft["launches"], dft["launches"]["batched_gram"])
+    inline = DMLSession(backend="inline", device=device)
+    agree, fused_bits = [], []
+    for rid, prid, (plan, data) in zip(rids, per_rids, jobs):
+        res, preds = sess.result(rid), sess.request(rid).gathered_preds()
         ref = inline.estimate(plan, data)
-        agree.append(_agree(res, ref, sess.request(rid).gathered_preds(),
+        agree.append(_agree(res, ref, preds,
                             inline.request(inline.completion_order[-1])
                             .gathered_preds(),
                             f"session_wave/request {rid} vs inline"))
-    assert [r.request_id for r in results] == rids[:2]
+        fused_bits.append(_same_bits(
+            res, per_sess.result(prid), preds,
+            per_sess.request(prid).gathered_preds()))
+    assert all(fused_bits), ("session_wave: the fused drain is not bit for "
+                             "bit the per-block drain", fused_bits)
     emit("session_wave", requests=["plr paper seed 42", "plr paper seed 43",
                                    "pliv 5000 x 20, K 5, M 10 (submitted "
                                    "from request 0's on_complete)"],
@@ -1722,10 +1960,286 @@ def phase_session_wave(device):
          shared_waves=info.shared_waves,
          wave_members=[len(m) for m in info.wave_members],
          thetas=[sess.result(r).theta for r in rids],
-         bitwise_equal_to_inline=agree, wall_s=wall, launches=launches,
+         bitwise_equal_to_inline=agree,
+         fused_bitwise_per_block=fused_bits, wall_s=dft["wall_s"],
+         launches=dft["launches"], compile_stats=st.summary(),
+         fused_shapes_held=dft["held"],
+         page_stats=info.pages.summary(),
          dispatch=dataclasses.asdict(info.dispatch),
+         per_block={"wall_s": per["wall_s"], "launches": per["launches"],
+                    "waves": per["info"].waves,
+                    "compile_stats": per["info"].compile.summary()},
          tolerance="each request vs its inline drain: predictions rtol "
-                   "1e-4 / atol 1e-5, theta and se 1e-4 relative")
+                   "1e-4 / atol 1e-5, theta and se 1e-4 relative; the "
+                   "defaults vs the per-block pool: bit for bit")
+
+
+# ---------------------------------------------------------------------------
+# the warm path: fused and coalesced launches, the device-resident page pool
+# ---------------------------------------------------------------------------
+# (family, params, model) of each ported learner family the fusion phase
+# drives: the linear ones on two paper-sized PLR requests (the paper's, M
+# 100, and one at M 98 on a second dataset: 61 full blocks and tails of 8
+# and 20, which pack into one 32-lane block at offsets 0 and 8), logistic
+# as the IRM propensity (M 20: 6 full blocks and two tails of 4)
+FUSION_CASES = (("ols", {}, "plr"), ("ridge", {"reg": 1.0}, "plr"),
+                ("lasso", {"reg": 0.01}, "plr"),
+                ("logistic", {"reg": 1.0}, "irm"))
+# the morph tolerance tier: predictions within this of the canonical
+# launch's (the float tier of the CPU tests is rtol 1e-4 / atol 1e-5)
+MORPH_TOL = 1e-5
+
+
+def _fusion_bucket(family, params, model, device):
+    """Two compiled requests of one bucket of ``family`` and that bucket's
+    pending entries."""
+    if model == "plr":
+        datas = [DMLData.from_dict(make_bonus_data()),
+                 DMLData.from_dict(make_bonus_data(seed=2718))]
+        plans = [DMLPlan.for_model("plr", learner=family,
+                                   learner_params=params, n_folds=5,
+                                   n_rep=n_rep, seed=42 + i)
+                 for i, n_rep in enumerate((100, 98))]
+    else:
+        datas = [DMLData.from_dict(make_irm_data(n_obs=5000, dim_x=20,
+                                                 seed=1 + i))
+                 for i in range(2)]
+        plans = [DMLPlan.for_model("irm", learner="ridge", n_folds=5,
+                                   n_rep=20, seed=7 + i) for i in range(2)]
+    bplan = plan_buckets([compile_request(p, d)
+                          for p, d in zip(plans, datas)])
+    (key,) = [k for k in bplan.buckets
+              if program.bucket_family(k) == family]
+    if model == "irm":
+        assert dict(key.learner[1]) == params, key.learner
+    return bplan, key, bplan.pending_by_bucket()[key]
+
+
+def _fusion_run(bplan, key, entries, device, **kw):
+    """One dispatch of the bucket slice on a fresh program cache: results,
+    CompileStats, kernel calls."""
+    cache = program.ProgramCache()
+    runtime.reset_launch_counts()
+    results = program.dispatch_bucket(bplan, cache, key, entries,
+                                      device=device, **kw).harvest()
+    torch.cuda.synchronize()
+    return results, cache.stats, dict(runtime.launch_counts)
+
+
+def _max_diff(got, want):
+    assert got.keys() == want.keys()
+    return max(float(np.abs(got[e] - want[e]).max()) for e in want)
+
+
+@contextlib.contextmanager
+def _patched(name, value):
+    real = getattr(program, name)
+    setattr(program, name, value)
+    try:
+        yield
+    finally:
+        setattr(program, name, real)
+
+
+def phase_fusion(device):
+    """Each ported family on the card: fused launches against per-block
+    launches, and packed and morphed tails against their canonical
+    shapes, on the same bucket slice; bit for bit for the families of the
+    bitwise sets, the stated tier for the others, and for every family
+    the measured difference of the concatenated form.  Then one fused
+    launch split into single-block sub-calls against the one call."""
+    rows = []
+    for family, params, model in FUSION_CASES:
+        bplan, key, entries = _fusion_bucket(family, params, model, device)
+        per, st_p, calls_p = _fusion_run(bplan, key, entries, device,
+                                         fuse=False, coalesce=False)
+        fused, st_f, calls_f = _fusion_run(bplan, key, entries, device,
+                                           fuse=True, coalesce=False)
+        morphed, st_m, calls_m = _fusion_run(bplan, key, entries, device,
+                                             fuse=True, coalesce=True,
+                                             morph_tolerance=1.0)
+        with _patched("FUSED_CONCAT_FAMILIES", frozenset({family})):
+            concat, _, calls_c = _fusion_run(bplan, key, entries, device,
+                                             fuse=True, coalesce=False)
+        concat_mode = family in program.FUSED_CONCAT_FAMILIES
+        morph_bitwise = family in program.MORPH_BITWISE_FAMILIES
+        d_fused, d_morph = _max_diff(fused, per), _max_diff(morphed, per)
+        d_concat = _max_diff(concat, per)
+        # fused launches are the per-block launches' bits, whatever form
+        assert d_fused == 0.0, (family, "fused", d_fused)
+        if concat_mode:
+            assert d_concat == 0.0, (family, "concatenated", d_concat)
+        if morph_bitwise:
+            assert d_morph == 0.0, (family, "morphed", d_morph)
+        else:
+            assert family in program.MORPH_TOLERANCE_FAMILIES, family
+            assert d_morph <= MORPH_TOL, (family, "morphed", d_morph)
+        assert st_f.fused_launches >= 1 and st_m.coalesced_blocks >= 2, \
+            (st_f, st_m)
+        # one K1 and one K2 call a program call, and a concatenated fused
+        # launch is one call for its group; logistic's IRLS runs on
+        # library products and launches neither
+        kernels = family != "logistic"
+        assert calls_p["batched_gram"] == calls_p["batched_predict"] == \
+            st_p.launches * kernels, (family, st_p, calls_p)
+        want_calls = (st_f.launches if concat_mode else st_p.launches) \
+            * kernels
+        assert calls_f["batched_gram"] == calls_f["batched_predict"] == \
+            want_calls, (family, calls_f, want_calls)
+        rows.append({
+            "family": family, "params": params, "bucket": [key.n_pad,
+                                                           key.p_pad],
+            "tasks": st_p.padding.tasks,
+            "fused_form": "concatenated" if concat_mode else "per block",
+            "per_block": {"launches": st_p.launches,
+                          "kernel_calls": calls_p["batched_gram"]},
+            "fused": {"launches": st_f.launches,
+                      "fused_launches": st_f.fused_launches,
+                      "kernel_calls": calls_f["batched_gram"],
+                      "max_abs_diff": d_fused},
+            "morphed": {"launches": st_m.launches,
+                        "coalesced_blocks": st_m.coalesced_blocks,
+                        "kernel_calls": calls_m["batched_gram"],
+                        "max_abs_diff": d_morph,
+                        "tier": "bitwise" if morph_bitwise
+                        else f"tolerance {MORPH_TOL}"},
+            "concatenated_measured": {"kernel_calls": calls_c["batched_gram"],
+                                      "max_abs_diff": d_concat}})
+        del per, fused, morphed, concat
+        torch.cuda.empty_cache()
+
+    # a fused launch whose pages pass the gather bound runs as sub-calls
+    # of whole blocks: one block a call here, against the one call
+    bplan, key, entries = _fusion_bucket("ridge", {"reg": 1.0}, "plr",
+                                         device)
+    one, st_1, calls_1 = _fusion_run(bplan, key, entries, device)
+    block_bytes = program.B_BLOCK * key.n_pad * key.p_pad * 4
+    with _patched("FUSED_GATHER_BYTES", block_bytes):
+        split, st_s, calls_s = _fusion_run(bplan, key, entries, device)
+    assert st_s.launches == st_1.launches == 1, (st_1, st_s)
+    # the full blocks and one launch block carrying both tails
+    n_launch_blocks = st_s.blocks - st_s.coalesced_blocks + 1
+    assert calls_1["batched_gram"] == 1 and \
+        calls_s["batched_gram"] == n_launch_blocks, (calls_1, calls_s, st_s)
+    d_split = _max_diff(split, one)
+    assert d_split == 0.0, ("split", d_split)
+    emit("fusion", families=rows,
+         fused_concat_families=sorted(program.FUSED_CONCAT_FAMILIES),
+         morph_bitwise_families=sorted(program.MORPH_BITWISE_FAMILIES),
+         morph_tolerance_families=sorted(program.MORPH_TOLERANCE_FAMILIES),
+         fused_gather_bytes=program.FUSED_GATHER_BYTES,
+         split={"bound_bytes": block_bytes,
+                "kernel_calls": calls_s["batched_gram"],
+                "kernel_calls_one_call": calls_1["batched_gram"],
+                "max_abs_diff": d_split},
+         tolerance="fused vs per-block: bit for bit, every family; morphed "
+                   "vs canonical: bit for bit for the morph-bitwise "
+                   f"families, else within {MORPH_TOL}; split vs one call: "
+                   "bit for bit")
+
+
+def _recording_stacks(pool):
+    """Record the tensor ``pool.stack`` hands each call (an instance
+    attribute over the method; nothing is counted)."""
+    handed = []
+    real = pool.stack
+
+    def stack(needs, n_pad, p_pad):
+        out = real(needs, n_pad, p_pad)
+        handed.append(out)
+        return out
+
+    pool.stack = stack
+    return handed
+
+
+def phase_page_pool(device):
+    """The device-resident page pool on the default wave backend: two
+    warm drains of the paper request beside a second dataset of its
+    shape (one bucket, two pages, a stacked composition); the second
+    drain uploads no page and is handed the very tensors of the first.
+    Then a budget of one page, which forces evictions, with its
+    ``PageStats`` checked; and a directory fetch between two pools."""
+    datas = [DMLData.from_dict(make_bonus_data()),
+             DMLData.from_dict(make_bonus_data(seed=2718))]
+    plan = _paper_default_plan()
+    page_bytes = _page_bytes(plan, datas[0])
+    sess = DMLSession(device=device)
+    pool = sess.backend.pages
+    assert pool is not None and pool.byte_budget == 256 * 1024 * 1024
+    handed = _recording_stacks(pool)
+    drains = []
+    for _ in range(2):
+        before = pool.stats.snapshot()
+        start = len(handed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for data in datas:
+            sess.submit(plan, data)
+        results = sess.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for res in results:
+            _checked(res, None, device, TRUE_EFFECT, "page_pool")
+        drains.append({"wall_s": wall,
+                       "stats": pool.stats.delta(before),
+                       "handed": handed[start:],
+                       "thetas": [r.theta for r in results]})
+    cold, warm = drains
+    assert cold["stats"].misses == 2 and \
+        cold["stats"].bytes_h2d == 2 * page_bytes, cold["stats"]
+    assert cold["stats"].stack_builds >= 1, cold["stats"]
+    assert warm["stats"].misses == 0 and warm["stats"].bytes_h2d == 0 and \
+        warm["stats"].stack_builds == 0, warm["stats"]
+    assert len(warm["handed"]) == len(cold["handed"]) and all(
+        a is b for a, b in zip(warm["handed"], cold["handed"])), \
+        "a warm drain was handed another stack tensor"
+    assert any(t.shape[0] == 2 for t in warm["handed"]), \
+        [tuple(t.shape) for t in warm["handed"]]
+    assert warm["thetas"] == cold["thetas"]
+
+    # a budget of one page: the paper request, the second dataset, the
+    # paper request again, each alone — every drain's one page evicts the
+    # other's; 7 waves a drain, one stack call each
+    small = DMLSession(pool=PoolConfig(page_pool_bytes=page_bytes),
+                       device=device)
+    for data in (datas[0], datas[1], datas[0]):
+        small.estimate(plan, data)
+    st = small.backend.pages.stats
+    want = {"hits": 18, "misses": 3, "evictions": 2, "stack_builds": 3,
+            "stack_hits": 18, "bytes_h2d": 3 * page_bytes,
+            "bytes_saved": 18 * page_bytes, "cross_host_fetches": 0,
+            "bytes_d2d": 0}
+    assert dataclasses.asdict(st) == want, dataclasses.asdict(st)
+    assert small.backend.pages.total_bytes == page_bytes
+
+    # two pools on one device, one directory: a miss in the second is a
+    # device-to-device copy of the first's page
+    from repro_torch.compile import PageDirectory, PagePool
+    directory = PageDirectory()
+    pools = [PagePool(device=device, host_id=h, directory=directory)
+             for h in range(2)]
+    req = compile_request(plan, datas[0])
+    (key,) = plan_buckets([req]).buckets
+    pk = PagePool.page_key(req, key.n_pad, key.p_pad)
+    first = pools[0].stack([(pk, req)], key.n_pad, key.p_pad)
+    fetched = pools[1].stack([(pk, req)], key.n_pad, key.p_pad)
+    torch.cuda.synchronize()
+    assert fetched is not first and torch.equal(fetched, first)
+    assert (pools[1].stats.cross_host_fetches, pools[1].stats.bytes_d2d,
+            pools[1].stats.bytes_h2d) == (1, page_bytes, 0), pools[1].stats
+    assert directory.fetches == 1 and directory.holders(pk) == {0, 1}
+    pools[0].invalidate()
+    assert directory.holders(pk) == {1} and pools[0].n_pages == 0
+    emit("page_pool", page_bytes=page_bytes,
+         drains=[{"wall_s": d["wall_s"], "page_stats": d["stats"].summary(),
+                  "stack_calls": len(d["handed"]),
+                  "stack_shapes": sorted({tuple(t.shape)
+                                          for t in d["handed"]})}
+                 for d in drains],
+         warm_same_tensors=True, one_page_budget=want,
+         directory={"fetches": directory.fetches,
+                    "bytes_d2d": pools[1].stats.bytes_d2d})
 
 
 LM_SEED = 20241115
@@ -1997,8 +2511,9 @@ def main(argv=None) -> int:
     rows, launches = None, None
     if "kernels" in phases:
         rows = phase_kernels(device)
+    per_block = None
     if "estimate_paper" in phases:
-        launches, _ = phase_estimate_paper(device)
+        launches, per_block = phase_estimate_paper(device)
     if "estimate_wide" in phases:
         phase_estimate_wide(device)
     if "session" in phases:
@@ -2025,6 +2540,10 @@ def main(argv=None) -> int:
         phase_wave_pool(device)
     if "session_wave" in phases:
         phase_session_wave(device)
+    if "fusion" in phases:
+        phase_fusion(device)
+    if "page_pool" in phases:
+        phase_page_pool(device)
     if "serve_zamba2" in phases:
         served = phase_serve_zamba2(device)
         if launches is not None:
@@ -2059,9 +2578,16 @@ def main(argv=None) -> int:
              "ssd_scan": {k: rows["ssd_scan"][k] for k in (
                  "bound_ms_at_f32_fma", "cuda_launches_per_call",
                  "scratch_bytes")}}
-    # K1's and K2's launches on the wave path too (estimate_wave, cold)
+    # K1's and K2's launches on the per-block pool (estimate_paper), on
+    # the wave path (estimate_wave, cold) on both pools, and their rows at
+    # the fused paper shape (1024 lanes: the 32 blocks of one launch)
     for name in ("batched_gram", "batched_predict"):
-        extra[name]["launches_estimate_wave"] = wave_launches[name]
+        extra[name].update(
+            launches_per_block=per_block[name],
+            launches_estimate_wave=wave_launches[0][name],
+            launches_estimate_wave_per_block=wave_launches[1][name],
+            fused={"shape": list(FUSED_PAPER_SHAPE),
+                   **{k: rows["fused"][name][k] for k in keys}})
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          **{k: rows[name][k] for k in keys}, **extra.get(name, {})}

@@ -3,7 +3,7 @@
 spends its time on the card.
 
     python3 scripts/profile_torch_estimate.py
-        [--config paper|tall|irm|zamba2] [--n-rep M] [--out DIR]
+        [--config paper|tall|irm|zamba2] [--n-rep M] [--src DIR] [--out DIR]
 
 Drives one of the port's paths through ``estimate`` — ``paper``: the
 paper's configuration (PLR on the bonus data, K = 5, ridge, M 100) on the
@@ -15,7 +15,11 @@ covariates (K = 5, M 10) on the inline backend — once to warm the process
 up, then again under ``torch.profiler`` (CPU and CUDA activities).  Prints
 one JSON object: the request's wall time on the host's clock (device
 drained), the device's busy time summed over kernels and copies, its
-idle share, and the device time and launches by kernel name.  For
+idle share, the device time of its host-to-device copies, the device
+time and launches by kernel name, and what the drain's scheduler did:
+program launches, fused launches, the calls of each hand-written kernel
+(``runtime.launch_counts``) and the page pool's uploads.  The backend is
+made with its default ``PoolConfig``, so a tree's own defaults apply.  For
 ``irm`` it also traces one 32-lane logistic block alone (the IRLS
 program at the request's bucket shape) and counts its launches.
 ``zamba2``: the full zamba2-7b (bf16 weights from a seed) serving one
@@ -24,8 +28,11 @@ generated): one warm ``Engine.generate``, then its prefill and its 15
 decode steps traced apart, each with its wall time, device busy time, idle
 share and launches, and the device time split into the flash-attention
 kernel, the SSD-scan kernel, matrix products (cuBLAS/CUTLASS) and the
-rest.  Needs a CUDA device; exits non-zero without one.  ``--out`` also
-writes the Chrome trace there.
+rest.  ``--src DIR`` imports ``repro_torch`` from ``DIR/src`` (default:
+this checkout), so that a parent commit unpacked beside this one is
+profiled by the same script, in turns in one call.  Needs a CUDA device;
+exits non-zero without one.  ``--out`` also writes the Chrome trace
+there.
 """
 from __future__ import annotations
 
@@ -37,17 +44,32 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+
+
+def _source_tree(argv) -> Path:
+    """The tree named by ``--src`` (read before anything imports
+    ``repro_torch``), put first on the path."""
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--src", default=str(ROOT))
+    tree = Path(ap.parse_known_args(argv)[0].src).resolve()
+    sys.path.insert(0, str(tree / "src"))
+    return tree
+
+
+TREE = _source_tree(sys.argv[1:])
 
 import torch                                               # noqa: E402
 from torch.profiler import ProfilerActivity, profile      # noqa: E402
 
+from repro_torch import runtime                            # noqa: E402
 from repro_torch.core import DMLData, DMLPlan, estimate    # noqa: E402
 from repro_torch.data import (                             # noqa: E402
     make_bonus_data, make_irm_data, make_plr_data,
 )
 from repro_torch.learners import get_batched_learner       # noqa: E402
 from repro_torch.serverless import make_backend            # noqa: E402
+
+assert Path(runtime.__file__).resolve().is_relative_to(TREE)
 
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "gemv", "nvjet")
 # the CUDA kernels of each LM kernel wrapper (csrc/lm.cu): K5 in bf16 and
@@ -187,6 +209,8 @@ def main(argv=None) -> int:
                     default="paper")
     ap.add_argument("--n-rep", type=int, default=None,
                     help="repetitions M (default: 100 paper, 10 tall, irm)")
+    ap.add_argument("--src", default=str(ROOT),
+                    help="root of the source tree whose repro_torch to run")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -222,19 +246,34 @@ def main(argv=None) -> int:
 
     _, cold = request()
     _, warm = request()
+    stats = backend.compiler.stats
+    before = (stats.launches, getattr(stats, "fused_launches", 0))
+    pages = getattr(backend, "pages", None)
+    pages0 = pages.stats.snapshot() if pages is not None else None
+    runtime.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res, traced = request()
     rows = _device_rows(prof)
     busy_ms = sum(r["device_ms"] for r in rows)
-    out = {"card": smi, "config": args.config, "backend": name,
-           "n_rep": n_rep, "theta": res.theta,
+    out = {"card": smi, "tree": str(TREE), "config": args.config,
+           "backend": name, "n_rep": n_rep, "theta": res.theta,
            "wall_cold_s": cold, "wall_warm_s": warm,
-           "wall_traced_s": traced}
+           "wall_traced_s": traced,
+           "program_launches": stats.launches - before[0],
+           "fused_launches": getattr(stats, "fused_launches", 0) - before[1],
+           "kernel_calls": {k: v for k, v in runtime.launch_counts.items()
+                            if v},
+           "page_stats": pages.stats.delta(pages0).summary()
+           if pages is not None else None}
     if rows:
         out.update(device_busy_ms=busy_ms,
                    device_idle_share=1.0 - busy_ms / 1e3 / traced,
                    device_launches=sum(r["calls"] for r in rows),
+                   h2d_device_ms=sum(r["device_ms"] for r in rows
+                                     if "HtoD" in r["name"]),
+                   h2d_copies=sum(r["calls"] for r in rows
+                                  if "HtoD" in r["name"]),
                    by_kernel=rows[:25])
     else:
         out.update(device_busy_ms="not measured",

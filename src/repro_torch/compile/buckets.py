@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.registry import warm_cache
 from repro_torch.core.crossfit import aligned_bucket, pow2_bucket
 from repro_torch.learners import FEATURE_PAD_SAFE
 
@@ -104,6 +105,11 @@ class MegabatchPlan:
                 out.append(key)
         return out
 
+    # the plan owns its requests, so req_idx names one fixed request for
+    # this plan's lifetime (the cache dict dies with the plan: ambient)
+    @warm_cache(name="plan_pages", key=("req_idx", "key.n_pad",
+                                        "key.p_pad"),
+                ambient=("self",))
     def page(self, req_idx: int, key: BucketKey) -> np.ndarray:
         """The request's feature page padded to the bucket shape."""
         pkey = (req_idx, key.n_pad, key.p_pad)
@@ -145,6 +151,54 @@ class MegabatchPlan:
             entries.extend(e for inv in req.ledger.pending()
                            if (e := (ri, int(inv))) not in exclude)
         return self.group_entries(entries)
+
+
+def pack_tail_blocks(lane_counts: Sequence[int], b_block: int,
+                     quantum: int = 8, b_align: int = 1,
+                     ) -> Tuple[List[List[int]], int]:
+    """Pack tail-block lane counts into combined launch blocks sharing
+    ONE uniform lane count ``T`` (cross-shape coalescing).  Returns
+    ``(groups, T)``: index groups plus the shared padded size.
+
+    A uniform T is what lets every packed group fuse into a single
+    launch without a second morph-up pass (morphing smaller groups up to
+    the largest one is where naive packing bleeds padding).  T is chosen
+    by sweeping every aligned candidate up to ``b_block`` and greedily
+    first-fit packing against it, keeping the T that minimizes total
+    padded lanes (ties: fewer groups, then smaller T).
+
+    Deterministic: inputs are visited in order and placed into the
+    first group with room, so a bucket's packing is a pure function of
+    its tail sizes.  Pure bookkeeping (the JAX package's function, line
+    for line); launching packed lanes at another B gives the same bits
+    only for the families of ``program.MORPH_BITWISE_FAMILIES``.
+    """
+    counts = [int(k) for k in lane_counts]
+    lo = max(aligned_bucket(k, quantum, b_align) for k in counts)
+    cands = sorted({aligned_bucket(v, quantum, b_align)
+                    for v in range(lo, max(b_block, lo) + 1)})
+
+    def pack(cap: int) -> Tuple[List[List[int]], List[int]]:
+        groups: List[List[int]] = []
+        totals: List[int] = []
+        for i, k in enumerate(counts):
+            for gi, tot in enumerate(totals):
+                if aligned_bucket(tot + k, quantum, b_align) <= cap:
+                    groups[gi].append(i)
+                    totals[gi] = tot + k
+                    break
+            else:
+                groups.append([i])
+                totals.append(k)
+        return groups, totals
+
+    best = None
+    for cap in cands:
+        groups, _ = pack(cap)
+        score = (len(groups) * cap, len(groups), cap)
+        if best is None or score < best[0]:
+            best = (score, groups, cap)
+    return best[1], best[2]
 
 
 def plan_buckets(requests: Sequence, *, min_n: int = 8,

@@ -230,11 +230,14 @@ class DMLSession:
     through per-request ``on_complete`` callbacks the moment a request's
     ledger fills, while other requests are still executing.
 
-    The backend persists across ``run()`` calls (warm program cache).
-    ``last_run_info`` exposes cross-request accounting:
-    ``.shared_waves`` (waves that carried 2+ requests), ``.dispatch``
-    (the in-flight queue's ``DispatchStats``) and ``.autoscale`` (the
-    autoscaler's decisions).
+    The backend persists across ``run()`` calls (warm program cache and
+    device-resident page pool).  ``last_run_info`` exposes cross-request
+    accounting: ``.shared_waves`` (waves that carried 2+ requests),
+    ``.compile`` (launches, fused launches, coalesced blocks, padding),
+    ``.pages`` (the page pool's ``PageStats``: hits, uploaded and saved
+    bytes, evictions; None when ``PoolConfig.page_pool_bytes`` is 0),
+    ``.dispatch`` (the in-flight queue's ``DispatchStats``) and
+    ``.autoscale`` (the autoscaler's decisions).
 
     If the backend aborts mid-drain, the incomplete requests stay queued
     with their partially-completed ledgers; a later ``run()`` resumes

@@ -48,7 +48,9 @@ carry across; asking ``make_backend`` for it raises
 
 All backends emit the same ``RunReport``/``TaskLedger`` artifacts, and
 each holds a persistent spec-keyed ``ProgramCache`` so repeat traffic
-through a ``DMLSession`` never rebuilds a program.
+through a ``DMLSession`` never rebuilds a program, and (unless
+``PoolConfig.page_pool_bytes`` is 0) a device-resident ``PagePool`` so
+steady-state serving re-uploads no feature page.
 
 Determinism contract: a task's key — (segment seed, flat task id) — is
 fixed at *compile* time, so predictions are independent of backend,
@@ -66,6 +68,7 @@ from typing import (
 import numpy as np
 import torch
 
+from repro_torch.analysis.registry import warm_cache
 from repro_torch.runtime import DeviceLike, bounded_put, resolve_device
 from repro_torch.serverless.autoscale import (
     AutoscaleDecision, OccupancyAutoscaler,
@@ -78,7 +81,9 @@ from repro_torch.serverless.dispatch import (
 from repro_torch.serverless.ledger import DONE, TaskLedger
 
 if TYPE_CHECKING:       # avoid the core <-> serverless import cycle
-    from repro_torch.compile import CompileStats, MegabatchPlan, ProgramCache
+    from repro_torch.compile import (
+        CompileStats, MegabatchPlan, PagePool, PageStats, ProgramCache,
+    )
     from repro_torch.core.crossfit import TaskGrid
 
 
@@ -109,11 +114,7 @@ class PoolConfig:
     let one caller's settings leak into another's (use
     ``dataclasses.replace`` to derive variants).
 
-    The field list is the reference's.  Three defaults differ while the
-    machinery behind them is not ported: ``fuse`` and ``coalesce`` are
-    off and ``page_pool_bytes`` is 0, so every canonical block launches
-    on its own with host-stacked pages.  A backend raises
-    ``NotImplementedError`` for a pool that asks for one of them.
+    The fields and their defaults are the JAX package's, one for one.
     """
     n_workers: int = 8                  # concurrent lambda-analogue workers
     memory_mb: int = 1024               # Lambda memory knob
@@ -135,20 +136,22 @@ class PoolConfig:
     min_workers: int = 1
     max_workers: int = 64
     autoscale_cost_weight: float = 1.0
-    # device-resident feature-page pool budget; 0 stacks pages on the
-    # host per launch
-    page_pool_bytes: int = 0
+    # device-resident feature-page pool budget (compile/pages.py); 0
+    # turns the pool off and stacks pages on the host per launch
+    page_pool_bytes: int = 256 * 1024 * 1024
     # topology backend: number of simulated host meshes, work stealing
     n_hosts: int = 2
     steal: bool = True
-    # same-shape block fusion: pack equal-canonical-B blocks of different
-    # requests into one launch
-    fuse: bool = False
+    # same-shape block fusion (compile/program.py): equal-B blocks of a
+    # bucket slice go up in one launch, bit for bit the per-block ones
+    fuse: bool = True
     # non-blocking dispatch: buckets a drain stream may hold in flight
     max_inflight: int = 8
-    # cross-shape coalescing: pack/morph tail blocks into combined
-    # launches
-    coalesce: bool = False
+    # cross-shape coalescing (compile/program.py): pack/morph tail
+    # blocks of the MORPH_BITWISE_FAMILIES into combined launches;
+    # tolerance-tier families also need morph_tolerance > 0, an explicit
+    # opt-out of bitwise reproducibility
+    coalesce: bool = True
     morph_tolerance: float = 0.0
     # double-buffered dispatch: waves a drain may hold unsettled
     pipeline_depth: int = 2
@@ -165,15 +168,6 @@ class PoolConfig:
     def lanes_per_worker(self) -> int:
         """Worker 'memory' buys lane width."""
         return max(1, self.memory_mb // 256)
-
-
-def _check_pool_supported(pool: PoolConfig) -> None:
-    """Refuse pool settings whose machinery is not ported."""
-    for name in ("fuse", "coalesce", "page_pool_bytes"):
-        if getattr(pool, name):
-            raise NotImplementedError(
-                f"PoolConfig.{name}={getattr(pool, name)!r} is not "
-                "supported by this backend yet")
 
 
 @dataclass
@@ -291,6 +285,21 @@ class WorkRequest:
                    work_key=work_key)
 
     # ---- derived index maps (cached) ------------------------------------
+    # the grid's coordinate methods are pure functions of its scalar
+    # shape fields (all keyed) — hence covers under grid.n_rep; the
+    # per-instance memo self._maps is ambient
+    @warm_cache(name="work_request_index_maps",
+                key=("self.grid.n_rep", "self.grid.n_folds",
+                     "self.grid.n_nuisance", "self.scaling",
+                     "self.segments"),
+                reads=("self.grid.invocation_task_ids",
+                       "self.grid.task_coords",
+                       "self.grid.n_invocations"),
+                covers={"self.grid.n_rep": (
+                    "self.grid.invocation_task_ids",
+                    "self.grid.task_coords",
+                    "self.grid.n_invocations")},
+                ambient=("self._maps",))
     def _index_maps(self):
         if not hasattr(self, "_maps"):
             g = self.grid
@@ -391,6 +400,7 @@ class BackendRunInfo:
     wave_members: List[List[object]] = field(default_factory=list)
     buckets: int = 0                    # distinct megabatch buckets drained
     compile: Optional[CompileStats] = None   # backend's warm-cache stats
+    pages: Optional[PageStats] = None        # device page-pool accounting
     autoscale: List[AutoscaleDecision] = field(default_factory=list)
     dispatch: Optional[DispatchStats] = None  # in-flight queue accounting
     # per-bucket parallelization-axis decisions: one
@@ -511,11 +521,23 @@ class _StreamBackend:
     name: str
     pool: PoolConfig
     compiler: "ProgramCache"
+    pages: Optional["PagePool"]
     device: torch.device
+
+    def _init_pools(self) -> None:
+        """The backend's warm state: its program cache and, unless the
+        pool's budget is 0, its device-resident page pool on
+        ``self.device``."""
+        self.compiler = _compile().ProgramCache()
+        self.pages = _compile().PagePool(self.pool.page_pool_bytes,
+                                         device=self.device) \
+            if self.pool.page_pool_bytes else None
 
     def begin_drain(self) -> DrainState:
         info = BackendRunInfo(backend=self.name)
         info.compile = self.compiler.stats
+        if self.pages is not None:
+            info.pages = self.pages.stats
         state = DrainState(plan=_compile().MegabatchPlan(), info=info)
         state.chaos = chaos_plan(self.pool)
         state.queue = DispatchQueue(self.pool.max_inflight)
@@ -569,11 +591,19 @@ class _StreamBackend:
                 else f"{self.pool.checkpoint_path}.r{i}"
             req.ledger.save(path)
 
+    def _dispatch_opts(self) -> Dict:
+        """The launch-scheduling knobs every dispatch_bucket call takes:
+        fusion plus the cross-shape coalescing pair (coalesce gates the
+        scheduler, morph_tolerance opts tolerance-tier families in)."""
+        return {"fuse": self.pool.fuse, "coalesce": self.pool.coalesce,
+                "morph_tolerance": self.pool.morph_tolerance}
+
     def _dispatch(self, state: DrainState, bkey, entries, **kw):
-        """Launch one bucket slice on this backend's device, unwaited."""
+        """Launch one bucket slice on this backend's device, unwaited,
+        with its page pool and scheduling knobs."""
         return _compile().dispatch_bucket(
             state.plan, self.compiler, bkey, entries, device=self.device,
-            **kw)
+            pages=self.pages, **self._dispatch_opts(), **kw)
 
     def _book_direct(self, state: DrainState, entries, results, wall: float):
         """Record one bucket launch: ledger bookings, billing, retries.
@@ -877,9 +907,8 @@ class InlineBackend(_BucketStreamBackend):
     def __init__(self, pool: Optional[PoolConfig] = None,
                  device: DeviceLike = "cuda"):
         self.pool = pool or PoolConfig()
-        _check_pool_supported(self.pool)
         self.device = resolve_device(device)
-        self.compiler = _compile().ProgramCache()
+        self._init_pools()
 
 
 # ---------------------------------------------------------------------------
@@ -891,19 +920,21 @@ class ShardedBackend(_BucketStreamBackend):
     once per drain (compile/buckets.py::plan_bucket_axis), logged on
     ``BackendRunInfo.axis_plans`` and executed: on one device a bucket
     whose N_pad fits one device page runs the task program — the inline
-    backend's, from the same kind of ``ProgramCache``, bit for bit — and
-    a taller Gram-family bucket runs the data@1 program, which streams
-    its rows as N-chunks through ``batched_gram_blocked``."""
+    backend's, from the same kind of ``ProgramCache``, bit for bit, fused
+    as the inline backend fuses (on a one-device mesh the fused program
+    is the unpartitioned one) — and a taller Gram-family bucket runs the
+    data@1 program, which streams its rows as N-chunks through
+    ``batched_gram_blocked`` (pooled pages and tail packing, never
+    fused)."""
     name = "sharded"
 
     def __init__(self, pool: Optional[PoolConfig] = None,
                  device: DeviceLike = "cuda", mesh=None):
         from repro_torch.launch.mesh import make_host_mesh
         self.pool = pool or PoolConfig()
-        _check_pool_supported(self.pool)
         self.mesh = make_host_mesh(device) if mesh is None else mesh
         self.device = self.mesh.device
-        self.compiler = _compile().ProgramCache()
+        self._init_pools()
 
     def _n_shards(self) -> int:
         return int(self.mesh.shape["data"])
@@ -986,9 +1017,8 @@ class WaveBackend(_StreamBackend):
     def __init__(self, pool: Optional[PoolConfig] = None,
                  device: DeviceLike = "cuda"):
         self.pool = pool or PoolConfig()
-        _check_pool_supported(self.pool)
         self.device = resolve_device(device)
-        self.compiler = _compile().ProgramCache()
+        self._init_pools()
         self.autoscaler = OccupancyAutoscaler(self.pool) \
             if self.pool.autoscale else None
 

@@ -32,6 +32,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.registry import warm_cache
 from repro_torch.runtime import bounded_put
 
 F32 = torch.float32
@@ -161,6 +162,10 @@ def _feature_fit_body(mesh_axis: str, family: str, params: Tuple):
     return body
 
 
+# family/params select a pure body builder; the program is otherwise a
+# function of (mesh, mesh_axis) only
+@warm_cache(name="data_gram_programs",
+            key=("mesh", "mesh_axis", "family", "params"))
 def _data_gram_fn(mesh, mesh_axis: str, family: Optional[str] = None,
                   params: Tuple = ()) -> Callable:
     """The N-sharded executor, cached per (mesh, mesh_axis, family,
@@ -197,6 +202,8 @@ def data_parallel_gram(mesh, xs, w, y, reg: float = 0.0,
     return g, b
 
 
+@warm_cache(name="feature_gram_programs",
+            key=("mesh", "mesh_axis", "family", "params"))
 def _feature_gram_fn(mesh, mesh_axis: str, family: Optional[str] = None,
                      params: Tuple = ()) -> Callable:
     """The P-sharded executor: same cache and ``family=None`` split as

@@ -467,12 +467,24 @@ def test_sharded_backend_device_rule():
 @pytest.mark.parametrize("field,value", [("fuse", True),
                                          ("failure_rate", 0.1)])
 def test_sharded_backend_refuses_unported_pool_settings(field, value):
-    """``fuse`` is still refused; fault injection (ported since) runs on
-    the sharded backend and leaves the predictions as they are."""
+    """Nothing is refused any more.  ``fuse``: the sharded drain of a
+    task-axis bucket (three full blocks and a tail of 24) fuses, as the
+    inline backend does, and equals the per-block drain bit for bit.
+    Fault injection runs on the sharded backend and leaves the
+    predictions as they are."""
     from repro_torch.serverless import PoolConfig
     if field == "fuse":
-        with pytest.raises(NotImplementedError, match=field):
-            ShardedBackend(PoolConfig(**{field: value}), device="cpu")
+        (dt, _), (pt, _) = _data(104, seed=3), _plans("ridge", n_rep=20,
+                                                       seed=3)
+        per_block = PoolConfig(fuse=False, coalesce=False)
+        out = []
+        for pool in (per_block, PoolConfig(**{field: value})):
+            req = compile_request(pt, dt)
+            info = ShardedBackend(pool, device="cpu").run_requests([req])
+            out.append((req.gathered_preds(), info.compile))
+        assert np.array_equal(out[0][0], out[1][0])
+        assert out[0][1].fused_launches == 0 and out[0][1].launches == 4
+        assert (out[1][1].launches, out[1][1].fused_launches) == (1, 1)
         return
     (dt, _), (pt, _) = _data(104, seed=3), _plans("ridge", seed=3)
     preds = []

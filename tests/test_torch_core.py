@@ -329,13 +329,15 @@ def test_plan_validation_matches_reference():
 
 
 def test_pool_config_keeps_the_reference_fields():
+    """Every field and every default is the reference's, fusion,
+    coalescing and the 256 MiB page pool included."""
     ft = {f.name: f.default for f in dataclasses.fields(PoolConfig)}
     fj = {f.name: f.default for f in dataclasses.fields(JaxPool)}
     assert list(ft) == list(fj)
-    differ = {k for k in ft if ft[k] != fj[k]}
-    assert differ == {"fuse", "coalesce", "page_pool_bytes"}
+    assert ft == fj
     assert (ft["fuse"], ft["coalesce"], ft["page_pool_bytes"]) == \
-        (False, False, 0)
+        (True, True, 256 * 1024 * 1024)
+    assert dataclasses.asdict(PoolConfig()) == dataclasses.asdict(JaxPool())
     with pytest.raises(dataclasses.FrozenInstanceError):
         PoolConfig().n_workers = 3
 
@@ -346,18 +348,55 @@ def test_compile_stats_match_reference_unfused():
     raw = make_plr_data(n_obs=100, dim_x=5, seed=1)
     dt, dj = _both_data(raw)
     pt, pj = _plans("plr", "ridge", {"reg": 1.0}, "n_rep")
-    bt = InlineBackend(device="cpu")
+    bt = InlineBackend(PoolConfig(fuse=False, coalesce=False,
+                                  page_pool_bytes=0), device="cpu")
     bj = JaxInline(JaxPool(fuse=False, coalesce=False, page_pool_bytes=0))
     for _ in range(2):
         bt.run_requests([compile_request(pt, dt)])
         bj.run_requests([jax_compile_request(pj, dj)])
     st, sj = bt.compiler.stats, bj.compiler.stats
-    assert (st.launches, st.blocks, st.hits, st.misses) == \
-        (sj.launches, sj.blocks, sj.hits, sj.misses)
-    pad_t, pad_j = dataclasses.asdict(st.padding), \
-        dataclasses.asdict(sj.padding)
-    pad_t.pop("padded_tasks_morphed"), pad_j.pop("padded_tasks_morphed")
-    assert pad_t == pad_j
+    assert (st.launches, st.blocks, st.hits, st.misses, st.fused_launches,
+            st.coalesced_blocks) == \
+        (sj.launches, sj.blocks, sj.hits, sj.misses, sj.fused_launches,
+         sj.coalesced_blocks)
+    assert dataclasses.asdict(st.padding) == dataclasses.asdict(sj.padding)
+
+
+@pytest.mark.parametrize("backend", ["inline", "wave", "sharded"])
+def test_compile_stats_match_reference_fused(backend):
+    """On the defaults — same-shape blocks fused, tails coalesced, pages
+    pooled — the port schedules as the reference does: the paper's task
+    grid (K 5, M 100, L 2: 31 full blocks and a tail of 8) at a small N,
+    drained twice by one backend; the same ``CompileStats``,
+    ``PaddingStats`` and ``PageStats`` after each drain (inline: 1 launch
+    of 32 blocks, the tail morphed to 32 lanes; wave: 7 fused launches;
+    one page upload), theta and se within the float tier."""
+    raw = make_plr_data(n_obs=100, dim_x=5, seed=1)
+    dt, dj = _both_data(raw)
+    kw = dict(learner="ridge", learner_params={"reg": 1.0}, n_folds=5,
+              n_rep=100, seed=42)
+    pt = tcore.DMLPlan.for_model("plr", **kw)
+    pj = rcore.DMLPlan.for_model("plr", **kw)
+    bt = tcore.DMLSession(backend=backend, device="cpu")
+    bj = rcore.DMLSession(backend=backend)
+    for drain in range(2):
+        rt, rj = bt.estimate(pt, dt), bj.estimate(pj, dj)
+        it, ij = bt.last_run_info, bj.last_run_info
+        st, sj = it.compile, ij.compile
+        fields = ("launches", "blocks", "fused_launches", "coalesced_blocks",
+                  "hits", "misses")
+        assert [getattr(st, f) for f in fields] == \
+            [getattr(sj, f) for f in fields], (drain, fields)
+        assert dataclasses.asdict(st.padding) == \
+            dataclasses.asdict(sj.padding)
+        assert dataclasses.asdict(it.pages) == dataclasses.asdict(ij.pages)
+        np.testing.assert_allclose(rt.theta, rj.theta, rtol=1e-4)
+        np.testing.assert_allclose(rt.se, rj.se, rtol=1e-4)
+    launches = {"inline": 2, "sharded": 2, "wave": 14}[backend]
+    assert (st.launches, st.fused_launches, st.blocks) == \
+        (launches, launches, 64)
+    assert st.padding.padded_tasks == 2 * 1024
+    assert (it.pages.misses, it.pages.bytes_h2d) == (1, 104 * 8 * 4)
 
 
 # ---------------------------------------------------------------------------

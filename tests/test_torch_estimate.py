@@ -6,6 +6,8 @@ Tolerances: (M, K, L, N) predictions rtol 1e-4, atol 1e-5; theta and se
 1e-4 relative.  The reference runs at its defaults (fusion on): its
 results are bitwise the same with and without fusion.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -262,13 +264,36 @@ def test_unknown_backend_is_a_key_error():
     ("failure_rate", 0.1), ("straggler_rate", 0.2), ("hedge", True),
 ])
 def test_unported_pool_settings_raise(field, value):
-    """``fuse``, ``coalesce`` and ``page_pool_bytes`` are still refused;
-    the fault settings (ported since) run on the inline backend and
-    leave the estimate as it is."""
+    """Every setting that was once refused runs now.  ``fuse``,
+    ``coalesce`` and ``page_pool_bytes``, each alone on the per-block
+    pool, give the per-block estimate bit for bit (ridge over 120 tasks:
+    three full blocks and a tail of 24, so fusion and morphing both
+    act); the fault settings run on the inline backend and leave the
+    estimate as it is."""
     if field in ("fuse", "coalesce", "page_pool_bytes"):
-        with pytest.raises(NotImplementedError, match=field):
-            InlineBackend(PoolConfig(**{field: value}), device="cpu")
-        InlineBackend(PoolConfig(hedge=False, n_workers=3), device="cpu")
+        per_block = PoolConfig(fuse=False, coalesce=False,
+                               page_pool_bytes=0)
+        pt = tcore.DMLPlan.for_model(
+            "plr", learner="ridge", learner_params={"reg": 1.0}, n_folds=3,
+            n_rep=20, seed=5, backend="inline")
+        dt = tcore.DMLData.from_dict(make_plr_data(n_obs=90, dim_x=6,
+                                                   seed=11))
+        out = []
+        for pool in (per_block,
+                     dataclasses.replace(per_block, **{field: value})):
+            sess = tcore.DMLSession(backend="inline", pool=pool,
+                                    device="cpu")
+            res = sess.estimate(pt, dt)
+            out.append((res, sess.request(0).gathered_preds(),
+                        sess.last_run_info))
+        (ref, ref_preds, _), (got, got_preds, info) = out
+        assert (got.theta, got.se) == (ref.theta, ref.se)
+        assert np.array_equal(got_preds, ref_preds)
+        if field == "fuse":           # the three full blocks in one launch
+            assert (info.compile.launches, info.compile.fused_launches) == \
+                (2, 1)
+        if field == "page_pool_bytes":
+            assert info.pages.misses == 1 and info.pages.bytes_h2d > 0
         return
     (pt, dt), _ = _both(CASES[1])
     pool = PoolConfig(**{field: value, "max_retries": 10, "seed": 0})

@@ -41,7 +41,7 @@ from repro_torch.learners import (
     LEARNERS, as_batched, get_batched_learner, get_learner,
 )
 from repro_torch.learners import linear
-from repro_torch.serverless import InlineBackend, TaskLedger
+from repro_torch.serverless import InlineBackend, PoolConfig, TaskLedger
 
 GRAM_TOL = 2e-4
 
@@ -431,7 +431,8 @@ def test_raw_request_padding_account_matches_reference():
     jb.run_requests([jax_compile_raw(grid, "n_rep", data["x"], targets,
                                      train_w, jax_learner("ols"),
                                      jax.random.key(0))])
-    tb = InlineBackend(device="cpu")
+    tb = InlineBackend(PoolConfig(fuse=False, coalesce=False,
+                                  page_pool_bytes=0), device="cpu")
     tb.run_requests([compile_raw_request(grid, "n_rep", data["x"], targets,
                                          train_w, get_learner("ols"), 0)])
     st, sj = tb.compiler.stats, jb.compiler.stats
