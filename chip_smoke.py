@@ -35,10 +35,17 @@ stack tensors back; a one-page budget evicts).  The paths run on the
 defaults (fused, coalesced, pages pooled) and, where they count
 per-block launches, on the per-block pool as well, bit for bit.
 
+The nonparametric learners and the bootstrap: the README's quickstart
+(kernel_ridge with 256 landmarks on the wave backend: its ridge solve on
+the Gram and predict kernels at P 257) cold, then warm in turns with the
+inline backend, with the multiplier bootstrap, each held against the CPU
+path; the mlp learner at full width (PLR on the bonus data, and an IRM
+plan whose propensity is mlp's sigmoid) against the CPU path.
+
 Phases: device, build, kernels, estimate_paper, estimate_wide, session,
 same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
-estimate_wave, wave_pool, session_wave, fusion, page_pool, serve_zamba2,
-same_as_cpu_lm.
+estimate_wave, wave_pool, session_wave, fusion, page_pool,
+estimate_quickstart, estimate_mlp, serve_zamba2, same_as_cpu_lm.
 """
 from __future__ import annotations
 
@@ -59,7 +66,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np                                         # noqa: E402
 import torch                                               # noqa: E402
 
-from repro_torch import runtime                            # noqa: E402
+from repro_torch import runtime, threefry                 # noqa: E402
 from repro_torch.core import (                             # noqa: E402
     DMLData, DMLPlan, DMLSession, estimate,
 )
@@ -79,7 +86,9 @@ from repro_torch.kernels import (                          # noqa: E402
     build, crossfit_gram, flash_attention, megabatch, ops, ssd_scan,
 )
 from repro_torch.launch import roofline                    # noqa: E402
-from repro_torch.learners import get_learner, linear       # noqa: E402
+from repro_torch.learners import (                         # noqa: E402
+    get_batched_learner, get_learner, kernel_ridge, linear,
+)
 from repro_torch.models import (                           # noqa: E402
     build_model, init_tree, param_count,
 )
@@ -90,8 +99,8 @@ from repro_torch.serving import Engine, grow_cache         # noqa: E402
 PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "session", "same_as_cpu", "estimate_tall", "shared_x",
           "raw_request", "estimate_irm", "estimate_wave", "wave_pool",
-          "session_wave", "fusion", "page_pool", "serve_zamba2",
-          "same_as_cpu_lm")
+          "session_wave", "fusion", "page_pool", "estimate_quickstart",
+          "estimate_mlp", "serve_zamba2", "same_as_cpu_lm")
 LIBRARIES = ("megabatch", "lm")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
@@ -159,6 +168,13 @@ TALL_N = 250_000
 # the pool that launches every canonical block on its own, with pages
 # stacked on the host: the drains whose checks count per-block launches
 PER_BLOCK_POOL = PoolConfig(fuse=False, coalesce=False, page_pool_bytes=0)
+# kernel_ridge's ridge on its Nyström features: P = m + 1, N the bonus
+# bucket's.  The README's quickstart (256 landmarks): 32 blocks of 32 lanes
+# (kernel_ridge fuses one call a block; its tail of 8 morphs to 32); the
+# learner's default 128 landmarks
+QUICKSTART_SHAPES = ((32, 5104, 257),)
+KR128_SHAPE = (32, 5104, 129)
+KR_SHAPES = QUICKSTART_SHAPES + (KR128_SHAPE,)
 PATH_SHAPES = {
     "estimate_paper": (MAIN_SHAPE, (8, 5104, 33), FUSED_PAPER_SHAPE),
     "estimate_wide": ((32, 60000, 257), (8, 60000, 257), (24, 60000, 257)),
@@ -173,12 +189,13 @@ PATH_SHAPES = {
     "wave_pool": (MAIN_SHAPE, (8, 5104, 33), FUSED_PAPER_SHAPE),
     "session_wave": (MAIN_SHAPE, (8, 5104, 33), (32, 5000, 33),
                      (24, 5000, 33)),
+    "estimate_quickstart": QUICKSTART_SHAPES,
 }
 # the paths' shapes, then a ragged one (odd B, N and P below a tile) and
 # one whose N is a multiple of the kernels' row step
 SHAPES = tuple(dict.fromkeys(
     [s for shapes in PATH_SHAPES.values() for s in shapes]
-    + [(5, 1003, 7), (8, 65536, 257)]))
+    + [KR128_SHAPE, (5, 1003, 7), (8, 65536, 257)]))
 # a page too wide for whole rows in a block: the Gram kernel reads column
 # panels (no path runs it; checked and timed like SHAPES)
 WIDE_GRAM_SHAPES = ((2, 1000, 2600),)
@@ -197,8 +214,11 @@ BLOCKED_SHAPES = TALL_BLOCKED_SHAPES + ((5, 3, 1003, 7), (32, 4, 65536, 33))
 MAIN_XFIT_SHAPE = (1000, 5099, 18)
 LANE_XFIT_SHAPE = (1, 5099, 18)
 XFIT_BITWISE_SHAPE = (32, 65536, 33)
+# the shared-X kernel_ridge form on the bonus data: 10 tasks on the
+# (N, 257) features of 256 landmarks (estimate_quickstart drives it)
+KR_XFIT_SHAPE = (10, 5099, 257)
 XFIT_SHAPES = (MAIN_XFIT_SHAPE, (40, 60000, 201), (5, 1003, 7),
-               LANE_XFIT_SHAPE, XFIT_BITWISE_SHAPE)
+               LANE_XFIT_SHAPE, XFIT_BITWISE_SHAPE, KR_XFIT_SHAPE)
 # serve_zamba2: prompts of ragged length <= SERVE_LEN, left-padded into
 # SERVE_BATCH slots, SERVE_GEN tokens generated for each
 SERVE_BATCH, SERVE_LEN, SERVE_GEN, SERVE_PROMPTS = 4, 2048, 16, 8
@@ -352,6 +372,16 @@ def _errs(got, want):
     return float(diff.max()), float(rel[want.abs() > 1e-6].max())
 
 
+def _predict_atol(shape, out0) -> float:
+    """K2's absolute tolerance against its plain version: 1e-5, and at the
+    kernel_ridge shapes (257 and 129 columns of features, sums of as many
+    terms) 1e-6 of max|plain|, the form K1's check takes (1e-4 of max|G|):
+    there the two orders of summation differ by more than 1e-5 near 0."""
+    if shape in KR_SHAPES:
+        return 1e-6 * float(out0.abs().max())
+    return 1e-5
+
+
 def phase_kernels(device):
     """Each kernel against its plain version on the card, with times."""
     gen = torch.Generator(device=device).manual_seed(20210104)
@@ -435,7 +465,8 @@ def phase_kernels(device):
         out = ops.batched_predict(xs, beta, valid)
         torch.cuda.synchronize()
         out0 = megabatch.batched_predict_plain(xs, beta, valid)
-        assert torch.allclose(out, out0, rtol=1e-5, atol=1e-5), \
+        p_atol = _predict_atol(shape, out0)
+        assert torch.allclose(out, out0, rtol=1e-5, atol=p_atol), \
             ("batched_predict disagrees", shape, _errs(out, out0))
         assert bool((out[valid == 0] == 0).all()), \
             ("batched_predict: valid == 0 rows are not exactly 0", shape)
@@ -447,8 +478,12 @@ def phase_kernels(device):
         nbytes, flops = _predict_bound(b, n, p)
         bound, by = _bound_ms(nbytes, flops)
         abs_o, rel_o = _errs(out, out0)
+        out64 = torch.bmm(xs.double(), beta.double().unsqueeze(-1)
+                          ).squeeze(-1) * valid.double()
         pred = {
-            "max_abs_err": abs_o, "max_rel_err": rel_o,
+            "max_abs_err": abs_o, "max_rel_err": rel_o, "atol": p_atol,
+            "abs_err_vs_f64": float((out.double() - out64).abs().max()),
+            "plain_abs_err_vs_f64": float((out0.double() - out64).abs().max()),
             "ms": _time_ms(lambda: ops.batched_predict(xs, beta, valid),
                            cold=True),
             "ms_warm_l2": _time_ms(
@@ -460,7 +495,7 @@ def phase_kernels(device):
             "bound_ms": bound, "bound_by": by,
             "bytes": nbytes, "operations": flops,
         }
-        del out, out0
+        del out, out0, out64
         if shape == MAIN_SHAPE:
             # one wrapper call (one count): its CUDA launches (the Gram
             # kernel and the combine) as the profiler sees them, and the
@@ -484,6 +519,9 @@ def phase_kernels(device):
             rows.update(batched_gram=gram, batched_predict=pred)
         if shape == FUSED_PAPER_SHAPE:
             rows["fused"] = {"batched_gram": gram, "batched_predict": pred}
+        if shape in (QUICKSTART_SHAPES[0], KR128_SHAPE):
+            rows[f"p{shape[2]}"] = {"batched_gram": gram,
+                                    "batched_predict": pred}
         del xs, y, w, beta, valid
         torch.cuda.empty_cache()
     report += _gram_unaligned_rows(device, gen)
@@ -635,8 +673,8 @@ def _xfit_kernel_rows(device, gen):
     """The shared-X Gram against its plain version, and against
     batched_gram on x broadcast to (T, N, P), at every shape of
     XFIT_SHAPES.  The main row carries the opaque drain's lane shape
-    beside it (``lane``)."""
-    report, main, lane = [], None, None
+    beside it (``lane``), and the shared-X kernel_ridge shape (``p257``)."""
+    report, main, lane, wide = [], None, None, None
     for shape in XFIT_SHAPES:
         t, n, p = shape
         x = torch.randn((n, p), generator=gen, device=device)
@@ -707,6 +745,8 @@ def _xfit_kernel_rows(device, gen):
             main = dict(row)
         if shape == LANE_XFIT_SHAPE:
             lane = row
+        if shape == KR_XFIT_SHAPE:
+            wide = row
         del x, y, w, g, bv, g0, b0, xe, xb, g1, b1, g64
         torch.cuda.empty_cache()
     # operands that start off a 16-byte boundary (as_batched hands the
@@ -730,10 +770,12 @@ def _xfit_kernel_rows(device, gen):
             "unaligned_operands_bitwise_aligned": True,
             "max_abs_err": float((gv - g0).abs().max())}})
         del x, y, w, views, g, bv, gv, bvv, g0
-    main["lane"] = {"shape": list(LANE_XFIT_SHAPE),
-                    **{k: lane[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                            "bound_ms", "bound_by",
-                                            "library_ms", "bmm_expand_ms")}}
+    for name, shape, row in (("lane", LANE_XFIT_SHAPE, lane),
+                             ("p257", KR_XFIT_SHAPE, wide)):
+        main[name] = {"shape": list(shape),
+                      **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms", "bmm_expand_ms")}}
     return report, main
 
 
@@ -2242,6 +2284,366 @@ def phase_page_pool(device):
                     "bytes_d2d": pools[1].stats.bytes_d2d})
 
 
+# ---------------------------------------------------------------------------
+# the nonparametric learners and the bootstrap (kernel_ridge, mlp)
+# ---------------------------------------------------------------------------
+QUICKSTART_PARAMS = {"reg": 1.0, "n_landmarks": 256}
+QUICKSTART_POOL = PoolConfig(n_workers=8, memory_mb=1024)
+N_BOOT = 500
+
+
+def _quickstart_plan(**kw) -> DMLPlan:
+    # the README's quickstart as a user writes it: the paper's request
+    # (make_bonus_data, PLR, K 5, M 100, seed 42, n_rep scaling) with
+    # kernel_ridge on the wave backend
+    return DMLPlan.for_model(
+        "plr", learner="kernel_ridge",
+        learner_params=dict(QUICKSTART_PARAMS), n_folds=5, n_rep=100,
+        seed=42, scaling="n_rep", backend="wave", pool=QUICKSTART_POOL,
+        **kw)
+
+
+def _sync_sites(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result, and the synchronising calls it made, counted by the source
+    line that made them."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        path = Path(w.filename)
+        site = f"{path.relative_to(ROOT) if path.is_relative_to(ROOT) else path.name}:{w.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+    return out, sites
+
+
+def _tier_units(got, want):
+    """The largest |got - want| in units of the float tier's bound."""
+    return float((np.abs(got - want) / (1e-5 + 1e-4 * np.abs(want))).max())
+
+
+def _compare(got, want, preds_got, preds_want):
+    """How far one result is from another: predictions in float-tier
+    units and absolute, theta and se relative, and whether every bit is
+    equal."""
+    diff = np.abs(preds_got - preds_want)
+    units = diff / (1e-5 + 1e-4 * np.abs(preds_want))
+    lanes = units.reshape(-1, units.shape[-1]).max(axis=1)
+    return {"preds_tier_units": float(units.max()),
+            "preds_max_abs_diff": float(diff.max()),
+            "preds_abs_diff_quantiles": {
+                q: float(np.quantile(diff, float(q)))
+                for q in ("0.5", "0.9", "0.99", "0.999")},
+            "preds_share_in_tier": float((units <= 1.0).mean()),
+            "tasks_out_of_tier": int((lanes > 1.0).sum()),
+            "tasks": int(lanes.size),
+            "rel_theta": abs(got.theta - want.theta) / abs(want.theta),
+            "rel_se": abs(got.se - want.se) / want.se,
+            "bitwise": bool(np.array_equal(preds_got, preds_want)
+                            and got.theta == want.theta
+                            and got.se == want.se)}
+
+
+# Measured tolerances of the nonparametric learners, card against CPU
+# (PERF.md §6 and ROADMAP Queue 3; NVIDIA H100 80GB HBM3, 700 W),
+# each about twice what was measured.  kernel_ridge: Kmm of the bonus data
+# is singular but for its jitter (repeated landmark rows, condition 1.9e8),
+# so cuSOLVER's and LAPACK's eigenvectors differ in its null directions
+# (measured: predictions 0.128 apart at most, theta 5.6e-5 and se 5.0e-4
+# relative, the bootstrap interval's ends 0.014 se).  mlp: Adam turns an
+# ulp of a gradient into a step of lr, and 300 steps amplify it (PLR M 2:
+# predictions 0.033 apart, theta 0.0007 se; IRM M 2, whose propensities
+# enter the score inverted: predictions 0.239, theta 0.078 se, se 2.8%).
+# (max |prediction difference|, theta's difference in se, se relative)
+QUICKSTART_TOL = (0.25, 0.01, 2e-3)
+MLP_TOL = {"plr": (0.1, 0.05, 1e-3), "irm": (0.5, 0.25, 0.1)}
+
+
+def _within(cmp, got, want, tol, what):
+    """A ``_compare`` result within a measured tolerance (``tol`` as
+    QUICKSTART_TOL)."""
+    preds_abs, theta_se, se_rel = tol
+    off = abs(got.theta - want.theta) / want.se
+    assert cmp["preds_max_abs_diff"] <= preds_abs and off <= theta_se \
+        and cmp["rel_se"] <= se_rel, (what, off, cmp)
+
+
+def _kernel_ridge_block_vs_f64(plan, data, device):
+    """The first 32 tasks of a kernel_ridge request as one block, through
+    the batched learner on the card and on the CPU, and through the same
+    fit in float64 on the CPU on the same landmarks: how far each float32
+    route is from the float64 fit, in float-tier units."""
+    req = compile_request(plan, data)
+    params = dict(req.segments[0].params)
+    m, reg, gamma = params["n_landmarks"], params["reg"], params["gamma"]
+    tasks = np.arange(32)
+    y, w = req.wave_arrays(tasks)
+    kd = torch.from_numpy(req.task_key_data(0, tasks))
+    xs = torch.from_numpy(np.asarray(data.x, np.float32)).expand(
+        32, *data.x.shape).contiguous()
+    y, w = torch.from_numpy(y), torch.from_numpy(w)
+    valid = torch.ones_like(y)
+    fn = get_batched_learner("kernel_ridge", params)
+    card = fn(*(a.to(device) for a in (xs, y, w, valid, kd))).cpu().numpy()
+    cpu = fn(xs, y, w, valid, kd).numpy()
+
+    b, n, p = xs.shape
+    f64 = torch.float64
+    idx = kernel_ridge.landmark_idx(kd, n, m)
+    x64 = xs.to(f64)
+    lm = torch.gather(x64, 1, idx.unsqueeze(-1).expand(b, m, p))
+
+    def rbf(a, c):
+        return torch.exp(-gamma * torch.cdist(a, c) ** 2)
+
+    evals, evecs = torch.linalg.eigh(rbf(lm, lm)
+                                     + 1e-6 * torch.eye(m, dtype=f64))
+    inv_sqrt = (evecs / torch.sqrt(evals.clamp_min(1e-8)).unsqueeze(-2)) \
+        @ evecs.transpose(1, 2)
+    xa = torch.cat([rbf(x64, lm) @ inv_sqrt,
+                    torch.ones((b, n, 1), dtype=f64)], -1)
+    w64, y64 = w.to(f64), y.to(f64)
+    g = torch.einsum("bnp,bn,bnq->bpq", xa, w64, xa) \
+        + reg * torch.eye(m + 1, dtype=f64)
+    g[:, m, m] += -reg + 1e-8
+    beta = torch.linalg.solve(g, torch.einsum("bnp,bn->bp", xa, w64 * y64))
+    exact = (xa @ beta.unsqueeze(-1)).squeeze(-1).numpy()
+    return {"tasks": 32, "n_landmarks": m,
+            "kmm_condition_max": float((evals.max(-1).values
+                                        / evals.min(-1).values).max()),
+            "card_tier_units_vs_f64": _tier_units(card, exact),
+            "cpu_tier_units_vs_f64": _tier_units(cpu, exact),
+            "card_vs_cpu_tier_units": _tier_units(card, cpu),
+            "card_max_abs_vs_f64": float(np.abs(card - exact).max()),
+            "cpu_max_abs_vs_f64": float(np.abs(cpu - exact).max())}
+
+
+def phase_estimate_quickstart(device):
+    """The README's quickstart on the card: kernel_ridge with 256
+    landmarks, whose ridge solve runs the Gram and predict kernels at
+    (B, 5104, 257), on the wave backend.  Cold through ``estimate`` (launch
+    counts set to 0 just before, read just after), then warm in turns with
+    the inline backend (bit for bit), then with the multiplier
+    bootstrap; each held against the CPU path to QUICKSTART_TOL, and one
+    block against a float64 fit.  Also the shared-X form (one
+    crossfit_gram launch at P 257) against the CPU."""
+    data = DMLData.from_dict(make_bonus_data())
+    plan = _quickstart_plan()
+    linear.reset_solve_status()
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _launch_shapes() as seen:
+        res_cold = estimate(plan, data)
+        torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = dict(runtime.launch_counts)
+    _checked(res_cold, None, device, TRUE_EFFECT, "estimate_quickstart")
+    _launches_compared(seen, "estimate_quickstart")
+    assert seen["batched_gram"] == set(QUICKSTART_SHAPES), seen
+    sizes = res_cold.report.wave_sizes
+    planned = _planned_launches(compile_request(plan, data), sizes,
+                                QUICKSTART_POOL)
+    assert _counts(launches, planned["kernel_calls"]), (launches, planned)
+    assert planned["kernel_calls"] == 32, planned
+
+    sessions = {"wave": DMLSession(pool=QUICKSTART_POOL, device=device),
+                "inline": DMLSession(backend="inline", device=device)}
+    for sess in sessions.values():                   # warm-up drains
+        sess.estimate(plan, data)
+    out = {name: {"warm_s": []} for name in sessions}
+    syncs = None
+    for turn in range(1):                            # in turns
+        for name, sess in sessions.items():
+            linear.reset_solve_status()
+            runtime.reset_launch_counts()
+            if name == "wave" and turn == 0:
+                (res, wall), syncs = _sync_sites(
+                    lambda: _timed_estimate(sess, plan, data))
+            else:
+                res, wall = _timed_estimate(sess, plan, data)
+            rid = sess.completion_order[-1]
+            _checked(res, sess.request(rid), device, TRUE_EFFECT,
+                     f"estimate_quickstart ({name}, warm)")
+            out[name]["warm_s"].append(wall)
+            out[name].update(res=res,
+                             preds=sess.request(rid).gathered_preds(),
+                             launches=dict(runtime.launch_counts))
+    w, i = out["wave"], out["inline"]
+    assert w["launches"] == launches, w["launches"]
+    wave_inline = _compare(w["res"], i["res"], w["preds"], i["preds"])
+    cold_bits = _same_bits(res_cold, w["res"], w["preds"], w["preds"])
+
+    # the bootstrap on the card, then the whole request on the CPU
+    boot_plan = _quickstart_plan(n_boot=N_BOOT)
+    sess = sessions["wave"]
+    res_boot, boot_s = _timed_estimate(sess, boot_plan, data)
+    assert res_boot.boot_ci is not None
+    t0 = time.perf_counter()
+    cpu = DMLSession(pool=QUICKSTART_POOL, device="cpu")
+    res_cpu = cpu.estimate(boot_plan, data)
+    cpu_s = time.perf_counter() - t0
+    preds_cpu = cpu.request(cpu.completion_order[-1]).gathered_preds()
+    vs_cpu = _compare(w["res"], res_cpu, w["preds"], preds_cpu)
+    # the interval's ends, in the CPU's se
+    boot_off = [abs(a - b) / res_cpu.se for a, b in zip(res_boot.boot_ci,
+                                                         res_cpu.boot_ci)]
+
+    # the shared-X form: one landmark set for 10 tasks of the bonus data
+    rng = np.random.default_rng(0)
+    x = np.asarray(data.x, np.float32)
+    ys = np.repeat(np.asarray(data.y, np.float32)[None], 10, axis=0)
+    ws = (rng.random(ys.shape) < 0.8).astype(np.float32)
+    fn = get_learner("kernel_ridge", QUICKSTART_PARAMS)
+    key = threefry.key(42)
+    runtime.reset_launch_counts()
+    with _launch_shapes() as seen_x:
+        got = fn(*(torch.from_numpy(a).to(device) for a in (x, ys, ws)),
+                 key.to(device))
+        torch.cuda.synchronize()
+    shared_launches = dict(runtime.launch_counts)
+    _launches_compared(seen_x, "estimate_quickstart (shared-X)")
+    assert seen_x["crossfit_gram"] == {KR_XFIT_SHAPE}, seen_x
+    assert shared_launches["crossfit_gram"] == 1, shared_launches
+    want = fn(*(torch.from_numpy(a) for a in (x, ys, ws)), key)
+    shared_tier = _tier_units(got.cpu().numpy(), want.numpy())
+    shared_abs = float((got.cpu() - want).abs().max())
+
+    # one block of the request (its first 32 tasks) on the card, on the
+    # CPU and in float64 on the CPU, on the same landmarks
+    f64 = _kernel_ridge_block_vs_f64(plan, data, device)
+
+    # eigh alone, at the path's (32, 256, 256): does it synchronise?
+    kmm = torch.randn((32, 256, 256), device=device)
+    kmm = kmm @ kmm.transpose(1, 2) + 256 * torch.eye(256, device=device)
+    _, eigh_syncs = _sync_sites(lambda: torch.linalg.eigh(kmm))
+    eigh_ms = _time_ms(lambda: torch.linalg.eigh(kmm), cold=False, runs=5,
+                       warmup=1)
+    emit("estimate_quickstart", n_obs=data.n_obs, dim_x=data.dim_x,
+         n_folds=5, n_rep=100, learner="kernel_ridge",
+         learner_params=QUICKSTART_PARAMS, backend=plan.backend,
+         pool={"n_workers": QUICKSTART_POOL.n_workers,
+               "memory_mb": QUICKSTART_POOL.memory_mb},
+         theta=w["res"].theta, se=w["res"].se, planted=TRUE_EFFECT,
+         theta_cpu=res_cpu.theta, se_cpu=res_cpu.se,
+         boot_ci=res_boot.boot_ci, boot_ci_cpu=res_cpu.boot_ci,
+         boot_ci_off_in_se=boot_off, n_boot=N_BOOT, vs_cpu=vs_cpu,
+         vs_inline=wave_inline, cold_equals_warm=cold_bits,
+         boot_run_same_theta=res_boot.theta == w["res"].theta,
+         wave_sizes=sizes, launches=launches, planned=planned,
+         launch_shapes=sorted(seen["batched_gram"]),
+         cold_s=cold_s, warm_s={k: v["warm_s"] for k, v in out.items()},
+         boot_s=boot_s, cpu_s=cpu_s, sync_sites_warm_wave=syncs,
+         eigh={"shape": [32, 256, 256], "ms": eigh_ms,
+               "sync_sites": eigh_syncs},
+         shared_x={"shape": list(KR_XFIT_SHAPE), "launches": shared_launches,
+                   "tier_units_vs_cpu": shared_tier,
+                   "max_abs_diff_vs_cpu": shared_abs},
+         block_vs_float64=f64,
+         tolerance="wave vs inline: bit for bit; card vs CPU (measured, "
+                   "Kmm nearly singular): predictions within 0.25, theta "
+                   "within 0.01 se, se 2e-3 relative, the bootstrap "
+                   "interval's ends within 0.05 se, the shared-X form's "
+                   "predictions within 0.25; one block on the card no "
+                   "farther from a float64 fit than twice the CPU's "
+                   "distance plus one float-tier unit")
+    assert wave_inline["bitwise"], wave_inline
+    _within(vs_cpu, w["res"], res_cpu, QUICKSTART_TOL,
+            "estimate_quickstart: card vs CPU")
+    assert max(boot_off) <= 0.05, (res_boot.boot_ci, res_cpu.boot_ci)
+    assert res_boot.theta == w["res"].theta
+    assert shared_abs <= QUICKSTART_TOL[0], ("shared-X vs CPU", shared_abs)
+    assert f64["card_tier_units_vs_f64"] \
+        <= 2 * f64["cpu_tier_units_vs_f64"] + 1.0, f64
+    return {"batched_gram": launches["batched_gram"],
+            "batched_predict": launches["batched_predict"],
+            "crossfit_gram": shared_launches["crossfit_gram"]}
+
+
+def _mlp_run(plan, data, dev, truth, what):
+    """One mlp request on a fresh default session: the result, its (M, K,
+    L, N) predictions, the wall time and the launch counts."""
+    sess = DMLSession(device=dev)
+    runtime.reset_launch_counts()
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sess.estimate(plan, data)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    req = sess.request(sess.completion_order[-1])
+    _checked(res, req, dev, truth, what)
+    return res, req.gathered_preds(), wall, dict(runtime.launch_counts)
+
+
+def phase_estimate_mlp(device):
+    """The mlp learner at full width with its defaults (hidden (64, 64),
+    300 Adam steps, lr 3e-3) on the API's default backend: PLR on the bonus
+    data at K 5, M 10 (100 fits), and the IRM plan on make_irm_data(5000,
+    20) at M 2, whose propensity is mlp's sigmoid (``classify=True``).
+    Each is held against the CPU path to MLP_TOL: IRM whole, PLR at M 2
+    (the CPU takes about 17 s a repetition's 10 fits), and the card's M 10
+    predictions of repetitions 0 and 1 are bit for bit its M 2 ones (the
+    same fold masks and task keys: M 2 is a prefix of M 10).  mlp runs no
+    hand-written kernel: the launch counts stay 0."""
+    bonus = DMLData.from_dict(make_bonus_data())
+    irm = DMLData.from_dict(make_irm_data(n_obs=5000, dim_x=20))
+    plans = {m: DMLPlan.for_model("plr", learner="mlp", n_folds=5, n_rep=m)
+             for m in (10, 2)}
+    irm_plan = DMLPlan.for_model("irm", learner="mlp", n_folds=5, n_rep=2)
+    assert [(ns.learner, dict(ns.param_dict))
+            for ns in irm_plan.nuisances][2] == ("mlp", {"classify": True})
+    card = {"plr_m10": _mlp_run(plans[10], bonus, device, TRUE_EFFECT,
+                                "estimate_mlp/plr M 10"),
+            "plr": _mlp_run(plans[2], bonus, device, TRUE_EFFECT,
+                            "estimate_mlp/plr M 2"),
+            "irm": _mlp_run(irm_plan, irm, device, irm.theta0,
+                            "estimate_mlp/irm")}
+    for name, (_, _, _, launches) in card.items():
+        assert not any(launches.values()), (name, launches)
+    cpu = {"plr": _mlp_run(plans[2], bonus, "cpu", TRUE_EFFECT,
+                           "estimate_mlp/plr M 2 (CPU)"),
+           "irm": _mlp_run(irm_plan, irm, "cpu", irm.theta0,
+                           "estimate_mlp/irm (CPU)")}
+    runs = {}
+    for name in ("plr", "irm"):
+        (rg, pg, wg, _), (rc, pc, wc, _) = card[name], cpu[name]
+        runs[name] = {"n_rep": 2, "theta": rg.theta, "se": rg.se,
+                      "theta_cpu": rc.theta, "se_cpu": rc.se,
+                      "vs_cpu": _compare(rg, rc, pg, pc),
+                      "wall_s": wg, "wall_cpu_s": wc}
+    r10, p10, w10, _ = card["plr_m10"]
+    p_cpu = cpu["plr"][1]
+    reps01 = {"preds_tier_units": _tier_units(p10[:2], p_cpu),
+              "preds_max_abs_diff": float(np.abs(p10[:2] - p_cpu).max())}
+    runs["plr_m10"] = {"n_rep": 10, "tasks": 100, "theta": r10.theta,
+                       "se": r10.se, "planted": TRUE_EFFECT, "wall_s": w10,
+                       "reps_0_1_vs_cpu": reps01,
+                       "reps_0_1_bitwise_card_m2":
+                           bool(np.array_equal(p10[:2], card["plr"][1]))}
+    runs["irm"]["theta0"] = irm.theta0
+    emit("estimate_mlp", hidden=[64, 64], n_steps=300, lr=3e-3, n_folds=5,
+         reduced="M 10 (PLR) and 2 (IRM), from the paper's 100", runs=runs,
+         tolerance="card vs CPU (measured: Adam amplifies an ulp over 300 "
+                   "steps): PLR predictions within 0.1, theta within 0.05 "
+                   "se, se 1e-3 relative; IRM predictions within 0.5, "
+                   "theta within 0.25 se, se 0.1 relative; the M 10 run's "
+                   "repetitions 0 and 1 bit for bit the card's M 2 run")
+    for name in ("plr", "irm"):
+        _within(runs[name]["vs_cpu"], card[name][0], cpu[name][0],
+                MLP_TOL[name], f"estimate_mlp/{name}: card vs CPU")
+    assert runs["plr_m10"]["reps_0_1_bitwise_card_m2"], runs["plr_m10"]
+
 LM_SEED = 20241115
 
 
@@ -2544,6 +2946,11 @@ def main(argv=None) -> int:
         phase_fusion(device)
     if "page_pool" in phases:
         phase_page_pool(device)
+    quickstart = None
+    if "estimate_quickstart" in phases:
+        quickstart = phase_estimate_quickstart(device)
+    if "estimate_mlp" in phases:
+        phase_estimate_mlp(device)
     if "serve_zamba2" in phases:
         served = phase_serve_zamba2(device)
         if launches is not None:
@@ -2572,7 +2979,10 @@ def main(argv=None) -> int:
                  "cuda_launches_per_call", "scratch_bytes")},
              "batched_predict": {},
              "crossfit_gram": {"lane": {**rows["crossfit_gram"]["lane"],
-                                        "launches": raw_lanes}},
+                                        "launches": raw_lanes},
+                               "p257": {**rows["crossfit_gram"]["p257"],
+                                        "launches_estimate_quickstart":
+                                            quickstart["crossfit_gram"]}},
              "flash_attention": {"f32": {**rows["flash_attention"]["f32"],
                                          "launches": f32_launches}},
              "ssd_scan": {k: rows["ssd_scan"][k] for k in (
@@ -2580,14 +2990,20 @@ def main(argv=None) -> int:
                  "scratch_bytes")}}
     # K1's and K2's launches on the per-block pool (estimate_paper), on
     # the wave path (estimate_wave, cold) on both pools, and their rows at
-    # the fused paper shape (1024 lanes: the 32 blocks of one launch)
+    # the fused paper shape (1024 lanes: the 32 blocks of one launch); on
+    # the quickstart (kernel_ridge, cold) and their rows at P 257 and 129
     for name in ("batched_gram", "batched_predict"):
         extra[name].update(
             launches_per_block=per_block[name],
             launches_estimate_wave=wave_launches[0][name],
             launches_estimate_wave_per_block=wave_launches[1][name],
             fused={"shape": list(FUSED_PAPER_SHAPE),
-                   **{k: rows["fused"][name][k] for k in keys}})
+                   **{k: rows["fused"][name][k] for k in keys}},
+            launches_estimate_quickstart=quickstart[name],
+            **{f"p{shape[2]}": {"shape": list(shape),
+                                **{k: rows[f"p{shape[2]}"][name][k]
+                                   for k in keys}}
+               for shape in (QUICKSTART_SHAPES[0], KR128_SHAPE)})
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          **{k: rows[name][k] for k in keys}, **extra.get(name, {})}

@@ -3,7 +3,8 @@
 spends its time on the card.
 
     python3 scripts/profile_torch_estimate.py
-        [--config paper|tall|irm|zamba2] [--n-rep M] [--src DIR] [--out DIR]
+        [--config paper|tall|irm|quickstart|mlp|zamba2] [--n-rep M]
+        [--src DIR] [--out DIR]
 
 Drives one of the port's paths through ``estimate`` — ``paper``: the
 paper's configuration (PLR on the bonus data, K = 5, ridge, M 100) on the
@@ -11,8 +12,19 @@ inline backend; ``tall``: PLR on ``make_plr_data`` with 250 000 rows and
 20 covariates (K = 5, ridge, M 10) on the sharded backend, whose bucket
 streams through the blocked Gram kernel; ``irm``: the default IRM plan
 (ridge, logistic propensity) on ``make_irm_data`` with 5000 rows and 20
-covariates (K = 5, M 10) on the inline backend — once to warm the process
-up, then again under ``torch.profiler`` (CPU and CUDA activities).  Prints
+covariates (K = 5, M 10) on the inline backend; ``quickstart``: the
+README's plan (PLR on the bonus data, kernel_ridge with reg 1.0 and 256
+landmarks, K = 5, M 100, seed 42, ``scaling="n_rep"``, the wave backend
+with ``PoolConfig(n_workers=8, memory_mb=1024)``); ``mlp``: PLR on the
+bonus data with the mlp learner's defaults (hidden (64, 64), 300 Adam
+steps, lr 3e-3), K = 5, M 10, on the default (wave) backend — once to warm
+the process up, then again under ``torch.profiler`` (CPU and CUDA
+activities).  For ``quickstart`` and ``mlp`` the trace also records
+shapes, and ``by_op`` gives the device time of each PyTorch operator by
+its input shapes (the RBF products, ``eigh``, ``knm @ inv_sqrt``, the
+Cholesky solve; mlp's products, GELU and its gradient, Adam's foreach
+passes), beside the hand-written kernels' rows, and ``host_syncs`` the
+runtime's synchronising calls.  Prints
 one JSON object: the request's wall time on the host's clock (device
 drained), the device's busy time summed over kernels and copies, its
 idle share, the device time of its host-to-device copies, the device
@@ -67,10 +79,12 @@ from repro_torch.data import (                             # noqa: E402
     make_bonus_data, make_irm_data, make_plr_data,
 )
 from repro_torch.learners import get_batched_learner       # noqa: E402
-from repro_torch.serverless import make_backend            # noqa: E402
+from repro_torch.serverless import PoolConfig, make_backend  # noqa: E402
 
 assert Path(runtime.__file__).resolve().is_relative_to(TREE)
 
+# rows of the profiler's own work (CUPTI's buffers), not of the program
+PROFILER_ROWS = ("Buffer Flush", "Activity Buffer Request")
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "gemv", "nvjet")
 # the CUDA kernels of each LM kernel wrapper (csrc/lm.cu): K5 in bf16 and
 # float32, K6's four launches.  flash_attention_kernel and ssd_scan_kernel
@@ -94,11 +108,29 @@ def _device_rows(prof):
         # copies they launch, and the runtime's API rows ("cudaLaunchKernel",
         # one a launch) carry a little device time too: keep the device-side
         # rows only
-        if dev_us > 0 and not ev.key.startswith(("aten::", "cuda")):
+        if dev_us > 0 and not ev.key.startswith(("aten::", "cuda")) \
+                and ev.key not in PROFILER_ROWS:
             rows.append({"name": ev.key[:80], "calls": ev.count,
                          "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     return rows
+
+
+def _op_rows(prof, top: int = 30):
+    """Device time of each PyTorch operator by its input shapes: the
+    kernels an operator launches itself (not those of the operators it
+    calls), so the rows add up to the traced device time less the
+    hand-written kernels' (launched through ctypes, outside any
+    operator)."""
+    rows = []
+    for ev in prof.key_averages(group_by_input_shape=True):
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0 and ev.key.startswith("aten::"):
+            rows.append({"op": ev.key, "shapes": str(ev.input_shapes)[:120],
+                         "calls": ev.count, "device_ms": dev_us / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows[:top]
 
 
 def _irls_block(data):
@@ -205,10 +237,12 @@ def _zamba2(smi, out_dir):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", choices=("paper", "tall", "irm", "zamba2"),
+    ap.add_argument("--config", choices=("paper", "tall", "irm",
+                                         "quickstart", "mlp", "zamba2"),
                     default="paper")
     ap.add_argument("--n-rep", type=int, default=None,
-                    help="repetitions M (default: 100 paper, 10 tall, irm)")
+                    help="repetitions M (default: 100 paper, quickstart; "
+                         "10 tall, irm, mlp)")
     ap.add_argument("--src", default=str(ROOT),
                     help="root of the source tree whose repro_torch to run")
     ap.add_argument("--out", default=None)
@@ -223,20 +257,30 @@ def main(argv=None) -> int:
     if args.config == "zamba2":
         print(json.dumps(_zamba2(smi, args.out), indent=1))
         return 0
-    model = "plr"
+    model, learner, params, kw = "plr", "ridge", {"reg": 1.0}, {}
     if args.config == "paper":
         data = DMLData.from_dict(make_bonus_data())
         n_rep, name = args.n_rep or 100, "inline"
     elif args.config == "tall":
         data = DMLData.from_dict(make_plr_data(n_obs=250_000, dim_x=20))
         n_rep, name = args.n_rep or 10, "sharded"
-    else:
+    elif args.config == "irm":
         data = DMLData.from_dict(make_irm_data(n_obs=5000, dim_x=20))
         n_rep, name, model = args.n_rep or 10, "inline", "irm"
-    plan = DMLPlan.for_model(model, learner="ridge",
-                             learner_params={"reg": 1.0}, n_folds=5,
-                             n_rep=n_rep, backend=name)
-    backend = make_backend(name)
+    elif args.config == "quickstart":
+        data = DMLData.from_dict(make_bonus_data())
+        n_rep, name = args.n_rep or 100, "wave"
+        learner, params = "kernel_ridge", {"reg": 1.0, "n_landmarks": 256}
+        kw = dict(seed=42, scaling="n_rep",
+                  pool=PoolConfig(n_workers=8, memory_mb=1024))
+    else:
+        data = DMLData.from_dict(make_bonus_data())
+        n_rep, name, learner, params = args.n_rep or 10, "wave", "mlp", {}
+        kw = dict(seed=42, scaling="n_rep")
+    plan = DMLPlan.for_model(model, learner=learner, learner_params=params,
+                             n_folds=5, n_rep=n_rep, backend=name, **kw)
+    backend = make_backend(name, kw.get("pool"))
+    by_shape = args.config in ("quickstart", "mlp")
 
     def request():
         t0 = time.perf_counter()
@@ -251,8 +295,8 @@ def main(argv=None) -> int:
     pages = getattr(backend, "pages", None)
     pages0 = pages.stats.snapshot() if pages is not None else None
     runtime.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=by_shape) as prof:
         res, traced = request()
     rows = _device_rows(prof)
     busy_ms = sum(r["device_ms"] for r in rows)
@@ -281,6 +325,11 @@ def main(argv=None) -> int:
                    note="the profiler recorded no device time")
     if args.config == "irm":
         out["irls_block"] = _irls_block(data)
+    if by_shape and rows:
+        out["by_op"] = _op_rows(prof)
+        out["host_syncs"] = {
+            ev.key: ev.count for ev in prof.key_averages()
+            if "Synchronize" in ev.key or "cudaMemcpy" == ev.key}
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(

@@ -144,15 +144,21 @@ B_BLOCK = 32
 # bucket fuses as one call of the batched function per block inside the
 # one program.  lasso's FISTA products and logistic's IRLS ``torch.bmm``
 # change a lane's last bits at another batch count on the card, and
-# logistic's on the CPU too (scripts/probe_batch_bits.py measures each
-# family).
+# logistic's on the CPU too; so does mlp's training on the card (Adam
+# turns an ulp of a gradient into a step of lr), by up to 0.5 of a
+# prediction after 300 steps (scripts/probe_batch_bits.py measures each
+# family).  kernel_ridge keeps its bits in one call of 256 lanes on both,
+# but stays per block: its features are m + 1 columns wide, up to 8 times
+# the gathered page that FUSED_GATHER_BYTES budgets, so a call of
+# concatenated blocks could pass the kernels' 2^31 elements.
 FUSED_CONCAT_FAMILIES = frozenset({"ols", "ridge"})
 
 # Families whose lanes may launch at another B than their block's
 # canonical one (8, 16 or 24 lanes up to 32, at another lane offset) with
 # the same bits, on the CPU and on the card: the coalescing scheduler
-# packs and morphs their tail blocks.
-MORPH_BITWISE_FAMILIES = frozenset({"ols", "ridge", "lasso"})
+# packs and morphs their tail blocks.  mlp is in no set: a lane of a call
+# of 8 differs from the same lane in a call of 32 on the card.
+MORPH_BITWISE_FAMILIES = frozenset({"ols", "ridge", "lasso", "kernel_ridge"})
 
 # Opt-in tolerance tier: families whose morphed launches are only
 # float-tolerance-equal to canonical ones; they morph only under

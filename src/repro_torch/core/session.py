@@ -39,7 +39,9 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import threefry
 from repro_torch.core.aggregation import aggregate_thetas, confint
+from repro_torch.core.bootstrap import boot_confint, multiplier_bootstrap
 from repro_torch.core.crossfit import (
     TaskGrid, check_partition, draw_fold_masks, stitch_predictions,
     subset_mask,
@@ -155,9 +157,10 @@ def compile_raw_request(grid: TaskGrid, scaling: str, x, targets, train_w,
     callable over explicit grid arrays) onto the same execution path as
     plan-built requests: one opaque-callable segment, run at exact shapes
     by the megabatch compiler through ``as_batched``.  ``key`` is the
-    segment's integer seed (the reference takes a JAX key here).  Pure
-    numpy, like ``compile_request``: the backend that drains the request
-    picks the device."""
+    segment's integer seed: task t draws fold_in(key(seed), t), the
+    stream of the reference's ``jax.random.key(seed)``.  Pure numpy, like
+    ``compile_request``: the backend that drains the request picks the
+    device."""
     seg = Segment(learner_fn=learner_fn,
                   l_ids=tuple(range(grid.n_nuisance)), key=int(key))
     return WorkRequest.create(grid, scaling, x, targets, train_w, [seg],
@@ -168,11 +171,7 @@ def assemble_result(plan: DMLPlan, data: DMLData, req: WorkRequest,
                     request_id: Optional[int] = None,
                     device: DeviceLike = "cuda") -> DMLResult:
     """Stitch fold predictions, evaluate the score on ``device``, run
-    local inference."""
-    if plan.inference.n_boot:
-        raise NotImplementedError(
-            "the multiplier bootstrap (inference.n_boot > 0) is not "
-            "ported yet")
+    local inference (the multiplier bootstrap's draws on ``device`` too)."""
     device = resolve_device(device)
     data = DMLData.from_dict(data)
     preds = req.gathered_preds()                 # (M, K, L, N)
@@ -189,9 +188,18 @@ def assemble_result(plan: DMLPlan, data: DMLData, req: WorkRequest,
     theta, se = aggregate_thetas(thetas, ses, plan.inference.aggregation)
     ci = confint(theta, se, plan.inference.level)
 
+    boot_ci = None
+    if plan.inference.n_boot:
+        bt, se1 = multiplier_bootstrap(
+            psi_a[0], psi_b[0], float(thetas[0]),
+            threefry.key(plan.resampling.seed + 99, device=device),
+            n_boot=plan.inference.n_boot)
+        boot_ci = boot_confint(float(thetas[0]), se1, bt)
+
     res = DMLResult(theta=theta, se=se, ci=ci,
                     thetas=thetas.cpu().numpy(), ses=ses.cpu().numpy(),
-                    report=req.report, request_id=request_id)
+                    report=req.report, boot_ci=boot_ci,
+                    request_id=request_id)
     res.psi = (psi_a.cpu().numpy(), psi_b.cpu().numpy())
     return res
 

@@ -9,16 +9,19 @@ Every family registers two pure functions on tensors:
   megabatch form  fn(xs (B,N,P), y (B,N), w (B,N), valid (B,N), keys (B,2))
                   -> preds (B,N) — per-task feature pages with padding
                   masks, executed by the bucketed programs the compiler
-                  (repro_torch/compile) builds.  ``keys`` is the per-task
-                  key table (segment seed, flat task id).
+                  (repro_torch/compile) builds.  ``keys`` holds one
+                  PRNG key per task, the uint32 words of
+                  fold_in(key(segment seed), flat task id) in int64
+                  (repro_torch/threefry.py: JAX's Threefry stream).
 
-The families ported so far (ols, ridge, lasso, logistic) ignore ``key`` and
-``keys``.  ``get_learner`` / ``get_batched_learner`` bind hyperparameters;
+The linear families (ols, ridge, lasso, logistic) ignore ``key`` and
+``keys``; kernel_ridge draws its landmarks and mlp its initial weights from
+them.  ``get_learner`` / ``get_batched_learner`` bind hyperparameters;
 ``as_batched`` adapts an opaque shared-X callable to the megabatch form.
 ``resolve_params`` binds data-dependent defaults at *compile* time so
-padded execution is padding-invariant.  The linear regression families
-accept ``classify=True`` via params (a linear probability model for
-IRM/IIVM propensities).
+padded execution is padding-invariant.  mlp accepts ``classify=True`` via
+params (a sigmoid output for IRM/IIVM propensities); the linear regression
+families accept and drop it (a linear probability model).
 """
 from __future__ import annotations
 
@@ -27,12 +30,16 @@ from typing import Callable, Dict, Mapping
 
 import torch
 
+from repro_torch.learners.kernel_ridge import (
+    kernel_ridge_batched_fit_predict, kernel_ridge_fit_predict,
+)
 from repro_torch.learners.linear import (
     lasso_batched_fit_predict, lasso_fit_predict,
     logistic_batched_fit_predict, logistic_fit_predict,
     ols_batched_fit_predict, ols_fit_predict, on_one_device,
     ridge_batched_fit_predict, ridge_fit_predict,
 )
+from repro_torch.learners.mlp import mlp_batched_fit_predict, mlp_fit_predict
 
 LearnerFn = Callable
 
@@ -41,6 +48,8 @@ LEARNERS: Dict[str, Callable] = {
     "ridge": ridge_fit_predict,
     "lasso": lasso_fit_predict,
     "logistic": logistic_fit_predict,
+    "kernel_ridge": kernel_ridge_fit_predict,
+    "mlp": mlp_fit_predict,
 }
 
 BATCHED_LEARNERS: Dict[str, Callable] = {
@@ -48,11 +57,14 @@ BATCHED_LEARNERS: Dict[str, Callable] = {
     "ridge": ridge_batched_fit_predict,
     "lasso": lasso_batched_fit_predict,
     "logistic": logistic_batched_fit_predict,
+    "kernel_ridge": kernel_ridge_batched_fit_predict,
+    "mlp": mlp_batched_fit_predict,
 }
 
 # Families whose megabatch form is invariant to zero-padded feature lanes
-# (linear algebra sees inert columns).  The names of families that are not
-# registered yet stay listed so bucket keys agree with the reference's.
+# (linear algebra sees inert columns; kernel_ridge's rbf distances ignore
+# zero columns once gamma is resolved).  mlp is excluded: its init scale
+# is sqrt(2/P), so the bucket planner keeps mlp buckets at the exact P.
 FEATURE_PAD_SAFE = frozenset(
     {"ols", "ridge", "lasso", "logistic", "kernel_ridge"})
 

@@ -52,9 +52,11 @@ through a ``DMLSession`` never rebuilds a program, and (unless
 ``PoolConfig.page_pool_bytes`` is 0) a device-resident ``PagePool`` so
 steady-state serving re-uploads no feature page.
 
-Determinism contract: a task's key — (segment seed, flat task id) — is
-fixed at *compile* time, so predictions are independent of backend,
-bucket composition, schedule, admission order and fault pattern.
+Determinism contract: every task draws its PRNG stream as
+fold_in(key(segment seed), flat task id) at *compile* time (the words of
+JAX's Threefry keys, ``repro_torch/threefry.py``), so predictions are
+independent of backend, bucket composition, schedule, admission order and
+fault pattern.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ from typing import (
 import numpy as np
 import torch
 
+from repro_torch import threefry
 from repro_torch.analysis.registry import warm_cache
 from repro_torch.runtime import DeviceLike, bounded_put, resolve_device
 from repro_torch.serverless.autoscale import (
@@ -99,8 +102,32 @@ def _compile():
     return compile_mod
 
 
+# Content-keyed cache of computed key tables: steady serving re-compiles
+# the same (plan, data) into fresh WorkRequests every drain, and the
+# fold_in table is a pure function of (segment seed, n_tasks).  Bounded
+# FIFO: serving mixes cycle a small set of segment seeds.  Entries are
+# shared between requests: nothing may write to them.
+_KEY_TABLE_CACHE: Dict[Tuple, np.ndarray] = {}
+_KEY_TABLE_CACHE_MAX = 512
 # structural cache of WorkRequest index maps (see _index_maps)
 _INDEX_MAP_CACHE: Dict[Tuple, Tuple] = {}
+
+
+@warm_cache(name="fold_in_key_tables",
+            key=("base_key", "n_tasks", "key_ref"))
+def _segment_key_table(base_key: int, n_tasks: int,
+                       key_ref: Optional[Tuple] = None) -> np.ndarray:
+    """(n_tasks, 2) int64: the words of fold_in(key(base_key), t) for
+    every flat task id t, computed on the CPU."""
+    ck = (("ref", key_ref) if key_ref is not None
+          else ("seed", int(base_key))) + (int(n_tasks),)
+    table = _KEY_TABLE_CACHE.get(ck)
+    if table is None:
+        table = threefry.fold_in(threefry.key(base_key),
+                                 torch.arange(int(n_tasks))).numpy()
+        table.flags.writeable = False
+        bounded_put(_KEY_TABLE_CACHE, ck, table, _KEY_TABLE_CACHE_MAX)
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -209,9 +236,11 @@ class Segment:
     equal specs share warm programs; when absent, buckets fall back to
     object identity.
 
-    ``key`` is the segment's integer seed: task t's key is the pair
-    (key, t), fixed at compile time so no schedule can perturb the
-    estimate.  ``key_ref`` is a hashable identity of ``key``.
+    ``key`` is the segment's integer seed: task t draws
+    fold_in(key(seed), t) (``repro_torch/threefry.py``), fixed at compile
+    time so no schedule can perturb the estimate.  ``key_ref`` is a
+    hashable identity of ``key``: when present, the key-table cache is
+    keyed by it.
     """
     l_ids: Tuple[int, ...] = ()
     key: int = 0
@@ -331,16 +360,23 @@ class WorkRequest:
         return self._index_maps()[0][int(inv)]
 
     def task_key_data(self, seg_idx: int, flat_tasks: np.ndarray) -> np.ndarray:
-        """Per-task key data: an int64 (B, 2) table of (segment seed,
-        flat task id).
+        """Per-task PRNG key data: the (B, 2) uint32 words (in int64) of
+        fold_in(key(segment seed), flat task id).
 
-        Fixed at compile time, so a task's key is identical however
-        buckets, launches or retries slice the grid.  The linear
-        families pass it through unused.
+        Fixed at compile time and cached per segment, so a task's stream
+        is identical however buckets, waves, retries or shards slice the
+        grid — the determinism contract for key-consuming learners.  The
+        linear families pass it through unused.
         """
-        tasks = np.asarray(flat_tasks, np.int64)
-        seed = np.full_like(tasks, self.segments[seg_idx].key)
-        return np.stack([seed, tasks], axis=1)
+        if not hasattr(self, "_key_tables"):
+            self._key_tables: Dict[int, np.ndarray] = {}
+        table = self._key_tables.get(seg_idx)
+        if table is None:
+            seg = self.segments[seg_idx]
+            table = _segment_key_table(seg.key, self.grid.n_tasks,
+                                       key_ref=seg.key_ref)
+            self._key_tables[seg_idx] = table
+        return table[np.asarray(flat_tasks, np.int64)]
 
     def wave_arrays(self, flat_tasks: np.ndarray):
         """Gather (targets, weights) rows for flat task ids."""

@@ -178,10 +178,10 @@ def test_compiled_request_exact(model, make, learner, params, scaling):
     tasks = np.arange(rt.grid.n_tasks)
     for a, b in zip(rt.wave_arrays(tasks), rj.wave_arrays(tasks)):
         assert np.array_equal(a, b)
-    kd = rt.task_key_data(0, tasks[:9])
-    assert kd.dtype == np.int64 and kd.shape == (9, 2)
-    assert (kd[:, 0] == rt.segments[0].key).all()
-    assert np.array_equal(kd[:, 1], tasks[:9])
+    for si in range(len(rt.segments)):
+        kd = rt.task_key_data(si, tasks)
+        assert kd.dtype == np.int64 and kd.shape == (len(tasks), 2)
+        assert np.array_equal(kd, rj.task_key_data(si, tasks).astype(np.int64))
 
 
 @pytest.mark.parametrize("model,make,learner,params,scaling", CASES)

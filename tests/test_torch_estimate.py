@@ -18,7 +18,7 @@ from repro.serverless import TaskLedger as JaxLedger
 
 import repro_torch
 import repro_torch.core as tcore
-from repro_torch import compat, runtime
+from repro_torch import compat, runtime, threefry
 from repro_torch.core.session import assemble_result, compile_request
 from repro_torch.serverless import (
     BACKEND_NAMES, InlineBackend, PoolConfig, TaskLedger, make_backend,
@@ -305,21 +305,64 @@ def test_unported_pool_settings_raise(field, value):
         assert got.report.failures > 0
 
 
-def test_bootstrap_raises():
+# (id, model, dgp, learner, params): the nonparametric families end to
+# end, with the multiplier bootstrap; IRM puts logistic (kernel_ridge) or
+# mlp with classify=True (mlp) on the propensity, and trains ml_g0/ml_g1
+# on subsets
+NONLINEAR = [
+    ("plr-kernel_ridge", "plr", make_plr_data, "kernel_ridge",
+     {"reg": 1.0, "n_landmarks": 32}),
+    ("irm-kernel_ridge", "irm", make_irm_data, "kernel_ridge",
+     {"reg": 1.0, "n_landmarks": 24}),
+    ("plr-mlp", "plr", make_plr_data, "mlp", {"hidden": (8,),
+                                               "n_steps": 60}),
+    ("irm-mlp", "irm", make_irm_data, "mlp", {"hidden": (8, 8),
+                                               "n_steps": 40}),
+]
+
+
+@pytest.mark.parametrize("case", NONLINEAR, ids=[c[0] for c in NONLINEAR])
+def test_nonlinear_learners_and_bootstrap_match_reference(case):
+    """kernel_ridge and mlp plans with ``n_boot > 0``: predictions at the
+    float tier, theta, se and the bootstrap interval within 1e-4
+    relative of ``repro.estimate``."""
+    _, model, make, learner, params = case
+    raw = make(n_obs=160, dim_x=6, seed=3)
+    plans = [core.DMLPlan.for_model(model, learner=learner,
+                                    learner_params=params, n_folds=3,
+                                    n_rep=2, seed=9, n_boot=200,
+                                    backend="inline")
+             for core in (tcore, rcore)]
+    if model == "irm":
+        want_l = "mlp" if learner == "mlp" else "logistic"
+        assert plans[0].nuisances[2].learner == want_l
+    sj = rcore.DMLSession(backend="inline")
+    rj = sj.estimate(plans[1], rcore.DMLData.from_dict(raw))
+    st = tcore.DMLSession(backend="inline", device="cpu")
+    rt = st.estimate(plans[0], tcore.DMLData.from_dict(raw))
+    np.testing.assert_allclose(st.request(0).gathered_preds(),
+                               sj.request(0).gathered_preds(), rtol=1e-4,
+                               atol=1e-5)
+    assert _rel(rt.theta, rj.theta) < 1e-4 and _rel(rt.se, rj.se) < 1e-4
+    assert rt.boot_ci is not None and len(rt.boot_ci) == 2
+    for a, b in zip(rt.boot_ci, rj.boot_ci):
+        assert _rel(a, b) < 1e-4
+    assert rt.boot_ci[0] < rt.thetas[0] < rt.boot_ci[1]
+
+
+def test_bootstrap_key_is_the_seed_plus_99():
+    """The interval comes from key(seed + 99) on repetition 0, as in the
+    reference; a plan without n_boot has none."""
     (pt, dt), _ = _both(CASES[1])
-    plan = tcore.DMLPlan.for_model("plr", learner="ols", n_folds=3, n_rep=2,
-                                   n_boot=50, backend="inline")
-    with pytest.raises(NotImplementedError, match="bootstrap"):
-        repro_torch.estimate(plan, dt, device="cpu")
-
-
-@pytest.mark.parametrize("learner", ["kernel_ridge", "mlp"])
-def test_unported_learners_raise_the_registry_key_error(learner):
-    (_, dt), _ = _both(CASES[0])
-    plan = tcore.DMLPlan.for_model("plr", learner=learner, n_folds=3,
-                                   n_rep=2, backend="inline")
-    with pytest.raises(KeyError, match="unknown learner"):
-        repro_torch.estimate(plan, dt, device="cpu")
+    res = repro_torch.estimate(dataclasses.replace(
+        pt, inference=dataclasses.replace(pt.inference, n_boot=100)), dt,
+        device="cpu")
+    psi_a, psi_b = (torch.from_numpy(a[0]) for a in res.psi)
+    bt, se1 = tcore.multiplier_bootstrap(
+        psi_a, psi_b, float(res.thetas[0]),
+        threefry.key(pt.resampling.seed + 99), n_boot=100)
+    assert res.boot_ci == tcore.boot_confint(float(res.thetas[0]), se1, bt)
+    assert repro_torch.estimate(pt, dt, device="cpu").boot_ci is None
 
 
 def test_irm_default_propensity_needs_no_override():

@@ -276,6 +276,48 @@ def test_lanes_same_bits_at_any_batch_count(name, params):
                                    atol=MORPH_TOL)
 
 
+# kernel_ridge and mlp, placed in the sets by scripts/probe_batch_bits.py
+NONPARAMETRIC = [("kernel_ridge", {"reg": 1.0, "n_landmarks": 16}),
+                 ("mlp", {"hidden": (8,), "n_steps": 20})]
+
+
+@pytest.mark.parametrize("name,params", NONPARAMETRIC,
+                         ids=[f for f, _ in NONPARAMETRIC])
+def test_nonparametric_families_sets(name, params):
+    """The sets as measured on the CPU and on the card: kernel_ridge keeps
+    a lane's bits at any batch count, so its tails morph (as in the
+    reference), but it fuses one call a block (its m + 1 feature columns
+    outgrow the gathered-page budget of a concatenated call); mlp's lanes
+    change bits at another batch count on the card (a call of 8 lanes
+    against 32), so it is in no set: it fuses one call a block and its
+    tails keep their canonical shapes even under ``morph_tolerance`` (the
+    reference morphs it: ``repro/compile/program.py``
+    ``MORPH_BITWISE_FAMILIES``).  Fused and coalesced drains give the
+    per-block bits, and the reference's predictions to the float tier."""
+    key = BucketKey(learner=(name, tuple(sorted(params.items()))),
+                    n_pad=8, p_pad=8)
+    morphs = name == "kernel_ridge"
+    assert name not in program.FUSED_CONCAT_FAMILIES
+    assert (name in program.MORPH_BITWISE_FAMILIES) == morphs
+    assert name not in program.MORPH_TOLERANCE_FAMILIES
+    assert program.morph_allowed(key, 0.0) == morphs
+    assert program.morph_allowed(key, 1.0) == morphs
+    cases = [_plr(97 + i, seed=30 + i, learner=name, learner_params=params)
+             for i in range(3)]                 # three tails of 12 tasks
+    tplan, jplan = _both_plans(cases)
+    entries = _entries(tplan)
+    base, _ = _run(tplan, entries, fuse=False, coalesce=False)
+    fused, cache = _run(tplan, entries, fuse=True, coalesce=True,
+                        morph_tolerance=1e-3)
+    assert (cache.stats.coalesced_blocks > 0) == morphs
+    assert cache.stats.fused_launches >= 1
+    _same(fused, base)
+    want, jcache = _jrun(jplan, entries, fuse=True, coalesce=True)
+    _close(fused, want)
+    if morphs:
+        assert _stats(cache) == _stats(jcache)
+
+
 # ---------------------------------------------------------------------------
 # non-blocking dispatch and the memory bound of a fused launch
 # ---------------------------------------------------------------------------

@@ -186,12 +186,20 @@ def test_augment_adds_the_intercept_column():
 
 
 def test_registry_holds_the_linear_families():
+    """All six families of the reference, both forms."""
+    from repro.learners import BATCHED_LEARNERS as jax_batched_table
     from repro.learners import FEATURE_PAD_SAFE as jax_safe
-    assert set(BATCHED_LEARNERS) == {"ols", "ridge", "lasso", "logistic"}
+    from repro.learners import LEARNERS as jax_table
+    from repro_torch.learners import LEARNERS
+    assert set(BATCHED_LEARNERS) == set(jax_batched_table) == {
+        "ols", "ridge", "lasso", "logistic", "kernel_ridge", "mlp"}
+    assert set(LEARNERS) == set(jax_table) == set(BATCHED_LEARNERS)
     assert FEATURE_PAD_SAFE == jax_safe
-    for name in ("kernel_ridge", "mlp", "nope"):
-        with pytest.raises(KeyError):
-            get_batched_learner(name)
+    with pytest.raises(KeyError):
+        get_batched_learner("nope")
+    # mlp takes classify=True (the propensity's sigmoid)
+    assert get_batched_learner("mlp", {"classify": True}).keywords == \
+        {"classify": True}
     # classify=True is accepted and ignored by the linear families
     fn = get_batched_learner("ridge", {"reg": 2.0, "classify": True})
     assert fn.keywords == {"reg": 2.0}

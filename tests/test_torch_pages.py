@@ -325,7 +325,7 @@ def test_registry_exact():
     ported = {"program_cache", "fused_program_cache", "block_layouts",
               "block_tensors", "plan_pages", "page_pool_stacks",
               "work_request_index_maps", "data_gram_programs",
-              "feature_gram_programs"}
+              "feature_gram_programs", "fold_in_key_tables"}
     assert ported <= set(tregistry.REGISTRY)
     for name in ported:
         t, j = tregistry.REGISTRY[name], jregistry.REGISTRY[name]

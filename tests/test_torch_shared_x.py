@@ -264,12 +264,15 @@ def test_shared_x_learner_matches_reference(name, params):
 
 
 def test_registry_has_the_ported_families_only():
-    assert set(LEARNERS) == {"ols", "ridge", "lasso", "logistic"}
-    for name in ("kernel_ridge", "mlp"):
-        with pytest.raises(KeyError, match="unknown learner"):
-            get_learner(name)
-        with pytest.raises(KeyError, match="unknown learner"):
-            get_batched_learner(name)
+    """Every family is ported: the shared-X registry is the reference's
+    six, and a name outside it raises the registry's KeyError."""
+    from repro.learners import LEARNERS as jax_learners
+    assert set(LEARNERS) == set(jax_learners) == {
+        "ols", "ridge", "lasso", "logistic", "kernel_ridge", "mlp"}
+    with pytest.raises(KeyError, match="unknown learner"):
+        get_learner("forest")
+    with pytest.raises(KeyError, match="unknown learner"):
+        get_batched_learner("forest")
 
 
 def test_ridge_matches_numpy_closed_form():
