@@ -42,10 +42,18 @@ inline backend, with the multiplier bootstrap, each held against the CPU
 path; the mlp learner at full width (PLR on the bonus data, and an IRM
 plan whose propensity is mlp's sigmoid) against the CPU path.
 
+The topology backend: simulated hosts, each on its own CUDA stream of
+the one card, on the paper request at 2 and 4 hosts (cold and warm, bit
+for bit the inline drain), with stealing and a device-to-device page
+fetch, and on a tall request (K3); a host lost mid-flight, chaos pools
+and hedges across host streams; a durable session crashed in a child
+process and resumed here; and all of it again under ``REPRO_SANITIZE=1``.
+
 Phases: device, build, kernels, estimate_paper, estimate_wide, session,
 same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
 estimate_wave, wave_pool, session_wave, fusion, page_pool,
-estimate_quickstart, estimate_mlp, serve_zamba2, same_as_cpu_lm.
+estimate_quickstart, estimate_mlp, serve_zamba2, same_as_cpu_lm,
+topology, topology_chaos, durable, sanitize.
 """
 from __future__ import annotations
 
@@ -100,7 +108,8 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "session", "same_as_cpu", "estimate_tall", "shared_x",
           "raw_request", "estimate_irm", "estimate_wave", "wave_pool",
           "session_wave", "fusion", "page_pool", "estimate_quickstart",
-          "estimate_mlp", "serve_zamba2", "same_as_cpu_lm")
+          "estimate_mlp", "serve_zamba2", "same_as_cpu_lm", "topology",
+          "topology_chaos", "durable", "sanitize")
 LIBRARIES = ("megabatch", "lm")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
@@ -1349,9 +1358,29 @@ def _hold_megabatch(shape, device):
     torch.cuda.empty_cache()
 
 
+def _hold_blocked(shape, device):
+    """K3 against its plain version at one (B, C, Nc, P), with the kernels
+    phase's inputs and tolerance (no timing)."""
+    gen = torch.Generator(device=device).manual_seed(20210104)
+    b, c, nc, p = shape
+    xc = torch.randn(shape, generator=gen, device=device)
+    y = torch.randn((b, c, nc), generator=gen, device=device)
+    w = (torch.rand((b, c, nc), generator=gen, device=device) < 0.8).float()
+    g, bv = ops.batched_gram_blocked(xc, w, y)
+    g0, b0 = megabatch.batched_gram_blocked_plain(xc, w, y)
+    assert torch.allclose(g, g0, rtol=1e-4,
+                          atol=1e-4 * float(g0.abs().max())), \
+        ("batched_gram_blocked G disagrees", shape, _errs(g, g0))
+    assert torch.allclose(bv, b0, rtol=1e-4,
+                          atol=1e-4 * float(b0.abs().max())), \
+        ("batched_gram_blocked b disagrees", shape, _errs(bv, b0))
+    del xc, y, w, g, bv, g0, b0
+    torch.cuda.empty_cache()
+
+
 def _launches_compared(seen, what, device=None):
     """Every launch of a path ran at a shape the kernels phase compared.
-    With ``device``, a K1 or K2 launch at another (fused) shape is held
+    With ``device``, a K1, K2 or K3 launch at another shape is held
     against the plain versions now instead (not counted: the counts of
     the path were read before); returns those shapes."""
     compared = {"batched_gram": set(SHAPES), "batched_predict": set(SHAPES),
@@ -1367,6 +1396,12 @@ def _launches_compared(seen, what, device=None):
             _hold_megabatch(shape, device)
         compared["batched_gram"] |= held
         compared["batched_predict"] |= held
+        blocked = seen["batched_gram_blocked"] \
+            - compared["batched_gram_blocked"]
+        for shape in sorted(blocked):
+            _hold_blocked(shape, device)
+        compared["batched_gram_blocked"] |= blocked
+        held |= blocked
     for name, shapes in seen.items():
         assert shapes <= compared[name], \
             f"{what}: {name} launched at {sorted(shapes - compared[name])}"
@@ -2864,6 +2899,447 @@ def phase_same_as_cpu_lm(device):
     return f32_launches
 
 
+# ---------------------------------------------------------------------------
+# the topology backend: simulated hosts as CUDA streams on one card, host
+# loss and hedging across streams, durable sessions, the protocol checks
+# ---------------------------------------------------------------------------
+TOPOLOGY_HOSTS = (2, 4)
+# the hedged drains of topology_chaos: a chaos pool (failures 0.1,
+# stragglers 0.2), and the same with every bucket overdue at once (the
+# evidence for hedging across host streams without a straggler hold)
+TOPO_CHAOS_POOL = PoolConfig(n_hosts=2, failure_rate=0.1,
+                             straggler_rate=0.2, max_retries=10, seed=5)
+TOPO_FORCED_HEDGE_POOL = dataclasses.replace(TOPO_CHAOS_POOL, hedge=True,
+                                             hedge_after_s=0.0)
+DURABLE_N_REP = 10
+# the child of the durable phase: a durable session on the card (wave
+# backend), two paper-sized ridge requests at M 10; it reports the rows
+# each ledger holds after the first settled wave and leaves with os._exit
+DURABLE_CHILD = """
+import json, os, sys
+sys.path.insert(0, sys.argv[2])
+from repro_torch.core import DMLData, DMLPlan, DMLSession
+from repro_torch.data import make_bonus_data
+data = DMLData.from_dict(make_bonus_data())
+sess = DMLSession(device=sys.argv[4], session_dir=sys.argv[1])
+for seed in (42, 43):
+    sess.submit(DMLPlan.for_model("plr", learner="ridge",
+                                  learner_params={"reg": 1.0}, n_folds=5,
+                                  n_rep=int(sys.argv[3]), seed=seed), data)
+for _ in range(100):
+    sess.poll()
+    reqs = {p.request_id: p.req for p in sess._queue if p.req is not None}
+    reqs.update(sess._requests)
+    if sum(r.ledger.n_done for r in reqs.values()) > 0:
+        break
+print(json.dumps({"done": {i: r.ledger.n_done for i, r in reqs.items()},
+                  "n_inv": {i: r.ledger.n_invocations
+                            for i, r in reqs.items()}}), flush=True)
+os._exit(0)
+"""
+
+
+def _hosts(sess, pages0=None):
+    """Per host of a topology session's last drain: its stream, waves,
+    placements, steals, page and dispatch accounting (pages since
+    ``pages0`` when given)."""
+    topo = sess.backend.topology
+    out = []
+    for h, lane in zip(topo.hosts, sess.topology_info.hosts):
+        pages = h.pool.stats if pages0 is None \
+            else h.pool.stats.delta(pages0[h.host_id])
+        out.append({"host": h.host_id, "stream": h.stream.cuda_stream,
+                    "alive": h.host_id not in topo.dead,
+                    "waves": lane.waves, "invocations": lane.invocations,
+                    "placed": lane.buckets_placed, "steals": lane.steals,
+                    "page_stats": pages.summary(),
+                    "dispatch": dataclasses.asdict(lane.dispatch)})
+    return out
+
+
+def _topology_drain(sess, jobs, what, device, preload=False):
+    """One drain of ``jobs`` [(plan, data, true effect)] on a topology
+    session, launch
+    counts set to 0 just before and read just after; with ``preload``,
+    host 0's pool first holds every page the jobs need (uploaded on the
+    default stream, read on the hosts' streams).  Returns the run's
+    record and the placements ``place_bucket`` gives on the pools as they
+    stood before the drain."""
+    from repro_torch.compile import PagePool
+    from repro_torch.sharding.policy import place_bucket
+    topo = sess.backend.topology
+    reqs = [compile_request(p, d) for p, d, _ in jobs]
+    if preload:
+        for req in reqs:
+            for key in plan_buckets([req]).buckets:
+                topo.hosts[0].pool._page(
+                    PagePool.page_key(req, key.n_pad, key.p_pad), req,
+                    key.n_pad, key.p_pad)
+    # what the backend's _route must give: each bucket in the plan's
+    # order, its requests' page keys, loads kept incrementally
+    alive = [h.host_id for h in topo.alive()]
+    loads = [0] * len(alive)
+    expected = {}
+    for key, entries in plan_buckets(reqs).pending_by_bucket().items():
+        pkeys = tuple(dict.fromkeys(
+            PagePool.page_key(reqs[ri], key.n_pad, key.p_pad)
+            for ri, _ in entries))
+        placed = place_bucket(pkeys, [topo.hosts[h].pool for h in alive],
+                              loads)
+        loads[placed.host] += len(entries)
+        expected[(key.n_pad, key.p_pad)] = (alive[placed.host], placed.score)
+    pages0 = [h.pool.stats.snapshot() for h in topo.hosts]
+    linear.reset_solve_status()
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _launch_shapes() as seen:
+        rids = [sess.submit(p, d) for p, d, _ in jobs]
+        results = sess.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launch_counts)
+    held = _launches_compared(seen, what, device)
+    for rid, res, (_, _, truth) in zip(rids, results, jobs):
+        _checked(res, sess.request(rid), device, truth, f"{what}/{rid}")
+    t = sess.topology_info
+    placements = {(k.n_pad, k.p_pad): (host, score)
+                  for k, host, score in t.placements}
+    return {"rids": rids, "results": results, "wall_s": wall,
+            "launches": launches, "held": held,
+            "preds": [sess.request(r).gathered_preds() for r in rids],
+            "hosts": _hosts(sess, pages0), "placements": placements,
+            "placements_expected": expected, "steals": t.steals,
+            "waves": sess.last_run_info.waves,
+            "wave_sizes": [sorted(r.report.wave_sizes) for r in results],
+            "pages": [h.pool.stats.delta(p0)
+                      for h, p0 in zip(topo.hosts, pages0)]}
+
+
+def _inline_refs(jobs, device):
+    sess = DMLSession(backend="inline", device=device)
+    out = []
+    for plan, data, _ in jobs:
+        res = sess.estimate(plan, data)
+        out.append((res, sess.request(res.request_id).gathered_preds()))
+    return out
+
+
+def _all_same_bits(run, refs):
+    return [_same_bits(res, ref, preds, ref_preds)
+            for res, preds, (ref, ref_preds)
+            in zip(run["results"], run["preds"], refs)]
+
+
+def _topology_checks(device, what="topology"):
+    """The paper request through ``DMLSession(backend="topology")`` at 2
+    and 4 hosts, cold and warm, bit for bit the inline drain; the
+    stealing / cross-host fetch sub-run; the tall request on K3."""
+    bonus = DMLData.from_dict(make_bonus_data())
+    plan = _paper_default_plan()
+    paper = [(plan, bonus, TRUE_EFFECT)]
+    (ref, ref_preds), = _inline_refs(paper, device)
+    req = compile_request(plan, bonus)
+    sizes = [32] * 6 + [8]
+    planned = _planned_launches(req, sizes)
+    out = {"paper": {}}
+    topo_launches = None
+    for n_hosts in TOPOLOGY_HOSTS:
+        sess = DMLSession(backend="topology",
+                          pool=PoolConfig(n_hosts=n_hosts), device=device)
+        streams = {h.stream.cuda_stream for h in sess.backend.topology.hosts}
+        assert len(streams) == n_hosts and \
+            torch.cuda.default_stream(device).cuda_stream not in streams
+        row = {}
+        for phase in ("cold", "warm"):
+            run = _topology_drain(sess, paper,
+                                  f"{what}/{n_hosts} hosts/{phase}", device)
+            assert run["wave_sizes"] == [sorted(sizes)], run["wave_sizes"]
+            assert _counts(run["launches"], planned["kernel_calls"]), \
+                (run["launches"], planned)
+            assert run["placements"] == run["placements_expected"], \
+                (run["placements"], run["placements_expected"])
+            bits = _all_same_bits(run, [(ref, ref_preds)])
+            assert all(bits), f"{what}: {n_hosts} hosts, {phase}: not " \
+                "bit for bit the inline drain"
+            if phase == "warm":
+                for h in run["pages"]:
+                    assert h.bytes_h2d == 0 and h.bytes_d2d == 0, h
+            if topo_launches is None:
+                topo_launches = run["launches"]
+            row[phase] = {k: run[k] for k in (
+                "wall_s", "launches", "hosts", "waves", "wave_sizes",
+                "steals", "held")}
+            row[phase]["placements"] = [
+                {"bucket": list(k), "host": h, "score": s}
+                for k, (h, s) in run["placements"].items()]
+            row[phase]["bitwise_equal_to_inline"] = bits[0]
+        out["paper"][n_hosts] = row
+    # the estimate() entry point on a plan that names the backend
+    res = estimate(plan.replace(backend="topology"), bonus, device=device)
+    assert _same_bits(res, ref, res.psi[0], ref.psi[0]), \
+        f"{what}: estimate() is not bit for bit the inline drain"
+    out["estimate_entry_point_bitwise"] = True
+
+    # stealing and cross-host fetches: session_wave's three requests with
+    # every page pre-loaded on host 0
+    pliv = DMLData.from_dict(make_pliv_data(n_obs=5000, dim_x=20))
+    jobs = [(_paper_default_plan(42), bonus, TRUE_EFFECT),
+            (_paper_default_plan(43), bonus, TRUE_EFFECT),
+            (DMLPlan.for_model("pliv", learner="ridge", n_folds=5, n_rep=10),
+             pliv, pliv.theta0)]
+    refs = _inline_refs(jobs, device)
+    sess = DMLSession(backend="topology", pool=PoolConfig(n_hosts=2),
+                      device=device)
+    run = _topology_drain(sess, jobs, f"{what}/steal", device, preload=True)
+    bits = _all_same_bits(run, refs)
+    d2d = sum(p.bytes_d2d for p in run["pages"])
+    assert run["steals"] >= 1 and d2d > 0 and all(bits), \
+        (run["steals"], d2d, bits)
+    assert all(h["waves"] > 0 for h in run["hosts"]), run["hosts"]
+    out["steal"] = {k: run[k] for k in ("wall_s", "launches", "hosts",
+                                         "steals", "waves", "held")}
+    out["steal"].update(bytes_d2d=d2d, bitwise_equal_to_inline=bits,
+                        placements=[{"bucket": list(k), "host": h,
+                                     "score": s}
+                                    for k, (h, s)
+                                    in run["placements"].items()])
+
+    # a tall request: its bucket takes the data@1 program on its host (K3)
+    tall = DMLData.from_dict(make_plr_data(n_obs=TALL_N, dim_x=20,
+                                           theta=0.5))
+    tplan = DMLPlan.for_model("plr", learner="ridge",
+                              learner_params={"reg": 1.0}, n_folds=5,
+                              n_rep=2)
+    sharded = DMLSession(backend="sharded", device=device)
+    sres = sharded.estimate(tplan, tall)
+    spreds = sharded.request(sres.request_id).gathered_preds()
+    sess = DMLSession(backend="topology", pool=PoolConfig(n_hosts=2),
+                      device=device)
+    run = _topology_drain(sess, [(tplan, tall, tall.theta0)],
+                          f"{what}/tall", device)
+    (tres,), (tpreds,) = run["results"], run["preds"]
+    k = run["launches"]
+    assert k["batched_gram_blocked"] > 0 and k["batched_gram"] == 0, k
+    assert [(d.axis, d.executed) for d in sess.last_run_info.axis_plans] \
+        == [("data", "data")]
+    diff = float(np.abs(tpreds - spreds).max())
+    rel = (abs(tres.theta - sres.theta) / abs(sres.theta),
+           abs(tres.se - sres.se) / sres.se)
+    assert diff <= 5e-4 and max(rel) < 1e-4, (diff, rel)
+    out["tall"] = {k: run[k] for k in ("wall_s", "launches", "hosts",
+                                        "held")}
+    out["tall"].update(max_abs_pred_diff_vs_sharded=diff,
+                       rel_theta_se_vs_sharded=rel,
+                       bitwise_equal_to_sharded=_same_bits(
+                           tres, sres, tpreds, spreds))
+    return out, topo_launches, k
+
+
+def phase_topology(device):
+    """The topology backend on the card: simulated hosts as CUDA streams
+    (module docstring of serverless/topology.py).  Launch counts are set
+    to 0 just before each drain and read just after."""
+    out, launches, tall = _topology_checks(device)
+    emit("topology", card=smi_line(), **out,
+         tolerance="paper and steal: bit for bit the inline drain; tall: "
+                   "predictions atol 5e-4, theta and se 1e-4 relative of "
+                   "the sharded backend (estimate_tall's)")
+    return launches, tall
+
+
+def _chaos_drain(pool, job, ref, ref_preds, device):
+    """One topology drain of ``job`` (plan, data, true effect) on a chaos
+    pool, held bit for bit against the fault-free ``ref``."""
+    plan, data, truth = job
+    sess = DMLSession(backend="topology", pool=pool, device=device)
+    res, wall = _timed_estimate(sess, plan, data)
+    req = sess.request(res.request_id)
+    _checked(res, req, device, truth, "topology_chaos")
+    bits = _same_bits(res, ref, req.gathered_preds(), ref_preds)
+    d = sess.last_run_info.dispatch
+    assert bits, "topology_chaos: not bit for bit the fault-free drain"
+    assert d.cancelled == d.hedges and \
+        d.harvested == d.dispatched - d.cancelled, d
+    assert req.report.bill.n_invocations == req.ledger.n_invocations
+    return {"wall_s": wall, "failures": res.report.failures,
+            "stragglers": res.report.stragglers,
+            "hedge_armed": sess.backend._hedge_armed(
+                sess.backend.begin_drain()),
+            "dispatch": dataclasses.asdict(d), "hosts": _hosts(sess),
+            "bitwise_equal_to_fault_free": bits}
+
+
+def _topology_chaos_checks(device):
+    """Host loss mid-flight on the paper request; the chaos pool on 2
+    hosts; the same with every bucket hedged at once onto the other
+    host's stream (no straggler hold), on the paper request and on the
+    tall one, whose buckets run long enough to queue on their host's
+    stream."""
+    bonus = DMLData.from_dict(make_bonus_data())
+    paper = (_paper_default_plan(), bonus, TRUE_EFFECT)
+    (ref, ref_preds), = _inline_refs([paper], device)
+    sess = DMLSession(backend="topology", pool=PoolConfig(n_hosts=2),
+                      device=device)
+    rid = sess.submit(*paper[:2])
+    lost = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        sess.poll()
+        q = sess._state.queues.get(0) if sess._state is not None else None
+        if q is not None and q.in_flight > 0:
+            lost = sess.backend.kill_host(sess._state, 0)
+            break
+    res = sess.wait(rid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    req = sess.request(rid)
+    _checked(res, req, device, TRUE_EFFECT, "topology_chaos/host loss")
+    t = sess.topology_info
+    bits = _same_bits(res, ref, req.gathered_preds(), ref_preds)
+    assert lost > 0 and t.lost_buckets == lost and t.host_losses == 1, \
+        (lost, t)
+    assert req.ledger.complete and bits, "host loss: not bit for bit"
+    out = {"host_loss": {"lost_buckets": t.lost_buckets,
+                         "wall_s": wall, "hosts": _hosts(sess),
+                         "bitwise_equal_to_fault_free": bits}}
+    out["chaos"] = _chaos_drain(TOPO_CHAOS_POOL, paper, ref, ref_preds,
+                                device)
+    out["forced_hedges"] = _chaos_drain(TOPO_FORCED_HEDGE_POOL, paper, ref,
+                                        ref_preds, device)
+    tall_data = DMLData.from_dict(make_plr_data(n_obs=TALL_N, dim_x=20,
+                                                theta=0.5))
+    tall = (DMLPlan.for_model("plr", learner="ridge",
+                              learner_params={"reg": 1.0}, n_folds=5,
+                              n_rep=10), tall_data, tall_data.theta0)
+    clean = DMLSession(backend="topology", pool=PoolConfig(n_hosts=2),
+                       device=device)
+    tref = clean.estimate(*tall[:2])
+    out["forced_hedges_tall"] = _chaos_drain(
+        TOPO_FORCED_HEDGE_POOL, tall, tref,
+        clean.request(tref.request_id).gathered_preds(), device)
+    # the question the hedging rule rests on: does a duplicate on another
+    # host's stream ever book first with no straggler hold?
+    out["hedge_leg_won_without_hold"] = bool(sum(
+        out[k]["dispatch"]["hedge_wins"]
+        for k in ("chaos", "forced_hedges", "forced_hedges_tall")))
+    return out
+
+
+def phase_topology_chaos(device):
+    out = _topology_chaos_checks(device)
+    emit("topology_chaos", card=smi_line(), **out,
+         pools={"chaos": dataclasses.asdict(TOPO_CHAOS_POOL),
+                "forced_hedges": dataclasses.asdict(TOPO_FORCED_HEDGE_POOL)},
+         tall="make_plr_data(250000, 20), ridge, K 5, M 10",
+         tolerance="bit for bit the fault-free drain (inline; the tall "
+                   "request: the fault-free topology drain)")
+
+
+def phase_durable(device):
+    """A durable session on the card in a child process that leaves with
+    ``os._exit`` after its first settled wave; ``DMLSession.resume`` here
+    finishes it.  Zero DONE invocations re-executed (the bills against
+    the crashed ledgers), and theta, se and predictions bit for bit an
+    uninterrupted run's on the card."""
+    from repro_torch.serverless import TaskLedger
+    sdir = ROOT / "build" / "durable_session"
+    if sdir.exists():
+        for f in sdir.iterdir():
+            f.unlink()
+    torch.cuda.empty_cache()            # the child shares the card
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", DURABLE_CHILD, str(sdir), str(ROOT / "src"),
+         str(DURABLE_N_REP), str(device)], capture_output=True, text=True,
+        timeout=600)
+    assert child.returncode == 0, child.stderr[-4000:]
+    child_s = time.perf_counter() - t0
+    crashed = json.loads(child.stdout.strip().splitlines()[-1])
+    done = {int(r): n for r, n in crashed["done"].items()}
+    n_inv = {int(r): n for r, n in crashed["n_inv"].items()}
+    on_disk = {r: TaskLedger.load(str(sdir / f"ledger_{r:05d}.msgpack"))
+               for r in n_inv}
+    assert {r: led.n_done for r, led in on_disk.items()} == done, done
+    assert 0 < sum(done.values()) < sum(n_inv.values()), done
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = DMLSession.resume(str(sdir), device=device)
+    results = sess.run()
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    bonus = DMLData.from_dict(make_bonus_data())
+    # the child's plans, as it writes them
+    jobs = [(DMLPlan.for_model("plr", learner="ridge",
+                               learner_params={"reg": 1.0}, n_folds=5,
+                               n_rep=DURABLE_N_REP, seed=seed), bonus,
+             TRUE_EFFECT) for seed in (42, 43)]
+    refs = _inline_refs(jobs, device)
+    rows = []
+    for res, (ref, ref_preds) in zip(results, refs):
+        rid = res.request_id
+        req = sess.request(rid)
+        _checked(res, req, device, TRUE_EFFECT, f"durable/{rid}")
+        billed = res.report.bill.n_invocations
+        re_executed = billed - (n_inv[rid] - done[rid])
+        done_rows = on_disk[rid].status == 2
+        kept = bool(np.array_equal(req.ledger.preds[done_rows],
+                                   on_disk[rid].preds[done_rows]))
+        bits = _same_bits(res, ref, req.gathered_preds(), ref_preds)
+        assert re_executed == 0 and kept and bits, (rid, re_executed, bits)
+        rows.append({"request": rid, "n_invocations": n_inv[rid],
+                     "done_at_crash": done[rid], "billed_on_resume": billed,
+                     "done_re_executed": re_executed,
+                     "theta": res.theta, "se": res.se,
+                     "bitwise_equal_to_uninterrupted": bits})
+    emit("durable", card=smi_line(), backend="wave",
+         session_dir=str(sdir.relative_to(ROOT)),
+         files=sorted(f.name for f in sdir.iterdir()), child_s=child_s,
+         resume_s=resume_s, requests=rows,
+         tolerance="bit for bit an uninterrupted inline run on the card")
+
+
+def phase_sanitize(device):
+    """``estimate_wave``'s paper request, the topology sub-runs and
+    topology_chaos again with ``REPRO_SANITIZE=1``: no ProtocolError.
+    Then one bucket dispatch harvested twice on purpose, caught."""
+    import os
+    from repro_torch.compile import ProgramCache, dispatch_bucket
+    from repro_torch.serverless.sanitize import ProtocolError
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        bonus = DMLData.from_dict(make_bonus_data())
+        plan = _paper_default_plan()
+        res = DMLSession(device=device).estimate(plan, bonus)
+        _checked(res, None, device, TRUE_EFFECT, "sanitize/estimate_wave")
+        topo, _, _ = _topology_checks(device, what="sanitize/topology")
+        chaos = _topology_chaos_checks(device)
+        req = compile_request(plan, bonus)
+        mp = plan_buckets([req])
+        key, entries = next(iter(mp.pending_by_bucket().items()))
+        bd = dispatch_bucket(mp, ProgramCache(), key, entries, device=device)
+        bd.harvest()
+        try:
+            bd.harvest()
+        except ProtocolError as e:
+            caught = str(e)
+        else:
+            raise AssertionError("a double harvest went through with "
+                                 "REPRO_SANITIZE=1")
+    finally:
+        del os.environ["REPRO_SANITIZE"]
+    emit("sanitize", card=smi_line(), estimate_wave_theta=res.theta,
+         topology_paper_bitwise={n: r["cold"]["bitwise_equal_to_inline"]
+                                 for n, r in topo["paper"].items()},
+         topology_steals=topo["steal"]["steals"],
+         topology_tall_k3=topo["tall"]["launches"]["batched_gram_blocked"],
+         host_loss_lost_buckets=chaos["host_loss"]["lost_buckets"],
+         chaos_hedges={k: chaos[k]["dispatch"]["hedges"] for k in (
+             "chaos", "forced_hedges", "forced_hedges_tall")},
+         protocol_errors=0, planted_double_harvest_caught=caught)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2959,6 +3435,15 @@ def main(argv=None) -> int:
     f32_launches = None
     if "same_as_cpu_lm" in phases:
         f32_launches = phase_same_as_cpu_lm(device)
+    topo_launches = None
+    if "topology" in phases:
+        topo_launches = phase_topology(device)
+    if "topology_chaos" in phases:
+        phase_topology_chaos(device)
+    if "durable" in phases:
+        phase_durable(device)
+    if "sanitize" in phases:
+        phase_sanitize(device)
 
     if phases != list(PHASES):
         print(json.dumps({"ok": False, "partial": phases,
@@ -2985,13 +3470,17 @@ def main(argv=None) -> int:
                                             quickstart["crossfit_gram"]}},
              "flash_attention": {"f32": {**rows["flash_attention"]["f32"],
                                          "launches": f32_launches}},
+             "batched_gram_blocked": {
+                 "launches_topology":
+                     topo_launches[1]["batched_gram_blocked"]},
              "ssd_scan": {k: rows["ssd_scan"][k] for k in (
                  "bound_ms_at_f32_fma", "cuda_launches_per_call",
                  "scratch_bytes")}}
     # K1's and K2's launches on the per-block pool (estimate_paper), on
     # the wave path (estimate_wave, cold) on both pools, and their rows at
     # the fused paper shape (1024 lanes: the 32 blocks of one launch); on
-    # the quickstart (kernel_ridge, cold) and their rows at P 257 and 129
+    # the quickstart (kernel_ridge, cold) and their rows at P 257 and 129;
+    # on the topology path (the paper at 2 hosts, cold; K3: the tall run)
     for name in ("batched_gram", "batched_predict"):
         extra[name].update(
             launches_per_block=per_block[name],
@@ -3000,6 +3489,7 @@ def main(argv=None) -> int:
             fused={"shape": list(FUSED_PAPER_SHAPE),
                    **{k: rows["fused"][name][k] for k in keys}},
             launches_estimate_quickstart=quickstart[name],
+            launches_topology=topo_launches[0][name],
             **{f"p{shape[2]}": {"shape": list(shape),
                                 **{k: rows[f"p{shape[2]}"][name][k]
                                    for k in keys}}

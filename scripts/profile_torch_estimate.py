@@ -3,8 +3,8 @@
 spends its time on the card.
 
     python3 scripts/profile_torch_estimate.py
-        [--config paper|tall|irm|quickstart|mlp|zamba2] [--n-rep M]
-        [--src DIR] [--out DIR]
+        [--config paper|tall|irm|quickstart|mlp|zamba2|topology|topology3]
+        [--n-rep M] [--src DIR] [--out DIR]
 
 Drives one of the port's paths through ``estimate`` — ``paper``: the
 paper's configuration (PLR on the bonus data, K = 5, ridge, M 100) on the
@@ -40,7 +40,17 @@ generated): one warm ``Engine.generate``, then its prefill and its 15
 decode steps traced apart, each with its wall time, device busy time, idle
 share and launches, and the device time split into the flash-attention
 kernel, the SSD-scan kernel, matrix products (cuBLAS/CUTLASS) and the
-rest.  ``--src DIR`` imports ``repro_torch`` from ``DIR/src`` (default:
+rest.  ``topology``: the paper configuration on the topology backend
+(``PoolConfig(n_hosts=2)``: simulated hosts, each on its own CUDA
+stream).  ``topology3``: ``chip_smoke.py``'s steal drain — two paper
+requests (seeds 42, 43) and a PLIV one (``make_pliv_data`` 5000 x 20, K
+5, M 10) in one ``DMLSession`` on two hosts with host 0's pool holding
+every page, so that host 1 steals — against the same with stealing off
+(every wave on host 0's stream), warm, in turns (on, off, off, on), then
+each traced once; for every traced drain the device time summed over
+kernels and copies beside the union of their intervals on the card
+(``overlapped_ms``: device time that ran while another stream's work
+ran).  ``--src DIR`` imports ``repro_torch`` from ``DIR/src`` (default:
 this checkout), so that a parent commit unpacked beside this one is
 profiled by the same script, in turns in one call.  Needs a CUDA device;
 exits non-zero without one.  ``--out`` also writes the Chrome trace
@@ -180,6 +190,92 @@ def _busy(rows, wall_s):
             "device_ms_by_kind": split, "by_kernel": rows[:25]}
 
 
+def _stream_overlap(prof):
+    """Device time of the trace's kernels and copies summed, and the
+    length of the union of their intervals: their difference is time two
+    streams' work ran at once."""
+    ivs, streams = [], set()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ivs.append((ev.time_range.start, ev.time_range.end))
+            streams.add(ev.device_resource_id)
+    if not ivs:
+        return {"overlapped_ms": "not measured"}
+    total = sum(e - s for s, e in ivs)
+    union, cur_s, cur_e = 0, None, None
+    for s, e in sorted(ivs):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                union += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    union += cur_e - cur_s
+    return {"streams": len(streams), "device_sum_ms": total / 1e3,
+            "device_union_ms": union / 1e3,
+            "overlapped_ms": (total - union) / 1e3}
+
+
+def _topology3(smi, out_dir):
+    from repro_torch.compile import PagePool, plan_buckets
+    from repro_torch.core import DMLSession
+    from repro_torch.core.session import compile_request
+    from repro_torch.data import make_pliv_data
+    bonus = DMLData.from_dict(make_bonus_data())
+    pliv = DMLData.from_dict(make_pliv_data(n_obs=5000, dim_x=20))
+    paper = dict(learner="ridge", learner_params={"reg": 1.0}, n_folds=5,
+                 n_rep=100, scaling="n_rep")
+    jobs = [(DMLPlan.for_model("plr", seed=42, **paper), bonus),
+            (DMLPlan.for_model("plr", seed=43, **paper), bonus),
+            (DMLPlan.for_model("pliv", learner="ridge", n_folds=5,
+                               n_rep=10), pliv)]
+    sessions = {}
+    for steal in (True, False):
+        sess = DMLSession(backend="topology",
+                          pool=PoolConfig(n_hosts=2, steal=steal))
+        pool = sess.backend.topology.hosts[0].pool
+        for plan, data in jobs:
+            req = compile_request(plan, data)
+            for key in plan_buckets([req]).buckets:
+                pool._page(PagePool.page_key(req, key.n_pad, key.p_pad),
+                           req, key.n_pad, key.p_pad)
+        sessions["steal" if steal else "no_steal"] = sess
+
+    def drain(sess):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for plan, data in jobs:
+            sess.submit(plan, data)
+        sess.run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = {"card": smi, "tree": str(TREE), "config": "topology3"}
+    for name, sess in sessions.items():         # cold: pages, programs
+        out[f"{name}_cold_s"] = drain(sess)
+    walls = {name: [] for name in sessions}
+    for name in ("steal", "no_steal", "no_steal", "steal"):
+        walls[name].append(drain(sessions[name]))
+    out["warm_s"] = walls
+    for name, sess in sessions.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced = drain(sess)
+        rows = _device_rows(prof)
+        t = sess.topology_info
+        out[name] = {**_busy(rows, traced), **_stream_overlap(prof),
+                     "steals": t.steals,
+                     "host_waves": [h.waves for h in t.hosts],
+                     "dispatch": {h.host_id: h.dispatch.in_flight_peak
+                                  for h in t.hosts}}
+        out[name].pop("by_kernel", None)
+        if out_dir:
+            Path(out_dir).mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(
+                str(Path(out_dir) / f"topology3_{name}_trace.json"))
+    return out
+
+
 def _zamba2(smi, out_dir):
     """One warm burst of the full zamba2-7b, prefill and decode traced
     apart."""
@@ -238,7 +334,8 @@ def _zamba2(smi, out_dir):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", choices=("paper", "tall", "irm",
-                                         "quickstart", "mlp", "zamba2"),
+                                         "quickstart", "mlp", "zamba2",
+                                         "topology", "topology3"),
                     default="paper")
     ap.add_argument("--n-rep", type=int, default=None,
                     help="repetitions M (default: 100 paper, quickstart; "
@@ -257,10 +354,14 @@ def main(argv=None) -> int:
     if args.config == "zamba2":
         print(json.dumps(_zamba2(smi, args.out), indent=1))
         return 0
+    if args.config == "topology3":
+        print(json.dumps(_topology3(smi, args.out), indent=1))
+        return 0
     model, learner, params, kw = "plr", "ridge", {"reg": 1.0}, {}
-    if args.config == "paper":
+    if args.config in ("paper", "topology"):
         data = DMLData.from_dict(make_bonus_data())
-        n_rep, name = args.n_rep or 100, "inline"
+        n_rep = args.n_rep or 100
+        name = "inline" if args.config == "paper" else "topology"
     elif args.config == "tall":
         data = DMLData.from_dict(make_plr_data(n_obs=250_000, dim_x=20))
         n_rep, name = args.n_rep or 10, "sharded"

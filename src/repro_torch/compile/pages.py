@@ -25,11 +25,18 @@ trip is pure waste.
     what it needs.  A later request for an evicted page pays one upload.
 
 Pages are read-only to the programs: nothing writes into a pooled tensor.
-Eviction only drops the pool's reference.  Every launch of the port runs
-on one CUDA stream, and the caching allocator hands freed memory out
-again only in that stream's order, so a launch queued before the
-eviction never reads a reused page; a page read on another stream would
-need ``Tensor.record_stream``.
+Eviction only drops the pool's reference.  Pages and stacks may be
+written on one CUDA stream and read on another — the topology backend
+runs each host's waves on its own stream, and a host's pool hands its
+pages to a peer's stream as the source of a device-to-device fetch — so
+the pool keeps, for every page and cached stack, an event recorded on
+the stream that wrote it.  Whenever it hands a tensor out, the current
+stream first waits on that event (the upload or copy has landed) and the
+tensor gets ``record_stream`` of the current stream, so the caching
+allocator recycles its memory — after an eviction, or after ``invalidate``
+drops a lost host's pages under its in-flight launches — only once every
+stream that read it has passed the point where it was handed out.  On one
+stream both are no-ops.
 
 Keeping D equal to the launch's own page count (pow2-bucketed), rather
 than the pool's total, keeps program shapes independent of pool history.
@@ -39,7 +46,7 @@ saved, evictions, stack reuse).  ``PageDirectory`` is the cluster-wide
 map of which pool holds which page: a pool that misses locally but whose
 directory names a peer holder copies the page device to device (booked as
 a cross-host fetch) instead of uploading it from the host.  The topology
-backend, which places buckets by that map, is not ported yet.
+backend (serverless/topology.py) places buckets by that map.
 """
 from __future__ import annotations
 
@@ -168,7 +175,8 @@ class PageDirectory:
         return frozenset(self._holders.get(pkey, ()))
 
     def fetch(self, pkey: PageKey, requester: int):
-        """A peer's resident page tensor, or None if no peer holds it.
+        """A peer's resident page tensor, or None if no peer holds it,
+        ready to be read on the current stream (``PagePool._hand_out``).
         Deterministic source choice (lowest holder id); does not touch
         the source pool's LRU order."""
         for hid in sorted(self._holders.get(pkey, ())):
@@ -179,7 +187,7 @@ class PageDirectory:
             if page is not None:
                 self.fetches += 1
                 self.bytes_fetched += src._nbytes[pkey]
-                return page
+                return src._hand_out(pkey, page)
         return None
 
 
@@ -214,6 +222,9 @@ class PagePool:
         self._stacks: "OrderedDict[Tuple, torch.Tensor]" = OrderedDict()
         self._stacks_of: Dict[PageKey, Set[Tuple]] = {}
         self._stack_bytes = 0
+        # page key or stack key -> event recorded on the stream that
+        # wrote the tensor (CUDA only)
+        self._written: Dict[object, "torch.cuda.Event"] = {}
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -243,6 +254,24 @@ class PagePool:
         """Device bytes held: canonical pages + materialized stacks."""
         return self._page_bytes + self._stack_bytes
 
+    # ---- cross-stream safety ------------------------------------------
+    def _mark_written(self, key) -> None:
+        """Record that the tensor under ``key`` was just written on the
+        current stream."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._written[key] = ev
+
+    def _hand_out(self, key, t: torch.Tensor) -> torch.Tensor:
+        """``t`` made safe to read on the current stream: the stream waits
+        for the write, and the allocator learns of the read."""
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self._written[key])
+            t.record_stream(stream)
+        return t
+
     # ------------------------------------------------------------------
     def _page(self, pkey: PageKey, req, n_pad: int, p_pad: int):
         """The request's device-resident padded page, shaped
@@ -255,12 +284,14 @@ class PagePool:
             self._pages.move_to_end(pkey)
             self.stats.hits += 1
             self.stats.bytes_saved += nbytes
-            return page
+            return self._hand_out(pkey, page)
         self.stats.misses += 1
         peer = self.directory.fetch(pkey, self.host_id) \
             if self.directory is not None else None
         if peer is not None:
-            page = peer.to(self.device, copy=True)       # d2d copy
+            # d2d copy on the requester's stream, which ``fetch`` made
+            # wait for the holder's write
+            page = peer.to(self.device, copy=True)
             self.stats.cross_host_fetches += 1
             self.stats.bytes_d2d += nbytes
         else:
@@ -269,6 +300,7 @@ class PagePool:
             host[0, :x.shape[0], :x.shape[1]] = x
             page = upload(host, self.device)             # the one upload
             self.stats.bytes_h2d += nbytes
+        self._mark_written(pkey)
         self._pages[pkey] = page
         self._nbytes[pkey] = nbytes
         self._page_bytes += nbytes
@@ -278,6 +310,7 @@ class PagePool:
 
     def _drop_stack(self, skey: Tuple):
         stack = self._stacks.pop(skey, None)
+        self._written.pop(skey, None)
         if stack is not None:
             self._stack_bytes -= stack.numel() * 4
         for pk in skey[0]:
@@ -299,6 +332,7 @@ class PagePool:
             if pkey in keep:
                 continue
             self._pages.pop(pkey)
+            self._written.pop(pkey, None)
             self._page_bytes -= self._nbytes.pop(pkey)
             self.stats.evictions += 1
             if self.directory is not None:
@@ -309,9 +343,14 @@ class PagePool:
     def invalidate(self) -> None:
         """Host loss: drop every resident page and stack and withdraw
         from the cluster directory.  A later request re-uploads (or
-        fetches from a peer) whatever it needs."""
+        fetches from a peer) whatever it needs.  The lost host's launches
+        still in flight keep reading what they were handed: every handed
+        out tensor carries ``record_stream`` of the stream that reads
+        it, so the allocator keeps the memory until those launches
+        pass."""
         if self.directory is not None:
             self.directory.detach(self)
+        self._written.clear()
         self._pages.clear()
         self._nbytes.clear()
         self._page_bytes = 0
@@ -359,13 +398,14 @@ class PagePool:
                 self._pages.move_to_end(pk)
                 self.stats.hits += 1
                 self.stats.bytes_saved += n_pad * p_pad * 4
-            return cached
+            return self._hand_out(skey, cached)
         lanes = [self._page(pk, req, n_pad, p_pad) for pk, req in needs]
         if d_pad > len(lanes):
             zero = torch.zeros((1, n_pad, p_pad), dtype=torch.float32,
                                device=self.device)
             lanes = lanes + [zero] * (d_pad - len(lanes))
         stack = torch.cat(lanes)
+        self._mark_written(skey)
         self.stats.stack_builds += 1
         self._stacks[skey] = stack
         self._stack_bytes += d_pad * n_pad * p_pad * 4

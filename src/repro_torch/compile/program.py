@@ -400,7 +400,9 @@ class BucketDispatch:
     and the dispatch queue (serverless/dispatch.py) tracks these whole,
     never individual launches.  A dispatch is armed once: ``harvest``
     and ``discard`` each disarm it, and a second of either raises, so a
-    discarded dispatch can never be booked.
+    discarded dispatch can never be booked — a ``RuntimeError`` always,
+    and, under ``REPRO_SANITIZE``, the sanitizer's ``ProtocolError``
+    first (``serverless/sanitize.py::check_harvest_once``).
     """
     key: BucketKey
     launches: List[Launch]
@@ -413,6 +415,10 @@ class BucketDispatch:
         return all(launch.is_ready() for launch in self.launches)
 
     def _disarm(self, what: str) -> None:
+        # function-level import: the compile layer must not load the
+        # serverless package at module scope (core <-> serverless cycle)
+        from repro_torch.serverless.sanitize import check_harvest_once
+        check_harvest_once(self)
         if not self.armed:
             raise RuntimeError(
                 f"{what} of a bucket dispatch that was already harvested "

@@ -19,6 +19,13 @@ autoscaling, result assembly and callbacks overlap device execution.
 ``last_run_info.dispatch`` reports the measured overlap.  On the wave
 backend the requests' task grids share dispatch waves.
 
+On the topology backend (``backend="topology"``) the same event loop
+drives many *host streams*: each ``step()`` advances one host's wave
+round-robin, buckets are placed on the host whose page pool already
+holds their data, and each host's device work runs on its own CUDA
+stream.  Per-host accounting surfaces as ``last_run_info.topology``
+(also ``session.topology_info``).
+
 ``estimate(plan, data)`` is the one-shot convenience for a single request.
 
 Every entry point takes an explicit ``device``.  The default is the card;
@@ -33,9 +40,12 @@ admission order.
 """
 from __future__ import annotations
 
+import glob
+import os
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Union
 
+import msgpack
 import numpy as np
 import torch
 
@@ -56,6 +66,7 @@ from repro_torch.serverless.backends import (
     Segment, WorkRequest, make_backend, retire_drain,
 )
 from repro_torch.serverless.ledger import TaskLedger
+from repro_torch.serverless.sanitize import check_drained
 
 
 @dataclass
@@ -251,15 +262,32 @@ class DMLSession:
     with their partially-completed ledgers; a later ``run()`` resumes
     exactly the missing invocations — including after swapping
     ``self.backend``.
+
+    **Crash resume**: pass ``session_dir`` and the session becomes
+    durable — every ``submit()`` persists the request's full (plan, data)
+    spec (``request_{rid:05d}.msgpack``, atomic), and every admitted
+    request's ``TaskLedger`` is bound to ``ledger_{rid:05d}.msgpack``,
+    which the backends checkpoint after each booking wave.  If the
+    process dies mid-drain, ``DMLSession.resume(session_dir)`` in a FRESH
+    process re-submits the saved specs in request-id order with their
+    loaded ledgers: DONE invocations are never re-executed, RUNNING rows
+    re-dispatch, and the determinism contract makes the resumed thetas
+    bit for bit those of an uninterrupted run.  The resumed process
+    rebuilds its programs (there is no persistent program cache yet);
+    the kernels' shared library is reused from ``build/repro_torch/``.
     """
 
     def __init__(self, backend: Union[str, ExecutionBackend] = "wave",
                  pool: Optional[PoolConfig] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 session_dir: Optional[str] = None):
         self.backend = make_backend(backend, pool, device=device)
         self.device = self.backend.device   # an instance keeps its own
         # price the axis planner's launch overhead on this device
         measure_launch_overhead_s(self.device)
+        self.session_dir = session_dir
+        if session_dir is not None:
+            os.makedirs(session_dir, exist_ok=True)
         self._queue: List[_Pending] = []
         self._results: Dict[int, DMLResult] = {}
         self._requests: Dict[int, WorkRequest] = {}
@@ -283,7 +311,58 @@ class DMLSession:
         self._next_id += 1
         self._queue.append(_Pending(rid, plan, data, ledger,
                                     on_complete=on_complete))
+        if self.session_dir is not None:
+            self._persist_spec(rid, plan, data)
         return rid
+
+    # ---- durability ---------------------------------------------------
+    def _spec_path(self, rid: int) -> str:
+        return os.path.join(self.session_dir, f"request_{rid:05d}.msgpack")
+
+    def _ledger_path(self, rid: int) -> str:
+        return os.path.join(self.session_dir, f"ledger_{rid:05d}.msgpack")
+
+    def _persist_spec(self, rid: int, plan: DMLPlan, data: DMLData):
+        """Durably record one submitted request (atomic, like the ledger:
+        a crash never leaves a half-written spec)."""
+        payload = {"rid": rid, "plan": plan.to_payload(),
+                   "data": data.to_payload()}
+        path = self._spec_path(rid)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(msgpack.packb(payload, use_bin_type=True))
+        os.replace(tmp, path)
+
+    @classmethod
+    def resume(cls, session_dir: str, *,
+               backend: Union[str, ExecutionBackend] = "wave",
+               pool: Optional[PoolConfig] = None,
+               device: DeviceLike = "cuda") -> "DMLSession":
+        """Rebuild a durable session in a fresh process: re-submit every
+        persisted request spec in request-id order with its checkpointed
+        ledger, so the next ``run()``/``poll()`` re-dispatches exactly
+        the not-DONE invocations (RUNNING rows orphaned by the crash
+        included — ``TaskLedger.load`` resets them) and completes every
+        submitted request with bit-for-bit thetas."""
+        sess = cls(backend=backend, pool=pool, device=device,
+                   session_dir=session_dir)
+        for path in sorted(glob.glob(
+                os.path.join(session_dir, "request_*.msgpack"))):
+            with open(path, "rb") as f:
+                p = msgpack.unpackb(f.read(), raw=False)
+            ledger = None
+            lpath = sess._ledger_path(p["rid"])
+            if os.path.exists(lpath):
+                ledger = TaskLedger.load(lpath)
+                ledger.path = lpath         # keep checkpointing here
+            rid = sess.submit(DMLPlan.from_payload(p["plan"]),
+                              DMLData.from_payload(p["data"]),
+                              ledger=ledger)
+            if rid != p["rid"]:
+                raise RuntimeError(
+                    f"resume id drift: re-submitted as {rid}, saved "
+                    f"{p['rid']} — {session_dir} is missing a request spec")
+        return sess
 
     def _drain_state(self) -> DrainState:
         """The live drain, rebuilt if the backend was swapped (previously
@@ -307,6 +386,11 @@ class DMLSession:
                                   tag=p.request_id)
             p.ledger = req.ledger           # keep completed rows on failure
             p.req = req
+            if self.session_dir is not None and req.ledger.path is None:
+                # bind the durable checkpoint file: backends call
+                # ledger.checkpoint() after every booking wave
+                req.ledger.path = self._ledger_path(p.request_id)
+                req.ledger.checkpoint()
             self.backend.admit(state, req)
             p.admitted = True
         self.last_run_info = state.info
@@ -338,6 +422,7 @@ class DMLSession:
         ``last_run_info``, retire)."""
         if not self._queue and self._state is not None:
             retire_drain(self._state, "session retire")
+            check_drained(self._state, "session retire")
             self._state = None
             self._state_backend = None
 
@@ -393,6 +478,13 @@ class DMLSession:
         return [self._results[rid] for rid in targets]
 
     # ---- results ------------------------------------------------------
+    @property
+    def topology_info(self):
+        """Per-host stream accounting of the last drain (placements,
+        steals, per-host waves) — None on single-stream backends."""
+        info = self.last_run_info
+        return None if info is None else info.topology
+
     def result(self, request_id: int) -> DMLResult:
         return self._results[request_id]
 

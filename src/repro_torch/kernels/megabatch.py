@@ -481,6 +481,10 @@ def _launch_gram(xs, w, y, plan: Optional[GramPlan], name: str
     layout = (ctypes.c_int * len(plan.layout()))(*plan.layout())
     with torch.cuda.device(xs.device):
         table = _device_table(plan, p, xs.device)
+        # the cached table may be read on several streams (one per
+        # topology host): keep its memory from being recycled under a
+        # launch queued on any of them
+        table.record_stream(torch.cuda.current_stream(xs.device))
         g = torch.empty((b, p, p), dtype=F32, device=xs.device)
         bv = torch.empty((b, p), dtype=F32, device=xs.device)
         part = torch.empty(plan.scratch_floats(b), dtype=F32,

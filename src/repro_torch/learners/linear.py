@@ -27,11 +27,13 @@ tensors go to the card, so on a machine without one they raise.
 
 Nothing here synchronises with the device: the status of the Cholesky
 factorisations (and of the LU solves of sharding/gram.py) is kept on the
-device and read only by ``solve_failures``.
+device, one running maximum per stream it was computed on (the topology
+backend runs each host on its own stream), and read only by
+``solve_failures``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -41,17 +43,21 @@ from repro_torch.runtime import default_device
 
 F32 = torch.float32
 
-# device -> running maximum of the factorisations' ``info`` (0: every
-# factorisation so far succeeded)
-_solve_status: Dict[torch.device, torch.Tensor] = {}
+# (device, stream) -> running maximum of the factorisations' ``info`` (0:
+# every factorisation so far succeeded); the stream is 0 on the CPU
+_solve_status: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def solve_failures(device) -> int:
-    """Largest factorisation ``info`` seen on ``device`` since the last
-    ``reset_solve_status`` (0 = all factorisations succeeded).  Reading
-    it waits for the device; the fit path itself never does."""
-    status = _solve_status.get(torch.device(device))
-    return 0 if status is None else int(status.item())
+    """Largest factorisation ``info`` seen on ``device`` (any stream)
+    since the last ``reset_solve_status`` (0 = all factorisations
+    succeeded).  Reading it waits for the device; the fit path itself
+    never does."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # every stream's factorisations
+    return max((int(status.item()) for (dev, _), status
+                in _solve_status.items() if dev == device), default=0)
 
 
 def reset_solve_status() -> None:
@@ -89,8 +95,11 @@ def _note_solve_status(info, live=None) -> None:
     """Fold a batched factorisation's ``info`` (B,) into the device's
     running maximum, counting only the ``live`` lanes when given."""
     worst = (info if live is None else info * live.to(info.dtype)).max()
-    prev = _solve_status.get(info.device)
-    _solve_status[info.device] = worst if prev is None \
+    stream = torch.cuda.current_stream(info.device).cuda_stream \
+        if info.device.type == "cuda" else 0
+    key = (info.device, stream)
+    prev = _solve_status.get(key)
+    _solve_status[key] = worst if prev is None \
         else torch.maximum(prev, worst)
 
 

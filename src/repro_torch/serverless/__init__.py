@@ -13,6 +13,9 @@ from repro_torch.serverless.dispatch import (
     DispatchQueue, DispatchStats, PendingBucket,
 )
 from repro_torch.serverless.ledger import TaskLedger
+from repro_torch.serverless.topology import (
+    HostMesh, Topology, TopologyBackend, TopologyInfo,
+)
 
 __all__ = [
     "AutoscaleDecision", "OccupancyAutoscaler", "TopologyAutoscaler",
@@ -22,4 +25,5 @@ __all__ = [
     "ShardedBackend", "WorkRequest", "Segment", "BACKENDS", "BACKEND_NAMES",
     "make_backend",
     "DispatchQueue", "DispatchStats", "PendingBucket",
+    "HostMesh", "Topology", "TopologyBackend", "TopologyInfo",
 ]

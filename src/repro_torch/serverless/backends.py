@@ -35,16 +35,16 @@ everything, step until idle).
                   the blocked Gram kernel (sharding/gram.py).  Only the
                   one-device mesh exists so far; there its task path is
                   the inline task path, bit for bit.
+  TopologyBackend (serverless/topology.py) per-host drain streams:
+                  buckets routed to the host whose PagePool already
+                  holds their pages, idle hosts steal, each host's waves
+                  on its own CUDA stream.
 
 Dispatch is **non-blocking**: a step launches its buckets and returns
 with the results still in flight (compile/program.py::dispatch_bucket);
 each drain stream queues them (serverless/dispatch.py) and books a
 bucket at a later step's harvest, so host booking overlaps device
 execution.
-
-``BACKEND_NAMES`` also lists ``topology`` so that plans and payloads
-carry across; asking ``make_backend`` for it raises
-``NotImplementedError`` until it is ported.
 
 All backends emit the same ``RunReport``/``TaskLedger`` artifacts, and
 each holds a persistent spec-keyed ``ProgramCache`` so repeat traffic
@@ -73,6 +73,7 @@ import torch
 from repro_torch import threefry
 from repro_torch.analysis.registry import warm_cache
 from repro_torch.runtime import DeviceLike, bounded_put, resolve_device
+from repro_torch.serverless import sanitize
 from repro_torch.serverless.autoscale import (
     AutoscaleDecision, OccupancyAutoscaler,
 )
@@ -442,6 +443,7 @@ class BackendRunInfo:
     # per-bucket parallelization-axis decisions: one
     # compile.buckets.AxisDecision per (bucket, mesh size) the drain priced
     axis_plans: List[object] = field(default_factory=list)
+    topology: Optional[object] = None   # per-host streams (TopologyInfo)
 
     @property
     def shared_waves(self) -> int:
@@ -458,7 +460,8 @@ class DrainState:
     admission order), the pool's fault plan (``chaos``,
     serverless/chaos.py — None for fault-free pools, whose hot path
     then pays nothing), the retry-backoff gates, the in-flight dispatch
-    ``queue`` and the cross-request ``BackendRunInfo``.  The session
+    ``queue`` (one per host stream on the topology backend, which keeps
+    them in ``queues``) and the cross-request ``BackendRunInfo``.  The session
     layer holds one of these per live drain and interleaves ``admit``
     with ``step``.
     """
@@ -485,21 +488,33 @@ class DrainState:
     def requests(self) -> List[WorkRequest]:
         return self.plan.requests
 
+    def refresh(self) -> None:
+        """Recompute accounting derived from several queues (the topology
+        drain's); one stream has none."""
+
+
+def _queues(state: DrainState) -> List[DispatchQueue]:
+    """Every dispatch queue of a drain: its one stream's, or one per
+    host stream (the topology backend's ``queues``)."""
+    out = [state.queue] if state.queue is not None else []
+    return out + list(getattr(state, "queues", {}).values())
+
 
 def retire_drain(state: DrainState, where: str) -> None:
     """Retire a drain whose requests have all completed: discard the
     losing hedge legs still in flight, then check that nothing else was
     left behind."""
-    if state.queue is not None:
-        state.queue.discard_cancelled()
+    for q in _queues(state):
+        q.discard_cancelled()
+    state.refresh()
     assert_drained(state, where)
 
 
 def assert_drained(state: DrainState, where: str) -> None:
-    """A drain may only retire with its dispatch queue empty and every
+    """A drain may only retire with its dispatch queues empty and every
     pipelined wave settled: an in-flight bucket or unsettled wave left
     behind is work billed but never booked."""
-    n = len(state.queue) if state.queue is not None else 0
+    n = sum(len(q) for q in _queues(state))
     assert n == 0, f"{where}: drain retiring with {n} bucket(s) in flight"
     assert not state.waves_inflight, \
         f"{where}: drain retiring with {len(state.waves_inflight)} " \
@@ -600,6 +615,7 @@ class _StreamBackend:
 
     # ------------------------------------------------------------------
     def _finish(self, state: DrainState):
+        sanitize.check_drained(state, "backend finish")
         assert_drained(state, "backend finish")
         for ri in range(len(state.requests)):
             self._finalize_request(state, ri)
@@ -676,6 +692,7 @@ class _StreamBackend:
             per_req.setdefault(ri, []).append(inv)
         for ri, invs in per_req.items():
             req = state.requests[ri]
+            sanitize.check_booking(req.ledger, invs, "record_successes")
             req.ledger.record_successes(
                 invs, np.stack([results[(ri, inv)] for inv in invs]))
             _fill_rows(req, np.asarray(invs),
@@ -695,6 +712,7 @@ class _StreamBackend:
         ledger = req.ledger
         if ledger.attempts[inv] >= self.pool.max_retries:
             return False
+        sanitize.check_booking(ledger, inv, "record_failure")
         ledger.record_failure(inv)
         req.report.failures += 1
         if state.chaos is not None:
@@ -724,7 +742,11 @@ class _StreamBackend:
         fault plan is active (chaos is what makes tails long) and a
         duplicate can win: on a CUDA device both legs run on the one
         stream in FIFO order, so the duplicate only beats an original
-        that a synthetic straggler hold keeps not-ready."""
+        that a synthetic straggler hold keeps not-ready.  The topology
+        backend keeps the rule although its duplicate runs on another
+        host's stream: on the card no such leg booked first without a
+        hold (the paper's waves land before the next poll, a tall
+        bucket's original finishes ahead of its duplicate; PERF.md)."""
         if self.pool.hedge is not None:
             return self.pool.hedge
         if state.chaos is None:
@@ -771,42 +793,47 @@ class _StreamBackend:
         return 0.0
 
     def _push_bucket(self, state: DrainState, q: DispatchQueue, bd,
-                     book) -> PendingBucket:
+                     book, host: int = -1) -> PendingBucket:
         """Wrap one dispatched bucket with its fault-tolerance context
         (deadline, straggler hold) and enqueue it."""
         hold = self._hold_for(state, bd.entries)
         pb = PendingBucket(
-            dispatch=bd,
+            dispatch=bd, host=host,
             deadline_s=self._deadline_for(state, bd.key, bd.entries),
             not_ready_before=(time.perf_counter() + hold) if hold else 0.0)
         q.push(pb, book)
         return pb
 
-    def _hedge_dispatch_kwargs(self, state: DrainState, bkey,
-                               entries) -> Dict:
-        """Extra dispatch kwargs a hedge must replicate so both legs run
-        the identical program (bitwise race)."""
+    def _hedge_dispatch_kwargs(self, state: DrainState, bkey, entries,
+                               host: int) -> Dict:
+        """Extra ``_dispatch`` kwargs a hedge leg launched for ``host``
+        must carry so both legs run the identical program (bitwise
+        race)."""
         return {}
 
     def _maybe_hedge(self, state: DrainState) -> int:
         """Duplicate-dispatch every overdue in-flight bucket (one stream:
-        the duplicate lands on the same queue)."""
+        the duplicate lands on the same queue — the topology backend
+        overrides placement to a different host)."""
         q = state.queue
         if q is None or not self._hedge_armed(state):
             return 0
         n = 0
         for pb in q.overdue():
-            self._hedge_bucket(state, pb, q)
+            self._hedge_bucket(state, pb, q, q, host=pb.host)
             n += 1
         return n
 
     def _hedge_bucket(self, state: DrainState, pb: PendingBucket,
-                      q: DispatchQueue) -> PendingBucket:
-        """Launch the duplicate leg of an overdue bucket and wire the
-        race: same key, same entries, same per-task keys — so whichever
-        leg lands first books bitwise-identical results.  The winner's
-        harvest settles the pair (``HedgePair.settle``, the sole cancel
-        performer) and the loser is discarded unbooked."""
+                      owner_q: DispatchQueue, push_q: DispatchQueue, *,
+                      host: int = -1) -> PendingBucket:
+        """Launch the duplicate leg of an overdue bucket (for ``host``,
+        onto ``push_q``) and wire the race: same key, same entries, same
+        per-task keys — so whichever leg lands first books
+        bitwise-identical results.  The winner's harvest settles the pair
+        (``HedgePair.settle``, the sole cancel performer) and the loser
+        is discarded unbooked."""
+        sanitize.check_hedge(pb)
         running: Dict[int, List[int]] = {}
         for ri, inv in pb.entries:
             running.setdefault(ri, []).append(inv)
@@ -816,15 +843,15 @@ class _StreamBackend:
             state.requests[ri].ledger.mark_running(invs)
         bd = self._dispatch(
             state, pb.key, list(pb.entries),
-            **self._hedge_dispatch_kwargs(state, pb.key, pb.entries))
+            **self._hedge_dispatch_kwargs(state, pb.key, pb.entries, host))
         pair = HedgePair()
-        hpb = PendingBucket(dispatch=bd, book=pb.book, is_hedge=True,
-                            pair=pair)
-        pair.legs = [(pb, q), (hpb, q)]
+        hpb = PendingBucket(dispatch=bd, host=host, book=pb.book,
+                            is_hedge=True, pair=pair)
+        pair.legs = [(pb, owner_q), (hpb, push_q)]
         pb.state = "HEDGED"
         pb.pair = pair
-        q.stats.hedges += 1
-        q.push(hpb)
+        push_q.stats.hedges += 1
+        push_q.push(hpb)
         return hpb
 
     def _drain_tail(self, state: DrainState, gate_wait: Optional[float],
@@ -894,8 +921,8 @@ class _BucketStreamBackend(_StreamBackend):
             self._note_wave(state, list(per_req), elapsed)
         self._checkpoint(state)
 
-    def _hedge_dispatch_kwargs(self, state: DrainState, bkey,
-                               entries) -> Dict:
+    def _hedge_dispatch_kwargs(self, state: DrainState, bkey, entries,
+                               host: int) -> Dict:
         return {"axis_decision": self._plan_axis(state, bkey, entries),
                 "mesh": self._axis_mesh()}
 
@@ -1284,6 +1311,7 @@ class WaveBackend(_StreamBackend):
             # to the general machinery
             per = wall / max(len(entries), 1)
             if per <= pool.timeout_s:
+                sanitize.check_booking(ledger, inv_arr, "record_successes")
                 ledger.record_successes(inv_arr, preds_rows)
                 for e in entries:
                     report.bill.add(BillingRecord(
@@ -1320,6 +1348,7 @@ class WaveBackend(_StreamBackend):
                 if not self._book_failure(state, ri, e.inv, now):
                     exhausted = int(e.inv)
                 continue
+            sanitize.check_booking(ledger, e.inv, "record_success")
             ledger.record_success(int(e.inv), preds_rows[i])
             report.bill.add(BillingRecord(
                 invocation=int(e.inv), duration_s=float(durs[i]),
@@ -1340,7 +1369,8 @@ class WaveBackend(_StreamBackend):
 # ---------------------------------------------------------------------------
 BACKENDS = {"wave": WaveBackend, "inline": InlineBackend,
             "sharded": ShardedBackend}
-# every name a plan or payload may carry; only those in BACKENDS run
+# "topology" resolves lazily in make_backend: serverless/topology.py
+# imports this module, so eager registration would be a cycle
 BACKEND_NAMES = tuple(BACKENDS) + ("topology",)
 
 
@@ -1348,12 +1378,11 @@ def make_backend(backend, pool: Optional[PoolConfig] = None,
                  device: DeviceLike = "cuda"):
     """Resolve a backend name (or pass through an instance)."""
     if isinstance(backend, str):
-        if backend not in BACKEND_NAMES:
+        if backend == "topology":
+            from repro_torch.serverless.topology import TopologyBackend
+            return TopologyBackend(pool, device=device)
+        if backend not in BACKENDS:
             raise KeyError(f"unknown backend {backend!r}; known: "
                            f"{BACKEND_NAMES}")
-        if backend not in BACKENDS:
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported yet; available: "
-                f"{tuple(BACKENDS)}")
         return BACKENDS[backend](pool, device=device)
     return backend

@@ -29,17 +29,17 @@ span is charged to ``hedge_waste_s`` instead of the request bill, so the
 GB-second ``Bill`` and the autoscaler EMA see exactly one span per
 completed bucket.  ``abandon()`` drops a whole queue: the orphans
 transition to LOST and their invocations resurface in the ledger-driven
-pending view for re-dispatch.
-
-A copy of the JAX package's ``serverless/dispatch.py`` without its
-runtime protocol checks (``REPRO_SANITIZE``), which come with the port
-of ``serverless/sanitize.py``.
+pending view for re-dispatch.  Every transition is checked against
+``analysis/protocol.py``'s ``BUCKET_TRANSITIONS`` table when
+``REPRO_SANITIZE`` is armed (serverless/sanitize.py).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Set, Tuple
+
+from repro_torch.serverless import sanitize
 
 # (request index, invocation id) — compile/buckets.py::Entry, redeclared
 # here because repro_torch.compile must load lazily (core <-> serverless
@@ -242,6 +242,7 @@ class DispatchQueue:
         already attached one to ``pb``."""
         if book is not None:
             pb.book = book
+        sanitize.check_book_at_push(pb)
         self._note_overlap()
         while len(self._pending) >= self.max_inflight:
             self.harvest_next()
@@ -266,6 +267,7 @@ class DispatchQueue:
             if blocked:
                 self.stats.wait_s += t1 - t0
             self._mark = t1
+            sanitize.check_attribution(t1, self._t_attr)
             waste = t1 - max(pb.t_dispatch, self._t_attr)
             self._t_attr = t1
             self.stats.hedge_waste_s += max(waste, 0.0)
@@ -292,8 +294,10 @@ class DispatchQueue:
         # frontier already attributed to earlier harvests; summed
         # durations then equal the true elapsed wall, matching the old
         # synchronous per-bucket accounting.
+        sanitize.check_attribution(t1, self._t_attr)
         elapsed = t1 - max(pb.t_dispatch, self._t_attr)
         self._t_attr = t1
+        sanitize.check_bucket_bookable(pb)
         pb.state = "HARVESTED"
         fn = pb.book if pb.book is not None else book
         fn(pb, results, max(elapsed, 0.0))
@@ -337,7 +341,8 @@ class DispatchQueue:
     def cancel(self, pb: PendingBucket) -> None:
         """Transition a losing hedge leg to CANCELLED and discard it as
         soon as its launches land.  Only ``HedgePair.settle`` may call
-        this."""
+        this (enforced statically by analysis/protocol.py)."""
+        sanitize.check_cancel(pb)
         pb.state = "CANCELLED"
         pb.not_ready_before = 0.0    # no point holding a discard
         if pb in self._pending and pb.dispatch.ready():
@@ -359,8 +364,7 @@ class DispatchQueue:
         """A host died: every in-flight bucket on its queue transitions
         to LOST and is returned for ledger-driven re-dispatch.  The
         dispatches are never harvested — their results lived on the dead
-        host.  Only a host loss (the topology backend's ``kill_host``,
-        not ported yet) may call this."""
+        host.  Only ``TopologyBackend.kill_host`` may call this."""
         pending, self._pending = self._pending, []
         orphans: List[PendingBucket] = []
         for pb in pending:
@@ -370,6 +374,7 @@ class DispatchQueue:
                 # nothing — count the discard and drop the handles
                 self.stats.cancelled += 1
                 continue
+            sanitize.check_abandon(pb)
             pb.state = "LOST"
             pb.not_ready_before = 0.0
             orphans.append(pb)

@@ -233,25 +233,18 @@ def test_tf32_stays_off():
 
 @pytest.mark.parametrize("name", ["wave", "topology"])
 def test_unported_backends_raise(name):
-    """``topology`` is still not ported and raises; ``wave`` (ported
-    since) runs, bitwise the inline backend's estimate."""
+    """Both backends that were once unported run now (``wave`` since the
+    wave slice, ``topology`` since the topology slice), each bit for bit
+    the inline backend's estimate."""
     assert name in BACKEND_NAMES and "inline" in BACKEND_NAMES
     (pt, dt), _ = _both(CASES[0])
-    if name == "wave":
-        make_backend(name, device="cpu")
-        sess = tcore.DMLSession(backend=name, device="cpu")
-        got = repro_torch.estimate(pt.replace(backend=name), dt, device="cpu")
-        want = repro_torch.estimate(pt, dt, device="cpu")     # inline
-        assert sess.backend.name == "wave"
-        assert (got.theta, got.se) == (want.theta, want.se)
-        assert np.array_equal(got.psi[1], want.psi[1])
-        return
-    with pytest.raises(NotImplementedError):
-        make_backend(name, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcore.DMLSession(backend=name, device="cpu")
-    with pytest.raises(NotImplementedError):           # topology is not inline
-        repro_torch.estimate(pt.replace(backend=name), dt, device="cpu")
+    make_backend(name, device="cpu")
+    sess = tcore.DMLSession(backend=name, device="cpu")
+    got = repro_torch.estimate(pt.replace(backend=name), dt, device="cpu")
+    want = repro_torch.estimate(pt, dt, device="cpu")     # inline
+    assert sess.backend.name == name
+    assert (got.theta, got.se) == (want.theta, want.se)
+    assert np.array_equal(got.psi[1], want.psi[1])
 
 
 def test_unknown_backend_is_a_key_error():

@@ -272,11 +272,9 @@ def test_hedged_straggler_race_books_once(monkeypatch):
 
 
 def test_topology_still_raises_and_pool_refusals():
-    """The topology backend still raises; the three pool settings that
-    were refused run on the wave backend, each bit for bit the per-block
-    drain."""
-    with pytest.raises(NotImplementedError):
-        make_backend("topology", device="cpu")
+    """The topology backend, once refused, runs bit for bit the per-block
+    drain; the three pool settings that were refused run on the wave
+    backend, each bit for bit the per-block drain."""
     tp, _ = _plans("plr", "n_rep", n_rep=6)
     td, _ = _data("plr", 3)
     per_block = PoolConfig(fuse=False, coalesce=False, page_pool_bytes=0)
@@ -288,3 +286,9 @@ def test_topology_still_raises_and_pool_refusals():
         WaveBackend(dataclasses.replace(per_block, **{field: value}),
                     device="cpu").run_requests([req])
         assert np.array_equal(req.gathered_preds(), ref.gathered_preds())
+    req = compile_request(tp, td)
+    topo = make_backend("topology", PoolConfig(n_workers=2, memory_mb=512),
+                        device="cpu")
+    assert topo.name == "topology"
+    topo.run_requests([req])
+    assert np.array_equal(req.gathered_preds(), ref.gathered_preds())
