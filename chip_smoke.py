@@ -49,18 +49,30 @@ fetch, and on a tall request (K3); a host lost mid-flight, chaos pools
 and hedges across host streams; a durable session crashed in a child
 process and resumed here; and all of it again under ``REPRO_SANITIZE=1``.
 
+The persistent library store (``compile/persist.py``): fresh processes
+on a fresh ``REPRO_PROGRAM_CACHE_DIR`` — the first builds both kernel
+libraries, the second builds none, one after a library was truncated
+evicts and rebuilds that library alone, and one of a copy of the package
+with a byte added to a comment of ``megabatch.cu`` rebuilds that library
+alone; each serves the paper request and holds K1, K2, K5 and K6 against
+their plain versions.  The example twins (``examples/*_torch.py``) at
+their own sizes on the card.
+
 Phases: device, build, kernels, estimate_paper, estimate_wide, session,
 same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
 estimate_wave, wave_pool, session_wave, fusion, page_pool,
 estimate_quickstart, estimate_mlp, serve_zamba2, same_as_cpu_lm,
-topology, topology_chaos, durable, sanitize.
+topology, topology_chaos, durable, sanitize, persist, examples.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import importlib.util
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -85,7 +97,7 @@ from repro_torch.data import (                             # noqa: E402
     TRUE_EFFECT, make_bonus_data, make_irm_data, make_pliv_data,
     make_plr_data,
 )
-from repro_torch.compile import plan_buckets, program    # noqa: E402
+from repro_torch.compile import persist, plan_buckets, program  # noqa: E402
 from repro_torch.configs import get_arch                  # noqa: E402
 from repro_torch.configs.dml_plr_bonus import (            # noqa: E402
     CONFIG, FIG3_MEMORY_GRID, FIG3_SCALING_GRID, USD_PER_GB_S,
@@ -109,7 +121,7 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "raw_request", "estimate_irm", "estimate_wave", "wave_pool",
           "session_wave", "fusion", "page_pool", "estimate_quickstart",
           "estimate_mlp", "serve_zamba2", "same_as_cpu_lm", "topology",
-          "topology_chaos", "durable", "sanitize")
+          "topology_chaos", "durable", "sanitize", "persist", "examples")
 LIBRARIES = ("megabatch", "lm")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
@@ -2601,7 +2613,8 @@ def phase_estimate_quickstart(device):
         <= 2 * f64["cpu_tier_units_vs_f64"] + 1.0, f64
     return {"batched_gram": launches["batched_gram"],
             "batched_predict": launches["batched_predict"],
-            "crossfit_gram": shared_launches["crossfit_gram"]}
+            "crossfit_gram": shared_launches["crossfit_gram"],
+            "result": res_boot}
 
 
 def _mlp_run(plan, data, dev, truth, what):
@@ -2932,9 +2945,12 @@ for _ in range(100):
     reqs.update(sess._requests)
     if sum(r.ledger.n_done for r in reqs.values()) > 0:
         break
+from repro_torch.compile import persist
 print(json.dumps({"done": {i: r.ledger.n_done for i, r in reqs.items()},
                   "n_inv": {i: r.ledger.n_invocations
-                            for i, r in reqs.items()}}), flush=True)
+                            for i, r in reqs.items()},
+                  "library_builds": persist.library_store().builds}),
+      flush=True)
 os._exit(0)
 """
 
@@ -3248,6 +3264,7 @@ def phase_durable(device):
     if sdir.exists():
         for f in sdir.iterdir():
             f.unlink()
+    build.load_library("megabatch")     # the store is warm for the child
     torch.cuda.empty_cache()            # the child shares the card
     t0 = time.perf_counter()
     child = subprocess.run(
@@ -3263,6 +3280,8 @@ def phase_durable(device):
                for r in n_inv}
     assert {r: led.n_done for r, led in on_disk.items()} == done, done
     assert 0 < sum(done.values()) < sum(n_inv.values()), done
+    # a fresh process on a warm store builds no library
+    assert crashed["library_builds"] == 0, crashed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sess = DMLSession.resume(str(sdir), device=device)
@@ -3296,6 +3315,7 @@ def phase_durable(device):
     emit("durable", card=smi_line(), backend="wave",
          session_dir=str(sdir.relative_to(ROOT)),
          files=sorted(f.name for f in sdir.iterdir()), child_s=child_s,
+         child_library_builds=crashed["library_builds"],
          resume_s=resume_s, requests=rows,
          tolerance="bit for bit an uninterrupted inline run on the card")
 
@@ -3340,6 +3360,224 @@ def phase_sanitize(device):
          protocol_errors=0, planted_double_harvest_caught=caught)
 
 
+# ---------------------------------------------------------------------------
+# the persistent library store: fresh processes on one REPRO_PROGRAM_CACHE_DIR
+# ---------------------------------------------------------------------------
+# a child of the persist phase: the clock starts before anything is
+# imported; argv[1] is the tree whose chip_smoke.py (and src/) it runs
+PERSIST_CHILD = """
+import sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.persist_child(t0)
+"""
+
+
+def _persist_kernel_checks(device) -> dict:
+    """K1, K2, K5 and K6 launched once each at their main shapes, each held
+    against its plain version at the kernels phase's tolerance; the
+    largest differences."""
+    gen = torch.Generator(device=device).manual_seed(20210104)
+    b, n, p = MAIN_SHAPE
+    xs = torch.randn(MAIN_SHAPE, generator=gen, device=device)
+    y = torch.randn((b, n), generator=gen, device=device)
+    w = (torch.rand((b, n), generator=gen, device=device) < 0.8).float()
+    beta = torch.randn((b, p), generator=gen, device=device)
+    valid = (torch.rand((b, n), generator=gen, device=device) < 0.9).float()
+    g, bv = ops.batched_gram(xs, w, y)
+    g0, b0 = megabatch.batched_gram_plain(xs, w, y)
+    assert torch.allclose(g, g0, rtol=1e-4,
+                          atol=1e-4 * float(g0.abs().max())) \
+        and torch.allclose(bv, b0, rtol=1e-4,
+                           atol=1e-4 * float(b0.abs().max())), \
+        ("batched_gram disagrees", _errs(g, g0))
+    out = ops.batched_predict(xs, beta, valid)
+    out0 = megabatch.batched_predict_plain(xs, beta, valid)
+    assert torch.allclose(out, out0, rtol=1e-5,
+                          atol=_predict_atol(MAIN_SHAPE, out0)), \
+        ("batched_predict disagrees", _errs(out, out0))
+    bh, sq, skv, d, dtype, causal, window = MAIN_ATTN_SHAPE
+    q, k, v = (torch.randn((bh, s_, d), generator=gen, device=device)
+               .to(TYPES[dtype]) for s_ in (sq, skv, skv))
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    o0 = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window)
+    attn_err = float((o.float() - o0.float()).abs().max())
+    assert attn_err < ATTN_TOL[dtype] and _bf16_ulps(o, o0) <= BF16_ULPS, \
+        ("flash_attention disagrees", attn_err)
+    x, la, bm, cm = _ssd_inputs(MAIN_SSD_SHAPE, "slow", device, gen)
+    chunk, heads = MAIN_SSD_SHAPE[4:]
+    ys, st = ops.ssd_scan(x, la, bm, cm, chunk=chunk, heads=heads)
+    ys0, st0 = ssd_scan.ssd_scan_plain(x, la, bm, cm, heads=heads)
+    ssd_err = max(float((ys - ys0).abs().max()) / float(ys0.abs().max()),
+                  float((st - st0).abs().max()) / float(st0.abs().max()))
+    assert ssd_err <= SSD_SPLIT_TOL, ("ssd_scan disagrees", ssd_err)
+    return {"batched_gram": _errs(g, g0)[0],
+            "batched_predict": _errs(out, out0)[0],
+            "flash_attention": attn_err, "ssd_scan_rel": ssd_err}
+
+
+def persist_child(t0: float) -> None:
+    """The body of a persist-phase child: the paper request first (its
+    wall from the process's start: the first result), then K1, K2, K5, K6
+    against their plain versions; one JSON line with the store's
+    counters and the libraries this process built."""
+    device = runtime.default_device()
+    imported_s = time.perf_counter() - t0
+    sess = DMLSession(device=device)
+    res = sess.estimate(_paper_default_plan(),
+                        DMLData.from_dict(make_bonus_data()))
+    torch.cuda.synchronize()
+    first_request_s = time.perf_counter() - t0
+    stats = sess.backend.compiler.stats
+    kernels = _persist_kernel_checks(device)
+    print(json.dumps({
+        "imported_s": imported_s, "first_request_s": first_request_s,
+        "theta": res.theta, "se": res.se,
+        "disk_hits": stats.disk_hits, "disk_misses": stats.disk_misses,
+        "store": persist.library_store().summary(),
+        "built": sorted(n for n, (s_, _) in build.build_log.items()
+                        if s_ > 0),
+        "max_abs_err": kernels}), flush=True)
+
+
+def _run_persist_child(tree: Path, cache: Path) -> dict:
+    torch.cuda.empty_cache()            # the child shares the card
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", PERSIST_CHILD, str(tree)],
+        env=dict(os.environ, **{persist.ENV_CACHE_DIR: str(cache)}),
+        capture_output=True, text=True, timeout=600)
+    assert child.returncode == 0, child.stderr[-4000:]
+    out = json.loads(child.stdout.strip().splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_persist(device):
+    """Four fresh processes on one fresh ``REPRO_PROGRAM_CACHE_DIR``:
+    (i) cold: builds megabatch and lm (nvcc seconds of each); (ii) warm:
+    builds nothing; (iii) after one library was truncated: one eviction,
+    that library rebuilt alone; (iv) a copy of the package with one byte
+    more in a comment of megabatch.cu: that library rebuilt alone.  Each
+    serves the paper request (the same bits in all four) and holds K1,
+    K2, K5 and K6 against their plain versions."""
+    work = ROOT / "build" / "persist_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    cache = work / "cache"
+    runs = {"cold": _run_persist_child(ROOT, cache)}
+    lib_dir = cache / "repro_torch"
+    assert runs["cold"]["built"] == ["lm", "megabatch"], runs["cold"]
+    assert runs["cold"]["disk_misses"] >= 1, runs["cold"]
+    runs["warm"] = _run_persist_child(ROOT, cache)
+    assert runs["warm"]["built"] == [] and \
+        runs["warm"]["store"]["builds"] == 0, runs["warm"]
+    assert runs["warm"]["disk_hits"] >= 1 and \
+        runs["warm"]["disk_misses"] == 0, runs["warm"]
+    (mb,) = lib_dir.glob("libmegabatch-*.so")
+    mb.write_bytes(mb.read_bytes()[:mb.stat().st_size // 2])
+    runs["truncated"] = _run_persist_child(ROOT, cache)
+    assert runs["truncated"]["store"]["evictions"] == 1 and \
+        runs["truncated"]["built"] == ["megabatch"], runs["truncated"]
+    tree = work / "tree"
+    shutil.copytree(ROOT / "src" / "repro_torch", tree / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", tree)
+    cu = tree / "src" / "repro_torch" / "kernels" / "csrc" / "megabatch.cu"
+    text = cu.read_text()
+    cu.write_text(text.replace("//", "// ", 1))      # one byte, a comment
+    assert len(cu.read_bytes()) == len(text.encode()) + 1
+    runs["edited_comment"] = _run_persist_child(tree, cache)
+    assert runs["edited_comment"]["built"] == ["megabatch"] and \
+        runs["edited_comment"]["store"]["builds"] == 1, \
+        runs["edited_comment"]
+    assert len({(r["theta"], r["se"]) for r in runs.values()}) == 1, runs
+    emit("persist", card=smi_line(), cache_dir="build/persist_phase/cache",
+         libraries=sorted(f.name for f in lib_dir.iterdir()),
+         nvcc_s=runs["cold"]["store"]["nvcc_s"],
+         runs={k: {f: r[f] for f in (
+             "built", "store", "disk_hits", "disk_misses", "imported_s",
+             "first_request_s", "process_s", "max_abs_err")}
+             for k, r in runs.items()},
+         theta=runs["cold"]["theta"], se=runs["cold"]["se"],
+         tolerance="every child's paper request the same bits; K1, K2, K5, "
+                   "K6 at the kernels phase's tolerances")
+
+
+# ---------------------------------------------------------------------------
+# the example twins at their own sizes
+# ---------------------------------------------------------------------------
+def _example(name: str):
+    """The module of ``examples/<name>.py``, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_examples(device, quickstart=None):
+    """``examples/quickstart_torch.py`` (M 20), ``serverless_scaling_torch.py``
+    (the Fig. 3 sweep: 2 scalings x 4 memories x 3 repeats, simulated
+    billing) and ``session_batching_torch.py`` on the card.  The
+    quickstart's repetitions are the first 20 of ``estimate_quickstart``'s
+    request (the same plan at M 100, seed 42, n_boot 500): theta and se of
+    each repetition bit for bit."""
+    quickstart_torch, serverless_scaling_torch, session_batching_torch = (
+        _example(name) for name in ("quickstart_torch",
+                                    "serverless_scaling_torch",
+                                    "session_batching_torch"))
+    walls = {}
+    t0 = time.perf_counter()
+    _, qs = quickstart_torch.run(device=device)
+    torch.cuda.synchronize()
+    walls["quickstart"] = time.perf_counter() - t0
+    _checked(qs, None, device, TRUE_EFFECT, "examples/quickstart")
+    if quickstart is None:
+        quickstart = estimate(_quickstart_plan(n_boot=N_BOOT),
+                              DMLData.from_dict(make_bonus_data()))
+    m = len(qs.thetas)
+    assert np.array_equal(qs.thetas, quickstart.thetas[:m]) and \
+        np.array_equal(qs.ses, quickstart.ses[:m]), \
+        ("the quickstart twin's repetitions differ from estimate_quickstart's",
+         qs.thetas, quickstart.thetas[:m])
+    t0 = time.perf_counter()
+    rows, sweep = serverless_scaling_torch.run_sweep(device=device)
+    torch.cuda.synchronize()
+    walls["serverless_scaling"] = time.perf_counter() - t0
+    t_ps = [t for s_, _, t, _ in rows if s_ == "n_rep"]
+    assert all(b < a for a, b in zip(t_ps, t_ps[1:])), rows
+    for res in sweep:
+        _checked(res, None, device, TRUE_EFFECT, "examples/serverless_scaling")
+    t0 = time.perf_counter()
+    reqs, _, results, info, solo = session_batching_torch.run(device=device)
+    torch.cuda.synchronize()
+    walls["session_batching"] = time.perf_counter() - t0
+    assert info.shared_waves >= 1, info
+    for (_, data), res in zip(reqs, results):
+        _checked(res, None, device, data.theta0, "examples/session_batching")
+
+    def summary(res):
+        s_ = res.report.summary()
+        return {"theta": res.theta, "se": res.se,
+                "invocations": s_["invocations"], "waves": s_["waves"],
+                "billed_gb_s": s_["billed_gb_s"]}
+
+    emit("examples", card=smi_line(), wall_s=walls,
+         quickstart={**summary(qs), "n_rep": m, "boot_ci": qs.boot_ci,
+                     "repetitions_equal_estimate_quickstart": True},
+         serverless_scaling={"rows": rows,
+                             "runs": [summary(r) for r in sweep]},
+         session_batching={"waves": info.waves,
+                           "shared_waves": info.shared_waves,
+                           "requests": [summary(r) for r in results],
+                           "solo_waves": sum(r.report.waves for r in solo)},
+         tolerance="theta within 4 se of the planted effect; the "
+                   "quickstart's repetitions bit for bit "
+                   "estimate_quickstart's first 20")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3374,17 +3612,17 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         # one nvcc per source, all started together
         with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-            list(pool.map(lambda name: build.build_library(
+            list(pool.map(lambda name: build.load_library(
                 name, verbose=args.verbose_build), LIBRARIES))
         libraries = {}
         for name in LIBRARIES:
-            build.load_library(name)
             nvcc_s, path = build.build_log[name]
             libraries[name] = {
                 "library": str(Path(path).relative_to(ROOT))
                 if Path(path).is_relative_to(ROOT) else path,
                 "nvcc_s": nvcc_s}
         emit("build", libraries=libraries,
+             store=persist.library_store().summary(),
              build_and_load_s=time.perf_counter() - t0)
     rows, launches = None, None
     if "kernels" in phases:
@@ -3444,6 +3682,10 @@ def main(argv=None) -> int:
         phase_durable(device)
     if "sanitize" in phases:
         phase_sanitize(device)
+    if "persist" in phases:
+        phase_persist(device)
+    if "examples" in phases:
+        phase_examples(device, quickstart and quickstart["result"])
 
     if phases != list(PHASES):
         print(json.dumps({"ok": False, "partial": phases,

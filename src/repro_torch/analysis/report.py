@@ -10,7 +10,8 @@ from typing import List, Sequence
 class Finding:
     """One audit violation.
 
-    ``passname`` names the pass ("protocol" in the port); ``rule`` the
+    ``passname`` names the pass ("cache-keys", "protocol", "empirical",
+    "dead-code"); ``rule`` the
     specific invariant (stable identifiers — the mutation tests key on
     them); ``where`` the location (``file:line``); ``detail`` the human
     explanation.

@@ -67,6 +67,9 @@ from repro_torch.compile.buckets import (
     BucketKey, Entry, MegabatchPlan, pack_tail_blocks,
 )
 from repro_torch.compile.pages import PagePool, upload
+from repro_torch.compile.persist import (
+    PersistentProgramCache, default_persist,
+)
 from repro_torch.core.crossfit import (
     PaddingStats, aligned_bucket, pow2_bucket,
 )
@@ -84,9 +87,16 @@ class CompileStats:
     ``coalesced_blocks`` counts canonical tail blocks that rode a
     *combined* launch block (cross-shape coalescing).  A fused launch
     counts once here however many kernel calls it makes
-    (``runtime.launch_counts`` counts those)."""
+    (``runtime.launch_counts`` counts those).  ``disk_hits`` and
+    ``disk_misses`` count the kernel-library lookups of this cache's
+    programs in the persistent store (compile/persist.py), made at a
+    program's first launch on a CUDA device and only when
+    ``REPRO_PROGRAM_CACHE_DIR`` is configured: a miss is a library
+    that had to be built."""
     hits: int = 0
     misses: int = 0
+    disk_hits: int = 0
+    disk_misses: int = 0
     launches: int = 0
     blocks: int = 0
     fused_launches: int = 0
@@ -102,6 +112,8 @@ class CompileStats:
         return {"programs_compiled": self.misses,
                 "cache_hits": self.hits,
                 "cache_hit_rate": self.hit_rate,
+                "disk_hits": self.disk_hits,
+                "disk_misses": self.disk_misses,
                 "launches": self.launches,
                 "blocks": self.blocks,
                 "fused_launches": self.fused_launches,
@@ -174,6 +186,12 @@ MORPH_TOLERANCE_FAMILIES = frozenset({"logistic"})
 # element count below 2^31, the kernels' 32-bit offsets.
 FUSED_GATHER_BYTES = 2 << 30
 
+# The kernel library (kernels/csrc/<name>.cu) each spec family's program
+# launches from; logistic (IRLS on torch.bmm), mlp and opaque callables
+# launch none.
+PROGRAM_LIBRARY = {"ols": "megabatch", "ridge": "megabatch",
+                   "lasso": "megabatch", "kernel_ridge": "megabatch"}
+
 
 def bucket_family(key: BucketKey) -> Optional[str]:
     """Learner family name of a spec-identified bucket, else None."""
@@ -216,11 +234,37 @@ class ProgramCache:
     programs, and a session's repeat traffic never rebuilds one.  No
     program writes into its operands: the page stack is the
     ``PagePool``'s, reused across launches.
+
+    ``persist``: the persistent library store (default: the one
+    ``REPRO_PROGRAM_CACHE_DIR`` configures, else none).  With a store, a
+    program's first launch on a CUDA device looks its kernel library up
+    in it (``CompileStats.disk_hits``/``disk_misses``).
     """
 
-    def __init__(self):
+    def __init__(self, persist: object = "auto"):
         self._programs: Dict[Tuple, Callable] = {}
+        self.persist: Optional[PersistentProgramCache] = \
+            default_persist() if persist == "auto" else persist
         self.stats = CompileStats()
+
+    def _looks_up_library(self, pkey: Tuple, key: BucketKey,
+                          run: Callable) -> Callable:
+        """``run``, or with a store and a family that launches kernels,
+        ``run`` behind a first call that resolves the family's library
+        in the store once it runs on a CUDA device."""
+        name = PROGRAM_LIBRARY.get(bucket_family(key))
+        if self.persist is None or name is None:
+            return run
+
+        def first_call(pages, *args):
+            if pages.is_cuda:
+                if self.persist.lookup_library(name):
+                    self.stats.disk_hits += 1
+                else:
+                    self.stats.disk_misses += 1
+                self._programs[pkey] = run
+            return run(pages, *args)
+        return first_call
 
     # BucketKey pins the segment's (learner, params) and padded shapes,
     # which fully determine the batched fn the thunk builds — hence
@@ -243,8 +287,8 @@ class ProgramCache:
             xb = pages[data_idx]                       # (B, N_pad, P_pad)
             return batched_fn(xb, y, w, valid, key_data)
 
-        self._programs[pkey] = run
-        return run
+        prog = self._programs[pkey] = self._looks_up_library(pkey, key, run)
+        return prog
 
     @warm_cache(name="fused_program_cache",
                 key=("key", "b_pad", "d_pad", "g"),
@@ -280,8 +324,9 @@ class ProgramCache:
                 outs.append(out.reshape(hi - lo, b_pad, -1))
             return outs[0] if len(outs) == 1 else torch.cat(outs)
 
-        self._programs[pkey] = run_fused
-        return run_fused
+        prog = self._programs[pkey] = self._looks_up_library(pkey, key,
+                                                             run_fused)
+        return prog
 
     def shapes(self) -> List[Tuple[int, int, int]]:
         """(B_pad, N_pad, P_pad) of every program built so far (a fused

@@ -273,8 +273,11 @@ class DMLSession:
     loaded ledgers: DONE invocations are never re-executed, RUNNING rows
     re-dispatch, and the determinism contract makes the resumed thetas
     bit for bit those of an uninterrupted run.  The resumed process
-    rebuilds its programs (there is no persistent program cache yet);
-    the kernels' shared library is reused from ``build/repro_torch/``.
+    rebinds its programs (no trace, no compile: PyTorch runs eagerly)
+    and loads the kernels' libraries from the persistent store
+    (compile/persist.py: ``REPRO_PROGRAM_CACHE_DIR``, else
+    ``build/repro_torch/`` of the checkout), so a warm store builds
+    none.
     """
 
     def __init__(self, backend: Union[str, ExecutionBackend] = "wave",

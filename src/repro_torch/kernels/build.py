@@ -2,23 +2,23 @@
 
 The sources under ``csrc/`` have a plain C interface and include no
 PyTorch header, so ``nvcc`` compiles one in seconds.  ``load_library``
-compiles a source for ``sm_90a`` at first use into
-``build/repro_torch/lib<name>-<hash of the source>.so`` (an edit to the
-source changes the name, hence rebuilds), loads it with ``ctypes`` and
-sets the ``argtypes`` of its entry points: ``c_void_p`` for every pointer
-and for the stream, ``c_int`` for sizes and flags, ``c_float`` for a
-scale.
+compiles a source for ``sm_90a`` at first use, loads it with ``ctypes``
+and sets the ``argtypes`` of its entry points: ``c_void_p`` for every
+pointer and for the stream, ``c_int`` for sizes and flags, ``c_float``
+for a scale.
+
+Where a library is built, how it is named and when a built one is reused
+is the persistent store's business (``compile/persist.py``): one file
+per (toolkit, target, source and flags), under ``REPRO_PROGRAM_CACHE_DIR``
+when it is set.  This module keeps the nvcc command, the entry points'
+signatures and the launch check.
 
 A build or a load that fails raises; nothing here gives way to a plain
 PyTorch version.
-
-The build directory is ``build/repro_torch`` at the root of the source
-checkout (the directory that holds ``src/``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -27,8 +27,10 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+# the one target the kernels are compiled for
+PLATFORM = "sm_90a"
+NVCC_FLAGS = ("-gencode", f"arch=compute_{PLATFORM[3:]},code={PLATFORM}",
+              "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library name -> {entry point: argtypes}; every entry point returns the
@@ -63,14 +65,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
 }
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+# the process tier of the persistent store: (build, platform, fingerprint)
+# -> the loaded library (compile/persist.py inserts, through one
+# registered site)
+_LOADED: Dict[Tuple, ctypes.CDLL] = {}
 # library name -> (seconds nvcc took in this process, 0.0 when the library
-# was already on disk; path of the shared library)
+# was already built; path of the shared library)
 build_log: Dict[str, Tuple[float, str]] = {}
-
-
-def build_dir() -> Path:
-    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 
 def find_nvcc() -> str:
@@ -86,49 +87,41 @@ def find_nvcc() -> str:
                        "compiled at first use and need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{digest}.so"
-
-
-def build_library(name: str, *, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        build_log.setdefault(name, (0.0, str(out)))
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+def run_nvcc(source: Path, out: Path, *, verbose: bool = False) -> float:
+    """Compile ``source`` into the shared library ``out`` with
+    ``NVCC_FLAGS``; the seconds nvcc took.  Raises with nvcc's output
+    when it fails."""
     cmd = [find_nvcc(), *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd += ["-o", str(out), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit "
+        raise RuntimeError(f"nvcc failed for {source.name} (exit "
                            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
     if verbose:
         print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)                 # atomic: two racing builds both win
-    build_log[name] = (time.perf_counter() - t0, str(out))
-    return out
+    return time.perf_counter() - t0
+
+
+def bind(lib, name: str):
+    """Set the argument and result types of every entry point of
+    ``SIGNATURES[name]`` on a loaded library; a missing entry point
+    raises ``AttributeError``."""
+    for fn, argtypes in SIGNATURES[name].items():
+        entry = getattr(lib, fn)
+        entry.argtypes = list(argtypes)
+        entry.restype = _INT
+    lib.repro_error_string.argtypes = [_INT]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load_library(name: str, *, verbose: bool = False) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_library(name, verbose=verbose)))
-        for fn, argtypes in SIGNATURES[name].items():
-            entry = getattr(lib, fn)
-            entry.argtypes = list(argtypes)
-            entry.restype = _INT
-        lib.repro_error_string.argtypes = [_INT]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _LOADED[name] = lib
-    return lib
+    from repro_torch.compile import persist
+    return persist.library_store().load(name, verbose=verbose)
 
 
 def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -15,7 +15,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 import repro.compile.buckets as jbuckets
 import repro.core as rcore

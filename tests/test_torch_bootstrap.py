@@ -7,7 +7,9 @@ the intervals within 1e-6 relative; the score's se at the float tier.
 import jax
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.core import bootstrap as jax_boot
 from repro_torch import threefry

@@ -7,6 +7,9 @@ import dataclasses
 import numpy as np
 import pytest
 
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
+
 from repro.configs import dml_plr_bonus as jax_bonus
 from repro.serverless import PoolConfig as JaxPool
 from repro.serverless import autoscale as jax_autoscale

@@ -13,7 +13,9 @@ import jax.numpy as jnp
 import msgpack
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 import repro.compile as jc
 import repro.core as rcore

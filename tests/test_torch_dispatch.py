@@ -12,7 +12,9 @@ on the CPU device: a ``BucketDispatch`` is armed once.
 """
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.serverless import dispatch as jax_dispatch
 

@@ -18,6 +18,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
+
 import repro.core as rcore
 from repro.data import make_irm_data, make_plr_data
 

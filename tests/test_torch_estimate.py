@@ -10,7 +10,9 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 import repro.core as rcore
 from repro.data import make_irm_data, make_pliv_data, make_plr_data
@@ -370,3 +372,38 @@ def test_irm_default_propensity_needs_no_override():
     rj = rcore.estimate(plans[1], rcore.DMLData.from_dict(raw))
     assert _rel(rt.theta, rj.theta) < 1e-4 and _rel(rt.se, rj.se) < 1e-4
     np.testing.assert_allclose(rt.thetas, rj.thetas, rtol=1e-4)
+
+
+def test_near_square_ols_is_as_close_to_float64_as_the_reference():
+    """ROADMAP Queue 3, *near-square ols*: IRM x ols where the lane
+    (m 3, k 1, ``ml_g1``) trains on about as many rows as it has
+    coefficients (cond(X'X) about 3e3).  Neither package is within the
+    float tier of the other there, so each is held to a float64 solve of
+    the same normal equations, within cond(G) float32 epsilons of the
+    predictions' scale, and the port no farther from it than the
+    reference (recorded: 8.0e-5 against 2.6e-4)."""
+    raw = make_irm_data(n_obs=132, dim_x=24, seed=1)
+    preds, req = [], None
+    for core in (tcore, rcore):
+        plan = core.DMLPlan.for_model("irm", learner="ols", n_folds=2,
+                                      n_rep=4, seed=7,
+                                      scaling="n_folds*n_rep",
+                                      backend="inline")
+        kw = {"device": "cpu"} if core is tcore else {}
+        sess = core.DMLSession(backend="inline", **kw)
+        sess.estimate(plan, core.DMLData.from_dict(raw))
+        req = sess.request(0)
+        preds.append(req.gathered_preds()[3, 1, 1].astype(np.float64))
+    w = req.train_w[3, 1, 1].astype(np.float64)
+    xa = np.concatenate([req.x.astype(np.float64),
+                         np.ones((req.x.shape[0], 1))], axis=1)
+    g = xa.T @ (w[:, None] * xa) + 1e-8 * np.eye(xa.shape[1])
+    beta = np.linalg.solve(g, xa.T @ (w * req.targets[1]))
+    want = xa @ beta
+    assert int(w.sum()) <= xa.shape[1] + 3          # near square
+    cond = np.linalg.cond(g)
+    assert 1e3 < cond < 1e4
+    bound = cond * np.finfo(np.float32).eps * np.abs(want).max()
+    err_port, err_ref = (float(np.abs(p - want).max()) for p in preds)
+    assert err_port <= bound and err_ref <= bound
+    assert err_port <= err_ref

@@ -14,7 +14,9 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 import repro.compile as jcompile
 import repro.core as rcore

@@ -16,7 +16,9 @@ every shape, and column panels with whole rows).
 from collections import Counter
 
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import megabatch as mb
 

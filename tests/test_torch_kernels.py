@@ -10,7 +10,9 @@ float32, in different orders.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ref
 from repro.kernels.megabatch import (

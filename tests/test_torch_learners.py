@@ -9,7 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.learners import get_batched_learner as jax_batched
 from repro.learners import linear as jax_linear

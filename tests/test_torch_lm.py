@@ -23,7 +23,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.configs import get_arch as jax_get_arch
 from repro.models import build_model as jax_build_model

@@ -15,7 +15,9 @@ tensors ``ops`` hands the folded operands to the plain versions.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_pallas

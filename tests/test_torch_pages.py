@@ -11,11 +11,14 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 import repro.analysis.registry as jregistry
 import repro.compile.buckets as jbuckets
 import repro.compile.pages as jpages
+import repro.compile.persist  # noqa: F401  (registers its declarations)
 import repro.core as rcore
 import repro.serverless as rserverless
 import repro.sharding.gram  # noqa: F401  (registers its declarations)
@@ -25,6 +28,7 @@ from repro.data import make_plr_data
 import repro_torch.analysis.registry as tregistry
 import repro_torch.compile.buckets as tbuckets
 import repro_torch.compile.pages as tpages
+import repro_torch.compile.persist  # noqa: F401
 import repro_torch.core as tcore
 import repro_torch.serverless as tserverless
 import repro_torch.sharding.gram  # noqa: F401
@@ -322,10 +326,16 @@ def test_registry_exact():
                 spec.ambient) == ("_probe", ("a",), ("b",), {"a": ("b",)},
                                   ("self",))
         assert reg.REGISTRY.pop("_probe") is spec
+    # the persistent store's two tiers key the reference's triple; the
+    # port's ``fingerprint`` names a kernel library (source and flags)
+    # where the reference's names an XLA executable, and its ``build`` is
+    # the nvcc toolkit where the reference's is the jax build
     ported = {"program_cache", "fused_program_cache", "block_layouts",
               "block_tensors", "plan_pages", "page_pool_stacks",
               "work_request_index_maps", "data_gram_programs",
-              "feature_gram_programs", "fold_in_key_tables"}
+              "feature_gram_programs", "fold_in_key_tables",
+              "persistent_program_cache",
+              "persistent_program_cache_process_tier"}
     assert ported <= set(tregistry.REGISTRY)
     for name in ported:
         t, j = tregistry.REGISTRY[name], jregistry.REGISTRY[name]

@@ -10,7 +10,9 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 import repro.analysis.protocol as jprotocol
 

@@ -17,7 +17,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 import repro.core as rcore
 from repro.core.session import compile_raw_request as jax_compile_raw

@@ -12,7 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.learners import kernel_ridge as jax_kr
 from repro_torch import threefry

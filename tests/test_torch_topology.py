@@ -17,7 +17,9 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 import repro.compile.program as jax_program
 import repro.core as rcore

@@ -28,6 +28,9 @@ import types
 import numpy as np
 import pytest
 
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
+
 import repro.compile.program as jax_program
 import repro.core as rcore
 import repro.serverless as rserverless

@@ -10,6 +10,9 @@ import warnings
 import numpy as np
 import pytest
 
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
+
 import repro.core as rcore
 from repro.data import make_pliv_data, make_plr_data
 
