@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where one estimation request — or one served burst of zamba2-7b —
-spends its time on the card.
+"""Where one estimation request — or one served burst of zamba2-7b or
+deepseek-v2-lite-16b — spends its time on the card.
 
     python3 scripts/profile_torch_estimate.py
-        [--config paper|tall|irm|quickstart|mlp|zamba2|topology|topology3]
+        [--config paper|tall|irm|quickstart|mlp|zamba2|deepseek|topology|
+                  topology3]
         [--n-rep M] [--src DIR] [--out DIR]
 
 Drives one of the port's paths through ``estimate`` — ``paper``: the
@@ -40,7 +41,12 @@ generated): one warm ``Engine.generate``, then its prefill and its 15
 decode steps traced apart, each with its wall time, device busy time, idle
 share and launches, and the device time split into the flash-attention
 kernel, the SSD-scan kernel, matrix products (cuBLAS/CUTLASS) and the
-rest.  ``topology``: the paper configuration on the topology backend
+rest.  ``deepseek``: the same for the full deepseek-v2-lite-16b (bf16 weights
+from a seed, the same burst), the device time also split by the MoE
+layer's ranges: ``moe_dispatch`` (router, sort and capacity scatter,
+combine) and ``moe_experts`` (the grouped expert products), with each
+share of the busy time and the peak memory.
+``topology``: the paper configuration on the topology backend
 (``PoolConfig(n_hosts=2)``: simulated hosts, each on its own CUDA
 stream).  ``topology3``: ``chip_smoke.py``'s steal drain — two paper
 requests (seeds 42, 43) and a PLIV one (``make_pliv_data`` 5000 x 20, K
@@ -59,6 +65,7 @@ there.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -81,7 +88,9 @@ def _source_tree(argv) -> Path:
 TREE = _source_tree(sys.argv[1:])
 
 import torch                                               # noqa: E402
-from torch.profiler import ProfilerActivity, profile      # noqa: E402
+from torch.profiler import (                                # noqa: E402
+    ProfilerActivity, profile, record_function,
+)
 
 from repro_torch import runtime                            # noqa: E402
 from repro_torch.core import DMLData, DMLPlan, estimate    # noqa: E402
@@ -331,11 +340,118 @@ def _zamba2(smi, out_dir):
     return out
 
 
+@contextlib.contextmanager
+def _moe_ranges():
+    """Profiler ranges around the MoE layer's parts: ``moe_dispatch`` (the
+    router, the sort and scatter into the capacity buffer, the combine)
+    and ``moe_experts`` (the grouped expert products)."""
+    from repro_torch.models import moe
+    real = {name: getattr(moe, name) for name in (
+        "_route", "_capacity_dispatch", "_combine", "_expert_mlp")}
+
+    def ranged(fn, label):
+        def call(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return call
+
+    for name, fn in real.items():
+        setattr(moe, name, ranged(fn, "moe_experts" if name == "_expert_mlp"
+                                  else "moe_dispatch"))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(moe, name, fn)
+
+
+MOE_RANGES = ("moe_dispatch", "moe_experts")
+
+
+def _range_ms(prof, label):
+    """Device time of the kernels launched inside the ranges ``label``
+    (the host-side ranges' kernels; the device-side span of a range also
+    counts the card's idle time inside it, and is not summed)."""
+    us = sum(ev.device_time_total for ev in prof.events()
+             if ev.name == label
+             and ev.device_type == torch.autograd.DeviceType.CPU)
+    return us / 1e3
+
+
+def _deepseek(smi, out_dir):
+    """One warm burst of the full deepseek-v2-lite-16b at chip_smoke.py's
+    serve shape, prefill and decode traced apart, the MoE layer's dispatch
+    and expert products as ranges."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, init_tree
+    from repro_torch.serving import Engine, grow_cache
+    import numpy as np
+
+    batch, prompt_len, n_gen = 4, 2048, 16
+    cfg = get_arch("deepseek-v2-lite-16b")
+    bundle = build_model(cfg)
+    params = init_tree(bundle.decls,
+                       torch.Generator(device="cuda").manual_seed(20241115),
+                       "cuda")
+    engine = Engine(bundle, params)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    warm = engine.generate({"tokens": tokens}, n_gen=n_gen)
+    toks = torch.as_tensor(tokens, device="cuda")
+    out = {"card": smi, "config": "deepseek", "arch": cfg.name,
+           "batch": batch, "prompt_len": prompt_len, "n_gen": n_gen,
+           "warm_generate": {"prefill_s": warm.prefill_s,
+                             "decode_s": warm.decode_s,
+                             "decode_tokens_per_s": warm.tokens_per_s}}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), _moe_ranges():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_p:
+            t0 = time.perf_counter()
+            logits, cache = bundle.prefill_fn(params, {"tokens": toks})
+            cache = grow_cache(cfg, cache, n_gen)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_d:
+            t0 = time.perf_counter()
+            for _ in range(n_gen - 1):
+                logits, cache = bundle.decode_fn(params, cache,
+                                                 {"tokens": tok})
+                tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    for name, prof, wall in (("prefill", prof_p, prefill_s),
+                             ("decode", prof_d, decode_s)):
+        # the ranges' device-side rows span kernels already counted
+        rows = [r for r in _device_rows(prof) if r["name"] not in MOE_RANGES]
+        out[name] = _busy(rows, wall)
+        busy = out[name]["device_busy_ms"]
+        for label in MOE_RANGES:
+            ms = _range_ms(prof, label)
+            out[name][f"{label}_ms"] = ms
+            out[name][f"{label}_share"] = ms / busy if busy else None
+        k5 = out[name]["device_ms_by_kind"]["flash_attention"]
+        out[name]["flash_attention_share"] = k5 / busy if busy else None
+    out["decode"]["steps"] = n_gen - 1
+    if out_dir:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        prof_p.export_chrome_trace(str(Path(out_dir)
+                                       / "deepseek_prefill_trace.json"))
+        prof_d.export_chrome_trace(str(Path(out_dir)
+                                       / "deepseek_decode_trace.json"))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", choices=("paper", "tall", "irm",
                                          "quickstart", "mlp", "zamba2",
-                                         "topology", "topology3"),
+                                         "deepseek", "topology",
+                                         "topology3"),
                     default="paper")
     ap.add_argument("--n-rep", type=int, default=None,
                     help="repetitions M (default: 100 paper, quickstart; "
@@ -353,6 +469,9 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     if args.config == "zamba2":
         print(json.dumps(_zamba2(smi, args.out), indent=1))
+        return 0
+    if args.config == "deepseek":
+        print(json.dumps(_deepseek(smi, args.out), indent=1))
         return 0
     if args.config == "topology3":
         print(json.dumps(_topology3(smi, args.out), indent=1))

@@ -23,13 +23,17 @@ from repro_torch.configs.base import (
 )
 
 _ARCH_MODULES = {
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "yi-34b": "yi_34b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "zamba2-7b": "zamba2_7b",
 }
-# the JAX package's other architectures: their families (dense, GQA/SWA,
-# MoE, MLA, xLSTM, VLM, enc-dec) are not ported yet
-NOT_PORTED = ("xlstm-350m", "h2o-danube-3-4b", "codeqwen1.5-7b",
-              "qwen2.5-32b", "yi-34b", "deepseek-v2-lite-16b",
-              "qwen2-moe-a2.7b", "whisper-base", "llama-3.2-vision-90b")
+# the JAX package's other architectures: their families (xLSTM, enc-dec
+# audio, VLM cross-attention) are not ported yet
+NOT_PORTED = ("xlstm-350m", "whisper-base", "llama-3.2-vision-90b")
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)
 

@@ -6,10 +6,10 @@
 // not synchronise and returns cudaGetLastError().
 //
 //   repro_flash_attention  forward online-softmax attention over folded
-//                          heads: q (BH, Sq, D), k/v (BH, Skv, D), float32
-//                          or bfloat16; queries aligned to the keys'
-//                          suffix (query i sits at position Skv - Sq + i),
-//                          causal and sliding-window masks
+//                          heads: q (BH, Sq, Dqk), k (BH, Skv, Dqk), v (BH,
+//                          Skv, Dv), float32 or bfloat16; queries aligned
+//                          to the keys' suffix (query i sits at position
+//                          Skv - Sq + i), causal and sliding-window masks
 //   repro_ssd_scan         the Mamba-2 SSD chunked scan over BH lanes:
 //                          xbar (BH, S, P), la (BH, S), bm/cm (BH/heads,
 //                          S, N) float32 -> y (BH, S, P) and the final
@@ -58,7 +58,8 @@ namespace {
 //   row stride of DK + 8 elements (conflict-free ldmatrix reads); tile k+1
 //   is in flight while tile k is multiplied.  Rows past Sq or Skv are
 //   zero-filled by the copy and depth columns [D, DK) are zeroed once, so
-//   D only needs to be a multiple of 8 (DK rounds it up to 16);
+//   D only needs to be a multiple of 8 (DK rounds it up to 16; DK is DQK
+//   for Q and K, DV for V);
 // - S = Q K' from ldmatrix fragments into float32, then scaled by
 //   log2(e)/sqrt(D) in float32 (no bf16 rounding of a scaled q), masked to
 //   -inf (causal, window, ragged Skv) on the tiles that need it; the block
@@ -73,6 +74,16 @@ namespace {
 //   thousands of bf16 steps off the float32 softmax, the split keeps them
 //   within one;
 // - O / l is written in bf16, masked at Sq and D.
+//
+// Queries and keys may be deeper than values (MLA's prefill: the rope
+// channel folded into the head, Dqk 192 against Dv 128 for
+// deepseek-v2-lite).  The Q K' depth DQK and the P V / output depth DV are
+// two template parameters (each D rounded up to 16), so v is never padded
+// to q's depth: the accumulators and P V stay at DV.  At (192, 128) the Q
+// tile and K ring take 100 KB at a row stride of 200, the V ring 34 KB
+// at 136: one block an SM.  At the deepseek prefill's (BH 64, S 2048,
+// Dqk 192, Dv 128) causal the function does 2 (Dqk + Dv) operations per
+// visible pair, 86 GFLOP: 0.087 ms at the bf16 rate, operations bound.
 // ---------------------------------------------------------------------------
 constexpr int TC_BQ = 128;
 constexpr int TC_BK = 64;
@@ -80,10 +91,13 @@ constexpr int TC_WARPS = TC_BQ / 16;
 constexpr int TC_THREADS = 32 * TC_WARPS;
 constexpr float TC_LOG2E = 1.4426950408889634f;
 
-inline size_t tc_smem_bytes(int dk)
+inline size_t tc_smem_bytes(int dqk, int dv)
 {
-    // the Q tile and a two-stage ring of K and V tiles, row stride dk + 8
-    return sizeof(__nv_bfloat16) * (size_t)(TC_BQ + 4 * TC_BK) * (dk + 8);
+    // the Q tile and a two-stage ring of K tiles at row stride dqk + 8, a
+    // two-stage ring of V tiles at dv + 8
+    return sizeof(__nv_bfloat16)
+        * ((size_t)(TC_BQ + 2 * TC_BK) * (dqk + 8)
+           + (size_t)2 * TC_BK * (dv + 8));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p)
@@ -145,40 +159,58 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
     lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-template <int DK>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o, int sq, int skv,
-                          int d, int causal, int window, float scale_log2)
+                          int dqk, int dv, int causal, int window,
+                          float scale_log2)
 {
-    constexpr int RS = DK + 8;              // row stride in elements
-    constexpr int KSTEPS = DK / 16;         // depth steps of Q K'
-    constexpr int DTILES = DK / 8;          // 8-column tiles of O
+    constexpr int RS = DQK + 8;             // row stride of Q, K tiles
+    constexpr int RSV = DV + 8;             // row stride of V tiles
+    constexpr int KSTEPS = DQK / 16;        // depth steps of Q K'
+    constexpr int VSTEPS = DV / 16;         // 16-column steps of P V
+    constexpr int DTILES = DV / 8;          // 8-column tiles of O
     extern __shared__ __align__(16) unsigned char tc_smem[];
     __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
     __nv_bfloat16* ks = qs + TC_BQ * RS;    // 2 stages x TC_BK x RS
-    __nv_bfloat16* vs = ks + 2 * TC_BK * RS;
+    __nv_bfloat16* vs = ks + 2 * TC_BK * RS;    // 2 stages x TC_BK x RSV
 
+    // an equal pair takes equal depths (the entry point checks): v's depth
+    // is then q's, known to the compiler, which keeps the registers of the
+    // one-depth kernel (a separate dv spilled at D 112 and ran 7% slower)
+    if (DQK == DV) dv = dqk;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
     const long long bh = blockIdx.x;
     const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;
-    const __nv_bfloat16* ql = q + bh * sq * d;
-    const __nv_bfloat16* kl = k + bh * skv * d;
-    const __nv_bfloat16* vl = v + bh * skv * d;
-    __nv_bfloat16* ol = o + bh * sq * d;
+    const __nv_bfloat16* ql = q + bh * sq * dqk;
+    const __nv_bfloat16* kl = k + bh * skv * dqk;
+    const __nv_bfloat16* vl = v + bh * skv * dv;
+    __nv_bfloat16* ol = o + bh * sq * dv;
     const int offset = skv - sq;
     const int nq = min(TC_BQ, sq - q0);
-    const int chunks = d >> 3;              // 16-byte chunks of a row
+    const int chunks = dqk >> 3;            // 16-byte chunks of a Q, K row
+    const int vchunks = dv >> 3;            // and of a V row
 
-    if (d < DK) {       // depth padding: never written by the copies
-        const int pad = (DK - d) >> 3;
-        for (int idx = tid; idx < (TC_BQ + 4 * TC_BK) * pad;
+    // depth padding (Q and the K ring, then the V ring): never written by
+    // the copies
+    if (dqk < DQK) {
+        const int pad = (DQK - dqk) >> 3;
+        for (int idx = tid; idx < (TC_BQ + 2 * TC_BK) * pad;
              idx += TC_THREADS) {
             const int r = idx / pad, c = idx - r * pad;
-            *reinterpret_cast<uint4*>(qs + r * RS + d + 8 * c) =
+            *reinterpret_cast<uint4*>(qs + r * RS + dqk + 8 * c) =
+                make_uint4(0u, 0u, 0u, 0u);
+        }
+    }
+    if (dv < DV) {
+        const int pad = (DV - dv) >> 3;
+        for (int idx = tid; idx < 2 * TC_BK * pad; idx += TC_THREADS) {
+            const int r = idx / pad, c = idx - r * pad;
+            *reinterpret_cast<uint4*>(vs + r * RSV + dv + 8 * c) =
                 make_uint4(0u, 0u, 0u, 0u);
         }
     }
@@ -186,17 +218,24 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         const int r = idx / chunks, c = idx - r * chunks;
         const bool in = r < nq;
         cp_async_16(smem_addr(qs + r * RS + 8 * c),
-                    ql + (long long)(in ? q0 + r : 0) * d + 8 * c, in);
+                    ql + (long long)(in ? q0 + r : 0) * dqk + 8 * c, in);
     }
+    // one pass over a row's chunks copies K's and V's (one index
+    // division for both)
+    const int kvchunks = max(chunks, vchunks);
     auto load_kv = [&](int k0, int stage) {
         __nv_bfloat16* kd = ks + stage * TC_BK * RS;
-        __nv_bfloat16* vd = vs + stage * TC_BK * RS;
-        for (int idx = tid; idx < TC_BK * chunks; idx += TC_THREADS) {
-            const int r = idx / chunks, c = idx - r * chunks;
+        __nv_bfloat16* vd = vs + stage * TC_BK * RSV;
+        for (int idx = tid; idx < TC_BK * kvchunks; idx += TC_THREADS) {
+            const int r = idx / kvchunks, c = idx - r * kvchunks;
             const bool in = k0 + r < skv;
-            const long long off = (long long)(in ? k0 + r : 0) * d + 8 * c;
-            cp_async_16(smem_addr(kd + r * RS + 8 * c), kl + off, in);
-            cp_async_16(smem_addr(vd + r * RS + 8 * c), vl + off, in);
+            const long long row = in ? k0 + r : 0;
+            if (c < chunks)
+                cp_async_16(smem_addr(kd + r * RS + 8 * c),
+                            kl + row * dqk + 8 * c, in);
+            if (c < vchunks)
+                cp_async_16(smem_addr(vd + r * RSV + 8 * c),
+                            vl + row * dv + 8 * c, in);
         }
     };
 
@@ -232,7 +271,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         if (window > 0) sees = sees && k0 + TC_BK - 1 > w_lo - window;
         if (sees) {
             const __nv_bfloat16* kt = ks + stage * TC_BK * RS;
-            const __nv_bfloat16* vt = vs + stage * TC_BK * RS;
+            const __nv_bfloat16* vt = vs + stage * TC_BK * RSV;
             float s[TC_BK / 8][4];
 #pragma unroll
             for (int j = 0; j < TC_BK / 8; ++j)
@@ -312,11 +351,11 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
                 split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
 #pragma unroll
-                for (int dp = 0; dp < KSTEPS; ++dp) {
+                for (int dp = 0; dp < VSTEPS; ++dp) {
                     uint32_t b[4];
                     ldsm_x4_trans(b, smem_addr(
                         vt + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1))
-                        * RS + 16 * dp + 8 * (lane >> 4)));
+                        * RSV + 16 * dp + 8 * (lane >> 4)));
                     mma_bf16(acc[2 * dp], ah, b[0], b[1]);
                     mma_bf16(acc[2 * dp], al, b[0], b[1]);
                     mma_bf16(acc[2 * dp + 1], ah, b[2], b[3]);
@@ -334,11 +373,11 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         const int row = wr0 + g + 8 * r;
         if (row >= sq) continue;
         const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-        __nv_bfloat16* orow = ol + (long long)row * d;
+        __nv_bfloat16* orow = ol + (long long)row * dv;
 #pragma unroll
         for (int j = 0; j < DTILES; ++j) {
             const int col = 8 * j + 2 * t4;
-            if (col < d)
+            if (col < dv)
                 *reinterpret_cast<__nv_bfloat162*>(orow + col) =
                     __floats2bfloat162_rn(acc[j][2 * r] * inv,
                                           acc[j][2 * r + 1] * inv);
@@ -397,17 +436,32 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 //   changes nothing.
 // - O / l is written in float32, masked at Sq and D (a row that sees no
 //   key gives 0 / 0, as the plain version's softmax does).
+// - As in the bf16 kernel, DQK (Q K') and DV (P V, O) are separate
+//   template parameters.  Past a Q K' depth of 128 a 128-query tile would
+//   need 262 KB of shared memory (more than the 227 KB a block may have),
+//   so there a block takes a 64-query tile with 4 warps: 213 KB at
+//   (192, 128).
 // ---------------------------------------------------------------------------
-constexpr int TF_BQ = 128;
 constexpr int TF_BK = 64;
-constexpr int TF_WARPS = TF_BQ / 16;
-constexpr int TF_THREADS = 32 * TF_WARPS;
 constexpr float TF_LOG2E = 1.4426950408889634f;
 
-inline size_t tf_smem_bytes(int dk)
+// queries a block, and its threads (a warp per 16 query rows)
+__host__ __device__ constexpr int tf_bq(int dqk)
 {
-    // the Q tile and a two-stage ring of K and V tiles, row stride dk + 4
-    return sizeof(float) * (size_t)(TF_BQ + 4 * TF_BK) * (dk + 4);
+    return dqk > 128 ? 64 : 128;
+}
+__host__ __device__ constexpr int tf_threads(int dqk)
+{
+    return 2 * tf_bq(dqk);
+}
+
+inline size_t tf_smem_bytes(int dqk, int dv)
+{
+    // the Q tile and a two-stage ring of K tiles at row stride dqk + 4, a
+    // two-stage ring of V tiles at dv + 4
+    return sizeof(float)
+        * ((size_t)(tf_bq(dqk) + 2 * TF_BK) * (dqk + 4)
+           + (size_t)2 * TF_BK * (dv + 4));
 }
 
 // global -> shared, 16 or 4 bytes, zero-filled when !full
@@ -448,53 +502,65 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int DK>
-__global__ void __launch_bounds__(TF_THREADS, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(tf_threads(DQK), 1)
 flash_attention_tf32_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
-                            float* __restrict__ o, int sq, int skv, int d,
-                            int causal, int window, float scale_log2,
+                            float* __restrict__ o, int sq, int skv, int dqk,
+                            int dv, int causal, int window, float scale_log2,
                             int vec4)
 {
-    constexpr int RS = DK + 4;              // row stride in floats
-    constexpr int KSTEPS = DK / 8;          // depth steps of Q K'
-    constexpr int DTILES = DK / 8;          // 8-column tiles of O
+    constexpr int BQ = tf_bq(DQK);          // queries a block
+    constexpr int THREADS = tf_threads(DQK);
+    constexpr int RS = DQK + 4;             // row stride of Q, K tiles
+    constexpr int RSV = DV + 4;             // row stride of V tiles
+    constexpr int KSTEPS = DQK / 8;         // depth steps of Q K'
+    constexpr int DTILES = DV / 8;          // 8-column tiles of O
     extern __shared__ __align__(16) float tf_smem[];
-    float* qs = tf_smem;                    // TF_BQ x RS
-    float* ks = qs + TF_BQ * RS;            // 2 stages x TF_BK x RS
-    float* vs = ks + 2 * TF_BK * RS;
+    float* qs = tf_smem;                    // BQ x RS
+    float* ks = qs + BQ * RS;               // 2 stages x TF_BK x RS
+    float* vs = ks + 2 * TF_BK * RS;        // 2 stages x TF_BK x RSV
 
+    if (DQK == DV) dv = dqk;                // as in the bf16 kernel
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
     const long long head = blockIdx.x;
-    const float* ql = q + head * sq * d;
-    const float* kl = k + head * skv * d;
-    const float* vl = v + head * skv * d;
-    float* ol = o + head * sq * d;
+    const float* ql = q + head * sq * dqk;
+    const float* kl = k + head * skv * dqk;
+    const float* vl = v + head * skv * dv;
+    float* ol = o + head * sq * dv;
     const int offset = skv - sq;
-    const int n_qt = (sq + TF_BQ - 1) / TF_BQ;
+    const int n_qt = (sq + BQ - 1) / BQ;
     const int cw = vec4 ? 4 : 1;            // floats a copy moves
-    const int per_row = d / cw;
 
-    if (d < DK) {       // depth padding: never written by the copies
-        const int pad = DK - d;
-        for (int idx = tid; idx < (TF_BQ + 4 * TF_BK) * pad;
-             idx += TF_THREADS) {
+    // depth padding (Q and the K ring, then the V ring): never written by
+    // the copies
+    if (dqk < DQK) {
+        const int pad = DQK - dqk;
+        for (int idx = tid; idx < (BQ + 2 * TF_BK) * pad; idx += THREADS) {
             const int r = idx / pad;
-            qs[r * RS + d + idx - r * pad] = 0.f;
+            qs[r * RS + dqk + idx - r * pad] = 0.f;
         }
     }
-    // rows [row0, row0 + n_rows) of a (len, d) operand into dst, rows at or
-    // past len zero-filled
+    if (dv < DV) {
+        const int pad = DV - dv;
+        for (int idx = tid; idx < 2 * TF_BK * pad; idx += THREADS) {
+            const int r = idx / pad;
+            vs[r * RSV + dv + idx - r * pad] = 0.f;
+        }
+    }
+    // rows [row0, row0 + n_rows) of a (len, width) operand into dst at
+    // row stride ``stride``, rows at or past len zero-filled
     auto copy_rows = [&](float* dst, const float* src, int row0, int n_rows,
-                         int len) {
+                         int len, int width, int stride) {
+        const int per_row = width / cw;
         int r = tid / per_row, c = tid - r * per_row;
-        const int dr = TF_THREADS / per_row, dc = TF_THREADS - dr * per_row;
+        const int dr = THREADS / per_row, dc = THREADS - dr * per_row;
         for (; r < n_rows;) {
             const bool in = row0 + r < len;
-            tf_cp_async(smem_addr(dst + r * RS + c * cw),
-                        src + (long long)(in ? row0 + r : 0) * d + c * cw,
+            tf_cp_async(smem_addr(dst + r * stride + c * cw),
+                        src + (long long)(in ? row0 + r : 0) * width + c * cw,
                         vec4, in);
             r += dr;
             c += dc;
@@ -503,8 +569,8 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
     };
 
     for (int qt = blockIdx.y; qt < n_qt; qt += gridDim.y) {
-        const int q0 = (n_qt - 1 - qt) * TF_BQ;
-        const int nq = min(TF_BQ, sq - q0);
+        const int q0 = (n_qt - 1 - qt) * BQ;
+        const int nq = min(BQ, sq - q0);
         // keys visible to some query of the block: [k_lo, k_hi)
         const int qa_lo = q0 + offset, qa_hi = q0 + nq - 1 + offset;
         int k_lo = 0, k_hi = skv;
@@ -517,10 +583,10 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
         const int w_lo = wr0 + offset, w_hi = min(wr0 + 15, sq - 1) + offset;
 
         __syncthreads();                    // the last tile's Q is read
-        copy_rows(qs, ql, q0, TF_BQ, sq);
+        copy_rows(qs, ql, q0, BQ, sq, dqk, RS);
         if (k_lo < k_hi) {
-            copy_rows(ks, kl, k_lo, TF_BK, skv);
-            copy_rows(vs, vl, k_lo, TF_BK, skv);
+            copy_rows(ks, kl, k_lo, TF_BK, skv, dqk, RS);
+            copy_rows(vs, vl, k_lo, TF_BK, skv, dv, RSV);
         }
         cp_async_commit();                  // Q and the first tile
 
@@ -535,9 +601,9 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
         for (int k0 = k_lo; k0 < k_hi; k0 += TF_BK, stage ^= 1) {
             if (k0 + TF_BK < k_hi) {
                 copy_rows(ks + (stage ^ 1) * TF_BK * RS, kl, k0 + TF_BK,
-                          TF_BK, skv);
-                copy_rows(vs + (stage ^ 1) * TF_BK * RS, vl, k0 + TF_BK,
-                          TF_BK, skv);
+                          TF_BK, skv, dqk, RS);
+                copy_rows(vs + (stage ^ 1) * TF_BK * RSV, vl, k0 + TF_BK,
+                          TF_BK, skv, dv, RSV);
             }
             cp_async_commit();              // possibly empty: uniform wait
             cp_async_wait_1();              // this tile has landed
@@ -548,7 +614,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
             if (window > 0) sees = sees && k0 + TF_BK - 1 > w_lo - window;
             if (sees) {
                 const float* kt = ks + stage * TF_BK * RS;
-                const float* vt = vs + stage * TF_BK * RS;
+                const float* vt = vs + stage * TF_BK * RSV;
                 float s[TF_BK / 8][4];
 #pragma unroll
                 for (int j = 0; j < TF_BK / 8; ++j)
@@ -656,7 +722,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
                     split_tf32(s[j][2], ph[1], pl[1]);
                     split_tf32(s[j][1], ph[2], pl[2]);
                     split_tf32(s[j][3], ph[3], pl[3]);
-                    const float* v0 = vt + (8 * j + 2 * t4) * RS + g;
+                    const float* v0 = vt + (8 * j + 2 * t4) * RSV + g;
                     // O's tiles four at a time: the three passes over four
                     // independent accumulators
 #pragma unroll
@@ -667,7 +733,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
                             if (d0 + u < DTILES) {
                                 split_tf32(v0[8 * (d0 + u)], vh[u][0],
                                            vl[u][0]);
-                                split_tf32(v0[RS + 8 * (d0 + u)], vh[u][1],
+                                split_tf32(v0[RSV + 8 * (d0 + u)], vh[u][1],
                                            vl[u][1]);
                             }
 #pragma unroll
@@ -696,12 +762,12 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
             const int row = wr0 + g + 8 * r;
             if (row >= sq) continue;
             const float inv = 1.f / l[r];
-            float* orow = ol + (long long)row * d;
+            float* orow = ol + (long long)row * dv;
 #pragma unroll
             for (int j = 0; j < DTILES; ++j) {
                 const int col = 8 * j + 2 * t4;
-                if (col < d) orow[col] = acc[j][2 * r] * inv;
-                if (col + 1 < d) orow[col + 1] = acc[j][2 * r + 1] * inv;
+                if (col < dv) orow[col] = acc[j][2 * r] * inv;
+                if (col + 1 < dv) orow[col + 1] = acc[j][2 * r + 1] * inv;
             }
         }
     }
@@ -1283,82 +1349,90 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted)
     return err;
 }
 
-// launch the bfloat16 kernel at depth DK (D rounded up to 16)
-template <int DK>
+// launch the bfloat16 kernel at depths DQK, DV (Dqk, Dv rounded up to 16)
+template <int DQK, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int bh, int sq, int skv, int d, int causal, int window,
-                      float scale, cudaStream_t stream)
+                      int bh, int sq, int skv, int dqk, int dv, int causal,
+                      int window, float scale, cudaStream_t stream)
 {
     static size_t granted = 0;
-    const size_t smem = tc_smem_bytes(DK);
-    const cudaError_t err = allow_smem(flash_attention_tc_kernel<DK>, smem,
-                                       &granted);
+    const size_t smem = tc_smem_bytes(DQK, DV);
+    const cudaError_t err = allow_smem(flash_attention_tc_kernel<DQK, DV>,
+                                       smem, &granted);
     if (err != cudaSuccess) return err;
     const dim3 grid(bh, (sq + TC_BQ - 1) / TC_BQ);
-    flash_attention_tc_kernel<DK><<<grid, TC_THREADS, smem, stream>>>(
+    flash_attention_tc_kernel<DQK, DV><<<grid, TC_THREADS, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, sq, skv, d, causal,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, sq, skv, dqk, dv, causal,
         window, scale * TC_LOG2E);
     return cudaGetLastError();
 }
 
-// launch the float32 kernel at depth DK (D rounded up to 16); query tiles
-// past the grid's 65535 are walked by the blocks in turn
-template <int DK>
+// launch the float32 kernel at depths DQK, DV (Dqk, Dv rounded up to 16);
+// query tiles past the grid's 65535 are walked by the blocks in turn
+template <int DQK, int DV>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
-                        int bh, int sq, int skv, int d, int causal,
+                        int bh, int sq, int skv, int dqk, int dv, int causal,
                         int window, float scale, bool vec4,
                         cudaStream_t stream)
 {
     static size_t granted = 0;
-    const size_t smem = tf_smem_bytes(DK);
-    const cudaError_t err = allow_smem(flash_attention_tf32_kernel<DK>, smem,
-                                       &granted);
+    const size_t smem = tf_smem_bytes(DQK, DV);
+    const cudaError_t err = allow_smem(flash_attention_tf32_kernel<DQK, DV>,
+                                       smem, &granted);
     if (err != cudaSuccess) return err;
-    const int n_qt = (sq + TF_BQ - 1) / TF_BQ;
+    const int n_qt = (sq + tf_bq(DQK) - 1) / tf_bq(DQK);
     const dim3 grid(bh, n_qt < 65535 ? n_qt : 65535);
-    flash_attention_tf32_kernel<DK><<<grid, TF_THREADS, smem, stream>>>(
+    flash_attention_tf32_kernel<DQK, DV>
+        <<<grid, tf_threads(DQK), smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, sq,
-        skv, d, causal, window, scale * TF_LOG2E, (int)vec4);
+        skv, dqk, dv, causal, window, scale * TF_LOG2E, (int)vec4);
     return cudaGetLastError();
 }
 
+// the (DQK, DV) pairs the kernels are built for: equal depths up to 128,
+// and the MLA pairs of the port's configs, deepseek-v2-lite's (192, 128)
+// and its reduced variant's (48, 32).  kernels/flash_attention.py keeps
+// the same list (DEPTH_PAIRS)
+#define REPRO_FA_DEPTH_PAIRS(X)                                         \
+    X(16, 16) X(32, 32) X(48, 48) X(64, 64) X(80, 80) X(96, 96)         \
+    X(112, 112) X(128, 128) X(48, 32) X(192, 128)
+
 }  // namespace
 
-// float32 operands take the split-TF32 kernel (any D <= 128, any Sq and
-// Skv); bfloat16 ones the bf16 tensor-core kernel, which needs D % 8 == 0,
-// D <= 128 and Sq <= Skv (the wrapper checks; anything else is refused
-// here too)
+// float32 operands take the split-TF32 kernel (any Sq and Skv); bfloat16
+// ones the bf16 tensor-core kernel, which needs Dqk and Dv % 8 == 0 and
+// Sq <= Skv; both need (Dqk, Dv) rounded up to 16 among the built pairs,
+// and Dqk == Dv where those are equal (the wrapper checks; anything else
+// is refused here too)
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int bh, int sq,
-                                     int skv, int d, int causal, int window,
-                                     float scale, int is_bf16, void* stream)
+                                     int skv, int dqk, int dv, int causal,
+                                     int window, float scale, int is_bf16,
+                                     void* stream)
 {
     const cudaStream_t st = (cudaStream_t)stream;
+    const int pq = (dqk + 15) / 16 * 16, pv = (dv + 15) / 16 * 16;
+    if (dqk < 1 || dv < 1 || (pq == pv && dqk != dv))
+        return (int)cudaErrorInvalidValue;
     if (is_bf16) {
-        if (d % 8 != 0 || d > 128 || sq > skv)
+        if (dqk % 8 != 0 || dv % 8 != 0 || sq > skv)
             return (int)cudaErrorInvalidValue;
-#define TC_CASE(n)                                                      \
-    case n / 16:                                                        \
-        return (int)launch_tc<n>(q, k, v, o, bh, sq, skv, d, causal,    \
-                                 window, scale, st)
-        switch ((d + 15) / 16) {
-            TC_CASE(16); TC_CASE(32); TC_CASE(48); TC_CASE(64);
-            TC_CASE(80); TC_CASE(96); TC_CASE(112); TC_CASE(128);
-        }
+#define TC_CASE(a, b)                                                   \
+        if (pq == a && pv == b)                                         \
+            return (int)launch_tc<a, b>(q, k, v, o, bh, sq, skv, dqk, dv, \
+                                        causal, window, scale, st);
+        REPRO_FA_DEPTH_PAIRS(TC_CASE)
 #undef TC_CASE
         return (int)cudaErrorInvalidValue;
     }
-    const bool vec4 = d % 4 == 0
+    const bool vec4 = dqk % 4 == 0 && dv % 4 == 0
         && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0;
-#define TF_CASE(n)                                                      \
-    case n / 16:                                                        \
-        return (int)launch_tf32<n>(q, k, v, o, bh, sq, skv, d, causal,  \
-                                   window, scale, vec4, st)
-    switch ((d + 15) / 16) {
-        TF_CASE(16); TF_CASE(32); TF_CASE(48); TF_CASE(64);
-        TF_CASE(80); TF_CASE(96); TF_CASE(112); TF_CASE(128);
-    }
+#define TF_CASE(a, b)                                                   \
+    if (pq == a && pv == b)                                             \
+        return (int)launch_tf32<a, b>(q, k, v, o, bh, sq, skv, dqk, dv, \
+                                      causal, window, scale, vec4, st);
+    REPRO_FA_DEPTH_PAIRS(TF_CASE)
 #undef TF_CASE
     return (int)cudaErrorInvalidValue;
 }

@@ -125,9 +125,9 @@ def batched_predict(xs, beta, valid):
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
-    """Forward attention over folded heads: q (BH, Sq, D), k/v (BH, Skv,
-    D), float32 or bfloat16, queries aligned to the keys' suffix.  Returns
-    (BH, Sq, D) in q's type."""
+    """Forward attention over folded heads: q (BH, Sq, D), k (BH, Skv, D),
+    v (BH, Skv, Dv), float32 or bfloat16, queries aligned to the keys'
+    suffix, scaled by 1/sqrt(D).  Returns (BH, Sq, Dv) in q's type."""
     flash_attention_mod.check_qkv(q, k, v, window)
     if q.is_cuda:
         return flash_attention_mod.flash_attention_cuda(

@@ -1,5 +1,6 @@
-"""Shared neural-net layers of the port: norms, RoPE, the GLU MLP and GQA
-attention with its KV cache — the parts the hybrid (zamba2) family runs.
+"""Shared neural-net layers of the port: norms, RoPE, the GLU MLP, GQA
+attention (sliding window, QKV bias) with its KV cache, and DeepSeek-V2's
+multi-head latent attention (MLA) with its latent cache.
 
 All functions are pure functions of tensors, apart from ``attn_decode``,
 which writes the step's keys and values into the cache it is given (the
@@ -18,8 +19,15 @@ math ported line for line, which the CPU tests hold against the JAX
 package.  Decode attention has no kernel in the reference and runs as
 plain PyTorch on either device.
 
+MLA's prefill folds the decoupled rope channel into the head depth, so
+its attention has queries and keys of depth head_dim + rope_head_dim (192
+for deepseek-v2-lite) against values of depth head_dim (128); the card's
+route hands the kernel v at its own depth.  Its decode is the reference's
+absorbed form against the latent cache, plain tensor products on either
+device (the reference computes it outside any Pallas kernel).
+
 The reference's sharding ``rules`` argument and ``logical_constraint``
-calls are dropped: on one card they are no-ops.  MLA, cross-attention,
+calls are dropped: on one card they are no-ops.  Cross-attention,
 ``layer_norm`` and ``sinusoidal_pos`` are not ported yet (ROADMAP item 15).
 """
 from __future__ import annotations
@@ -181,11 +189,12 @@ def flash_attention_heads(q, k, v, q_pos=None, *, causal: bool,
                           window: Optional[int]):
     """The card's route of :func:`attention_core`: heads folded into the
     leading axis, one flash-attention kernel launch.  q: (B, S, Hq, D),
-    k/v: (B, S, Hk, D).  The kernel puts the queries at ``arange(S)``,
+    k: (B, S, Hk, D), v: (B, S, Hk, Dv); returns (B, S, Hq, Dv).  The
+    kernel puts the queries at ``arange(S)``,
     aligned to the keys' suffix: ``q_pos`` must be None, which stands for
     those positions.  Positions given as a tensor raise (checking their
     values would cost a host sync on every call)."""
-    b, s, hq, d = q.shape
+    b, s, hq, _ = q.shape
     if q_pos is not None or k.shape[1] != s:
         raise ValueError(
             "flash attention on the card takes queries at positions "
@@ -200,7 +209,7 @@ def flash_attention_heads(q, k, v, q_pos=None, *, causal: bool,
 
     o = ops.flash_attention(fold(q), fold(k), fold(v), causal=causal,
                             window=window)
-    return o.reshape(b, hq, s, d).permute(0, 2, 1, 3)
+    return o.reshape(b, hq, s, v.shape[-1]).permute(0, 2, 1, 3)
 
 
 def decode_attention_core(q, k, v, k_pos, q_pos, *, window: Optional[int]):
@@ -229,8 +238,16 @@ def decode_attention_core(q, k, v, k_pos, q_pos, *, window: Optional[int]):
 def attn_decls(a: AttentionConfig, d_model: int) -> Dict[str, PDecl]:
     """Projections declared flattened (d, H*hd), as in the reference."""
     if a.is_mla:
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP item 15)")
+        r, rh = a.kv_lora_rank, a.rope_head_dim
+        return {
+            "wq": PDecl((d_model, a.n_heads * (a.head_dim + rh)),
+                        ("embed", "heads")),
+            "wdkv": PDecl((d_model, r + rh), ("embed", "latent")),
+            "wuk": PDecl((r, a.n_heads * a.head_dim), ("latent", "heads")),
+            "wuv": PDecl((r, a.n_heads * a.head_dim), ("latent", "heads")),
+            "wo": PDecl((a.n_heads * a.head_dim, d_model),
+                        ("heads", "embed")),
+        }
     decls = {
         "wq": PDecl((d_model, a.q_dim), ("embed", "heads")),
         "wk": PDecl((d_model, a.kv_dim), ("embed", "kv_heads")),
@@ -263,28 +280,40 @@ def _qkv(p, a: AttentionConfig, x, positions, use_rope: bool):
     return q, k, v
 
 
+def _positions(x, positions):
+    """``positions``, or ``arange(S)`` in every row where it is None."""
+    if positions is not None:
+        return positions
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+
+def _attend(q, k, v, positions, pos, *, causal: bool,
+            window: Optional[int], chunk: int):
+    """The card's kernel route where the tensors lie on the card, the
+    reference's chunked math elsewhere."""
+    if q.is_cuda:
+        return flash_attention_heads(q, k, v, positions, causal=causal,
+                                     window=window)
+    return attention_core(q, k, v, pos, pos, causal=causal, window=window,
+                          chunk=chunk)
+
+
 def attn_forward(p, a: AttentionConfig, x, positions=None, *,
                  use_rope: bool = True, chunk: int = 1024,
                  causal: Optional[bool] = None):
     """Full-sequence self-attention (prefill).  Returns (out, (k, v)), the
-    keys and values seeding the decode cache.  ``positions`` (B, S); None
-    stands for ``arange(S)`` in every row, the prefill's, and is the only
-    form the card's route takes."""
+    keys and values seeding the decode cache (MLA: the latent and the rope
+    key, ``(c, k_rope)``).  ``positions`` (B, S); None stands for
+    ``arange(S)`` in every row, the prefill's, and is the only form the
+    card's route takes."""
     if a.is_mla:
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP item 15)")
+        return _mla_forward(p, a, x, positions, chunk=chunk)
     causal = a.causal if causal is None else causal
-    pos = positions
-    if pos is None:
-        b, s = x.shape[:2]
-        pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    pos = _positions(x, positions)
     q, k, v = _qkv(p, a, x, pos, use_rope)
-    if q.is_cuda:
-        o = flash_attention_heads(q, k, v, positions, causal=causal,
-                                  window=a.sliding_window)
-    else:
-        o = attention_core(q, k, v, pos, pos, causal=causal,
-                           window=a.sliding_window, chunk=chunk)
+    o = _attend(q, k, v, positions, pos, causal=causal,
+                window=a.sliding_window, chunk=chunk)
     out = o.reshape(*o.shape[:2], -1) @ p["wo"]
     return out, (k, v)
 
@@ -295,13 +324,12 @@ def attn_decode(p, a: AttentionConfig, x1, pos, slot_pos, cache, *,
 
     ``slot_pos``: (B, S) int table slot -> written position (-1 empty),
     shared across layers and already updated for this step by the caller.
-    cache: {"k": (B, S, Hk, D), "v": ...}, written in place at slot
-    ``pos % S`` (a ring buffer under a sliding window).  Returns
-    (out (B,1,d), cache).
+    cache: {"k": (B, S, Hk, D), "v": ...} (MLA: {"c": (B, S, r),
+    "krope": (B, S, rh)}), written in place at slot ``pos % S`` (a ring
+    buffer under a sliding window).  Returns (out (B,1,d), cache).
     """
     if a.is_mla:
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP item 15)")
+        return _mla_decode(p, a, x1, pos, slot_pos, cache)
     positions = pos[:, None]
     q = x1 @ p["wq"]
     k = x1 @ p["wk"]
@@ -324,3 +352,71 @@ def attn_decode(p, a: AttentionConfig, x1, pos, slot_pos, cache, *,
     out = o.reshape(*o.shape[:2], -1) @ p["wo"]
     return out, cache
 
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent KV + decoupled rope; absorbed decode
+# ---------------------------------------------------------------------------
+def _mla_split_q(p, a, x, positions):
+    qfull = _heads(x @ p["wq"], a.n_heads, a.head_dim + a.rope_head_dim)
+    q_nope = qfull[..., : a.head_dim]
+    q_rope = apply_rope(qfull[..., a.head_dim:], positions, a.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, a, x, positions):
+    ckv = x @ p["wdkv"]
+    c, k_rope = ckv[..., : a.kv_lora_rank], ckv[..., a.kv_lora_rank:]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        a.rope_theta)[:, :, 0]
+    return c, k_rope
+
+
+def _mla_forward(p, a: AttentionConfig, x, positions=None, *, chunk: int):
+    """MLA prefill: keys and values up-projected from the latent, the rope
+    channel concatenated into the head depth (queries and keys at
+    head_dim + rope_head_dim, values at head_dim), scaled by
+    1/sqrt(head_dim + rope_head_dim) as the reference's core scales by
+    1/sqrt(dim(q)).  Returns (out, (c, k_rope)), the latent cache."""
+    pos = _positions(x, positions)
+    q_nope, q_rope = _mla_split_q(p, a, x, pos)
+    c, k_rope = _mla_latent(p, a, x, pos)
+    k_nope = _heads(c @ p["wuk"], a.n_heads, a.head_dim)
+    v = _heads(c @ p["wuv"], a.n_heads, a.head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:-1], a.rope_head_dim)], dim=-1)
+    o = _attend(q, k, v, positions, pos, causal=a.causal, window=None,
+                chunk=chunk)
+    out = o.reshape(*o.shape[:2], -1) @ p["wo"]
+    return out, (c, k_rope)
+
+
+def _mla_decode(p, a: AttentionConfig, x1, pos, slot_pos, cache):
+    """Absorbed MLA decode: scores and values against the latent cache
+    (r + rope_head_dim numbers a token, not 2 H D), W_uk folded into the
+    query and W_uv applied after the context.  The cache is written in
+    place at slot ``pos % S``."""
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_split_q(p, a, x1, positions)   # (B,1,H,dh/rh)
+    c1, kr1 = _mla_latent(p, a, x1, positions)           # (B,1,r), (B,1,rh)
+    cc, ckr = cache["c"], cache["krope"]
+    slot = (pos % cc.shape[1]).long()
+    bidx = torch.arange(x1.shape[0], device=x1.device)
+    cc[bidx, slot] = c1[:, 0]
+    ckr[bidx, slot] = kr1[:, 0]
+
+    wuk = p["wuk"].reshape(a.kv_lora_rank, a.n_heads, a.head_dim)
+    wuv = p["wuv"].reshape(a.kv_lora_rank, a.n_heads, a.head_dim)
+    q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, wuk)     # absorb W_uk
+    scale = 1.0 / np.sqrt(a.head_dim + a.rope_head_dim)
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat.to(F32), cc.to(F32))
+         + torch.einsum("bqhk,bsk->bhqs", q_rope.to(F32), ckr.to(F32))) \
+        * scale
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    pattn = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", pattn.to(cc.dtype), cc)
+    o = torch.einsum("bqhr,rhk->bqhk", ctx, wuv)            # absorb W_uv
+    out = o.reshape(*o.shape[:2], -1) @ p["wo"]
+    return out, cache

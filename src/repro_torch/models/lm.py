@@ -6,13 +6,17 @@
 * ``cache_decls(shape)``                — PDecl tree of the decode cache
 * ``input_specs(shape)``                — PDecl tree of the inputs
 
-Ported: the hybrid (zamba2) family, for serving.  Its stacked layers run
-as Python loops over the stacked leading axes (the port has no scan), on
+Ported, for serving: the decoder-only builder with its three families —
+dense (GQA, sliding window, QKV bias), MoE (routed and shared experts,
+with deepseek's leading dense layers) and MLA (deepseek-v2-lite's latent
+attention) — and the hybrid (zamba2) family.  Stacked layers run as
+Python loops over the stacked leading axes (the port has no scan), on
 whichever device the parameters lie: on the card the prefill's attention
 and SSD scans go through the hand-written kernels (see ``layers`` and
 ``ssm``).  ``decode_fn`` updates the cache it is given in place, where the
-reference donates it.  Training (the loss, its backward) and the other
-families are not ported yet (ROADMAP item 15).
+reference donates it.  The MoE aux loss is returned by the decoder's
+backbone only: training (the loss, its backward) is not ported yet, nor
+are the xLSTM, audio and VLM families (ROADMAP item 15).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
     attn_decls, attn_decode, attn_forward, mlp_decls, mlp_forward, rms_norm,
 )
+from repro_torch.models.moe import moe_decls, moe_forward
 from repro_torch.models.param import PDecl, tree_map
 
 F32 = torch.float32
@@ -80,12 +85,16 @@ def _last_logits(unemb, h):
 def _kv_cache_decls(cfg: ArchConfig, n_layers: int, batch: int, s_max: int,
                     prefix: Tuple[int, ...] = ()):
     a = cfg.attention
-    if a.is_mla:
-        raise NotImplementedError("MLA caches are not ported yet "
-                                  "(ROADMAP item 15)")
     cap = min(s_max, a.sliding_window) if a.sliding_window else s_max
     lead = prefix + (n_layers,) if n_layers else prefix
     lax_names = tuple(None for _ in lead)
+    if a.is_mla:
+        return {
+            "c": PDecl(lead + (batch, cap, a.kv_lora_rank),
+                       lax_names + ("batch", "kv_seq", None)),
+            "krope": PDecl(lead + (batch, cap, a.rope_head_dim),
+                           lax_names + ("batch", "kv_seq", None)),
+        }, cap
     return {
         "k": PDecl(lead + (batch, cap, a.n_kv_heads, a.head_dim),
                    lax_names + ("batch", "kv_seq", None, None)),
@@ -121,10 +130,128 @@ def _dense_layer_decls(cfg: ArchConfig) -> Dict[str, Any]:
     }
 
 
+def _moe_layer_decls(cfg: ArchConfig, ep: int) -> Dict[str, Any]:
+    return {
+        "ln1": PDecl((cfg.d_model,), (None,), init="ones"),
+        "attn": attn_decls(cfg.attention, cfg.d_model),
+        "ln2": PDecl((cfg.d_model,), (None,), init="ones"),
+        "moe": moe_decls(cfg, ep),
+    }
+
+
 def _token_specs(shape: ShapeConfig):
     b = shape.global_batch
     s = shape.seq_len if shape.kind != "decode" else 1
     return {"tokens": PDecl((b, s), ("batch", None), dtype=I32)}
+
+
+# ---------------------------------------------------------------------------
+# decoder-only: the dense and MoE families (GQA, SWA, QKV bias, MLA)
+# ---------------------------------------------------------------------------
+def build_decoder(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
+    """The reference's ``build_decoder`` on one card (an expert axis of
+    1): ``layers`` stacked n_layers - first_dense_layers deep, deepseek's
+    leading dense layers stacked under ``head_layers``."""
+    is_moe = cfg.family == "moe"
+    ep = 1
+    n_dense_head = cfg.moe.first_dense_layers if is_moe else 0
+    n_scan = cfg.n_layers - n_dense_head
+    mla = cfg.attention.is_mla
+
+    decls = _emb_decls(cfg)
+    if is_moe:
+        decls["layers"] = stack_decls(_moe_layer_decls(cfg, ep), n_scan)
+        if n_dense_head:
+            head = {
+                "ln1": PDecl((cfg.d_model,), (None,), init="ones"),
+                "attn": attn_decls(cfg.attention, cfg.d_model),
+                "ln2": PDecl((cfg.d_model,), (None,), init="ones"),
+                "mlp": mlp_decls(cfg.d_model, cfg.moe.d_first_dense, cfg.glu),
+            }
+            decls["head_layers"] = stack_decls(head, n_dense_head)
+    else:
+        decls["layers"] = stack_decls(_dense_layer_decls(cfg), n_scan)
+
+    def ffn(lp, h):
+        """The layer's MLP or MoE on the normed residual: (out, aux)."""
+        x = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        if "moe" in lp:
+            return moe_forward(lp["moe"], cfg, x, ep=ep)
+        return mlp_forward(lp["mlp"], x, cfg.act, cfg.glu), None
+
+    def layer(lp, h):                 # queries at arange(S): positions None
+        a, kv = attn_forward(lp["attn"], cfg.attention,
+                             rms_norm(h, lp["ln1"], cfg.norm_eps),
+                             chunk=attn_chunk)
+        h = h + a
+        m, aux = ffn(lp, h)
+        return h + m, kv, aux
+
+    # (stacked params and cache key, depth) in the order they run
+    stacks = ([("head_layers", n_dense_head)] if n_dense_head else []) \
+        + [("layers", n_scan)]
+
+    def backbone(params, tokens):
+        """(h, the MoE aux loss, {stack: its layers' cache pairs, stacked})."""
+        h = _embed(params, tokens)
+        aux_total = torch.zeros((), dtype=F32, device=h.device)
+        kvs = {}
+        for name, depth in stacks:
+            got = []
+            for i in range(depth):
+                h, kv, aux = layer(_index(params[name], i), h)
+                if aux is not None:
+                    aux_total = aux_total + aux
+                got.append(kv)
+            kvs[name] = tuple(torch.stack(t) for t in zip(*got))
+        h = rms_norm(h, params["lnf"], cfg.norm_eps)
+        return h, aux_total, kvs
+
+    def cache_decls(shape: ShapeConfig):
+        kv, cap = _kv_cache_decls(cfg, n_scan, shape.global_batch,
+                                  shape.seq_len)
+        out = {"layers": kv}
+        if n_dense_head:
+            hkv, _ = _kv_cache_decls(cfg, n_dense_head, shape.global_batch,
+                                     shape.seq_len)
+            out["head_layers"] = hkv
+        out.update(_pos_decls(shape.global_batch, cap))
+        return out
+
+    def prefill_fn(params, batch):
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        h, _, kvs = backbone(params, tokens)
+        logits = _last_logits(_unemb(params, cfg), h)
+        names = ("c", "krope") if mla else ("k", "v")
+        cache = {name: dict(zip(names, kv)) for name, kv in kvs.items()}
+        cache["slot_pos"] = torch.arange(s, dtype=I32, device=tokens.device) \
+            .repeat(b, 1)
+        cache["cur"] = torch.full((b,), s, dtype=I32, device=tokens.device)
+        return logits, cache
+
+    def decode_fn(params, cache, batch):
+        cap = cache["slot_pos"].shape[1]
+        cur, slot_pos = _advance_pos(cache, cap)
+        h = _embed(params, batch["tokens"])
+        for name, depth in stacks:
+            lc = cache[name]
+            for i in range(depth):
+                lp = _index(params[name], i)
+                a, _ = attn_decode(lp["attn"], cfg.attention,
+                                   rms_norm(h, lp["ln1"], cfg.norm_eps),
+                                   cur, slot_pos, _index(lc, i))
+                h = h + a
+                h = h + ffn(lp, h)[0]
+        h = rms_norm(h, params["lnf"], cfg.norm_eps)
+        logits = _last_logits(_unemb(params, cfg), h)
+        out = dict(cache)
+        out["slot_pos"] = slot_pos
+        out["cur"] = cur + 1
+        return logits, out
+
+    return ModelBundle(cfg, decls, prefill_fn, decode_fn, cache_decls,
+                       _token_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -282,11 +409,15 @@ def build_hybrid(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
 
 
 # ---------------------------------------------------------------------------
+_BUILDERS = {"dense": build_decoder, "moe": build_decoder,
+             "hybrid": build_hybrid}
+
+
 def build_model(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
-    """The ModelBundle of an architecture.  Only the hybrid family is
-    ported; the others raise ``NotImplementedError``."""
-    if cfg.family != "hybrid":
+    """The ModelBundle of an architecture: the dense, MoE and hybrid
+    families are ported; the others raise ``NotImplementedError``."""
+    if cfg.family not in _BUILDERS:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-            "(ROADMAP item 15); ported: hybrid")
-    return build_hybrid(cfg, attn_chunk=attn_chunk)
+            f"(ROADMAP item 15); ported: {sorted(_BUILDERS)}")
+    return _BUILDERS[cfg.family](cfg, attn_chunk=attn_chunk)

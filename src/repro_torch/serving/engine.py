@@ -66,6 +66,8 @@ def grow_cache(cfg, cache, n_extra: int):
         leaf = path[-1]
         if leaf in ("k", "v"):
             return _pad_axis(arr, arr.dim() - 3, grow, 0)
+        if leaf in ("c", "krope"):           # MLA's latent cache
+            return _pad_axis(arr, arr.dim() - 2, grow, 0)
         if leaf == "slot_pos":
             return _pad_axis(arr, arr.dim() - 1, grow, -1)
         return arr

@@ -10,7 +10,9 @@ keep what it computed.  Tiers:
     does;
   * float — theta and se of the ridge requests within 1e-4 relative;
   * measured — kernel_ridge (the quickstart and the session's second
-    request) at ROADMAP Queue 3's Nyström tolerance, ``KR_TOL``.
+    request) at ROADMAP Queue 3's Nyström tolerance, ``KR_TOL``;
+  * exact — the serving example's generated tokens, from the reference's
+    parameters cast to float32 (the twin is given the same tree).
 """
 import time
 import types
@@ -21,18 +23,25 @@ import pytest
 # ruff: noqa: E402
 torch = pytest.importorskip("torch")
 
+import jax
+import jax.numpy as jnp
+
 import examples.quickstart as jquickstart
+import examples.serve_lm as jserve
 import examples.serverless_scaling as jscaling
 import examples.session_batching as jsession
 import repro.compile.program as jax_program
+import repro.serving.engine as jax_engine
 import repro.serverless.backends as jax_backends
 import repro.serverless.dispatch as jax_dispatch
 
 import examples.quickstart_torch as tquickstart
+import examples.serve_lm_torch as tserve
 import examples.serverless_scaling_torch as tscaling
 import examples.session_batching_torch as tsession
 import repro_torch.serverless.backends as torch_backends
 import repro_torch.serverless.dispatch as torch_dispatch
+from repro_torch.models import params_from_numpy
 
 # kernel_ridge's measured tier (ROADMAP Queue 3, Nystrom conditioning):
 # Kmm of the bonus data is singular but for its jitter (condition 1.9e8),
@@ -141,3 +150,38 @@ def test_session_batching_twin_matches_the_reference(frozen, monkeypatch):
         else:
             assert _rel(g.theta, w.theta) <= 1e-4
             assert _rel(g.se, w.se) <= 1e-4
+
+
+def test_serve_lm_twin_matches_the_reference(monkeypatch, capsys):
+    """The serving example on the reduced deepseek-v2-lite (its default)
+    with 6 requests and 5 generated tokens: the reference's run with its
+    parameters cast to float32 (its ``init_tree`` wrapped), the twin on
+    the CPU given the same parameters.  The served tokens (slots refilled
+    from the queue) and the batch's tokens are equal."""
+    params = []
+    real_init = jserve.init_tree
+
+    def init_f32(decls, key):
+        params.append(jax.tree.map(lambda a: a.astype(jnp.float32),
+                                   real_init(decls, key)))
+        return params[-1]
+    monkeypatch.setattr(jserve, "init_tree", init_f32)
+    served = _kept(monkeypatch, jax_engine.Engine, "serve_requests")
+    generated = _kept(monkeypatch, jax_engine.Engine, "generate")
+    argv = ["--requests", "6", "--gen", "5"]
+    monkeypatch.setattr("sys.argv", ["serve_lm.py"] + argv)
+    jserve.main()
+    (want,) = served
+    if not torch.cuda.is_available():       # the default device is the card
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tserve.run(requests=1)
+    cfg, _, outs, res = tserve.run(
+        requests=6, gen=5, device="cpu",
+        params=params_from_numpy(jax.tree.map(np.asarray, params[0]), "cpu"))
+    assert cfg.attention.is_mla and len(outs) == len(want) == 6
+    for g, w in zip(outs, want):
+        assert np.array_equal(g, w)
+    assert np.array_equal(res.tokens, generated[-1].tokens)
+    tserve.main(argv + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "serving reduced deepseek-v2-lite-16b (MLA latent cache)" in out

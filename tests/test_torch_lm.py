@@ -113,10 +113,10 @@ def test_unported_archs_and_families_raise():
             get_arch(name)
     with pytest.raises(KeyError, match="unknown"):
         get_arch("no-such-arch")
-    dense = dataclasses.replace(get_arch("zamba2-7b", reduced=True),
-                                family="dense")
+    audio = dataclasses.replace(get_arch("zamba2-7b", reduced=True),
+                                family="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        build_model(dense)
+        build_model(audio)
 
 
 def _jax_decl_paths(tree):

@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.ssd_scan import ssd_scan_pallas
+from repro.models import layers as JL
 from repro_torch import runtime
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops
@@ -133,7 +134,7 @@ def _tc_schedule(q, k, v, *, causal, window, split=True, block_k=64):
     qpos = torch.arange(sq)[:, None] + (skv - sq)
     m = torch.full((bh, sq), float("-inf"))
     l = torch.zeros((bh, sq))
-    acc = torch.zeros((bh, sq, d))
+    acc = torch.zeros((bh, sq, v.shape[-1]))
     for k0 in range(0, skv, block_k):
         kpos = torch.arange(k0, min(k0 + block_k, skv))[None, :]
         x = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k0 + block_k]) \
@@ -241,7 +242,7 @@ def _tf32_schedule(q, k, v, *, causal, window, split=True, block_k=64):
     qpos = torch.arange(sq)[:, None] + (skv - sq)
     m = torch.full((bh, sq), float("-inf"))
     l = torch.zeros((bh, sq))
-    acc = torch.zeros((bh, sq, d))
+    acc = torch.zeros((bh, sq, v.shape[-1]))
     for k0 in range(0, skv, block_k):
         kpos = torch.arange(k0, min(k0 + block_k, skv))[None, :]
         x = _tf32_product("bqd,bkd->bqk", q, k[:, k0:k0 + block_k],
@@ -329,6 +330,105 @@ def test_flash_attention_kernel_shape_limits(d, sq, skv, dtype, ok):
     else:
         with pytest.raises(ValueError, match="D|Sq"):
             fa_mod.check_kernel_shape(4, sq, skv, d, TT[dtype])
+
+
+# ---------------------------------------------------------------------------
+# flash_attention at Dqk != Dv (MLA's prefill: the rope channel folded into
+# the head).  The Pallas kernel takes one depth, so the JAX counterpart is
+# the reference's attention_core (src/repro/models/layers.py), which scales
+# by 1/sqrt(Dqk) as the kernels do.
+# ---------------------------------------------------------------------------
+def _attention_core_folded(q, k, v, *, causal, window):
+    """The reference's attention_core on folded (BH, S, D) operands (the
+    lanes as heads of one batch row), queries aligned to the keys'
+    suffix."""
+    sq, skv = q.shape[1], k.shape[1]
+    heads = [jnp.swapaxes(t, 0, 1)[None] for t in (q, k, v)]
+    q_pos = jnp.arange(skv - sq, skv, dtype=jnp.int32)[None]
+    k_pos = jnp.arange(skv, dtype=jnp.int32)[None]
+    o = JL.attention_core(*heads, q_pos, k_pos, causal=causal,
+                          window=window, chunk=64)
+    return jnp.swapaxes(o[0], 0, 1)
+
+
+DQK_DV_CASES = [
+    (4, 100, 100, 48, 32, True, None),      # reduced MLA
+    (2, 130, 130, 192, 128, True, None),    # deepseek's depths, ragged
+    (2, 64, 200, 184, 120, True, 64),       # Sq < Skv, window, padded depths
+    (2, 96, 96, 192, 128, False, None),
+]
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,dv,causal,window", DQK_DV_CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_plain_at_dqk_ne_dv_matches_attention_core(
+        bh, sq, skv, d, dv, causal, window, dtype):
+    rng = np.random.default_rng(bh * sq + d + dv)
+    jq, tq = _pair(rng.standard_normal((bh, sq, d), dtype=np.float32), dtype)
+    jk, tk = _pair(rng.standard_normal((bh, skv, d), dtype=np.float32),
+                   dtype)
+    jv, tv = _pair(rng.standard_normal((bh, skv, dv), dtype=np.float32),
+                   dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == TT[dtype] and tuple(got.shape) == (bh, sq, dv)
+    want = _attention_core_folded(jq, jk, jv, causal=causal, window=window)
+    assert np.abs(_f32(got) - _f32(want)).max() < TOL[dtype]
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,dv,causal,window", DQK_DV_CASES)
+@pytest.mark.parametrize("kernel", ["bf16", "f32"])
+def test_kernel_schedules_at_dqk_ne_dv_match_attention_core(
+        bh, sq, skv, d, dv, causal, window, kernel):
+    """Both kernels' schedules with v at its own depth: the bf16 one
+    within a bf16 step of the reference per element, the split-TF32 one
+    within 2e-5."""
+    rng = np.random.default_rng(bh * sq + d + dv + 1)
+    jq, tq = _pair(rng.standard_normal((bh, sq, d), dtype=np.float32),
+                   kernel)
+    jk, tk = _pair(rng.standard_normal((bh, skv, d), dtype=np.float32),
+                   kernel)
+    jv, tv = _pair(rng.standard_normal((bh, skv, dv), dtype=np.float32),
+                   kernel)
+    schedule = _tc_schedule if kernel == "bf16" else _tf32_schedule
+    got = _f32(schedule(tq, tk, tv, causal=causal, window=window))
+    want = _f32(_attention_core_folded(jq.astype(jnp.float32),
+                                       jk.astype(jnp.float32),
+                                       jv.astype(jnp.float32),
+                                       causal=causal, window=window))
+    assert got.shape == (bh, sq, dv) and np.isfinite(got).all()
+    if kernel == "bf16":
+        assert _bf16_steps(got, want) <= 1.0
+    else:
+        assert np.abs(got - want).max() <= 2e-5
+
+
+@pytest.mark.parametrize("d,dv,dtype,ok", [
+    (192, 128, "bf16", True), (184, 120, "bf16", True),
+    (48, 32, "bf16", True), (44, 32, "f32", True), (190, 128, "f32", True),
+    (200, 128, "bf16", False),                    # Dqk past 192
+    (192, 136, "f32", False),                     # Dv past 128
+    (176, 128, "bf16", False),                    # a pair not built
+    (192, 124, "bf16", False),                    # Dv % 8 != 0 in bf16
+    (120, 128, "f32", False),                     # an equal pair, D != Dv
+])
+def test_flash_attention_depth_pairs(d, dv, dtype, ok):
+    """The (Dqk, Dv) pairs the kernels are built for, rounded up to 16:
+    equal depths up to 128 (where Dqk == Dv), deepseek-v2-lite's (192,
+    128) and its reduced variant's (48, 32)."""
+    if ok:
+        fa_mod.check_kernel_shape(4, 64, 64, d, TT[dtype], dv)
+    else:
+        with pytest.raises(ValueError, match="D"):
+            fa_mod.check_kernel_shape(4, 64, 64, d, TT[dtype], dv)
+
+
+def test_check_qkv_takes_v_at_its_own_depth():
+    q, k = torch.zeros((2, 8, 48)), torch.zeros((2, 8, 48))
+    assert fa_mod.check_qkv(q, k, torch.zeros((2, 8, 32)), None) == \
+        (2, 8, 8, 48, 32)
+    with pytest.raises(ValueError, match="Skv"):
+        fa_mod.check_qkv(q, torch.zeros((2, 8, 32)), torch.zeros((2, 8, 32)),
+                         None)
 
 
 # ---------------------------------------------------------------------------
