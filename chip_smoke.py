@@ -23,7 +23,14 @@ latent attention, whose prefills run flash attention with q and k at depth
 192 against v at 128), served twice with the same tokens, the full
 h2o-danube-3-4b on prompts longer than its sliding window, and
 codeqwen1.5-7b, qwen2-moe-a2.7b, qwen2.5-32b and yi-34b at full width with
-their depth cut, each family reduced held card against CPU.  The
+their depth cut, each family reduced held card against CPU; and the last
+three families: the full xlstm-350m (its mLSTM blocks through the SSD
+scan at N 512, P 513, its sLSTM a loop of plain ops over time) served
+twice with the same tokens, the full whisper-base at 1500 frames and a
+400-token prompt, and llama-3.2-vision-90b at full width cut to two
+groups (cross-attention at 2048 queries against 1601 image tokens), both
+through ``Engine.generate`` with their frames or image patches, each
+reduced (and xlstm at full width, depth cut) held card against CPU.  The
 API's default backend, the paper's wave scheduler: the paper request on
 it cold and warm beside the inline backend, the paper's Figure 3 sweep
 (both scaling levels x four worker memories, simulated Lambda billing)
@@ -68,8 +75,8 @@ Phases: device, build, kernels, estimate_paper, estimate_wide, session,
 same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
 estimate_wave, wave_pool, session_wave, fusion, page_pool,
 estimate_quickstart, estimate_mlp, serve_zamba2, serve_deepseek,
-serve_dense, same_as_cpu_lm, topology, topology_chaos, durable, sanitize,
-persist, examples.
+serve_dense, serve_xlstm, serve_whisper, serve_vlm, same_as_cpu_lm,
+topology, topology_chaos, durable, sanitize, persist, examples.
 """
 from __future__ import annotations
 
@@ -120,6 +127,8 @@ from repro_torch.models import (                           # noqa: E402
     build_model, init_tree, param_count,
 )
 from repro_torch.models.param import cast_floating, tree_map  # noqa: E402
+from repro_torch.models import layers as lm_layers         # noqa: E402
+from repro_torch.models import ssm as ssm_blocks           # noqa: E402
 from repro_torch.serverless import PoolConfig, make_backend  # noqa: E402
 from repro_torch.serving import Engine, grow_cache         # noqa: E402
 
@@ -128,7 +137,8 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "raw_request", "estimate_irm", "estimate_wave", "wave_pool",
           "session_wave", "fusion", "page_pool", "estimate_quickstart",
           "estimate_mlp", "serve_zamba2", "serve_deepseek", "serve_dense",
-          "same_as_cpu_lm", "topology",
+          "serve_xlstm", "serve_whisper", "serve_vlm", "same_as_cpu_lm",
+          "topology",
           "topology_chaos", "durable", "sanitize", "persist", "examples")
 LIBRARIES = ("megabatch", "lm")
 
@@ -306,6 +316,26 @@ ATTN_SHAPES = (MAIN_ATTN_SHAPE, (128, 2048, 2048, 112, "f32", True, 32768),
         (80, 2048, 2048, 128, True, None),
         (112, 2048, 2048, 128, True, None))
     for dtype in ("bf16", "f32"))
+# the three last families' prefills (name -> row and its types):
+# serve_vlm's (B 2 x 64 heads, GQA 64/8 repeated, S 2048, D 128) causal
+# self-attention, in bf16, its type on the path (in float32 this row sat
+# at 2.06e-5 of the plain version, past ATTN_F32_SPLIT_TOL: PERF.md §7),
+# and its cross-attention against one image tile's 1601 tokens (Sq > Skv,
+# nothing masked); serve_whisper's (B 4 x 8 heads, D 64) encoder over 1500
+# frames (not causal), decoder self-attention over its 400-token prompt
+# (causal) and cross-attention against the 1500 frames; a ragged Sq >
+# Skv.  Each is timed beside scaled_dot_product_attention
+CROSS_ATTN_ROWS = {
+    "vlm_self": ((128, 2048, 2048, 128, True, None), ("bf16",)),
+    "vlm_cross": ((128, 2048, 1601, 128, False, None), ("bf16", "f32")),
+    "whisper_encoder": ((32, 1500, 1500, 64, False, None), ("bf16", "f32")),
+    "whisper_self": ((32, 400, 400, 64, True, None), ("bf16", "f32")),
+    "whisper_cross": ((32, 400, 1500, 64, False, None), ("bf16", "f32")),
+    "ragged_cross": ((16, 1000, 333, 64, False, None), ("bf16", "f32")),
+}
+ATTN_SHAPES += tuple((*row[:4], dtype, *row[4:])
+                     for row, dtypes in CROSS_ATTN_ROWS.values()
+                     for dtype in dtypes)
 # the deepseek prefill's row: K5 at Dqk 192, Dv 128
 MLA_ATTN_SHAPE = (64, 2048, 2048, 192, "bf16", True, None, 128)
 # (BH, S, P, N, chunk, heads) of the SSD scan, for the same runs (112 SSM
@@ -323,6 +353,16 @@ SSD_SHAPES = ((MAIN_SSD_SHAPE, "slow"), ((112, 2048, 64, 64, 256, 112), "slow"),
               ((112, 200, 64, 64, 256, 112), "slow"),
               ((8, 777, 64, 64, 256, 1), "slow"),
               ((6, 300, 13, 7, 64, 3), "slow"))
+# xlstm-350m's mLSTM prefill (serve_xlstm: B 4 x 4 heads as lanes, one head
+# a lane, the key depth 512 as N, the value depth 512 plus the normalizer
+# as P), then past N, P 64: N != P with heads sharing bm/cm and 4-byte
+# copies; P 200 (16-byte copies, four column tiles, the last short); N 80
+# (a short last 32-deep slice of C S in the outputs kernel)
+XLSTM_SSD_SHAPE = (16, 2048, 513, 512, 256, 1)
+SSD_SHAPES += ((XLSTM_SSD_SHAPE, "slow"),
+               ((8, 777, 129, 96, 256, 2), "slow"),
+               ((6, 600, 200, 64, 256, 3), "slow"),
+               ((4, 300, 72, 80, 64, 2), "strong"))
 TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 TYPE_NAMES = {v: k for k, v in TYPES.items()}
 # attention tolerance: the reference's own (tests/test_kernels.py TOL)
@@ -896,9 +936,12 @@ def _attn_kernel_rows(device, gen):
     """Flash attention against its plain version (and, at the serve
     paths' shapes, against scaled_dot_product_attention, timed only) at
     every shape of ATTN_SHAPES.  The main (bf16) row carries the float32
-    kernel's row at the same shape beside it (``f32``), and the deepseek
-    prefill's rows (Dqk 192, Dv 128) beside it (``mla``)."""
-    report, main, f32, mla = [], None, None, {}
+    kernel's row at the same shape beside it (``f32``), the deepseek
+    prefill's rows (Dqk 192, Dv 128) beside it (``mla``), and the rows of
+    CROSS_ATTN_ROWS in both types (``families``)."""
+    report, main, f32, mla, families = [], None, None, {}, {}
+    library_keys = {MAIN_ATTN_SHAPE[:4], MLA_ATTN_SHAPE[:4]} | {
+        row[:4] for row, _ in CROSS_ATTN_ROWS.values()}
     for shape in ATTN_SHAPES:
         bh, sq, skv, d, dtype, causal, window = shape[:7]
         dv = shape[7] if len(shape) > 7 else d
@@ -937,17 +980,18 @@ def _attn_kernel_rows(device, gen):
             "bound_ms_at_f32_fma": bound_f32,
             "bytes": nbytes, "operations": flops,
         }
-        if shape[:4] in (MAIN_ATTN_SHAPE[:4], MLA_ATTN_SHAPE[:4]) \
-                and sq == skv and causal:
+        if shape[:4] in library_keys and (sq == skv or not causal) \
+                and (window is None or window >= skv):
             # the serve paths' shapes in both types (zamba2's window 32768
-            # is longer than S: causal alone)
+            # is longer than S: causal alone; SDPA's causal mask is aligned
+            # to the top left, so a causal row needs Sq == Skv)
             sdpa = torch.nn.functional.scaled_dot_product_attention
 
             def library():          # (1, BH, S, D): the fused backends
-                return sdpa(q[None], k[None], v[None], is_causal=True)[0]
+                return sdpa(q[None], k[None], v[None], is_causal=causal)[0]
 
-            row["library"] = ("scaled_dot_product_attention(is_causal=True) "
-                              "on (1, BH, S, D)")
+            row["library"] = (f"scaled_dot_product_attention(is_causal="
+                              f"{causal}) on (1, BH, S, D)")
             try:                    # Dv != D: not every backend takes it
                 lib_err = float((library().float() - o0.float()).abs().max())
             except RuntimeError as err:
@@ -964,6 +1008,9 @@ def _attn_kernel_rows(device, gen):
             f32 = row
         elif shape[:4] == MLA_ATTN_SHAPE[:4]:
             mla[dtype] = {"shape": list(shape), **row}
+        for name, (key, _) in CROSS_ATTN_ROWS.items():
+            if shape == (*key[:4], dtype, *key[4:]):
+                families[f"{name}_{dtype}"] = {"shape": list(shape), **row}
         report.append({"shape": list(shape), "flash_attention": row})
         del q, k, v, o, o0
         torch.cuda.empty_cache()
@@ -973,6 +1020,29 @@ def _attn_kernel_rows(device, gen):
                                           "library_ms",
                                           "bound_ms_at_f32_fma")}}
     main["mla"] = mla
+    main["families"] = families
+    # more queries than keys under a mask raises on the card, in the
+    # wrapper and on the model's route (its first queries would see no
+    # key), and launches nothing
+    q = torch.zeros((4, 9, 64), dtype=torch.bfloat16, device=device)
+    k = torch.zeros((4, 8, 64), dtype=torch.bfloat16, device=device)
+    before = dict(runtime.launch_counts)
+    refused = []
+    for causal, window in ((True, None), (False, 4), (True, 4)):
+        for call in (lambda: ops.flash_attention(q, k, k, causal=causal,
+                                                 window=window),
+                     lambda: lm_layers.flash_attention_heads(
+                         *(t.transpose(0, 1)[None] for t in (q, k, k)),
+                         causal=causal, window=window)):
+            try:
+                call()
+            except ValueError:
+                refused.append([causal, window])
+            else:
+                raise AssertionError(("a masked call with Sq > Skv ran",
+                                      causal, window))
+    assert runtime.launch_counts == before, runtime.launch_counts
+    main["masked_sq_gt_skv_refused"] = refused
     return report, main
 
 
@@ -992,8 +1062,9 @@ def _ssd_inputs(shape, decay, device, gen):
 def _ssd_kernel_rows(device, gen):
     """The SSD scan against its plain sequential version — y and the final
     state — at every shape of SSD_SHAPES.  No single PyTorch call computes
-    the scan: library_ms is None."""
-    report, main = [], None
+    the scan: library_ms is None.  The main row (zamba2's) carries
+    xlstm-350m's row beside it (``xlstm``)."""
+    report, main, xlstm = [], None, None
     for shape, decay in SSD_SHAPES:
         bh, s, p, n, chunk, heads = shape
         x, la, bm, cm = _ssd_inputs(shape, decay, device, gen)
@@ -1025,7 +1096,7 @@ def _ssd_kernel_rows(device, gen):
             "bound_ms_at_f32_fma": bound_f32,
             "bytes": nbytes, "operations": flops,
         }
-        if shape == MAIN_SSD_SHAPE:
+        if shape in (MAIN_SSD_SHAPE, XLSTM_SSD_SHAPE):
             row["plain_ms"] = _time_ms(lambda: ssd_scan.ssd_scan_plain(
                 x, la, bm, cm, heads=heads), cold=True, runs=5, warmup=1)
             # one wrapper call (one count): its CUDA launches as the
@@ -1044,10 +1115,14 @@ def _ssd_kernel_rows(device, gen):
             torch.cuda.synchronize()
             row["scratch_bytes"] = (torch.cuda.max_memory_allocated()
                                     - torch.cuda.memory_allocated())
-            main = row
+            if shape == MAIN_SSD_SHAPE:
+                main = row
+            else:
+                xlstm = {"shape": list(shape), **row}
         report.append({"shape": list(shape), "ssd_scan": row})
         del x, la, bm, cm, y, st, y0, st0
         torch.cuda.empty_cache()
+    main["xlstm"] = xlstm
     return report, main
 
 
@@ -2916,9 +2991,9 @@ def _serve(bundle, params, device, prompts, batch, slot_len, what):
     """One ``Engine.serve_requests`` of ``prompts`` in ``batch`` slots of
     ``slot_len``, SERVE_GEN tokens each, with the launch counts set to 0
     just before and read just after, and every launch's shape recorded;
-    the decoder's K5 launches (one a layer and burst) and nothing else
-    checked, every logit finite.  Returns (engine, tokens, the emitted
-    record)."""
+    the model's launches (``_prefill_launches`` a burst: a decoder's K5
+    once a layer) and nothing else checked, every logit finite.  Returns
+    (engine, tokens, the emitted record)."""
     cfg = bundle.arch
     engine = Engine(bundle, params, device=device)
     flags = _logit_recorder(bundle)
@@ -2936,7 +3011,8 @@ def _serve(bundle, params, device, prompts, batch, slot_len, what):
     peak = torch.cuda.max_memory_allocated()
     n_bursts = -(-len(prompts) // batch)
     assert launches == {**{k: 0 for k in launches},
-                        "flash_attention": n_bursts * cfg.n_layers}, \
+                        **{k: n_bursts * n for k, n in
+                           _prefill_launches(cfg).items()}}, \
         (what, launches)
     _launches_compared(seen, what)
     assert bool(torch.stack(flags).all()), f"{what}: a logit is not finite"
@@ -3042,6 +3118,257 @@ def phase_serve_dense(device):
     return {m["arch"]: m["launches"]["flash_attention"] for m in models}
 
 
+# serve_whisper: whisper-base at the source's own lengths — (batch, encoder
+# frames, prompt tokens): 30 s of audio are 1500 frames after the conv stem
+WHISPER_SERVE = (4, 1500, 400)
+# serve_vlm: llama-3.2-vision-90b at full width cut to VLM_GROUPS groups
+# (4 self-attention layers and 1 cross-attention layer each: about 10.7 B
+# parameters, 21 GB in bf16; the whole model's 180 GB does not fit one
+# card), VLM_BATCH prompts of VLM_LEN tokens against one image tile's 1601
+# patch embeddings, the cross-attention gates at VLM_GATE (declared zero,
+# which cancels the cross-attention)
+VLM_GROUPS, VLM_BATCH, VLM_LEN, VLM_GATE = 2, 2, 2048, 0.5
+
+
+@contextlib.contextmanager
+def _device_spans(targets):
+    """Bracket every call of each ``(module, attribute)`` of ``targets``
+    with CUDA events for the duration: yields {attribute: [(start, end),
+    ...]}, to be read after a synchronize."""
+    spans = {name: [] for _, name in targets}
+    real = [(module, name, getattr(module, name)) for module, name in targets]
+
+    def bracket(fn, name):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
+
+    for module, name, fn in real:
+        setattr(module, name, bracket(fn, name))
+    try:
+        yield spans
+    finally:
+        for module, name, fn in real:
+            setattr(module, name, fn)
+
+
+def _prefill_shares(bundle, params, batch, targets):
+    """One prefill of ``batch`` with each target of ``_device_spans``
+    bracketed: the prefill's time (host clock, synchronized) and each
+    target's calls, summed device span and share of the prefill (a span
+    runs from its first launch to its last: for a loop of small launches
+    it holds the gaps in which the device waits for the host)."""
+    torch.cuda.synchronize()
+    with torch.inference_mode(), _device_spans(targets) as spans:
+        t0 = time.perf_counter()
+        bundle.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = {"prefill_ms": wall_ms}
+    for name, pairs in spans.items():
+        ms = sum(a.elapsed_time(b) for a, b in pairs)
+        out[name] = {"calls": len(pairs), "ms": ms, "share": ms / wall_ms}
+    return out
+
+
+def _burst_tokens(prompts, batch, slot_len, device):
+    """The first burst ``Engine.serve_requests`` makes of ``prompts``:
+    ``batch`` slots of ``slot_len`` tokens, left-padded with 0."""
+    toks = np.zeros((batch, slot_len), np.int32)
+    for i, prompt in enumerate(prompts[:batch]):
+        toks[i, -len(prompt[-slot_len:]):] = prompt[-slot_len:]
+    return torch.as_tensor(toks, device=device)
+
+
+def _seeded_model(cfg, device):
+    """(bundle, bf16 parameters drawn on the card from LM_SEED, seconds,
+    bytes on the card)."""
+    bundle = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = init_tree(bundle.decls, gen, device)
+    torch.cuda.synchronize()
+    return bundle, params, time.perf_counter() - t0, \
+        torch.cuda.memory_allocated()
+
+
+def phase_serve_xlstm(device):
+    """The xLSTM family's headline path: the full xlstm-350m (24 layers: 3
+    groups of 7 mLSTM blocks and an sLSTM block; each mLSTM's 4 heads of
+    512 are SSD lanes with a state of N 512 keys by P 513 values, the
+    normalizer included), bf16 weights drawn on the card from a seeded
+    generator, through ``Engine.serve_requests`` on serve_zamba2's burst:
+    8 prompts of ragged length <= 2048 in slots of 4 (2 prefills of 21 K6
+    launches at XLSTM_SSD_SHAPE; 30 decode steps of the recurrent state).
+    Served twice: the same tokens.  Launch counts are set to 0 just before
+    the first serve and read just after.  Then one prefill of the first
+    burst with K6's and the sLSTM loop's device spans, the loop's CUDA
+    launches as the profiler counts them, and the prefill/decode check in
+    float32 (the reference's check, which its reduced xlstm runs on no
+    block)."""
+    cfg = get_arch("xlstm-350m")
+    bundle, params, init_s, param_bytes = _seeded_model(cfg, device)
+    prompts = _serve_prompts(cfg.vocab_size, SERVE_PROMPTS, SERVE_LEN,
+                             SERVE_LEN // 2)
+    engine, results, record = _serve(bundle, params, device, prompts,
+                                     SERVE_BATCH, SERVE_LEN, "serve_xlstm")
+    assert record["launch_shapes"] == {"ssd_scan": [str(XLSTM_SSD_SHAPE)]}, \
+        record["launch_shapes"]
+    again = engine.serve_requests(prompts, batch_size=SERVE_BATCH,
+                                  prompt_len=SERVE_LEN, n_gen=SERVE_GEN)
+    same = all(np.array_equal(a, b) for a, b in zip(results, again))
+    assert same, "serve_xlstm: two identical serves differ"
+    shares = _prefill_shares(
+        bundle, params,
+        {"tokens": _burst_tokens(prompts, SERVE_BATCH, SERVE_LEN, device)},
+        [(ssd_scan, "ssd_scan_cuda"), (ssm_blocks, "slstm_forward")])
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    x = torch.randn((SERVE_BATCH, SERVE_LEN, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    layer = tree_map(lambda t: t[0], params["slstm"])
+    with torch.inference_mode():
+        traced = _device_kernels(
+            lambda: ssm_blocks.slstm_forward(layer, cfg, x))
+    slstm = {"cuda_launches_per_layer": sum(k for k, _ in traced.values()),
+             "device_ms_per_layer": sum(t for _, t in traced.values()),
+             "steps": SERVE_LEN, "batch": SERVE_BATCH}
+    del x
+    consistency = _consistency_f32(bundle, params, prompts[0], device)
+    emit("serve_xlstm", **record, param_bytes_on_card=param_bytes,
+         init_s=init_s, second_serve_same_tokens=same,
+         prefill_shares=shares, slstm_loop=slstm, consistency=consistency)
+    del engine, params
+    torch.cuda.empty_cache()
+    return record["launches"]
+
+
+def _generate_twice(bundle, params, device, batch, what):
+    """``Engine.generate`` of ``batch`` (tokens and the family's frames or
+    image patches), SERVE_GEN tokens, with the launch counts set to 0 just
+    before and read just after and every launch's shape recorded, then
+    again: the model's launches (``_prefill_launches``) and nothing else,
+    every logit finite, the same tokens twice.  Returns (the result, the
+    emitted record)."""
+    cfg = bundle.arch
+    engine = Engine(bundle, params, device=device)
+    flags = _logit_recorder(bundle)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _launch_shapes() as seen:
+        res = engine.generate(batch, n_gen=SERVE_GEN)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    assert launches == {**{k: 0 for k in launches},
+                        **_prefill_launches(cfg)}, (what, launches)
+    _launches_compared(seen, what)
+    assert bool(torch.stack(flags).all()), f"{what}: a logit is not finite"
+    assert len(flags) == SERVE_GEN
+    assert res.tokens.shape == (len(batch["tokens"]), SERVE_GEN) and \
+        res.tokens.min() >= 0 and res.tokens.max() < cfg.vocab_size
+    again = engine.generate(batch, n_gen=SERVE_GEN)
+    same = bool(np.array_equal(res.tokens, again.tokens))
+    assert same, f"{what}: two identical generates differ"
+    record = {"arch": cfg.name, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "params": param_count(bundle.decls),
+              "inputs": {k: list(np.shape(v)) for k, v in batch.items()},
+              "n_gen": SERVE_GEN, "wall_s": wall, "prefill_s": res.prefill_s,
+              "decode_s": res.decode_s,
+              "decode_tokens_per_s": res.tokens_per_s,
+              "peak_device_bytes": peak, "launches": launches,
+              "launch_shapes": {k: sorted(map(str, v))
+                                for k, v in seen.items() if v},
+              "second_generate_same_tokens": same,
+              "first_tokens": res.tokens[:, :4].tolist()}
+    return res, record
+
+
+def phase_serve_whisper(device):
+    """The encoder-decoder family: the full whisper-base (6 encoder layers
+    over precomputed frames, 6 decoder layers with self- and
+    cross-attention, d 512, 8 heads of 64), bf16 weights drawn on the
+    card from a seeded generator, through ``Engine.generate`` (the frames
+    ride in the batch; serve_requests passes tokens only, as the
+    reference's does) at the source's lengths: 4 requests of 1500 frames
+    and a 400-token prompt, SERVE_GEN tokens generated.  K5 18 times a
+    prefill: the encoder (not causal), the decoder's self-attention
+    (causal) and its cross-attention against the 1500 frames.  Then one
+    prefill with K5's device spans."""
+    cfg = get_arch("whisper-base")
+    bundle, params, init_s, param_bytes = _seeded_model(cfg, device)
+    b, n_frames, n_tok = WHISPER_SERVE
+    rng = np.random.default_rng(LM_SEED)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, n_tok))
+             .astype(np.int32),
+             "frames": rng.standard_normal((b, n_frames, cfg.d_frontend),
+                                           dtype=np.float32)}
+    _, record = _generate_twice(bundle, params, device, batch,
+                                "serve_whisper")
+    shares = _prefill_shares(
+        bundle, params, {k: torch.as_tensor(v, device=device)
+                         for k, v in batch.items()},
+        [(flash_attention, "flash_attention_cuda")])
+    emit("serve_whisper", **record, param_bytes_on_card=param_bytes,
+         init_s=init_s, prefill_shares=shares,
+         decode_position="the sinusoid of position 0 at every decode step, "
+                         "as the reference's decode adds it")
+    del params
+    torch.cuda.empty_cache()
+    return record["launches"]
+
+
+def phase_serve_vlm(device):
+    """The VLM family: llama-3.2-vision-90b at full width (d 8192, 64
+    heads of 128, GQA 64/8, d_ff 28672, vocab 128256) cut to VLM_GROUPS
+    groups of 4 self-attention layers and one gated cross-attention layer
+    (the whole model does not fit one card), bf16 weights drawn on the
+    card from a seeded generator, the gates set to VLM_GATE, through
+    ``Engine.generate`` with the image patches in the batch: VLM_BATCH
+    prompts of VLM_LEN tokens against one tile's 1601 patch embeddings,
+    SERVE_GEN tokens generated.  K5 once a layer a prefill: causal
+    self-attention, and cross-attention at Sq 2048 > Skv 1601 with no
+    mask.  Then one prefill with K5's device spans."""
+    full = get_arch("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(full,
+                              n_layers=VLM_GROUPS * full.cross_attn_every)
+    bundle, params, init_s, param_bytes = _seeded_model(cfg, device)
+    params["cross_layers"]["gate"].fill_(VLM_GATE)
+    rng = np.random.default_rng(LM_SEED)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (VLM_BATCH, VLM_LEN))
+             .astype(np.int32),
+             "img": rng.standard_normal(
+                 (VLM_BATCH, cfg.n_frontend_tokens, cfg.d_frontend),
+                 dtype=np.float32)}
+    _, record = _generate_twice(bundle, params, device, batch, "serve_vlm")
+    cross = str((VLM_BATCH * cfg.attention.n_heads, VLM_LEN,
+                 cfg.n_frontend_tokens, cfg.attention.head_dim, "bf16",
+                 False, None))
+    assert cross in record["launch_shapes"]["flash_attention"], \
+        record["launch_shapes"]
+    shares = _prefill_shares(
+        bundle, params, {k: torch.as_tensor(v, device=device)
+                         for k, v in batch.items()},
+        [(flash_attention, "flash_attention_cuda")])
+    emit("serve_vlm", **record, param_bytes_on_card=param_bytes,
+         init_s=init_s, prefill_shares=shares, gate=VLM_GATE,
+         cut=f"depth {full.n_layers} -> {cfg.n_layers} layers "
+             f"({VLM_GROUPS} groups of {full.cross_attn_every - 1} self + 1 "
+             f"cross); width, heads and vocab in full")
+    del params
+    torch.cuda.empty_cache()
+    return record["launches"]
+
+
 @contextlib.contextmanager
 def _recorded_routes():
     """Record the experts the MoE router picks at every routed layer, as
@@ -3065,27 +3392,39 @@ def _recorded_routes():
 def _lm_states(cache):
     """The prefill cache's float states, copied to the CPU in float32
     (decode updates the cache in place): the hybrid's SSM state and shared
-    keys, a decoder's keys (MLA: latents) of every stack."""
+    keys, the xLSTM's mLSTM states and sLSTM carries, the encoder-decoder's
+    and VLM's self and cross keys, a decoder's keys (MLA: latents) of every
+    stack."""
     def copy(t):
         return t.to("cpu", torch.float32, copy=True)
-    if "m_ssm" in cache:
+    if "shared_kv" in cache:
         return {"m_ssm": copy(cache["m_ssm"]),
                 "k": copy(cache["shared_kv"]["k"])}
+    if "m_ssm" in cache:
+        return {name: copy(cache[name]) for name in ("m_ssm", "s_state")
+                if name in cache}
+    if "cross_kv" in cache:
+        return {f"{stack}.k": copy(cache[stack]["k"])
+                for stack in ("self_kv", "cross_kv")}
     return {f"{stack}.{name}": copy(cache[stack][name])
             for stack in ("head_layers", "layers") if stack in cache
             for name in ("k", "c") if name in cache[stack]}
 
 
-def _lm_run(bundle, params, tokens, device, n_decode, feed=None):
-    """Prefill, then ``n_decode`` greedy decode steps (fed ``feed``'s
-    tokens when given: teacher forcing).  Returns the logits of each step,
-    the tokens fed, the prefill cache's states, the launch counts and the
-    MoE routes of each step (empty lists without MoE)."""
+def _lm_run(bundle, params, tokens, device, n_decode, feed=None,
+            extra=None):
+    """Prefill (``extra``: the batch's other inputs, frames or image
+    patches), then ``n_decode`` greedy decode steps (fed ``feed``'s tokens
+    when given: teacher forcing).  Returns the logits of each step, the
+    tokens fed, the prefill cache's states, the launch counts and the MoE
+    routes of each step (empty lists without MoE)."""
     cfg = bundle.arch
     runtime.reset_launch_counts()
     with torch.inference_mode(), _recorded_routes() as seen:
         toks = torch.as_tensor(tokens, device=device)
-        logits, cache = bundle.prefill_fn(params, {"tokens": toks})
+        batch = {"tokens": toks, **{k: v.to(device)
+                                    for k, v in (extra or {}).items()}}
+        logits, cache = bundle.prefill_fn(params, batch)
         states = _lm_states(cache)
         cache = grow_cache(cfg, cache, n_decode)
         out, fed, cuts = [logits.float().cpu()], [], [len(seen)]
@@ -3168,12 +3507,24 @@ def _lm_compare(cpu, card, tier, what, flips=False, ties=False):
     return out
 
 
-def _attn_layers(cfg):
-    """Flash-attention launches of one prefill: the hybrid applies its
-    shared block once a group, a decoder attends once a layer."""
+def _prefill_launches(cfg):
+    """K5's and K6's launches in one prefill: the hybrid applies its shared
+    block once a group and runs K6 in every other slot; the xLSTM runs K6
+    once an mLSTM block; the encoder-decoder attends once an encoder layer
+    and twice (self, cross) a decoder layer; a decoder or VLM once a
+    layer."""
     if cfg.family == "hybrid":
-        return cfg.n_layers // cfg.shared_attn_every
-    return cfg.n_layers
+        groups = cfg.n_layers // cfg.shared_attn_every
+        return {"flash_attention": groups, "ssd_scan": cfg.n_layers - groups}
+    if cfg.family == "ssm":
+        per = cfg.ssm.slstm_every or cfg.n_layers
+        n_m = per - 1 if cfg.ssm.slstm_every else per
+        return {"flash_attention": 0,
+                "ssd_scan": cfg.n_layers // per * n_m}
+    if cfg.family == "audio":
+        return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers,
+                "ssd_scan": 0}
+    return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
 
 
 def phase_same_as_cpu_lm(device):
@@ -3190,10 +3541,25 @@ def phase_same_as_cpu_lm(device):
     MLA (deepseek-v2-lite-16b: q and k at 48 against v at 32); (f)
     deepseek-v2-lite-16b at full width with the depth cut to 2 (its dense
     head layer and one MoE layer), B 1, S 512, in float32: the float32
-    kernel at Dqk 192, Dv 128."""
+    kernel at Dqk 192, Dv 128.  The last three families: (g, h) the
+    reduced xlstm-350m with slstm_every 2 (two groups of an mLSTM and an
+    sLSTM) and 4 (three mLSTM and an sLSTM: the reduced config itself has
+    no block), in bf16 at S 100 (ragged chunks of 16); (i) xlstm-350m at
+    full width (N 512, P 513) cut to 2 groups of slstm_every 2, B 1, a
+    ragged S 300, in float32: K6 past 64 against the chunked CPU math; (j)
+    the reduced whisper-base over 48 frames (cross-attention at Sq 100 >
+    Skv 48) and (k) the reduced VLM against 16 image tokens with its gates
+    at VLM_GATE, both in bf16 at S 100."""
     out = {}
     rng = np.random.default_rng(LM_SEED)
     deepseek = get_arch("deepseek-v2-lite-16b")
+    xlstm = get_arch("xlstm-350m")
+
+    def every(cfg, n, n_layers=None):
+        return dataclasses.replace(
+            cfg, n_layers=n_layers or cfg.n_layers,
+            ssm=dataclasses.replace(cfg.ssm, slstm_every=n))
+    xlstm_reduced = get_arch("xlstm-350m", reduced=True)
     cases = (
         ("reduced_bf16", get_arch("zamba2-7b", reduced=True), 2, 100, None,
          32, 0.08),
@@ -3209,6 +3575,16 @@ def phase_same_as_cpu_lm(device):
         ("mla_full_width_two_layers_f32",
          dataclasses.replace(deepseek, n_layers=2), 1, 512, torch.float32,
          1024, 1e-3),
+        ("xlstm_pairs_reduced_bf16", every(xlstm_reduced, 2), 2, 100, None,
+         32, 0.08),
+        ("xlstm_stack_reduced_bf16", every(xlstm_reduced, 4), 2, 100, None,
+         32, 0.08),
+        ("xlstm_full_width_two_groups_f32", every(xlstm, 2, n_layers=4), 1,
+         300, torch.float32, 1024, 1e-3),
+        ("whisper_reduced_bf16", get_arch("whisper-base", reduced=True), 2,
+         100, None, 32, 0.08),
+        ("vlm_reduced_bf16", get_arch("llama-3.2-vision-90b", reduced=True),
+         2, 100, None, 32, 0.08),
     )
     for name, cfg, batch, seq, cast, attn_chunk, tier in cases:
         bundle = build_model(cfg, attn_chunk=attn_chunk)
@@ -3218,14 +3594,22 @@ def phase_same_as_cpu_lm(device):
         if cast is not None:
             params = cast_floating(params, cast)
         tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
-        cpu = _lm_run(bundle, params, tokens, torch.device("cpu"), 2)
+        extra = {}
+        if cfg.family == "audio":
+            extra["frames"] = torch.from_numpy(rng.standard_normal(
+                (batch, 48, cfg.d_frontend), dtype=np.float32))
+        if cfg.family == "vlm":
+            extra["img"] = torch.from_numpy(rng.standard_normal(
+                (batch, cfg.n_frontend_tokens, cfg.d_frontend),
+                dtype=np.float32))
+            params["cross_layers"]["gate"].fill_(VLM_GATE)
+        cpu = _lm_run(bundle, params, tokens, torch.device("cpu"), 2,
+                      extra=extra)
         cpu_s = time.perf_counter() - t0
         card = _lm_run(bundle, _card_copy(params, device), tokens, device, 2,
-                       feed=cpu[1])
+                       feed=cpu[1], extra=extra)
         assert not any(cpu[3].values()), cpu[3]
-        want = {"flash_attention": _attn_layers(cfg),
-                "ssd_scan": cfg.n_layers - _attn_layers(cfg)
-                if cfg.family == "hybrid" else 0}
+        want = _prefill_launches(cfg)
         assert {k: card[3][k] for k in want} == want, card[3]
         flips = cast is None and cfg.family == "moe"
         ties = cast is None and cfg.family != "hybrid"
@@ -3241,10 +3625,13 @@ def phase_same_as_cpu_lm(device):
     f32_launches = {name: out[name]["card_launches"]["flash_attention"]
                     for name in ("full_width_one_group_f32",
                                  "mla_full_width_two_layers_f32")}
+    f32_launches["xlstm_ssd_scan"] = out["xlstm_full_width_two_groups_f32"][
+        "card_launches"]["ssd_scan"]
     emit("same_as_cpu_lm", cases=out,
          cut="(b): zamba2 depth 81 -> 6 slots (one group), (f): "
-             "deepseek-v2-lite depth 27 -> 2 layers; both B 1, S 512, to "
-             "keep the CPU side under a minute",
+             "deepseek-v2-lite depth 27 -> 2 layers; both B 1, S 512; (i): "
+             "xlstm-350m depth 24 -> 4 (2 groups of slstm_every 2), B 1, S "
+             "300; to keep the CPU side under a minute each",
          tolerance="logits and prefill states within the tier of max|CPU|, "
                    "the same argmax at every step: 0.08 (bf16), 1e-3 "
                    "(float32); bf16 MoE (d, e): decode rows where the "
@@ -3866,7 +4253,9 @@ def phase_examples(device, quickstart=None):
     billing), ``session_batching_torch.py`` and ``serve_lm_torch.py`` (the
     reduced deepseek-v2-lite, its default: 10 requests in 4 slots of 48
     tokens, 12 generated, then one batch through ``generate``; K5 once a
-    layer and prefill, run twice with the same tokens) on the card.  The
+    layer and prefill, run twice with the same tokens; then the reduced
+    xlstm-350m, whisper-base and llama-3.2-vision-90b the same way, the
+    last two through ``generate`` alone) on the card.  The
     quickstart's repetitions are the first 20 of ``estimate_quickstart``'s
     request (the same plan at M 100, seed 42, n_boot 500): theta and se of
     each repetition bit for bit."""
@@ -3918,6 +4307,30 @@ def phase_examples(device, quickstart=None):
     _, _, served2, gen2 = serve_lm_torch.run(device=device)
     assert all(np.array_equal(a, b) for a, b in zip(served, served2)) and \
         np.array_equal(gen_res.tokens, gen2.tokens), "serve_lm: not repeatable"
+    # the last three families, reduced, through the same twin: xlstm's
+    # queue and batch (no block: no kernel), whisper's and the VLM's batch
+    # through generate with frames or image patches from a seed
+    families = {}
+    for arch in ("xlstm-350m", "whisper-base", "llama-3.2-vision-90b"):
+        runtime.reset_launch_counts()
+        cfg_a, prompts_a, served_a, gen_a = serve_lm_torch.run(arch=arch,
+                                                               device=device)
+        torch.cuda.synchronize()
+        launches_a = dict(runtime.launch_counts)
+        prefills_a = (-(-len(prompts_a) // 4) if served_a else 0) + 1
+        want = {k: prefills_a * n
+                for k, n in _prefill_launches(cfg_a).items()}
+        assert {k: launches_a[k] for k in want} == want, (arch, launches_a)
+        assert gen_a.tokens.shape == (4, 12) and 0 <= gen_a.tokens.min() \
+            and gen_a.tokens.max() < cfg_a.vocab_size, arch
+        _, _, served_b, gen_b = serve_lm_torch.run(arch=arch, device=device)
+        assert np.array_equal(gen_a.tokens, gen_b.tokens) and all(
+            np.array_equal(a, b) for a, b in zip(served_a, served_b)), \
+            f"serve_lm {arch}: not repeatable"
+        families[arch] = {"requests_served": len(served_a),
+                          "launches": launches_a,
+                          "batch_first_tokens": gen_a.tokens[:, :4].tolist(),
+                          "second_run_same_tokens": True}
 
     def summary(res):
         s_ = res.report.summary()
@@ -3939,7 +4352,7 @@ def phase_examples(device, quickstart=None):
                    "first_tokens": [r[:4].tolist() for r in served[:3]],
                    "batch_prefill_s": gen_res.prefill_s,
                    "batch_decode_tokens_per_s": gen_res.tokens_per_s,
-                   "second_run_same_tokens": True},
+                   "second_run_same_tokens": True, "families": families},
          tolerance="theta within 4 se of the planted effect; the "
                    "quickstart's repetitions bit for bit "
                    "estimate_quickstart's first 20; serve_lm's tokens "
@@ -4043,6 +4456,12 @@ def main(argv=None) -> int:
         mla_launches = phase_serve_deepseek(device)["flash_attention"]
     if "serve_dense" in phases:
         dense_launches = phase_serve_dense(device)
+    family_launches = {}
+    for name, phase in (("serve_xlstm", phase_serve_xlstm),
+                        ("serve_whisper", phase_serve_whisper),
+                        ("serve_vlm", phase_serve_vlm)):
+        if name in phases:
+            family_launches[name] = phase(device)
     f32_launches = None
     if "same_as_cpu_lm" in phases:
         f32_launches = phase_same_as_cpu_lm(device)
@@ -4077,7 +4496,9 @@ def main(argv=None) -> int:
     # (same_as_cpu_lm (b)'s launches), K5 at the deepseek prefill's Dqk 192,
     # Dv 128 in both types (serve_deepseek's launches, and same_as_cpu_lm
     # (f)'s float32 ones at B 1, S 512) and its launches on serve_dense,
-    # K6's FMA-rate bound
+    # K5's rows of the last three families (serve_whisper's, serve_vlm's
+    # shapes in both types) and its launches there, K6's FMA-rate bound
+    # and its row at xlstm-350m's shape with its launches on serve_xlstm
     extra = {"batched_gram": {k: rows["batched_gram"][k] for k in (
                  "cuda_launches_per_call", "scratch_bytes")},
              "batched_predict": {},
@@ -4093,13 +4514,23 @@ def main(argv=None) -> int:
                  "launches_serve_deepseek": mla_launches,
                  "launches_same_as_cpu_lm_mla_f32":
                      f32_launches["mla_full_width_two_layers_f32"],
-                 "launches_serve_dense": dense_launches},
+                 "launches_serve_dense": dense_launches,
+                 "families": rows["flash_attention"]["families"],
+                 "launches_serve_whisper":
+                     family_launches["serve_whisper"]["flash_attention"],
+                 "launches_serve_vlm":
+                     family_launches["serve_vlm"]["flash_attention"]},
              "batched_gram_blocked": {
                  "launches_topology":
                      topo_launches[1]["batched_gram_blocked"]},
-             "ssd_scan": {k: rows["ssd_scan"][k] for k in (
+             "ssd_scan": {**{k: rows["ssd_scan"][k] for k in (
                  "bound_ms_at_f32_fma", "cuda_launches_per_call",
-                 "scratch_bytes")}}
+                 "scratch_bytes")},
+                 "xlstm": {**rows["ssd_scan"]["xlstm"],
+                           "launches": family_launches["serve_xlstm"][
+                               "ssd_scan"],
+                           "launches_same_as_cpu_lm_f32":
+                               f32_launches["xlstm_ssd_scan"]}}}
     # K1's and K2's launches on the per-block pool (estimate_paper), on
     # the wave path (estimate_wave, cold) on both pools, and their rows at
     # the fused paper shape (1024 lanes: the 32 blocks of one launch); on

@@ -6,7 +6,13 @@ reduced model with random weights drawn from a seed.
 The default architecture is the reference example's, deepseek-v2-lite-16b
 (MoE with latent attention: its prefill attends with q and k at depth 48
 against v at 32 in the reduced model, and decodes against the latent
-cache).  On the card its prefills run the flash-attention kernel.
+cache).  On the card its prefills run the flash-attention kernel.  Every
+name of the registry is taken.  The reduced xlstm-350m has no block
+(slstm_every 8 at 4 layers, as in the reference): embedding, norm and
+unembedding only.  whisper-base and llama-3.2-vision-90b need their frames
+or image patches beside the tokens, which ``serve_requests`` does not pass
+(nor does the reference's): for them the queue is not served, and the
+batch goes through ``generate`` with frames or patches drawn from a seed.
 
 Run:  python examples/serve_lm_torch.py [--arch NAME] [--device cuda|cpu]
 (on a machine without a GPU it raises unless ``--device cpu`` is given)
@@ -46,10 +52,27 @@ def run(arch: str = "deepseek-v2-lite-16b", requests: int = 10,
     prompts = [rng.integers(0, cfg.vocab_size,
                             int(rng.integers(8, prompt_len)))
                .astype(np.int32) for _ in range(requests)]
-    outs = engine.serve_requests(prompts, batch, prompt_len, n_gen=gen)
     toks = np.stack([np.resize(p, prompt_len) for p in prompts[:batch]])
-    res = engine.generate({"tokens": toks}, n_gen=gen)
+    side = _side_inputs(cfg, len(toks), prompt_len)
+    outs = [] if side else engine.serve_requests(prompts, batch, prompt_len,
+                                                 n_gen=gen)
+    res = engine.generate({"tokens": toks, **side}, n_gen=gen)
     return cfg, prompts, outs, res
+
+
+def _side_inputs(cfg, batch: int, prompt_len: int):
+    """The inputs beside the tokens that the family's prefill takes, drawn
+    from a seed: whisper's frames (batch, prompt_len, d_frontend), as its
+    input specs shape them, and the VLM's image patches (batch, image
+    tokens, d_frontend); none for the others."""
+    rng = np.random.default_rng(1)
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal(
+            (batch, prompt_len, cfg.d_frontend), dtype=np.float32)}
+    if cfg.family == "vlm":
+        return {"img": rng.standard_normal(
+            (batch, cfg.n_frontend_tokens, cfg.d_frontend), dtype=np.float32)}
+    return {}
 
 
 def main(argv=None):

@@ -11,7 +11,9 @@ own process, in turns (parent, change, change, parent).  Each row is
 ``chip_smoke.py``'s time of ``ops.ssd_scan`` (median of 20 launches after 3
 warm-ups, CUDA events, L2 flushed before each).  ``--trace`` adds the
 device ms per call of each CUDA kernel at the first row (10 calls under
-``torch.profiler``, warm L2).  The errors against the plain version come
+``torch.profiler``, warm L2).  A row past the tree's kernels' limits (a
+parent's N, P <= 64, say) is listed as refused, with the limit named.  The
+errors against the plain version come
 from ``chip_smoke.py``'s kernels phase, the registers and spills from
 ``chip_smoke.py --verbose-build``.  Prints one JSON object with the card's
 name and power limit.  Needs a CUDA device; exits non-zero without one.
@@ -38,6 +40,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(tree / "src"))
     import torch
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ssd_scan as ssd_mod
     assert Path(ops.__file__).resolve().is_relative_to(tree)
     if not torch.cuda.is_available():
         print("bench_ssd_scan: no CUDA device", file=sys.stderr)
@@ -52,6 +55,12 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for shape, decay in chip_smoke.SSD_SHAPES:
+        try:
+            ssd_mod.check_kernel_shape(*shape[:5])
+        except ValueError as err:
+            rows.append({"shape": list(shape), "decay": decay,
+                         "refused": str(err)})
+            continue
         x, la, bm, cm = chip_smoke._ssd_inputs(shape, decay, "cuda", gen)
         chunk, heads = shape[4:]
 
@@ -59,7 +68,7 @@ def main(argv=None) -> int:
             return ops.ssd_scan(x, la, bm, cm, chunk=chunk, heads=heads)
         row = {"shape": list(shape), "decay": decay,
                "ms": chip_smoke._time_ms(call, cold=True)}
-        if args.trace and not rows:
+        if args.trace and not any("ms" in r for r in rows):
             row["device_ms_by_kernel"] = {
                 name[:60]: ms for name, (_, ms) in
                 chip_smoke._device_kernels(call, calls=10).items()}

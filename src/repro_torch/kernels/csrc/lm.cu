@@ -239,7 +239,10 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         }
     };
 
-    // keys visible to some query of the block: [k_lo, k_hi)
+    // keys visible to some query of the block: [k_lo, k_hi).  With more
+    // queries than keys (cross-attention; the entry point takes it only
+    // with no mask) the offset is negative, and it is read only under a
+    // causal or window mask: every query sees every key
     const int qa_lo = q0 + offset, qa_hi = q0 + nq - 1 + offset;
     int k_lo = 0, k_hi = skv;
     if (window > 0) k_lo = max(0, qa_lo - window + 1);
@@ -784,18 +787,25 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
 // cl = cumsum(la) within a chunk:
 //   (a) ssd_scores_kernel, per (batch row, chunk, 64 x 64 sub-tile on or
 //       below the diagonal): the scores C B^T into an L2-resident scratch
-//       (BH / heads, S / Q, Qp, Qp), Qp = Q rounded up to 64.  bm and cm
-//       are shared by the `heads` lanes of a batch row (n_groups 1), so the
-//       scores are computed once for all of them;
-//   (b) ssd_states_kernel, per (lane, chunk): the chunk's own state
-//       (B * exp(cl_Q - cl))^T x (N x P) into a scratch (BH, S / Q, N, P),
-//       and the chunk's decay exp(cl_Q) into (BH, S / Q);
+//       (BH / heads, S / Q, Qp, Qp), Qp = Q rounded up to 64, over the
+//       depth N in slices of 64.  bm and cm are shared by the `heads`
+//       lanes of a batch row (n_groups 1), so the scores are computed once
+//       for all of them;
+//   (b) ssd_states_kernel, per (lane, chunk, 64 x 64 tile of the state):
+//       the chunk's own state (B * exp(cl_Q - cl))^T x (N x P) into a
+//       scratch (BH, S / Q, N, P), and the chunk's decay exp(cl_Q) into
+//       (BH, S / Q);
 //   (c) ssd_pass_kernel, per lane and state entry, in chunk order:
 //       S_c = exp(cl_Q,c-1) S_c-1 + local_c-1, written over the scratch as
 //       the state entering each chunk; the last one is the final state;
 //   (d) ssd_out_kernel, per (lane, chunk, 128-row tile, the heaviest
-//       first): y = exp(cl_i) C_i S_c + tril(C B^T * exp(clip(cl_i - cl_j,
-//       -60, 0))) x, the scores read back from (a).
+//       first; 64 columns of P): y = exp(cl_i) C_i S_c + tril(C B^T *
+//       exp(clip(cl_i - cl_j, -60, 0))) x, the scores read back from (a).
+// The state's P columns evolve independently, so P past 64 is a grid index
+// of (b) and (d), a tile an offset into rows of stride P; N past 64 is one
+// of (b) (its rows of the state) and the depth of (a)'s and (d)'s products,
+// walked in their slices.  Where N, P <= 64 the grids hold one tile and
+// the order of every sum is the single-tile one.
 // Every product (C B^T, C S, W x, (B * tail)^T x) runs on the tensor cores
 // as mma.sync m16n8k8 TF32 with each float32 operand split into a TF32 hi
 // and lo part (cvt.rna's rounding, split_tf32_int), three passes lo*hi +
@@ -804,14 +814,14 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
 // the state passing are float32 FMA.  In (b) and (d) a warp owns 32 output
 // rows (two m-tiles) and all 64 columns, so each B fragment loaded and
 // split from shared memory feeds two m-tiles, which halves the loads and
-// splits per product.  N, P are at most 64.  Operands come in slices
+// splits per product.  Operands come in slices
 // 32 deep by cp.async (16-byte chunks when N, P % 4 == 0 and the operands
 // are 16-byte aligned, else 4 bytes) into a two-stage ring: the next
 // slice's copy overlaps the current product.  Row strides of 4 mod 32
 // floats (fragments read along rows) and 8 mod 32 (read down columns) keep
 // the fragment loads free of bank conflicts.  Rows past a ragged chunk's
-// end are zero-filled by the copies and masked; columns past N or P are
-// zeroed once.
+// end are zero-filled by the copies and masked; columns past N or a
+// tile's P are zeroed (once, and again for a short last slice of C in (d)).
 //
 // Bound on an H100: at the serve path's (BH 448, S 2048, P 64, N 64, Q 256,
 // heads 112) the function needs 5 N P operations a row and lane, 18.8
@@ -820,7 +830,12 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
 // passes, 0.28 ms at the plain float32 FMA rate).  The chunked schedule
 // does about 34 GFLOP (the square-in-chunk products) and moves the chunks'
 // states through device memory four times besides (written, passed in
-// place, read back: about 235 MB).
+// place, read back: about 235 MB).  At xlstm-350m's mLSTM (BH 16, S 2048,
+// N 512, P 513, Q 256, heads 1) the function needs 43.0 GFLOP and moves
+// about 285 MB: bound by operations, 0.26 ms at the TF32 rate over three
+// passes (0.64 ms at the FMA rate).  There (b) runs 72 tiles a (lane,
+// chunk), (d) 9 column tiles a row tile, each re-forming its W; P 513 is
+// odd, so every operand takes the 4-byte copies.
 // ---------------------------------------------------------------------------
 // x -> hi, lo as split_tf32 (round to nearest, ties away from zero, each
 // part), the rounding done as an integer add and mask: the same bits for
@@ -997,37 +1012,45 @@ ssd_scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
     const int g = lane >> 2, t = lane & 3;
     const float* cml = cm + ((long long)grp * s + t0) * n;
     const float* bml = bm + ((long long)grp * s + t0) * n;
-    ssd_zero_cols(cs, SSD_RA, SSD_T, n, SSD_T);
-    ssd_zero_cols(bs, SSD_RA, SSD_T, n, SSD_T);
-    ssd_copy(cs, SSD_RA, cml + (long long)SSD_T * ti * n, n, SSD_T,
-             len - SSD_T * ti, n, vec4);
-    ssd_copy(bs, SSD_RA, bml + (long long)SSD_T * tj * n, n, SSD_T,
-             len - SSD_T * tj, n, vec4);
-    cp_async_commit();
-    cp_async_wait_0();
-    __syncthreads();
-
     float acc[8][4] = {};
     const float* a0 = cs + (16 * warp + g) * SSD_RA + t;
-    for (int kk = 0; kk < (n + 7) / 8; ++kk) {
-        uint32_t ah[4], al[4], bh[8][2], bl[8][2];
-        split_tf32_int(a0[8 * kk], ah[0], al[0]);
-        split_tf32_int(a0[8 * SSD_RA + 8 * kk], ah[1], al[1]);
-        split_tf32_int(a0[8 * kk + 4], ah[2], al[2]);
-        split_tf32_int(a0[8 * SSD_RA + 8 * kk + 4], ah[3], al[3]);
-        // B stored [key][state]: b0 = (k t, key g)
-        const float* b0 = bs + g * SSD_RA + 8 * kk + t;
+    // the depth N in slices of 64 columns (one slice where N <= 64)
+    for (int n0 = 0; n0 < n; n0 += SSD_T) {
+        const int w = min(SSD_T, n - n0);
+        if (n0 > 0) __syncthreads();        // the last slice is read
+        ssd_zero_cols(cs, SSD_RA, SSD_T, w, SSD_T);
+        ssd_zero_cols(bs, SSD_RA, SSD_T, w, SSD_T);
+        ssd_copy(cs, SSD_RA, cml + (long long)SSD_T * ti * n + n0, n, SSD_T,
+                 len - SSD_T * ti, w, vec4);
+        ssd_copy(bs, SSD_RA, bml + (long long)SSD_T * tj * n + n0, n, SSD_T,
+                 len - SSD_T * tj, w, vec4);
+        cp_async_commit();
+        cp_async_wait_0();
+        __syncthreads();
+
+        for (int kk = 0; kk < (w + 7) / 8; ++kk) {
+            uint32_t ah[4], al[4], bh[8][2], bl[8][2];
+            split_tf32_int(a0[8 * kk], ah[0], al[0]);
+            split_tf32_int(a0[8 * SSD_RA + 8 * kk], ah[1], al[1]);
+            split_tf32_int(a0[8 * kk + 4], ah[2], al[2]);
+            split_tf32_int(a0[8 * SSD_RA + 8 * kk + 4], ah[3], al[3]);
+            // B stored [key][state]: b0 = (k t, key g)
+            const float* b0 = bs + g * SSD_RA + 8 * kk + t;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            split_tf32_int(b0[8 * j * SSD_RA], bh[j][0], bl[j][0]);
-            split_tf32_int(b0[8 * j * SSD_RA + 4], bh[j][1], bl[j][1]);
+            for (int j = 0; j < 8; ++j) {
+                split_tf32_int(b0[8 * j * SSD_RA], bh[j][0], bl[j][0]);
+                split_tf32_int(b0[8 * j * SSD_RA + 4], bh[j][1], bl[j][1]);
+            }
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
         }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
     }
     float* out = cb + (((long long)grp * nc + c) * qp + SSD_T * ti
                        + 16 * warp) * qp + SSD_T * tj;
@@ -1035,9 +1058,11 @@ ssd_scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
 }
 
 // (b) the state of one (lane, chunk) alone, (B * exp(cl_Q - cl))^T x, and
-// the chunk's decay exp(cl_Q); blockIdx.x = lane * nc + chunk.  Warp
-// w owns state rows [32 (w & 1), + 32) and depth steps 2 (w >> 1), + 1 of
-// each 32-key slice; the two halves of the sum meet in shared memory
+// the chunk's decay exp(cl_Q); blockIdx.x = lane * nc + chunk, blockIdx.y
+// = the 64 x 64 tile of the (N, P) state (rows n0, columns p0; one tile
+// where N, P <= 64).  Warp w owns the tile's rows [32 (w & 1), + 32) and
+// depth steps 2 (w >> 1), + 1 of each 32-key slice; the two halves of the
+// sum meet in shared memory
 __global__ void __launch_bounds__(SSD_THREADS)
 ssd_states_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
                   const float* __restrict__ bm, float* __restrict__ states,
@@ -1054,17 +1079,21 @@ ssd_states_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
     const long long ln = blockIdx.x / nc;
     const int c = (int)(blockIdx.x - ln * nc);
     const int t0 = c * q, len = min(q, s - t0);
-    const float* xl = xbar + (ln * s + t0) * p;
-    const float* bl = bm + ((ln / heads) * s + t0) * n;
+    const int npt = (p + SSD_T - 1) / SSD_T;
+    const int n0 = SSD_T * (blockIdx.y / npt);
+    const int p0 = SSD_T * (blockIdx.y - (blockIdx.y / npt) * npt);
+    const int wn = min(SSD_T, n - n0), wp = min(SSD_T, p - p0);
+    const float* xl = xbar + (ln * s + t0) * p + p0;
+    const float* bl = bm + ((ln / heads) * s + t0) * n + n0;
     const int n_ks = (len + SSD_KT - 1) / SSD_KT;
     const int r0 = 32 * (warp & 1), kh = warp >> 1;
 
     for (int st = 0; st < 2; ++st) {
-        ssd_zero_cols(bs + st * SSD_KT * SSD_RB, SSD_RB, SSD_KT, n, SSD_T);
-        ssd_zero_cols(xs + st * SSD_KT * SSD_RB, SSD_RB, SSD_KT, p, SSD_T);
+        ssd_zero_cols(bs + st * SSD_KT * SSD_RB, SSD_RB, SSD_KT, wn, SSD_T);
+        ssd_zero_cols(xs + st * SSD_KT * SSD_RB, SSD_RB, SSD_KT, wp, SSD_T);
     }
-    ssd_copy(bs, SSD_RB, bl, n, SSD_KT, len, n, vec4);
-    ssd_copy(xs, SSD_RB, xl, p, SSD_KT, len, p, vec4);
+    ssd_copy(bs, SSD_RB, bl, n, SSD_KT, len, wn, vec4);
+    ssd_copy(xs, SSD_RB, xl, p, SSD_KT, len, wp, vec4);
     cp_async_commit();
     if (warp == 0) ssd_cumsum(la + ln * s + t0, len, tl);
     __syncthreads();
@@ -1072,18 +1101,18 @@ ssd_states_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
     __syncthreads();                        // every thread has cl_last
     for (int i = tid; i < SSD_MAXQ; i += SSD_THREADS)
         tl[i] = i < len ? expf(cl_last - tl[i]) : 0.f;
-    if (tid == 0) decay[ln * nc + c] = expf(cl_last);
+    if (tid == 0 && blockIdx.y == 0) decay[ln * nc + c] = expf(cl_last);
 
     float acc[2][8][4] = {};
-    const bool rows = r0 < n;               // this warp's state rows exist
+    const bool rows = r0 < wn;              // this warp's state rows exist
     for (int ks = 0; ks < n_ks; ++ks) {
         const int stage = ks & 1;
         if (ks + 1 < n_ks) {
             const int k1 = SSD_KT * (ks + 1);
             ssd_copy(bs + (stage ^ 1) * SSD_KT * SSD_RB, SSD_RB,
-                     bl + (long long)k1 * n, n, SSD_KT, len - k1, n, vec4);
+                     bl + (long long)k1 * n, n, SSD_KT, len - k1, wn, vec4);
             ssd_copy(xs + (stage ^ 1) * SSD_KT * SSD_RB, SSD_RB,
-                     xl + (long long)k1 * p, p, SSD_KT, len - k1, p, vec4);
+                     xl + (long long)k1 * p, p, SSD_KT, len - k1, wp, vec4);
         }
         cp_async_commit();                  // possibly empty: uniform wait
         cp_async_wait_1();
@@ -1137,9 +1166,10 @@ ssd_states_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
                     acc[m][j][e] += red[((m * 8 + j) * 4 + e) * 32];
-            if (r0 + 16 * m < n)
-                ssd_store(states + ((ln * nc + c) * n + r0 + 16 * m) * p, p,
-                          n - r0 - 16 * m, p, acc[m], g, t, (p & 1) == 0);
+            if (r0 + 16 * m < wn)
+                ssd_store(states + ((ln * nc + c) * n + n0 + r0 + 16 * m) * p
+                          + p0, p, wn - r0 - 16 * m, wp, acc[m], g, t,
+                          (p & 1) == 0);
         }
     }
 }
@@ -1189,11 +1219,12 @@ ssd_pass_kernel(V* __restrict__ states, const float* __restrict__ decay,
     state_out[ln * nv + idx] = run;
 }
 
-// (d) the outputs of one (lane, chunk, 128-row tile): first exp(cl_i) C_i
-// S_c from the state entering the chunk (slices of 32 state rows), then
-// W x over the 32-key slices up to the tile's last row, W = C B^T from (a)
-// decayed and masked in float32.  Warp w owns rows [32 w, + 32) of the
-// tile.  One 1-D grid, the tiles with the most key slices first
+// (d) the outputs of one (lane, chunk, 128-row tile, 64 columns of P from
+// p0 = 64 blockIdx.y): first exp(cl_i) C_i S_c from the state entering the
+// chunk (slices of 32 state rows, as many as N takes), then W x over the
+// 32-key slices up to the tile's last row, W = C B^T from (a) decayed and
+// masked in float32.  Warp w owns rows [32 w, + 32) of the tile.  The
+// tiles with the most key slices first along blockIdx.x
 __global__ void __launch_bounds__(SSD_THREADS)
 ssd_out_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
                const float* __restrict__ cm, const float* __restrict__ cb,
@@ -1219,9 +1250,10 @@ ssd_out_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
     const int g = lane >> 2, t = lane & 3;
     const long long grp = ln / heads;
     const int n_rows = min(SSD_RT, len - ib);
-    const float* xl = xbar + (ln * s + t0) * p;
+    const int p0 = SSD_T * blockIdx.y, wp = min(SSD_T, p - p0);
+    const float* xl = xbar + (ln * s + t0) * p + p0;
     const float* cml = cm + (grp * s + t0 + ib) * n;
-    const float* stl = states + (ln * nc + c) * n * p;
+    const float* stl = states + (ln * nc + c) * n * p + p0;
     const float* cbl = cb + ((grp * nc + c) * qp + ib) * qp;
     const int n_cs = (n + SSD_KT - 1) / SSD_KT;         // C S slices
     const int n_items = n_cs + (ib + n_rows + SSD_KT - 1) / SSD_KT;
@@ -1231,24 +1263,28 @@ ssd_out_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
         float* b = bs + stage * SSD_KT * SSD_RB;
         if (it < n_cs) {
             const int k0 = SSD_KT * it;
+            // a short last slice past the first two stages: its columns
+            // past N (the stage was last filled by a full slice)
+            if (it >= 2)
+                ssd_zero_cols(a, SSD_RK, SSD_RT, min(SSD_KT, n - k0), SSD_KT);
             ssd_copy(a, SSD_RK, cml + k0, n, SSD_RT, n_rows,
                      min(SSD_KT, n - k0), vec4);
             ssd_copy(b, SSD_RB, stl + (long long)k0 * p, p, SSD_KT, n - k0,
-                     p, vec4);
+                     wp, vec4);
         } else {
             const int kb = SSD_KT * (it - n_cs);
             ssd_copy(a, SSD_RK, cbl + kb, qp, SSD_RT, n_rows, SSD_KT, true);
             ssd_copy(b, SSD_RB, xl + (long long)kb * p, p, SSD_KT, len - kb,
-                     p, vec4);
+                     wp, vec4);
         }
     };
     // C's columns past N in the stages its slices take first; x's and S's
-    // columns past P in both
+    // columns past the tile's P in both
     for (int st = 0; st < 2; ++st) {
         if (st < n_cs)
             ssd_zero_cols(as + st * SSD_RT * SSD_RK, SSD_RK, SSD_RT,
                           min(SSD_KT, n - SSD_KT * st), SSD_KT);
-        ssd_zero_cols(bs + st * SSD_KT * SSD_RB, SSD_RB, SSD_KT, p, SSD_T);
+        ssd_zero_cols(bs + st * SSD_KT * SSD_RB, SSD_RB, SSD_KT, wp, SSD_T);
     }
     fetch(0, 0);
     cp_async_commit();
@@ -1332,8 +1368,8 @@ ssd_out_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
 #pragma unroll
         for (int m = 0; m < 2; ++m)
             if (row_lo + 16 * m < len)
-                ssd_store(y + (ln * s + t0 + row_lo + 16 * m) * p, p,
-                          len - row_lo - 16 * m, p, acc[m], g, t,
+                ssd_store(y + (ln * s + t0 + row_lo + 16 * m) * p + p0, p,
+                          len - row_lo - 16 * m, wp, acc[m], g, t,
                           (p & 1) == 0);
     }
 }
@@ -1402,7 +1438,8 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
 
 // float32 operands take the split-TF32 kernel (any Sq and Skv); bfloat16
 // ones the bf16 tensor-core kernel, which needs Dqk and Dv % 8 == 0 and
-// Sq <= Skv; both need (Dqk, Dv) rounded up to 16 among the built pairs,
+// Sq <= Skv unless nothing is masked (not causal, no window); both need
+// (Dqk, Dv) rounded up to 16 among the built pairs,
 // and Dqk == Dv where those are equal (the wrapper checks; anything else
 // is refused here too)
 extern "C" int repro_flash_attention(const void* q, const void* k,
@@ -1416,7 +1453,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     if (dqk < 1 || dv < 1 || (pq == pv && dqk != dv))
         return (int)cudaErrorInvalidValue;
     if (is_bf16) {
-        if (dqk % 8 != 0 || dv % 8 != 0 || sq > skv)
+        if (dqk % 8 != 0 || dv % 8 != 0
+            || (sq > skv && (causal || window > 0)))
             return (int)cudaErrorInvalidValue;
 #define TC_CASE(a, b)                                                   \
         if (pq == a && pv == b)                                         \
@@ -1439,20 +1477,25 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 
 // the SSD scan in four launches, (a)-(d) above, on the scratch the wrapper
 // allocates: cb (BH / heads, nc, Qp, Qp), states (BH, nc, N, P) and decay
-// (BH, nc), nc = ceil(S / Q), Qp = Q rounded up to 64.  N, P <= 64, Q <= 256,
-// and the largest grid, (d)'s BH nc ceil(Qp / 128) blocks on x, under 2^31
+// (BH, nc), nc = ceil(S / Q), Qp = Q rounded up to 64.  Q <= 256; (b)'s
+// ceil(N / 64) ceil(P / 64) tiles and (c)'s ceil(N P / 256) blocks at most
+// 65535 on y, and the largest grid, (d)'s BH nc ceil(Qp / 128) blocks on
+// x, under 2^31
 extern "C" int repro_ssd_scan(const void* xbar, const void* la,
                               const void* bm, const void* cm, void* y,
                               void* state, void* cb, void* states,
                               void* decay, int bh, int s, int p, int n,
                               int q, int heads, void* stream)
 {
-    if (n < 1 || n > SSD_T || p < 1 || p > SSD_T || q < 1 || q > SSD_MAXQ
-        || heads < 1 || bh % heads != 0)
+    if (n < 1 || p < 1 || q < 1 || q > SSD_MAXQ || heads < 1
+        || bh % heads != 0)
         return (int)cudaErrorInvalidValue;
     const int nc = (s + q - 1) / q, qp = (q + SSD_T - 1) / SSD_T * SSD_T;
     const int nsub = qp / SSD_T, n_rt = (qp + SSD_RT - 1) / SSD_RT;
-    if ((long long)bh * nc * n_rt >= (1LL << 31))
+    const int ntn = (n + SSD_T - 1) / SSD_T, npt = (p + SSD_T - 1) / SSD_T;
+    if ((long long)bh * nc * n_rt >= (1LL << 31)
+        || (long long)ntn * npt > 65535
+        || (long long)n * p > 65535LL * SSD_PASS_THREADS)
         return (int)cudaErrorInvalidValue;
     static size_t granted_states = 0, granted_out = 0;
     cudaError_t err = allow_smem(ssd_states_kernel, SSD_STATES_SMEM,
@@ -1471,8 +1514,8 @@ extern "C" int repro_ssd_scan(const void* xbar, const void* la,
         (const float*)bm, (const float*)cm, (float*)cb, s, n, q, qp, nc,
         (int)vec4);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    ssd_states_kernel<<<(unsigned)((long long)bh * nc), SSD_THREADS,
-                        SSD_STATES_SMEM, st>>>(
+    ssd_states_kernel<<<dim3((unsigned)((long long)bh * nc), ntn * npt),
+                        SSD_THREADS, SSD_STATES_SMEM, st>>>(
         xf, laf, (const float*)bm, (float*)states, (float*)decay, s, p, n, q,
         nc, heads, (int)vec4);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -1489,8 +1532,8 @@ extern "C" int repro_ssd_scan(const void* xbar, const void* la,
                                  SSD_PASS_THREADS, 0, st>>>(
             (float*)states, (const float*)decay, (float*)state, np, nc);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    ssd_out_kernel<<<(unsigned)((long long)bh * nc * n_rt), SSD_THREADS,
-                     SSD_OUT_SMEM, st>>>(
+    ssd_out_kernel<<<dim3((unsigned)((long long)bh * nc * n_rt), npt),
+                     SSD_THREADS, SSD_OUT_SMEM, st>>>(
         xf, laf, (const float*)cm, (const float*)cb, (const float*)states,
         (float*)y, bh, s, p, n, q, qp, nc, heads, (int)vec4);
     return (int)cudaGetLastError();

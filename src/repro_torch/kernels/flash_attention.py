@@ -25,7 +25,12 @@ hi + lo for P V so that every output stays within a bf16 step of the
 float32 softmax.  At the serve path's (128, 2048, 112) causal call the
 function does 120 GFLOP and moves 235 MB, so it is bound by operations:
 0.12 ms at the card's 989 TFLOP/s bf16 rate.  It takes D and Dv % 8 == 0
-and Sq <= Skv.  float32 operands take ``flash_attention_tf32_kernel``:
+and Sq <= Skv, or Sq > Skv where nothing is masked (not causal, no
+window: cross-attention, whose queries see every key whatever their
+alignment; at the VLM's (B 2 x 64 heads, Sq 2048, Skv 1601, D 128) call
+the function does 215 GFLOP, 0.22 ms at the bf16 rate).  A causal or
+windowed call with Sq > Skv raises: its first queries would see no key.
+float32 operands take ``flash_attention_tf32_kernel``:
 every operand (q, k, P, v) split into TF32 hi + lo, each product formed as
 lo hi + hi lo + hi hi, three m16n8k8 TF32 passes into a float32
 accumulator, which keeps a product within about 2^-21 of float32 (one TF32
@@ -118,9 +123,12 @@ def _pad16(n: int) -> int:
 
 
 def check_kernel_shape(bh: int, sq: int, skv: int, d: int,
-                       dtype: torch.dtype, dv: Optional[int] = None) -> None:
+                       dtype: torch.dtype, dv: Optional[int] = None, *,
+                       causal: bool = True,
+                       window: Optional[int] = None) -> None:
     """Raise ``ValueError`` naming the limit when the kernel for ``dtype``
-    does not take a (BH, Sq, Skv, D, Dv) call (``dv`` None: Dv = D)."""
+    does not take a (BH, Sq, Skv, D, Dv) call (``dv`` None: Dv = D) under
+    its mask."""
     dv = d if dv is None else dv
     pair = (_pad16(d), _pad16(dv))
     if pair not in DEPTH_PAIRS or (pair[0] == pair[1] and d != dv) \
@@ -135,11 +143,13 @@ def check_kernel_shape(bh: int, sq: int, skv: int, d: int,
             raise ValueError(f"flash_attention: the float32 kernel takes "
                              f"BH <= {_MAX_GRID_Y}, got {bh}")
         return
-    if d % 8 or dv % 8 or sq > skv or sq > _MAX_TC_SQ:
+    masked = causal or window is not None
+    if d % 8 or dv % 8 or (sq > skv and masked) or sq > _MAX_TC_SQ:
         raise ValueError(f"flash_attention: the bfloat16 kernel takes "
-                         f"D % 8 == 0, Dv % 8 == 0 and Sq <= Skv, Sq <= "
-                         f"{_MAX_TC_SQ}; got D {d}, Dv {dv}, Sq {sq}, "
-                         f"Skv {skv}")
+                         f"D % 8 == 0, Dv % 8 == 0 and Sq <= Skv unless "
+                         f"nothing is masked, Sq <= {_MAX_TC_SQ}; got D "
+                         f"{d}, Dv {dv}, Sq {sq}, Skv {skv}, causal "
+                         f"{causal}, window {window}")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
@@ -149,7 +159,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     if not q.is_cuda:
         raise ValueError(f"q: the CUDA kernels take tensors on the card, "
                          f"got {q.device}")
-    check_kernel_shape(bh, sq, skv, d, q.dtype, dv)
+    check_kernel_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
+                       window=window)
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:      # cp.async copies 16-byte chunks

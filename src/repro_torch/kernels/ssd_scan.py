@@ -18,26 +18,39 @@ kernel reads row ``lane // heads``, so nothing is broadcast in memory.
 The kernels (``csrc/lm.cu``) run the chunks in parallel by state passing,
 in four launches a call: (a) ``ssd_scores_kernel``, the scores C B^T of
 each (batch row, chunk), once for all ``heads`` lanes of the row, into an
-L2-resident scratch (BH / heads, S / Q, Qp, Qp), Qp = Q rounded up to 64;
-(b) ``ssd_states_kernel``, each (lane, chunk)'s own state (B * exp(cl_Q -
-cl))^T x into (BH, S / Q, N, P) and its decay exp(cl_Q) into (BH, S / Q);
-(c) ``ssd_pass_kernel``, per lane in chunk order, the state entering each
+L2-resident scratch (BH / heads, S / Q, Qp, Qp), Qp = Q rounded up to 64,
+over N in 64-deep slices; (b) ``ssd_states_kernel``, each (lane, chunk,
+64 x 64 tile of the state)'s own state (B * exp(cl_Q - cl))^T x into (BH,
+S / Q, N, P) and its decay exp(cl_Q) into (BH, S / Q); (c)
+``ssd_pass_kernel``, per lane in chunk order, the state entering each
 chunk, written over (b)'s scratch, and the final state; (d)
-``ssd_out_kernel``, per (lane, chunk, 128-row tile), ``y = exp(cl) * (C S)
-+ W x``.  Every product runs on the tensor cores (``mma.sync`` m16n8k8
-TF32) with each float32 operand split into a TF32 hi and lo part, three
-passes summed in float32: float32 grade, with TF32 mode left off.  W is
-formed and decayed in float32; the cumsum, the decays and the state
-passing are float32 FMA.  At the serve path's (448, 2048, 64, 64, Q 256,
-heads 112) call the function needs 5 N P operations a row and lane, 18.8
-GFLOP, and moves 485 MB: bound by bytes, 0.145 ms at 3.35 TB/s, against
-0.114 ms for the operations at the TF32 rate over three passes (0.28 ms at
-the 67 TFLOP/s FMA rate).  The schedule does about 34 GFLOP (the
-square-in-chunk products) and moves the chunks' states through device
-memory four times (written, passed in place, read back), about 235 MB
-(PERF.md has its time).  Any S (a ragged last chunk is masked in the
-kernels), N and P up to 64, Q up to 256, any BH while the outputs' grid
-of BH ceil(S / Q) ceil(Qp / 128) blocks stays under 2^31
+``ssd_out_kernel``, per (lane, chunk, 128-row tile, 64 columns of P),
+``y = exp(cl) * (C S) + W x``, C S over N in 32-deep slices.  Every
+product runs on the tensor cores (``mma.sync`` m16n8k8 TF32) with each
+float32 operand split into a TF32 hi and lo part, three passes summed in
+float32: float32 grade, with TF32 mode left off.  W is formed and decayed
+in float32; the cumsum, the decays and the state passing are float32 FMA.
+The state's P columns evolve independently, so P past 64 is a grid index
+of (b) and (d) in 64-column tiles, and N past 64 one of (b) in 64-row
+tiles; where N, P <= 64 the grids hold one tile and every sum runs in the
+single-tile order.
+
+At the serve path's (448, 2048, 64, 64, Q 256, heads 112) call the
+function needs 5 N P operations a row and lane, 18.8 GFLOP, and moves 485
+MB: bound by bytes, 0.145 ms at 3.35 TB/s, against 0.114 ms for the
+operations at the TF32 rate over three passes (0.28 ms at the 67 TFLOP/s
+FMA rate).  The schedule does about 34 GFLOP (the square-in-chunk
+products) and moves the chunks' states through device memory four times
+(written, passed in place, read back), about 235 MB.  At xlstm-350m's
+mLSTM (BH 16, S 2048, N 512, P 513, Q 256, heads 1: the key depth as N,
+the value depth plus the normalizer column as P) the function needs 43.0
+GFLOP and moves about 285 MB: bound by operations, 0.26 ms at the TF32
+rate over three passes (0.64 ms at the FMA rate); its chunk states
+scratch is (16, 8, 512, 513) float32, 134 MB, and P 513 is odd, so its
+operands take the 4-byte copies (PERF.md has the times).  Any S (a ragged
+last chunk is masked in the kernels), Q up to 256, N P up to 65535 * 256
+state entries in at most 65535 64 x 64 tiles, any BH while the outputs'
+grid of BH ceil(S / Q) ceil(Qp / 128) blocks stays under 2^31
 (``check_kernel_shape``); the wrapper allocates the scratch
 (``scratch_shapes``) with ``torch.empty``.
 
@@ -57,10 +70,12 @@ from repro_torch import runtime
 from repro_torch.kernels import build
 
 F32 = torch.float32
-MAX_NP = 64
 MAX_CHUNK = 256
-SUB_TILE = 64             # the kernels' sub-tile: a chunk's rows pad to it
+SUB_TILE = 64             # the kernels' sub-tile: a chunk's rows pad to it,
+                          # and the state's N and P tile by it
 OUT_TILE = 128            # rows of the outputs kernel's tile
+MAX_GRID_Y = 65535        # (b)'s state tiles, (c)'s blocks of entries
+PASS_BLOCK = 256          # state entries of one (c) block
 
 
 def ssd_scan_plain(xbar, la, bm, cm, *, heads: int = 1
@@ -133,13 +148,16 @@ def check_kernel_shape(bh: int, s: int, p: int, n: int, chunk: int) -> None:
     (BH, S, P, N) scan in chunks of ``chunk`` rows."""
     q = min(int(chunk), s)
     blocks = bh * -(-s // q) * -(-q // OUT_TILE)
-    if max(n, p) > MAX_NP or q > MAX_CHUNK or s * max(n, p) >= 2 ** 31 \
-            or blocks >= 2 ** 31:
+    tiles = -(-n // SUB_TILE) * -(-p // SUB_TILE)
+    if q > MAX_CHUNK or s * max(n, p) >= 2 ** 31 or blocks >= 2 ** 31 \
+            or tiles > MAX_GRID_Y or n * p > MAX_GRID_Y * PASS_BLOCK:
         raise ValueError(f"ssd_scan: shape (BH {bh}, S {s}, P {p}, N {n}, "
                          f"chunk {chunk}) exceeds the kernels' limits "
-                         f"(N, P <= {MAX_NP}, chunk <= {MAX_CHUNK}, "
-                         f"S * max(N, P) < 2**31, BH * ceil(S / chunk) * "
-                         f"ceil(chunk / {OUT_TILE}) < 2**31)")
+                         f"(chunk <= {MAX_CHUNK}, ceil(N / {SUB_TILE}) * "
+                         f"ceil(P / {SUB_TILE}) <= {MAX_GRID_Y}, N * P <= "
+                         f"{MAX_GRID_Y * PASS_BLOCK}, S * max(N, P) < "
+                         f"2**31, BH * ceil(S / chunk) * ceil(chunk / "
+                         f"{OUT_TILE}) < 2**31)")
 
 
 def ssd_scan_cuda(xbar, la, bm, cm, *, chunk: int = 256, heads: int = 1

@@ -1,6 +1,8 @@
-"""Shared neural-net layers of the port: norms, RoPE, the GLU MLP, GQA
-attention (sliding window, QKV bias) with its KV cache, and DeepSeek-V2's
-multi-head latent attention (MLA) with its latent cache.
+"""Shared neural-net layers of the port: norms (RMS and layer norm), RoPE
+and the sinusoidal position table, the MLP, GQA attention (sliding
+window, QKV bias) with its KV cache, cross-attention against another
+sequence (an encoder's or a vision tower's), and DeepSeek-V2's multi-head
+latent attention (MLA) with its latent cache.
 
 All functions are pure functions of tensors, apart from ``attn_decode``,
 which writes the step's keys and values into the cache it is given (the
@@ -13,7 +15,11 @@ folds the heads into the leading axis and calls the hand-written flash
 attention kernel (``kernels.ops.flash_attention``), whose contract is the
 one every prefill in the repo passes: queries at positions ``arange(S)``
 (``positions=None``), aligned to the keys' suffix; positions given as a
-tensor raise there.  On the
+tensor raise there.  Cross-attention (``kv_override``) hands the kernel
+keys of their own length Skv, never causal and with no window, so that no
+key is masked and the alignment does not matter (the encoder's 1500
+frames against a 400-token prompt, the VLM's 1601 image tokens against
+a 2048-token one).  On the
 CPU it calls :func:`attention_core`, the reference's chunked online-softmax
 math ported line for line, which the CPU tests hold against the JAX
 package.  Decode attention has no kernel in the reference and runs as
@@ -26,13 +32,16 @@ route hands the kernel v at its own depth.  Its decode is the reference's
 absorbed form against the latent cache, plain tensor products on either
 device (the reference computes it outside any Pallas kernel).
 
+Cross-attention's decode (``attn_decode(cross=True)``) reads a static
+cache (never written, every slot valid), as plain tensor ops on either
+device.
+
 The reference's sharding ``rules`` argument and ``logical_constraint``
-calls are dropped: on one card they are no-ops.  Cross-attention,
-``layer_norm`` and ``sinusoidal_pos`` are not ported yet (ROADMAP item 15).
+calls are dropped: on one card they are no-ops.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +62,15 @@ def rms_norm(x, w, eps: float = 1e-5):
     var = torch.mean(torch.square(x.to(F32)), dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * w
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """Statistics in float32 (the population variance), normalised in
+    float32, scaled and shifted in the input's type."""
+    h = x.to(F32)
+    mu = torch.mean(h, dim=-1, keepdim=True)
+    var = torch.var(h, dim=-1, keepdim=True, unbiased=False)
+    return ((h - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
 def act_fn(name: str):
@@ -103,6 +121,19 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq_len: int, d_model: int, dtype=torch.bfloat16,
+                   device=None):
+    """The (seq_len, d_model) sine / cosine table of positions 0 ..
+    seq_len - 1, computed in numpy as the reference does, then cast."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(0, d_model, 2)[None, :]
+    ang = pos / np.power(10_000.0, dim / d_model)
+    out = np.zeros((seq_len, d_model), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out).to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -185,27 +216,31 @@ def attention_core(q, k, v, q_pos, k_pos, *, causal: bool,
     return torch.movedim(o, 1, 2).to(q.dtype)
 
 
-def flash_attention_heads(q, k, v, q_pos=None, *, causal: bool,
-                          window: Optional[int]):
+def flash_attention_heads(q, k, v, q_pos=None, k_pos=None, *,
+                          causal: bool, window: Optional[int]):
     """The card's route of :func:`attention_core`: heads folded into the
     leading axis, one flash-attention kernel launch.  q: (B, S, Hq, D),
-    k: (B, S, Hk, D), v: (B, S, Hk, Dv); returns (B, S, Hq, Dv).  The
-    kernel puts the queries at ``arange(S)``,
-    aligned to the keys' suffix: ``q_pos`` must be None, which stands for
-    those positions.  Positions given as a tensor raise (checking their
-    values would cost a host sync on every call)."""
+    k: (B, Skv, Hk, D), v: (B, Skv, Hk, Dv); returns (B, S, Hq, Dv).  The
+    kernel puts the queries at ``arange(S)`` and the keys at
+    ``arange(Skv)``, the queries aligned to the keys' suffix: ``q_pos`` and
+    ``k_pos`` must be None, which stands for those positions.  Keys of
+    another length than the queries' are taken where nothing is masked
+    (not causal, no window): cross-attention.  Positions given as a tensor
+    raise (checking their values would cost a host sync on every call)."""
     b, s, hq, _ = q.shape
-    if q_pos is not None or k.shape[1] != s:
+    skv = k.shape[1]
+    if q_pos is not None or k_pos is not None \
+            or (skv != s and (causal or window is not None)):
         raise ValueError(
             "flash attention on the card takes queries at positions "
-            "arange(S) (positions=None) aligned to S keys; other positions "
-            "are not ported")
+            "arange(S) and keys at arange(Skv) (positions=None), Skv == S "
+            "unless nothing is masked; other positions are not ported")
     k = _repeat_kv(k, hq)
     v = _repeat_kv(v, hq)
 
     def fold(t):
-        return t.permute(0, 2, 1, 3).reshape(b * hq, s, t.shape[-1]) \
-            .contiguous()
+        return t.permute(0, 2, 1, 3).reshape(b * hq, t.shape[1],
+                                             t.shape[-1]).contiguous()
 
     o = ops.flash_attention(fold(q), fold(k), fold(v), causal=causal,
                             window=window)
@@ -265,10 +300,13 @@ def _heads(t, n: int, hd: int):
     return t.reshape(*t.shape[:-1], n, hd)
 
 
-def _qkv(p, a: AttentionConfig, x, positions, use_rope: bool):
+def _qkv(p, a: AttentionConfig, x, positions, use_rope: bool, kv_x=None):
+    """q from x, k and v from ``kv_x`` (x where None), rope on both when
+    ``use_rope``."""
+    kv_x = x if kv_x is None else kv_x
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = kv_x @ p["wk"]
+    v = kv_x @ p["wv"]
     if a.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = _heads(q, a.n_heads, a.head_dim)
@@ -289,60 +327,81 @@ def _positions(x, positions):
 
 
 def _attend(q, k, v, positions, pos, *, causal: bool,
-            window: Optional[int], chunk: int):
+            window: Optional[int], chunk: int, k_positions=None,
+            k_pos=None):
     """The card's kernel route where the tensors lie on the card, the
-    reference's chunked math elsewhere."""
+    reference's chunked math elsewhere.  The keys sit at ``k_positions``
+    (``k_pos`` resolved); where both are None, at the queries'."""
     if q.is_cuda:
-        return flash_attention_heads(q, k, v, positions, causal=causal,
-                                     window=window)
-    return attention_core(q, k, v, pos, pos, causal=causal, window=window,
-                          chunk=chunk)
+        return flash_attention_heads(q, k, v, positions, k_positions,
+                                     causal=causal, window=window)
+    return attention_core(q, k, v, pos, pos if k_pos is None else k_pos,
+                          causal=causal, window=window, chunk=chunk)
 
 
 def attn_forward(p, a: AttentionConfig, x, positions=None, *,
                  use_rope: bool = True, chunk: int = 1024,
+                 kv_override: Optional[Tuple] = None,
                  causal: Optional[bool] = None):
-    """Full-sequence self-attention (prefill).  Returns (out, (k, v)), the
-    keys and values seeding the decode cache (MLA: the latent and the rope
-    key, ``(c, k_rope)``).  ``positions`` (B, S); None stands for
-    ``arange(S)`` in every row, the prefill's, and is the only form the
-    card's route takes."""
+    """Full-sequence attention (prefill).  Returns (out, (k, v)), the keys
+    and values seeding the decode cache (MLA: the latent and the rope key,
+    ``(c, k_rope)``).  ``positions`` (B, S); None stands for ``arange(S)``
+    in every row, the prefill's, and is the only form the card's route
+    takes.  ``kv_override = (kv_x, kv_positions)`` makes it
+    cross-attention: q from x, k and v from kv_x (B, Skv, d) at
+    ``kv_positions`` (None: ``arange(Skv)``), no rope, never causal."""
     if a.is_mla:
         return _mla_forward(p, a, x, positions, chunk=chunk)
     causal = a.causal if causal is None else causal
     pos = _positions(x, positions)
-    q, k, v = _qkv(p, a, x, pos, use_rope)
+    kv_x, k_positions, k_pos = None, None, None
+    if kv_override is not None:  # cross-attention: the encoder/vision tower
+        kv_x, k_positions = kv_override
+        k_pos = _positions(kv_x, k_positions)
+        use_rope, causal = False, False
+    q, k, v = _qkv(p, a, x, pos, use_rope, kv_x)
     o = _attend(q, k, v, positions, pos, causal=causal,
-                window=a.sliding_window, chunk=chunk)
+                window=a.sliding_window, chunk=chunk,
+                k_positions=k_positions, k_pos=k_pos)
     out = o.reshape(*o.shape[:2], -1) @ p["wo"]
     return out, (k, v)
 
 
 def attn_decode(p, a: AttentionConfig, x1, pos, slot_pos, cache, *,
-                use_rope: bool = True):
+                use_rope: bool = True, cross: bool = False):
     """One decode step.  x1: (B, 1, d); pos: (B,) int current position.
 
     ``slot_pos``: (B, S) int table slot -> written position (-1 empty),
     shared across layers and already updated for this step by the caller.
     cache: {"k": (B, S, Hk, D), "v": ...} (MLA: {"c": (B, S, r),
     "krope": (B, S, rh)}), written in place at slot ``pos % S`` (a ring
-    buffer under a sliding window).  Returns (out (B,1,d), cache).
+    buffer under a sliding window).  ``cross=True`` treats the cache as a
+    static cross-attention KV: no rope, no write, every slot valid.
+    Returns (out (B,1,d), cache).
     """
     if a.is_mla:
         return _mla_decode(p, a, x1, pos, slot_pos, cache)
     positions = pos[:, None]
     q = x1 @ p["wq"]
+    if a.qkv_bias:
+        q = q + p["bq"]
+    q = _heads(q, a.n_heads, a.head_dim)
+    if use_rope and not cross:
+        q = apply_rope(q, positions, a.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    if cross:
+        o = decode_attention_core(
+            q, ck, cv, torch.zeros(ck.shape[:2], dtype=torch.int32,
+                                   device=ck.device), pos, window=None)
+        return o.reshape(*o.shape[:2], -1) @ p["wo"], cache
     k = x1 @ p["wk"]
     v = x1 @ p["wv"]
     if a.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = _heads(q, a.n_heads, a.head_dim)
+        k, v = k + p["bk"], v + p["bv"]
     k = _heads(k, a.n_kv_heads, a.head_dim)
     v = _heads(v, a.n_kv_heads, a.head_dim)
     if use_rope:
-        q = apply_rope(q, positions, a.rope_theta)
         k = apply_rope(k, positions, a.rope_theta)
-    ck, cv = cache["k"], cache["v"]
     slot = (pos % ck.shape[1]).long()
     bidx = torch.arange(x1.shape[0], device=x1.device)
     ck[bidx, slot] = k[:, 0]

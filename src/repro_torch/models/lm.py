@@ -6,17 +6,23 @@
 * ``cache_decls(shape)``                — PDecl tree of the decode cache
 * ``input_specs(shape)``                — PDecl tree of the inputs
 
-Ported, for serving: the decoder-only builder with its three families —
-dense (GQA, sliding window, QKV bias), MoE (routed and shared experts,
-with deepseek's leading dense layers) and MLA (deepseek-v2-lite's latent
-attention) — and the hybrid (zamba2) family.  Stacked layers run as
-Python loops over the stacked leading axes (the port has no scan), on
-whichever device the parameters lie: on the card the prefill's attention
-and SSD scans go through the hand-written kernels (see ``layers`` and
-``ssm``).  ``decode_fn`` updates the cache it is given in place, where the
-reference donates it.  The MoE aux loss is returned by the decoder's
-backbone only: training (the loss, its backward) is not ported yet, nor
-are the xLSTM, audio and VLM families (ROADMAP item 15).
+Ported, for serving, every family of the reference: the decoder-only
+builder with dense (GQA, sliding window, QKV bias), MoE (routed and
+shared experts, with deepseek's leading dense layers) and MLA
+(deepseek-v2-lite's latent attention); the hybrid (zamba2); the xLSTM
+(groups of mLSTM blocks and one sLSTM block); the encoder-decoder
+(whisper: a non-causal encoder over precomputed frames, a decoder with
+self- and cross-attention); and the VLM (a decoder with a gated
+cross-attention layer every ``cross_attn_every`` layers, against
+precomputed image patches).  Stacked layers run as Python loops over the
+stacked leading axes (the port has no scan), on whichever device the
+parameters lie: on the card the prefill's attention and SSD scans go
+through the hand-written kernels (see ``layers`` and ``ssm``).
+``decode_fn`` updates the cache it is given in place, where the reference
+donates it.  The frames and image patches are cast to their projection's
+type (the input specs declare them in it).  The MoE aux loss is returned
+by the decoder's backbone only: training (the loss, its backward) is not
+ported yet (ROADMAP item 15).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
     attn_decls, attn_decode, attn_forward, mlp_decls, mlp_forward, rms_norm,
+    sinusoidal_pos,
 )
 from repro_torch.models.moe import moe_decls, moe_forward
 from repro_torch.models.param import PDecl, tree_map
@@ -139,6 +146,23 @@ def _moe_layer_decls(cfg: ArchConfig, ep: int) -> Dict[str, Any]:
     }
 
 
+def _mlp_block(cfg: ArchConfig, lp, h):
+    """h plus the layer's MLP of its ``ln2``-normed residual."""
+    return h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                           cfg.act, cfg.glu)
+
+
+def _stacked(xs, *lead):
+    """Per-layer tensors stacked under the leading axes ``lead``."""
+    return torch.stack(xs).reshape(*lead, *xs[0].shape)
+
+
+def _prefill_positions(b: int, s: int, device):
+    """A prefill's slot table (slot i holds position i) and ``cur``."""
+    return (torch.arange(s, dtype=I32, device=device).repeat(b, 1),
+            torch.full((b,), s, dtype=I32, device=device))
+
+
 def _token_specs(shape: ShapeConfig):
     b = shape.global_batch
     s = shape.seq_len if shape.kind != "decode" else 1
@@ -225,9 +249,8 @@ def build_decoder(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
         logits = _last_logits(_unemb(params, cfg), h)
         names = ("c", "krope") if mla else ("k", "v")
         cache = {name: dict(zip(names, kv)) for name, kv in kvs.items()}
-        cache["slot_pos"] = torch.arange(s, dtype=I32, device=tokens.device) \
-            .repeat(b, 1)
-        cache["cur"] = torch.full((b,), s, dtype=I32, device=tokens.device)
+        cache["slot_pos"], cache["cur"] = _prefill_positions(b, s,
+                                                             tokens.device)
         return logits, cache
 
     def decode_fn(params, cache, batch):
@@ -275,10 +298,7 @@ def build_hybrid(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
         a, kv = attn_forward(lp["attn"], cfg.attention,
                              rms_norm(h, lp["ln1"], cfg.norm_eps),
                              chunk=attn_chunk)
-        h = h + a
-        m = mlp_forward(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                        cfg.act, cfg.glu)
-        return h + m, kv
+        return _mlp_block(cfg, lp, h + a), kv
 
     def backbone(params, tokens, collect=False):
         h = _embed(params, tokens)
@@ -310,13 +330,9 @@ def build_hybrid(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
         h = rms_norm(h, params["lnf"], cfg.norm_eps)
         if not collect:
             return h, None
-
-        def stack(xs, *lead):
-            return torch.stack(xs).reshape(*lead, *xs[0].shape)
-
         states = {
-            "m_ssm": stack(m_ssm, n_groups, n_m),
-            "m_conv": stack(m_conv, n_groups, n_m),
+            "m_ssm": _stacked(m_ssm, n_groups, n_m),
+            "m_conv": _stacked(m_conv, n_groups, n_m),
             "k": torch.stack(ks), "v": torch.stack(vs),
         }
         if n_tail:
@@ -390,10 +406,7 @@ def build_hybrid(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
                                rms_norm(h, lp["ln1"], cfg.norm_eps),
                                cur, slot_pos,
                                {"k": kv["k"][g], "v": kv["v"][g]})
-            h = h + a
-            m = mlp_forward(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                            cfg.act, cfg.glu)
-            h = h + m
+            h = _mlp_block(cfg, lp, h + a)
         for i in range(n_tail):
             h = mamba_step(h, _index(params["tail"], i),
                            cache["t_ssm"][i], cache["t_conv"][i])
@@ -409,15 +422,338 @@ def build_hybrid(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
 
 
 # ---------------------------------------------------------------------------
+# xLSTM: groups of (slstm_every - 1) mLSTM blocks and one sLSTM block
+# ---------------------------------------------------------------------------
+def build_xlstm(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
+    """The reference's ``build_xlstm``: ``mlstm`` stacked (groups, mLSTM
+    blocks a group), ``slstm`` stacked (groups,).  The reduced config
+    keeps slstm_every 8 at 4 layers, so it has no group at all (embedding,
+    final norm and unembedding only), as in the reference.  The cache
+    holds each mLSTM's (N, P) state and conv window and each sLSTM's
+    carry; it does not grow."""
+    per = cfg.ssm.slstm_every or cfg.n_layers
+    n_groups = cfg.n_layers // per
+    n_m = per - 1 if cfg.ssm.slstm_every else per
+    has_s = bool(cfg.ssm.slstm_every)
+    nh = cfg.attention.n_heads
+    di = cfg.ssm.expand * cfg.d_model
+    hd, shd = di // nh, cfg.d_model // nh
+
+    decls = _emb_decls(cfg)
+    decls["mlstm"] = stack_decls(stack_decls(S.mlstm_decls(cfg), n_m),
+                                 n_groups)
+    if has_s:
+        decls["slstm"] = stack_decls(S.slstm_decls(cfg), n_groups)
+
+    def cache_decls(shape: ShapeConfig):
+        b = shape.global_batch
+        out = {
+            "m_ssm": PDecl((n_groups, n_m, b, nh, hd, hd + 1),
+                           (None, None, "batch", None, None, None), dtype=F32,
+                           init="zeros"),
+            "m_conv": PDecl((n_groups, n_m, b, cfg.ssm.conv_dim - 1, di),
+                            (None, None, "batch", None, None), init="zeros"),
+            "cur": PDecl((b,), ("batch",), dtype=I32, init="zeros"),
+        }
+        if has_s:
+            out["s_state"] = PDecl((n_groups, 4, b, nh, shd),
+                                   (None, None, "batch", None, None),
+                                   dtype=F32, init="zeros")
+        return out
+
+    def prefill_fn(params, batch):
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        h = _embed(params, tokens)
+        dev = h.device
+        # filled layer by layer (zero groups leave them empty)
+        cache = {
+            "m_ssm": torch.empty((n_groups, n_m, b, nh, hd, hd + 1),
+                                 dtype=F32, device=dev),
+            "m_conv": torch.empty((n_groups, n_m, b, cfg.ssm.conv_dim - 1,
+                                   di), dtype=h.dtype, device=dev),
+            "cur": torch.full((b,), s, dtype=I32, device=dev),
+        }
+        if has_s:
+            cache["s_state"] = torch.empty((n_groups, 4, b, nh, shd),
+                                           dtype=F32, device=dev)
+        for g in range(n_groups):
+            for i in range(n_m):
+                h, (s_fin, conv_state) = S.mlstm_forward(
+                    _index(params["mlstm"], g, i), cfg, h, return_state=True)
+                cache["m_ssm"][g, i] = s_fin
+                cache["m_conv"][g, i] = conv_state
+            if has_s:
+                h, carry = S.slstm_forward(_index(params["slstm"], g), cfg,
+                                           h, return_state=True)
+                cache["s_state"][g] = torch.stack(carry)
+        h = rms_norm(h, params["lnf"], cfg.norm_eps)
+        return _last_logits(_unemb(params, cfg), h), cache
+
+    def decode_fn(params, cache, batch):
+        h = _embed(params, batch["tokens"])
+        for g in range(n_groups):
+            for i in range(n_m):
+                ssm_st, conv_st = cache["m_ssm"][g, i], cache["m_conv"][g, i]
+                h, st = S.mlstm_decode(_index(params["mlstm"], g, i), cfg, h,
+                                       {"ssm": ssm_st, "conv": conv_st})
+                ssm_st.copy_(st["ssm"])
+                conv_st.copy_(st["conv"])
+            if has_s:
+                sst = cache["s_state"][g]
+                h, carry = S.slstm_decode(_index(params["slstm"], g), cfg, h,
+                                          tuple(sst))
+                sst.copy_(torch.stack(carry))
+        h = rms_norm(h, params["lnf"], cfg.norm_eps)
+        logits = _last_logits(_unemb(params, cfg), h)
+        out = dict(cache)
+        out["cur"] = cache["cur"] + 1
+        return logits, out
+
+    return ModelBundle(cfg, decls, prefill_fn, decode_fn, cache_decls,
+                       _token_specs)
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper): a non-causal encoder over precomputed frames,
+# a decoder with self- and cross-attention
+# ---------------------------------------------------------------------------
+def build_encdec(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
+    """The reference's ``build_encdec``.  Sinusoidal positions, no rope.
+    The prefill encodes ``batch["frames"]`` (B, T, d_frontend) and runs the
+    decoder over the prompt; its cache holds the decoder's self keys and
+    values and the cross keys and values of the encoder's output (T
+    rows, never grown nor written).  A decode step adds the sinusoid of
+    position 0 to its token, as the reference does (not that of its
+    position)."""
+    a = cfg.attention
+    eps = cfg.norm_eps
+    decls = _emb_decls(cfg)
+    decls["frontend_proj"] = PDecl((cfg.d_frontend, cfg.d_model),
+                                   ("frontend", "embed"))
+    enc_layer = _dense_layer_decls(cfg)
+    dec_layer = dict(enc_layer)
+    dec_layer["lnx"] = PDecl((cfg.d_model,), (None,), init="ones")
+    dec_layer["cross"] = attn_decls(a, cfg.d_model)
+    decls["encoder"] = stack_decls(enc_layer, cfg.n_encoder_layers)
+    decls["decoder"] = stack_decls(dec_layer, cfg.n_layers)
+    decls["enc_lnf"] = PDecl((cfg.d_model,), (None,), init="ones")
+
+    def encode(params, frames):
+        proj = params["frontend_proj"]
+        h = frames.to(proj.dtype) @ proj
+        h = h + sinusoidal_pos(h.shape[1], cfg.d_model, h.dtype,
+                               h.device)[None]
+        for i in range(cfg.n_encoder_layers):
+            lp = _index(params["encoder"], i)
+            att, _ = attn_forward(lp["attn"], a,
+                                  rms_norm(h, lp["ln1"], eps),
+                                  use_rope=False, chunk=attn_chunk,
+                                  causal=False)
+            h = _mlp_block(cfg, lp, h + att)
+        return rms_norm(h, params["enc_lnf"], eps)
+
+    def _tokens_in(params, tokens, n_pos: int):
+        """Token embeddings plus the bf16 sinusoid of positions 0 ..
+        n_pos - 1 (the reference's default type, promoted)."""
+        h = _embed(params, tokens)
+        return h + sinusoidal_pos(n_pos, cfg.d_model,
+                                  device=h.device).to(h.dtype)[None]
+
+    def cache_decls(shape: ShapeConfig):
+        b = shape.global_batch
+        kv, cap = _kv_cache_decls(cfg, cfg.n_layers, b, shape.seq_len)
+        xkv, _ = _kv_cache_decls(cfg, cfg.n_layers, b, shape.seq_len)
+        out = {"self_kv": kv, "cross_kv": xkv}
+        out.update(_pos_decls(b, cap))
+        return out
+
+    def prefill_fn(params, batch):
+        enc = encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        h = _tokens_in(params, tokens, s)
+        kvs = []
+        for i in range(cfg.n_layers):
+            lp = _index(params["decoder"], i)
+            att, kv = attn_forward(lp["attn"], a,
+                                   rms_norm(h, lp["ln1"], eps),
+                                   use_rope=False, chunk=attn_chunk)
+            h = h + att
+            c, xkv = attn_forward(lp["cross"], a,
+                                  rms_norm(h, lp["lnx"], eps),
+                                  use_rope=False, chunk=attn_chunk,
+                                  kv_override=(enc, None))
+            h = _mlp_block(cfg, lp, h + c)
+            kvs.append(kv + xkv)
+        h = rms_norm(h, params["lnf"], eps)
+        logits = _last_logits(_unemb(params, cfg), h)
+        k, v, xk, xv = (torch.stack(t) for t in zip(*kvs))
+        slot_pos, cur = _prefill_positions(b, s, tokens.device)
+        cache = {"self_kv": {"k": k, "v": v}, "cross_kv": {"k": xk, "v": xv},
+                 "slot_pos": slot_pos, "cur": cur}
+        return logits, cache
+
+    def decode_fn(params, cache, batch):
+        cap = cache["slot_pos"].shape[1]
+        cur, slot_pos = _advance_pos(cache, cap)
+        h = _tokens_in(params, batch["tokens"], 1)
+        for i in range(cfg.n_layers):
+            lp = _index(params["decoder"], i)
+            att, _ = attn_decode(lp["attn"], a, rms_norm(h, lp["ln1"], eps),
+                                 cur, slot_pos, _index(cache["self_kv"], i),
+                                 use_rope=False)
+            h = h + att
+            c, _ = attn_decode(lp["cross"], a, rms_norm(h, lp["lnx"], eps),
+                               cur, slot_pos, _index(cache["cross_kv"], i),
+                               use_rope=False, cross=True)
+            h = _mlp_block(cfg, lp, h + c)
+        h = rms_norm(h, params["lnf"], eps)
+        logits = _last_logits(_unemb(params, cfg), h)
+        out = dict(cache)
+        out["slot_pos"] = slot_pos
+        out["cur"] = cur + 1
+        return logits, out
+
+    def input_specs(shape: ShapeConfig):
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": PDecl((b, 1), ("batch", None), dtype=I32)}
+        specs = {
+            "frames": PDecl((b, s, cfg.d_frontend),
+                            ("batch", "seq_shard", None)),
+            "tokens": PDecl((b, s), ("batch", None), dtype=I32),
+        }
+        if shape.kind == "train":
+            specs["targets"] = PDecl((b, s), ("batch", None), dtype=I32)
+        return specs
+
+    return ModelBundle(cfg, decls, prefill_fn, decode_fn, cache_decls,
+                       input_specs)
+
+
+# ---------------------------------------------------------------------------
+# VLM: a decoder with a gated cross-attention layer every Nth layer
+# ---------------------------------------------------------------------------
+def build_vlm(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
+    """The reference's ``build_vlm``: groups of ``cross_attn_every - 1``
+    self-attention layers (rope, causal) and one cross-attention layer
+    against the projected image patches ``batch["img"]`` (no rope, not
+    causal), whose output is scaled by tanh(gate) (the gate is declared
+    zero-initialised, which cancels it).  The cache holds the self keys
+    and values (groups, self layers) and the cross ones (groups,), never
+    grown nor written."""
+    per = cfg.cross_attn_every
+    n_groups = cfg.n_layers // per
+    n_self = per - 1
+    a = cfg.attention
+    eps = cfg.norm_eps
+
+    decls = _emb_decls(cfg)
+    decls["img_proj"] = PDecl((cfg.d_frontend, cfg.d_model),
+                              ("frontend", "embed"))
+    decls["self_layers"] = stack_decls(
+        stack_decls(_dense_layer_decls(cfg), n_self), n_groups)
+    cross_layer = dict(_dense_layer_decls(cfg))
+    cross_layer["gate"] = PDecl((1,), (None,), dtype=F32, init="zeros")
+    decls["cross_layers"] = stack_decls(cross_layer, n_groups)
+
+    def gated(cp, h, att):
+        return h + torch.tanh(cp["gate"]).to(h.dtype) * att
+
+    def cache_decls(shape: ShapeConfig):
+        b = shape.global_batch
+        kv, cap = _kv_cache_decls(cfg, n_self, b, shape.seq_len,
+                                  prefix=(n_groups,))
+        xshape = (n_groups, b, cfg.n_frontend_tokens, a.n_kv_heads,
+                  a.head_dim)
+        names = (None, "batch", None, None, None)
+        out = {"self_kv": kv,
+               "cross_kv": {"k": PDecl(xshape, names),
+                            "v": PDecl(xshape, names)}}
+        out.update(_pos_decls(b, cap))
+        return out
+
+    def prefill_fn(params, batch):
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        proj = params["img_proj"]
+        img_h = batch["img"].to(proj.dtype) @ proj
+        h = _embed(params, tokens)
+        kvs, xkvs = [], []
+        for g in range(n_groups):
+            for i in range(n_self):
+                lp = _index(params["self_layers"], g, i)
+                att, kv = attn_forward(lp["attn"], a,
+                                       rms_norm(h, lp["ln1"], eps),
+                                       chunk=attn_chunk)
+                h = _mlp_block(cfg, lp, h + att)
+                kvs.append(kv)
+            cp = _index(params["cross_layers"], g)
+            att, xkv = attn_forward(cp["attn"], a,
+                                    rms_norm(h, cp["ln1"], eps),
+                                    use_rope=False, chunk=attn_chunk,
+                                    kv_override=(img_h, None))
+            h = _mlp_block(cfg, cp, gated(cp, h, att))
+            xkvs.append(xkv)
+        h = rms_norm(h, params["lnf"], eps)
+        logits = _last_logits(_unemb(params, cfg), h)
+        k, v = (_stacked(t, n_groups, n_self) for t in zip(*kvs))
+        xk, xv = (torch.stack(t) for t in zip(*xkvs))
+        slot_pos, cur = _prefill_positions(b, s, tokens.device)
+        cache = {"self_kv": {"k": k, "v": v}, "cross_kv": {"k": xk, "v": xv},
+                 "slot_pos": slot_pos, "cur": cur}
+        return logits, cache
+
+    def decode_fn(params, cache, batch):
+        cap = cache["slot_pos"].shape[1]
+        cur, slot_pos = _advance_pos(cache, cap)
+        h = _embed(params, batch["tokens"])
+        for g in range(n_groups):
+            for i in range(n_self):
+                lp = _index(params["self_layers"], g, i)
+                att, _ = attn_decode(lp["attn"], a,
+                                     rms_norm(h, lp["ln1"], eps), cur,
+                                     slot_pos, _index(cache["self_kv"], g, i))
+                h = _mlp_block(cfg, lp, h + att)
+            cp = _index(params["cross_layers"], g)
+            att, _ = attn_decode(cp["attn"], a, rms_norm(h, cp["ln1"], eps),
+                                 cur, slot_pos, _index(cache["cross_kv"], g),
+                                 use_rope=False, cross=True)
+            h = _mlp_block(cfg, cp, gated(cp, h, att))
+        h = rms_norm(h, params["lnf"], eps)
+        logits = _last_logits(_unemb(params, cfg), h)
+        out = dict(cache)
+        out["slot_pos"] = slot_pos
+        out["cur"] = cur + 1
+        return logits, out
+
+    def input_specs(shape: ShapeConfig):
+        b = shape.global_batch
+        s = shape.seq_len if shape.kind != "decode" else 1
+        specs = {"tokens": PDecl((b, s), ("batch", None), dtype=I32)}
+        if shape.kind != "decode":     # decode: the image lives in the cache
+            specs["img"] = PDecl((b, cfg.n_frontend_tokens, cfg.d_frontend),
+                                 ("batch", None, None))
+        if shape.kind == "train":
+            specs["targets"] = PDecl((b, s), ("batch", None), dtype=I32)
+        return specs
+
+    return ModelBundle(cfg, decls, prefill_fn, decode_fn, cache_decls,
+                       input_specs)
+
+
+# ---------------------------------------------------------------------------
 _BUILDERS = {"dense": build_decoder, "moe": build_decoder,
-             "hybrid": build_hybrid}
+             "ssm": build_xlstm, "hybrid": build_hybrid,
+             "audio": build_encdec, "vlm": build_vlm}
 
 
 def build_model(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
-    """The ModelBundle of an architecture: the dense, MoE and hybrid
-    families are ported; the others raise ``NotImplementedError``."""
+    """The ModelBundle of an architecture, by its family; an unknown
+    family raises ``NotImplementedError``."""
     if cfg.family not in _BUILDERS:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP item 15); ported: {sorted(_BUILDERS)}")
+            f"unknown family {cfg.family!r} ({cfg.name}); known: "
+            f"{sorted(_BUILDERS)}")
     return _BUILDERS[cfg.family](cfg, attn_chunk=attn_chunk)

@@ -1,5 +1,5 @@
-"""Recurrent blocks of the port: the Mamba-2 (SSD) half of the JAX
-package's ``models/ssm.py``.
+"""Recurrent blocks of the port: Mamba-2 (SSD) and xLSTM (mLSTM, sLSTM),
+the JAX package's ``models/ssm.py``.
 
 The SSD chunked scan follows Dao & Gu (arXiv:2405.21060): within-chunk
 terms are dense products, the inter-chunk recurrence carries an (N x P)
@@ -10,14 +10,24 @@ heads of a batch row; on the CPU it runs the reference's chunked math,
 ported line for line.  Decoding (``ssd_step``, ``causal_conv_step``) has
 no kernel in the reference and runs as plain PyTorch on either device.
 
+The mLSTM maps onto the same scan (decay = logsigmoid(f), the state
+driven by i v k^T, queried by q, the normalizer an extra all-ones value
+channel): its heads are folded into the batch, one head a lane, so on the
+card each mLSTM layer is one SSD scan launch with the key depth as the
+state's N and the value depth plus one as P (512 and 513 for
+xlstm-350m).  The sLSTM is a nonlinear recurrence; the reference runs it
+as a ``lax.scan`` outside any Pallas kernel, and the port as a Python loop
+of plain tensor ops over time, on either device (about twenty small
+launches a step on the card).
+
 The reference's sharding ``rules`` argument is dropped (a no-op on one
-card).  mLSTM and sLSTM (the xLSTM family) are not ported yet (ROADMAP
-item 15).
+card).
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -208,3 +218,208 @@ def mamba2_decode(p, cfg: ArchConfig, x1, state):
     y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
     out = x1 + (y @ p["out_proj"])[:, None]
     return out, {"ssm": ssm, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM block (chunk-parallel) and sLSTM block (sequential)
+# ---------------------------------------------------------------------------
+GATE_CAP = 4.0   # soft cap replacing the xLSTM stabilizer in the chunked path
+
+
+def mlstm_decls(cfg: ArchConfig) -> Dict[str, PDecl]:
+    d = cfg.d_model
+    s = cfg.ssm
+    di = s.expand * d
+    nh = cfg.attention.n_heads
+    return {
+        "norm": PDecl((d,), (None,), init="ones"),
+        "up": PDecl((d, 2 * di), ("embed", "ff")),
+        "conv_w": PDecl((s.conv_dim, di), ("conv", None), scale=0.3),
+        "conv_b": PDecl((di,), (None,), init="zeros"),
+        "wq": PDecl((di, di), ("ff", None)),
+        "wk": PDecl((di, di), ("ff", None)),
+        "wv": PDecl((di, di), ("ff", None)),
+        "wgate": PDecl((d, 2 * nh), ("embed", None), dtype=F32),
+        "bgate": PDecl((2 * nh,), (None,), dtype=F32, init="zeros"),
+        "gnorm": PDecl((di,), (None,), init="ones"),
+        "down": PDecl((di, d), ("ff", "embed")),
+    }
+
+
+def _mlstm_qkv(p, cfg, hin):
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    nh = cfg.attention.n_heads
+    hd = di // nh
+    xb, z = torch.chunk(hin @ p["up"], 2, dim=-1)
+    return xb, z, di, nh, hd
+
+
+def _mlstm_gates(p, hin):
+    """(log-decay logsigmoid(f), input gate exp(min(i, GATE_CAP))), each
+    (..., nh) float32."""
+    gates = hin.to(F32) @ p["wgate"] + p["bgate"]
+    ig, fg = torch.chunk(gates, 2, dim=-1)
+    return F.logsigmoid(fg), torch.exp(torch.clamp(ig, max=GATE_CAP))
+
+
+def mlstm_forward(p, cfg: ArchConfig, x, return_state: bool = False):
+    """mLSTM via SSD: decay = logsigmoid(f), input i = exp(min(i_raw,
+    cap)), the state driven by (i * v) k^T and queried by q; the
+    normalizer through an extra all-ones value channel.  The heads are
+    folded into the batch (one SSD lane a head, B and C per lane)."""
+    hin = rms_norm(x, p["norm"], cfg.norm_eps)
+    xb, z, di, nh, hd = _mlstm_qkv(p, cfg, hin)
+    conv = F.silu(causal_conv(xb, p["conv_w"], p["conv_b"]))
+    b, steps = x.shape[:2]
+    q = (conv @ p["wq"]).reshape(b, steps, nh, hd)
+    k = (conv @ p["wk"]).reshape(b, steps, nh, hd)
+    v = (xb @ p["wv"]).reshape(b, steps, nh, hd)
+    la, i = _mlstm_gates(p, hin)                               # (B,S,nh)
+    scale = 1.0 / np.sqrt(hd)
+    # one SSD per head: state dim = key dim; v' = [v, 1] for the normalizer
+    vn = torch.cat([v.to(F32), torch.ones_like(v[..., :1], dtype=F32)], -1)
+    xbar = vn * i[..., None]
+
+    def fold(t):  # (B,S,nh,*) -> (B*nh, S, 1, *)
+        return torch.movedim(t, 2, 1).reshape(b * nh, steps, 1, *t.shape[3:])
+    y, s_fin = ssd_chunked(fold(xbar), fold(la[..., None])[..., 0],
+                           fold(k.to(F32) * scale)[:, :, 0],
+                           fold(q.to(F32))[:, :, 0], cfg.ssm.chunk)
+    y = torch.movedim(y.reshape(b, nh, steps, hd + 1), 1, 2)
+    num, den = y[..., :hd], y[..., hd:]
+    h = num / torch.clamp(den.abs(), min=1.0)
+    h = h.reshape(b, steps, di).to(x.dtype)
+    h = rms_norm(h * F.silu(z), p["gnorm"], cfg.norm_eps)
+    out = x + h @ p["down"]
+    if return_state:
+        cw = cfg.ssm.conv_dim
+        conv_state = F.pad(xb, (0, 0, cw - 1, 0))[:, -(cw - 1):]
+        return out, (s_fin.reshape(b, nh, hd, hd + 1), conv_state)
+    return out
+
+
+def mlstm_init_state(cfg: ArchConfig, batch: int, device):
+    di = cfg.ssm.expand * cfg.d_model
+    nh = cfg.attention.n_heads
+    hd = di // nh
+    return {
+        "ssm": torch.zeros((batch, nh, hd, hd + 1), dtype=F32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm.conv_dim - 1, di),
+                            dtype=torch.bfloat16, device=device),
+    }
+
+
+def mlstm_decode(p, cfg: ArchConfig, x1, state):
+    """x1: (B,1,d). state: {"ssm" (B,nh,hd,hd+1), "conv"}.  Returns (out
+    (B,1,d), state)."""
+    hin = rms_norm(x1[:, 0], p["norm"], cfg.norm_eps)
+    xb, z, di, nh, hd = _mlstm_qkv(p, cfg, hin)
+    conv_state, conv = causal_conv_step(state["conv"], xb, p["conv_w"],
+                                        p["conv_b"])
+    conv = F.silu(conv)
+    q = (conv @ p["wq"]).reshape(-1, nh, hd)
+    k = (conv @ p["wk"]).reshape(-1, nh, hd)
+    v = (xb @ p["wv"]).reshape(-1, nh, hd)
+    la, i = _mlstm_gates(p, hin)                               # (B,nh)
+    scale = 1.0 / np.sqrt(hd)
+    vn = torch.cat([v.to(F32), torch.ones_like(v[..., :1], dtype=F32)], -1)
+    s_new = state["ssm"] * torch.exp(la)[..., None, None] + torch.einsum(
+        "bhk,bhp->bhkp", k.to(F32) * scale, vn * i[..., None])
+    y = torch.einsum("bhk,bhkp->bhp", q.to(F32), s_new)
+    h = (y[..., :hd] / torch.clamp(y[..., hd:].abs(), min=1.0)) \
+        .reshape(-1, di)
+    h = rms_norm(h.to(x1.dtype) * F.silu(z), p["gnorm"], cfg.norm_eps)
+    out = x1 + (h @ p["down"])[:, None]
+    return out, {"ssm": s_new, "conv": conv_state}
+
+
+# --- sLSTM -----------------------------------------------------------------
+def slstm_decls(cfg: ArchConfig) -> Dict[str, PDecl]:
+    d = cfg.d_model
+    nh = cfg.attention.n_heads
+    hd = d // nh
+    ffs = int(d * 4 / 3 / 64) * 64 or 64
+    return {
+        "norm": PDecl((d,), (None,), init="ones"),
+        "w": PDecl((d, 4 * d), ("embed", "ff")),
+        "r": PDecl((nh, hd, 4 * hd), (None, None, None), scale=0.05),
+        "b": PDecl((4 * d,), (None,), dtype=F32, init="zeros"),
+        "gnorm": PDecl((d,), (None,), init="ones"),
+        "up": PDecl((d, 2 * ffs), ("embed", "ff")),
+        "down": PDecl((ffs, d), ("ff", "embed")),
+    }
+
+
+def slstm_cell(params_r, b, nh, hd, carry, wx_t):
+    """Stabilized sLSTM step.  carry: (c, n, h, m) each (B, nh, hd).
+
+    wx_t: (B, 4d) laid out as [z|i|f|o] each d = nh*hd wide; the recurrent
+    matrix R (nh, hd, 4*hd) produces the same four gates per head.
+    """
+    c, n, h, m = carry
+    bsz = wx_t.shape[0]
+    rh = torch.einsum("bhk,hkg->bhg", h, params_r)             # (B,nh,4*hd)
+    wx4 = wx_t.reshape(bsz, 4, nh, hd).permute(0, 2, 1, 3)     # (B,nh,4,hd)
+    rh4 = rh.reshape(bsz, nh, 4, hd)
+    b4 = b.reshape(4, nh, hd).permute(1, 0, 2)                 # (nh,4,hd)
+    pre = wx4 + rh4 + b4
+    zt, it, ft, ot = pre.unbind(2)
+    zt = torch.tanh(zt)
+    ot = torch.sigmoid(ot)
+    log_f = F.logsigmoid(ft)
+    m_new = torch.maximum(log_f + m, it)
+    ip = torch.exp(it - m_new)
+    fp = torch.exp(log_f + m - m_new)
+    c_new = fp * c + ip * zt
+    n_new = fp * n + ip
+    h_new = ot * c_new / torch.clamp(n_new, min=1.0)
+    return (c_new, n_new, h_new, m_new), h_new
+
+
+def slstm_forward(p, cfg: ArchConfig, x, return_state: bool = False):
+    """The sLSTM block over a sequence: the input projection for every
+    step at once, then the cell one step after another (the reference's
+    ``lax.scan``), then the gated MLP.  ``return_state`` adds the final
+    carry (c, n, h, m)."""
+    d = cfg.d_model
+    nh = cfg.attention.n_heads
+    hd = d // nh
+    b, steps, _ = x.shape
+    hin = rms_norm(x, p["norm"], cfg.norm_eps)
+    wx = (hin @ p["w"]).to(F32)                                # (B,S,4d)
+    carry = tuple(torch.zeros((b, nh, hd), dtype=F32, device=x.device)
+                  for _ in range(4))
+    r = p["r"].to(F32)
+    hs = []
+    for t in range(steps):
+        carry, h_t = slstm_cell(r, p["b"], nh, hd, carry, wx[:, t])
+        hs.append(h_t)
+    h = torch.stack(hs, dim=1).reshape(b, steps, d).to(x.dtype)
+    h = rms_norm(h, p["gnorm"], cfg.norm_eps)
+    u, v = torch.chunk(h @ p["up"], 2, dim=-1)
+    out = x + (F.silu(u) * v) @ p["down"]
+    if return_state:
+        return out, carry
+    return out
+
+
+def slstm_init_state(cfg: ArchConfig, batch: int, device):
+    nh = cfg.attention.n_heads
+    hd = cfg.d_model // nh
+    return tuple(torch.zeros((batch, nh, hd), dtype=F32, device=device)
+                 for _ in range(4))
+
+
+def slstm_decode(p, cfg: ArchConfig, x1, state):
+    d = cfg.d_model
+    nh = cfg.attention.n_heads
+    hd = d // nh
+    hin = rms_norm(x1[:, 0], p["norm"], cfg.norm_eps)
+    wx = (hin @ p["w"]).to(F32)
+    state, h = slstm_cell(p["r"].to(F32), p["b"], nh, hd, state, wx)
+    h = h.reshape(-1, d).to(x1.dtype)
+    h = rms_norm(h, p["gnorm"], cfg.norm_eps)
+    u, v = torch.chunk(h @ p["up"], 2, dim=-1)
+    out = x1 + ((F.silu(u) * v) @ p["down"])[:, None]
+    return out, state

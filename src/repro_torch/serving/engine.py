@@ -2,9 +2,12 @@
 
 ``Engine.generate`` runs greedy decoding for a fixed budget; requests are
 served in static batches (``serve_requests`` refills the slots from the
-queue between bursts), as the JAX package's engine does.  The engine runs
-on the card unless the caller asks for the CPU (``device="cpu"``), and
-raises where there is no card.  Everything runs under
+queue between bursts), as the JAX package's engine does.  ``generate``
+hands the prefill the whole batch (an encoder-decoder's ``frames``, a
+VLM's ``img``) and every decode step the batch's keys other than the
+tokens; ``serve_requests`` passes tokens only, as the reference's does.
+The engine runs on the card unless the caller asks for the CPU
+(``device="cpu"``), and raises where there is no card.  Everything runs under
 ``torch.inference_mode()``; the decode cache is updated in place (the
 reference donates it), and the generated tokens stay on the device until
 the burst ends.  Times are taken on the host's clock after
@@ -50,7 +53,8 @@ def _pad_axis(arr, axis: int, grow: int, fill):
 def grow_cache(cfg, cache, n_extra: int):
     """Extend KV-cache capacity after prefill so decoding does not
     ring-evict live context.  SWA caches stay capped at the window
-    (eviction is then semantically correct)."""
+    (eviction is then semantically correct).  Static cross-attention KV
+    is never grown: its decode attends to every slot."""
     if "slot_pos" not in cache:
         return cache                       # recurrent state: O(1), no growth
     cur_cap = cache["slot_pos"].shape[-1]
@@ -64,6 +68,8 @@ def grow_cache(cfg, cache, n_extra: int):
 
     def visit(path, arr):
         leaf = path[-1]
+        if "cross_kv" in path:
+            return arr
         if leaf in ("k", "v"):
             return _pad_axis(arr, arr.dim() - 3, grow, 0)
         if leaf in ("c", "krope"):           # MLA's latent cache
@@ -97,22 +103,29 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _on_device(self, value):
+        if isinstance(value, torch.Tensor):
+            return value.to(self.device)
+        return torch.as_tensor(np.asarray(value), device=self.device)
+
     @torch.inference_mode()
     def generate(self, batch: Dict, n_gen: int = 16) -> GenResult:
         tokens = torch.as_tensor(np.asarray(batch["tokens"]),
                                  dtype=torch.int32, device=self.device)
+        extra = {k: self._on_device(v) for k, v in batch.items()
+                 if k not in ("tokens", "targets")}
         self._sync()
         t0 = time.perf_counter()
         logits, cache = self.bundle.prefill_fn(self.params,
-                                               {"tokens": tokens})
+                                               {"tokens": tokens, **extra})
         cache = grow_cache(self.bundle.arch, cache, n_gen)
         next_tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         self._sync()
         t1 = time.perf_counter()
         out = [next_tok]
         for _ in range(n_gen - 1):
-            logits, cache = self.bundle.decode_fn(self.params, cache,
-                                                  {"tokens": next_tok})
+            logits, cache = self.bundle.decode_fn(
+                self.params, cache, {"tokens": next_tok, **extra})
             next_tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
             out.append(next_tok)
         self._sync()

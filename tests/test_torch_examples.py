@@ -185,3 +185,48 @@ def test_serve_lm_twin_matches_the_reference(monkeypatch, capsys):
     tserve.main(argv + ["--device", "cpu"])
     out = capsys.readouterr().out
     assert "serving reduced deepseek-v2-lite-16b (MLA latent cache)" in out
+
+
+def test_serve_lm_twin_matches_the_reference_on_xlstm(monkeypatch, capsys):
+    """The serving example with ``--arch xlstm-350m``: the reference's
+    reduced config, which has no block (slstm_every 8 at 4 layers: an
+    embedding, the final norm and the unembedding).  The reference's run
+    with its parameters cast to float32, the twin on the CPU given the
+    same parameters: the served tokens and the batch's are equal."""
+    params = []
+    real_init = jserve.init_tree
+
+    def init_f32(decls, key):
+        params.append(jax.tree.map(lambda a: a.astype(jnp.float32),
+                                   real_init(decls, key)))
+        return params[-1]
+    monkeypatch.setattr(jserve, "init_tree", init_f32)
+    served = _kept(monkeypatch, jax_engine.Engine, "serve_requests")
+    generated = _kept(monkeypatch, jax_engine.Engine, "generate")
+    argv = ["--arch", "xlstm-350m", "--requests", "6", "--gen", "5"]
+    monkeypatch.setattr("sys.argv", ["serve_lm.py"] + argv)
+    jserve.main()
+    (want,) = served
+    cfg, _, outs, res = tserve.run(
+        "xlstm-350m", requests=6, gen=5, device="cpu",
+        params=params_from_numpy(jax.tree.map(np.asarray, params[0]), "cpu"))
+    assert cfg.family == "ssm" and len(outs) == len(want) == 6
+    for g, w in zip(outs, want):
+        assert np.array_equal(g, w)
+    assert np.array_equal(res.tokens, generated[-1].tokens)
+    tserve.main(argv + ["--device", "cpu"])
+    assert "serving reduced xlstm-350m" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-90b"])
+def test_serve_lm_twin_takes_the_cross_attention_families(arch):
+    """whisper-base and the VLM need frames or image patches, which
+    ``serve_requests`` does not pass (nor does the reference's): the twin
+    serves no queue for them and generates the batch with inputs drawn
+    from a seed, the same tokens twice."""
+    cfg, prompts, outs, res = tserve.run(arch, requests=3, gen=3,
+                                         device="cpu")
+    assert cfg.name == arch and outs == [] and len(prompts) == 3
+    assert res.tokens.shape == (3, 3)
+    _, _, _, again = tserve.run(arch, requests=3, gen=3, device="cpu")
+    assert np.array_equal(res.tokens, again.tokens)

@@ -108,15 +108,20 @@ def test_config_equals_reference(reduced):
 
 
 def test_unported_archs_and_families_raise():
-    for name in NOT_PORTED:
-        with pytest.raises(KeyError, match="ROADMAP item 15"):
-            get_arch(name)
+    """Every name of the reference's registry resolves (NOT_PORTED is
+    empty) and every family builds; an unknown name and an unknown family
+    still raise."""
+    from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
+    assert NOT_PORTED == ()
+    for name in JAX_ARCH_NAMES:
+        assert get_arch(name).name == name
+        assert build_model(get_arch(name, reduced=True)).arch.name == name
     with pytest.raises(KeyError, match="unknown"):
         get_arch("no-such-arch")
-    audio = dataclasses.replace(get_arch("zamba2-7b", reduced=True),
-                                family="audio")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        build_model(audio)
+    other = dataclasses.replace(get_arch("zamba2-7b", reduced=True),
+                                family="no-such-family")
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        build_model(other)
 
 
 def _jax_decl_paths(tree):

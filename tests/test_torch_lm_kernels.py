@@ -23,6 +23,7 @@ from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro.models import layers as JL
+from repro.models import ssm as JS
 from repro_torch import runtime
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops
@@ -359,6 +360,78 @@ DQK_DV_CASES = [
 ]
 
 
+# cross-attention: keys of their own length, nothing masked — more queries
+# than keys (the VLM's 2048 against 1601 image tokens) and fewer (whisper's
+# prompt against 1500 frames), ragged tiles on both sides
+CROSS_CASES = [
+    (4, 300, 100, 32, 32, False, None),
+    (2, 200, 137, 128, 128, False, None),
+    (2, 100, 333, 64, 64, False, None),
+]
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,dv,causal,window", CROSS_CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_plain_at_sq_ne_skv_matches_attention_core(
+        bh, sq, skv, d, dv, causal, window, dtype):
+    rng = np.random.default_rng(bh * sq + skv + d)
+    jq, tq = _pair(rng.standard_normal((bh, sq, d), dtype=np.float32), dtype)
+    jk, tk = _pair(rng.standard_normal((bh, skv, d), dtype=np.float32),
+                   dtype)
+    jv, tv = _pair(rng.standard_normal((bh, skv, dv), dtype=np.float32),
+                   dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == TT[dtype] and tuple(got.shape) == (bh, sq, dv)
+    want = _attention_core_folded(jq, jk, jv, causal=causal, window=window)
+    assert np.abs(_f32(got) - _f32(want)).max() < TOL[dtype]
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,dv,causal,window", CROSS_CASES)
+@pytest.mark.parametrize("kernel", ["bf16", "f32"])
+def test_kernel_schedules_at_sq_ne_skv_match_attention_core(
+        bh, sq, skv, d, dv, causal, window, kernel):
+    """Both kernels' schedules with Sq != Skv and no mask (the suffix
+    offset Skv - Sq negative where Sq > Skv, and never read): the bf16 one
+    within a bf16 step of the reference per element, the split-TF32 one
+    within 2e-5."""
+    rng = np.random.default_rng(bh * sq + skv + d + 1)
+    jq, tq = _pair(rng.standard_normal((bh, sq, d), dtype=np.float32),
+                   kernel)
+    jk, tk = _pair(rng.standard_normal((bh, skv, d), dtype=np.float32),
+                   kernel)
+    jv, tv = _pair(rng.standard_normal((bh, skv, dv), dtype=np.float32),
+                   kernel)
+    schedule = _tc_schedule if kernel == "bf16" else _tf32_schedule
+    got = _f32(schedule(tq, tk, tv, causal=causal, window=window))
+    want = _f32(_attention_core_folded(jq.astype(jnp.float32),
+                                       jk.astype(jnp.float32),
+                                       jv.astype(jnp.float32),
+                                       causal=causal, window=window))
+    assert got.shape == (bh, sq, dv) and np.isfinite(got).all()
+    if kernel == "bf16":
+        assert _bf16_steps(got, want) <= 1.0
+    else:
+        assert np.abs(got - want).max() <= 2e-5
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,ok", [
+    (2048, 1601, False, None, True),     # the VLM's cross-attention
+    (400, 1500, False, None, True),      # whisper's
+    (9, 8, True, None, False),           # its first query would see no key
+    (9, 8, False, 4, False),
+    (9, 8, True, 4, False),
+])
+def test_flash_attention_bf16_takes_more_queries_only_unmasked(
+        sq, skv, causal, window, ok):
+    if ok:
+        fa_mod.check_kernel_shape(4, sq, skv, 128, torch.bfloat16,
+                                  causal=causal, window=window)
+    else:
+        with pytest.raises(ValueError, match="Sq"):
+            fa_mod.check_kernel_shape(4, sq, skv, 128, torch.bfloat16,
+                                      causal=causal, window=window)
+
+
 @pytest.mark.parametrize("bh,sq,skv,d,dv,causal,window", DQK_DV_CASES)
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_attention_plain_at_dqk_ne_dv_matches_attention_core(
@@ -646,6 +719,8 @@ def test_ssd_one_tf32_rounding_leaves_the_tier():
      ((1, 1, 256, 256), (112, 1, 64, 64), (112, 1))),
     (16, 100, 16, 16, 16, 8, ((2, 7, 64, 64), (16, 7, 16, 16), (16, 7))),
     (8, 777, 64, 64, 256, 1, ((8, 4, 256, 256), (8, 4, 64, 64), (8, 4))),
+    (16, 2048, 513, 512, 256, 1,
+     ((16, 8, 256, 256), (16, 8, 512, 513), (16, 8))),
 ])
 def test_ssd_scratch_shapes(bh, s, p, n, chunk, heads, want):
     """The wrapper's scratch: scores per (batch row, chunk) with the chunk
@@ -658,21 +733,84 @@ def test_ssd_scratch_shapes(bh, s, p, n, chunk, heads, want):
     # 586 sequences of zamba2's 112 heads: past 65536 lanes
     (586 * 112, 2048, 64, 64, 256, True),
     (2 ** 20, 777, 64, 64, 256, True),
-    (8, 777, 65, 64, 256, False),
-    (8, 777, 64, 65, 256, False),
+    (8, 777, 65, 64, 256, True),          # P past 64: a second column tile
+    (8, 777, 64, 65, 256, True),          # N past 64: a second row tile
+    (16, 2048, 513, 512, 256, True),      # xlstm-350m's mLSTM
+    (1, 64, 2 ** 20, 64, 256, False),     # N * P past 65535 * 256 entries
+    (1, 64, 2 ** 22, 1, 256, False),      # 65536 tiles of the state
     (8, 777, 64, 64, 257, False),
     (8, 200, 64, 64, 257, True),          # the chunk is cut to S
     (1, 2 ** 25, 64, 64, 256, False),     # S * max(N, P) reaches 2**31
     (2 ** 20, 2 ** 12, 1, 1, 1, False),   # 2**32 blocks of the outputs
 ])
 def test_ssd_kernel_shape_limits(bh, s, p, n, chunk, ok):
-    """The kernels take any BH while their grids fit: only N, P, the chunk
-    and the index ranges are limited."""
+    """The kernels take any BH while their grids fit: only the chunk, the
+    state's tiles and entries (N, P tile by 64 on the grid) and the index
+    ranges are limited."""
     if ok:
         ssd_mod.check_kernel_shape(bh, s, p, n, chunk)
     else:
         with pytest.raises(ValueError, match="limits"):
             ssd_mod.check_kernel_shape(bh, s, p, n, chunk)
+
+
+# ---------------------------------------------------------------------------
+# the scan past N, P 64 (xlstm's mLSTM: N 512, P 513).  The Pallas kernel's
+# blocks are the whole state, so the JAX counterpart there is the
+# reference's ssd_chunked (src/repro/models/ssm.py), what its models call.
+# ---------------------------------------------------------------------------
+def _ssd_chunked_lanes(xb, la, bm, cm, *, chunk, heads):
+    """The reference's ssd_chunked on the kernel's lanes: (BH, S, P) as
+    (BH / heads, S, heads, P), bm and cm shared by a row's heads.  Returns
+    y (BH, S, P) and the final state (BH, N, P) as numpy."""
+    g = xb.shape[0] // heads
+    s, p = xb.shape[1:]
+    x4 = jnp.asarray(xb.reshape(g, heads, s, p)).transpose(0, 2, 1, 3)
+    l3 = jnp.asarray(la.reshape(g, heads, s)).transpose(0, 2, 1)
+    y, st = JS.ssd_chunked(x4, l3, jnp.asarray(bm), jnp.asarray(cm), chunk)
+    y = np.asarray(y).transpose(0, 2, 1, 3).reshape(g * heads, s, p)
+    return y, np.asarray(st).reshape(g * heads, *st.shape[2:])
+
+
+# (BH, heads, S, P, N, chunk): N != P past 64 with heads sharing bm/cm and
+# a ragged S, P not a multiple of 64 with N a multiple, and the odd P of
+# the mLSTM's value channels plus its normalizer
+SSD_WIDE_CASES = [
+    (4, 2, 300, 129, 96, 256),
+    (2, 1, 200, 72, 128, 64),
+    (2, 1, 160, 97, 80, 64),
+]
+
+
+@pytest.mark.parametrize("bh,heads,s,p,n,chunk", SSD_WIDE_CASES)
+def test_ssd_scan_plain_past_64_matches_ssd_chunked(bh, heads, s, p, n,
+                                                    chunk):
+    rng = np.random.default_rng(bh * s + p + n)
+    xb, _, bm, cm = _ssd_inputs(rng, bh, s, p, n, groups=bh // heads)
+    la = (-0.1 * rng.random((bh, s))).astype(np.float32)
+    y, st = ops.ssd_scan(*map(torch.from_numpy, (xb, la, bm, cm)),
+                         chunk=chunk, heads=heads)
+    assert y.shape == (bh, s, p) and st.shape == (bh, n, p)
+    y0, st0 = _ssd_chunked_lanes(xb, la, bm, cm, chunk=chunk, heads=heads)
+    assert np.abs(y.numpy() - y0).max() <= 2e-4 * np.abs(y0).max()
+    assert np.abs(st.numpy() - st0).max() <= 2e-4 * np.abs(st0).max()
+
+
+@pytest.mark.parametrize("bh,heads,s,p,n,chunk", SSD_WIDE_CASES)
+def test_ssd_split_tf32_schedule_past_64_matches_ssd_chunked(bh, heads, s, p,
+                                                             n, chunk):
+    """The kernels' schedule at N, P past 64 (the tiles change no sum: (a)
+    walks N's slices in order, (b) and (d) split the state's rows and
+    columns, which are independent) within the split-TF32 tier of the
+    reference's chunked math."""
+    rng = np.random.default_rng(bh * s + p + n + 1)
+    xb, _, bm, cm = _ssd_inputs(rng, bh, s, p, n, groups=bh // heads)
+    la = (-0.1 * rng.random((bh, s))).astype(np.float32)
+    y, st = _ssd_schedule(xb, la, bm, cm, chunk=chunk, heads=heads)
+    y0, st0 = _ssd_chunked_lanes(xb, la, bm, cm, chunk=chunk, heads=heads)
+    assert np.isfinite(y.numpy()).all()
+    assert np.abs(y.numpy() - y0).max() <= 2e-5 * np.abs(y0).max()
+    assert np.abs(st.numpy() - st0).max() <= 2e-5 * np.abs(st0).max()
 
 
 # ---------------------------------------------------------------------------
