@@ -62,6 +62,16 @@ fetch, and on a tall request (K3); a host lost mid-flight, chaos pools
 and hedges across host streams; a durable session crashed in a child
 process and resumed here; and all of it again under ``REPRO_SANITIZE=1``.
 
+LM training on the card (``repro_torch.train``): h2o-danube-3-4b at its
+published widths cut to 8 of its 24 layers (1.49 B parameters) and
+whisper-base whole, 12 steps each through ``Trainer.run`` with remat
+"full", K5's forward and hand-written backward on every step (step time,
+tokens/s, peak memory, launches a step); the reduced h2o-danube-3-4b and
+deepseek-v2-lite card against CPU in float32 (a step's loss and
+gradients, a loss curve), and a resume on the card bit for bit.  The
+kernels phase holds K5's backward against its plain version at the
+training shapes and times it beside scaled_dot_product_attention's.
+
 The persistent library store (``compile/persist.py``): fresh processes
 on a fresh ``REPRO_PROGRAM_CACHE_DIR`` — the first builds both kernel
 libraries, the second builds none, one after a library was truncated
@@ -76,7 +86,8 @@ same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
 estimate_wave, wave_pool, session_wave, fusion, page_pool,
 estimate_quickstart, estimate_mlp, serve_zamba2, serve_deepseek,
 serve_dense, serve_xlstm, serve_whisper, serve_vlm, same_as_cpu_lm,
-topology, topology_chaos, durable, sanitize, persist, examples.
+train_dense, train_whisper, topology, topology_chaos, durable, sanitize,
+persist, examples.
 """
 from __future__ import annotations
 
@@ -126,7 +137,9 @@ from repro_torch.learners import (                         # noqa: E402
 from repro_torch.models import (                           # noqa: E402
     build_model, init_tree, param_count,
 )
-from repro_torch.models.param import cast_floating, tree_map  # noqa: E402
+from repro_torch.models.param import (                      # noqa: E402
+    cast_floating, tree_leaves, tree_map,
+)
 from repro_torch.models import layers as lm_layers         # noqa: E402
 from repro_torch.models import ssm as ssm_blocks           # noqa: E402
 from repro_torch.serverless import PoolConfig, make_backend  # noqa: E402
@@ -138,7 +151,7 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "session_wave", "fusion", "page_pool", "estimate_quickstart",
           "estimate_mlp", "serve_zamba2", "serve_deepseek", "serve_dense",
           "serve_xlstm", "serve_whisper", "serve_vlm", "same_as_cpu_lm",
-          "topology",
+          "train_dense", "train_whisper", "topology",
           "topology_chaos", "durable", "sanitize", "persist", "examples")
 LIBRARIES = ("megabatch", "lm")
 
@@ -184,12 +197,20 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/lm.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:52",
     },
+    # K5's gradient: the reference differentiates its jnp attention (its
+    # Pallas kernel has no VJP); this is the backward of that kernel
+    "flash_attention_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lm.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+    },
 }
 # the wrapper module of each kernel (its ``<name>_cuda`` launches it)
 KERNEL_MODULES = {"batched_gram": megabatch, "batched_predict": megabatch,
                   "batched_gram_blocked": megabatch,
                   "crossfit_gram": crossfit_gram,
-                  "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+                  "flash_attention": flash_attention,
+                  "flash_attention_bwd": flash_attention, "ssd_scan": ssd_scan}
 # (B, N, P) of every launch each driven path makes: full blocks of 32
 # lanes and the aligned tail, N and P as the bucket pads them, plus the
 # intercept column; then the fused launches of the default pool, whose
@@ -318,15 +339,16 @@ ATTN_SHAPES = (MAIN_ATTN_SHAPE, (128, 2048, 2048, 112, "f32", True, 32768),
     for dtype in ("bf16", "f32"))
 # the three last families' prefills (name -> row and its types):
 # serve_vlm's (B 2 x 64 heads, GQA 64/8 repeated, S 2048, D 128) causal
-# self-attention, in bf16, its type on the path (in float32 this row sat
-# at 2.06e-5 of the plain version, past ATTN_F32_SPLIT_TOL: PERF.md §7),
+# self-attention, in both types (in float32 it sat 2.06e-5 from the plain
+# version and 2.0e-5 from float64 until the float32 kernel summed each key
+# tile's P V apart: 5.7e-6 and 5.3e-6 since, PERF.md),
 # and its cross-attention against one image tile's 1601 tokens (Sq > Skv,
 # nothing masked); serve_whisper's (B 4 x 8 heads, D 64) encoder over 1500
 # frames (not causal), decoder self-attention over its 400-token prompt
 # (causal) and cross-attention against the 1500 frames; a ragged Sq >
 # Skv.  Each is timed beside scaled_dot_product_attention
 CROSS_ATTN_ROWS = {
-    "vlm_self": ((128, 2048, 2048, 128, True, None), ("bf16",)),
+    "vlm_self": ((128, 2048, 2048, 128, True, None), ("bf16", "f32")),
     "vlm_cross": ((128, 2048, 1601, 128, False, None), ("bf16", "f32")),
     "whisper_encoder": ((32, 1500, 1500, 64, False, None), ("bf16", "f32")),
     "whisper_self": ((32, 400, 400, 64, True, None), ("bf16", "f32")),
@@ -368,7 +390,9 @@ TYPE_NAMES = {v: k for k, v in TYPES.items()}
 # attention tolerance: the reference's own (tests/test_kernels.py TOL)
 ATTN_TOL = {"f32": 2e-4, "bf16": 2e-2}
 # and, for float32, the split-TF32 kernel's own tier: a product within
-# about 2^-21 of float32 (one TF32 rounding is about 1e-3 off)
+# about 2^-21 of float32 (one TF32 rounding is about 1e-3 off).  Every
+# float32 row's distances from float64 attention (a slice of lanes at a
+# time), the kernel's and the plain version's, are reported beside it
 ATTN_F32_SPLIT_TOL = 2e-5
 # and per element in bf16: |o - o0| <= 2 bf16 steps at |o0| + 1e-4
 BF16_ULPS = 2.0
@@ -421,24 +445,89 @@ def _time_ms(fn, *, cold: bool, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_kernels(fn, calls: int = 1) -> dict:
+# the kernel nodes of a captured CUDA graph (CUgraphNodeType)
+CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def _graph_launches(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches, counted exactly: the
+    kernel nodes of a CUDA graph captured from the call (the call is
+    captured, not run)."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        kernels += kind.value == CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels
+
+
+# profiler sessions tried before a trace counts as incomplete, and the host
+# pause at each end of the first of them (doubled each time)
+PROFILER_SESSIONS = 5
+PROFILER_PAUSE_S = 0.02
+# the kernel that torch.cuda._sleep launches: the sentinels of a session,
+# told apart by their lengths in cycles
+SENTINEL_KERNEL = "spin_kernel"
+SENTINEL_CYCLES = {"first": 1_000, "last": 200_000}
+SENTINEL_SPLIT_US = 20.0
+
+
+def _device_kernels(fn, calls: int = 1):
     """The CUDA kernels that ``calls`` calls of ``fn`` launch, traced by
-    torch.profiler: name -> (launches, device ms), each per call."""
+    torch.profiler: name -> (launches, device ms), each per call, or None
+    when no session was whole.
+
+    The profiler loses kernels on an H100: whole sessions came back empty,
+    and a K6 call was counted at 2 or 3 of the four kernels its source
+    launches.  So each session pauses on the host, launches a short
+    sentinel kernel (``torch.cuda._sleep``), runs the calls, launches a
+    long sentinel and pauses again; a session missing either sentinel is
+    traced again with longer pauses, up to PROFILER_SESSIONS times.  Launch
+    counts that a check relies on come from ``_graph_launches``."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for attempt in range(PROFILER_SESSIONS):
+        pause = PROFILER_PAUSE_S * 2 ** attempt
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        # the operators' rows ("aten::...") and the runtime's API rows
-        # ("cudaLaunchKernel") are not kernels
-        if us > 0 and not ev.key.startswith(("aten::", "cuda")):
-            out[ev.key] = (ev.count / calls, us / 1e3 / calls)
-    return out
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pause)
+            torch.cuda._sleep(SENTINEL_CYCLES["first"])
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(SENTINEL_CYCLES["last"])
+            torch.cuda.synchronize()
+            time.sleep(pause)
+        found = {"first": 0, "last": 0}
+        for ev in prof.events():
+            if SENTINEL_KERNEL in ev.name:
+                long = ev.time_range.elapsed_us() > SENTINEL_SPLIT_US
+                found["last" if long else "first"] += 1
+        if found == {"first": 1, "last": 1}:
+            out = {}
+            for ev in prof.key_averages():
+                us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+                # the operators' rows ("aten::..."), the runtime's API rows
+                # ("cudaLaunchKernel") and the sentinels are not fn's
+                if us > 0 and SENTINEL_KERNEL not in ev.key \
+                        and not ev.key.startswith(("aten::", "cuda")):
+                    out[ev.key] = (ev.count / calls, us / 1e3 / calls)
+            return out
+        print(f"chip_smoke: a profiler session held sentinels {found} "
+              f"(pause {pause} s); tracing again", file=sys.stderr,
+              flush=True)
+    return None
 
 
 def _gram_bound(b, n, p):
@@ -599,13 +688,13 @@ def phase_kernels(device):
         del out, out0, out64
         if shape == MAIN_SHAPE:
             # one wrapper call (one count): its CUDA launches (the Gram
-            # kernel and the combine) as the profiler sees them, and the
+            # kernel and the combine) as a captured CUDA graph holds them, and the
             # scratch of partial tiles it allocates beside G and b as the
             # device allocator counts it (the peak of the call less what
             # stays allocated after it)
-            traced = _device_kernels(lambda: ops.batched_gram(xs, w, y))
-            gram["cuda_launches_per_call"] = sum(k for k, _ in traced.values())
-            assert gram["cuda_launches_per_call"] >= 1, traced
+            gram["cuda_launches_per_call"] = _graph_launches(
+                lambda: ops.batched_gram(xs, w, y))
+            assert gram["cuda_launches_per_call"] >= 1, gram
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             g, bv = ops.batched_gram(xs, w, y)
@@ -629,6 +718,12 @@ def phase_kernels(device):
     blocked, rows["batched_gram_blocked"] = _blocked_kernel_rows(device, gen)
     xfit, rows["crossfit_gram"] = _xfit_kernel_rows(device, gen)
     attn, rows["flash_attention"] = _attn_kernel_rows(device, gen)
+    rows["flash_attention"]["lse_write"] = _lse_write_cost(device, gen)
+    attn_bwd, bwd_rows = _attn_bwd_kernel_rows(device, gen)
+    rows["flash_attention_bwd"] = {
+        **bwd_rows[MAIN_BWD_ATTN],
+        "rows": {f"{name}_{dtype}": row
+                 for (name, dtype), row in bwd_rows.items()}}
     ssd, rows["ssd_scan"] = _ssd_kernel_rows(device, gen)
     emit("kernels", tolerance={
         "batched_predict": "rtol 1e-5, atol 1e-5; valid == 0 rows == 0 "
@@ -647,9 +742,26 @@ def phase_kernels(device):
                          "16-byte boundary bitwise the aligned result",
         "flash_attention": "max abs error 2e-4 (float32), 2e-2 (bf16): "
                            "the reference's own tolerance; float32 also "
-                           "within 2e-5 (the split-TF32 tier); bf16 also "
-                           "per element within 2 bf16 steps at |o0| after "
-                           "1e-4",
+                           "within 2e-5 (the split-TF32 tier; both routes' "
+                           "distances from float64 attention reported); "
+                           "bf16 also per element within 2 bf16 steps at "
+                           "|o0| after 1e-4",
+        "flash_attention_bwd": "dq, dk, dv on the first 16 lanes within "
+                               "2e-2 (bf16) of each gradient's max|grad| "
+                               "of the plain backward (float32, from the "
+                               "plain o and lse), and per row within 2e-2 "
+                               "of each query row's (dq) or key row's (dk, "
+                               "dv) own max|grad|, at least 1e-3 of the "
+                               "gradient's, of the plain backward on the "
+                               "kernel's own o and lse; float32 within "
+                               "2e-5 of "
+                               "max|grad| (the float64 gradients' "
+                               "distances reported); two runs the same "
+                               "bits; bf16 steps per element measured, not "
+                               "held; the forward writing lse: o as "
+                               "flash_attention's tiers (2e-2 and 2 bf16 "
+                               "steps; float32 2e-5), lse within 1e-5 of "
+                               "max|lse|",
         "ssd_scan": "y within 2e-4 of max|y|, the final state within "
                     "2e-4 of max|state|: the reference's own tolerance; "
                     "also within 2e-5 of each (the split-TF32 tier)"},
@@ -658,7 +770,9 @@ def phase_kernels(device):
                "device kept busy while the host enqueues; ssd_scan's "
                "plain_ms (2048 sequential steps): median of 5 after 1",
         kernels=sorted(KERNELS), shapes=report, blocked_shapes=blocked,
-        crossfit_shapes=xfit, attention_shapes=attn, ssd_shapes=ssd,
+        crossfit_shapes=xfit, attention_shapes=attn,
+        attention_backward_shapes=attn_bwd,
+        lse_write=rows["flash_attention"]["lse_write"], ssd_shapes=ssd,
         bound_rates={"bytes_s": PEAK_BYTES_S, "f32_flop_s": PEAK_F32_FLOP_S,
                      "bf16_tensor_core_flop_s": PEAK_BF16_TC_FLOP_S,
                      "tf32_tensor_core_flop_s": PEAK_TF32_TC_FLOP_S,
@@ -958,10 +1072,18 @@ def _attn_kernel_rows(device, gen):
         err = float((o.float() - o0.float()).abs().max())
         assert torch.isfinite(o).all() and err < ATTN_TOL[dtype], \
             ("flash_attention disagrees", shape, err)
-        # float32: the split-TF32 kernel's own, stricter tier besides
-        assert dtype == "bf16" or err <= ATTN_F32_SPLIT_TOL, \
-            ("flash_attention float32 outside the split-TF32 tier", shape,
-             err)
+        # float32: the split-TF32 kernel's own, stricter tier besides; the
+        # distances of both from float64 are reported
+        f64 = {}
+        if dtype == "f32":
+            o64 = _attn_f64(q, k, v, causal, window)
+            f64 = {"abs_err_vs_f64": float((o.double() - o64).abs().max()),
+                   "plain_abs_err_vs_f64": float(
+                       (o0.double() - o64).abs().max())}
+            del o64
+            assert err <= ATTN_F32_SPLIT_TOL, \
+                ("flash_attention float32 outside the split-TF32 tier",
+                 shape, err, f64)
         # per element in bf16: the flat tier alone would pass a fault
         # confined to the late query rows, whose outputs are small
         ulps = _bf16_ulps(o, o0) if dtype == "bf16" else None
@@ -978,7 +1100,7 @@ def _attn_kernel_rows(device, gen):
             "library_ms": None,
             "bound_ms": bound, "bound_by": by,
             "bound_ms_at_f32_fma": bound_f32,
-            "bytes": nbytes, "operations": flops,
+            "bytes": nbytes, "operations": flops, **f64,
         }
         if shape[:4] in library_keys and (sq == skv or not causal) \
                 and (window is None or window >= skv):
@@ -1046,6 +1168,272 @@ def _attn_kernel_rows(device, gen):
     return report, main
 
 
+# K5's backward (``flash_attention_bwd``) and the forward that writes the
+# row log-sum-exp (the training forward): (name, (BH, Sq, Skv, D, type,
+# causal, window[, Dv])) — h2o-danube-3-4b's training call (B 8 x 32 heads,
+# GQA 32/8 repeated, S 4096, D 120) causal under its own window of 4096
+# (which does not bite at 4096 tokens, but takes the kernels' windowed
+# branches), and windowed at 1024; whisper-base's training calls (B 8 x 8
+# heads, D 64): the encoder over 1500 frames (not masked), the decoder's
+# self-attention over 448 tokens (causal) and its cross-attention against
+# the 1500 frames; deepseek-v2-lite's MLA (B 4 x 16 heads, Dqk 192, Dv
+# 128) causal; then three of them in float32; last train_dense's reduced
+# calls: h2o-danube-3-4b (B 4 x 4 heads, S 256, D 32, window 64) in
+# float32 (card against CPU) and bf16 (the resume), and deepseek-v2-lite's
+# MLA (B 4 x 4 heads, S 128, Dqk 48, Dv 32) in float32
+BWD_ATTN_ROWS = (
+    ("h2o_causal", (256, 4096, 4096, 120, "bf16", True, 4096)),
+    ("h2o_window", (256, 4096, 4096, 120, "bf16", True, 1024)),
+    ("whisper_encoder", (64, 1500, 1500, 64, "bf16", False, None)),
+    ("whisper_self", (64, 448, 448, 64, "bf16", True, None)),
+    ("whisper_cross", (64, 448, 1500, 64, "bf16", False, None)),
+    ("mla", (64, 2048, 2048, 192, "bf16", True, None, 128)),
+    ("whisper_encoder", (64, 1500, 1500, 64, "f32", False, None)),
+    ("whisper_cross", (64, 448, 1500, 64, "f32", False, None)),
+    ("mla", (64, 2048, 2048, 192, "f32", True, None, 128)),
+    ("h2o_reduced", (16, 256, 256, 32, "f32", True, 64)),
+    ("h2o_reduced", (16, 256, 256, 32, "bf16", True, 64)),
+    ("mla_reduced", (16, 128, 128, 48, "f32", True, None, 32)),
+)
+MAIN_BWD_ATTN = ("h2o_causal", "bf16")
+# the plain backward holds a few (lanes, Sq, Skv) float32 tensors: it is
+# compared on the first lanes of each row (17 GB a tensor at h2o's 256)
+BWD_COMPARE_LANES = 16
+# bf16 backward, per row, against the plain backward on the kernel's own
+# o and lse: each query row of dq and each key row of dk and dv within
+# ATTN_TOL["bf16"] of its own largest magnitude, a row under BWD_ROW_FLOOR
+# of the gradient's largest held at that floor (a causal query that sees
+# one key has dq = 0 exactly).  The flat tier of max|grad| alone would
+# pass a fault confined to the late causal query rows, whose dq spreads
+# over thousands of keys and stays small beside the early rows'
+BWD_ROW_FLOOR = 1e-3
+# the forward's row log-sum-exp: within 1e-5 of max|lse| of the plain one
+LSE_TOL = 1e-5
+
+
+def _attn_f64(q, k, v, causal, window, lanes=BWD_COMPARE_LANES):
+    """Attention in float64 (the truth the float32 routes are measured
+    against), a slice of lanes at a time."""
+    ok = flash_attention.visible(q.shape[1], k.shape[1], causal, window,
+                                 q.device)
+    out = []
+    for i in range(0, q.shape[0], lanes):
+        s = torch.einsum("bqd,bkd->bqk", q[i:i + lanes].double(),
+                         k[i:i + lanes].double()) / np.sqrt(q.shape[-1])
+        p = torch.softmax(s.masked_fill(~ok[None], float("-inf")), dim=-1)
+        out.append(torch.einsum("bqk,bkd->bqd", p,
+                                v[i:i + lanes].double()))
+    return torch.cat(out)
+
+
+def _attn_bwd_bound(bh, sq, skv, d, dtype, causal, window, dv=None):
+    # five products a visible pair: Q K' (2 D), dO V' (2 Dv), dV (2 Dv),
+    # dK (2 D), dQ (2 D); q, k, v, o, dO and lse read once, dq, dk, dv
+    # written once.  bf16 at the bf16 tensor-core rate, float32 at the
+    # TF32 rate over the split's three passes
+    dv = d if dv is None else dv
+    flops = bh * _attn_pairs(sq, skv, causal, window) * 2 * (3 * d + 2 * dv)
+    size = TYPES[dtype].itemsize
+    nbytes = size * bh * (2 * (sq * d + skv * d + skv * dv) + 2 * sq * dv) \
+        + 4 * bh * sq
+    peak = PEAK_BF16_TC_FLOP_S if dtype == "bf16" \
+        else PEAK_TF32_TC_FLOP_S / TF32_SPLIT_PASSES
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (nbytes, flops, max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _grad_errs(got, want):
+    """Per gradient (dq, dk, dv): max |got - want| as a fraction of max
+    |want|."""
+    return [float((g.double() - w.double()).abs().max()
+                  / w.double().abs().max()) for g, w in zip(got, want)]
+
+
+def _row_errs(got, want):
+    """Per gradient (dq, dk, dv; each (lanes, rows, depth)): the largest
+    over rows of max |got - want| as a fraction of the row's max |want|,
+    at least BWD_ROW_FLOOR of the gradient's max |want|."""
+    out = []
+    for g, w in zip(got, want):
+        scale = w.float().abs().amax(-1)
+        scale = scale.clamp(min=BWD_ROW_FLOOR * float(scale.max()))
+        out.append(float(((g.float() - w.float()).abs().amax(-1)
+                          / scale).max()))
+    return out
+
+
+def _sdpa_backward(q, k, v, do, causal, window):
+    """scaled_dot_product_attention's backward at K5's call (timed only):
+    (the function to time, its name).  SDPA's causal mask is aligned top
+    left, so a call whose mask is not that (a window that bites, causal
+    with Sq != Skv) passes a boolean attn_mask, on the efficient-attention
+    backend, which differentiates one."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sq, skv = q.shape[1], k.shape[1]
+    leaves = [x[None].detach().requires_grad_(True) for x in (q, k, v)]
+    if (sq == skv or not causal) and (window is None or window >= skv):
+        out = sdpa(*leaves, is_causal=causal)
+        name = (f"scaled_dot_product_attention(is_causal={causal}) "
+                f"backward on (1, BH, S, D)")
+    else:
+        mask = flash_attention.visible(sq, skv, causal, window, q.device)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = sdpa(*leaves, attn_mask=mask)
+        name = ("scaled_dot_product_attention(attn_mask=visible(...)) "
+                "backward on (1, BH, S, D), efficient-attention backend")
+
+    def library():
+        return torch.autograd.grad(out, leaves, do[None], retain_graph=True)
+    return library, name
+
+
+def _attn_bwd_kernel_rows(device, gen):
+    """K5's backward at every row of BWD_ATTN_ROWS, after the forward that
+    writes the row log-sum-exp: run twice (the same bits), held on its
+    first BWD_COMPARE_LANES lanes against ``flash_attention_backward_plain``
+    (from the plain forward's float32 o and lse) at ATTN_TOL of each
+    gradient's max and per row (bf16) or ATTN_F32_SPLIT_TOL (float32; the
+    float64 gradients' distances reported), the forward's o and lse held
+    against the plain ones, timed beside the plain backward (over all
+    lanes, a slice at a time) and scaled_dot_product_attention's
+    backward."""
+    report, rows = [], {}
+    for name, shape in BWD_ATTN_ROWS:
+        bh, sq, skv, d, dtype, causal, window = shape[:7]
+        dv = shape[7] if len(shape) > 7 else d
+        t = TYPES[dtype]
+        q, k = (torch.randn((bh, n, d), generator=gen, device=device).to(t)
+                for n in (sq, skv))
+        v = torch.randn((bh, skv, dv), generator=gen, device=device).to(t)
+        do = torch.randn((bh, sq, dv), generator=gen, device=device).to(t)
+        o, lse = flash_attention._forward_cuda(q, k, v, causal, window,
+                                               with_lse=True)
+
+        def kernel():
+            return flash_attention.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, causal=causal, window=window)
+        grads, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+        assert same_bits, ("flash_attention_bwd: two runs differ", shape)
+        del again
+        n = min(bh, BWD_COMPARE_LANES)
+        qs, ks, vs, dos = (x[:n] for x in (q, k, v, do))
+        o0 = flash_attention.flash_attention_plain(
+            qs.float(), ks.float(), vs.float(), causal=causal, window=window)
+        lse0 = flash_attention.flash_attention_lse_plain(
+            qs, ks, causal=causal, window=window)
+        # the training forward (the row log-sum-exp written) at this call
+        o_err = float((o[:n].float() - o0).abs().max())
+        lse_err = float((lse[:n] - lse0).abs().max())
+        o_ulps = _bf16_ulps(o[:n], o0) if dtype == "bf16" else None
+        assert torch.isfinite(o).all() and o_err <= (
+            ATTN_TOL["bf16"] if dtype == "bf16" else ATTN_F32_SPLIT_TOL) \
+            and (o_ulps is None or o_ulps <= BF16_ULPS), \
+            ("flash_attention (lse) disagrees", shape, o_err, o_ulps)
+        assert lse_err <= LSE_TOL * float(lse0.abs().max()), \
+            ("flash_attention's lse disagrees", shape, lse_err)
+        want = flash_attention.flash_attention_backward_plain(
+            qs, ks, vs, o0, lse0, dos, causal=causal, window=window)
+        got = [g[:n] for g in grads]
+        errs = _grad_errs(got, want)
+        err = max(errs)
+        row = {"shape": list(shape), "compared_lanes": n,
+               "max_abs_err": max(float((g.float() - w).abs().max())
+                                  for g, w in zip(got, want)),
+               "max_rel_err_of_max": err, "dq_dk_dv_rel_errs": errs,
+               "forward_lse_o_max_abs_err": o_err,
+               "forward_lse_o_bf16_steps": o_ulps,
+               "lse_max_abs_err": lse_err,
+               "same_bits_twice": same_bits}
+        assert all(torch.isfinite(g).all() for g in grads), shape
+        if dtype == "bf16":
+            # per row against the plain backward on the kernel's own
+            # inputs (its bf16 o and its lse): from the plain forward's
+            # float32 o, delta = rowsum(dO o O) carries o's bf16 rounding
+            # into every dS of a row, which stays where a peaked row's dq
+            # (about P (1 - P)) is small; that is the forward's rounding
+            # (the plain backward given the bf16 o parts from itself given
+            # the float32 o as much, ``plain_bf16_o_per_row``)
+            want_in = flash_attention.flash_attention_backward_plain(
+                qs, ks, vs, o[:n], lse[:n], dos, causal=causal,
+                window=window)
+            rows_err = _row_errs(got, want_in)
+            row.update(dq_dk_dv_rel_errs_per_row=rows_err,
+                       per_row_vs_plain_forward=_row_errs(got, want),
+                       plain_bf16_o_per_row=_row_errs(want_in, want))
+            del want_in
+            assert err <= ATTN_TOL["bf16"] \
+                and max(rows_err) <= ATTN_TOL["bf16"], \
+                ("flash_attention_bwd", shape, errs, row)
+            # per element, in bf16 steps at each element's magnitude (near
+            # 0, dS = P o (dP - delta) cancels) and at the gradient's max
+            row["max_err_bf16_steps_per_element"] = max(
+                _bf16_ulps(g, w) for g, w in zip(got, want))
+            row["max_err_bf16_steps_at_max"] = err * 256.0
+        else:
+            o64 = _attn_f64(qs, ks, vs, causal, window)
+            lse64 = flash_attention.flash_attention_lse_plain(
+                qs.double(), ks.double(), causal=causal, window=window)
+            want64 = flash_attention.flash_attention_backward_plain(
+                qs.double(), ks.double(), vs.double(), o64, lse64,
+                dos.double(), causal=causal, window=window)
+            row.update(rel_err_vs_f64=max(_grad_errs(got, want64)),
+                       plain_rel_err_vs_f64=max(_grad_errs(want, want64)))
+            assert err <= ATTN_F32_SPLIT_TOL, \
+                ("flash_attention_bwd float32 outside the split-TF32 tier",
+                 shape, err, row)
+            del o64, lse64, want64
+        del o0, lse0, want, got
+
+        def plain():
+            return [flash_attention.flash_attention_backward_plain(
+                q[i:i + n], k[i:i + n], v[i:i + n], o[i:i + n],
+                lse[i:i + n], do[i:i + n], causal=causal, window=window)
+                for i in range(0, bh, n)]
+        nbytes, flops, bound, by = _attn_bwd_bound(*shape)
+        row.update({
+            "ms": _time_ms(kernel, cold=True),
+            "plain_ms": _time_ms(plain, cold=True, runs=3, warmup=1),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "bytes": nbytes, "operations": flops})
+        try:                        # Dv != D: not every backend takes it
+            library, row["library"] = _sdpa_backward(q, k, v, do, causal,
+                                                     window)
+            library()
+        except RuntimeError as exc:
+            row["library_error"] = str(exc).splitlines()[0][:200]
+        else:
+            row["library_ms"] = _time_ms(library, cold=True)
+        library = None
+        rows[(name, dtype)] = row
+        report.append({"name": name, "flash_attention_bwd": row})
+        del q, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+    return report, rows
+
+
+def _lse_write_cost(device, gen):
+    """The forward at serve_zamba2's row with and without the row
+    log-sum-exp written (the training form), timed in turns (without,
+    with, with, without); the two give o with the same bits."""
+    bh, sq, skv, d, dtype, causal, window = MAIN_ATTN_SHAPE
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device=device)
+               .to(TYPES[dtype]) for n in (sq, skv, skv))
+    calls = {lse: (lambda lse=lse: flash_attention._forward_cuda(
+        q, k, v, causal, window, with_lse=lse)) for lse in (False, True)}
+    same = torch.equal(calls[False]()[0], calls[True]()[0])
+    assert same, "the forward's o differs with the row log-sum-exp written"
+    times = {False: [], True: []}
+    for lse in (False, True, True, False):
+        times[lse].append(_time_ms(calls[lse], cold=True))
+    return {"shape": list(MAIN_ATTN_SHAPE), "ms_without_lse": times[False],
+            "ms_with_lse": times[True], "same_o_bits": same}
+
+
 def _ssd_inputs(shape, decay, device, gen):
     """xbar, la, bm, cm of an SSD_SHAPES row."""
     bh, s, p, n, _, heads = shape
@@ -1099,15 +1487,13 @@ def _ssd_kernel_rows(device, gen):
         if shape in (MAIN_SSD_SHAPE, XLSTM_SSD_SHAPE):
             row["plain_ms"] = _time_ms(lambda: ssd_scan.ssd_scan_plain(
                 x, la, bm, cm, heads=heads), cold=True, runs=5, warmup=1)
-            # one wrapper call (one count): its CUDA launches as the
-            # profiler sees them, and the scratch it allocates beside y and
+            # one wrapper call (one count): its CUDA launches as a captured
+            # CUDA graph holds them, and the scratch it allocates beside y and
             # the state as the device allocator counts it (the peak of the
             # call less what stays allocated after it)
-            traced = _device_kernels(lambda: ops.ssd_scan(
-                x, la, bm, cm, chunk=chunk, heads=heads))
-            row["cuda_launches_per_call"] = sum(
-                k for k, _ in traced.values())
-            assert row["cuda_launches_per_call"] >= 1, traced
+            row["cuda_launches_per_call"] = _graph_launches(
+                lambda: ops.ssd_scan(x, la, bm, cm, chunk=chunk, heads=heads))
+            assert row["cuda_launches_per_call"] >= 1, row
             del y, st
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1213,7 +1599,8 @@ def _counts(launches, calls):
     K2, no other kernel."""
     return launches == {"batched_gram": calls, "batched_gram_blocked": 0,
                         "batched_predict": calls, "crossfit_gram": 0,
-                        "flash_attention": 0, "ssd_scan": 0}
+                        "flash_attention": 0,
+                        "flash_attention_bwd": 0, "ssd_scan": 0}
 
 
 def _same_bits(res, res_ref, preds, preds_ref):
@@ -1438,8 +1825,11 @@ def phase_same_as_cpu(device):
 def _launch_shapes():
     """Record the operand shape of every kernel launch made inside the
     block: each ``*_cuda`` wrapper is wrapped for the duration (the
-    launch counts are the wrappers' own and are not touched)."""
-    seen = {name: set() for name in KERNELS}
+    launch counts are the wrappers' own and are not touched).  A forward
+    of flash attention that takes the backward route (grad mode on, an
+    input that requires a gradient: the kernel writes the row
+    log-sum-exp) is recorded under ``flash_attention_lse``."""
+    seen = {name: set() for name in KERNELS} | {"flash_attention_lse": set()}
     real = {name: getattr(KERNEL_MODULES[name], f"{name}_cuda")
             for name in KERNELS}
 
@@ -1448,7 +1838,8 @@ def _launch_shapes():
             shape = tuple(operand.shape)
             if name == "crossfit_gram":         # (T,) of w, then x's (N, P)
                 shape = (int(args[0].shape[0]),) + shape
-            elif name == "flash_attention":     # ATTN_SHAPES' key
+            elif name in ("flash_attention", "flash_attention_bwd"):
+                # ATTN_SHAPES' key (the backward's: BWD_ATTN_ROWS')
                 dv = int(args[1].shape[-1])
                 shape = (shape[0], shape[1], int(args[0].shape[1]), shape[2],
                          TYPE_NAMES[operand.dtype], bool(kw["causal"]),
@@ -1456,7 +1847,9 @@ def _launch_shapes():
             elif name == "ssd_scan":            # SSD_SHAPES' key
                 shape = shape + (int(args[1].shape[-1]), int(kw["chunk"]),
                                  int(kw["heads"]))
-            seen[name].add(shape)
+            lse = name == "flash_attention" and torch.is_grad_enabled() \
+                and any(t.requires_grad for t in (operand, *args[:2]))
+            seen["flash_attention_lse" if lse else name].add(shape)
             return real[name](operand, *args, **kw)
         return call
 
@@ -1527,6 +1920,8 @@ def _launches_compared(seen, what, device=None):
                 "batched_gram_blocked": set(BLOCKED_SHAPES),
                 "crossfit_gram": set(XFIT_SHAPES),
                 "flash_attention": set(ATTN_SHAPES),
+                "flash_attention_bwd": {row for _, row in BWD_ATTN_ROWS},
+                "flash_attention_lse": {row for _, row in BWD_ATTN_ROWS},
                 "ssd_scan": {shape for shape, _ in SSD_SHAPES}}
     held = set()
     if device is not None:
@@ -1732,7 +2127,9 @@ def phase_shared_x(device):
         launches = dict(runtime.launch_counts)
         assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
                             "batched_predict": 0, "crossfit_gram": 1,
-                            "flash_attention": 0, "ssd_scan": 0}, launches
+                            "flash_attention": 0,
+                            "flash_attention_bwd": 0, "ssd_scan": 0}, \
+            launches
         assert seen["crossfit_gram"] == {MAIN_XFIT_SHAPE}, seen
         _launches_compared(seen, f"shared_x/{learner}")
         total += launches["crossfit_gram"]
@@ -1794,7 +2191,8 @@ def phase_raw_request(device):
     lanes = stats["padded_tasks"]              # live and padding lanes
     assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
                         "batched_predict": 0, "crossfit_gram": lanes,
-                        "flash_attention": 0, "ssd_scan": 0}, \
+                        "flash_attention": 0,
+                        "flash_attention_bwd": 0, "ssd_scan": 0}, \
         (launches, lanes)
     assert seen["crossfit_gram"] == {LANE_XFIT_SHAPE}, seen
     _launches_compared(seen, "raw_request")
@@ -2931,6 +3329,7 @@ def phase_serve_zamba2(device):
     assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
                         "batched_predict": 0, "crossfit_gram": 0,
                         "flash_attention": n_bursts * groups,
+                        "flash_attention_bwd": 0,
                         "ssd_scan": n_bursts * n_mamba}, launches
     _launches_compared(seen, "serve_zamba2")
     assert bool(torch.stack(flags).all()), "serve_zamba2: a logit is not finite"
@@ -3210,9 +3609,9 @@ def phase_serve_xlstm(device):
     Served twice: the same tokens.  Launch counts are set to 0 just before
     the first serve and read just after.  Then one prefill of the first
     burst with K6's and the sLSTM loop's device spans, the loop's CUDA
-    launches as the profiler counts them, and the prefill/decode check in
-    float32 (the reference's check, which its reduced xlstm runs on no
-    block)."""
+    launches as a captured CUDA graph holds them, its busy time as the
+    profiler traces it, and the prefill/decode check in float32 (the
+    reference's check, which its reduced xlstm runs on no block)."""
     cfg = get_arch("xlstm-350m")
     bundle, params, init_s, param_bytes = _seeded_model(cfg, device)
     prompts = _serve_prompts(cfg.vocab_size, SERVE_PROMPTS, SERVE_LEN,
@@ -3234,10 +3633,14 @@ def phase_serve_xlstm(device):
                     device=device).to(torch.bfloat16)
     layer = tree_map(lambda t: t[0], params["slstm"])
     with torch.inference_mode():
+        launches = _graph_launches(
+            lambda: ssm_blocks.slstm_forward(layer, cfg, x))
         traced = _device_kernels(
             lambda: ssm_blocks.slstm_forward(layer, cfg, x))
-    slstm = {"cuda_launches_per_layer": sum(k for k, _ in traced.values()),
-             "device_ms_per_layer": sum(t for _, t in traced.values()),
+    # the busy time needs a whole profiler session: None where none was
+    slstm = {"cuda_launches_per_layer": launches,
+             "device_ms_per_layer": None if traced is None else
+             sum(t for _, t in traced.values()),
              "steps": SERVE_LEN, "batch": SERVE_BATCH}
     del x
     consistency = _consistency_f32(bundle, params, prompts[0], device)
@@ -4250,12 +4653,13 @@ def _example(name: str):
 def phase_examples(device, quickstart=None):
     """``examples/quickstart_torch.py`` (M 20), ``serverless_scaling_torch.py``
     (the Fig. 3 sweep: 2 scalings x 4 memories x 3 repeats, simulated
-    billing), ``session_batching_torch.py`` and ``serve_lm_torch.py`` (the
+    billing), ``session_batching_torch.py``, ``serve_lm_torch.py`` (the
     reduced deepseek-v2-lite, its default: 10 requests in 4 slots of 48
     tokens, 12 generated, then one batch through ``generate``; K5 once a
     layer and prefill, run twice with the same tokens; then the reduced
     xlstm-350m, whisper-base and llama-3.2-vision-90b the same way, the
-    last two through ``generate`` alone) on the card.  The
+    last two through ``generate`` alone) and ``train_lm_torch.py`` at
+    ``--full-100m`` for TRAIN_LM_EXAMPLE_STEPS steps on the card.  The
     quickstart's repetitions are the first 20 of ``estimate_quickstart``'s
     request (the same plan at M 100, seed 42, n_boot 500): theta and se of
     each repetition bit for bit."""
@@ -4332,6 +4736,28 @@ def phase_examples(device, quickstart=None):
                           "batch_first_tokens": gen_a.tokens[:, :4].tolist(),
                           "second_run_same_tokens": True}
 
+    # the training twin at the reference example's ~100M config (12 layers
+    # of 768, 12 heads of 64, vocab 32k; 8 x 512 tokens, remat "none"):
+    # a few steps, K5's forward and backward once a layer and step
+    train_lm_torch = _example("train_lm_torch")
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        cfg_t, _, _, hist_t, _ = train_lm_torch.run(
+            steps=TRAIN_LM_EXAMPLE_STEPS, full_100m=True, ckpt_dir=tmp,
+            device=device, log_every=1)
+        torch.cuda.synchronize()
+        walls["train_lm"] = time.perf_counter() - t0
+        train_launches = dict(runtime.launch_counts)
+    train_losses = [h["loss"] for h in hist_t]
+    assert len(train_losses) == TRAIN_LM_EXAMPLE_STEPS and \
+        all(np.isfinite(train_losses)) and \
+        train_losses[-1] < train_losses[0], train_losses
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert train_launches[name] == \
+            TRAIN_LM_EXAMPLE_STEPS * cfg_t.n_layers, train_launches
+
     def summary(res):
         s_ = res.report.summary()
         return {"theta": res.theta, "se": res.se,
@@ -4353,10 +4779,310 @@ def phase_examples(device, quickstart=None):
                    "batch_prefill_s": gen_res.prefill_s,
                    "batch_decode_tokens_per_s": gen_res.tokens_per_s,
                    "second_run_same_tokens": True, "families": families},
+         train_lm={"full_100m": True, "steps": TRAIN_LM_EXAMPLE_STEPS,
+                   "losses": train_losses, "launches": train_launches,
+                   "step_wall_s": [h["wall_s"] for h in hist_t]},
          tolerance="theta within 4 se of the planted effect; the "
                    "quickstart's repetitions bit for bit "
                    "estimate_quickstart's first 20; serve_lm's tokens "
-                   "equal in two runs")
+                   "equal in two runs; train_lm's losses finite and "
+                   "falling")
+
+
+# ---------------------------------------------------------------------------
+# LM training: train_dense (h2o-danube-3-4b at full width, depth cut; the
+# reduced model card against CPU, a resume bit for bit; the reduced
+# deepseek-v2-lite card against CPU) and train_whisper (whisper-base
+# whole).  K5's forward and backward run on every step; the optimizer,
+# checkpoints and trainer are ``repro_torch.train``'s.
+# ---------------------------------------------------------------------------
+# h2o-danube-3-4b's depth kept at full width: 24 layers at 16 bytes a
+# parameter (bf16 weights and gradients, float32 master, m and v) are 63 GB
+# before activations, past one 80 GB card; 8 layers are 1.49 B parameters
+TRAIN_DENSE_LAYERS = 8
+# (batch, tokens a sequence, steps, warmup) of both full runs
+TRAIN_BATCH, TRAIN_DENSE_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 4096, 12, 3
+# whisper-base: 8 clips of 1500 frames, 448 target tokens (its decoder's
+# context)
+TRAIN_WHISPER_FRAMES, TRAIN_WHISPER_TOKENS = 1500, 448
+TRAIN_LR = 1e-3
+# steps of examples/train_lm_torch.py --full-100m in the examples phase
+TRAIN_LM_EXAMPLE_STEPS = 6
+# the reduced models card against CPU, float32: the loss of one step
+# within 1e-5 relative; every gradient within GRAD_TIER of its largest
+# magnitude (K5's split-TF32 backward against autograd through the plain
+# attention, cuBLAS's float32 products against the CPU's; measured 3.2e-6
+# and 4.8e-6)
+TRAIN_LOSS_TIER = 1e-5
+TRAIN_GRAD_TIER = 1e-4
+# and the loss curves (Adam turns ulps of near-zero gradients into steps
+# of lr, so curves part as they go): measured 8.8e-7 relative over 20 steps
+# of the reduced h2o-danube-3-4b and 3.5e-7 over 3 of deepseek-v2-lite
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), held at 1e-5
+TRAIN_CURVE_TIER = 1e-5
+
+
+def _loss_and_grads(bundle, params, batch, device):
+    """(loss, metrics, gradients in flattening order) of ``bundle.loss_fn``
+    at ``params`` on ``device``, autograd through the device's route."""
+    from repro_torch.train.trainer import grads_of, to_device
+    loss, metrics, grads = grads_of(bundle.loss_fn, params,
+                                     to_device(batch, device))
+    return float(loss), {k: float(v) for k, v in metrics.items()}, \
+        tree_leaves(grads)
+
+
+def _grad_gap(got, want):
+    """Largest |got - want| over the gradient leaves, each as a fraction
+    of its largest |want| (leaves that are 0 on both sides skipped)."""
+    out = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        scale = float(w.abs().max())
+        if scale == 0.0:
+            assert float(g.abs().max()) == 0.0
+            continue
+        out = max(out, float((g - w).abs().max()) / scale)
+    return out
+
+
+def _train_run(bundle, params, batches, device, *, steps, warmup, lr,
+               log_every=1):
+    """``Trainer.run`` over pre-made batches (host data made before the
+    clock starts): (params, opt state, history, K5 launches, peak bytes,
+    the step times in ms from the history's wall clock)."""
+    from repro_torch.train import (
+        OptConfig, Trainer, TrainerConfig, init_opt_state,
+    )
+    ocfg = OptConfig(lr=lr, warmup_steps=warmup, total_steps=steps)
+    trainer = Trainer(bundle, ocfg, TrainerConfig(steps=steps,
+                                                  log_every=log_every))
+    opt = init_opt_state(params, ocfg)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    params, opt, hist = trainer.run(params, opt, iter(batches))
+    launches = {k: runtime.launch_counts[k]
+                for k in ("flash_attention", "flash_attention_bwd",
+                          "ssd_scan")}
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
+        else None
+    walls = [h["wall_s"] for h in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip([0.0] + walls, walls)]
+    return params, opt, hist, launches, peak, step_ms
+
+
+def _full_run_record(name, cfg, hist, launches, peak, step_ms, tokens,
+                     n_params, n_layers_attn):
+    losses = [h["loss"] for h in hist]
+    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
+    assert np.mean(losses[-4:]) < losses[0], (name, losses)
+    steady = statistics.median(step_ms[2:])
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    # remat "full": each layer's forward runs twice a step (the forward,
+    # the recompute in the backward), its backward once
+    assert per_step["flash_attention"] == 2 * n_layers_attn, per_step
+    assert per_step["flash_attention_bwd"] == n_layers_attn, per_step
+    return {"arch": cfg.name, "params": n_params,
+            "step_ms_median_steps_3_to_12": steady, "step_ms": step_ms,
+            "tokens_per_s": tokens / (steady / 1e3),
+            "max_memory_allocated_bytes": peak,
+            "k5_launches_per_step": per_step, "losses": losses,
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "card": smi_line()}
+
+
+def _reduced_card_vs_cpu(arch, device, *, seq, steps, lr):
+    """A reduced config in float32, the same parameters on the card and on
+    the CPU: one step's loss and gradients, then ``steps`` steps' losses."""
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    cfg = get_arch(arch, reduced=True)
+    bundle = build_model(cfg, remat="full")
+    p_cpu = cast_floating(init_tree(
+        bundle.decls, torch.Generator().manual_seed(LM_SEED), "cpu"),
+        torch.float32)
+    data = SyntheticLM(LMDataConfig(cfg.vocab_size, seq, 4, seed=0))
+    batch = data.batch(0)
+    runtime.reset_launch_counts()
+    loss_card, m_card, g_card = _loss_and_grads(
+        bundle, _card_copy(p_cpu, device), batch, device)
+    launches = dict(runtime.launch_counts)
+    loss_cpu, m_cpu, g_cpu = _loss_and_grads(bundle, p_cpu, batch, "cpu")
+    assert abs(loss_card - loss_cpu) <= TRAIN_LOSS_TIER * abs(loss_cpu), \
+        (arch, loss_card, loss_cpu)
+    gap = _grad_gap(g_card, g_cpu)
+    assert gap <= TRAIN_GRAD_TIER, (arch, gap)
+    curves = {}
+    batches = [data.batch(i) for i in range(steps)]
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        _, _, hist, _, _, _ = _train_run(bundle, _card_copy(p_cpu, dev),
+                                         batches, dev, steps=steps,
+                                         warmup=2, lr=lr)
+        curves[where] = [h["loss"] for h in hist]
+    curve_gap = max(abs(a - b) / b for a, b in zip(curves["card"],
+                                                   curves["cpu"]))
+    assert curve_gap <= TRAIN_CURVE_TIER, (arch, curve_gap, curves)
+    return {"arch": arch, "seq": seq, "loss_card": loss_card,
+            "loss_cpu": loss_cpu, "metrics_card": m_card,
+            "metrics_cpu": m_cpu, "grad_gap_of_max": gap,
+            "launches_one_step": launches, "curve_steps": steps,
+            "curve_rel_gap": curve_gap, "losses_card": curves["card"],
+            "losses_cpu": curves["cpu"]}
+
+
+def _resume_bits(device):
+    """The reduced h2o-danube-3-4b (bf16) on the card: 10 steps with a
+    checkpoint every 5, then a fresh Trainer resumed from step 5's
+    checkpoint alone runs to 10: parameters and optimizer state equal bit
+    for bit.  Before it, one step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` lists the
+    operators PyTorch flags as non-deterministic on the card."""
+    import tempfile
+    import warnings
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.train import OptConfig, Trainer, TrainerConfig
+    cfg = get_arch("h2o-danube-3-4b", reduced=True)
+    bundle = build_model(cfg, remat="full")
+    data = SyntheticLM(LMDataConfig(cfg.vocab_size, 256, 4, seed=0))
+    ocfg = OptConfig(lr=5e-3, warmup_steps=2, total_steps=10)
+    flagged = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            tr = Trainer(bundle, ocfg, TrainerConfig(steps=1, log_every=1))
+            params, opt = tr.init(LM_SEED, device)
+            tr.run(params, opt, data.iterate())
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for w in caught:
+        text = str(w.message).splitlines()[0][:200]
+        if "deterministic" in text and text not in flagged:
+            flagged.append(text)
+    with tempfile.TemporaryDirectory() as tmp:
+        full, part = Path(tmp) / "full", Path(tmp) / "part"
+        tr = Trainer(bundle, ocfg, TrainerConfig(steps=10, log_every=1,
+                                                 ckpt_every=5,
+                                                 ckpt_dir=str(full)))
+        params, opt = tr.init(LM_SEED, device)
+        runtime.reset_launch_counts()
+        p10, o10, hist = tr.run(params, opt, data.iterate())
+        launches = dict(runtime.launch_counts)
+        part.mkdir()
+        shutil.copy(full / "ckpt_00000005.msgpack", part)
+        tr2 = Trainer(bundle, ocfg, TrainerConfig(steps=10, log_every=1,
+                                                  ckpt_every=5,
+                                                  ckpt_dir=str(part)))
+        p5, o5, start = tr2.resume(device)
+        assert start == 5, start
+        p10b, o10b, hist2 = tr2.run(p5, o5, data.iterate(5), start_step=5)
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(tree_leaves({"p": p10, "o": o10}),
+                               tree_leaves({"p": p10b, "o": o10b})))
+    assert same, "resume: parameters or optimizer state differ"
+    assert [h["loss"] for h in hist2] == [h["loss"] for h in hist[5:]]
+    assert launches["flash_attention_bwd"] == 10 * cfg.n_layers, launches
+    return {"arch": cfg.name, "dtype": "bf16", "steps": 10,
+            "resumed_from": start, "params_and_opt_state_bitwise": same,
+            "losses": [h["loss"] for h in hist], "launches": launches,
+            "flagged_nondeterministic": flagged}
+
+
+def phase_train_dense(device):
+    """h2o-danube-3-4b at its published widths (d 3840, 32 heads of 120, 8
+    KV heads, d_ff 10240, vocab 32000, window 4096) cut to
+    TRAIN_DENSE_LAYERS layers, bf16 parameters from a seed on the card,
+    float32 master and moments, remat "full", 12 steps of 8 x 4096 tokens
+    from SyntheticLM(seed=0) (warmup 3) through ``Trainer.run``; then the
+    reduced model card against CPU in float32 (a step's loss and
+    gradients, a 20-step loss curve), a resume on the card bit for bit,
+    and the reduced deepseek-v2-lite (MoE, MLA: K5 at Dqk 48, Dv 32) card
+    against CPU (3 steps)."""
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    base = get_arch("h2o-danube-3-4b")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_DENSE_LAYERS)
+    bundle = build_model(cfg, remat="full")
+    data = SyntheticLM(LMDataConfig(cfg.vocab_size, TRAIN_DENSE_SEQ,
+                                    TRAIN_BATCH, seed=0))
+    batches = [data.batch(i) for i in range(TRAIN_STEPS)]
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = init_tree(bundle.decls, gen, device)
+    with _launch_shapes() as seen:
+        _, _, hist, launches, peak, step_ms = _train_run(
+            bundle, params, batches, device, steps=TRAIN_STEPS,
+            warmup=TRAIN_WARMUP, lr=TRAIN_LR)
+        del params
+        torch.cuda.empty_cache()
+        reduced = _reduced_card_vs_cpu("h2o-danube-3-4b", device, seq=256,
+                                       steps=20, lr=5e-3)
+        resume = _resume_bits(device)
+        mla = _reduced_card_vs_cpu("deepseek-v2-lite-16b", device, seq=128,
+                                   steps=3, lr=5e-3)
+    _launches_compared(seen, "train_dense")
+    full = _full_run_record(
+        "train_dense", cfg, hist, launches, peak, step_ms,
+        TRAIN_BATCH * TRAIN_DENSE_SEQ, param_count(bundle.decls),
+        cfg.n_layers)
+    full["reduced"] = {"n_layers": [base.n_layers, TRAIN_DENSE_LAYERS],
+                       "why": "24 layers need 63 GB of parameters, "
+                              "gradients and optimizer state before "
+                              "activations: past one 80 GB card"}
+    emit("train_dense", full=full, reduced_card_vs_cpu=reduced,
+         resume=resume, deepseek_reduced_card_vs_cpu=mla,
+         launch_shapes={k: sorted(seen[k], key=str) for k in (
+             "flash_attention", "flash_attention_lse",
+             "flash_attention_bwd")},
+         tolerance=f"full: finite losses, the mean of the last 4 below "
+                   f"step 1's; reduced, float32: loss within "
+                   f"{TRAIN_LOSS_TIER} relative, gradients within "
+                   f"{TRAIN_GRAD_TIER} of each leaf's max|grad|, the loss "
+                   f"curves within {TRAIN_CURVE_TIER} relative; resume bit "
+                   f"for bit")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_whisper(device):
+    """whisper-base whole (6 + 6 layers, 74 M parameters), bf16 from a
+    seed, remat "full": 12 steps of 8 clips of 1500 frames (drawn from a
+    seed per step) against 448 target tokens from SyntheticLM(seed=0)
+    through ``Trainer.run``.  K5 at the encoder's (64, 1500, 1500, 64) not
+    masked, the decoder's (64, 448, 448, 64) causal and the cross (64,
+    448, 1500, 64), forward and backward."""
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    cfg = get_arch("whisper-base")
+    bundle = build_model(cfg, remat="full")
+    data = SyntheticLM(LMDataConfig(cfg.vocab_size, TRAIN_WHISPER_TOKENS,
+                                    TRAIN_BATCH, seed=0))
+    batches = []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i)
+        batch["frames"] = np.random.default_rng(LM_SEED + i).standard_normal(
+            (TRAIN_BATCH, TRAIN_WHISPER_FRAMES, cfg.d_frontend),
+            dtype=np.float32)
+        batches.append(batch)
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = init_tree(bundle.decls, gen, device)
+    with _launch_shapes() as seen:
+        _, _, hist, launches, peak, step_ms = _train_run(
+            bundle, params, batches, device, steps=TRAIN_STEPS,
+            warmup=TRAIN_WARMUP, lr=TRAIN_LR)
+    _launches_compared(seen, "train_whisper")
+    del params
+    torch.cuda.empty_cache()
+    full = _full_run_record(
+        "train_whisper", cfg, hist, launches, peak, step_ms,
+        TRAIN_BATCH * TRAIN_WHISPER_TOKENS, param_count(bundle.decls),
+        cfg.n_encoder_layers + 2 * cfg.n_layers)
+    emit("train_whisper", full=full,
+         launch_shapes={k: sorted(seen[k], key=str) for k in (
+             "flash_attention", "flash_attention_lse",
+             "flash_attention_bwd")},
+         frames=[TRAIN_BATCH, TRAIN_WHISPER_FRAMES, cfg.d_frontend],
+         tolerance="finite losses, the mean of the last 4 below step 1's")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -4465,6 +5191,15 @@ def main(argv=None) -> int:
     f32_launches = None
     if "same_as_cpu_lm" in phases:
         f32_launches = phase_same_as_cpu_lm(device)
+    train_launches = None
+    if "train_dense" in phases:
+        train_launches = phase_train_dense(device)
+        if launches is not None:
+            launches["flash_attention_bwd"] = \
+                train_launches["flash_attention_bwd"]
+    whisper_train_launches = None
+    if "train_whisper" in phases:
+        whisper_train_launches = phase_train_whisper(device)
     topo_launches = None
     if "topology" in phases:
         topo_launches = phase_topology(device)
@@ -4519,7 +5254,19 @@ def main(argv=None) -> int:
                  "launches_serve_whisper":
                      family_launches["serve_whisper"]["flash_attention"],
                  "launches_serve_vlm":
-                     family_launches["serve_vlm"]["flash_attention"]},
+                     family_launches["serve_vlm"]["flash_attention"],
+                 "lse_write": rows["flash_attention"]["lse_write"],
+                 "launches_train_dense": train_launches["flash_attention"],
+                 "launches_train_whisper":
+                     whisper_train_launches["flash_attention"]},
+             # K5's backward: its launches are train_dense's full run's
+             # (12 steps of h2o-danube-3-4b, 8 layers); every row of the
+             # kernels phase, and its launches in train_whisper
+             "flash_attention_bwd": {
+                 k: v for k, v in rows["flash_attention_bwd"].items()
+                 if k not in keys} | {
+                 "launches_train_whisper":
+                     whisper_train_launches["flash_attention_bwd"]},
              "batched_gram_blocked": {
                  "launches_topology":
                      topo_launches[1]["batched_gram_blocked"]},

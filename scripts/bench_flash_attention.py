@@ -13,12 +13,15 @@ after 3 warm-ups, CUDA events, L2 flushed before each) on inputs drawn
 from one seeded generator; a shape the tree's kernels do not take (a v
 shallower than q, before the decoder slice) is marked ``refused``.  The
 errors against the plain version come from ``chip_smoke.py``'s kernels
-phase.  Prints one JSON object with the card's name and power limit.
+phase.  Each row also carries a hash of the output's bits (``bits``):
+equal hashes across two trees mean the same bits.  Prints one JSON object
+with the card's name and power limit.
 Needs a CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -61,10 +64,13 @@ def main(argv=None) -> int:
             return ops.flash_attention(q, k, v, causal=causal, window=window)
         row = {"shape": list(shape)}
         try:
-            call()
+            o = call()
         except ValueError as err:
             row["refused"] = str(err)[:120]
         else:
+            raw = o.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            row["bits"] = hashlib.sha256(raw).hexdigest()[:16]
+            del o
             row["ms"] = chip_smoke._time_ms(call, cold=True)
         rows.append(row)
         del q, k, v

@@ -69,9 +69,10 @@ def main(argv=None) -> int:
         row = {"shape": list(shape), "decay": decay,
                "ms": chip_smoke._time_ms(call, cold=True)}
         if args.trace and not any("ms" in r for r in rows):
-            row["device_ms_by_kernel"] = {
-                name[:60]: ms for name, (_, ms) in
-                chip_smoke._device_kernels(call, calls=10).items()}
+            traced = chip_smoke._device_kernels(call, calls=10)
+            # None: no profiler session was whole
+            row["device_ms_by_kernel"] = traced and {
+                name[:60]: ms for name, (_, ms) in traced.items()}
         rows.append(row)
         del x, la, bm, cm
         torch.cuda.empty_cache()

@@ -54,10 +54,17 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                   _INT, _INT, _INT, _PTR),
     },
     "lm": {
-        # q, k, v, o, BH, Sq, Skv, D (q, k), Dv, causal, window (-1:
-        # none), scale, is_bf16, stream
-        "repro_flash_attention": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-                                  _INT, _INT, _INT, _INT, _FLT, _INT, _PTR),
+        # q, k, v, o, lse (None: not written), BH, Sq, Skv, D (q, k), Dv,
+        # causal, window (-1: none), scale, is_bf16, stream
+        "repro_flash_attention": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+                                  _INT, _INT, _INT, _INT, _INT, _FLT, _INT,
+                                  _PTR),
+        # q, k, v, o, lse, dO, the scratch delta, dq, dk, dv, BH, Sq, Skv,
+        # D, Dv, causal, window, scale, is_bf16, stream
+        "repro_flash_attention_bwd": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                      _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+                                      _INT, _INT, _INT, _INT, _INT, _FLT,
+                                      _INT, _PTR),
         # xbar, la, bm, cm, y, state, then the scratch cb, states, decay,
         # BH, S, P, N, chunk, heads, stream
         "repro_ssd_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,

@@ -43,7 +43,8 @@ ms at the paper's shape, 0.0868 ms at T = 1; NVIDIA H100 80GB HBM3,
 700.00 W).
 
 ``crossfit_gram_cuda`` adds one to ``runtime.launch_counts
-["crossfit_gram"]`` where it launches, and nowhere else.
+["crossfit_gram"]`` where it launches, and nowhere else; it raises on an
+input that needs a gradient (no backward is ported).
 ``crossfit_gram_plain`` is what the CPU path and the on-card comparison
 use; nothing on the main path calls it for tensors that lie on the card.
 """
@@ -282,6 +283,7 @@ def check_task_rows(x, w, y) -> Tuple[int, int, int]:
 def crossfit_gram_cuda(x, w, y) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the shared-X Gram kernel on CUDA tensors (contiguous
     float32): x (N, P), w and y (T, N)."""
+    runtime.refuse_grad("crossfit_gram", x, w, y)
     t, n, p = check_task_rows(x, w, y)
     if not x.is_cuda:
         raise ValueError(f"x: the CUDA kernels take tensors on the card, "

@@ -1,4 +1,5 @@
-// Hopper (sm_90a) kernels for the language-model serving path.
+// Hopper (sm_90a) kernels for the language-model serving and training
+// paths.
 //
 // Built by kernels/build.py with nvcc into a shared library with a plain C
 // interface and loaded with ctypes; no PyTorch header is included.  Every
@@ -10,6 +11,10 @@
 //                          Skv, Dv), float32 or bfloat16; queries aligned
 //                          to the keys' suffix (query i sits at position
 //                          Skv - Sq + i), causal and sliding-window masks
+//                          (and, on request, each row's log-sum-exp)
+//   repro_flash_attention_bwd
+//                          its gradient: dq, dk, dv from q, k, v, o, the
+//                          row log-sum-exp and dO, in three launches
 //   repro_ssd_scan         the Mamba-2 SSD chunked scan over BH lanes:
 //                          xbar (BH, S, P), la (BH, S), bm/cm (BH/heads,
 //                          S, N) float32 -> y (BH, S, P) and the final
@@ -159,12 +164,22 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
     lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-template <int DQK, int DV>
+// a row's natural log-sum-exp of its scaled scores, from its running max
+// m (scores scaled by log2(e)/sqrt(D)) and sum l = sum 2^(x - m); a row
+// that saw no key gets +inf, so that the backward's P = exp(s - lse) is 0
+constexpr float FA_LN2 = 0.6931471805599453f;
+__device__ __forceinline__ float fa_lse(float m, float l)
+{
+    return l > 0.f ? (m + log2f(l)) * FA_LN2 : INFINITY;
+}
+
+template <int DQK, int DV, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int sq, int skv,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int sq, int skv,
                           int dqk, int dv, int causal, int window,
                           float scale_log2)
 {
@@ -375,6 +390,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         const int row = wr0 + g + 8 * r;
         if (row >= sq) continue;
+        if (LSE && t4 == 0) lse[bh * sq + row] = fa_lse(m[r], l[r]);
         const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
         __nv_bfloat16* orow = ol + (long long)row * dv;
 #pragma unroll
@@ -431,6 +447,10 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 // - S = Q K' into float32, scaled by log2(e)/sqrt(D) in float32, masked
 //   to -inf (causal, window, ragged Skv); online softmax with quad
 //   shuffles, (m, l) in float32, a row that has seen no key subtracts 0.
+// - mma.sync rounds its sums toward zero, so a long run of products into
+//   one accumulator drifts: each key tile's P V is summed from zero and
+//   then added to O in float32 (at the VLM's 2048 keys and D 128 a
+//   running O sat 2e-5 from float64, ten times the plain version).
 // - P V with P from the S accumulators in registers: an m16n8k8 A
 //   fragment wants columns t and t + 4 of a thread's row, the accumulator
 //   holds columns 2t and 2t + 1, so the k index of step j maps to key
@@ -505,12 +525,13 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool LSE>
 __global__ void __launch_bounds__(tf_threads(DQK), 1)
 flash_attention_tf32_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
-                            float* __restrict__ o, int sq, int skv, int dqk,
+                            float* __restrict__ o,
+                            float* __restrict__ lse, int sq, int skv, int dqk,
                             int dv, int causal, int window, float scale_log2,
                             int vec4)
 {
@@ -717,7 +738,16 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
                 }
 
                 // O += P V, 8 keys a step: the k index t is key 8 j + 2t,
-                // t + 4 is key 8 j + 2t + 1
+                // t + 4 is key 8 j + 2t + 1.  The tile's P V is summed from
+                // zero and then added to O in float32: mma.sync rounds its
+                // sums toward zero, and 3 x Skv / 8 of them into one
+                // running O put a row of the VLM's (2048 keys, D 128) 2e-5
+                // from float64, ten times the plain version's distance
+                float pv[DTILES][4];
+#pragma unroll
+                for (int jj = 0; jj < DTILES; ++jj)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) pv[jj][e] = 0.f;
 #pragma unroll
                 for (int j = 0; j < TF_BK / 8; ++j) {
                     uint32_t ph[4], pl[4];
@@ -742,17 +772,21 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
 #pragma unroll
                         for (int u = 0; u < 4; ++u)
                             if (d0 + u < DTILES)
-                                mma_tf32(acc[d0 + u], pl, vh[u][0], vh[u][1]);
+                                mma_tf32(pv[d0 + u], pl, vh[u][0], vh[u][1]);
 #pragma unroll
                         for (int u = 0; u < 4; ++u)
                             if (d0 + u < DTILES)
-                                mma_tf32(acc[d0 + u], ph, vl[u][0], vl[u][1]);
+                                mma_tf32(pv[d0 + u], ph, vl[u][0], vl[u][1]);
 #pragma unroll
                         for (int u = 0; u < 4; ++u)
                             if (d0 + u < DTILES)
-                                mma_tf32(acc[d0 + u], ph, vh[u][0], vh[u][1]);
+                                mma_tf32(pv[d0 + u], ph, vh[u][0], vh[u][1]);
                     }
                 }
+#pragma unroll
+                for (int jj = 0; jj < DTILES; ++jj)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[jj][e] += pv[jj][e];
             }
             __syncthreads();                // the stage is free to refill
         }
@@ -764,6 +798,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
             l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
             const int row = wr0 + g + 8 * r;
             if (row >= sq) continue;
+            if (LSE && t4 == 0) lse[head * sq + row] = fa_lse(m[r], l[r]);
             const float inv = 1.f / l[r];
             float* orow = ol + (long long)row * dv;
 #pragma unroll
@@ -772,6 +807,519 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
                 if (col < dv) orow[col] = acc[j][2 * r] * inv;
                 if (col + 1 < dv) orow[col + 1] = acc[j][2 * r + 1] * inv;
             }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// flash_attention backward: flash_attention_bwd_delta_kernel,
+// flash_attention_bwd_dkdv_kernel, flash_attention_bwd_dq_kernel
+//
+// Replaces no TPU kernel: the reference's flash_attention_pallas has no
+// VJP, and the reference differentiates its jnp attention instead.  On the
+// card the plain version may not run on the main path, so K5's gradient
+// is these three launches (kernels/flash_attention.py
+// FlashAttentionFunction), from the forward's saved output o and row
+// log-sum-exp lse (natural log of the scaled scores, fa_lse above).  With
+// c = 1/sqrt(D), P = exp(c Q K' - lse) and dO the output's gradient:
+//   (1) delta_i = sum_d dO_id O_id                      (float32)
+//   (2) per key tile: dV = P' dO,  dS = P o (dO V' - delta),  dK = c dS' Q
+//   (3) per query tile:            dQ = c dS K
+// (2) and (3) recompute P and dS from Q, K, V, dO and lse; every output is
+// written by one block, summed in a fixed order (no atomics), so two runs
+// give the same bits.
+//
+// Bound on an H100: five products a visible (query, key) pair, 2 Dqk each
+// for Q K', dK and dQ, 2 Dv each for dO V' and dV; at h2o-danube-3-4b's
+// training call (BH 256, S 4096, D 120) causal that is 2.6 TFLOP, 2.6 ms
+// at the 989 TFLOP/s bf16 rate, operations bound (the bytes, q k v o dO in
+// and dq dk dv out, are 1.8 GB: 0.54 ms).  The kernels do seven products
+// a pair (Q K' and dO V' in both passes) at depths padded to 16.
+//
+// Design (a simple kernel first: no TMA, no wgmma, synchronous tile loads):
+// - 4 warps a block, each owning 16 rows of the block's tile; the products
+//   are mma.sync on fragments read from shared memory by ldmatrix, in the
+//   forward's two patterns: A B' (both operands row-major, ldmatrix) and
+//   P B (P from the accumulators in registers, B by ldmatrix.trans, or by
+//   32-bit loads for TF32).  bf16 operands: m16n8k16 with float32
+//   accumulators, P and dS rounded once to bf16 for their products (the
+//   cost, in bf16 steps of the gradients, is measured by chip_smoke.py).
+//   float32 operands: the forward's split-TF32 three-pass m16n8k8 products
+//   (lo hi + hi lo + hi hi), float32 grade, no TF32 mode.
+// - (2): one block per (lane, 64-key tile); K and V stay in shared memory
+//   while the block walks the 32-query tiles the mask lets see the tile.
+//   Each step computes S' = K Q' and dP' = V dO' (16 keys x 32 queries a
+//   warp), P' from lse, dV += P' dO, dS' = P' o (dP' - delta), dK += dS' Q.
+// - (3): one block per (lane, 64-query tile), heaviest causal tiles first;
+//   Q and dO stay in shared memory, the block walks the 32-key tiles the
+//   mask lets its queries see: S = Q K', dP = dO V', dS, dQ += dS K.
+// - Masks as the forward's (causal, window, queries aligned to the keys'
+//   suffix, Sq != Skv where nothing is masked), ragged tiles masked here,
+//   tiles a whole block or warp cannot see skipped.  Tiles sit in shared
+//   memory at a row stride of D + 8 (bf16) or D + 4 (float32) elements,
+//   depth padded with zeros to DQK, DV (the built pairs).
+// ---------------------------------------------------------------------------
+constexpr int BW_WARPS = 4;
+constexpr int BW_THREADS = 32 * BW_WARPS;
+constexpr int BW_BKV = 16 * BW_WARPS;       // keys of a dK/dV block
+constexpr int BW_BQ = 32;                   // queries of its steps
+constexpr int BW_BQD = 16 * BW_WARPS;       // queries of a dQ block
+constexpr int BW_BKD = 32;                  // keys of its steps
+constexpr float BW_LOG2E = 1.4426950408889634f;
+
+// the shared-memory row padding of a tile and the elements of a 16-byte
+// chunk, by element type
+template <typename T> struct BwTile;
+template <> struct BwTile<__nv_bfloat16> {
+    static constexpr int PAD = 8, VEC = 8;
+};
+template <> struct BwTile<float> {
+    static constexpr int PAD = 4, VEC = 4;
+};
+
+__device__ __forceinline__ float bw_f(float x) { return x; }
+__device__ __forceinline__ float bw_f(__nv_bfloat16 x)
+{
+    return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T bw_to(float x);
+template <> __device__ __forceinline__ float bw_to<float>(float x)
+{
+    return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+bw_to<__nv_bfloat16>(float x)
+{
+    return __float2bfloat16(x);
+}
+
+template <typename T>
+__host__ __device__ constexpr int bw_rs(int d)
+{
+    return d + BwTile<T>::PAD;
+}
+
+// rows [row0, row0 + n_rows) of a (len, width) operand into dst at row
+// stride ``stride`` and DP columns: rows past len and columns past width
+// are zero.  vec: 16-byte chunks (width a multiple of the chunk, the
+// operand 16-byte aligned), else one element at a time
+template <typename T, int DP>
+__device__ __forceinline__ void bw_load(T* dst, int stride, const T* src,
+                                        int row0, int n_rows, int len,
+                                        int width, bool vec)
+{
+    if (vec) {
+        constexpr int V = BwTile<T>::VEC, CH = DP / V;
+        for (int idx = threadIdx.x; idx < n_rows * CH; idx += blockDim.x) {
+            const int r = idx / CH, c = (idx - r * CH) * V;
+            uint4 val = make_uint4(0u, 0u, 0u, 0u);
+            if (row0 + r < len && c < width)
+                val = *reinterpret_cast<const uint4*>(
+                    src + (long long)(row0 + r) * width + c);
+            *reinterpret_cast<uint4*>(dst + r * stride + c) = val;
+        }
+    } else {
+        for (int idx = threadIdx.x; idx < n_rows * DP; idx += blockDim.x) {
+            const int r = idx / DP, c = idx - r * DP;
+            dst[r * stride + c] = (row0 + r < len && c < width)
+                ? src[(long long)(row0 + r) * width + c] : bw_to<T>(0.f);
+        }
+    }
+}
+
+__device__ __forceinline__ uint32_t bw_pack_bf16(float x0, float x1)
+{
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// acc (16 x 8 NT) += A B', A 16 x DEPTH at a (row stride lda), B 8 NT x
+// DEPTH at b (row stride ldb), both in shared memory
+template <int NT, int DEPTH>
+__device__ __forceinline__ void bw_abt(float (&acc)[NT][4],
+                                       const __nv_bfloat16* a, int lda,
+                                       const __nv_bfloat16* b, int ldb)
+{
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int kk = 0; kk < DEPTH / 16; ++kk) {
+        uint32_t af[4];
+        ldsm_x4(af, smem_addr(a + (lane & 15) * lda + 16 * kk
+                              + 8 * (lane >> 4)));
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+            uint32_t bf[4];
+            ldsm_x4(bf, smem_addr(b + (16 * jp + (lane & 7) + 8 * (lane >> 4))
+                                  * ldb + 16 * kk + 8 * ((lane >> 3) & 1)));
+            mma_bf16(acc[2 * jp], af, bf[0], bf[1]);
+            mma_bf16(acc[2 * jp + 1], af, bf[2], bf[3]);
+        }
+    }
+}
+template <int NT, int DEPTH>
+__device__ __forceinline__ void bw_abt(float (&acc)[NT][4], const float* a,
+                                       int lda, const float* b, int ldb)
+{
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int kk = 0; kk < DEPTH / 8; ++kk) {
+        uint32_t af[4], ah[4], al[4];
+        ldsm_x4(af, smem_addr(a + ((lane & 7) + 8 * ((lane >> 3) & 1)) * lda
+                              + 8 * kk + 4 * (lane >> 4)));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            split_tf32(__uint_as_float(af[e]), ah[e], al[e]);
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+            uint32_t bf[4], bh[4], bl[4];
+            ldsm_x4(bf, smem_addr(b + (16 * jp + (lane & 7) + 8 * (lane >> 4))
+                                  * ldb + 8 * kk + 4 * ((lane >> 3) & 1)));
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                split_tf32(__uint_as_float(bf[e]), bh[e], bl[e]);
+            mma_tf32(acc[2 * jp], al, bh[0], bh[1]);
+            mma_tf32(acc[2 * jp + 1], al, bh[2], bh[3]);
+            mma_tf32(acc[2 * jp], ah, bl[0], bl[1]);
+            mma_tf32(acc[2 * jp + 1], ah, bl[2], bl[3]);
+            mma_tf32(acc[2 * jp], ah, bh[0], bh[1]);
+            mma_tf32(acc[2 * jp + 1], ah, bh[2], bh[3]);
+        }
+    }
+}
+
+// acc (16 x 8 NT) += P B, P 16 x 8 KT in accumulator fragments, B 8 KT x
+// 8 NT at b (row stride ldb) in shared memory
+template <int KT, int NT>
+__device__ __forceinline__ void bw_pb(float (&acc)[NT][4],
+                                      const float (&p)[KT][4],
+                                      const __nv_bfloat16* b, int ldb)
+{
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int kk = 0; kk < KT / 2; ++kk) {
+        uint32_t a[4];
+        a[0] = bw_pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+        a[1] = bw_pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+        a[2] = bw_pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+        a[3] = bw_pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+        for (int dp = 0; dp < NT / 2; ++dp) {
+            uint32_t bf[4];
+            ldsm_x4_trans(bf, smem_addr(
+                b + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * ldb
+                + 16 * dp + 8 * (lane >> 4)));
+            mma_bf16(acc[2 * dp], a, bf[0], bf[1]);
+            mma_bf16(acc[2 * dp + 1], a, bf[2], bf[3]);
+        }
+    }
+}
+template <int KT, int NT>
+__device__ __forceinline__ void bw_pb(float (&acc)[NT][4],
+                                      const float (&p)[KT][4], const float* b,
+                                      int ldb)
+{
+    // the k index t of step j is row 8 j + 2t of B, t + 4 is 8 j + 2t + 1
+    // (the forward's P V mapping: the accumulator holds columns 2t, 2t + 1).
+    // Summed from zero, then added to acc in float32 (mma.sync rounds its
+    // sums toward zero; see the float32 forward)
+    const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+    float part[NT][4];
+#pragma unroll
+    for (int dt = 0; dt < NT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[dt][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(p[j][0], ph[0], pl[0]);
+        split_tf32(p[j][2], ph[1], pl[1]);
+        split_tf32(p[j][1], ph[2], pl[2]);
+        split_tf32(p[j][3], ph[3], pl[3]);
+        const float* b0 = b + (8 * j + 2 * t4) * ldb + g;
+#pragma unroll
+        for (int dt = 0; dt < NT; ++dt) {
+            uint32_t h0, l0, h1, l1;
+            split_tf32(b0[8 * dt], h0, l0);
+            split_tf32(b0[ldb + 8 * dt], h1, l1);
+            mma_tf32(part[dt], pl, h0, h1);
+            mma_tf32(part[dt], ph, l0, l1);
+            mma_tf32(part[dt], ph, h0, h1);
+        }
+    }
+#pragma unroll
+    for (int dt = 0; dt < NT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dt][e] += part[dt][e];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_delta_kernel(const T* __restrict__ o,
+                                 const T* __restrict__ dout,
+                                 float* __restrict__ delta, long long rows,
+                                 int dv)
+{
+    // a warp a row
+    const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= rows) return;
+    const T* orow = o + row * dv;
+    const T* drow = dout + row * dv;
+    float acc = 0.f;
+    for (int c = lane; c < dv; c += 32)
+        acc += bw_f(orow[c]) * bw_f(drow[c]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) delta[row] = acc;
+}
+
+template <typename T>
+inline size_t bw_smem_bytes(int dqk, int dv, int rows_a, int rows_b,
+                            bool stats)
+{
+    // rows_a rows of the block's own tiles and rows_b of the walked ones,
+    // each a (dqk)- and a (dv)-deep tile; the walked queries' lse and
+    // delta when ``stats``
+    return sizeof(T) * (size_t)(rows_a + rows_b)
+               * (bw_rs<T>(dqk) + bw_rs<T>(dv))
+        + (stats ? 2 * sizeof(float) * rows_b : 0);
+}
+
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(BW_THREADS)
+flash_attention_bwd_dkdv_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const T* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                T* __restrict__ dk, T* __restrict__ dvo,
+                                int sq, int skv, int dqk, int dv, int causal,
+                                int window, float scale, int vec)
+{
+    constexpr int RS = bw_rs<T>(DQK), RSV = bw_rs<T>(DV);
+    constexpr int NQ = BW_BQ / 8;
+    extern __shared__ __align__(16) unsigned char bw_smem[];
+    T* ks = reinterpret_cast<T*>(bw_smem);  // BW_BKV x RS
+    T* vs = ks + BW_BKV * RS;               // BW_BKV x RSV
+    T* qs = vs + BW_BKV * RSV;              // BW_BQ x RS
+    T* dos = qs + BW_BQ * RS;               // BW_BQ x RSV
+    float* lse_s = reinterpret_cast<float*>(dos + BW_BQ * RSV);
+    float* dl_s = lse_s + BW_BQ;
+
+    if (DQK == DV) dv = dqk;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const long long bh = blockIdx.x;
+    const int k0 = blockIdx.y * BW_BKV;
+    const int offset = skv - sq;
+    const float scale_log2 = scale * BW_LOG2E;
+    const T* ql = q + bh * sq * dqk;
+    const T* dol = dout + bh * sq * dv;
+    const float* lsel = lse + bh * sq;
+    const float* dll = delta + bh * sq;
+
+    bw_load<T, DQK>(ks, RS, k + bh * skv * dqk, k0, BW_BKV, skv, dqk, vec);
+    bw_load<T, DV>(vs, RSV, v + bh * skv * dv, k0, BW_BKV, skv, dv, vec);
+
+    // queries that see some key of the tile: [q_lo, q_hi)
+    const int k_last = min(k0 + BW_BKV, skv) - 1;
+    int q_lo = 0, q_hi = sq;
+    if (causal) q_lo = max(0, k0 - offset);
+    if (window > 0) q_hi = min(sq, k_last + window - offset);
+    q_lo = (q_lo / BW_BQ) * BW_BQ;
+    // this warp's keys
+    const int wk0 = k0 + 16 * warp, wk_hi = min(wk0 + 15, skv - 1);
+
+    float acc_k[DQK / 8][4], acc_v[DV / 8][4];
+#pragma unroll
+    for (int j = 0; j < DQK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[j][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_v[j][e] = 0.f;
+
+    for (int q0 = q_lo; q0 < q_hi; q0 += BW_BQ) {
+        __syncthreads();                    // the last step's tiles are read
+        bw_load<T, DQK>(qs, RS, ql, q0, BW_BQ, sq, dqk, vec);
+        bw_load<T, DV>(dos, RSV, dol, q0, BW_BQ, sq, dv, vec);
+        for (int r = tid; r < BW_BQ; r += BW_THREADS) {
+            const bool in = q0 + r < sq;
+            lse_s[r] = in ? lsel[q0 + r] * BW_LOG2E : INFINITY;
+            dl_s[r] = in ? dll[q0 + r] : 0.f;
+        }
+        __syncthreads();
+        const int qa_lo = q0 + offset;
+        const int qa_hi = min(q0 + BW_BQ, sq) - 1 + offset;
+        bool sees = wk0 < skv;
+        if (causal) sees = sees && wk0 <= qa_hi;
+        if (window > 0) sees = sees && wk_hi > qa_lo - window;
+        if (!sees) continue;
+
+        // P' (16 keys x 32 queries a warp) from S' = K Q'
+        float s[NQ][4], dp[NQ][4];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        bw_abt<NQ, DQK>(s, ks + 16 * warp * RS, RS, qs, RS);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int key = wk0 + g + 8 * (e >> 1);
+                const int col = 8 * j + 2 * t4 + (e & 1);
+                const int qa = q0 + col + offset;
+                bool ok = key < skv && q0 + col < sq;
+                if (causal) ok = ok && key <= qa;
+                if (window > 0) ok = ok && key > qa - window;
+                s[j][e] = ok ? exp2f(s[j][e] * scale_log2 - lse_s[col]) : 0.f;
+            }
+        // dP' = V dO', then dV += P' dO, dS' = P' o (dP' - delta),
+        // dK += dS' Q
+        bw_abt<NQ, DV>(dp, vs + 16 * warp * RSV, RSV, dos, RSV);
+        bw_pb<NQ, DV / 8>(acc_v, s, dos, RSV);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                dp[j][e] = s[j][e] * (dp[j][e] - dl_s[8 * j + 2 * t4 + (e & 1)]);
+        bw_pb<NQ, DQK / 8>(acc_k, dp, qs, RS);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int key = wk0 + g + 8 * r;
+        if (key >= skv) continue;
+        T* krow = dk + (bh * skv + key) * dqk;
+        T* vrow = dvo + (bh * skv + key) * dv;
+#pragma unroll
+        for (int j = 0; j < DQK / 8; ++j) {
+            const int col = 8 * j + 2 * t4;
+            if (col < dqk) krow[col] = bw_to<T>(acc_k[j][2 * r] * scale);
+            if (col + 1 < dqk)
+                krow[col + 1] = bw_to<T>(acc_k[j][2 * r + 1] * scale);
+        }
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j) {
+            const int col = 8 * j + 2 * t4;
+            if (col < dv) vrow[col] = bw_to<T>(acc_v[j][2 * r]);
+            if (col + 1 < dv) vrow[col + 1] = bw_to<T>(acc_v[j][2 * r + 1]);
+        }
+    }
+}
+
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(BW_THREADS)
+flash_attention_bwd_dq_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dq, int sq, int skv, int dqk,
+                              int dv, int causal, int window, float scale,
+                              int vec)
+{
+    constexpr int RS = bw_rs<T>(DQK), RSV = bw_rs<T>(DV);
+    constexpr int NK = BW_BKD / 8;
+    extern __shared__ __align__(16) unsigned char bw_smem[];
+    T* qs = reinterpret_cast<T*>(bw_smem);  // BW_BQD x RS
+    T* dos = qs + BW_BQD * RS;              // BW_BQD x RSV
+    T* ks = dos + BW_BQD * RSV;             // BW_BKD x RS
+    T* vs = ks + BW_BKD * RS;               // BW_BKD x RSV
+
+    if (DQK == DV) dv = dqk;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const long long bh = blockIdx.x;
+    const int n_qt = (sq + BW_BQD - 1) / BW_BQD;
+    const int q0 = (n_qt - 1 - (int)blockIdx.y) * BW_BQD;
+    const int nq = min(BW_BQD, sq - q0);
+    const int offset = skv - sq;
+    const float scale_log2 = scale * BW_LOG2E;
+    const T* kl = k + bh * skv * dqk;
+    const T* vl = v + bh * skv * dv;
+
+    bw_load<T, DQK>(qs, RS, q + bh * sq * dqk, q0, BW_BQD, sq, dqk, vec);
+    bw_load<T, DV>(dos, RSV, dout + bh * sq * dv, q0, BW_BQD, sq, dv, vec);
+    // this warp's rows g and g + 8: their lse (log2 units) and delta
+    const int wr0 = q0 + 16 * warp;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = wr0 + g + 8 * r;
+        lse2[r] = row < sq ? lse[bh * sq + row] * BW_LOG2E : INFINITY;
+        dl[r] = row < sq ? delta[bh * sq + row] : 0.f;
+    }
+
+    // keys visible to some query of the block: [k_lo, k_hi)
+    const int qa_lo = q0 + offset, qa_hi = q0 + nq - 1 + offset;
+    int k_lo = 0, k_hi = skv;
+    if (window > 0) k_lo = max(0, qa_lo - window + 1);
+    if (causal) k_hi = min(skv, qa_hi + 1);
+    k_lo = (k_lo / BW_BKD) * BW_BKD;
+    const bool w_rows = wr0 < sq;
+    const int w_lo = wr0 + offset, w_hi = min(wr0 + 15, sq - 1) + offset;
+
+    float acc[DQK / 8][4];
+#pragma unroll
+    for (int j = 0; j < DQK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+    for (int kb = k_lo; kb < k_hi; kb += BW_BKD) {
+        __syncthreads();                    // the last step's tiles are read
+        bw_load<T, DQK>(ks, RS, kl, kb, BW_BKD, skv, dqk, vec);
+        bw_load<T, DV>(vs, RSV, vl, kb, BW_BKD, skv, dv, vec);
+        __syncthreads();
+        bool sees = w_rows;
+        if (causal) sees = sees && kb <= w_hi;
+        if (window > 0) sees = sees && kb + BW_BKD - 1 > w_lo - window;
+        if (!sees) continue;
+
+        float s[NK][4], dp[NK][4];
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        bw_abt<NK, DQK>(s, qs + 16 * warp * RS, RS, ks, RS);
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int row = wr0 + g + 8 * (e >> 1);
+                const int qa = row + offset;
+                const int key = kb + 8 * j + 2 * t4 + (e & 1);
+                bool ok = row < sq && key < skv;
+                if (causal) ok = ok && key <= qa;
+                if (window > 0) ok = ok && key > qa - window;
+                s[j][e] = ok ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1])
+                             : 0.f;
+            }
+        bw_abt<NK, DV>(dp, dos + 16 * warp * RSV, RSV, vs, RSV);
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]);
+        bw_pb<NK, DQK / 8>(acc, dp, ks, RS);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = wr0 + g + 8 * r;
+        if (row >= sq) continue;
+        T* qrow = dq + (bh * sq + row) * dqk;
+#pragma unroll
+        for (int j = 0; j < DQK / 8; ++j) {
+            const int col = 8 * j + 2 * t4;
+            if (col < dqk) qrow[col] = bw_to<T>(acc[j][2 * r] * scale);
+            if (col + 1 < dqk)
+                qrow[col + 1] = bw_to<T>(acc[j][2 * r + 1] * scale);
         }
     }
 }
@@ -1386,43 +1934,79 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted)
 }
 
 // launch the bfloat16 kernel at depths DQK, DV (Dqk, Dv rounded up to 16)
-template <int DQK, int DV>
+template <int DQK, int DV, bool LSE>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int bh, int sq, int skv, int dqk, int dv, int causal,
-                      int window, float scale, cudaStream_t stream)
+                      void* lse, int bh, int sq, int skv, int dqk, int dv,
+                      int causal, int window, float scale,
+                      cudaStream_t stream)
 {
     static size_t granted = 0;
     const size_t smem = tc_smem_bytes(DQK, DV);
-    const cudaError_t err = allow_smem(flash_attention_tc_kernel<DQK, DV>,
-                                       smem, &granted);
+    const cudaError_t err = allow_smem(
+        flash_attention_tc_kernel<DQK, DV, LSE>, smem, &granted);
     if (err != cudaSuccess) return err;
     const dim3 grid(bh, (sq + TC_BQ - 1) / TC_BQ);
-    flash_attention_tc_kernel<DQK, DV><<<grid, TC_THREADS, smem, stream>>>(
+    flash_attention_tc_kernel<DQK, DV, LSE>
+        <<<grid, TC_THREADS, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, sq, skv, dqk, dv, causal,
-        window, scale * TC_LOG2E);
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse, sq, skv,
+        dqk, dv, causal, window, scale * TC_LOG2E);
     return cudaGetLastError();
 }
 
 // launch the float32 kernel at depths DQK, DV (Dqk, Dv rounded up to 16);
 // query tiles past the grid's 65535 are walked by the blocks in turn
-template <int DQK, int DV>
+template <int DQK, int DV, bool LSE>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
-                        int bh, int sq, int skv, int dqk, int dv, int causal,
-                        int window, float scale, bool vec4,
+                        void* lse, int bh, int sq, int skv, int dqk, int dv,
+                        int causal, int window, float scale, bool vec4,
                         cudaStream_t stream)
 {
     static size_t granted = 0;
     const size_t smem = tf_smem_bytes(DQK, DV);
-    const cudaError_t err = allow_smem(flash_attention_tf32_kernel<DQK, DV>,
-                                       smem, &granted);
+    const cudaError_t err = allow_smem(
+        flash_attention_tf32_kernel<DQK, DV, LSE>, smem, &granted);
     if (err != cudaSuccess) return err;
     const int n_qt = (sq + tf_bq(DQK) - 1) / tf_bq(DQK);
     const dim3 grid(bh, n_qt < 65535 ? n_qt : 65535);
-    flash_attention_tf32_kernel<DQK, DV>
+    flash_attention_tf32_kernel<DQK, DV, LSE>
         <<<grid, tf_threads(DQK), smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, sq,
-        skv, dqk, dv, causal, window, scale * TF_LOG2E, (int)vec4);
+        (const float*)q, (const float*)k, (const float*)v, (float*)o,
+        (float*)lse, sq, skv, dqk, dv, causal, window, scale * TF_LOG2E,
+        (int)vec4);
+    return cudaGetLastError();
+}
+
+// the backward's dK/dV and dQ launches at depths DQK, DV (after delta)
+template <typename T, int DQK, int DV>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dq, void* dk, void* dvo, int bh, int sq, int skv,
+                       int dqk, int dv, int causal, int window, float scale,
+                       bool vec, cudaStream_t stream)
+{
+    static size_t granted_kv = 0, granted_q = 0;
+    const size_t smem_kv = bw_smem_bytes<T>(DQK, DV, BW_BKV, BW_BQ, true);
+    const size_t smem_q = bw_smem_bytes<T>(DQK, DV, BW_BQD, BW_BKD, false);
+    cudaError_t err = allow_smem(flash_attention_bwd_dkdv_kernel<T, DQK, DV>,
+                                 smem_kv, &granted_kv);
+    if (err == cudaSuccess)
+        err = allow_smem(flash_attention_bwd_dq_kernel<T, DQK, DV>, smem_q,
+                         &granted_q);
+    if (err != cudaSuccess) return err;
+    flash_attention_bwd_dkdv_kernel<T, DQK, DV>
+        <<<dim3(bh, (skv + BW_BKV - 1) / BW_BKV), BW_THREADS, smem_kv,
+            stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (T*)dk, (T*)dvo, sq, skv, dqk,
+        dv, causal, window, scale, (int)vec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    flash_attention_bwd_dq_kernel<T, DQK, DV>
+        <<<dim3(bh, (sq + BW_BQD - 1) / BW_BQD), BW_THREADS, smem_q,
+            stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (T*)dq, sq, skv, dqk, dv,
+        causal, window, scale, (int)vec);
     return cudaGetLastError();
 }
 
@@ -1437,16 +2021,21 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // float32 operands take the split-TF32 kernel (any Sq and Skv); bfloat16
-// ones the bf16 tensor-core kernel, which needs Dqk and Dv % 8 == 0 and
-// Sq <= Skv unless nothing is masked (not causal, no window); both need
-// (Dqk, Dv) rounded up to 16 among the built pairs,
-// and Dqk == Dv where those are equal (the wrapper checks; anything else
-// is refused here too)
+// ones the bf16 tensor-core kernel.  lse, when not null, receives each
+// row's float32 log-sum-exp of its scaled scores (BH, Sq), which the
+// backward reads; null, the kernels write o alone: the LSE template
+// parameter keeps that instantiation the code it was before the backward
+// existed (a runtime test of the pointer changed ptxas's allocation: the
+// bf16 kernel at D 128 spilled 36 bytes where it spills none).
+// The bf16 kernel needs Dqk and Dv % 8 == 0 and Sq <= Skv unless nothing
+// is masked (not causal, no window); both need (Dqk, Dv) rounded up to 16
+// among the built pairs, and Dqk == Dv where those are equal (the wrapper
+// checks; anything else is refused here too)
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int bh, int sq,
-                                     int skv, int dqk, int dv, int causal,
-                                     int window, float scale, int is_bf16,
-                                     void* stream)
+                                     const void* v, void* o, void* lse,
+                                     int bh, int sq, int skv, int dqk, int dv,
+                                     int causal, int window, float scale,
+                                     int is_bf16, void* stream)
 {
     const cudaStream_t st = (cudaStream_t)stream;
     const int pq = (dqk + 15) / 16 * 16, pv = (dv + 15) / 16 * 16;
@@ -1458,8 +2047,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
             return (int)cudaErrorInvalidValue;
 #define TC_CASE(a, b)                                                   \
         if (pq == a && pv == b)                                         \
-            return (int)launch_tc<a, b>(q, k, v, o, bh, sq, skv, dqk, dv, \
-                                        causal, window, scale, st);
+            return (int)(lse != nullptr                                 \
+                ? launch_tc<a, b, true>(q, k, v, o, lse, bh, sq, skv, dqk, \
+                                        dv, causal, window, scale, st)  \
+                : launch_tc<a, b, false>(q, k, v, o, lse, bh, sq, skv,  \
+                                         dqk, dv, causal, window, scale, \
+                                         st));
         REPRO_FA_DEPTH_PAIRS(TC_CASE)
 #undef TC_CASE
         return (int)cudaErrorInvalidValue;
@@ -1468,10 +2061,66 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
         && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0;
 #define TF_CASE(a, b)                                                   \
     if (pq == a && pv == b)                                             \
-        return (int)launch_tf32<a, b>(q, k, v, o, bh, sq, skv, dqk, dv, \
-                                      causal, window, scale, vec4, st);
+        return (int)(lse != nullptr                                     \
+            ? launch_tf32<a, b, true>(q, k, v, o, lse, bh, sq, skv, dqk,  \
+                                      dv, causal, window, scale, vec4, st) \
+            : launch_tf32<a, b, false>(q, k, v, o, lse, bh, sq, skv, dqk, \
+                                       dv, causal, window, scale, vec4,  \
+                                       st));
     REPRO_FA_DEPTH_PAIRS(TF_CASE)
 #undef TF_CASE
+    return (int)cudaErrorInvalidValue;
+}
+
+// K5's backward in three launches (delta, dK/dV, dQ; see above) on the
+// forward's o and lse: dq, dk, dv (q's, k's and v's shapes and type) and
+// the scratch delta (BH, Sq) float32 are the caller's.  The masks and
+// types are the forward's, both types under the bf16 kernel's rule (Sq <=
+// Skv unless nothing is masked; bf16 needs Dqk, Dv % 8 == 0), at the
+// built depth pairs; ceil(Skv / 64) and ceil(Sq / 64) at most 65535
+extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
+                                         const void* v, const void* o,
+                                         const void* lse, const void* dout,
+                                         void* delta, void* dq, void* dk,
+                                         void* dvo, int bh, int sq, int skv,
+                                         int dqk, int dv, int causal,
+                                         int window, float scale,
+                                         int is_bf16, void* stream)
+{
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int pq = (dqk + 15) / 16 * 16, pv = (dv + 15) / 16 * 16;
+    if (bh < 1 || sq < 1 || skv < 1 || dqk < 1 || dv < 1
+        || (pq == pv && dqk != dv) || (sq > skv && (causal || window > 0))
+        || (skv + BW_BKV - 1) / BW_BKV > 65535
+        || (sq + BW_BQD - 1) / BW_BQD > 65535
+        || (is_bf16 && (dqk % 8 != 0 || dv % 8 != 0)))
+        return (int)cudaErrorInvalidValue;
+    const int chunk = is_bf16 ? 8 : 4;
+    const bool vec = dqk % chunk == 0 && dv % chunk == 0
+        && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout)
+            & 15) == 0;
+    const long long rows = (long long)bh * sq;
+    const unsigned blocks = (unsigned)((rows + 7) / 8);
+    if (is_bf16)
+        flash_attention_bwd_delta_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+            (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
+            (float*)delta, rows, dv);
+    else
+        flash_attention_bwd_delta_kernel<float><<<blocks, 256, 0, st>>>(
+            (const float*)o, (const float*)dout, (float*)delta, rows, dv);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+#define BW_CASE(a, b)                                                   \
+    if (pq == a && pv == b)                                             \
+        return is_bf16                                                  \
+            ? (int)launch_bwd<__nv_bfloat16, a, b>(                     \
+                q, k, v, dout, lse, delta, dq, dk, dvo, bh, sq, skv, dqk, \
+                dv, causal, window, scale, vec, st)                     \
+            : (int)launch_bwd<float, a, b>(                             \
+                q, k, v, dout, lse, delta, dq, dk, dvo, bh, sq, skv, dqk, \
+                dv, causal, window, scale, vec, st);
+    REPRO_FA_DEPTH_PAIRS(BW_CASE)
+#undef BW_CASE
     return (int)cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,5 @@
-"""Forward flash attention (K5), beside its plain PyTorch version.
+"""Flash attention (K5) and its gradient, beside their plain PyTorch
+versions.
 
 ``flash_attention_cuda`` replaces the TPU kernel ``flash_attention_pallas``
 (body ``_kernel``) of the JAX package's ``kernels/flash_attention.py``:
@@ -44,10 +45,34 @@ depth pairs (D, Dv), each rounded up to 16, of ``DEPTH_PAIRS``: equal
 depths up to 128 (where D == Dv) and the MLA pairs of the port's configs;
 other pairs raise.  PERF.md has their times.
 
+The gradient (``FlashAttentionFunction``, a ``torch.autograd.Function``)
+is hand-written too: the reference's Pallas kernel has no VJP (it
+differentiates its jnp attention), and on the card the plain version may
+not run on the main path.  ``flash_attention_cuda`` takes the Function
+when grad mode is on and an input requires a gradient: its forward also
+writes each row's float32 log-sum-exp (BH, Sq) and saves q, k, v, o and
+that; its backward is ``flash_attention_bwd_cuda``, three launches
+of ``csrc/lm.cu`` (delta = rowsum(dO o O), then dK and dV a 64-key tile a
+block, then dQ a 64-query tile a block: no atomics, so the same inputs
+give the same bits).  Otherwise (the serve path, under inference mode)
+the forward writes o alone, as it did before the backward existed.  The
+backward takes the forward's masks and depth pairs, in both types under
+the bf16 kernel's rule (a causal or windowed call needs Sq <= Skv; bf16
+needs D, Dv % 8 == 0).  bf16 products round P and dS to bf16 once;
+float32 ones are split-TF32 (three passes, float32 grade).  GQA's
+repeated heads reach the kernel already repeated: autograd sums their
+gradients through ``models/layers.py``'s repeat.
+
 ``flash_attention_cuda`` adds one to ``runtime.launch_counts
-["flash_attention"]`` where it launches, and nowhere else.
+["flash_attention"]`` where it launches the forward, and
+``flash_attention_bwd_cuda`` one to ``["flash_attention_bwd"]``
+where it launches the backward, and nowhere else.
 ``flash_attention_plain`` is the counterpart of the reference oracle
-``flash_attention_ref``: what the CPU path and the on-card comparison use.
+``flash_attention_ref``: what the CPU path and the on-card comparison use;
+``flash_attention_backward_plain`` is the explicit gradient in float32
+(float64 for float64 operands), used by the tests and by
+``chip_smoke.py``'s comparison, never by the card's main path (on the CPU
+autograd differentiates the plain forward).
 """
 from __future__ import annotations
 
@@ -71,24 +96,72 @@ _MAX_TC_SQ = 65535 * 128       # the bfloat16 kernel: grid y of 128-query tiles
 _TYPES = (torch.float32, torch.bfloat16)
 
 
+def visible(sq: int, skv: int, causal: bool, window: Optional[int],
+            device) -> torch.Tensor:
+    """(Sq, Skv) bool: the keys each query sees, queries aligned to the
+    keys' suffix (query i at position Skv - Sq + i)."""
+    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def _scores(q, k, dtype):
+    """Scaled scores q k' / sqrt(D) in ``dtype``."""
+    return torch.einsum("bqd,bkd->bqk", q.to(dtype), k.to(dtype)) \
+        / math.sqrt(q.shape[-1])
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None) -> torch.Tensor:
     """q, k (BH,S*,D); v (BH,Skv,Dv) -> (BH,Sq,Dv) in q's type: float32
     scores scaled by 1/sqrt(D), -inf where masked, softmax, float32
     product with v."""
-    _, sq, d = q.shape
-    skv = k.shape[1]
-    s = torch.einsum("bqd,bkd->bqk", q.to(F32), k.to(F32)) / math.sqrt(d)
-    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos <= qpos
-    if window is not None:
-        ok &= kpos > qpos - window
-    s = s.masked_fill(~ok[None], float("-inf"))
+    ok = visible(q.shape[1], k.shape[1], causal, window, q.device)
+    s = _scores(q, k, F32).masked_fill(~ok[None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.to(F32)).to(q.dtype)
+
+
+def _plain_type(q) -> torch.dtype:
+    return torch.float64 if q.dtype == torch.float64 else F32
+
+
+def flash_attention_lse_plain(q, k, *, causal: bool = True,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """(BH, Sq): each row's log-sum-exp of its visible scaled scores, in
+    float32 (float64 for float64 operands) — what the kernel's forward
+    saves for the backward."""
+    ok = visible(q.shape[1], k.shape[1], causal, window, q.device)
+    s = _scores(q, k, _plain_type(q)).masked_fill(~ok[None], float("-inf"))
+    return torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, *,
+                                   causal: bool = True,
+                                   window: Optional[int] = None):
+    """(dq, dk, dv) of attention at q, k, v given its output o, row
+    log-sum-exp ``lse`` and the output's gradient ``do``, by the explicit
+    formula in float32 (float64 for float64 operands): P = exp(q k' /
+    sqrt(D) - lse) where visible, dV = P' dO, dS = P o (dO v' - rowsum(dO
+    o o)), dQ = dS k / sqrt(D), dK = dS' q / sqrt(D)."""
+    ct = _plain_type(q)
+    ok = visible(q.shape[1], k.shape[1], causal, window, q.device)
+    c = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, dof = (t.to(ct) for t in (q, k, v, o, do))
+    p = torch.exp(_scores(q, k, ct) - lse.to(ct)[..., None]) \
+        .masked_fill(~ok[None], 0.0)
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    delta = (dof * of).sum(-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * c
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * c
+    return dq, dk, dv
 
 
 def check_qkv(q, k, v, window: Optional[int]):
@@ -152,29 +225,124 @@ def check_kernel_shape(bh: int, sq: int, skv: int, d: int,
                          f"{causal}, window {window}")
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """Launch the flash-attention kernel for q's type on CUDA tensors."""
-    bh, sq, skv, d, dv = check_qkv(q, k, v, window)
+def check_backward_shape(bh: int, sq: int, skv: int, d: int,
+                         dtype: torch.dtype, dv: Optional[int] = None, *,
+                         causal: bool = True,
+                         window: Optional[int] = None) -> None:
+    """Raise ``ValueError`` naming the limit when the backward kernels do
+    not take a (BH, Sq, Skv, D, Dv) call: the forward's depth pairs, in
+    both types the bf16 kernel's rule (Sq <= Skv unless nothing is
+    masked), bf16 D, Dv % 8 == 0, and at most 65535 64-row tiles of Sq
+    and of Skv."""
+    dv = d if dv is None else dv
+    check_kernel_shape(bh, sq, skv, d, dtype, dv, causal=causal,
+                       window=window)
+    masked = causal or window is not None
+    if (sq > skv and masked) or max(sq, skv) > _MAX_GRID_Y * 64:
+        raise ValueError(f"flash_attention backward: takes Sq <= Skv "
+                         f"unless nothing is masked and S <= "
+                         f"{_MAX_GRID_Y * 64}; got Sq {sq}, Skv {skv}, "
+                         f"causal {causal}, window {window}")
+
+
+def _check_on_card(q, k, v):
     if not q.is_cuda:
         raise ValueError(f"q: the CUDA kernels take tensors on the card, "
                          f"got {q.device}")
-    check_kernel_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
-                       window=window)
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:      # cp.async copies 16-byte chunks
                 raise ValueError(f"{name}: the bfloat16 kernel needs a "
                                  "16-byte aligned tensor")
+
+
+def _forward_cuda(q, k, v, causal: bool, window: Optional[int],
+                  with_lse: bool):
+    """Launch the forward kernel: o, and each row's log-sum-exp (BH, Sq)
+    float32 when ``with_lse`` (else None, and the kernel writes o
+    alone)."""
+    bh, sq, skv, d, dv = check_qkv(q, k, v, window)
+    _check_on_card(q, k, v)
+    check_kernel_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
+                       window=window)
     lib = build.load_library("lm")
     with torch.cuda.device(q.device):
         o = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
+        lse = torch.empty((bh, sq), dtype=F32, device=q.device) \
+            if with_lse else None
         stream = torch.cuda.current_stream().cuda_stream
         runtime.launch_counts["flash_attention"] += 1
         code = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, sq,
-            skv, d, dv, int(bool(causal)),
-            -1 if window is None else int(window), 1.0 / math.sqrt(d),
-            int(q.dtype == torch.bfloat16), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), bh, sq, skv, d, dv,
+            int(bool(causal)), -1 if window is None else int(window),
+            1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), stream)
     build.check_launch(lib, code, "flash_attention")
-    return o
+    return o, lse
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *,
+                                  causal: bool = True,
+                                  window: Optional[int] = None):
+    """Launch the backward kernels on CUDA tensors: (dq, dk, dv) in the
+    shapes and type of q, k, v, from the forward's o and ``lse`` (BH, Sq)
+    float32 and the output's gradient ``do`` (o's shape and type)."""
+    bh, sq, skv, d, dv = check_qkv(q, k, v, window)
+    for name, t, shape, dtype in (("o", o, (bh, sq, dv), q.dtype),
+                                  ("do", do, (bh, sq, dv), q.dtype),
+                                  ("lse", lse, (bh, sq), F32)):
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape \
+                or t.dtype != dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dtype} "
+                             f"tensor of shape {shape} on {q.device}")
+    _check_on_card(q, k, v)
+    check_backward_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
+                         window=window)
+    lib = build.load_library("lm")
+    with torch.cuda.device(q.device):
+        delta = torch.empty((bh, sq), dtype=F32, device=q.device)
+        dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+        stream = torch.cuda.current_stream().cuda_stream
+        runtime.launch_counts["flash_attention_bwd"] += 1
+        code = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr(), bh, sq, skv, d, dv,
+            int(bool(causal)), -1 if window is None else int(window),
+            1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), stream)
+    build.check_launch(lib, code, "flash_attention_bwd")
+    return dq, dk, dvv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K5 with its hand-written gradient: the forward kernel (with the row
+    log-sum-exp), the backward kernels.  Saves q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        o, lse = _forward_cuda(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch the flash-attention kernel for q's type on CUDA tensors;
+    with grad mode on and an input that requires a gradient, through
+    ``FlashAttentionFunction`` (the backward kernels then give it)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        bh, sq, skv, d, dv = check_qkv(q, k, v, window)
+        check_backward_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
+                             window=window)
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
+    return _forward_cuda(q, k, v, causal, window, with_lse=False)[0]

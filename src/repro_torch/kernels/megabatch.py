@@ -61,9 +61,11 @@ The TPU kernels' 128-lane padding of P, 8-sublane padding of B and
 these kernels take the true ``(B, N, P)`` and mask the ragged edges.
 
 Each ``*_cuda`` wrapper adds one to its entry of ``runtime.launch_counts``
-where it launches, and nowhere else.  The ``*_plain`` versions are what
-the CPU path and the on-card comparison use; nothing on the main path
-calls them for tensors that lie on the card.
+where it launches, and nowhere else, and raises on an input that needs a
+gradient (``runtime.refuse_grad``: no backward is ported).  The
+``*_plain`` versions are what the CPU path and the on-card comparison
+use; nothing on the main path calls them for tensors that lie on the
+card.
 """
 from __future__ import annotations
 
@@ -455,6 +457,7 @@ def batched_gram_cuda(xs, w, y, plan: Optional[GramPlan] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Gram kernel on CUDA tensors (contiguous float32), under
     ``plan`` (default: ``gram_launch_plan``)."""
+    runtime.refuse_grad("batched_gram", xs, w, y)
     b, n, p = _check_launchable(xs)
     check_operand("w", w, (b, n), xs)
     check_operand("y", y, (b, n), xs)
@@ -465,6 +468,7 @@ def batched_gram_blocked_cuda(xc, w, y, plan: Optional[GramPlan] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Gram kernel on the merged rows of CUDA tensors
     (contiguous float32): xc (B, C, Nc, P), w and y (B, C, Nc)."""
+    runtime.refuse_grad("batched_gram_blocked", xc, w, y)
     b, c, nc, p = check_xc(xc)
     _check_on_card_within_limits("xc", xc, b, c * nc, p)
     check_operand("w", w, (b, c, nc), xc)
@@ -502,6 +506,7 @@ def _launch_gram(xs, w, y, plan: Optional[GramPlan], name: str
 
 def batched_predict_cuda(xs, beta, valid) -> torch.Tensor:
     """Launch the predict kernel on CUDA tensors (contiguous float32)."""
+    runtime.refuse_grad("batched_predict", xs, beta, valid)
     b, n, p = _check_launchable(xs)
     if p > _MAX_PREDICT_P:
         raise ValueError(f"batched_predict: P={p} exceeds the kernel's "

@@ -56,7 +56,8 @@ grid of BH ceil(S / Q) ceil(Qp / 128) blocks stays under 2^31
 
 ``ssd_scan_cuda`` adds one to ``runtime.launch_counts["ssd_scan"]`` where
 it launches (once a call, for its four kernel launches), and nowhere
-else.  ``ssd_scan_plain`` is the sequential recurrence of the reference
+else; it raises on an input that needs a gradient (the reverse chunked
+scan is ROADMAP item 15(b3)'s second half).  ``ssd_scan_plain`` is the sequential recurrence of the reference
 oracle ``ssd_scan_ref``: what the CPU path and the on-card comparison
 use.
 """
@@ -162,7 +163,9 @@ def check_kernel_shape(bh: int, s: int, p: int, n: int, chunk: int) -> None:
 
 def ssd_scan_cuda(xbar, la, bm, cm, *, chunk: int = 256, heads: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the SSD scan's kernels on CUDA tensors."""
+    """Launch the SSD scan's kernels on CUDA tensors (an input that needs
+    a gradient raises: the scan's backward is not ported)."""
+    runtime.refuse_grad("ssd_scan", xbar, la, bm, cm)
     bh, s, p, n = check_ssd(xbar, la, bm, cm, chunk, heads)
     if not xbar.is_cuda:
         raise ValueError(f"xbar: the CUDA kernels take tensors on the card, "

@@ -1,6 +1,7 @@
 """Model assembly of the port: an architecture becomes a ModelBundle with
 
 * ``decls``                             — PDecl tree (params)
+* ``loss_fn(params, batch)``            -> (loss, metrics)
 * ``prefill_fn(params, batch)``         -> (logits_last, cache)
 * ``decode_fn(params, cache, batch)``   -> (logits, cache)
 * ``cache_decls(shape)``                — PDecl tree of the decode cache
@@ -20,16 +21,29 @@ parameters lie: on the card the prefill's attention and SSD scans go
 through the hand-written kernels (see ``layers`` and ``ssm``).
 ``decode_fn`` updates the cache it is given in place, where the reference
 donates it.  The frames and image patches are cast to their projection's
-type (the input specs declare them in it).  The MoE aux loss is returned
-by the decoder's backbone only: training (the loss, its backward) is not
-ported yet (ROADMAP item 15).
+type (the input specs declare them in it).
+
+Training: ``loss_fn`` composes the loss as the reference does — the mean
+cross-entropy of ``chunked_ce_loss`` (plus the MoE aux term for the
+decoder, ``{"ce", "aux"}`` beside it) — and autograd gives its gradient.
+Each builder's ``remat`` ("none", "full", "dots") wraps the layer bodies
+the reference wraps (``_remat``); it acts only under grad mode, so the
+serve path runs exactly as before.  On the card attention's backward is
+K5's hand-written kernel; the SSD scan's (K6) is not ported yet (ROADMAP
+item 15(b3)), so the hybrid and xLSTM families train on the CPU only (the
+card's scan refuses an input that needs a gradient).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import ssm as S
@@ -50,6 +64,35 @@ def stack_decls(tree, n: int):
                         p.dtype, p.init, p.scale), tree)
 
 
+# the products whose outputs "dots" keeps for the backward (the
+# counterpart of jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims)
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``fn`` under the reference's rematerialisation ``mode``: "none"
+    keeps every activation, "full" keeps only the inputs and recomputes
+    the body in the backward (``torch.utils.checkpoint``), "dots" keeps
+    the matrix products' outputs and recomputes the rest.  Outside grad
+    mode the body runs as it is."""
+    if mode == "none":
+        return fn
+    kw = {"full": {}, "dots": {"context_fn": partial(
+        create_selective_checkpoint_contexts, _dots_policy)}}[mode]
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
 def _index(tree, *idx):
     """One layer's parameters (views) out of a stacked tree."""
     return {k: (_index(v, *idx) if isinstance(v, dict) else v[idx])
@@ -60,6 +103,7 @@ def _index(tree, *idx):
 class ModelBundle:
     arch: ArchConfig
     decls: Any
+    loss_fn: Callable
     prefill_fn: Callable
     decode_fn: Callable
     cache_decls: Callable          # (ShapeConfig) -> PDecl tree
@@ -82,7 +126,37 @@ def _unemb(params, cfg):
 
 
 def _embed(params, tokens):
-    return params["emb"][tokens.long()]
+    # a gather whose backward sums into rows in a fixed order (indexing's
+    # backward is an accumulating scatter, whose order on the card is not)
+    return F.embedding(tokens.long(), params["emb"])
+
+
+def chunked_ce_loss(unemb, h, targets, chunk: int = 512):
+    """Mean cross-entropy over (B, S), the logits formed a sequence chunk
+    at a time in float32 and summed per chunk, then across chunks, as the
+    reference does.  Under grad mode each chunk is checkpointed, so only
+    one chunk's (B, chunk, V) float32 logits live at once in the backward
+    too.  S must be a multiple of ``min(chunk, S)`` (the reference's
+    reshape refuses it otherwise)."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunked_ce_loss: sequence length {s} is not a "
+                         f"multiple of the chunk {chunk}")
+
+    def body(hc, tc):
+        logits = (hc @ unemb).to(F32)
+        lse = torch.logsumexp(logits, dim=-1)
+        # gather's backward adds one value into each row's target slot
+        # (no two into one place), so its order on the card is immaterial
+        gold = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+        return torch.sum(lse - gold)
+
+    body = _remat(body, "full")
+    tot = torch.zeros((), dtype=F32, device=h.device)
+    for c0 in range(0, s, chunk):
+        tot = tot + body(h[:, c0:c0 + chunk], targets[:, c0:c0 + chunk])
+    return tot / (b * s)
 
 
 def _last_logits(unemb, h):
@@ -169,10 +243,23 @@ def _token_specs(shape: ShapeConfig):
     return {"tokens": PDecl((b, s), ("batch", None), dtype=I32)}
 
 
+def _train_specs(specs_fn):
+    """``specs_fn`` plus the targets of a training shape, as the
+    reference's input specs declare them."""
+    def specs(shape: ShapeConfig):
+        out = specs_fn(shape)
+        if shape.kind == "train":
+            out["targets"] = PDecl((shape.global_batch, shape.seq_len),
+                                   ("batch", None), dtype=I32)
+        return out
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # decoder-only: the dense and MoE families (GQA, SWA, QKV bias, MLA)
 # ---------------------------------------------------------------------------
-def build_decoder(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
+def build_decoder(cfg: ArchConfig, remat: str = "full",
+                  attn_chunk: int = 1024) -> ModelBundle:
     """The reference's ``build_decoder`` on one card (an expert axis of
     1): ``layers`` stacked n_layers - first_dense_layers deep, deepseek's
     leading dense layers stacked under ``head_layers``."""
@@ -211,25 +298,43 @@ def build_decoder(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
         m, aux = ffn(lp, h)
         return h + m, kv, aux
 
+    def train_layer(lp, h):
+        h, _, aux = layer(lp, h)
+        return h, aux
+
+    train_layer = _remat(train_layer, remat)
+
     # (stacked params and cache key, depth) in the order they run
     stacks = ([("head_layers", n_dense_head)] if n_dense_head else []) \
         + [("layers", n_scan)]
 
-    def backbone(params, tokens):
-        """(h, the MoE aux loss, {stack: its layers' cache pairs, stacked})."""
+    def backbone(params, tokens, collect: bool = True):
+        """(h, the MoE aux loss, {stack: its layers' cache pairs, stacked}
+        when ``collect``; else the training form: layers under remat, no
+        cache)."""
         h = _embed(params, tokens)
         aux_total = torch.zeros((), dtype=F32, device=h.device)
         kvs = {}
         for name, depth in stacks:
             got = []
             for i in range(depth):
-                h, kv, aux = layer(_index(params[name], i), h)
+                lp = _index(params[name], i)
+                if collect:
+                    h, kv, aux = layer(lp, h)
+                    got.append(kv)
+                else:
+                    h, aux = train_layer(lp, h)
                 if aux is not None:
                     aux_total = aux_total + aux
-                got.append(kv)
-            kvs[name] = tuple(torch.stack(t) for t in zip(*got))
+            if collect:
+                kvs[name] = tuple(torch.stack(t) for t in zip(*got))
         h = rms_norm(h, params["lnf"], cfg.norm_eps)
         return h, aux_total, kvs
+
+    def loss_fn(params, batch):
+        h, aux, _ = backbone(params, batch["tokens"], collect=False)
+        ce = chunked_ce_loss(_unemb(params, cfg), h, batch["targets"])
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def cache_decls(shape: ShapeConfig):
         kv, cap = _kv_cache_decls(cfg, n_scan, shape.global_batch,
@@ -273,14 +378,15 @@ def build_decoder(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
         out["cur"] = cur + 1
         return logits, out
 
-    return ModelBundle(cfg, decls, prefill_fn, decode_fn, cache_decls,
-                       _token_specs)
+    return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
+                       cache_decls, _train_specs(_token_specs))
 
 
 # ---------------------------------------------------------------------------
 # zamba2 hybrid: groups of (shared_attn_every-1 mamba + shared block)
 # ---------------------------------------------------------------------------
-def build_hybrid(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
+def build_hybrid(cfg: ArchConfig, remat: str = "full",
+                 attn_chunk: int = 1024) -> ModelBundle:
     per = cfg.shared_attn_every
     n_groups = cfg.n_layers // per
     n_m = per - 1
@@ -300,33 +406,37 @@ def build_hybrid(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
                              chunk=attn_chunk)
         return _mlp_block(cfg, lp, h + a), kv
 
+    # the training form's mamba blocks, under remat (the shared block is
+    # not wrapped, as in the reference)
+    mamba = _remat(lambda lp, h: S.mamba2_forward(lp, cfg, h), remat)
+
     def backbone(params, tokens, collect=False):
         h = _embed(params, tokens)
         m_ssm, m_conv, ks, vs = [], [], [], []
         for g in range(n_groups):
             for i in range(n_m):
-                out = S.mamba2_forward(_index(params["mamba"], g, i), cfg, h,
-                                       return_state=collect)
+                lp = _index(params["mamba"], g, i)
                 if collect:
-                    h, (s_fin, conv_state) = out
+                    h, (s_fin, conv_state) = S.mamba2_forward(
+                        lp, cfg, h, return_state=True)
                     m_ssm.append(s_fin)
                     m_conv.append(conv_state)
                 else:
-                    h = out
+                    h = mamba(lp, h)
             h, (k, v) = shared_block(h, params)
             if collect:
                 ks.append(k)
                 vs.append(v)
         t_ssm, t_conv = [], []
         for i in range(n_tail):
-            out = S.mamba2_forward(_index(params["tail"], i), cfg, h,
-                                   return_state=collect)
+            lp = _index(params["tail"], i)
             if collect:
-                h, (s_fin, conv_state) = out
+                h, (s_fin, conv_state) = S.mamba2_forward(
+                    lp, cfg, h, return_state=True)
                 t_ssm.append(s_fin)
                 t_conv.append(conv_state)
             else:
-                h = out
+                h = mamba(lp, h)
         h = rms_norm(h, params["lnf"], cfg.norm_eps)
         if not collect:
             return h, None
@@ -339,6 +449,11 @@ def build_hybrid(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
             states["t_ssm"] = torch.stack(t_ssm)
             states["t_conv"] = torch.stack(t_conv)
         return h, states
+
+    def loss_fn(params, batch):
+        h, _ = backbone(params, batch["tokens"])
+        ce = chunked_ce_loss(_unemb(params, cfg), h, batch["targets"])
+        return ce, {"ce": ce}
 
     def cache_decls(shape: ShapeConfig):
         b = shape.global_batch
@@ -417,14 +532,15 @@ def build_hybrid(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
         out["cur"] = cur + 1
         return logits, out
 
-    return ModelBundle(cfg, decls, prefill_fn, decode_fn, cache_decls,
-                       _token_specs)
+    return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
+                       cache_decls, _train_specs(_token_specs))
 
 
 # ---------------------------------------------------------------------------
 # xLSTM: groups of (slstm_every - 1) mLSTM blocks and one sLSTM block
 # ---------------------------------------------------------------------------
-def build_xlstm(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
+def build_xlstm(cfg: ArchConfig, remat: str = "full",
+                attn_chunk: int = 1024) -> ModelBundle:
     """The reference's ``build_xlstm``: ``mlstm`` stacked (groups, mLSTM
     blocks a group), ``slstm`` stacked (groups,).  The reduced config
     keeps slstm_every 8 at 4 layers, so it has no group at all (embedding,
@@ -444,6 +560,21 @@ def build_xlstm(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
                                  n_groups)
     if has_s:
         decls["slstm"] = stack_decls(S.slstm_decls(cfg), n_groups)
+
+    # the training form's mLSTM blocks, under remat (the sLSTM block is
+    # not wrapped, as in the reference)
+    mlstm = _remat(lambda lp, h: S.mlstm_forward(lp, cfg, h), remat)
+
+    def loss_fn(params, batch):
+        h = _embed(params, batch["tokens"])
+        for g in range(n_groups):
+            for i in range(n_m):
+                h = mlstm(_index(params["mlstm"], g, i), h)
+            if has_s:
+                h = S.slstm_forward(_index(params["slstm"], g), cfg, h)
+        h = rms_norm(h, params["lnf"], cfg.norm_eps)
+        ce = chunked_ce_loss(_unemb(params, cfg), h, batch["targets"])
+        return ce, {"ce": ce}
 
     def cache_decls(shape: ShapeConfig):
         b = shape.global_batch
@@ -510,15 +641,16 @@ def build_xlstm(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
         out["cur"] = cache["cur"] + 1
         return logits, out
 
-    return ModelBundle(cfg, decls, prefill_fn, decode_fn, cache_decls,
-                       _token_specs)
+    return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
+                       cache_decls, _train_specs(_token_specs))
 
 
 # ---------------------------------------------------------------------------
 # encoder-decoder (whisper): a non-causal encoder over precomputed frames,
 # a decoder with self- and cross-attention
 # ---------------------------------------------------------------------------
-def build_encdec(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
+def build_encdec(cfg: ArchConfig, remat: str = "full",
+                 attn_chunk: int = 1024) -> ModelBundle:
     """The reference's ``build_encdec``.  Sinusoidal positions, no rope.
     The prefill encodes ``batch["frames"]`` (B, T, d_frontend) and runs the
     decoder over the prompt; its cache holds the decoder's self keys and
@@ -539,18 +671,34 @@ def build_encdec(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
     decls["decoder"] = stack_decls(dec_layer, cfg.n_layers)
     decls["enc_lnf"] = PDecl((cfg.d_model,), (None,), init="ones")
 
-    def encode(params, frames):
+    def enc_layer(lp, h):
+        att, _ = attn_forward(lp["attn"], a, rms_norm(h, lp["ln1"], eps),
+                              use_rope=False, chunk=attn_chunk, causal=False)
+        return _mlp_block(cfg, lp, h + att)
+
+    def dec_layer(lp, h, enc):
+        """(h, the self and cross keys and values)."""
+        att, kv = attn_forward(lp["attn"], a, rms_norm(h, lp["ln1"], eps),
+                               use_rope=False, chunk=attn_chunk)
+        h = h + att
+        c, xkv = attn_forward(lp["cross"], a, rms_norm(h, lp["lnx"], eps),
+                              use_rope=False, chunk=attn_chunk,
+                              kv_override=(enc, None))
+        return _mlp_block(cfg, lp, h + c), kv + xkv
+
+    # the training form's layers, under remat (both stacks, as the
+    # reference wraps them)
+    train_enc = _remat(enc_layer, remat)
+    train_dec = _remat(lambda lp, h, enc: dec_layer(lp, h, enc)[0], remat)
+
+    def encode(params, frames, train: bool = False):
         proj = params["frontend_proj"]
         h = frames.to(proj.dtype) @ proj
         h = h + sinusoidal_pos(h.shape[1], cfg.d_model, h.dtype,
                                h.device)[None]
         for i in range(cfg.n_encoder_layers):
-            lp = _index(params["encoder"], i)
-            att, _ = attn_forward(lp["attn"], a,
-                                  rms_norm(h, lp["ln1"], eps),
-                                  use_rope=False, chunk=attn_chunk,
-                                  causal=False)
-            h = _mlp_block(cfg, lp, h + att)
+            h = (train_enc if train else enc_layer)(
+                _index(params["encoder"], i), h)
         return rms_norm(h, params["enc_lnf"], eps)
 
     def _tokens_in(params, tokens, n_pos: int):
@@ -559,6 +707,16 @@ def build_encdec(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
         h = _embed(params, tokens)
         return h + sinusoidal_pos(n_pos, cfg.d_model,
                                   device=h.device).to(h.dtype)[None]
+
+    def loss_fn(params, batch):
+        enc = encode(params, batch["frames"], train=True)
+        tokens = batch["tokens"]
+        h = _tokens_in(params, tokens, tokens.shape[1])
+        for i in range(cfg.n_layers):
+            h = train_dec(_index(params["decoder"], i), h, enc)
+        h = rms_norm(h, params["lnf"], eps)
+        ce = chunked_ce_loss(_unemb(params, cfg), h, batch["targets"])
+        return ce, {"ce": ce}
 
     def cache_decls(shape: ShapeConfig):
         b = shape.global_batch
@@ -575,17 +733,8 @@ def build_encdec(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
         h = _tokens_in(params, tokens, s)
         kvs = []
         for i in range(cfg.n_layers):
-            lp = _index(params["decoder"], i)
-            att, kv = attn_forward(lp["attn"], a,
-                                   rms_norm(h, lp["ln1"], eps),
-                                   use_rope=False, chunk=attn_chunk)
-            h = h + att
-            c, xkv = attn_forward(lp["cross"], a,
-                                  rms_norm(h, lp["lnx"], eps),
-                                  use_rope=False, chunk=attn_chunk,
-                                  kv_override=(enc, None))
-            h = _mlp_block(cfg, lp, h + c)
-            kvs.append(kv + xkv)
+            h, kv = dec_layer(_index(params["decoder"], i), h, enc)
+            kvs.append(kv)
         h = rms_norm(h, params["lnf"], eps)
         logits = _last_logits(_unemb(params, cfg), h)
         k, v, xk, xv = (torch.stack(t) for t in zip(*kvs))
@@ -628,14 +777,15 @@ def build_encdec(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
             specs["targets"] = PDecl((b, s), ("batch", None), dtype=I32)
         return specs
 
-    return ModelBundle(cfg, decls, prefill_fn, decode_fn, cache_decls,
-                       input_specs)
+    return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
+                       cache_decls, input_specs)
 
 
 # ---------------------------------------------------------------------------
 # VLM: a decoder with a gated cross-attention layer every Nth layer
 # ---------------------------------------------------------------------------
-def build_vlm(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
+def build_vlm(cfg: ArchConfig, remat: str = "full",
+              attn_chunk: int = 1024) -> ModelBundle:
     """The reference's ``build_vlm``: groups of ``cross_attn_every - 1``
     self-attention layers (rope, causal) and one cross-attention layer
     against the projected image patches ``batch["img"]`` (no rope, not
@@ -661,6 +811,33 @@ def build_vlm(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
     def gated(cp, h, att):
         return h + torch.tanh(cp["gate"]).to(h.dtype) * att
 
+    def self_layer(lp, h):
+        att, kv = attn_forward(lp["attn"], a, rms_norm(h, lp["ln1"], eps),
+                               chunk=attn_chunk)
+        return _mlp_block(cfg, lp, h + att), kv
+
+    def cross_layer(cp, h, img_h):
+        att, xkv = attn_forward(cp["attn"], a, rms_norm(h, cp["ln1"], eps),
+                                use_rope=False, chunk=attn_chunk,
+                                kv_override=(img_h, None))
+        return _mlp_block(cfg, cp, gated(cp, h, att)), xkv
+
+    # the training form's self-attention layers, under remat (the cross
+    # layer is not wrapped, as in the reference)
+    train_self = _remat(lambda lp, h: self_layer(lp, h)[0], remat)
+
+    def loss_fn(params, batch):
+        proj = params["img_proj"]
+        img_h = batch["img"].to(proj.dtype) @ proj
+        h = _embed(params, batch["tokens"])
+        for g in range(n_groups):
+            for i in range(n_self):
+                h = train_self(_index(params["self_layers"], g, i), h)
+            h = cross_layer(_index(params["cross_layers"], g), h, img_h)[0]
+        h = rms_norm(h, params["lnf"], eps)
+        ce = chunked_ce_loss(_unemb(params, cfg), h, batch["targets"])
+        return ce, {"ce": ce}
+
     def cache_decls(shape: ShapeConfig):
         b = shape.global_batch
         kv, cap = _kv_cache_decls(cfg, n_self, b, shape.seq_len,
@@ -683,18 +860,9 @@ def build_vlm(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
         kvs, xkvs = [], []
         for g in range(n_groups):
             for i in range(n_self):
-                lp = _index(params["self_layers"], g, i)
-                att, kv = attn_forward(lp["attn"], a,
-                                       rms_norm(h, lp["ln1"], eps),
-                                       chunk=attn_chunk)
-                h = _mlp_block(cfg, lp, h + att)
+                h, kv = self_layer(_index(params["self_layers"], g, i), h)
                 kvs.append(kv)
-            cp = _index(params["cross_layers"], g)
-            att, xkv = attn_forward(cp["attn"], a,
-                                    rms_norm(h, cp["ln1"], eps),
-                                    use_rope=False, chunk=attn_chunk,
-                                    kv_override=(img_h, None))
-            h = _mlp_block(cfg, cp, gated(cp, h, att))
+            h, xkv = cross_layer(_index(params["cross_layers"], g), h, img_h)
             xkvs.append(xkv)
         h = rms_norm(h, params["lnf"], eps)
         logits = _last_logits(_unemb(params, cfg), h)
@@ -739,8 +907,8 @@ def build_vlm(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
             specs["targets"] = PDecl((b, s), ("batch", None), dtype=I32)
         return specs
 
-    return ModelBundle(cfg, decls, prefill_fn, decode_fn, cache_decls,
-                       input_specs)
+    return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
+                       cache_decls, input_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -749,11 +917,13 @@ _BUILDERS = {"dense": build_decoder, "moe": build_decoder,
              "audio": build_encdec, "vlm": build_vlm}
 
 
-def build_model(cfg: ArchConfig, attn_chunk: int = 1024) -> ModelBundle:
+def build_model(cfg: ArchConfig, remat: str = "full",
+                attn_chunk: int = 1024) -> ModelBundle:
     """The ModelBundle of an architecture, by its family; an unknown
-    family raises ``NotImplementedError``."""
+    family raises ``NotImplementedError``.  ``remat`` is the training
+    form's rematerialisation of the layer bodies (see ``_remat``)."""
     if cfg.family not in _BUILDERS:
         raise NotImplementedError(
             f"unknown family {cfg.family!r} ({cfg.name}); known: "
             f"{sorted(_BUILDERS)}")
-    return _BUILDERS[cfg.family](cfg, attn_chunk=attn_chunk)
+    return _BUILDERS[cfg.family](cfg, remat=remat, attn_chunk=attn_chunk)

@@ -77,6 +77,12 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """``leaves``, in ``tree``'s flattening order, in ``tree``'s shape."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def tree_paths(tree, prefix: Tuple[str, ...] = ()):
     """[(path of keys, leaf)] in flattening order."""
     if isinstance(tree, dict):

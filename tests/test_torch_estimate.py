@@ -97,6 +97,7 @@ def test_estimate_matches_reference(case):
                                      "batched_predict": 0,
                                      "crossfit_gram": 0,
                                      "flash_attention": 0,
+                                     "flash_attention_bwd": 0,
                                      "ssd_scan": 0}
 
 

@@ -39,6 +39,7 @@ import examples.quickstart_torch as tquickstart
 import examples.serve_lm_torch as tserve
 import examples.serverless_scaling_torch as tscaling
 import examples.session_batching_torch as tsession
+import examples.train_lm_torch as ttrain
 import repro_torch.serverless.backends as torch_backends
 import repro_torch.serverless.dispatch as torch_dispatch
 from repro_torch.models import params_from_numpy
@@ -100,7 +101,8 @@ def test_twins_raise_without_a_card_unless_asked_for_the_cpu():
         pytest.skip("a CUDA device is present: the default device runs")
     for call in (lambda: tquickstart.run(n_rep=1),
                  lambda: tscaling.run_sweep(n_rep=1, repeats=1),
-                 lambda: tsession.run()):
+                 lambda: tsession.run(),
+                 lambda: ttrain.run(steps=1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -230,3 +232,32 @@ def test_serve_lm_twin_takes_the_cross_attention_families(arch):
     assert res.tokens.shape == (3, 3)
     _, _, _, again = tserve.run(arch, requests=3, gen=3, device="cpu")
     assert np.array_equal(res.tokens, again.tokens)
+
+
+def test_train_lm_twin_trains_and_resumes_on_the_cpu(tmp_path, capsys):
+    """The training twin, reduced, on the CPU: six steps with a checkpoint
+    every three; resumed from step 3's checkpoint alone, it ends with the
+    uninterrupted run's parameters and optimizer state, bit for bit."""
+    import shutil
+    from repro_torch.models.param import tree_leaves
+    full = tmp_path / "full"
+    _, params, opt, hist, start = ttrain.run(
+        steps=6, ckpt_dir=str(full), device="cpu", log_every=1,
+        ckpt_every=3)
+    assert start == 0 and [h["step"] for h in hist] == list(range(1, 7))
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert hist[-1]["loss"] < hist[0]["loss"]
+    part = tmp_path / "part"
+    part.mkdir()
+    shutil.copy(full / "ckpt_00000003.msgpack", part)
+    _, params2, opt2, hist2, start2 = ttrain.run(
+        steps=6, ckpt_dir=str(part), resume=True, device="cpu",
+        log_every=1, ckpt_every=3)
+    assert start2 == 3 and [h["step"] for h in hist2] == [4, 5, 6]
+    assert [h["loss"] for h in hist2] == [h["loss"] for h in hist[3:]]
+    for a, b in zip(tree_leaves({"p": params, "o": opt}),
+                    tree_leaves({"p": params2, "o": opt2})):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ttrain.main(["--steps", "2", "--device", "cpu", "--ckpt-dir",
+                 str(tmp_path / "cli")])
+    assert "loss:" in capsys.readouterr().out

@@ -177,6 +177,7 @@ def test_cpu_tensors_never_launch_a_kernel():
                                      "batched_predict": 0,
                                      "crossfit_gram": 0,
                                      "flash_attention": 0,
+                                     "flash_attention_bwd": 0,
                                      "ssd_scan": 0}
 
 

@@ -10,8 +10,13 @@ float32 arrays on both sides.  Tolerances are the reference's own
 bf16 for attention; 2e-4 of max|y| for the scan (and of max|state| for its
 final state).  The card's routes — heads folded into the kernels' lanes,
 bm/cm shared by the heads of a batch row — are exercised here too: on CPU
-tensors ``ops`` hands the folded operands to the plain versions.
+tensors ``ops`` hands the folded operands to the plain versions.  K5's
+backward: its plain version and both backward kernels' schedules
+(emulated) against ``jax.vjp`` of the reference's oracle, its shape
+limits, and the refusal of every kernel without a backward to take an
+input that needs a gradient.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -505,6 +510,160 @@ def test_check_qkv_takes_v_at_its_own_depth():
 
 
 # ---------------------------------------------------------------------------
+# flash_attention's backward (K5's gradient).  The reference differentiates
+# its jnp attention (its Pallas kernel has no VJP): jax.vjp of
+# ``flash_attention_ref`` is the oracle of the plain backward and of the
+# kernels' schedules, emulated here as the CUDA kernels compute them.
+# ---------------------------------------------------------------------------
+BWD_CASES = [
+    (4, 96, 96, 32, 32, True, None),
+    (4, 128, 128, 64, 64, True, 48),        # windowed
+    (4, 80, 80, 32, 32, False, None),       # not masked
+    (2, 100, 160, 32, 32, True, 64),        # Sq < Skv, suffix-aligned
+    (2, 150, 70, 32, 32, False, None),      # Sq > Skv, nothing masked
+    (2, 60, 130, 64, 64, False, None),      # Sq < Skv, nothing masked
+    (2, 96, 96, 48, 32, True, None),        # Dqk != Dv (reduced MLA)
+    (2, 70, 70, 120, 120, True, None),      # D 120: padded depth
+]
+
+
+def _bwd_inputs(bh, sq, skv, d, dv, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((bh, sq, d), dtype=np.float32),
+            rng.standard_normal((bh, skv, d), dtype=np.float32),
+            rng.standard_normal((bh, skv, dv), dtype=np.float32),
+            rng.standard_normal((bh, sq, dv), dtype=np.float32))
+
+
+def _jax_grads(q, k, v, do, *, causal, window):
+    """(dq, dk, dv) of the reference's attention oracle, by jax.vjp."""
+    _, vjp = jax.vjp(lambda a, b, c: ref.flash_attention_ref(
+        a, b, c, causal=causal, window=window), *map(jnp.asarray, (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _grad_err(got, want):
+    """Largest |got - want| over dq, dk, dv, each as a fraction of its
+    largest |want|."""
+    return max(float(np.abs(_f32(g) - w).max() / np.abs(w).max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,dv,causal,window", BWD_CASES)
+def test_flash_attention_backward_plain_matches_jax_grad(
+        bh, sq, skv, d, dv, causal, window):
+    """The explicit backward (from the plain o and lse) against jax.vjp of
+    the reference's oracle, in float32, within 1e-5 of each gradient's
+    largest magnitude; and autograd through the plain forward (the CPU
+    route) against it too."""
+    q, k, v, do = _bwd_inputs(bh, sq, skv, d, dv, bh * sq + skv + d + dv)
+    want = _jax_grads(q, k, v, do, causal=causal, window=window)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o = fa_mod.flash_attention_plain(tq, tk, tv, causal=causal,
+                                     window=window)
+    lse = fa_mod.flash_attention_lse_plain(tq, tk, causal=causal,
+                                           window=window)
+    got = fa_mod.flash_attention_backward_plain(
+        tq, tk, tv, o, lse, tdo, causal=causal, window=window)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert _grad_err(got, want) <= 1e-5
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    ops.flash_attention(*leaves, causal=causal, window=window).backward(tdo)
+    assert _grad_err([t.grad for t in leaves], want) <= 1e-5
+
+
+def _bwd_schedule(q, k, v, o, lse, do, *, causal, window, kernel):
+    """Plain emulation of the backward kernels' arithmetic
+    (``flash_attention_bwd_*_kernel`` in ``csrc/lm.cu``): delta =
+    rowsum(dO o O) in float32; S from the operands summed in float32, P =
+    exp2(S log2(e)/sqrt(D) - lse log2(e)) where visible; bf16: P and dS
+    rounded once to bf16 for their products with bf16 dO, Q and K, the
+    gradients rounded to bf16; float32: every product split-TF32 (three
+    passes).  The sums' order over tiles is not emulated."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    ok = fa_mod.visible(sq, skv, causal, window, "cpu")
+    scale = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+    log2e = torch.tensor(np.log2(np.e), dtype=torch.float32)
+    f = [t.float() for t in (q, k, v, o, do)]
+    qf, kf, vf, of, dof = f
+    if kernel == "bf16":
+        def prod(eq, a, b, round_a=False):
+            if round_a:
+                a = a.to(torch.bfloat16).float()
+            return torch.einsum(eq, a, b)
+    else:
+        def prod(eq, a, b, round_a=False):
+            return _tf32_product(eq, a, b, True)
+    s = prod("bqd,bkd->bqk", qf, kf)
+    p = torch.exp2(s * (scale * log2e) - (lse * log2e)[..., None])
+    p = p.masked_fill(~ok[None], 0.0)
+    delta = (dof * of).sum(-1)
+    dv = prod("bkq,bqd->bkd", p.transpose(1, 2), dof, round_a=True)
+    dp = prod("bqd,bkd->bqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dk = prod("bkq,bqd->bkd", ds.transpose(1, 2), qf, round_a=True) * scale
+    dq = prod("bqk,bkd->bqd", ds, kf, round_a=True) * scale
+    out = (dq, dk, dv)
+    if kernel == "bf16":
+        out = tuple(t.to(torch.bfloat16) for t in out)
+    return out
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,dv,causal,window", BWD_CASES)
+@pytest.mark.parametrize("kernel", ["bf16", "f32"])
+def test_backward_schedules_match_jax_grad(bh, sq, skv, d, dv, causal,
+                                           window, kernel):
+    """Both backward kernels' schedules against jax.vjp of the reference:
+    bf16 operands (P and dS rounded once to bf16) within ATTN_TOL's 2e-2
+    of each gradient's largest magnitude (measured here: 3.6e-3 to 4.7e-3,
+    about one bf16 step at that magnitude; per element, near-zero entries
+    of dq and dk are many steps off, since dS = P o (dP - delta) cancels);
+    split-TF32 within 2e-5 (measured: 1.1e-6)."""
+    q, k, v, do = _bwd_inputs(bh, sq, skv, d, dv, bh + sq + skv + d + dv)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(TT[kernel])
+                       for a in (q, k, v, do))
+    o = fa_mod.flash_attention_plain(tq, tk, tv, causal=causal,
+                                     window=window)
+    lse = fa_mod.flash_attention_lse_plain(tq, tk, causal=causal,
+                                           window=window)
+    got = _bwd_schedule(tq, tk, tv, o, lse, tdo, causal=causal,
+                        window=window, kernel=kernel)
+    want = _jax_grads(*(_f32(t) for t in (tq, tk, tv, tdo)), causal=causal,
+                      window=window)
+    assert all(np.isfinite(_f32(g)).all() for g in got)
+    if kernel == "bf16":
+        assert _grad_err(got, want) <= TOL["bf16"]
+    else:
+        assert _grad_err(got, want) <= 2e-5
+
+
+@pytest.mark.parametrize("sq,skv,d,dv,dtype,causal,window,ok", [
+    (4096, 4096, 120, 120, "bf16", True, None, True),     # h2o's training
+    (2048, 2048, 192, 128, "bf16", True, None, True),     # MLA
+    (448, 1500, 64, 64, "f32", False, None, True),        # whisper cross
+    (1500, 448, 64, 64, "bf16", False, None, True),       # more queries
+    (9, 8, 64, 64, "f32", True, None, False),             # masked Sq > Skv
+    (9, 8, 64, 64, "f32", False, 4, False),
+    (64, 64, 12, 12, "bf16", True, None, False),          # D % 8 in bf16
+    (64, 64, 136, 136, "f32", True, None, False),         # D past 128
+    (64 * 65535 + 1, 64 * 65535 + 1, 16, 16, "bf16", False, None, False),
+])
+def test_flash_attention_backward_shape_limits(sq, skv, d, dv, dtype, causal,
+                                               window, ok):
+    """The backward takes the forward's depth pairs, in both types the bf16
+    kernel's mask rule (Sq <= Skv unless nothing is masked), and at most
+    65535 64-row tiles of Sq and of Skv."""
+    if ok:
+        fa_mod.check_backward_shape(4, sq, skv, d, TT[dtype], dv,
+                                    causal=causal, window=window)
+    else:
+        with pytest.raises(ValueError, match="D|Sq|S <="):
+            fa_mod.check_backward_shape(4, sq, skv, d, TT[dtype], dv,
+                                        causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
 # ssd_scan (K6)
 # ---------------------------------------------------------------------------
 def _ssd_inputs(rng, bh, s, p, n, groups=None, decay=2.0):
@@ -873,3 +1032,60 @@ def test_cuda_wrappers_take_only_card_tensors():
     with pytest.raises(ValueError, match="card"):
         ssd_mod.ssd_scan_cuda(x, torch.zeros((2, 8)), torch.zeros((2, 8, 3)),
                               torch.zeros((2, 8, 3)), chunk=4)
+
+
+# ---------------------------------------------------------------------------
+# the grad refusal: a CUDA launch fills its outputs through a raw pointer,
+# so a kernel without a backward refuses an input that needs a gradient
+# (before its device check, which a CPU tensor reaches otherwise)
+# ---------------------------------------------------------------------------
+def _refusal_cases():
+    from repro_torch.kernels import crossfit_gram as xg_mod
+    from repro_torch.kernels import megabatch as mb_mod
+    xs, w = torch.zeros((2, 8, 3)), torch.ones((2, 8))
+    return {
+        "ssd_scan": lambda t: ssd_mod.ssd_scan_cuda(
+            t(torch.zeros((2, 8, 4))), torch.zeros((2, 8)),
+            torch.zeros((2, 8, 3)), torch.zeros((2, 8, 3)), chunk=4),
+        "batched_gram": lambda t: mb_mod.batched_gram_cuda(t(xs), w, w),
+        "batched_gram_blocked": lambda t: mb_mod.batched_gram_blocked_cuda(
+            t(xs.reshape(2, 2, 4, 3)), w.reshape(2, 2, 4),
+            w.reshape(2, 2, 4)),
+        "batched_predict": lambda t: mb_mod.batched_predict_cuda(
+            t(xs), torch.zeros((2, 3)), w),
+        "crossfit_gram": lambda t: xg_mod.crossfit_gram_cuda(
+            t(xs[0]), w, w),
+    }
+
+
+@pytest.mark.parametrize("name", ["ssd_scan", "batched_gram",
+                                  "batched_gram_blocked", "batched_predict",
+                                  "crossfit_gram"])
+def test_kernels_without_a_backward_refuse_inputs_that_need_one(name):
+    call = _refusal_cases()[name]
+    grad = lambda t: t.clone().requires_grad_(True)      # noqa: E731
+    with pytest.raises(RuntimeError, match=f"{name}.*backward"):
+        call(grad)
+    # under no_grad the same input reaches the device check
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="card"):
+            call(grad)
+    with pytest.raises(ValueError, match="card"):
+        call(lambda t: t)
+
+
+def test_flash_attention_needing_a_gradient_takes_the_backward_route():
+    """On the card an input that needs a gradient goes through
+    ``FlashAttentionFunction`` (whose shape check is the backward's); on
+    the CPU autograd differentiates the plain version."""
+    q = torch.zeros((2, 9, 16), requires_grad=True)
+    k = torch.zeros((2, 8, 16))
+    with pytest.raises(ValueError, match="backward"):
+        fa_mod.flash_attention_cuda(q, k, k, causal=True)
+    q = torch.zeros((2, 8, 16), requires_grad=True)
+    with pytest.raises(ValueError, match="card"):
+        fa_mod.flash_attention_cuda(q, k, k, causal=True)
+    runtime.reset_launch_counts()
+    ops.flash_attention(q, k, k, causal=True).sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert set(runtime.launch_counts.values()) == {0}
