@@ -69,16 +69,19 @@ whisper-base whole, 12 steps each through ``Trainer.run`` with remat
 tokens/s, peak memory, launches a step); the reduced h2o-danube-3-4b and
 deepseek-v2-lite card against CPU in float32 (a step's loss and
 gradients, a loss curve), and a resume on the card bit for bit.  The
-kernels phase holds K5's backward against its plain version at the
-training shapes and times it beside scaled_dot_product_attention's.
+kernels phase holds K5's backward (bf16: ``csrc/attn_bwd.cu``, wgmma on
+TMA-fed tiles; float32: ``csrc/lm.cu``) against its plain version at the
+training shapes and at every depth pair, counts its CUDA launches a call
+from a captured graph and times it beside
+scaled_dot_product_attention's.
 
 The persistent library store (``compile/persist.py``): fresh processes
-on a fresh ``REPRO_PROGRAM_CACHE_DIR`` — the first builds both kernel
-libraries, the second builds none, one after a library was truncated
-evicts and rebuilds that library alone, and one of a copy of the package
-with a byte added to a comment of ``megabatch.cu`` rebuilds that library
-alone; each serves the paper request and holds K1, K2, K5 and K6 against
-their plain versions.  The example twins (``examples/*_torch.py``) at
+on a fresh ``REPRO_PROGRAM_CACHE_DIR`` — the first builds the two kernel
+libraries it uses (megabatch, lm), the second builds none, one after a
+library was truncated evicts and rebuilds that library alone, and one of
+a copy of the package with a byte added to a comment of ``megabatch.cu``
+rebuilds that library alone; each serves the paper request and holds K1,
+K2, K5 and K6 against their plain versions.  The example twins (``examples/*_torch.py``) at
 their own sizes on the card, the serving example's included.
 
 Phases: device, build, kernels, estimate_paper, estimate_wide, session,
@@ -153,7 +156,7 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "serve_xlstm", "serve_whisper", "serve_vlm", "same_as_cpu_lm",
           "train_dense", "train_whisper", "topology",
           "topology_chaos", "durable", "sanitize", "persist", "examples")
-LIBRARIES = ("megabatch", "lm")
+LIBRARIES = ("megabatch", "lm", "attn_bwd")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
 # core) float32 FLOP/s — K1-K4 use plain FMA
@@ -198,10 +201,12 @@ KERNELS = {
         "replaces": "src/repro/kernels/ssd_scan.py:52",
     },
     # K5's gradient: the reference differentiates its jnp attention (its
-    # Pallas kernel has no VJP); this is the backward of that kernel
+    # Pallas kernel has no VJP); this is the backward of that kernel.  The
+    # main path's bf16 calls take csrc/attn_bwd.cu (wgmma, TMA); float32
+    # ones, the card-against-CPU checks', csrc/lm.cu's split-TF32 kernels
     "flash_attention_bwd": {
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lm.cu",
+        "source": "src/repro_torch/kernels/csrc/attn_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
     },
 }
@@ -1180,7 +1185,12 @@ def _attn_kernel_rows(device, gen):
 # 128) causal; then three of them in float32; last train_dense's reduced
 # calls: h2o-danube-3-4b (B 4 x 4 heads, S 256, D 32, window 64) in
 # float32 (card against CPU) and bf16 (the resume), and deepseek-v2-lite's
-# MLA (B 4 x 4 heads, S 128, Dqk 48, Dv 32) in float32
+# MLA (B 4 x 4 heads, S 128, Dqk 48, Dv 32) in float32; then bf16 rows at
+# (16, 256, 256, D) causal for the depth pairs no row above takes (each of
+# the bf16 kernels' three depth classes, (64, 64), (128, 128) and (192,
+# 128), runs at every pair of DEPTH_PAIRS it pads), a ragged one with
+# queries aligned to the keys' suffix under a window that bites, and a
+# few queries, Sq % 4 != 0 (rows of lse and delta off 16 bytes)
 BWD_ATTN_ROWS = (
     ("h2o_causal", (256, 4096, 4096, 120, "bf16", True, 4096)),
     ("h2o_window", (256, 4096, 4096, 120, "bf16", True, 1024)),
@@ -1194,6 +1204,11 @@ BWD_ATTN_ROWS = (
     ("h2o_reduced", (16, 256, 256, 32, "f32", True, 64)),
     ("h2o_reduced", (16, 256, 256, 32, "bf16", True, 64)),
     ("mla_reduced", (16, 128, 128, 48, "f32", True, None, 32)),
+    ("mla_reduced", (16, 128, 128, 48, "bf16", True, None, 32)),
+    *((f"depth_{d}", (16, 256, 256, d, "bf16", True, None))
+      for d in (16, 48, 80, 96, 112, 128)),
+    ("ragged_window", (16, 300, 700, 64, "bf16", True, 128)),
+    ("few_queries", (16, 13, 301, 64, "bf16", True, 32)),
 )
 MAIN_BWD_ATTN = ("h2o_causal", "bf16")
 # the plain backward holds a few (lanes, Sq, Skv) float32 tensors: it is
@@ -1396,6 +1411,10 @@ def _attn_bwd_kernel_rows(device, gen):
                 for i in range(0, bh, n)]
         nbytes, flops, bound, by = _attn_bwd_bound(*shape)
         row.update({
+            # one wrapper call: its CUDA launches as a captured graph holds
+            # them (bf16: delta, then dK/dV and dQ in one grid; float32:
+            # delta, dK/dV, dQ)
+            "cuda_launches_per_call": _graph_launches(kernel),
             "ms": _time_ms(kernel, cold=True),
             "plain_ms": _time_ms(plain, cold=True, runs=3, warmup=1),
             "library_ms": None, "bound_ms": bound, "bound_by": by,
@@ -1409,6 +1428,8 @@ def _attn_bwd_kernel_rows(device, gen):
         else:
             row["library_ms"] = _time_ms(library, cold=True)
         library = None
+        assert row["cuda_launches_per_call"] == \
+            (2 if dtype == "bf16" else 3), row
         rows[(name, dtype)] = row
         report.append({"name": name, "flash_attention_bwd": row})
         del q, k, v, do, o, lse, grads

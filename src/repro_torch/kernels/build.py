@@ -59,16 +59,23 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "repro_flash_attention": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
                                   _INT, _INT, _INT, _INT, _INT, _FLT, _INT,
                                   _PTR),
-        # q, k, v, o, lse, dO, the scratch delta, dq, dk, dv, BH, Sq, Skv,
-        # D, Dv, causal, window, scale, is_bf16, stream
+        # float32 only: q, k, v, o, lse, dO, the scratch delta, dq, dk,
+        # dv, BH, Sq, Skv, D, Dv, causal, window, scale, stream
         "repro_flash_attention_bwd": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                                       _PTR, _PTR, _PTR, _PTR, _INT, _INT,
                                       _INT, _INT, _INT, _INT, _INT, _FLT,
-                                      _INT, _PTR),
+                                      _PTR),
         # xbar, la, bm, cm, y, state, then the scratch cb, states, decay,
         # BH, S, P, N, chunk, heads, stream
         "repro_ssd_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                            _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR),
+    },
+    "attn_bwd": {
+        # K5's bf16 backward: q, k, v, o, lse, dO, the scratch delta, dq,
+        # dk, dv, BH, Sq, Skv, D, Dv, causal, window, scale, stream
+        "repro_attn_bwd": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                           _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
+                           _INT, _FLT, _PTR),
     },
 }
 

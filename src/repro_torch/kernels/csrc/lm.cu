@@ -13,8 +13,9 @@
 //                          Skv - Sq + i), causal and sliding-window masks
 //                          (and, on request, each row's log-sum-exp)
 //   repro_flash_attention_bwd
-//                          its gradient: dq, dk, dv from q, k, v, o, the
-//                          row log-sum-exp and dO, in three launches
+//                          its gradient for float32 operands: dq, dk, dv
+//                          from q, k, v, o, the row log-sum-exp and dO, in
+//                          three launches (bfloat16: csrc/attn_bwd.cu)
 //   repro_ssd_scan         the Mamba-2 SSD chunked scan over BH lanes:
 //                          xbar (BH, S, P), la (BH, S), bm/cm (BH/heads,
 //                          S, N) float32 -> y (BH, S, P) and the final
@@ -812,16 +813,17 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention backward: flash_attention_bwd_delta_kernel,
+// flash_attention backward, float32: flash_attention_bwd_delta_kernel,
 // flash_attention_bwd_dkdv_kernel, flash_attention_bwd_dq_kernel
 //
 // Replaces no TPU kernel: the reference's flash_attention_pallas has no
 // VJP, and the reference differentiates its jnp attention instead.  On the
 // card the plain version may not run on the main path, so K5's gradient
-// is these three launches (kernels/flash_attention.py
-// FlashAttentionFunction), from the forward's saved output o and row
-// log-sum-exp lse (natural log of the scaled scores, fa_lse above).  With
-// c = 1/sqrt(D), P = exp(c Q K' - lse) and dO the output's gradient:
+// is these three launches for float32 operands (kernels/flash_attention.py
+// FlashAttentionFunction; bfloat16 operands take csrc/attn_bwd.cu), from
+// the forward's saved output o and row log-sum-exp lse (natural log of the
+// scaled scores, fa_lse above).  With c = 1/sqrt(D), P = exp(c Q K' - lse)
+// and dO the output's gradient:
 //   (1) delta_i = sum_d dO_id O_id                      (float32)
 //   (2) per key tile: dV = P' dO,  dS = P o (dO V' - delta),  dK = c dS' Q
 //   (3) per query tile:            dQ = c dS K
@@ -829,23 +831,19 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
 // written by one block, summed in a fixed order (no atomics), so two runs
 // give the same bits.
 //
-// Bound on an H100: five products a visible (query, key) pair, 2 Dqk each
-// for Q K', dK and dQ, 2 Dv each for dO V' and dV; at h2o-danube-3-4b's
-// training call (BH 256, S 4096, D 120) causal that is 2.6 TFLOP, 2.6 ms
-// at the 989 TFLOP/s bf16 rate, operations bound (the bytes, q k v o dO in
-// and dq dk dv out, are 1.8 GB: 0.54 ms).  The kernels do seven products
-// a pair (Q K' and dO V' in both passes) at depths padded to 16.
+// Bound on an H100: five products a visible (query, key) pair, 2 D each
+// for Q K', dK and dQ, 2 Dv each for dO V' and dV, at the TF32 rate over
+// three passes (495 / 3 TFLOP/s); at deepseek-v2-lite's MLA call (BH 64,
+// S 2048, Dqk 192, Dv 128) causal 1.35 ms, operations bound.  The kernels
+// do seven products a pair (Q K' and dO V' in both passes) at depths
+// padded to 16.
 //
-// Design (a simple kernel first: no TMA, no wgmma, synchronous tile loads):
+// Design (a simple kernel: no TMA, synchronous tile loads):
 // - 4 warps a block, each owning 16 rows of the block's tile; the products
-//   are mma.sync on fragments read from shared memory by ldmatrix, in the
-//   forward's two patterns: A B' (both operands row-major, ldmatrix) and
-//   P B (P from the accumulators in registers, B by ldmatrix.trans, or by
-//   32-bit loads for TF32).  bf16 operands: m16n8k16 with float32
-//   accumulators, P and dS rounded once to bf16 for their products (the
-//   cost, in bf16 steps of the gradients, is measured by chip_smoke.py).
-//   float32 operands: the forward's split-TF32 three-pass m16n8k8 products
-//   (lo hi + hi lo + hi hi), float32 grade, no TF32 mode.
+//   are the forward's split-TF32 three-pass m16n8k8 mma.sync (lo hi + hi
+//   lo + hi hi), float32 grade, no TF32 mode, on fragments read from
+//   shared memory by ldmatrix (A B') or 32-bit loads (P B, P from the
+//   accumulators in registers).
 // - (2): one block per (lane, 64-key tile); K and V stay in shared memory
 //   while the block walks the 32-query tiles the mask lets see the tile.
 //   Each step computes S' = K Q' and dP' = V dO' (16 keys x 32 queries a
@@ -856,8 +854,8 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
 // - Masks as the forward's (causal, window, queries aligned to the keys'
 //   suffix, Sq != Skv where nothing is masked), ragged tiles masked here,
 //   tiles a whole block or warp cannot see skipped.  Tiles sit in shared
-//   memory at a row stride of D + 8 (bf16) or D + 4 (float32) elements,
-//   depth padded with zeros to DQK, DV (the built pairs).
+//   memory at a row stride of D + 4 elements, depth padded with zeros to
+//   DQK, DV (the built pairs).
 // ---------------------------------------------------------------------------
 constexpr int BW_WARPS = 4;
 constexpr int BW_THREADS = 32 * BW_WARPS;
@@ -870,27 +868,15 @@ constexpr float BW_LOG2E = 1.4426950408889634f;
 // the shared-memory row padding of a tile and the elements of a 16-byte
 // chunk, by element type
 template <typename T> struct BwTile;
-template <> struct BwTile<__nv_bfloat16> {
-    static constexpr int PAD = 8, VEC = 8;
-};
 template <> struct BwTile<float> {
     static constexpr int PAD = 4, VEC = 4;
 };
 
 __device__ __forceinline__ float bw_f(float x) { return x; }
-__device__ __forceinline__ float bw_f(__nv_bfloat16 x)
-{
-    return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T bw_to(float x);
 template <> __device__ __forceinline__ float bw_to<float>(float x)
 {
     return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-bw_to<__nv_bfloat16>(float x)
-{
-    return __float2bfloat16(x);
 }
 
 template <typename T>
@@ -927,35 +913,8 @@ __device__ __forceinline__ void bw_load(T* dst, int stride, const T* src,
     }
 }
 
-__device__ __forceinline__ uint32_t bw_pack_bf16(float x0, float x1)
-{
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // acc (16 x 8 NT) += A B', A 16 x DEPTH at a (row stride lda), B 8 NT x
 // DEPTH at b (row stride ldb), both in shared memory
-template <int NT, int DEPTH>
-__device__ __forceinline__ void bw_abt(float (&acc)[NT][4],
-                                       const __nv_bfloat16* a, int lda,
-                                       const __nv_bfloat16* b, int ldb)
-{
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int kk = 0; kk < DEPTH / 16; ++kk) {
-        uint32_t af[4];
-        ldsm_x4(af, smem_addr(a + (lane & 15) * lda + 16 * kk
-                              + 8 * (lane >> 4)));
-#pragma unroll
-        for (int jp = 0; jp < NT / 2; ++jp) {
-            uint32_t bf[4];
-            ldsm_x4(bf, smem_addr(b + (16 * jp + (lane & 7) + 8 * (lane >> 4))
-                                  * ldb + 16 * kk + 8 * ((lane >> 3) & 1)));
-            mma_bf16(acc[2 * jp], af, bf[0], bf[1]);
-            mma_bf16(acc[2 * jp + 1], af, bf[2], bf[3]);
-        }
-    }
-}
 template <int NT, int DEPTH>
 __device__ __forceinline__ void bw_abt(float (&acc)[NT][4], const float* a,
                                        int lda, const float* b, int ldb)
@@ -989,30 +948,6 @@ __device__ __forceinline__ void bw_abt(float (&acc)[NT][4], const float* a,
 
 // acc (16 x 8 NT) += P B, P 16 x 8 KT in accumulator fragments, B 8 KT x
 // 8 NT at b (row stride ldb) in shared memory
-template <int KT, int NT>
-__device__ __forceinline__ void bw_pb(float (&acc)[NT][4],
-                                      const float (&p)[KT][4],
-                                      const __nv_bfloat16* b, int ldb)
-{
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int kk = 0; kk < KT / 2; ++kk) {
-        uint32_t a[4];
-        a[0] = bw_pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-        a[1] = bw_pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-        a[2] = bw_pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-        a[3] = bw_pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-        for (int dp = 0; dp < NT / 2; ++dp) {
-            uint32_t bf[4];
-            ldsm_x4_trans(bf, smem_addr(
-                b + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * ldb
-                + 16 * dp + 8 * (lane >> 4)));
-            mma_bf16(acc[2 * dp], a, bf[0], bf[1]);
-            mma_bf16(acc[2 * dp + 1], a, bf[2], bf[3]);
-        }
-    }
-}
 template <int KT, int NT>
 __device__ __forceinline__ void bw_pb(float (&acc)[NT][4],
                                       const float (&p)[KT][4], const float* b,
@@ -2072,12 +2007,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
 }
 
-// K5's backward in three launches (delta, dK/dV, dQ; see above) on the
-// forward's o and lse: dq, dk, dv (q's, k's and v's shapes and type) and
-// the scratch delta (BH, Sq) float32 are the caller's.  The masks and
-// types are the forward's, both types under the bf16 kernel's rule (Sq <=
-// Skv unless nothing is masked; bf16 needs Dqk, Dv % 8 == 0), at the
-// built depth pairs; ceil(Skv / 64) and ceil(Sq / 64) at most 65535
+// K5's float32 backward in three launches (delta, dK/dV, dQ; see above)
+// on the forward's o and lse: dq, dk, dv (q's, k's and v's shapes) and the
+// scratch delta (BH, Sq) float32 are the caller's.  The masks are the
+// forward's, under the bf16 kernel's rule (Sq <= Skv unless nothing is
+// masked), at the built depth pairs; ceil(Skv / 64) and ceil(Sq / 64) at
+// most 65535.  bfloat16 operands take csrc/attn_bwd.cu
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                                          const void* v, const void* o,
                                          const void* lse, const void* dout,
@@ -2085,40 +2020,29 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                                          void* dvo, int bh, int sq, int skv,
                                          int dqk, int dv, int causal,
                                          int window, float scale,
-                                         int is_bf16, void* stream)
+                                         void* stream)
 {
     const cudaStream_t st = (cudaStream_t)stream;
     const int pq = (dqk + 15) / 16 * 16, pv = (dv + 15) / 16 * 16;
     if (bh < 1 || sq < 1 || skv < 1 || dqk < 1 || dv < 1
         || (pq == pv && dqk != dv) || (sq > skv && (causal || window > 0))
         || (skv + BW_BKV - 1) / BW_BKV > 65535
-        || (sq + BW_BQD - 1) / BW_BQD > 65535
-        || (is_bf16 && (dqk % 8 != 0 || dv % 8 != 0)))
+        || (sq + BW_BQD - 1) / BW_BQD > 65535)
         return (int)cudaErrorInvalidValue;
-    const int chunk = is_bf16 ? 8 : 4;
-    const bool vec = dqk % chunk == 0 && dv % chunk == 0
+    const bool vec = dqk % 4 == 0 && dv % 4 == 0
         && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout)
             & 15) == 0;
     const long long rows = (long long)bh * sq;
     const unsigned blocks = (unsigned)((rows + 7) / 8);
-    if (is_bf16)
-        flash_attention_bwd_delta_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-            (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
-            (float*)delta, rows, dv);
-    else
-        flash_attention_bwd_delta_kernel<float><<<blocks, 256, 0, st>>>(
-            (const float*)o, (const float*)dout, (float*)delta, rows, dv);
+    flash_attention_bwd_delta_kernel<float><<<blocks, 256, 0, st>>>(
+        (const float*)o, (const float*)dout, (float*)delta, rows, dv);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 #define BW_CASE(a, b)                                                   \
     if (pq == a && pv == b)                                             \
-        return is_bf16                                                  \
-            ? (int)launch_bwd<__nv_bfloat16, a, b>(                     \
-                q, k, v, dout, lse, delta, dq, dk, dvo, bh, sq, skv, dqk, \
-                dv, causal, window, scale, vec, st)                     \
-            : (int)launch_bwd<float, a, b>(                             \
-                q, k, v, dout, lse, delta, dq, dk, dvo, bh, sq, skv, dqk, \
-                dv, causal, window, scale, vec, st);
+        return (int)launch_bwd<float, a, b>(                            \
+            q, k, v, dout, lse, delta, dq, dk, dvo, bh, sq, skv, dqk, dv, \
+            causal, window, scale, vec, st);
     REPRO_FA_DEPTH_PAIRS(BW_CASE)
 #undef BW_CASE
     return (int)cudaErrorInvalidValue;

@@ -51,17 +51,24 @@ differentiates its jnp attention), and on the card the plain version may
 not run on the main path.  ``flash_attention_cuda`` takes the Function
 when grad mode is on and an input requires a gradient: its forward also
 writes each row's float32 log-sum-exp (BH, Sq) and saves q, k, v, o and
-that; its backward is ``flash_attention_bwd_cuda``, three launches
-of ``csrc/lm.cu`` (delta = rowsum(dO o O), then dK and dV a 64-key tile a
-block, then dQ a 64-query tile a block: no atomics, so the same inputs
-give the same bits).  Otherwise (the serve path, under inference mode)
-the forward writes o alone, as it did before the backward existed.  The
-backward takes the forward's masks and depth pairs, in both types under
-the bf16 kernel's rule (a causal or windowed call needs Sq <= Skv; bf16
-needs D, Dv % 8 == 0).  bf16 products round P and dS to bf16 once;
-float32 ones are split-TF32 (three passes, float32 grade).  GQA's
-repeated heads reach the kernel already repeated: autograd sums their
-gradients through ``models/layers.py``'s repeat.
+that; its backward is ``flash_attention_bwd_cuda``: delta = rowsum(dO
+o O), then dK and dV a key tile a block and dQ a query tile a block (no
+atomics, so the same inputs give the same bits).  bfloat16 operands (the
+training path's) take ``csrc/attn_bwd.cu``, a library of its own, in two
+CUDA launches (delta; the dK/dV and the dQ blocks in one grid): wgmma
+products on tiles that TMA loads into a two-stage ring fed by a producer
+warpgroup, 128 keys a dK/dV block and 128 queries a dQ block, depths
+padded by the tensor maps to the classes (64, 64), (128, 128), (192,
+128); P' and dS' rounded once to bf16.  float32 operands (the
+card-against-CPU checks) take ``csrc/lm.cu``'s split-TF32 kernels in
+three launches (three passes, float32 grade; 64-row tiles).
+Otherwise (the serve path, under inference mode) the forward writes o
+alone, as it did before the backward existed.  The backward takes the
+forward's masks and depth pairs, in both types under the bf16 kernel's
+rule (a causal or windowed call needs Sq <= Skv; bf16 needs D, Dv % 8 ==
+0 and every tensor on 16 bytes).  GQA's repeated heads reach the kernel
+already repeated: autograd sums their gradients through
+``models/layers.py``'s repeat.
 
 ``flash_attention_cuda`` adds one to ``runtime.launch_counts
 ["flash_attention"]`` where it launches the forward, and
@@ -93,6 +100,7 @@ DEPTH_PAIRS = frozenset({(n, n) for n in range(16, 129, 16)}
                         | {(48, 32), (192, 128)})
 _MAX_GRID_Y = 65535
 _MAX_TC_SQ = 65535 * 128       # the bfloat16 kernel: grid y of 128-query tiles
+_MAX_BWD_ROWS = 8 * (2 ** 31 - 1)  # the bf16 backward's delta: 8 rows a block
 _TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -232,27 +240,42 @@ def check_backward_shape(bh: int, sq: int, skv: int, d: int,
     """Raise ``ValueError`` naming the limit when the backward kernels do
     not take a (BH, Sq, Skv, D, Dv) call: the forward's depth pairs, in
     both types the bf16 kernel's rule (Sq <= Skv unless nothing is
-    masked), bf16 D, Dv % 8 == 0, and at most 65535 64-row tiles of Sq
-    and of Skv."""
+    masked), bf16 D, Dv % 8 == 0.  The grids' limits: bfloat16
+    (``csrc/attn_bwd.cu``, the dK/dV and dQ blocks on one grid's y) at
+    most 65535 128-row tiles of Sq and of Skv together, and BH Sq at most
+    8 (2**31 - 1) rows (delta's launch, a warp a row); float32
+    (``csrc/lm.cu``) at most 65535 64-row tiles of each."""
     dv = d if dv is None else dv
     check_kernel_shape(bh, sq, skv, d, dtype, dv, causal=causal,
                        window=window)
     masked = causal or window is not None
-    if (sq > skv and masked) or max(sq, skv) > _MAX_GRID_Y * 64:
+    if dtype == torch.bfloat16:
+        tiles = -(-sq // 128) + -(-skv // 128)
+        grid = (f"ceil(Sq / 128) + ceil(Skv / 128) <= {_MAX_GRID_Y}, "
+                f"BH * Sq <= {_MAX_BWD_ROWS}")
+        ok = tiles <= _MAX_GRID_Y and bh * sq <= _MAX_BWD_ROWS
+    else:
+        grid = f"S <= {_MAX_GRID_Y * 64}"
+        ok = max(sq, skv) <= _MAX_GRID_Y * 64
+    if (sq > skv and masked) or not ok:
         raise ValueError(f"flash_attention backward: takes Sq <= Skv "
-                         f"unless nothing is masked and S <= "
-                         f"{_MAX_GRID_Y * 64}; got Sq {sq}, Skv {skv}, "
-                         f"causal {causal}, window {window}")
+                         f"unless nothing is masked, {grid}; got BH {bh}, "
+                         f"Sq {sq}, Skv {skv}, causal {causal}, window "
+                         f"{window}")
 
 
-def _check_on_card(q, k, v):
+def _check_on_card(*named):
+    """Raise unless the (name, tensor) pairs lie on the card, and, in
+    bfloat16, start on 16 bytes (the forward's cp.async chunks, the
+    backward's tensor maps)."""
+    q = named[0][1]
     if not q.is_cuda:
         raise ValueError(f"q: the CUDA kernels take tensors on the card, "
                          f"got {q.device}")
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:      # cp.async copies 16-byte chunks
-                raise ValueError(f"{name}: the bfloat16 kernel needs a "
+        for name, t in named:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the bfloat16 kernels need a "
                                  "16-byte aligned tensor")
 
 
@@ -262,7 +285,7 @@ def _forward_cuda(q, k, v, causal: bool, window: Optional[int],
     float32 when ``with_lse`` (else None, and the kernel writes o
     alone)."""
     bh, sq, skv, d, dv = check_qkv(q, k, v, window)
-    _check_on_card(q, k, v)
+    _check_on_card(("q", q), ("k", k), ("v", v))
     check_kernel_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
                        window=window)
     lib = build.load_library("lm")
@@ -296,21 +319,24 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *,
                 or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous {dtype} "
                              f"tensor of shape {shape} on {q.device}")
-    _check_on_card(q, k, v)
+    _check_on_card(("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
+                   ("lse", lse))
     check_backward_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
                          window=window)
-    lib = build.load_library("lm")
+    bf16 = q.dtype == torch.bfloat16
+    lib = build.load_library("attn_bwd" if bf16 else "lm")
+    entry = lib.repro_attn_bwd if bf16 else lib.repro_flash_attention_bwd
     with torch.cuda.device(q.device):
         delta = torch.empty((bh, sq), dtype=F32, device=q.device)
         dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
         stream = torch.cuda.current_stream().cuda_stream
         runtime.launch_counts["flash_attention_bwd"] += 1
-        code = lib.repro_flash_attention_bwd(
+        code = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dvv.data_ptr(), bh, sq, skv, d, dv,
             int(bool(causal)), -1 if window is None else int(window),
-            1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), stream)
+            1.0 / math.sqrt(d), stream)
     build.check_launch(lib, code, "flash_attention_bwd")
     return dq, dk, dvv
 

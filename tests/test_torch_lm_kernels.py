@@ -13,9 +13,13 @@ bm/cm shared by the heads of a batch row — are exercised here too: on CPU
 tensors ``ops`` hands the folded operands to the plain versions.  K5's
 backward: its plain version and both backward kernels' schedules
 (emulated) against ``jax.vjp`` of the reference's oracle, its shape
-limits, and the refusal of every kernel without a backward to take an
+limits, the C entry points against the ctypes signatures they are bound
+with, and the refusal of every kernel without a backward to take an
 input that needs a gradient.
 """
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +34,7 @@ from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro.models import layers as JL
 from repro.models import ssm as JS
 from repro_torch import runtime
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd_mod
@@ -573,13 +578,17 @@ def test_flash_attention_backward_plain_matches_jax_grad(
 
 
 def _bwd_schedule(q, k, v, o, lse, do, *, causal, window, kernel):
-    """Plain emulation of the backward kernels' arithmetic
-    (``flash_attention_bwd_*_kernel`` in ``csrc/lm.cu``): delta =
+    """Plain emulation of the backward kernels' arithmetic — bf16:
+    ``attn_bwd_delta_kernel`` and ``attn_bwd_kernel`` (its
+    ``attn_bwd_dkdv`` and ``attn_bwd_dq`` blocks) in ``csrc/attn_bwd.cu``;
+    float32: ``flash_attention_bwd_*_kernel`` in ``csrc/lm.cu``: delta =
     rowsum(dO o O) in float32; S from the operands summed in float32, P =
-    exp2(S log2(e)/sqrt(D) - lse log2(e)) where visible; bf16: P and dS
-    rounded once to bf16 for their products with bf16 dO, Q and K, the
-    gradients rounded to bf16; float32: every product split-TF32 (three
-    passes).  The sums' order over tiles is not emulated."""
+    exp2(S log2(e)/sqrt(D) - lse log2(e)) where visible; bf16: P' and dS'
+    (the accumulator fragments) rounded once to bf16 as the A operands of
+    their products with bf16 dO, Q and K, dK and dQ scaled by 1/sqrt(D)
+    in float32, then every gradient rounded to bf16; float32: every
+    product split-TF32 (three passes).  The sums' order over tiles and
+    within the tensor cores is not emulated."""
     bh, sq, d = q.shape
     skv = k.shape[1]
     ok = fa_mod.visible(sq, skv, causal, window, "cpu")
@@ -648,12 +657,21 @@ def test_backward_schedules_match_jax_grad(bh, sq, skv, d, dv, causal,
     (64, 64, 12, 12, "bf16", True, None, False),          # D % 8 in bf16
     (64, 64, 136, 136, "f32", True, None, False),         # D past 128
     (64 * 65535 + 1, 64 * 65535 + 1, 16, 16, "bf16", False, None, False),
+    (64 * 65535 + 1, 64 * 65535 + 1, 16, 16, "f32", False, None, False),
+    (64 * 65535, 64 * 65535, 16, 16, "f32", False, None, True),
+    # bf16: 128-row tiles of Sq and of Skv on one grid's y
+    (128 * 32767, 128 * 32768, 16, 16, "bf16", False, None, True),
+    (128 * 32767 + 1, 128 * 32768, 16, 16, "bf16", False, None, False),
+    (300, 700, 120, 120, "bf16", True, 128, True),        # ragged, windowed
+    (128, 128, 48, 32, "bf16", True, None, True),         # reduced MLA
 ])
 def test_flash_attention_backward_shape_limits(sq, skv, d, dv, dtype, causal,
                                                window, ok):
     """The backward takes the forward's depth pairs, in both types the bf16
-    kernel's mask rule (Sq <= Skv unless nothing is masked), and at most
-    65535 64-row tiles of Sq and of Skv."""
+    kernel's mask rule (Sq <= Skv unless nothing is masked), and its grid's
+    limits: in bf16 (``csrc/attn_bwd.cu``) at most 65535 128-row tiles of
+    Sq and of Skv together, in float32 (``csrc/lm.cu``) 65535 64-row tiles
+    of each."""
     if ok:
         fa_mod.check_backward_shape(4, sq, skv, d, TT[dtype], dv,
                                     causal=causal, window=window)
@@ -661,6 +679,57 @@ def test_flash_attention_backward_shape_limits(sq, skv, d, dv, dtype, causal,
         with pytest.raises(ValueError, match="D|Sq|S <="):
             fa_mod.check_backward_shape(4, sq, skv, d, TT[dtype], dv,
                                         causal=causal, window=window)
+
+
+@pytest.mark.parametrize("bh,sq,dtype,ok", [
+    (2 ** 31 - 1, 8, "bf16", True), (2 ** 31 - 1, 9, "bf16", False),
+    (2 ** 16, 8, "f32", False),    # float32: its grid's x takes 65535 lanes
+    (2 ** 16 - 1, 8, "f32", True),
+])
+def test_flash_attention_backward_lane_rows_limit(bh, sq, dtype, ok):
+    """The bf16 backward's delta launch takes a warp a row, eight rows a
+    block, on a grid's x of at most 2**31 - 1 blocks; the float32 kernels
+    put the lanes on a grid's x of at most 65535."""
+    if ok:
+        fa_mod.check_backward_shape(bh, sq, sq, 64, TT[dtype])
+    else:
+        with pytest.raises(ValueError, match="BH"):
+            fa_mod.check_backward_shape(bh, sq, sq, 64, TT[dtype])
+
+
+_CTYPE = {"ptr": ctypes.c_void_p, "int": ctypes.c_int,
+          "float": ctypes.c_float}
+
+
+def _c_entry_points(source: str):
+    """{name: [kind of each argument]} of the ``extern "C" int`` functions
+    of a CUDA source: pointer (any ``*``), int or float."""
+    out = {}
+    for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source):
+        kinds = []
+        for arg in args.split(","):
+            words = arg.replace("*", " * ").split()
+            if "*" in words:
+                kinds.append("ptr")
+            else:
+                assert words[0] in ("int", "float"), (name, arg)
+                kinds.append(words[0])
+        out[name] = kinds
+    return out
+
+
+@pytest.mark.parametrize("library", sorted(build.SIGNATURES))
+def test_entry_points_match_their_ctypes_signatures(library):
+    """Every ``extern "C"`` entry point of ``csrc/<library>.cu`` is bound by
+    ``build.SIGNATURES`` with its arguments' number and kinds: a pointer
+    bound as an int would be cut to 32 bits, silently."""
+    source = (build.CSRC / f"{library}.cu").read_text()
+    entries = _c_entry_points(source)
+    assert 'extern "C" const char* repro_error_string(int code)' in source
+    assert set(entries) == set(build.SIGNATURES[library])
+    for name, kinds in entries.items():
+        assert list(build.SIGNATURES[library][name]) == \
+            [_CTYPE[kind] for kind in kinds], name
 
 
 # ---------------------------------------------------------------------------
