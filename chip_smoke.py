@@ -69,11 +69,12 @@ whisper-base whole, 12 steps each through ``Trainer.run`` with remat
 tokens/s, peak memory, launches a step); the reduced h2o-danube-3-4b and
 deepseek-v2-lite card against CPU in float32 (a step's loss and
 gradients, a loss curve), and a resume on the card bit for bit.  The
-kernels phase holds K5's backward (bf16: ``csrc/attn_bwd.cu``, wgmma on
-TMA-fed tiles; float32: ``csrc/lm.cu``) against its plain version at the
-training shapes and at every depth pair, counts its CUDA launches a call
-from a captured graph and times it beside
-scaled_dot_product_attention's.
+kernels phase holds K5's backward (``csrc/attn_bwd.cu``, wgmma on
+TMA-fed tiles; float32 through three bf16 parts an operand) against its
+plain version at the training shapes and at every depth pair in both
+types, counts its CUDA launches a call from a captured graph (and, in
+float32, its scratch and its prologue's share of the call) and times it
+beside scaled_dot_product_attention's.
 
 The persistent library store (``compile/persist.py``): fresh processes
 on a fresh ``REPRO_PROGRAM_CACHE_DIR`` — the first builds the two kernel
@@ -164,8 +165,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 # dense bf16 tensor-core rate: the least time for K5's bf16 operands
 PEAK_BF16_TC_FLOP_S = 989e12
-# dense TF32 tensor-core rate; K5's float32 kernel and K6 do each product
-# in three TF32 passes (hi/lo split), so their float32-grade rate is a third
+# dense TF32 tensor-core rate; K5's float32 forward and K6 do each product
+# in three TF32 passes (hi/lo split), so their float32-grade rate is a
+# third; K5's float32 backward takes six bf16 passes (three bf16 parts), a
+# sixth of the bf16 rate: the same 165 TFLOP/s
 PEAK_TF32_TC_FLOP_S = 495e12
 TF32_SPLIT_PASSES = 3
 
@@ -201,9 +204,9 @@ KERNELS = {
         "replaces": "src/repro/kernels/ssd_scan.py:52",
     },
     # K5's gradient: the reference differentiates its jnp attention (its
-    # Pallas kernel has no VJP); this is the backward of that kernel.  The
-    # main path's bf16 calls take csrc/attn_bwd.cu (wgmma, TMA); float32
-    # ones, the card-against-CPU checks', csrc/lm.cu's split-TF32 kernels
+    # Pallas kernel has no VJP); this is the backward of that kernel, in
+    # csrc/attn_bwd.cu (wgmma, TMA) for the main path's bf16 calls and the
+    # card-against-CPU checks' float32 ones
     "flash_attention_bwd": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/attn_bwd.cu",
@@ -758,8 +761,8 @@ def phase_kernels(device):
                                "of each query row's (dq) or key row's (dk, "
                                "dv) own max|grad|, at least 1e-3 of the "
                                "gradient's, of the plain backward on the "
-                               "kernel's own o and lse; float32 within "
-                               "2e-5 of "
+                               "kernel's own o and lse; float32 (three "
+                               "bf16 parts, six passes) within 2e-5 of "
                                "max|grad| (the float64 gradients' "
                                "distances reported); two runs the same "
                                "bits; bf16 steps per element measured, not "
@@ -1185,12 +1188,15 @@ def _attn_kernel_rows(device, gen):
 # 128) causal; then three of them in float32; last train_dense's reduced
 # calls: h2o-danube-3-4b (B 4 x 4 heads, S 256, D 32, window 64) in
 # float32 (card against CPU) and bf16 (the resume), and deepseek-v2-lite's
-# MLA (B 4 x 4 heads, S 128, Dqk 48, Dv 32) in float32; then bf16 rows at
+# MLA (B 4 x 4 heads, S 128, Dqk 48, Dv 32) in float32; then rows at
 # (16, 256, 256, D) causal for the depth pairs no row above takes (each of
-# the bf16 kernels' three depth classes, (64, 64), (128, 128) and (192,
-# 128), runs at every pair of DEPTH_PAIRS it pads), a ragged one with
-# queries aligned to the keys' suffix under a window that bites, and a
-# few queries, Sq % 4 != 0 (rows of lse and delta off 16 bytes)
+# the kernels' three depth classes, (64, 64), (128, 128) and (192, 128),
+# runs at every pair of DEPTH_PAIRS it pads), a ragged one with queries
+# aligned to the keys' suffix under a window that bites, and a few
+# queries, Sq % 4 != 0 (rows of lse and delta off 16 bytes), each in both
+# types; whisper's decoder self-attention in float32; and an odd depth in
+# float32 (D 17: rows of 68 bytes, which only the prologue's parts give
+# the tensor maps)
 BWD_ATTN_ROWS = (
     ("h2o_causal", (256, 4096, 4096, 120, "bf16", True, 4096)),
     ("h2o_window", (256, 4096, 4096, 120, "bf16", True, 1024)),
@@ -1209,6 +1215,12 @@ BWD_ATTN_ROWS = (
       for d in (16, 48, 80, 96, 112, 128)),
     ("ragged_window", (16, 300, 700, 64, "bf16", True, 128)),
     ("few_queries", (16, 13, 301, 64, "bf16", True, 32)),
+    ("whisper_self", (64, 448, 448, 64, "f32", True, None)),
+    *((f"depth_{d}", (16, 256, 256, d, "f32", True, None))
+      for d in (16, 48, 80, 96, 112, 128)),
+    ("ragged_window", (16, 300, 700, 64, "f32", True, 128)),
+    ("few_queries", (16, 13, 301, 64, "f32", True, 32)),
+    ("odd_depth", (16, 13, 301, 17, "f32", True, 32)),
 )
 MAIN_BWD_ATTN = ("h2o_causal", "bf16")
 # the plain backward holds a few (lanes, Sq, Skv) float32 tensors: it is
@@ -1244,8 +1256,9 @@ def _attn_f64(q, k, v, causal, window, lanes=BWD_COMPARE_LANES):
 def _attn_bwd_bound(bh, sq, skv, d, dtype, causal, window, dv=None):
     # five products a visible pair: Q K' (2 D), dO V' (2 Dv), dV (2 Dv),
     # dK (2 D), dQ (2 D); q, k, v, o, dO and lse read once, dq, dk, dv
-    # written once.  bf16 at the bf16 tensor-core rate, float32 at the
-    # TF32 rate over the split's three passes
+    # written once.  bf16 at the bf16 tensor-core rate, float32 at float32
+    # grade: the TF32 rate over three passes (the kernel's six bf16 passes
+    # cost the same)
     dv = d if dv is None else dv
     flops = bh * _attn_pairs(sq, skv, causal, window) * 2 * (3 * d + 2 * dv)
     size = TYPES[dtype].itemsize
@@ -1410,10 +1423,28 @@ def _attn_bwd_kernel_rows(device, gen):
                 lse[i:i + n], do[i:i + n], causal=causal, window=window)
                 for i in range(0, bh, n)]
         nbytes, flops, bound, by = _attn_bwd_bound(*shape)
+        if dtype == "f32":
+            # the scratch one call allocates beside its outputs (delta and
+            # the parts of q, k, v, dO) as the device allocator counts it
+            # (the peak of the call less what stays allocated after it),
+            # and the prologue's share of the call's device time
+            del grads
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            grads = kernel()
+            torch.cuda.synchronize()
+            row["scratch_bytes"] = (torch.cuda.max_memory_allocated()
+                                    - torch.cuda.memory_allocated())
+            traced = _device_kernels(kernel)
+            if traced is not None:
+                split = sum(ms for name, (_, ms) in traced.items()
+                            if "attn_bwd_split_kernel" in name)
+                row["prologue_device_ms"] = split
+                row["prologue_share"] = split / sum(
+                    ms for _, ms in traced.values())
         row.update({
             # one wrapper call: its CUDA launches as a captured graph holds
-            # them (bf16: delta, then dK/dV and dQ in one grid; float32:
-            # delta, dK/dV, dQ)
+            # them (the prologue, then dK/dV and dQ in one grid)
             "cuda_launches_per_call": _graph_launches(kernel),
             "ms": _time_ms(kernel, cold=True),
             "plain_ms": _time_ms(plain, cold=True, runs=3, warmup=1),
@@ -1428,8 +1459,7 @@ def _attn_bwd_kernel_rows(device, gen):
         else:
             row["library_ms"] = _time_ms(library, cold=True)
         library = None
-        assert row["cuda_launches_per_call"] == \
-            (2 if dtype == "bf16" else 3), row
+        assert row["cuda_launches_per_call"] == 2, row
         rows[(name, dtype)] = row
         report.append({"name": name, "flash_attention_bwd": row})
         del q, k, v, do, o, lse, grads

@@ -59,12 +59,6 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "repro_flash_attention": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
                                   _INT, _INT, _INT, _INT, _INT, _FLT, _INT,
                                   _PTR),
-        # float32 only: q, k, v, o, lse, dO, the scratch delta, dq, dk,
-        # dv, BH, Sq, Skv, D, Dv, causal, window, scale, stream
-        "repro_flash_attention_bwd": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-                                      _PTR, _PTR, _PTR, _PTR, _INT, _INT,
-                                      _INT, _INT, _INT, _INT, _INT, _FLT,
-                                      _PTR),
         # xbar, la, bm, cm, y, state, then the scratch cb, states, decay,
         # BH, S, P, N, chunk, heads, stream
         "repro_ssd_scan": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
@@ -76,6 +70,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "repro_attn_bwd": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                            _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
                            _INT, _FLT, _PTR),
+        # K5's float32 backward: q, k, v, o, lse, dO, the scratch delta,
+        # the scratch parts of q, k, v and dO, dq, dk, dv, BH, Sq, Skv, D,
+        # Dv, causal, window, scale, stream
+        "repro_attn_bwd_f32": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                               _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                               _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                               _FLT, _PTR),
     },
 }
 

@@ -12,10 +12,6 @@
 //                          to the keys' suffix (query i sits at position
 //                          Skv - Sq + i), causal and sliding-window masks
 //                          (and, on request, each row's log-sum-exp)
-//   repro_flash_attention_bwd
-//                          its gradient for float32 operands: dq, dk, dv
-//                          from q, k, v, o, the row log-sum-exp and dO, in
-//                          three launches (bfloat16: csrc/attn_bwd.cu)
 //   repro_ssd_scan         the Mamba-2 SSD chunked scan over BH lanes:
 //                          xbar (BH, S, P), la (BH, S), bm/cm (BH/heads,
 //                          S, N) float32 -> y (BH, S, P) and the final
@@ -813,453 +809,6 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention backward, float32: flash_attention_bwd_delta_kernel,
-// flash_attention_bwd_dkdv_kernel, flash_attention_bwd_dq_kernel
-//
-// Replaces no TPU kernel: the reference's flash_attention_pallas has no
-// VJP, and the reference differentiates its jnp attention instead.  On the
-// card the plain version may not run on the main path, so K5's gradient
-// is these three launches for float32 operands (kernels/flash_attention.py
-// FlashAttentionFunction; bfloat16 operands take csrc/attn_bwd.cu), from
-// the forward's saved output o and row log-sum-exp lse (natural log of the
-// scaled scores, fa_lse above).  With c = 1/sqrt(D), P = exp(c Q K' - lse)
-// and dO the output's gradient:
-//   (1) delta_i = sum_d dO_id O_id                      (float32)
-//   (2) per key tile: dV = P' dO,  dS = P o (dO V' - delta),  dK = c dS' Q
-//   (3) per query tile:            dQ = c dS K
-// (2) and (3) recompute P and dS from Q, K, V, dO and lse; every output is
-// written by one block, summed in a fixed order (no atomics), so two runs
-// give the same bits.
-//
-// Bound on an H100: five products a visible (query, key) pair, 2 D each
-// for Q K', dK and dQ, 2 Dv each for dO V' and dV, at the TF32 rate over
-// three passes (495 / 3 TFLOP/s); at deepseek-v2-lite's MLA call (BH 64,
-// S 2048, Dqk 192, Dv 128) causal 1.35 ms, operations bound.  The kernels
-// do seven products a pair (Q K' and dO V' in both passes) at depths
-// padded to 16.
-//
-// Design (a simple kernel: no TMA, synchronous tile loads):
-// - 4 warps a block, each owning 16 rows of the block's tile; the products
-//   are the forward's split-TF32 three-pass m16n8k8 mma.sync (lo hi + hi
-//   lo + hi hi), float32 grade, no TF32 mode, on fragments read from
-//   shared memory by ldmatrix (A B') or 32-bit loads (P B, P from the
-//   accumulators in registers).
-// - (2): one block per (lane, 64-key tile); K and V stay in shared memory
-//   while the block walks the 32-query tiles the mask lets see the tile.
-//   Each step computes S' = K Q' and dP' = V dO' (16 keys x 32 queries a
-//   warp), P' from lse, dV += P' dO, dS' = P' o (dP' - delta), dK += dS' Q.
-// - (3): one block per (lane, 64-query tile), heaviest causal tiles first;
-//   Q and dO stay in shared memory, the block walks the 32-key tiles the
-//   mask lets its queries see: S = Q K', dP = dO V', dS, dQ += dS K.
-// - Masks as the forward's (causal, window, queries aligned to the keys'
-//   suffix, Sq != Skv where nothing is masked), ragged tiles masked here,
-//   tiles a whole block or warp cannot see skipped.  Tiles sit in shared
-//   memory at a row stride of D + 4 elements, depth padded with zeros to
-//   DQK, DV (the built pairs).
-// ---------------------------------------------------------------------------
-constexpr int BW_WARPS = 4;
-constexpr int BW_THREADS = 32 * BW_WARPS;
-constexpr int BW_BKV = 16 * BW_WARPS;       // keys of a dK/dV block
-constexpr int BW_BQ = 32;                   // queries of its steps
-constexpr int BW_BQD = 16 * BW_WARPS;       // queries of a dQ block
-constexpr int BW_BKD = 32;                  // keys of its steps
-constexpr float BW_LOG2E = 1.4426950408889634f;
-
-// the shared-memory row padding of a tile and the elements of a 16-byte
-// chunk, by element type
-template <typename T> struct BwTile;
-template <> struct BwTile<float> {
-    static constexpr int PAD = 4, VEC = 4;
-};
-
-__device__ __forceinline__ float bw_f(float x) { return x; }
-template <typename T> __device__ __forceinline__ T bw_to(float x);
-template <> __device__ __forceinline__ float bw_to<float>(float x)
-{
-    return x;
-}
-
-template <typename T>
-__host__ __device__ constexpr int bw_rs(int d)
-{
-    return d + BwTile<T>::PAD;
-}
-
-// rows [row0, row0 + n_rows) of a (len, width) operand into dst at row
-// stride ``stride`` and DP columns: rows past len and columns past width
-// are zero.  vec: 16-byte chunks (width a multiple of the chunk, the
-// operand 16-byte aligned), else one element at a time
-template <typename T, int DP>
-__device__ __forceinline__ void bw_load(T* dst, int stride, const T* src,
-                                        int row0, int n_rows, int len,
-                                        int width, bool vec)
-{
-    if (vec) {
-        constexpr int V = BwTile<T>::VEC, CH = DP / V;
-        for (int idx = threadIdx.x; idx < n_rows * CH; idx += blockDim.x) {
-            const int r = idx / CH, c = (idx - r * CH) * V;
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (row0 + r < len && c < width)
-                val = *reinterpret_cast<const uint4*>(
-                    src + (long long)(row0 + r) * width + c);
-            *reinterpret_cast<uint4*>(dst + r * stride + c) = val;
-        }
-    } else {
-        for (int idx = threadIdx.x; idx < n_rows * DP; idx += blockDim.x) {
-            const int r = idx / DP, c = idx - r * DP;
-            dst[r * stride + c] = (row0 + r < len && c < width)
-                ? src[(long long)(row0 + r) * width + c] : bw_to<T>(0.f);
-        }
-    }
-}
-
-// acc (16 x 8 NT) += A B', A 16 x DEPTH at a (row stride lda), B 8 NT x
-// DEPTH at b (row stride ldb), both in shared memory
-template <int NT, int DEPTH>
-__device__ __forceinline__ void bw_abt(float (&acc)[NT][4], const float* a,
-                                       int lda, const float* b, int ldb)
-{
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int kk = 0; kk < DEPTH / 8; ++kk) {
-        uint32_t af[4], ah[4], al[4];
-        ldsm_x4(af, smem_addr(a + ((lane & 7) + 8 * ((lane >> 3) & 1)) * lda
-                              + 8 * kk + 4 * (lane >> 4)));
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            split_tf32(__uint_as_float(af[e]), ah[e], al[e]);
-#pragma unroll
-        for (int jp = 0; jp < NT / 2; ++jp) {
-            uint32_t bf[4], bh[4], bl[4];
-            ldsm_x4(bf, smem_addr(b + (16 * jp + (lane & 7) + 8 * (lane >> 4))
-                                  * ldb + 8 * kk + 4 * ((lane >> 3) & 1)));
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-                split_tf32(__uint_as_float(bf[e]), bh[e], bl[e]);
-            mma_tf32(acc[2 * jp], al, bh[0], bh[1]);
-            mma_tf32(acc[2 * jp + 1], al, bh[2], bh[3]);
-            mma_tf32(acc[2 * jp], ah, bl[0], bl[1]);
-            mma_tf32(acc[2 * jp + 1], ah, bl[2], bl[3]);
-            mma_tf32(acc[2 * jp], ah, bh[0], bh[1]);
-            mma_tf32(acc[2 * jp + 1], ah, bh[2], bh[3]);
-        }
-    }
-}
-
-// acc (16 x 8 NT) += P B, P 16 x 8 KT in accumulator fragments, B 8 KT x
-// 8 NT at b (row stride ldb) in shared memory
-template <int KT, int NT>
-__device__ __forceinline__ void bw_pb(float (&acc)[NT][4],
-                                      const float (&p)[KT][4], const float* b,
-                                      int ldb)
-{
-    // the k index t of step j is row 8 j + 2t of B, t + 4 is 8 j + 2t + 1
-    // (the forward's P V mapping: the accumulator holds columns 2t, 2t + 1).
-    // Summed from zero, then added to acc in float32 (mma.sync rounds its
-    // sums toward zero; see the float32 forward)
-    const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-    float part[NT][4];
-#pragma unroll
-    for (int dt = 0; dt < NT; ++dt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[dt][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-        uint32_t ph[4], pl[4];
-        split_tf32(p[j][0], ph[0], pl[0]);
-        split_tf32(p[j][2], ph[1], pl[1]);
-        split_tf32(p[j][1], ph[2], pl[2]);
-        split_tf32(p[j][3], ph[3], pl[3]);
-        const float* b0 = b + (8 * j + 2 * t4) * ldb + g;
-#pragma unroll
-        for (int dt = 0; dt < NT; ++dt) {
-            uint32_t h0, l0, h1, l1;
-            split_tf32(b0[8 * dt], h0, l0);
-            split_tf32(b0[ldb + 8 * dt], h1, l1);
-            mma_tf32(part[dt], pl, h0, h1);
-            mma_tf32(part[dt], ph, l0, l1);
-            mma_tf32(part[dt], ph, h0, h1);
-        }
-    }
-#pragma unroll
-    for (int dt = 0; dt < NT; ++dt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[dt][e] += part[dt][e];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-flash_attention_bwd_delta_kernel(const T* __restrict__ o,
-                                 const T* __restrict__ dout,
-                                 float* __restrict__ delta, long long rows,
-                                 int dv)
-{
-    // a warp a row
-    const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (row >= rows) return;
-    const T* orow = o + row * dv;
-    const T* drow = dout + row * dv;
-    float acc = 0.f;
-    for (int c = lane; c < dv; c += 32)
-        acc += bw_f(orow[c]) * bw_f(drow[c]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) delta[row] = acc;
-}
-
-template <typename T>
-inline size_t bw_smem_bytes(int dqk, int dv, int rows_a, int rows_b,
-                            bool stats)
-{
-    // rows_a rows of the block's own tiles and rows_b of the walked ones,
-    // each a (dqk)- and a (dv)-deep tile; the walked queries' lse and
-    // delta when ``stats``
-    return sizeof(T) * (size_t)(rows_a + rows_b)
-               * (bw_rs<T>(dqk) + bw_rs<T>(dv))
-        + (stats ? 2 * sizeof(float) * rows_b : 0);
-}
-
-template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(BW_THREADS)
-flash_attention_bwd_dkdv_kernel(const T* __restrict__ q,
-                                const T* __restrict__ k,
-                                const T* __restrict__ v,
-                                const T* __restrict__ dout,
-                                const float* __restrict__ lse,
-                                const float* __restrict__ delta,
-                                T* __restrict__ dk, T* __restrict__ dvo,
-                                int sq, int skv, int dqk, int dv, int causal,
-                                int window, float scale, int vec)
-{
-    constexpr int RS = bw_rs<T>(DQK), RSV = bw_rs<T>(DV);
-    constexpr int NQ = BW_BQ / 8;
-    extern __shared__ __align__(16) unsigned char bw_smem[];
-    T* ks = reinterpret_cast<T*>(bw_smem);  // BW_BKV x RS
-    T* vs = ks + BW_BKV * RS;               // BW_BKV x RSV
-    T* qs = vs + BW_BKV * RSV;              // BW_BQ x RS
-    T* dos = qs + BW_BQ * RS;               // BW_BQ x RSV
-    float* lse_s = reinterpret_cast<float*>(dos + BW_BQ * RSV);
-    float* dl_s = lse_s + BW_BQ;
-
-    if (DQK == DV) dv = dqk;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t4 = lane & 3;
-    const long long bh = blockIdx.x;
-    const int k0 = blockIdx.y * BW_BKV;
-    const int offset = skv - sq;
-    const float scale_log2 = scale * BW_LOG2E;
-    const T* ql = q + bh * sq * dqk;
-    const T* dol = dout + bh * sq * dv;
-    const float* lsel = lse + bh * sq;
-    const float* dll = delta + bh * sq;
-
-    bw_load<T, DQK>(ks, RS, k + bh * skv * dqk, k0, BW_BKV, skv, dqk, vec);
-    bw_load<T, DV>(vs, RSV, v + bh * skv * dv, k0, BW_BKV, skv, dv, vec);
-
-    // queries that see some key of the tile: [q_lo, q_hi)
-    const int k_last = min(k0 + BW_BKV, skv) - 1;
-    int q_lo = 0, q_hi = sq;
-    if (causal) q_lo = max(0, k0 - offset);
-    if (window > 0) q_hi = min(sq, k_last + window - offset);
-    q_lo = (q_lo / BW_BQ) * BW_BQ;
-    // this warp's keys
-    const int wk0 = k0 + 16 * warp, wk_hi = min(wk0 + 15, skv - 1);
-
-    float acc_k[DQK / 8][4], acc_v[DV / 8][4];
-#pragma unroll
-    for (int j = 0; j < DQK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_k[j][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_v[j][e] = 0.f;
-
-    for (int q0 = q_lo; q0 < q_hi; q0 += BW_BQ) {
-        __syncthreads();                    // the last step's tiles are read
-        bw_load<T, DQK>(qs, RS, ql, q0, BW_BQ, sq, dqk, vec);
-        bw_load<T, DV>(dos, RSV, dol, q0, BW_BQ, sq, dv, vec);
-        for (int r = tid; r < BW_BQ; r += BW_THREADS) {
-            const bool in = q0 + r < sq;
-            lse_s[r] = in ? lsel[q0 + r] * BW_LOG2E : INFINITY;
-            dl_s[r] = in ? dll[q0 + r] : 0.f;
-        }
-        __syncthreads();
-        const int qa_lo = q0 + offset;
-        const int qa_hi = min(q0 + BW_BQ, sq) - 1 + offset;
-        bool sees = wk0 < skv;
-        if (causal) sees = sees && wk0 <= qa_hi;
-        if (window > 0) sees = sees && wk_hi > qa_lo - window;
-        if (!sees) continue;
-
-        // P' (16 keys x 32 queries a warp) from S' = K Q'
-        float s[NQ][4], dp[NQ][4];
-#pragma unroll
-        for (int j = 0; j < NQ; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-        bw_abt<NQ, DQK>(s, ks + 16 * warp * RS, RS, qs, RS);
-#pragma unroll
-        for (int j = 0; j < NQ; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int key = wk0 + g + 8 * (e >> 1);
-                const int col = 8 * j + 2 * t4 + (e & 1);
-                const int qa = q0 + col + offset;
-                bool ok = key < skv && q0 + col < sq;
-                if (causal) ok = ok && key <= qa;
-                if (window > 0) ok = ok && key > qa - window;
-                s[j][e] = ok ? exp2f(s[j][e] * scale_log2 - lse_s[col]) : 0.f;
-            }
-        // dP' = V dO', then dV += P' dO, dS' = P' o (dP' - delta),
-        // dK += dS' Q
-        bw_abt<NQ, DV>(dp, vs + 16 * warp * RSV, RSV, dos, RSV);
-        bw_pb<NQ, DV / 8>(acc_v, s, dos, RSV);
-#pragma unroll
-        for (int j = 0; j < NQ; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-                dp[j][e] = s[j][e] * (dp[j][e] - dl_s[8 * j + 2 * t4 + (e & 1)]);
-        bw_pb<NQ, DQK / 8>(acc_k, dp, qs, RS);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int key = wk0 + g + 8 * r;
-        if (key >= skv) continue;
-        T* krow = dk + (bh * skv + key) * dqk;
-        T* vrow = dvo + (bh * skv + key) * dv;
-#pragma unroll
-        for (int j = 0; j < DQK / 8; ++j) {
-            const int col = 8 * j + 2 * t4;
-            if (col < dqk) krow[col] = bw_to<T>(acc_k[j][2 * r] * scale);
-            if (col + 1 < dqk)
-                krow[col + 1] = bw_to<T>(acc_k[j][2 * r + 1] * scale);
-        }
-#pragma unroll
-        for (int j = 0; j < DV / 8; ++j) {
-            const int col = 8 * j + 2 * t4;
-            if (col < dv) vrow[col] = bw_to<T>(acc_v[j][2 * r]);
-            if (col + 1 < dv) vrow[col + 1] = bw_to<T>(acc_v[j][2 * r + 1]);
-        }
-    }
-}
-
-template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(BW_THREADS)
-flash_attention_bwd_dq_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const T* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              T* __restrict__ dq, int sq, int skv, int dqk,
-                              int dv, int causal, int window, float scale,
-                              int vec)
-{
-    constexpr int RS = bw_rs<T>(DQK), RSV = bw_rs<T>(DV);
-    constexpr int NK = BW_BKD / 8;
-    extern __shared__ __align__(16) unsigned char bw_smem[];
-    T* qs = reinterpret_cast<T*>(bw_smem);  // BW_BQD x RS
-    T* dos = qs + BW_BQD * RS;              // BW_BQD x RSV
-    T* ks = dos + BW_BQD * RSV;             // BW_BKD x RS
-    T* vs = ks + BW_BKD * RS;               // BW_BKD x RSV
-
-    if (DQK == DV) dv = dqk;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t4 = lane & 3;
-    const long long bh = blockIdx.x;
-    const int n_qt = (sq + BW_BQD - 1) / BW_BQD;
-    const int q0 = (n_qt - 1 - (int)blockIdx.y) * BW_BQD;
-    const int nq = min(BW_BQD, sq - q0);
-    const int offset = skv - sq;
-    const float scale_log2 = scale * BW_LOG2E;
-    const T* kl = k + bh * skv * dqk;
-    const T* vl = v + bh * skv * dv;
-
-    bw_load<T, DQK>(qs, RS, q + bh * sq * dqk, q0, BW_BQD, sq, dqk, vec);
-    bw_load<T, DV>(dos, RSV, dout + bh * sq * dv, q0, BW_BQD, sq, dv, vec);
-    // this warp's rows g and g + 8: their lse (log2 units) and delta
-    const int wr0 = q0 + 16 * warp;
-    float lse2[2], dl[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = wr0 + g + 8 * r;
-        lse2[r] = row < sq ? lse[bh * sq + row] * BW_LOG2E : INFINITY;
-        dl[r] = row < sq ? delta[bh * sq + row] : 0.f;
-    }
-
-    // keys visible to some query of the block: [k_lo, k_hi)
-    const int qa_lo = q0 + offset, qa_hi = q0 + nq - 1 + offset;
-    int k_lo = 0, k_hi = skv;
-    if (window > 0) k_lo = max(0, qa_lo - window + 1);
-    if (causal) k_hi = min(skv, qa_hi + 1);
-    k_lo = (k_lo / BW_BKD) * BW_BKD;
-    const bool w_rows = wr0 < sq;
-    const int w_lo = wr0 + offset, w_hi = min(wr0 + 15, sq - 1) + offset;
-
-    float acc[DQK / 8][4];
-#pragma unroll
-    for (int j = 0; j < DQK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-    for (int kb = k_lo; kb < k_hi; kb += BW_BKD) {
-        __syncthreads();                    // the last step's tiles are read
-        bw_load<T, DQK>(ks, RS, kl, kb, BW_BKD, skv, dqk, vec);
-        bw_load<T, DV>(vs, RSV, vl, kb, BW_BKD, skv, dv, vec);
-        __syncthreads();
-        bool sees = w_rows;
-        if (causal) sees = sees && kb <= w_hi;
-        if (window > 0) sees = sees && kb + BW_BKD - 1 > w_lo - window;
-        if (!sees) continue;
-
-        float s[NK][4], dp[NK][4];
-#pragma unroll
-        for (int j = 0; j < NK; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-        bw_abt<NK, DQK>(s, qs + 16 * warp * RS, RS, ks, RS);
-#pragma unroll
-        for (int j = 0; j < NK; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int row = wr0 + g + 8 * (e >> 1);
-                const int qa = row + offset;
-                const int key = kb + 8 * j + 2 * t4 + (e & 1);
-                bool ok = row < sq && key < skv;
-                if (causal) ok = ok && key <= qa;
-                if (window > 0) ok = ok && key > qa - window;
-                s[j][e] = ok ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1])
-                             : 0.f;
-            }
-        bw_abt<NK, DV>(dp, dos + 16 * warp * RSV, RSV, vs, RSV);
-#pragma unroll
-        for (int j = 0; j < NK; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-                dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]);
-        bw_pb<NK, DQK / 8>(acc, dp, ks, RS);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = wr0 + g + 8 * r;
-        if (row >= sq) continue;
-        T* qrow = dq + (bh * sq + row) * dqk;
-#pragma unroll
-        for (int j = 0; j < DQK / 8; ++j) {
-            const int col = 8 * j + 2 * t4;
-            if (col < dqk) qrow[col] = bw_to<T>(acc[j][2 * r] * scale);
-            if (col + 1 < dqk)
-                qrow[col + 1] = bw_to<T>(acc[j][2 * r + 1] * scale);
-        }
-    }
-}
-
-// ---------------------------------------------------------------------------
 // ssd_scan: four kernels, parallel over chunks
 //
 // Replaces ssd_scan_pallas (src/repro/kernels/ssd_scan.py, body _kernel),
@@ -1912,39 +1461,6 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
     return cudaGetLastError();
 }
 
-// the backward's dK/dV and dQ launches at depths DQK, DV (after delta)
-template <typename T, int DQK, int DV>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dq, void* dk, void* dvo, int bh, int sq, int skv,
-                       int dqk, int dv, int causal, int window, float scale,
-                       bool vec, cudaStream_t stream)
-{
-    static size_t granted_kv = 0, granted_q = 0;
-    const size_t smem_kv = bw_smem_bytes<T>(DQK, DV, BW_BKV, BW_BQ, true);
-    const size_t smem_q = bw_smem_bytes<T>(DQK, DV, BW_BQD, BW_BKD, false);
-    cudaError_t err = allow_smem(flash_attention_bwd_dkdv_kernel<T, DQK, DV>,
-                                 smem_kv, &granted_kv);
-    if (err == cudaSuccess)
-        err = allow_smem(flash_attention_bwd_dq_kernel<T, DQK, DV>, smem_q,
-                         &granted_q);
-    if (err != cudaSuccess) return err;
-    flash_attention_bwd_dkdv_kernel<T, DQK, DV>
-        <<<dim3(bh, (skv + BW_BKV - 1) / BW_BKV), BW_THREADS, smem_kv,
-            stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-        (const float*)lse, (const float*)delta, (T*)dk, (T*)dvo, sq, skv, dqk,
-        dv, causal, window, scale, (int)vec);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    flash_attention_bwd_dq_kernel<T, DQK, DV>
-        <<<dim3(bh, (sq + BW_BQD - 1) / BW_BQD), BW_THREADS, smem_q,
-            stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-        (const float*)lse, (const float*)delta, (T*)dq, sq, skv, dqk, dv,
-        causal, window, scale, (int)vec);
-    return cudaGetLastError();
-}
-
 // the (DQK, DV) pairs the kernels are built for: equal depths up to 128,
 // and the MLA pairs of the port's configs, deepseek-v2-lite's (192, 128)
 // and its reduced variant's (48, 32).  kernels/flash_attention.py keeps
@@ -2004,47 +1520,6 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                        st));
     REPRO_FA_DEPTH_PAIRS(TF_CASE)
 #undef TF_CASE
-    return (int)cudaErrorInvalidValue;
-}
-
-// K5's float32 backward in three launches (delta, dK/dV, dQ; see above)
-// on the forward's o and lse: dq, dk, dv (q's, k's and v's shapes) and the
-// scratch delta (BH, Sq) float32 are the caller's.  The masks are the
-// forward's, under the bf16 kernel's rule (Sq <= Skv unless nothing is
-// masked), at the built depth pairs; ceil(Skv / 64) and ceil(Sq / 64) at
-// most 65535.  bfloat16 operands take csrc/attn_bwd.cu
-extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
-                                         const void* v, const void* o,
-                                         const void* lse, const void* dout,
-                                         void* delta, void* dq, void* dk,
-                                         void* dvo, int bh, int sq, int skv,
-                                         int dqk, int dv, int causal,
-                                         int window, float scale,
-                                         void* stream)
-{
-    const cudaStream_t st = (cudaStream_t)stream;
-    const int pq = (dqk + 15) / 16 * 16, pv = (dv + 15) / 16 * 16;
-    if (bh < 1 || sq < 1 || skv < 1 || dqk < 1 || dv < 1
-        || (pq == pv && dqk != dv) || (sq > skv && (causal || window > 0))
-        || (skv + BW_BKV - 1) / BW_BKV > 65535
-        || (sq + BW_BQD - 1) / BW_BQD > 65535)
-        return (int)cudaErrorInvalidValue;
-    const bool vec = dqk % 4 == 0 && dv % 4 == 0
-        && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout)
-            & 15) == 0;
-    const long long rows = (long long)bh * sq;
-    const unsigned blocks = (unsigned)((rows + 7) / 8);
-    flash_attention_bwd_delta_kernel<float><<<blocks, 256, 0, st>>>(
-        (const float*)o, (const float*)dout, (float*)delta, rows, dv);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-#define BW_CASE(a, b)                                                   \
-    if (pq == a && pv == b)                                             \
-        return (int)launch_bwd<float, a, b>(                            \
-            q, k, v, dout, lse, delta, dq, dk, dvo, bh, sq, skv, dqk, dv, \
-            causal, window, scale, vec, st);
-    REPRO_FA_DEPTH_PAIRS(BW_CASE)
-#undef BW_CASE
     return (int)cudaErrorInvalidValue;
 }
 

@@ -53,15 +53,22 @@ when grad mode is on and an input requires a gradient: its forward also
 writes each row's float32 log-sum-exp (BH, Sq) and saves q, k, v, o and
 that; its backward is ``flash_attention_bwd_cuda``: delta = rowsum(dO
 o O), then dK and dV a key tile a block and dQ a query tile a block (no
-atomics, so the same inputs give the same bits).  bfloat16 operands (the
-training path's) take ``csrc/attn_bwd.cu``, a library of its own, in two
-CUDA launches (delta; the dK/dV and the dQ blocks in one grid): wgmma
-products on tiles that TMA loads into a two-stage ring fed by a producer
-warpgroup, 128 keys a dK/dV block and 128 queries a dQ block, depths
-padded by the tensor maps to the classes (64, 64), (128, 128), (192,
-128); P' and dS' rounded once to bf16.  float32 operands (the
-card-against-CPU checks) take ``csrc/lm.cu``'s split-TF32 kernels in
-three launches (three passes, float32 grade; 64-row tiles).
+atomics, so the same inputs give the same bits).  Both types take
+``csrc/attn_bwd.cu``, a library of its own, in two CUDA launches (a
+prologue; the dK/dV and the dQ blocks in one grid): wgmma products on
+tiles that TMA loads into a two-stage ring fed by a producer warpgroup,
+depths padded by the tensor maps to the classes (64, 64), (128, 128),
+(192, 128).  bfloat16 operands (the training path's): the prologue is
+delta, 128 keys a dK/dV block and 128 queries a dQ block, P' and dS'
+rounded once to bf16.  float32 operands (the card-against-CPU checks):
+every operand and P', dS' split into three bf16 parts and each product
+taken in six passes (float32 grade, held within 2e-5 of the plain
+backward); the prologue is delta and the parts of q, k, v and dO, written
+into scratch this wrapper allocates (``f32_scratch_shapes``: (BH, 3, S, D
+rounded up to 8) bf16 each), so the tensor maps read 16-byte rows at any
+D and the float32 operands may sit anywhere; 128 own rows a block at (64,
+64), 64 past it, and dq, dk, dv added in float32 every 512 walked rows
+(plain stores).
 Otherwise (the serve path, under inference mode) the forward writes o
 alone, as it did before the backward existed.  The backward takes the
 forward's masks and depth pairs, in both types under the bf16 kernel's
@@ -101,6 +108,8 @@ DEPTH_PAIRS = frozenset({(n, n) for n in range(16, 129, 16)}
 _MAX_GRID_Y = 65535
 _MAX_TC_SQ = 65535 * 128       # the bfloat16 kernel: grid y of 128-query tiles
 _MAX_BWD_ROWS = 8 * (2 ** 31 - 1)  # the bf16 backward's delta: 8 rows a block
+# the float32 backward's bf16 parts an operand (csrc/attn_bwd.cu)
+SPLIT_PARTS = 3
 _TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -239,29 +248,37 @@ def check_backward_shape(bh: int, sq: int, skv: int, d: int,
                          window: Optional[int] = None) -> None:
     """Raise ``ValueError`` naming the limit when the backward kernels do
     not take a (BH, Sq, Skv, D, Dv) call: the forward's depth pairs, in
-    both types the bf16 kernel's rule (Sq <= Skv unless nothing is
-    masked), bf16 D, Dv % 8 == 0.  The grids' limits: bfloat16
-    (``csrc/attn_bwd.cu``, the dK/dV and dQ blocks on one grid's y) at
-    most 65535 128-row tiles of Sq and of Skv together, and BH Sq at most
-    8 (2**31 - 1) rows (delta's launch, a warp a row); float32
-    (``csrc/lm.cu``) at most 65535 64-row tiles of each."""
+    both types the bf16 kernel's mask rule (Sq <= Skv unless nothing is
+    masked), bf16 D, Dv % 8 == 0.  The grids' limits (``csrc/attn_bwd.cu``):
+    bfloat16 (the dK/dV and dQ blocks on one grid's y) at most 65535
+    128-row tiles of Sq and of Skv together, and BH Sq at most 8 (2**31 -
+    1) rows (delta's launch, a warp a row); float32 puts the tiles on the
+    grid's x (2**31 - 1 blocks, more than S * D < 2**31 allows) and the
+    lanes on its y (the forward's BH <= 65535), so it takes every shape
+    the forward takes."""
     dv = d if dv is None else dv
     check_kernel_shape(bh, sq, skv, d, dtype, dv, causal=causal,
                        window=window)
     masked = causal or window is not None
+    ok, grid = True, ""
     if dtype == torch.bfloat16:
         tiles = -(-sq // 128) + -(-skv // 128)
-        grid = (f"ceil(Sq / 128) + ceil(Skv / 128) <= {_MAX_GRID_Y}, "
+        grid = (f", ceil(Sq / 128) + ceil(Skv / 128) <= {_MAX_GRID_Y}, "
                 f"BH * Sq <= {_MAX_BWD_ROWS}")
         ok = tiles <= _MAX_GRID_Y and bh * sq <= _MAX_BWD_ROWS
-    else:
-        grid = f"S <= {_MAX_GRID_Y * 64}"
-        ok = max(sq, skv) <= _MAX_GRID_Y * 64
     if (sq > skv and masked) or not ok:
         raise ValueError(f"flash_attention backward: takes Sq <= Skv "
-                         f"unless nothing is masked, {grid}; got BH {bh}, "
+                         f"unless nothing is masked{grid}; got BH {bh}, "
                          f"Sq {sq}, Skv {skv}, causal {causal}, window "
                          f"{window}")
+
+
+def f32_scratch_shapes(bh: int, sq: int, skv: int, d: int, dv: int):
+    """The shapes of the float32 backward's scratch parts of q, k, v and
+    dO (bf16 each): (BH, 3, S, depth rounded up to 8), as
+    ``repro_attn_bwd_f32`` reads them."""
+    return [(bh, SPLIT_PARTS, n, -(-w // 8) * 8)
+            for n, w in ((sq, d), (skv, d), (skv, dv), (sq, dv))]
 
 
 def _check_on_card(*named):
@@ -323,20 +340,25 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *,
                    ("lse", lse))
     check_backward_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
                          window=window)
-    bf16 = q.dtype == torch.bfloat16
-    lib = build.load_library("attn_bwd" if bf16 else "lm")
-    entry = lib.repro_attn_bwd if bf16 else lib.repro_flash_attention_bwd
+    lib = build.load_library("attn_bwd")
     with torch.cuda.device(q.device):
         delta = torch.empty((bh, sq), dtype=F32, device=q.device)
         dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+        ins = [t.data_ptr() for t in (q, k, v, o, lse, do, delta)]
+        outs = [t.data_ptr() for t in (dq, dk, dvv)]
+        sizes = (bh, sq, skv, d, dv, int(bool(causal)),
+                 -1 if window is None else int(window), 1.0 / math.sqrt(d))
+        if q.dtype == torch.bfloat16:
+            entry, parts = lib.repro_attn_bwd, []
+        else:
+            entry = lib.repro_attn_bwd_f32
+            parts = [torch.empty(shape, dtype=torch.bfloat16,
+                                 device=q.device)
+                     for shape in f32_scratch_shapes(bh, sq, skv, d, dv)]
         stream = torch.cuda.current_stream().cuda_stream
         runtime.launch_counts["flash_attention_bwd"] += 1
-        code = entry(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dvv.data_ptr(), bh, sq, skv, d, dv,
-            int(bool(causal)), -1 if window is None else int(window),
-            1.0 / math.sqrt(d), stream)
+        code = entry(*ins, *(t.data_ptr() for t in parts), *outs, *sizes,
+                     stream)
     build.check_launch(lib, code, "flash_attention_bwd")
     return dq, dk, dvv
 

@@ -577,18 +577,52 @@ def test_flash_attention_backward_plain_matches_jax_grad(
     assert _grad_err([t.grad for t in leaves], want) <= 1e-5
 
 
+def _bf16_rz(x):
+    """float32 to bf16 rounded toward zero (as float32)."""
+    return (x.contiguous().view(torch.int32) & ~0xFFFF).view(torch.float32)
+
+
+def _bf16_parts(x):
+    """float32 x as three bf16 parts (as float32) b0 + b1 + b2, each the
+    remainder so far rounded to nearest, b0 toward zero where rounding to
+    nearest overflows: the float32 backward's ``ab_split`` in
+    ``csrc/attn_bwd.cu``."""
+    b0 = x.to(torch.bfloat16).float()
+    b0 = torch.where(torch.isinf(b0) & torch.isfinite(x), _bf16_rz(x), b0)
+    r = x - b0
+    b1 = r.to(torch.bfloat16).float()
+    return b0, b1, (r - b1).to(torch.bfloat16).float()
+
+
+# the float32 backward's passes (parts of A, of B), smallest first
+SPLIT_PASSES = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def _bf16x3_product(eq, a, b):
+    """``einsum(eq, a, b)`` as the float32 backward forms each product: both
+    operands split into three bf16 parts, six passes summed in float32 in
+    the kernel's order."""
+    pa, pb = _bf16_parts(a), _bf16_parts(b)
+    out = None
+    for i, j in SPLIT_PASSES:
+        term = torch.einsum(eq, pa[i], pb[j])
+        out = term if out is None else out + term
+    return out
+
+
 def _bwd_schedule(q, k, v, o, lse, do, *, causal, window, kernel):
-    """Plain emulation of the backward kernels' arithmetic — bf16:
-    ``attn_bwd_delta_kernel`` and ``attn_bwd_kernel`` (its
-    ``attn_bwd_dkdv`` and ``attn_bwd_dq`` blocks) in ``csrc/attn_bwd.cu``;
-    float32: ``flash_attention_bwd_*_kernel`` in ``csrc/lm.cu``: delta =
-    rowsum(dO o O) in float32; S from the operands summed in float32, P =
-    exp2(S log2(e)/sqrt(D) - lse log2(e)) where visible; bf16: P' and dS'
-    (the accumulator fragments) rounded once to bf16 as the A operands of
-    their products with bf16 dO, Q and K, dK and dQ scaled by 1/sqrt(D)
-    in float32, then every gradient rounded to bf16; float32: every
-    product split-TF32 (three passes).  The sums' order over tiles and
-    within the tensor cores is not emulated."""
+    """Plain emulation of the backward kernels' arithmetic
+    (``csrc/attn_bwd.cu``) — bf16: ``attn_bwd_delta_kernel`` and
+    ``attn_bwd_kernel`` (its ``attn_bwd_dkdv`` and ``attn_bwd_dq``
+    blocks); float32: ``attn_bwd_split_kernel`` and
+    ``attn_bwd_f32_kernel``: delta = rowsum(dO o O) in float32; S from the
+    operands summed in float32, P = exp2(S log2(e)/sqrt(D) - lse log2(e))
+    where visible; bf16: P' and dS' (the accumulator fragments) rounded
+    once to bf16 as the A operands of their products with bf16 dO, Q and K,
+    dK and dQ scaled by 1/sqrt(D) in float32, then every gradient rounded
+    to bf16; float32: every product of three-part bf16 operands (P' and
+    dS' split too) in six passes.  The sums' order over tiles and within
+    the tensor cores is not emulated."""
     bh, sq, d = q.shape
     skv = k.shape[1]
     ok = fa_mod.visible(sq, skv, causal, window, "cpu")
@@ -603,7 +637,7 @@ def _bwd_schedule(q, k, v, o, lse, do, *, causal, window, kernel):
             return torch.einsum(eq, a, b)
     else:
         def prod(eq, a, b, round_a=False):
-            return _tf32_product(eq, a, b, True)
+            return _bf16x3_product(eq, a, b)
     s = prod("bqd,bkd->bqk", qf, kf)
     p = torch.exp2(s * (scale * log2e) - (lse * log2e)[..., None])
     p = p.masked_fill(~ok[None], 0.0)
@@ -628,7 +662,8 @@ def test_backward_schedules_match_jax_grad(bh, sq, skv, d, dv, causal,
     of each gradient's largest magnitude (measured here: 3.6e-3 to 4.7e-3,
     about one bf16 step at that magnitude; per element, near-zero entries
     of dq and dk are many steps off, since dS = P o (dP - delta) cancels);
-    split-TF32 within 2e-5 (measured: 1.1e-6)."""
+    float32 (three bf16 parts, six passes) within 2e-5 (measured: 4.9e-7
+    to 8.3e-7)."""
     q, k, v, do = _bwd_inputs(bh, sq, skv, d, dv, bh + sq + skv + d + dv)
     tq, tk, tv, tdo = (torch.from_numpy(a).to(TT[kernel])
                        for a in (q, k, v, do))
@@ -647,6 +682,42 @@ def test_backward_schedules_match_jax_grad(bh, sq, skv, d, dv, causal,
         assert _grad_err(got, want) <= 2e-5
 
 
+@pytest.mark.parametrize("magnitude", ["normal", "tiny", "large"])
+def test_bf16_three_part_split_reconstructs_float32(magnitude):
+    """The float32 backward's split of an operand into three bf16 parts:
+    b0 + b1 + b2 == x exactly wherever |x| >= 2**-110 (24 significant bits
+    in three 8-bit parts, the last a multiple of bf16's smallest step),
+    within half of that step (2**-134) below it, with |b1| <= 2**-8 |x| and
+    |b2| <= 2**-16 |x| where b0 rounds to nearest; at the top of the
+    range, where b0 rounded to nearest would overflow, b0 rounds toward
+    zero and the parts stay finite and exact."""
+    rng = np.random.default_rng({"normal": 0, "tiny": 1, "large": 2}
+                                [magnitude])
+    base = rng.standard_normal(20000)
+    if magnitude == "normal":
+        x = base * 10.0 ** rng.uniform(-6, 6, base.shape)
+    elif magnitude == "tiny":       # float32's subnormals and the bottom
+        x = base * 2.0 ** rng.uniform(-149, -100, base.shape)
+    else:                           # past bf16's largest finite 3.39e38
+        x = np.concatenate([base * 2.0 ** rng.uniform(100, 124, base.shape),
+                            np.sign(base) * rng.uniform(3.38e38, 3.4028e38,
+                                                        base.shape)])
+    x = torch.from_numpy(x.astype(np.float32))
+    b0, b1, b2 = _bf16_parts(x)
+    for part in (b0, b1, b2):
+        assert torch.isfinite(part).all()
+        assert torch.equal(part, part.to(torch.bfloat16).float())
+    err = (b0.double() + b1.double() + b2.double() - x.double()).abs()
+    big = x.abs() >= 2.0 ** -110
+    assert (err[big] == 0).all()
+    assert (err[~big] <= 2.0 ** -134).all()
+    nearest = torch.isfinite(x.to(torch.bfloat16).float()) & big
+    assert (b1.abs() <= 2.0 ** -8 * x.abs())[nearest].all()
+    assert (b2.abs() <= 2.0 ** -16 * x.abs())[big].all()
+    if magnitude == "large":
+        assert (~nearest).sum() > 0
+
+
 @pytest.mark.parametrize("sq,skv,d,dv,dtype,causal,window,ok", [
     (4096, 4096, 120, 120, "bf16", True, None, True),     # h2o's training
     (2048, 2048, 192, 128, "bf16", True, None, True),     # MLA
@@ -657,21 +728,35 @@ def test_backward_schedules_match_jax_grad(bh, sq, skv, d, dv, causal,
     (64, 64, 12, 12, "bf16", True, None, False),          # D % 8 in bf16
     (64, 64, 136, 136, "f32", True, None, False),         # D past 128
     (64 * 65535 + 1, 64 * 65535 + 1, 16, 16, "bf16", False, None, False),
-    (64 * 65535 + 1, 64 * 65535 + 1, 16, 16, "f32", False, None, False),
+    # float32: the tiles on the grid's x, so past the 65535 64-row tiles
+    # of the first float32 backward too; its limit is the forward's S * D
+    (64 * 65535 + 1, 64 * 65535 + 1, 16, 16, "f32", False, None, True),
     (64 * 65535, 64 * 65535, 16, 16, "f32", False, None, True),
+    (2 ** 27 - 1, 2 ** 27 - 1, 16, 16, "f32", False, None, True),
+    (2 ** 27, 2 ** 27, 16, 16, "f32", False, None, False),
     # bf16: 128-row tiles of Sq and of Skv on one grid's y
     (128 * 32767, 128 * 32768, 16, 16, "bf16", False, None, True),
     (128 * 32767 + 1, 128 * 32768, 16, 16, "bf16", False, None, False),
     (300, 700, 120, 120, "bf16", True, 128, True),        # ragged, windowed
     (128, 128, 48, 32, "bf16", True, None, True),         # reduced MLA
+    # float32 at the shapes the first float32 backward took: any D (17:
+    # rows of 68 bytes, which the prologue's parts make 16-byte rows),
+    # Sq % 4 != 0, MLA's (192, 128), a ragged window
+    (13, 301, 17, 17, "f32", True, 32, True),
+    (13, 301, 64, 64, "f32", True, 32, True),
+    (2048, 2048, 192, 128, "f32", True, None, True),
+    (300, 700, 64, 64, "f32", True, 128, True),
+    (448, 448, 64, 64, "f32", True, None, True),
+    (14, 13, 17, 17, "f32", True, None, False),           # masked Sq > Skv
+    (64, 64, 200, 128, "f32", True, None, False),         # no depth class
 ])
 def test_flash_attention_backward_shape_limits(sq, skv, d, dv, dtype, causal,
                                                window, ok):
     """The backward takes the forward's depth pairs, in both types the bf16
     kernel's mask rule (Sq <= Skv unless nothing is masked), and its grid's
-    limits: in bf16 (``csrc/attn_bwd.cu``) at most 65535 128-row tiles of
-    Sq and of Skv together, in float32 (``csrc/lm.cu``) 65535 64-row tiles
-    of each."""
+    limits (``csrc/attn_bwd.cu``): in bf16 at most 65535 128-row tiles of
+    Sq and of Skv together; in float32 none past the forward's (the tiles
+    on the grid's x), and every shape the first float32 backward took."""
     if ok:
         fa_mod.check_backward_shape(4, sq, skv, d, TT[dtype], dv,
                                     causal=causal, window=window)
@@ -683,13 +768,13 @@ def test_flash_attention_backward_shape_limits(sq, skv, d, dv, dtype, causal,
 
 @pytest.mark.parametrize("bh,sq,dtype,ok", [
     (2 ** 31 - 1, 8, "bf16", True), (2 ** 31 - 1, 9, "bf16", False),
-    (2 ** 16, 8, "f32", False),    # float32: its grid's x takes 65535 lanes
+    (2 ** 16, 8, "f32", False),    # float32: its grid's y takes 65535 lanes
     (2 ** 16 - 1, 8, "f32", True),
 ])
 def test_flash_attention_backward_lane_rows_limit(bh, sq, dtype, ok):
     """The bf16 backward's delta launch takes a warp a row, eight rows a
     block, on a grid's x of at most 2**31 - 1 blocks; the float32 kernels
-    put the lanes on a grid's x of at most 65535."""
+    put the lanes on a grid's y of at most 65535 (the forward's limit)."""
     if ok:
         fa_mod.check_backward_shape(bh, sq, sq, 64, TT[dtype])
     else:
