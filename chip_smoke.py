@@ -74,7 +74,16 @@ TMA-fed tiles; float32 through three bf16 parts an operand) against its
 plain version at the training shapes and at every depth pair in both
 types, counts its CUDA launches a call from a captured graph (and, in
 float32, its scratch and its prologue's share of the call) and times it
-beside scaled_dot_product_attention's.
+beside scaled_dot_product_attention's.  Training through K6:
+zamba2-7b at its published widths cut to 12 of its 81 layer slots (ten
+Mamba2 blocks, the shared attention block twice) and xlstm-350m at its
+widths cut to 8 of its 24 blocks (seven mLSTM, one sLSTM), 12 and 6 steps
+of 4 x 2048 tokens, the SSD scan's forward and hand-written backward
+(``csrc/ssd_bwd.cu``) on every step, each reduced model card against CPU
+in float32; the kernels phase holds K6's backward against the float64
+plain backward at both training calls and at ragged, strong-decay,
+heads-1, odd and past-64 rows, counts its CUDA launches and scratch and
+times it beside the plain backward.
 
 The persistent library store (``compile/persist.py``): fresh processes
 on a fresh ``REPRO_PROGRAM_CACHE_DIR`` — the first builds the two kernel
@@ -90,8 +99,8 @@ same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
 estimate_wave, wave_pool, session_wave, fusion, page_pool,
 estimate_quickstart, estimate_mlp, serve_zamba2, serve_deepseek,
 serve_dense, serve_xlstm, serve_whisper, serve_vlm, same_as_cpu_lm,
-train_dense, train_whisper, topology, topology_chaos, durable, sanitize,
-persist, examples.
+train_dense, train_whisper, train_hybrid, train_xlstm, topology,
+topology_chaos, durable, sanitize, persist, examples.
 """
 from __future__ import annotations
 
@@ -155,9 +164,10 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "session_wave", "fusion", "page_pool", "estimate_quickstart",
           "estimate_mlp", "serve_zamba2", "serve_deepseek", "serve_dense",
           "serve_xlstm", "serve_whisper", "serve_vlm", "same_as_cpu_lm",
-          "train_dense", "train_whisper", "topology",
-          "topology_chaos", "durable", "sanitize", "persist", "examples")
-LIBRARIES = ("megabatch", "lm", "attn_bwd")
+          "train_dense", "train_whisper", "train_hybrid", "train_xlstm",
+          "topology", "topology_chaos", "durable", "sanitize", "persist",
+          "examples")
+LIBRARIES = ("megabatch", "lm", "attn_bwd", "ssd_bwd")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
 # core) float32 FLOP/s — K1-K4 use plain FMA
@@ -212,13 +222,22 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/attn_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
     },
+    # K6's gradient: the reference differentiates its jnp ssd_chunked, the
+    # function of its Pallas scan; csrc/ssd_bwd.cu is the backward of that
+    # kernel, run by train_hybrid and train_xlstm
+    "ssd_scan_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:52",
+    },
 }
 # the wrapper module of each kernel (its ``<name>_cuda`` launches it)
 KERNEL_MODULES = {"batched_gram": megabatch, "batched_predict": megabatch,
                   "batched_gram_blocked": megabatch,
                   "crossfit_gram": crossfit_gram,
                   "flash_attention": flash_attention,
-                  "flash_attention_bwd": flash_attention, "ssd_scan": ssd_scan}
+                  "flash_attention_bwd": flash_attention, "ssd_scan": ssd_scan,
+                  "ssd_scan_bwd": ssd_scan}
 # (B, N, P) of every launch each driven path makes: full blocks of 32
 # lanes and the aligned tail, N and P as the bucket pads them, plus the
 # intercept column; then the fused launches of the default pool, whose
@@ -393,6 +412,31 @@ SSD_SHAPES += ((XLSTM_SSD_SHAPE, "slow"),
                ((8, 777, 129, 96, 256, 2), "slow"),
                ((6, 600, 200, 64, 256, 3), "slow"),
                ((4, 300, 72, 80, 64, 2), "strong"))
+# the forwards of train_hybrid's and train_xlstm's reduced models against
+# the CPU (B 4, S 64): zamba2's 8 heads of 16 with state 16, chunk 16;
+# xlstm's 4 heads (lanes) of key depth 32 and value depth 32 plus the
+# normalizer
+SSD_SHAPES += (((32, 64, 16, 16, 16, 8), "slow"),
+               ((16, 64, 33, 32, 16, 1), "slow"))
+# (name, (BH, S, P, N, chunk, heads), decay, d(final state) given, lanes
+# the float64 plain backward takes) of K6's backward: the training paths'
+# calls (zamba2-7b at 4 x 2048 tokens: its yardstick on one batch row's
+# 112 lanes; xlstm-350m's mLSTM), the reduced models' calls, a ragged S,
+# strong decay (its yardstick the sequential recurrence: the chunked
+# form's float64 dla drowns in the diagonal terms the kernels leave out),
+# heads 1, odd N and P, and N, P past 64
+SSD_BWD_ROWS = (
+    ("zamba2_train", MAIN_SSD_SHAPE, "slow", False, 112),
+    ("xlstm_train", XLSTM_SSD_SHAPE, "slow", False, 16),
+    ("zamba2_reduced", (32, 64, 16, 16, 16, 8), "slow", False, 32),
+    ("xlstm_reduced", (16, 64, 33, 32, 16, 1), "slow", False, 16),
+    ("ragged", (112, 2049, 64, 64, 256, 112), "slow", True, 112),
+    ("strong", (32, 512, 64, 64, 256, 8), "strong", True, 32),
+    ("heads_1", (8, 777, 64, 64, 256, 1), "slow", False, 8),
+    ("odd", (6, 300, 13, 7, 64, 3), "slow", True, 6),
+    ("past_64", (8, 777, 129, 96, 256, 2), "slow", True, 8),
+)
+MAIN_SSD_BWD = "zamba2_train"
 TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 TYPE_NAMES = {v: k for k, v in TYPES.items()}
 # attention tolerance: the reference's own (tests/test_kernels.py TOL)
@@ -733,6 +777,8 @@ def phase_kernels(device):
         "rows": {f"{name}_{dtype}": row
                  for (name, dtype), row in bwd_rows.items()}}
     ssd, rows["ssd_scan"] = _ssd_kernel_rows(device, gen)
+    ssd_bwd, bwd_rows = _ssd_bwd_kernel_rows(device, gen)
+    rows["ssd_scan_bwd"] = {**bwd_rows[MAIN_SSD_BWD], "rows": bwd_rows}
     emit("kernels", tolerance={
         "batched_predict": "rtol 1e-5, atol 1e-5; valid == 0 rows == 0 "
                            "exactly",
@@ -772,15 +818,24 @@ def phase_kernels(device):
                                "max|lse|",
         "ssd_scan": "y within 2e-4 of max|y|, the final state within "
                     "2e-4 of max|state|: the reference's own tolerance; "
-                    "also within 2e-5 of each (the split-TF32 tier)"},
+                    "also within 2e-5 of each (the split-TF32 tier)",
+        "ssd_scan_bwd": "dxbar, dla, dbm, dcm on the row's compared lanes "
+                        "(whole batch rows) within 2e-5 of each "
+                        "gradient's max|.| of the float64 plain backward "
+                        "(autograd through the chunked form; at strong "
+                        "decay the sequential recurrence), the split-TF32 "
+                        "tier; two runs the same bits"},
         timing="median of 20 single launches after 3 warm-ups, CUDA events, "
                "L2 flushed before each (ms_warm_l2: not flushed), the "
                "device kept busy while the host enqueues; ssd_scan's "
-               "plain_ms (2048 sequential steps): median of 5 after 1",
+               "plain_ms (2048 sequential steps): median of 5 after 1; "
+               "ssd_scan_bwd's plain_ms (the backward pass of float32 "
+               "autograd through the chunked form): median of 3 after 1",
         kernels=sorted(KERNELS), shapes=report, blocked_shapes=blocked,
         crossfit_shapes=xfit, attention_shapes=attn,
         attention_backward_shapes=attn_bwd,
         lse_write=rows["flash_attention"]["lse_write"], ssd_shapes=ssd,
+        ssd_backward_shapes=ssd_bwd,
         bound_rates={"bytes_s": PEAK_BYTES_S, "f32_flop_s": PEAK_F32_FLOP_S,
                      "bf16_tensor_core_flop_s": PEAK_BF16_TC_FLOP_S,
                      "tf32_tensor_core_flop_s": PEAK_TF32_TC_FLOP_S,
@@ -1221,6 +1276,11 @@ BWD_ATTN_ROWS = (
     ("ragged_window", (16, 300, 700, 64, "f32", True, 128)),
     ("few_queries", (16, 13, 301, 64, "f32", True, 32)),
     ("odd_depth", (16, 13, 301, 17, "f32", True, 32)),
+    # train_hybrid: zamba2-7b's shared block at 4 x 2048 tokens (bf16) and
+    # the reduced model's (4 sequences of 64, 4 heads of 32, window 64)
+    # against the CPU in float32
+    ("zamba2_train", (128, 2048, 2048, 112, "bf16", True, 32768)),
+    ("zamba2_reduced", (16, 64, 64, 32, "f32", True, 64)),
 )
 MAIN_BWD_ATTN = ("h2o_causal", "bf16")
 # the plain backward holds a few (lanes, Sq, Skv) float32 tensors: it is
@@ -1563,6 +1623,123 @@ def _ssd_kernel_rows(device, gen):
     return report, main
 
 
+def _ssd_bwd_bound(bh, s, p, n, chunk, heads, with_dstate=False):
+    # the gradient of the recurrence, per lane and row: the reverse state
+    # G = exp(la) G' + c dy' (3 N P), dx = b'G, db = G x, dc = S dy and
+    # dla's <S, G> (2 N P each), 11 N P, at the TF32 rate over the split's
+    # three passes (the FMA figure kept beside it); xbar, la, bm, cm, dy
+    # (and dS_final) and the forward's scores, chunk states and decays
+    # read once, dxbar, dla, dbm, dcm written once
+    cb, states, decay = ssd_scan.scratch_shapes(bh, s, p, n, chunk, heads)
+    g = bh // heads
+    flops = bh * s * 11 * n * p
+    nbytes = 4 * (3 * bh * s * p + 2 * bh * s + 4 * g * s * n
+                  + with_dstate * bh * n * p + int(np.prod(cb))
+                  + int(np.prod(states)) + int(np.prod(decay)))
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / (PEAK_TF32_TC_FLOP_S / TF32_SPLIT_PASSES) * 1e3
+    return (nbytes, flops, max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            _bound_ms(nbytes, flops)[0])
+
+
+def _ssd_bwd_inputs(shape, decay, with_dstate, device, gen):
+    """xbar, la, bm, cm (as ``_ssd_inputs``), dy and dS_final (None unless
+    ``with_dstate``) of an SSD_BWD_ROWS row."""
+    bh, s, p, n = shape[:4]
+    x, la, bm, cm = _ssd_inputs(shape, decay, device, gen)
+    dy = torch.randn((bh, s, p), generator=gen, device=device)
+    dst = torch.randn((bh, n, p), generator=gen, device=device) \
+        if with_dstate else None
+    return x, la, bm, cm, dy, dst
+
+
+def _ssd_bwd_kernel_rows(device, gen):
+    """K6's backward at every row of SSD_BWD_ROWS, after the forward that
+    keeps its scratch: run twice (the same bits), held on the row's first
+    lanes (whole batch rows) against the float64 plain backward (autograd
+    through the lanes' chunked form; at strong decay through the
+    sequential recurrence) at SSD_SPLIT_TOL of each gradient's max|.|,
+    timed beside the plain backward (float32 autograd through the chunked
+    form at the whole call: the backward pass alone).  No single PyTorch
+    call computes the scan's gradient: library_ms is None."""
+    report, rows = [], {}
+    for name, shape, decay, with_dst, lanes in SSD_BWD_ROWS:
+        bh, s, p, n, chunk, heads = shape
+        x, la, bm, cm, dy, dst = _ssd_bwd_inputs(shape, decay, with_dst,
+                                                 device, gen)
+        _, _, cb, states, dec = ssd_scan._forward_cuda(x, la, bm, cm, chunk,
+                                                       heads)
+
+        def kernel():
+            return ssd_scan.ssd_scan_bwd_cuda(x, la, bm, cm, cb, states, dec,
+                                              dy, dst, chunk=chunk,
+                                              heads=heads)
+        grads, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+        assert same_bits, ("ssd_scan_bwd: two runs differ", name, shape)
+        del again
+        assert all(torch.isfinite(t).all() for t in grads), (name, shape)
+        g = lanes // heads
+        sub = [t.double() for t in (x[:lanes], la[:lanes], bm[:g], cm[:g],
+                                    dy[:lanes])]
+        want = ssd_scan.ssd_scan_backward_plain(
+            *sub, None if dst is None else dst[:lanes].double(),
+            chunk=chunk, heads=heads, chunked=decay != "strong")
+        got = [grads[0][:lanes], grads[1][:lanes], grads[2][:g],
+               grads[3][:g]]
+        errs = _grad_errs(got, want)
+        max_abs = max(float((a.double() - b).abs().max())
+                      for a, b in zip(got, want))
+        del sub, want, got
+        assert max(errs) <= SSD_SPLIT_TOL, \
+            ("ssd_scan_bwd outside the split-TF32 tier", name, shape, errs)
+        leaves = [t.detach().requires_grad_(True) for t in (x, la, bm, cm)]
+        with torch.enable_grad():
+            y0, st0 = ssd_scan.ssd_scan_chunked_plain(*leaves, chunk=chunk,
+                                                      heads=heads)
+        outs, outs_grad = ([y0], [dy]) if dst is None \
+            else ([y0, st0], [dy, dst])
+
+        def plain():
+            return torch.autograd.grad(outs, leaves, outs_grad,
+                                       retain_graph=True)
+        nbytes, flops, bound, by, bound_f32 = _ssd_bwd_bound(
+            *shape, with_dstate=with_dst)
+        row = {"shape": list(shape), "decay": decay,
+               "dstate_given": with_dst, "compared_lanes": lanes,
+               "max_abs_err": max_abs,
+               "max_rel_err_of_max": max(errs),
+               "dxbar_dla_dbm_dcm_rel_errs": errs,
+               "same_bits_twice": same_bits,
+               "ms": _time_ms(kernel, cold=True),
+               "plain_ms": _time_ms(plain, cold=True, runs=3, warmup=1),
+               "library_ms": None, "bound_ms": bound, "bound_by": by,
+               "bound_ms_at_f32_fma": bound_f32,
+               "bytes": nbytes, "operations": flops,
+               # one wrapper call (one count): its CUDA launches as a
+               # captured graph holds them
+               "cuda_launches_per_call": _graph_launches(kernel)}
+        del outs, outs_grad, leaves, y0, st0
+        assert row["cuda_launches_per_call"] == (9 if heads > 1 else 8), row
+        del grads
+        # the scratch one call allocates beside its outputs as the device
+        # allocator counts it (the peak of the call less what stays
+        # allocated after it)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        grads = kernel()
+        torch.cuda.synchronize()
+        row["scratch_bytes"] = (torch.cuda.max_memory_allocated()
+                                - torch.cuda.memory_allocated())
+        rows[name] = row
+        report.append({"name": name, "ssd_scan_bwd": row})
+        del x, la, bm, cm, dy, dst, cb, states, dec, grads
+        torch.cuda.empty_cache()
+    return report, rows
+
+
 def _compared_shapes(cache, path):
     """Every program the path built ran the kernels at a shape the
     kernels phase compared (the learners add the intercept column)."""
@@ -1651,7 +1828,8 @@ def _counts(launches, calls):
     return launches == {"batched_gram": calls, "batched_gram_blocked": 0,
                         "batched_predict": calls, "crossfit_gram": 0,
                         "flash_attention": 0,
-                        "flash_attention_bwd": 0, "ssd_scan": 0}
+                        "flash_attention_bwd": 0, "ssd_scan": 0,
+                        "ssd_scan_bwd": 0}
 
 
 def _same_bits(res, res_ref, preds, preds_ref):
@@ -1895,7 +2073,8 @@ def _launch_shapes():
                 shape = (shape[0], shape[1], int(args[0].shape[1]), shape[2],
                          TYPE_NAMES[operand.dtype], bool(kw["causal"]),
                          kw["window"]) + ((dv,) if dv != shape[2] else ())
-            elif name == "ssd_scan":            # SSD_SHAPES' key
+            elif name in ("ssd_scan", "ssd_scan_bwd"):
+                # SSD_SHAPES' key (the backward's: SSD_BWD_ROWS')
                 shape = shape + (int(args[1].shape[-1]), int(kw["chunk"]),
                                  int(kw["heads"]))
             lse = name == "flash_attention" and torch.is_grad_enabled() \
@@ -1973,7 +2152,8 @@ def _launches_compared(seen, what, device=None):
                 "flash_attention": set(ATTN_SHAPES),
                 "flash_attention_bwd": {row for _, row in BWD_ATTN_ROWS},
                 "flash_attention_lse": {row for _, row in BWD_ATTN_ROWS},
-                "ssd_scan": {shape for shape, _ in SSD_SHAPES}}
+                "ssd_scan": {shape for shape, _ in SSD_SHAPES},
+                "ssd_scan_bwd": {row[1] for row in SSD_BWD_ROWS}}
     held = set()
     if device is not None:
         held = (seen["batched_gram"] | seen["batched_predict"]) \
@@ -2179,8 +2359,8 @@ def phase_shared_x(device):
         assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
                             "batched_predict": 0, "crossfit_gram": 1,
                             "flash_attention": 0,
-                            "flash_attention_bwd": 0, "ssd_scan": 0}, \
-            launches
+                            "flash_attention_bwd": 0, "ssd_scan": 0,
+                            "ssd_scan_bwd": 0}, launches
         assert seen["crossfit_gram"] == {MAIN_XFIT_SHAPE}, seen
         _launches_compared(seen, f"shared_x/{learner}")
         total += launches["crossfit_gram"]
@@ -2243,8 +2423,8 @@ def phase_raw_request(device):
     assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
                         "batched_predict": 0, "crossfit_gram": lanes,
                         "flash_attention": 0,
-                        "flash_attention_bwd": 0, "ssd_scan": 0}, \
-        (launches, lanes)
+                        "flash_attention_bwd": 0, "ssd_scan": 0,
+                        "ssd_scan_bwd": 0}, (launches, lanes)
     assert seen["crossfit_gram"] == {LANE_XFIT_SHAPE}, seen
     _launches_compared(seen, "raw_request")
     info = linear.solve_failures(device)
@@ -3381,7 +3561,8 @@ def phase_serve_zamba2(device):
                         "batched_predict": 0, "crossfit_gram": 0,
                         "flash_attention": n_bursts * groups,
                         "flash_attention_bwd": 0,
-                        "ssd_scan": n_bursts * n_mamba}, launches
+                        "ssd_scan": n_bursts * n_mamba,
+                        "ssd_scan_bwd": 0}, launches
     _launches_compared(seen, "serve_zamba2")
     assert bool(torch.stack(flags).all()), "serve_zamba2: a logit is not finite"
     assert len(flags) == n_bursts * SERVE_GEN
@@ -4900,8 +5081,8 @@ def _grad_gap(got, want):
 def _train_run(bundle, params, batches, device, *, steps, warmup, lr,
                log_every=1):
     """``Trainer.run`` over pre-made batches (host data made before the
-    clock starts): (params, opt state, history, K5 launches, peak bytes,
-    the step times in ms from the history's wall clock)."""
+    clock starts): (params, opt state, history, K5 and K6 launches, peak
+    bytes, the step times in ms from the history's wall clock)."""
     from repro_torch.train import (
         OptConfig, Trainer, TrainerConfig, init_opt_state,
     )
@@ -4916,7 +5097,7 @@ def _train_run(bundle, params, batches, device, *, steps, warmup, lr,
     params, opt, hist = trainer.run(params, opt, iter(batches))
     launches = {k: runtime.launch_counts[k]
                 for k in ("flash_attention", "flash_attention_bwd",
-                          "ssd_scan")}
+                          "ssd_scan", "ssd_scan_bwd")}
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
         else None
     walls = [h["wall_s"] for h in hist]
@@ -4925,30 +5106,44 @@ def _train_run(bundle, params, batches, device, *, steps, warmup, lr,
 
 
 def _full_run_record(name, cfg, hist, launches, peak, step_ms, tokens,
-                     n_params, n_layers_attn):
+                     n_params, n_layers_attn, n_ssd=0, steps=TRAIN_STEPS,
+                     attn_forwards=2):
     losses = [h["loss"] for h in hist]
-    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
     assert np.mean(losses[-4:]) < losses[0], (name, losses)
     steady = statistics.median(step_ms[2:])
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    per_step = {k: v / steps for k, v in launches.items()}
     # remat "full": each layer's forward runs twice a step (the forward,
-    # the recompute in the backward), its backward once
-    assert per_step["flash_attention"] == 2 * n_layers_attn, per_step
+    # the recompute in the backward), its backward once; ``attn_forwards``
+    # 1 where the model leaves the attention unwrapped (zamba2's shared
+    # block, as the reference)
+    assert per_step["flash_attention"] == attn_forwards * n_layers_attn, \
+        per_step
     assert per_step["flash_attention_bwd"] == n_layers_attn, per_step
+    assert per_step["ssd_scan"] == 2 * n_ssd, per_step
+    assert per_step["ssd_scan_bwd"] == n_ssd, per_step
     return {"arch": cfg.name, "params": n_params,
-            "step_ms_median_steps_3_to_12": steady, "step_ms": step_ms,
+            f"step_ms_median_steps_3_to_{steps}": steady, "step_ms": step_ms,
             "tokens_per_s": tokens / (steady / 1e3),
             "max_memory_allocated_bytes": peak,
-            "k5_launches_per_step": per_step, "losses": losses,
+            "k5_launches_per_step": {k: v for k, v in per_step.items()
+                                     if k.startswith("flash")},
+            "k6_launches_per_step": {k: v for k, v in per_step.items()
+                                     if k.startswith("ssd")},
+            "losses": losses,
             "grad_norms": [h["grad_norm"] for h in hist],
             "card": smi_line()}
 
 
-def _reduced_card_vs_cpu(arch, device, *, seq, steps, lr):
-    """A reduced config in float32, the same parameters on the card and on
-    the CPU: one step's loss and gradients, then ``steps`` steps' losses."""
+def _reduced_card_vs_cpu(arch, device, *, seq, steps, lr, ssm=None):
+    """A reduced config in float32 (``ssm``: changes to its SSM config),
+    the same parameters on the card and on the CPU: one step's loss and
+    gradients, then ``steps`` steps' losses."""
     from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
     cfg = get_arch(arch, reduced=True)
+    if ssm:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                               **ssm))
     bundle = build_model(cfg, remat="full")
     p_cpu = cast_floating(init_tree(
         bundle.decls, torch.Generator().manual_seed(LM_SEED), "cpu"),
@@ -5136,6 +5331,142 @@ def phase_train_whisper(device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# LM training through K6: train_hybrid (zamba2-7b at full width, depth cut)
+# and train_xlstm (xlstm-350m at full width, depth cut), the SSD scan's
+# forward and hand-written backward on every step; the reduced models card
+# against CPU in float32.
+# ---------------------------------------------------------------------------
+# zamba2-7b's 81 layer slots at 16 bytes a parameter are past one card; 12
+# slots are two groups of five Mamba2 blocks and the shared attention block
+TRAIN_HYBRID_SLOTS = 12
+# xlstm-350m's 24 blocks: the sLSTM's loop (about 43 000 launches a layer
+# a step) would take most of the script's time; 8 are one group of seven
+# mLSTM blocks and one sLSTM block
+TRAIN_XLSTM_BLOCKS = 8
+# (batch, tokens a sequence) of both full runs: K6 at the serve rows
+# (448, 2048, 64, 64, 256, 112) and (16, 2048, 513, 512, 256, 1); steps of
+# train_xlstm (its sLSTM loop), and of the reduced models' loss curves
+TRAIN_SSM_BATCH, TRAIN_SSM_SEQ = 4, 2048
+TRAIN_XLSTM_STEPS = 6
+TRAIN_SSM_CURVE_STEPS = 10
+# the full runs' peak lr: at TRAIN_LR zamba2-7b's 12 slots spiked (13.7 at
+# step 3, 27.4 at step 8 from 10.9)
+TRAIN_SSM_LR = 3e-4
+# the reduced xlstm's curve (zamba2's at 5e-3, as train_dense's): at 5e-3
+# the card's and the CPU's curves part by 3.0e-5 over 10 steps with K6 on
+# the card replaced by its plain version (4.1e-5 with the kernels), Adam
+# amplifying the card's other float32 ops; at 1e-3 at most 7.7e-7 and
+# 3.9e-7 (NVIDIA H100 80GB HBM3, 700.00 W; scripts/ssd_curve_parts.py)
+TRAIN_XLSTM_CURVE_LR = 1e-3
+
+
+def _ssd_step_share(shape, full, steps, device):
+    """K6's forward and backward at a training path's call, each timed
+    alone as the kernels phase times them (after the run; not counted),
+    and their launches a step as a share of the step's median."""
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    bh, s, p, n, chunk, heads = shape
+    x, la, bm, cm, dy, _ = _ssd_bwd_inputs(shape, "slow", False, device, gen)
+    _, _, cb, states, dec = ssd_scan._forward_cuda(x, la, bm, cm, chunk,
+                                                   heads)
+    fwd_ms = _time_ms(lambda: ssd_scan._forward_cuda(x, la, bm, cm, chunk,
+                                                     heads), cold=True)
+    bwd_ms = _time_ms(lambda: ssd_scan.ssd_scan_bwd_cuda(
+        x, la, bm, cm, cb, states, dec, dy, None, chunk=chunk, heads=heads),
+        cold=True)
+    step = full[f"step_ms_median_steps_3_to_{steps}"]
+    per = full["k6_launches_per_step"]
+    del x, la, bm, cm, dy, cb, states, dec
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "fwd_share_of_step": fwd_ms * per["ssd_scan"] / step,
+            "bwd_share_of_step": bwd_ms * per["ssd_scan_bwd"] / step}
+
+
+def _ssm_train_phase(what, cfg, base_layers, steps, n_attn, n_ssd, shape,
+                     reduced_ssm, reduced_lr, why, device):
+    """One full run of ``cfg`` (bf16 from a seed, remat "full" on the
+    layers ``build_model`` wraps, ``steps`` steps of TRAIN_SSM_BATCH x
+    TRAIN_SSM_SEQ tokens of SyntheticLM(seed=0), warmup 3, peak lr
+    TRAIN_SSM_LR) and the reduced config card against CPU; every K5 and
+    K6 launch's shape recorded and held to the compared rows."""
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    bundle = build_model(cfg, remat="full")
+    data = SyntheticLM(LMDataConfig(cfg.vocab_size, TRAIN_SSM_SEQ,
+                                    TRAIN_SSM_BATCH, seed=0))
+    batches = [data.batch(i) for i in range(steps)]
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = init_tree(bundle.decls, gen, device)
+    with _launch_shapes() as seen:
+        _, _, hist, launches, peak, step_ms = _train_run(
+            bundle, params, batches, device, steps=steps,
+            warmup=TRAIN_WARMUP, lr=TRAIN_SSM_LR)
+        del params
+        torch.cuda.empty_cache()
+        reduced = _reduced_card_vs_cpu(cfg.name, device, seq=64,
+                                       steps=TRAIN_SSM_CURVE_STEPS,
+                                       lr=reduced_lr, ssm=reduced_ssm)
+    _launches_compared(seen, what)
+    full = _full_run_record(what, cfg, hist, launches, peak, step_ms,
+                            TRAIN_SSM_BATCH * TRAIN_SSM_SEQ,
+                            param_count(bundle.decls), n_attn, n_ssd, steps,
+                            attn_forwards=1)
+    full["reduced"] = {"n_layers": [base_layers, cfg.n_layers], "why": why}
+    full["k6_time"] = _ssd_step_share(shape, full, steps, device)
+    emit(what, full=full, reduced_card_vs_cpu=reduced,
+         launch_shapes={k: sorted(seen[k], key=str) for k in (
+             "flash_attention", "flash_attention_lse",
+             "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")},
+         tolerance=f"full: finite losses, the mean of the last 4 below "
+                   f"step 1's; reduced, float32: loss within "
+                   f"{TRAIN_LOSS_TIER} relative, gradients within "
+                   f"{TRAIN_GRAD_TIER} of each leaf's max|grad|, the loss "
+                   f"curves within {TRAIN_CURVE_TIER} relative")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_hybrid(device):
+    """zamba2-7b at its published widths (d 3584, 112 SSM heads of 64,
+    state 64, chunk 256, the shared attention block's 32 heads of 112
+    under its window of 32768) cut from 81 layer slots to
+    TRAIN_HYBRID_SLOTS: ten Mamba2 blocks and two applications of the
+    shared block, 12 steps of 4 x 2048 tokens.  K6's forward and backward
+    at (448, 2048, 64, 64, 256, 112), K5's at (128, 2048, 2048, 112)
+    causal; then the reduced zamba2 card against CPU in float32."""
+    base = get_arch("zamba2-7b")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_HYBRID_SLOTS)
+    per = cfg.shared_attn_every
+    groups = cfg.n_layers // per
+    return _ssm_train_phase(
+        "train_hybrid", cfg, base.n_layers, TRAIN_STEPS, groups,
+        cfg.n_layers - groups, MAIN_SSD_SHAPE, None, 5e-3,
+        "81 layer slots at 16 bytes a parameter (bf16 weights and "
+        "gradients, float32 master, m and v) are past one 80 GB card",
+        device)
+
+
+def phase_train_xlstm(device):
+    """xlstm-350m at its published widths (d 1024, 4 heads, the mLSTM's
+    key depth 512 as K6's N and value depth 512 plus the normalizer as
+    P, chunk 256, an sLSTM block every 8) cut from 24 blocks to
+    TRAIN_XLSTM_BLOCKS: seven mLSTM blocks and one sLSTM block, 6 steps of
+    4 x 2048 tokens.  K6's forward and backward at (16, 2048, 513, 512,
+    256, 1); then the reduced xlstm (slstm_every 2: two groups of one
+    mLSTM and one sLSTM block) card against CPU in float32."""
+    base = get_arch("xlstm-350m")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_XLSTM_BLOCKS)
+    per = cfg.ssm.slstm_every
+    return _ssm_train_phase(
+        "train_xlstm", cfg, base.n_layers, TRAIN_XLSTM_STEPS, 0,
+        cfg.n_layers - cfg.n_layers // per, XLSTM_SSD_SHAPE,
+        {"slstm_every": 2}, TRAIN_XLSTM_CURVE_LR,
+        "the sLSTM's loop of plain ops over time (about 43 000 launches a "
+        "layer a step) would take most of the script's time at 24 blocks",
+        device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5251,6 +5582,13 @@ def main(argv=None) -> int:
     whisper_train_launches = None
     if "train_whisper" in phases:
         whisper_train_launches = phase_train_whisper(device)
+    xlstm_train_launches = None
+    if "train_hybrid" in phases:
+        hybrid_launches = phase_train_hybrid(device)
+        if launches is not None:
+            launches["ssd_scan_bwd"] = hybrid_launches["ssd_scan_bwd"]
+    if "train_xlstm" in phases:
+        xlstm_train_launches = phase_train_xlstm(device)
     topo_launches = None
     if "topology" in phases:
         topo_launches = phase_topology(device)
@@ -5318,6 +5656,14 @@ def main(argv=None) -> int:
                  if k not in keys} | {
                  "launches_train_whisper":
                      whisper_train_launches["flash_attention_bwd"]},
+             # K6's backward: its launches are train_hybrid's full run's
+             # (12 steps of zamba2-7b, 10 Mamba2 blocks); every row of the
+             # kernels phase, and its launches in train_xlstm
+             "ssd_scan_bwd": {
+                 k: v for k, v in rows["ssd_scan_bwd"].items()
+                 if k not in keys} | {
+                 "launches_train_xlstm":
+                     xlstm_train_launches["ssd_scan_bwd"]},
              "batched_gram_blocked": {
                  "launches_topology":
                      topo_launches[1]["batched_gram_blocked"]},

@@ -78,6 +78,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                _FLT, _PTR),
     },
+    "ssd_bwd": {
+        # K6's backward: xbar, la, bm, cm, the forward's scratch cb,
+        # states, decay, dy, dstate (None: zero), dx, dla, dbm, dcm, the
+        # scratch gst, ds, parts, sg, lane_b, lane_c (None where heads is
+        # 1), BH, S, P, N, chunk, heads, stream
+        "repro_ssd_scan_bwd": (_PTR,) * 19 + (_INT,) * 6 + (_PTR,),
+    },
 }
 
 # the process tier of the persistent store: (build, platform, fingerprint)

@@ -56,16 +56,28 @@ grid of BH ceil(S / Q) ceil(Qp / 128) blocks stays under 2^31
 
 ``ssd_scan_cuda`` adds one to ``runtime.launch_counts["ssd_scan"]`` where
 it launches (once a call, for its four kernel launches), and nowhere
-else; it raises on an input that needs a gradient (the reverse chunked
-scan is ROADMAP item 15(b3)'s second half).  ``ssd_scan_plain`` is the sequential recurrence of the reference
-oracle ``ssd_scan_ref``: what the CPU path and the on-card comparison
-use.
+else.  With grad mode on and an input that requires a gradient it goes
+through ``SsdScanFunction``, whose forward keeps the scores, the chunk
+states and their decays that the four launches leave in their scratch,
+and whose backward is ``ssd_scan_bwd_cuda`` (``csrc/ssd_bwd.cu``, its own
+library: nine launches a call, one count in
+``runtime.launch_counts["ssd_scan_bwd"]``); that route checks the
+backward's shape limits (``check_backward_shape``) before the forward
+launches.  ``ssd_scan_plain`` is the sequential recurrence of the
+reference oracle ``ssd_scan_ref``: what the CPU path and the on-card
+comparison use; autograd through it is the CPU route's gradient.
+``ssd_scan_chunked_plain`` is the reference's chunked ``ssd_chunked`` on
+the kernels' lanes, in the inputs' type: ``ssd_scan_backward_plain``
+(autograd through it, float64 on the card) is the yardstick of the
+backward kernels at the path shapes, where the sequential form would keep
+thousands of states for autograd.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import runtime
 from repro_torch.kernels import build
@@ -82,14 +94,16 @@ PASS_BLOCK = 256          # state entries of one (c) block
 def ssd_scan_plain(xbar, la, bm, cm, *, heads: int = 1
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xbar (BH,S,P); la (BH,S); bm/cm (BH/heads,S,N) -> y (BH,S,P) f32
-    and the final state (BH,N,P) f32, one time step after another."""
+    and the final state (BH,N,P) f32 (float64 for float64 inputs), one
+    time step after another."""
     bh, s, p = xbar.shape
     n = bm.shape[-1]
     g = bh // heads
-    x4 = xbar.to(F32).reshape(g, heads, s, p)
-    a3 = la.to(F32).reshape(g, heads, s)
-    b3, c3 = bm.to(F32), cm.to(F32)
-    state = torch.zeros((g, heads, n, p), dtype=F32, device=xbar.device)
+    dt = torch.float64 if xbar.dtype == torch.float64 else F32
+    x4 = xbar.to(dt).reshape(g, heads, s, p)
+    a3 = la.to(dt).reshape(g, heads, s)
+    b3, c3 = bm.to(dt), cm.to(dt)
+    state = torch.zeros((g, heads, n, p), dtype=dt, device=xbar.device)
     ys = []
     for t in range(s):
         state = state * torch.exp(a3[:, :, t])[..., None, None] \
@@ -97,6 +111,64 @@ def ssd_scan_plain(xbar, la, bm, cm, *, heads: int = 1
         ys.append(torch.einsum("gn,ghnp->ghp", c3[:, t], state))
     y = torch.stack(ys, dim=2).reshape(bh, s, p)
     return y, state.reshape(bh, n, p)
+
+
+def ssd_scan_chunked_plain(xbar, la, bm, cm, *, chunk: int, heads: int = 1
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan as the reference's ``ssd_chunked`` computes it, on the
+    kernels' lanes and in the inputs' type: per chunk of ``chunk`` rows
+    (S padded with rows that leave the state as it is), y = W x + exp(cl)
+    * (C S) and S <- exp(cl_Q) S + (B * exp(cl_Q - cl))' x.  Returns y
+    (BH, S, P) and the final state (BH, N, P)."""
+    bh, s, p = xbar.shape
+    n = bm.shape[-1]
+    g = bh // heads
+    q = min(int(chunk), s)
+    pad = -s % q
+    x = F.pad(xbar.reshape(g, heads, s, p), (0, 0, 0, pad))
+    a = F.pad(la.reshape(g, heads, s), (0, pad))
+    b, c = (F.pad(t, (0, 0, 0, pad)) for t in (bm, cm))
+    causal = torch.ones((q, q), dtype=torch.bool, device=xbar.device).tril()
+    state = torch.zeros((g, heads, n, p), dtype=xbar.dtype,
+                        device=xbar.device)
+    ys = []
+    for c0 in range(0, s + pad, q):
+        xc, cl = x[:, :, c0:c0 + q], torch.cumsum(a[:, :, c0:c0 + q], dim=-1)
+        bc, cc = b[:, c0:c0 + q], c[:, c0:c0 + q]
+        lmat = torch.exp(torch.clamp(cl[..., :, None] - cl[..., None, :],
+                                     -60.0, 0.0))
+        w = torch.where(causal, torch.einsum("gin,gjn->gij", cc, bc)[:, None]
+                        * lmat, torch.zeros((), dtype=xbar.dtype,
+                                            device=xbar.device))
+        ys.append(torch.einsum("ghij,ghjp->ghip", w, xc)
+                  + torch.exp(cl)[..., None]
+                  * torch.einsum("gin,ghnp->ghip", cc, state))
+        tail = torch.exp(cl[..., -1:] - cl)
+        state = torch.einsum("gjn,ghjp,ghj->ghnp", bc, xc, tail) \
+            + state * torch.exp(cl[..., -1])[..., None, None]
+    y = torch.cat(ys, dim=2)[:, :, :s].reshape(bh, s, p)
+    return y, state.reshape(bh, n, p)
+
+
+def ssd_scan_backward_plain(xbar, la, bm, cm, dy, dstate=None, *,
+                            chunk: int, heads: int = 1, chunked: bool = True):
+    """The plain backward: autograd through the plain forward
+    (``ssd_scan_chunked_plain`` in the inputs' type, or with ``chunked``
+    False the sequential ``ssd_scan_plain``) — (dxbar, dla, dbm, dcm) from
+    the output's gradient ``dy`` and the final state's ``dstate`` (None:
+    zero)."""
+    leaves = [t.detach().requires_grad_(True) for t in (xbar, la, bm, cm)]
+    with torch.enable_grad():
+        if chunked:
+            y, state = ssd_scan_chunked_plain(*leaves, chunk=chunk,
+                                              heads=heads)
+        else:
+            y, state = ssd_scan_plain(*leaves, heads=heads)
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate)
+        return torch.autograd.grad(outs, leaves, grads)
 
 
 def check_ssd(xbar, la, bm, cm, chunk: int, heads: int
@@ -161,15 +233,52 @@ def check_kernel_shape(bh: int, s: int, p: int, n: int, chunk: int) -> None:
                          f"{OUT_TILE}) < 2**31)")
 
 
-def ssd_scan_cuda(xbar, la, bm, cm, *, chunk: int = 256, heads: int = 1
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the SSD scan's kernels on CUDA tensors (an input that needs
-    a gradient raises: the scan's backward is not ported)."""
-    runtime.refuse_grad("ssd_scan", xbar, la, bm, cm)
-    bh, s, p, n = check_ssd(xbar, la, bm, cm, chunk, heads)
+
+
+def check_backward_shape(bh: int, s: int, p: int, n: int, chunk: int
+                         ) -> None:
+    """Raise ``ValueError`` naming the limit when the backward kernels do
+    not take a (BH, S, P, N) scan in chunks of ``chunk`` rows: the
+    forward's limits, and the grids of their 64-row sub-tiles, BH *
+    ceil(S / Q) * ceil(Q / 64) blocks, under 2**31 (the forward's outputs
+    take 128-row tiles)."""
+    check_kernel_shape(bh, s, p, n, chunk)
+    q = min(int(chunk), s)
+    if bh * -(-s // q) * -(-q // SUB_TILE) >= 2 ** 31:
+        raise ValueError(f"ssd_scan backward: shape (BH {bh}, S {s}, "
+                         f"chunk {chunk}) exceeds the backward kernels' "
+                         f"limits (BH * ceil(S / chunk) * ceil(chunk / "
+                         f"{SUB_TILE}) < 2**31)")
+
+
+def bwd_scratch_shapes(bh: int, s: int, p: int, n: int, chunk: int,
+                       heads: int):
+    """Shapes of the backward kernels' float32 scratch: the gradients of
+    the states leaving the chunks (BH, chunks, N, P), dS (BH, chunks, Qp,
+    Qp), the parts of d cumsum(la) (BH, S, 2 Qp / 64 + 2 ceil(N / 64)),
+    <S_in, G> (BH, chunks), then each lane's dB and dC (BH, S, N) where
+    heads > 1 (else None: the kernels write dbm and dcm)."""
+    q = min(int(chunk), s)
+    nc = -(-s // q)
+    qp = -(-q // SUB_TILE) * SUB_TILE
+    parts = 2 * (qp // SUB_TILE) + 2 * -(-n // SUB_TILE)
+    lane = (bh, s, n) if heads > 1 else None
+    return (bh, nc, n, p), (bh, nc, qp, qp), (bh, s, parts), (bh, nc), \
+        lane, lane
+
+
+def _check_on_card(xbar) -> None:
     if not xbar.is_cuda:
         raise ValueError(f"xbar: the CUDA kernels take tensors on the card, "
                          f"got {xbar.device}")
+
+
+def _forward_cuda(xbar, la, bm, cm, chunk: int, heads: int):
+    """Launch the four forward kernels: y, the final state, and the
+    scratch they leave (the scores, the state entering each chunk and the
+    chunks' decays), which the backward reads."""
+    bh, s, p, n = check_ssd(xbar, la, bm, cm, chunk, heads)
+    _check_on_card(xbar)
     check_kernel_shape(bh, s, p, n, chunk)
     q = min(int(chunk), s)
     lib = build.load_library("lm")
@@ -187,4 +296,85 @@ def ssd_scan_cuda(xbar, la, bm, cm, *, chunk: int = 256, heads: int = 1
             states.data_ptr(), decay.data_ptr(), bh, s, p, n, q,
             int(heads), stream)
     build.check_launch(lib, code, "ssd_scan")
-    return y, state
+    return y, state, cb, states, decay
+
+
+def ssd_scan_bwd_cuda(xbar, la, bm, cm, cb, states, decay, dy, dstate, *,
+                      chunk: int, heads: int):
+    """Launch the backward kernels on CUDA tensors: (dxbar, dla, dbm, dcm)
+    in the shapes of xbar, la, bm, cm, from the forward's operands and the
+    scratch its launches left (``cb``, ``states``, ``decay``:
+    ``scratch_shapes``), the output's gradient ``dy`` (BH, S, P) and the
+    final state's ``dstate`` (BH, N, P; None: zero).  dbm and dcm are
+    summed over the ``heads`` lanes that share them."""
+    bh, s, p, n = check_ssd(xbar, la, bm, cm, chunk, heads)
+    q = min(int(chunk), s)
+    want = dict(zip(("cb", "states", "decay"),
+                    scratch_shapes(bh, s, p, n, q, heads)))
+    want.update(dy=(bh, s, p), dstate=(bh, n, p))
+    for name, t in (("cb", cb), ("states", states), ("decay", decay),
+                    ("dy", dy), ("dstate", dstate)):
+        if t is None and name == "dstate":
+            continue
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != want[name] \
+                or t.dtype != F32 or t.device != xbar.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous float32 tensor "
+                             f"of shape {want[name]} on {xbar.device}")
+    _check_on_card(xbar)
+    check_backward_shape(bh, s, p, n, chunk)
+    lib = build.load_library("ssd_bwd")
+    with torch.cuda.device(xbar.device):
+        dx, dla, dbm, dcm = (torch.empty_like(t) for t in (xbar, la, bm, cm))
+        gst, ds, parts, sg, lane_b, lane_c = (
+            None if shape is None
+            else torch.empty(shape, dtype=F32, device=xbar.device)
+            for shape in bwd_scratch_shapes(bh, s, p, n, q, heads))
+        ptrs = [None if t is None else t.data_ptr() for t in (
+            xbar, la, bm, cm, cb, states, decay, dy, dstate, dx, dla, dbm,
+            dcm, gst, ds, parts, sg, lane_b, lane_c)]
+        stream = torch.cuda.current_stream().cuda_stream
+        runtime.launch_counts["ssd_scan_bwd"] += 1
+        code = lib.repro_ssd_scan_bwd(*ptrs, bh, s, p, n, q, int(heads),
+                                      stream)
+    build.check_launch(lib, code, "ssd_scan_bwd")
+    return dx, dla, dbm, dcm
+
+
+class SsdScanFunction(torch.autograd.Function):
+    """K6 with its hand-written gradient: the forward kernels, keeping
+    the operands and the scores, chunk states and decays they leave; the
+    backward kernels.  A gradient of y or of the final state that autograd
+    passes as None counts as zero."""
+
+    @staticmethod
+    def forward(ctx, xbar, la, bm, cm, chunk: int, heads: int):
+        y, state, cb, states, decay = _forward_cuda(xbar, la, bm, cm, chunk,
+                                                    heads)
+        ctx.save_for_backward(xbar, la, bm, cm, cb, states, decay)
+        ctx.chunk, ctx.heads = chunk, heads
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        xbar, la, bm, cm, cb, states, decay = ctx.saved_tensors
+        dy = torch.zeros_like(xbar) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        grads = ssd_scan_bwd_cuda(xbar, la, bm, cm, cb, states, decay, dy,
+                                  dstate, chunk=ctx.chunk, heads=ctx.heads)
+        return (*grads, None, None)
+
+
+def ssd_scan_cuda(xbar, la, bm, cm, *, chunk: int = 256, heads: int = 1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the SSD scan's kernels on CUDA tensors; with grad mode on
+    and an input that requires a gradient, through ``SsdScanFunction``
+    (the backward kernels then give it)."""
+    bh, s, p, n = check_ssd(xbar, la, bm, cm, chunk, heads)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xbar, la, bm, cm)):
+        check_backward_shape(bh, s, p, n, chunk)
+        return SsdScanFunction.apply(xbar, la, bm, cm, chunk, heads)
+    return _forward_cuda(xbar, la, bm, cm, chunk, heads)[:2]

@@ -29,9 +29,8 @@ decoder, ``{"ce", "aux"}`` beside it) — and autograd gives its gradient.
 Each builder's ``remat`` ("none", "full", "dots") wraps the layer bodies
 the reference wraps (``_remat``); it acts only under grad mode, so the
 serve path runs exactly as before.  On the card attention's backward is
-K5's hand-written kernel; the SSD scan's (K6) is not ported yet (ROADMAP
-item 15(b3)), so the hybrid and xLSTM families train on the CPU only (the
-card's scan refuses an input that needs a gradient).
+K5's hand-written kernel and the SSD scan's is K6's (``csrc/ssd_bwd.cu``
+through ``SsdScanFunction``), so every family trains on the card.
 """
 from __future__ import annotations
 

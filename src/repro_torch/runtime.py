@@ -8,8 +8,9 @@
                      nowhere else), so a run can show that it really went
                      through the kernels.
 ``refuse_grad``      the check of every CUDA wrapper whose kernel has no
-                     backward: an input that needs a gradient raises
-                     instead of leaving the launch's output without one.
+                     backward (K1-K4: the reference never differentiates
+                     them): an input that needs a gradient raises instead
+                     of leaving the launch's output without one.
 ``bounded_put``      shared bounded-FIFO insert for the warm-path caches.
 
 Float32 matrix products stay in full float32: the port never enables
@@ -30,12 +31,13 @@ DeviceLike = Union[str, torch.device]
 
 # kernel name -> launches since the last reset (see kernels/megabatch.py,
 # kernels/crossfit_gram.py, kernels/flash_attention.py and
-# kernels/ssd_scan.py); "flash_attention_bwd" counts calls of K5's
-# backward wrapper (three CUDA launches each)
+# kernels/ssd_scan.py); "flash_attention_bwd" and "ssd_scan_bwd" count
+# calls of K5's and K6's backward wrappers (several CUDA launches each)
 launch_counts: Dict[str, int] = {"batched_gram": 0, "batched_gram_blocked": 0,
                                  "batched_predict": 0, "crossfit_gram": 0,
                                  "flash_attention": 0,
-                                 "flash_attention_bwd": 0, "ssd_scan": 0}
+                                 "flash_attention_bwd": 0, "ssd_scan": 0,
+                                 "ssd_scan_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -51,9 +53,9 @@ def refuse_grad(kernel: str, *tensors) -> None:
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in tensors):
         raise RuntimeError(
-            f"{kernel}: an input requires a gradient, and the kernel's "
-            "backward is not ported (ROADMAP item 15(b3)); call it under "
-            "torch.no_grad() or on detached tensors")
+            f"{kernel}: an input requires a gradient, and the kernel has "
+            "no backward (the reference never differentiates it); call it "
+            "under torch.no_grad() or on detached tensors")
 
 
 def default_device() -> torch.device:

@@ -1198,9 +1198,6 @@ def _refusal_cases():
     from repro_torch.kernels import megabatch as mb_mod
     xs, w = torch.zeros((2, 8, 3)), torch.ones((2, 8))
     return {
-        "ssd_scan": lambda t: ssd_mod.ssd_scan_cuda(
-            t(torch.zeros((2, 8, 4))), torch.zeros((2, 8)),
-            torch.zeros((2, 8, 3)), torch.zeros((2, 8, 3)), chunk=4),
         "batched_gram": lambda t: mb_mod.batched_gram_cuda(t(xs), w, w),
         "batched_gram_blocked": lambda t: mb_mod.batched_gram_blocked_cuda(
             t(xs.reshape(2, 2, 4, 3)), w.reshape(2, 2, 4),
@@ -1212,9 +1209,8 @@ def _refusal_cases():
     }
 
 
-@pytest.mark.parametrize("name", ["ssd_scan", "batched_gram",
-                                  "batched_gram_blocked", "batched_predict",
-                                  "crossfit_gram"])
+@pytest.mark.parametrize("name", ["batched_gram", "batched_gram_blocked",
+                                  "batched_predict", "crossfit_gram"])
 def test_kernels_without_a_backward_refuse_inputs_that_need_one(name):
     call = _refusal_cases()[name]
     grad = lambda t: t.clone().requires_grad_(True)      # noqa: E731

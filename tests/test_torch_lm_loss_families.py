@@ -9,9 +9,10 @@ declared zero (tanh(0) would cancel the cross-attention and its
 gradients), are drawn non-zero on both sides.  Tokens, targets, frames and
 image patches come from numpy with a seed.  The reference's loss and
 gradients come from ``jax.value_and_grad(bundle.loss_fn, has_aux=True)``,
-the port's from autograd through the plain versions (the SSD scan's plain
-version for the hybrid and the mLSTM: on the card the scan kernel refuses
-an input that needs a gradient).
+the port's from autograd through the plain versions (the CPU route's
+chunked SSD math for the hybrid and the mLSTM; the card's route, through
+``SsdScanFunction``, is held with its launches emulated in
+``tests/test_torch_ssd_backward.py``).
 
 Tiers: the loss within 1e-5 relative; every gradient leaf within 1e-4 of
 its largest magnitude.  The models are the reduced configs: zamba2-7b
