@@ -82,8 +82,8 @@ of 4 x 2048 tokens, the SSD scan's forward and hand-written backward
 (``csrc/ssd_bwd.cu``) on every step, each reduced model card against CPU
 in float32; the kernels phase holds K6's backward against the float64
 plain backward at both training calls and at ragged, strong-decay,
-heads-1, odd and past-64 rows, counts its CUDA launches and scratch and
-times it beside the plain backward.
+heads-1, odd, past-64, ragged-head-group and P 516 rows, counts its CUDA
+launches and scratch and times it beside the plain backward.
 
 The persistent library store (``compile/persist.py``): fresh processes
 on a fresh ``REPRO_PROGRAM_CACHE_DIR`` — the first builds the two kernel
@@ -421,10 +421,12 @@ SSD_SHAPES += (((32, 64, 16, 16, 16, 8), "slow"),
 # (name, (BH, S, P, N, chunk, heads), decay, d(final state) given, lanes
 # the float64 plain backward takes) of K6's backward: the training paths'
 # calls (zamba2-7b at 4 x 2048 tokens: its yardstick on one batch row's
-# 112 lanes; xlstm-350m's mLSTM), the reduced models' calls, a ragged S,
-# strong decay (its yardstick the sequential recurrence: the chunked
-# form's float64 dla drowns in the diagonal terms the kernels leave out),
-# heads 1, odd N and P, and N, P past 64
+# 112 lanes; xlstm-350m's mLSTM, P 513: rows no tensor map strides, the
+# 4-byte copies), the reduced models' calls, a ragged S, strong decay (its
+# yardstick the sequential recurrence: the chunked form's float64 dla
+# drowns in the diagonal terms the kernels leave out), heads 1, odd N and
+# P, N, P past 64, 20 heads in 7 head groups (the last of 2), and P 516
+# beside 513 (16-byte rows: the tensor maps)
 SSD_BWD_ROWS = (
     ("zamba2_train", MAIN_SSD_SHAPE, "slow", False, 112),
     ("xlstm_train", XLSTM_SSD_SHAPE, "slow", False, 16),
@@ -435,7 +437,12 @@ SSD_BWD_ROWS = (
     ("heads_1", (8, 777, 64, 64, 256, 1), "slow", False, 8),
     ("odd", (6, 300, 13, 7, 64, 3), "slow", True, 6),
     ("past_64", (8, 777, 129, 96, 256, 2), "slow", True, 8),
+    ("head_groups_ragged", (40, 1000, 64, 64, 256, 20), "slow", True, 20),
+    ("p516", (4, 1024, 516, 512, 256, 1), "slow", False, 4),
 )
+# CUDA launches a call of K6's backward (csrc/ssd_bwd.cu: state tiles,
+# the reverse pass, the band blocks, dla and the head groups' sums)
+SSD_BWD_LAUNCHES = 4
 MAIN_SSD_BWD = "zamba2_train"
 TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 TYPE_NAMES = {v: k for k, v in TYPES.items()}
@@ -1722,7 +1729,7 @@ def _ssd_bwd_kernel_rows(device, gen):
                # captured graph holds them
                "cuda_launches_per_call": _graph_launches(kernel)}
         del outs, outs_grad, leaves, y0, st0
-        assert row["cuda_launches_per_call"] == (9 if heads > 1 else 8), row
+        assert row["cuda_launches_per_call"] == SSD_BWD_LAUNCHES, row
         del grads
         # the scratch one call allocates beside its outputs as the device
         # allocator counts it (the peak of the call less what stays

@@ -16,7 +16,8 @@ use).  This module keeps the reference's contract for those:
     resolved nvcc and a ``stat`` identity of it: path, size, mtime — no
     subprocess on a warm start), ``platform`` (the target, ``sm_90a``)
     and ``fingerprint`` (the library's name, and a hash of its source
-    bytes and the nvcc flags).  A change to any of them names another
+    bytes, the shared headers' (``kernels/csrc/*.cuh``) and the nvcc
+    flags).  A change to any of them names another
     file, so it builds again;
   * **corruption is a miss**: a file that fails to load, or lacks an
     entry point of ``kernels/build.py::SIGNATURES``, is removed (an
@@ -125,7 +126,10 @@ class PersistentProgramCache:
         self._locks: Dict[str, threading.Lock] = {}
 
     def key(self, name: str) -> Key:
-        source = (kbuild.CSRC / f"{name}.cu").read_bytes()
+        # the source and every header beside it (hopper.cuh): a header's
+        # change rebuilds the libraries
+        source = (kbuild.CSRC / f"{name}.cu").read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(kbuild.CSRC.glob("*.cuh")))
         digest = hashlib.sha1(
             source + " ".join(kbuild.NVCC_FLAGS).encode()).hexdigest()
         return (toolkit_identity(kbuild.find_nvcc()), kbuild.PLATFORM,

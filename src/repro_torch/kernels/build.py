@@ -81,9 +81,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "ssd_bwd": {
         # K6's backward: xbar, la, bm, cm, the forward's scratch cb,
         # states, decay, dy, dstate (None: zero), dx, dla, dbm, dcm, the
-        # scratch gst, ds, parts, sg, lane_b, lane_c (None where heads is
-        # 1), BH, S, P, N, chunk, heads, stream
-        "repro_ssd_scan_bwd": (_PTR,) * 19 + (_INT,) * 6 + (_PTR,),
+        # scratch gst, parts, part_b, part_c (None where heads is 1), BH,
+        # S, P, N, chunk, heads, stream
+        "repro_ssd_scan_bwd": (_PTR,) * 17 + (_INT,) * 6 + (_PTR,),
     },
 }
 

@@ -146,15 +146,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int AB_WG = 128;                  // threads of a warpgroup
 constexpr int AB_STAGES = 2;                // the walked tiles' ring
 constexpr int AB_ROW = 128;                 // bytes of a panel row (64 bf16)
 constexpr float AB_LOG2E = 1.4426950408889634f;
-// an mbarrier wait that has spun this many cycles (about 10 s) traps: a
-// fault in the pipeline ends the launch with an error instead of hanging
-constexpr long long AB_SPIN_CYCLES = 20000000000LL;
 // float32: the walked rows between two flushes of an accumulator into
 // its output: 192 sums at 16-row steps (fewer rows kept the result nearer
 // the plain backward and cost time; more drifted further)
@@ -193,21 +192,10 @@ struct AbCfg {
         NP == 1 ? ab_bq(DQK) : DQK <= 64 ? 64 : DQK <= 128 ? 32 : 16;
     static constexpr int BKD = NP == 1 ? ab_bkd(DQK) : BQ;
     static constexpr int THREADS = (NC + 1) * AB_WG;
-    // passes a product: the last PASSES of ab_pa / ab_pb's six
+    // passes a product: the last PASSES of pass_a / pass_b's six
     static constexpr int PASSES = NP == 1 ? 1 : 6;
 };
 
-// the parts (of A, of B) of pass n of a product over three-part operands,
-// smallest first: (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0); a
-// one-part product takes the last alone
-__host__ __device__ constexpr int ab_pa(int n)
-{
-    return n == 0 ? 2 : (n == 1 || n == 3) ? 1 : 0;
-}
-__host__ __device__ constexpr int ab_pb(int n)
-{
-    return (n == 1 || n == 4) ? 1 : n == 2 ? 2 : 0;
-}
 
 // the shared memory of a dK/dV block: its K and V tiles (OWN keys), then
 // the ring's stages (Q, dO, lse, delta of BQ queries), then the
@@ -251,58 +239,9 @@ static_assert(ab_smem_bytes<AbCfg<128, 128, 3>>() <= 232448, "smem");
 static_assert(ab_smem_bytes<AbCfg<192, 128, 3>>() <= 232448, "smem");
 static_assert(ab_smem_bytes<AbCfg<192, 128, 1>>() <= 232448, "smem");
 
-__device__ __forceinline__ uint32_t ab_smem(const void* p)
-{
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 // ---------------------------------------------------------------------------
-// mbarriers, TMA, wgmma
+// TMA stores (the rest of the pipeline's helpers: hopper.cuh)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count)
-{
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar)
-{
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar)
-                 : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes)
-{
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity)
-{
-    long long t0 = 0;
-    for (uint32_t spins = 0;; ++spins) {
-        uint32_t done;
-        asm volatile("{\n\t.reg .pred p;\n\t"
-                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-                     "selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-        if (done) return;
-        if (spins == 0)
-            t0 = clock64();
-        else if ((spins & 1023) == 0 && clock64() - t0 > AB_SPIN_CYCLES)
-            __trap();
-    }
-}
-
-// a box of the 3-D map (columns c0.., rows c1.., lane c2) into shared
-// memory at dst, completing on the mbarrier bar
-__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
-                                          int c0, int c1, int c2,
-                                          uint32_t bar)
-{
-    asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global"
-                 ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
-                 "[%5];\n"
-                 :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
-                    "r"(c1), "r"(c2), "r"(bar) : "memory");
-}
 __device__ __forceinline__ void tma_store3(const CUtensorMap* map,
                                            uint32_t src, int c0, int c1,
                                            int c2)
@@ -319,37 +258,6 @@ __device__ __forceinline__ void tma_store_drain()
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wg_fence()
-{
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit()
-{
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait()
-{
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keep the compiler from moving reads of an accumulator above the wait
-// that completes it
-template <int R>
-__device__ __forceinline__ void wg_hold(float (&d)[R])
-{
-#pragma unroll
-    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// a wgmma shared-memory descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo)
-{
-    return (uint64_t)((addr & 0x3FFFF) >> 4)
-        | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
-        | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
 // K-major operand: 64 (A) or N (B) rows of a tile at `tile` whose panels
 // hold `rows` rows, depth step kk (16 columns: a 32-byte step inside the
 // swizzled 128-byte row); 8-row groups 1024 bytes apart
@@ -772,7 +680,7 @@ attn_bwd_dkdv(const CUtensorMap* q_map, const CUtensorMap* do_map,
     unsigned char* ks = smem;
     unsigned char* vs = ks + L::K;
     unsigned char* ring = vs + L::V;
-    const uint32_t bar0 = ab_smem(smem + L::BARS);
+    const uint32_t bar0 = smem_u32(smem + L::BARS);
     // full[s] at bar0 + 8 s, empty[s] at bar0 + 8 (S + s), the K/V tiles'
     const uint32_t kv_bar = bar0 + 16 * AB_STAGES;
 
@@ -811,13 +719,13 @@ attn_bwd_dkdv(const CUtensorMap* q_map, const CUtensorMap* do_map,
                 for (int p = 0; p < DQK / 64; ++p)
 #pragma unroll
                     for (int i = 0; i < NP; ++i)
-                        tma_load3(ab_smem(ks + (p * NP + i) * OWN * AB_ROW),
+                        tma_load3(smem_u32(ks + (p * NP + i) * OWN * AB_ROW),
                                   k_map, 64 * p, k0, bh * NP + i, kv_bar);
 #pragma unroll
                 for (int p = 0; p < DV / 64; ++p)
 #pragma unroll
                     for (int i = 0; i < NP; ++i)
-                        tma_load3(ab_smem(vs + (p * NP + i) * OWN * AB_ROW),
+                        tma_load3(smem_u32(vs + (p * NP + i) * OWN * AB_ROW),
                                   v_map, 64 * p, k0, bh * NP + i, kv_bar);
             }
             for (int i = 0; i < n_steps; ++i) {
@@ -829,7 +737,7 @@ attn_bwd_dkdv(const CUtensorMap* q_map, const CUtensorMap* do_map,
                 const uint32_t full = bar0 + 8 * s;
                 unsigned char* sbp = ring + s * L::STAGE;
                 if (lane == 0) {
-                    const uint32_t sb = ab_smem(sbp);
+                    const uint32_t sb = smem_u32(sbp);
                     mbar_expect(full, L::TX);
 #pragma unroll
                     for (int p = 0; p < DQK / 64; ++p)
@@ -863,8 +771,8 @@ attn_bwd_dkdv(const CUtensorMap* q_map, const CUtensorMap* do_map,
         const int key0 = wk0 + 16 * wr + g;     // this thread's keys: +0, +8
         const float sl2 = scale * AB_LOG2E;
         // part i of this warpgroup's K (V) rows at ka (va) + i OWN rows
-        const uint32_t ka = ab_smem(ks) + 64 * w * AB_ROW;
-        const uint32_t va = ab_smem(vs) + 64 * w * AB_ROW;
+        const uint32_t ka = smem_u32(ks) + 64 * w * AB_ROW;
+        const uint32_t va = smem_u32(vs) + 64 * w * AB_ROW;
         float dk[DQK / 64][32], dv[DV / 64][32], s[BQ / 2], dp[BQ / 2];
 #pragma unroll
         for (int p = 0; p < DQK / 64; ++p)
@@ -889,7 +797,7 @@ attn_bwd_dkdv(const CUtensorMap* q_map, const CUtensorMap* do_map,
             if constexpr (NP > 1)
                 asm volatile("" : "+r"(ka_s), "+r"(va_s));
             // part j of the step's Q (dO) rows at qa (da) + j BQ rows
-            const uint32_t qa = ab_smem(sbp), da = qa + L::Q;
+            const uint32_t qa = smem_u32(sbp), da = qa + L::Q;
             const float* lse_s = reinterpret_cast<const float*>(
                 sbp + L::Q + L::DO);
             const float* dl_s = lse_s + BQ;
@@ -911,9 +819,9 @@ attn_bwd_dkdv(const CUtensorMap* q_map, const CUtensorMap* do_map,
 #pragma unroll
                     for (int kk = 0; kk < DQK / 16; ++kk)
                         wg_ss<BQ>(s,
-                                  desc_k(ka_s + ab_pa(n) * OWN * AB_ROW,
+                                  desc_k(ka_s + pass_a(n) * OWN * AB_ROW,
                                          NP * OWN, kk),
-                                  desc_k(qa + ab_pb(n) * BQ * AB_ROW, NP * BQ,
+                                  desc_k(qa + pass_b(n) * BQ * AB_ROW, NP * BQ,
                                          kk),
                                   n > 6 - PASSES || kk > 0);
                 wg_commit();
@@ -922,9 +830,9 @@ attn_bwd_dkdv(const CUtensorMap* q_map, const CUtensorMap* do_map,
 #pragma unroll
                     for (int kk = 0; kk < DV / 16; ++kk)
                         wg_ss<BQ>(dp,
-                                  desc_k(va_s + ab_pa(n) * OWN * AB_ROW,
+                                  desc_k(va_s + pass_a(n) * OWN * AB_ROW,
                                          NP * OWN, kk),
-                                  desc_k(da + ab_pb(n) * BQ * AB_ROW, NP * BQ,
+                                  desc_k(da + pass_b(n) * BQ * AB_ROW, NP * BQ,
                                          kk),
                                   n > 6 - PASSES || kk > 0);
                 wg_commit();
@@ -962,10 +870,10 @@ attn_bwd_dkdv(const CUtensorMap* q_map, const CUtensorMap* do_map,
                 for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
                     for (int n = 6 - PASSES; n < 6; ++n) {
-                        wg_rs<DV>(dv, pa[kk][ab_pa(n)],
-                                  da + ab_pb(n) * BQ * AB_ROW, NP * BQ, kk);
-                        wg_rs<DQK>(dk, sa[kk][ab_pa(n)],
-                                   qa + ab_pb(n) * BQ * AB_ROW, NP * BQ, kk);
+                        wg_rs<DV>(dv, pa[kk][pass_a(n)],
+                                  da + pass_b(n) * BQ * AB_ROW, NP * BQ, kk);
+                        wg_rs<DQK>(dk, sa[kk][pass_a(n)],
+                                   qa + pass_b(n) * BQ * AB_ROW, NP * BQ, kk);
                     }
                 wg_commit();
                 wg_wait<0>();
@@ -1009,12 +917,12 @@ attn_bwd_dkdv(const CUtensorMap* q_map, const CUtensorMap* do_map,
 #pragma unroll
                 for (int p = 0; p < DQK / 64; ++p)
                     tma_store3(dk_map,
-                               ab_smem(ks + (p * OWN + 64 * w) * AB_ROW),
+                               smem_u32(ks + (p * OWN + 64 * w) * AB_ROW),
                                64 * p, wk0, bh);
 #pragma unroll
                 for (int p = 0; p < DV / 64; ++p)
                     tma_store3(dv_map,
-                               ab_smem(vs + (p * OWN + 64 * w) * AB_ROW),
+                               smem_u32(vs + (p * OWN + 64 * w) * AB_ROW),
                                64 * p, wk0, bh);
                 tma_store_drain();
             }
@@ -1043,7 +951,7 @@ attn_bwd_dq(const CUtensorMap* q_map, const CUtensorMap* do_map,
     unsigned char* qs = smem;
     unsigned char* dos = qs + L::Q;
     unsigned char* ring = dos + L::DO;
-    const uint32_t bar0 = ab_smem(smem + L::BARS);
+    const uint32_t bar0 = smem_u32(smem + L::BARS);
     const uint32_t own_bar = bar0 + 16 * AB_STAGES;
 
     const int tid = threadIdx.x;
@@ -1076,13 +984,13 @@ attn_bwd_dq(const CUtensorMap* q_map, const CUtensorMap* do_map,
             for (int p = 0; p < DQK / 64; ++p)
 #pragma unroll
                 for (int i = 0; i < NP; ++i)
-                    tma_load3(ab_smem(qs + (p * NP + i) * OWN * AB_ROW),
+                    tma_load3(smem_u32(qs + (p * NP + i) * OWN * AB_ROW),
                               q_map, 64 * p, q0, bh * NP + i, own_bar);
 #pragma unroll
             for (int p = 0; p < DV / 64; ++p)
 #pragma unroll
                 for (int i = 0; i < NP; ++i)
-                    tma_load3(ab_smem(dos + (p * NP + i) * OWN * AB_ROW),
+                    tma_load3(smem_u32(dos + (p * NP + i) * OWN * AB_ROW),
                               do_map, 64 * p, q0, bh * NP + i, own_bar);
             for (int i = 0; i < n_steps; ++i) {
                 const int s = i % AB_STAGES;
@@ -1091,7 +999,7 @@ attn_bwd_dq(const CUtensorMap* q_map, const CUtensorMap* do_map,
                               (i / AB_STAGES - 1) & 1);
                 const int kb = k_lo + i * BKD;
                 const uint32_t full = bar0 + 8 * s;
-                const uint32_t sb = ab_smem(ring + s * L::STAGE);
+                const uint32_t sb = smem_u32(ring + s * L::STAGE);
                 mbar_expect(full, L::TX);
 #pragma unroll
                 for (int p = 0; p < DQK / 64; ++p)
@@ -1124,8 +1032,8 @@ attn_bwd_dq(const CUtensorMap* q_map, const CUtensorMap* do_map,
             dl[h] = row < sq ? delta[at] : 0.f;
         }
         // part i of this warpgroup's Q (dO) rows at qa (da) + i OWN rows
-        const uint32_t qa = ab_smem(qs) + 64 * w * AB_ROW;
-        const uint32_t da = ab_smem(dos) + 64 * w * AB_ROW;
+        const uint32_t qa = smem_u32(qs) + 64 * w * AB_ROW;
+        const uint32_t da = smem_u32(dos) + 64 * w * AB_ROW;
         float dq[DQK / 64][32], s[BKD / 2], dp[BKD / 2];
 #pragma unroll
         for (int p = 0; p < DQK / 64; ++p)
@@ -1142,7 +1050,7 @@ attn_bwd_dq(const CUtensorMap* q_map, const CUtensorMap* do_map,
             if constexpr (NP > 1)
                 asm volatile("" : "+r"(qa_s), "+r"(da_s));
             // part j of the step's K (V) rows at ka (va) + j BKD rows
-            const uint32_t ka = ab_smem(ring + st * L::STAGE), va = ka + L::K;
+            const uint32_t ka = smem_u32(ring + st * L::STAGE), va = ka + L::K;
             const int kb = k_lo + i * BKD;
             bool sees = wq0 < sq && kb < skv;
             if (causal) sees = sees && kb <= wq1 + off;
@@ -1159,9 +1067,9 @@ attn_bwd_dq(const CUtensorMap* q_map, const CUtensorMap* do_map,
 #pragma unroll
                     for (int kk = 0; kk < DQK / 16; ++kk)
                         wg_ss<BKD>(s,
-                                   desc_k(qa_s + ab_pa(n) * OWN * AB_ROW,
+                                   desc_k(qa_s + pass_a(n) * OWN * AB_ROW,
                                           NP * OWN, kk),
-                                   desc_k(ka + ab_pb(n) * BKD * AB_ROW,
+                                   desc_k(ka + pass_b(n) * BKD * AB_ROW,
                                           NP * BKD, kk),
                                    n > 6 - PASSES || kk > 0);
                 wg_commit();
@@ -1170,9 +1078,9 @@ attn_bwd_dq(const CUtensorMap* q_map, const CUtensorMap* do_map,
 #pragma unroll
                     for (int kk = 0; kk < DV / 16; ++kk)
                         wg_ss<BKD>(dp,
-                                   desc_k(da_s + ab_pa(n) * OWN * AB_ROW,
+                                   desc_k(da_s + pass_a(n) * OWN * AB_ROW,
                                           NP * OWN, kk),
-                                   desc_k(va + ab_pb(n) * BKD * AB_ROW,
+                                   desc_k(va + pass_b(n) * BKD * AB_ROW,
                                           NP * BKD, kk),
                                    n > 6 - PASSES || kk > 0);
                 wg_commit();
@@ -1202,8 +1110,8 @@ attn_bwd_dq(const CUtensorMap* q_map, const CUtensorMap* do_map,
                 for (int kk = 0; kk < BKD / 16; ++kk)
 #pragma unroll
                     for (int n = 6 - PASSES; n < 6; ++n)
-                        wg_rs<DQK>(dq, sa[kk][ab_pa(n)],
-                                   ka + ab_pb(n) * BKD * AB_ROW, NP * BKD,
+                        wg_rs<DQK>(dq, sa[kk][pass_a(n)],
+                                   ka + pass_b(n) * BKD * AB_ROW, NP * BKD,
                                    kk);
                 wg_commit();
                 wg_wait<0>();
@@ -1234,7 +1142,7 @@ attn_bwd_dq(const CUtensorMap* q_map, const CUtensorMap* do_map,
 #pragma unroll
                 for (int p = 0; p < DQK / 64; ++p)
                     tma_store3(dq_map,
-                               ab_smem(qs + (p * OWN + 64 * w) * AB_ROW),
+                               smem_u32(qs + (p * OWN + 64 * w) * AB_ROW),
                                64 * p, wq0, bh);
                 tma_store_drain();
             }
@@ -1322,31 +1230,10 @@ attn_bwd_f32_kernel(const __grid_constant__ CUtensorMap q_walk,
 // ---------------------------------------------------------------------------
 // host side: tensor maps and launches
 // ---------------------------------------------------------------------------
-typedef CUresult (*AbEncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
-AbEncodeTiled ab_encoder()
-{
-    static AbEncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                    cudaEnableDefault, &found)
-                == cudaSuccess
-            && found == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<AbEncodeTiled>(p);
-    }
-    return fn;
-}
 
 // a (BH, rows, depth) bf16 tensor as a 3-D map: boxes of 64 columns x
 // box_rows rows of one lane, 128-byte swizzle, zeros past the edges
-bool ab_map3(AbEncodeTiled enc, CUtensorMap* m, const void* ptr, int bh,
+bool ab_map3(EncodeTiled enc, CUtensorMap* m, const void* ptr, int bh,
              int rows, int depth, int box_rows)
 {
     const cuuint64_t dims[3] = {(cuuint64_t)depth, (cuuint64_t)rows,
@@ -1386,7 +1273,7 @@ cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v,
     static size_t granted = 0;
     cudaError_t err = allow_smem(attn_bwd_kernel<DQK, DV>, SMEM, &granted);
     if (err != cudaSuccess) return err;
-    const AbEncodeTiled enc = ab_encoder();
+    const EncodeTiled enc = encoder();
     if (enc == nullptr) return cudaErrorNotSupported;
     CUtensorMap m_qw, m_dow, m_k, m_v, m_dk, m_dv;
     CUtensorMap m_q, m_do, m_kw, m_vw, m_dq;
@@ -1430,7 +1317,7 @@ cudaError_t launch_attn_bwd_f32(const void* qp, const void* kp,
     cudaError_t err = allow_smem(attn_bwd_f32_kernel<DQK, DV>, SMEM,
                                  &granted);
     if (err != cudaSuccess) return err;
-    const AbEncodeTiled enc = ab_encoder();
+    const EncodeTiled enc = encoder();
     if (enc == nullptr) return cudaErrorNotSupported;
     const int lanes = AB_PARTS * bh;
     CUtensorMap m_qw, m_dow, m_k, m_v, m_q, m_do, m_kw, m_vw;

@@ -60,11 +60,14 @@ else.  With grad mode on and an input that requires a gradient it goes
 through ``SsdScanFunction``, whose forward keeps the scores, the chunk
 states and their decays that the four launches leave in their scratch,
 and whose backward is ``ssd_scan_bwd_cuda`` (``csrc/ssd_bwd.cu``, its own
-library: nine launches a call, one count in
-``runtime.launch_counts["ssd_scan_bwd"]``); that route checks the
-backward's shape limits (``check_backward_shape``) before the forward
-launches.  ``ssd_scan_plain`` is the sequential recurrence of the
-reference oracle ``ssd_scan_ref``: what the CPU path and the on-card
+library: four launches a call, one count in
+``runtime.launch_counts["ssd_scan_bwd"]``; wgmma on operand tiles that
+TMA or 4-byte cp.async bring in and producer warps split into three bf16
+parts, dS kept on chip, the heads' dB and dC summed by ``HEAD_GROUPS``
+head groups inside the kernels); that route checks the backward's shape
+limits (``check_backward_shape``) before the forward launches.
+``ssd_scan_plain`` is the sequential recurrence of the reference oracle
+``ssd_scan_ref``: what the CPU path and the on-card
 comparison use; autograd through it is the CPU route's gradient.
 ``ssd_scan_chunked_plain`` is the reference's chunked ``ssd_chunked`` on
 the kernels' lanes, in the inputs' type: ``ssd_scan_backward_plain``
@@ -89,6 +92,8 @@ SUB_TILE = 64             # the kernels' sub-tile: a chunk's rows pad to it,
 OUT_TILE = 128            # rows of the outputs kernel's tile
 MAX_GRID_Y = 65535        # (b)'s state tiles, (c)'s blocks of entries
 PASS_BLOCK = 256          # state entries of one (c) block
+HEAD_GROUPS = 8           # the backward's head groups (csrc/ssd_bwd.cu)
+SUM_BLOCKS = 2 ** 20      # the backward's last launch: its group-sum blocks
 
 
 def ssd_scan_plain(xbar, la, bm, cm, *, heads: int = 1
@@ -233,38 +238,47 @@ def check_kernel_shape(bh: int, s: int, p: int, n: int, chunk: int) -> None:
                          f"{OUT_TILE}) < 2**31)")
 
 
+def head_groups(heads: int) -> Tuple[int, int]:
+    """(heads a group, groups) of the backward's blocks: at most
+    ``HEAD_GROUPS`` groups of ceil(heads / HEAD_GROUPS) heads, the last one
+    short where they do not divide."""
+    per = -(-int(heads) // HEAD_GROUPS)
+    return per, -(-int(heads) // per)
 
 
 def check_backward_shape(bh: int, s: int, p: int, n: int, chunk: int
                          ) -> None:
     """Raise ``ValueError`` naming the limit when the backward kernels do
     not take a (BH, S, P, N) scan in chunks of ``chunk`` rows: the
-    forward's limits, and the grids of their 64-row sub-tiles, BH *
-    ceil(S / Q) * ceil(Q / 64) blocks, under 2**31 (the forward's outputs
-    take 128-row tiles)."""
+    forward's limits, and the backward's grids under 2**31 blocks: BH *
+    ceil(S / Q) * ceil(N / 64) * ceil(P / 64) state tiles, and BH *
+    ceil(S / Q) + 2**20 blocks of the last launch (the band blocks'
+    grid, at most BH * ceil(S / Q), is under both)."""
     check_kernel_shape(bh, s, p, n, chunk)
     q = min(int(chunk), s)
-    if bh * -(-s // q) * -(-q // SUB_TILE) >= 2 ** 31:
-        raise ValueError(f"ssd_scan backward: shape (BH {bh}, S {s}, "
-                         f"chunk {chunk}) exceeds the backward kernels' "
-                         f"limits (BH * ceil(S / chunk) * ceil(chunk / "
-                         f"{SUB_TILE}) < 2**31)")
+    items = bh * -(-s // q)
+    ntn, npt = -(-n // SUB_TILE), -(-p // SUB_TILE)
+    if items * ntn * npt >= 2 ** 31 or items + SUM_BLOCKS >= 2 ** 31:
+        raise ValueError(f"ssd_scan backward: shape (BH {bh}, S {s}, P {p}, "
+                         f"N {n}, chunk {chunk}) exceeds the backward "
+                         f"kernels' limits (BH * ceil(S / chunk) * ceil(N / "
+                         f"{SUB_TILE}) * ceil(P / {SUB_TILE}) < 2**31, BH * "
+                         f"ceil(S / chunk) + {SUM_BLOCKS} < 2**31)")
 
 
 def bwd_scratch_shapes(bh: int, s: int, p: int, n: int, chunk: int,
                        heads: int):
     """Shapes of the backward kernels' float32 scratch: the gradients of
-    the states leaving the chunks (BH, chunks, N, P), dS (BH, chunks, Qp,
-    Qp), the parts of d cumsum(la) (BH, S, 2 Qp / 64 + 2 ceil(N / 64)),
-    <S_in, G> (BH, chunks), then each lane's dB and dC (BH, S, N) where
-    heads > 1 (else None: the kernels write dbm and dcm)."""
+    the states leaving the chunks (BH, chunks, N, P), the row parts of d
+    cumsum(la) (BH, S, 2 + 2 ceil(N / 64)), then the head groups' partial
+    dB and dC (BH / heads, groups, S, N) where heads > 1 (else None: the
+    kernels write dbm and dcm)."""
     q = min(int(chunk), s)
     nc = -(-s // q)
-    qp = -(-q // SUB_TILE) * SUB_TILE
-    parts = 2 * (qp // SUB_TILE) + 2 * -(-n // SUB_TILE)
-    lane = (bh, s, n) if heads > 1 else None
-    return (bh, nc, n, p), (bh, nc, qp, qp), (bh, s, parts), (bh, nc), \
-        lane, lane
+    parts = 2 + 2 * -(-n // SUB_TILE)
+    group = (bh // heads, head_groups(heads)[1], s, n) if heads > 1 \
+        else None
+    return (bh, nc, n, p), (bh, s, parts), group, group
 
 
 def _check_on_card(xbar) -> None:
@@ -326,13 +340,13 @@ def ssd_scan_bwd_cuda(xbar, la, bm, cm, cb, states, decay, dy, dstate, *,
     lib = build.load_library("ssd_bwd")
     with torch.cuda.device(xbar.device):
         dx, dla, dbm, dcm = (torch.empty_like(t) for t in (xbar, la, bm, cm))
-        gst, ds, parts, sg, lane_b, lane_c = (
+        gst, parts, part_b, part_c = (
             None if shape is None
             else torch.empty(shape, dtype=F32, device=xbar.device)
             for shape in bwd_scratch_shapes(bh, s, p, n, q, heads))
         ptrs = [None if t is None else t.data_ptr() for t in (
             xbar, la, bm, cm, cb, states, decay, dy, dstate, dx, dla, dbm,
-            dcm, gst, ds, parts, sg, lane_b, lane_c)]
+            dcm, gst, parts, part_b, part_c)]
         stream = torch.cuda.current_stream().cuda_stream
         runtime.launch_counts["ssd_scan_bwd"] += 1
         code = lib.repro_ssd_scan_bwd(*ptrs, bh, s, p, n, q, int(heads),

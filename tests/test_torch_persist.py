@@ -126,7 +126,7 @@ def test_second_process_builds_zero_libraries(tmp_path, stub_nvcc):
     assert libs == ["liblm", "libmegabatch"]
 
 
-@pytest.mark.parametrize("change", ["source", "flags", "toolkit"])
+@pytest.mark.parametrize("change", ["source", "header", "flags", "toolkit"])
 def test_a_change_to_source_flags_or_toolkit_builds_again(
         tmp_path, stub_nvcc, monkeypatch, change):
     nvcc, log = stub_nvcc
@@ -145,6 +145,8 @@ def test_a_change_to_source_flags_or_toolkit_builds_again(
     if change == "source":                 # one byte more, in a comment
         with open(csrc / "megabatch.cu", "a") as f:
             f.write("//\n")
+    elif change == "header":               # a header beside the sources
+        (csrc / "hopper.cuh").write_text("//\n")
     elif change == "flags":
         monkeypatch.setattr(build, "NVCC_FLAGS",
                             build.NVCC_FLAGS + ("-lineinfo",))
@@ -156,7 +158,7 @@ def test_a_change_to_source_flags_or_toolkit_builds_again(
     assert (changed.builds, changed.misses, changed.hits) == (1, 1, 0)
     assert len(_calls(log)) == 2
     new_key = changed.key("megabatch")
-    part = {"source": 2, "flags": 2, "toolkit": 0}[change]
+    part = {"source": 2, "header": 2, "flags": 2, "toolkit": 0}[change]
     assert [k for k in range(3) if new_key[k] != key[k]] == [part]
     assert changed.path(*new_key) != first.path(*key)
 

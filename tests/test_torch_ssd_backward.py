@@ -5,10 +5,12 @@ oracle ``repro.kernels.ref.ssd_scan_ref``.
 
 (a) the plain backward (autograd through the plain forward, chunked and
 sequential) within 1e-5 of each gradient's max|.|; (b) a plain emulation
-of the backward kernels' passes (``csrc/ssd_bwd.cu``: split-TF32 products,
-the chunks in reverse order for the state's gradient, dS through its
-scratch, dcl from per-tile parts) within 2e-5, the tier chip_smoke.py
-holds the kernels to on the card; (c) the routing: an input that needs a
+of the backward kernels' launches (``csrc/ssd_bwd.cu``: products of
+three bf16 parts in six passes, the chunks in reverse order for the
+state's gradient, dS formed by row bands and again by column bands, the
+heads' dB and dC summed by head groups, dcl from per-row parts) within
+2e-5, the tier chip_smoke.py holds the kernels to on the card; (c) the
+routing: an input that needs a
 gradient takes ``ssd_scan_cuda``'s backward route, the CPU route
 differentiates the plain version with no launch; (d) the backward's shape
 limits; (e) the reduced zamba2-7b and xlstm-350m ``loss_fn`` gradients
@@ -137,13 +139,42 @@ def _tf32(x):
 def _product(eq, a, b, split=True):
     """``einsum(eq, a, b)`` from TF32 parts summed in float32: the three
     passes a_lo b_hi + a_hi b_lo + a_hi b_hi (``split=False``: one TF32
-    rounding of each operand)."""
+    rounding of each operand).  The forward kernels' products."""
     ah, bh = _tf32(a), _tf32(b)
     if not split:
         return torch.einsum(eq, ah, bh)
     al, bl = _tf32(a - ah), _tf32(b - bh)
     return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) \
         + torch.einsum(eq, ah, bh)
+
+
+def _bf16_trunc(x):
+    """x with its low 16 bits cleared: a bf16 truncated toward zero."""
+    return (x.contiguous().view(torch.int32) & -65536).view(torch.float32)
+
+
+def _parts3(x):
+    """x as three bf16 parts h + m + l (float32 tensors), exactly: h and
+    m x and its remainder truncated, l the rest (the backward kernels'
+    split3)."""
+    h = _bf16_trunc(x)
+    m = _bf16_trunc(x - h)
+    return h, m, (x - h) - m
+
+
+# the parts (of a, of b) of the six passes, smallest first
+PASSES = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def _product3(eq, a, b):
+    """``einsum(eq, a, b)`` as the backward kernels' wgmma takes it: each
+    operand as three bf16 parts, six passes smallest first, summed in
+    float32 (a product of two bf16 values is exact in float32)."""
+    pa, pb = _parts3(a), _parts3(b)
+    out = torch.einsum(eq, pa[PASSES[0][0]], pb[PASSES[0][1]])
+    for i, j in PASSES[1:]:
+        out = out + torch.einsum(eq, pa[i], pb[j])
+    return out
 
 
 def _chunks(s, chunk):
@@ -199,15 +230,21 @@ def _fwd_schedule(x, la, bm, cm, chunk, heads, split=True):
 
 def _bwd_schedule(x, la, bm, cm, cb, states, decay, dy, dst, chunk, heads,
                   split=True):
-    """The backward kernels' passes (``csrc/ssd_bwd.cu``) emulated from
+    """The backward kernels' launches (``csrc/ssd_bwd.cu``) emulated from
     the forward's scratch: (a) each chunk's (C exp(cl))' dy; (b) the
     gradients G of the states leaving the chunks, in reverse chunk order
-    from dS_final; (d) dS = tril(dy x') * L and g = dS * scores (0 where
-    the clip bites); (e) dxbar = W' dy + (B tail) G; (f), (g) each lane's
-    dC = exp(cl) (dy S_in') + dS B and dB = tail (x G') + dS' C, with the
-    row sums against C and B; (c), (h) dcl from the parts and the
-    chunk-end terms, dla its reverse cumulative sum in the chunk; (i) dbm,
-    dcm the lanes of a row summed in head order."""
+    from dS_final; (c) the ROW blocks: dS = tril(dy x') * L by row bands,
+    g = dS * scores (0 where the clip bites) summed along rows, each head's
+    dC = exp(cl) (dy S_in') + dS B with the row sums against C; the COL
+    blocks: dS' = tril(x dy') * L' formed again by column bands, g summed
+    along columns, each head's dB = tail (x G') + dS' C with the row sums
+    against B, dxbar = tail (B G) + W' dy; a head group's dB, dC summed over
+    its heads in order; (d) dcl from the parts and the chunk-end terms, dla
+    its reverse cumulative sum in the chunk, dbm, dcm the groups' sums in
+    group order.  Every product as three bf16 parts in six passes
+    (``split=False``: one TF32 rounding of each operand)."""
+    prod = _product3 if split else (
+        lambda eq, a, b: _product(eq, a, b, split=False))
     bh, s, p = x.shape
     n, g = bm.shape[-1], bm.shape[0]
     grp = torch.arange(bh) // heads
@@ -217,16 +254,17 @@ def _bwd_schedule(x, la, bm, cm, cb, states, decay, dy, dst, chunk, heads,
     for sl in chunks:
         cl = torch.cumsum(la[:, sl], dim=1)
         pre.append((cl, torch.exp(cl), torch.exp(cl[:, -1:] - cl)))
-    local = [_product("hin,hip->hnp", cm[grp, sl] * ecl[..., None], dy[:, sl],
-                      split) for sl, (_, ecl, _) in zip(chunks, pre)]
+    local = [prod("hin,hip->hnp", cm[grp, sl] * ecl[..., None], dy[:, sl])
+             for sl, (_, ecl, _) in zip(chunks, pre)]
     gst = [None] * len(chunks)
     run = torch.zeros((bh, n, p)) if dst is None else dst
     for c in reversed(range(len(chunks))):
         gst[c] = run
         run = decay[:, c, None, None] * run + local[c]
     dx, dla = torch.empty_like(x), torch.empty_like(la)
-    db_lane = torch.empty((bh, s, n))
-    dc_lane = torch.empty((bh, s, n))
+    # each lane's two terms of dC (u, dS B) and of dB (tail v, dS' C)
+    lane_c = torch.empty((2, bh, s, n))
+    lane_b = torch.empty((2, bh, s, n))
     for c, (sl, (cl, ecl, tail)) in enumerate(zip(chunks, pre)):
         ln = sl.stop - sl.start
         if ln not in mask:
@@ -237,30 +275,44 @@ def _bwd_schedule(x, la, bm, cm, cb, states, decay, dy, dst, chunk, heads,
         d = cl[:, :, None] - cl[:, None, :]
         lmat = torch.exp(torch.clamp(d, -60.0, 0.0))
         scores = cb[grp, c, :ln, :ln]
-        ds = torch.where(tril, _product("hip,hjp->hij", dyc, xc, split)
-                         * lmat, torch.zeros(()))
-        gmat = torch.where(tril.tril(-1) & (d >= -60.0) & (d <= 0.0),
-                           ds * scores, torch.zeros(()))
-        w = torch.where(tril, scores * lmat, torch.zeros(()))
-        dx[:, sl] = _product("hij,hip->hjp", w, dyc, split) \
-            + _product("hjn,hnp->hjp", bc * tail[..., None], gc, split)
-        u = _product("hip,hnp->hin", dyc, s_in, split) * ecl[..., None]
+        bites = tril.tril(-1) & (d >= -60.0) & (d <= 0.0)
+        zero = torch.zeros(())
+        # ROW blocks: dS [i, j]
+        ds = torch.where(tril, prod("hip,hjp->hij", dyc, xc) * lmat, zero)
+        grow = torch.where(bites, ds * scores, zero).sum(2)
+        u = prod("hip,hnp->hin", dyc, s_in) * ecl[..., None]
         t2 = (cc * u).sum(-1)
-        dc_lane[:, sl] = u + _product("hij,hjn->hin", ds, bc, split)
-        v = _product("hjp,hnp->hjn", xc, gc, split)
+        lane_c[0, :, sl], lane_c[1, :, sl] = u, prod("hij,hjn->hin", ds, bc)
+        # COL blocks: dS' [j, i], W' [j, i]
+        tt = tril.T
+        dst_ = torch.where(tt, prod("hjp,hip->hji", xc, dyc)
+                           * lmat.transpose(1, 2), zero)
+        gcol = torch.where(bites.transpose(1, 2),
+                           dst_ * scores.transpose(1, 2), zero).sum(2)
+        wt = torch.where(tt, (scores * lmat).transpose(1, 2), zero)
+        dx[:, sl] = prod("hjn,hnp->hjp", bc, gc) * tail[..., None] \
+            + prod("hji,hip->hjp", wt, dyc)
+        v = prod("hjp,hnp->hjn", xc, gc)
         tr = tail * (bc * v).sum(-1)
         tr[:, -1] = 0.0
-        db_lane[:, sl] = v * tail[..., None] \
-            + _product("hij,hin->hjn", ds, cc, split)
+        lane_b[0, :, sl] = v * tail[..., None]
+        lane_b[1, :, sl] = prod("hji,hin->hjn", dst_, cc)
         sg = (s_in * gc).sum((1, 2))
-        dcl = gmat.sum(2) - gmat.sum(1) + t2 - tr
+        dcl = grow - gcol + t2 - tr
         dcl[:, -1] += tr.sum(1) + decay[:, c] * sg
         dla[:, sl] = torch.flip(torch.cumsum(torch.flip(dcl, [1]), 1), [1])
-    dbm, dcm = torch.zeros((g, s, n)), torch.zeros((g, s, n))
-    for h in range(heads):
-        dbm += db_lane[h::heads]
-        dcm += dc_lane[h::heads]
-    return dx, dla, dbm, dcm
+    per, ngrp = ssd_mod.head_groups(heads)
+    sums = []
+    for lanes in (lane_b, lane_c):
+        out = None
+        for k in range(ngrp):
+            part = torch.zeros((g, s, n))
+            for h in range(k * per, min(heads, (k + 1) * per)):
+                part = part + lanes[0, h::heads]
+                part = part + lanes[1, h::heads]
+            out = part if out is None else out + part
+        sums.append(out)
+    return dx, dla, sums[0], sums[1]
 
 
 def _torch(*arrays):
@@ -318,7 +370,7 @@ def _schedule_grads(xb, la, bm, cm, dy, dst, chunk, heads, split=True):
 def test_backward_schedule_matches_jax_vjp(bh, heads, s, p, n, chunk, decay):
     """The backward kernels' passes, from the forward kernels' scratch,
     against jax.vjp of ssd_chunked and of ssd_scan_ref: within 2e-5 of
-    each gradient's max|.| (measured at most 1.1e-6).  At strong decay
+    each gradient's max|.| (measured at most 8.9e-7).  At strong decay
     dla is held against the oracle: the kernels leave out the terms whose
     rounding the chunked reference's dla drowns in."""
     xb, la, bm, cm, dy, dst = _inputs(bh, heads, s, p, n, decay)
@@ -354,10 +406,10 @@ def test_strong_decay_dla_is_rounded_away_by_the_chunked_reference():
 
 
 def test_backward_one_tf32_rounding_leaves_the_tier():
-    """One TF32 rounding of each operand, at the serve path's widths,
-    puts a gradient more than 2e-5 of its max off the reference: why the
-    backward kernels split every operand into hi and lo, as the forward
-    kernels do."""
+    """One TF32 rounding of each operand (finer than one bf16 rounding),
+    at the serve path's widths, puts a gradient more than 2e-5 of its max
+    off the reference: why the backward kernels split every operand into
+    three bf16 parts, as the forward kernels split it into hi and lo."""
     bh, heads, s, p, n, chunk, decay = CASES[-1]
     xb, la, bm, cm, dy, dst = _inputs(bh, heads, s, p, n, decay)
     got = _schedule_grads(xb, la, bm, cm, dy, dst, chunk, heads, split=False)
@@ -381,11 +433,11 @@ def test_ssd_scan_needing_a_gradient_takes_the_backward_route():
     the device check in the Function's forward; under no_grad the same
     input takes the forward alone.  On the CPU ``ops.ssd_scan``
     differentiates the plain version with no launch."""
-    # 2**26 lanes of 8 chunks of 256 rows: the forward's 2**30 output
-    # blocks fit, the backward's 2**31 sub-tiles do not (meta tensors:
-    # shapes without storage)
+    # 2**26 lanes of 8 chunks of 256 rows at P 320: the forward's 2**30
+    # output blocks fit, the backward's 5 * 2**29 state tiles do not (meta
+    # tensors: shapes without storage)
     big = [torch.empty(shape, device="meta") for shape in (
-        (2 ** 26, 2048, 1), (2 ** 26, 2048), (2 ** 26, 2048, 1),
+        (2 ** 26, 2048, 320), (2 ** 26, 2048), (2 ** 26, 2048, 1),
         (2 ** 26, 2048, 1))]
     big[0].requires_grad_(True)
     with pytest.raises(ValueError, match="backward"):
@@ -438,16 +490,18 @@ def test_backward_wrapper_takes_only_card_tensors():
     (448, 2048, 64, 64, 256, True),       # zamba2-7b's training call
     (16, 2048, 513, 512, 256, True),      # xlstm-350m's
     (112, 2049, 64, 64, 256, True),       # a ragged S
-    (2 ** 26 - 1, 2048, 1, 1, 256, True),
-    (2 ** 26, 2048, 1, 1, 256, False),    # 2**31 sub-tiles of 64 rows
-    (2 ** 25, 2048, 1, 1, 64, True),      # 64-row chunks: one sub-tile
+    (53687091, 2048, 320, 1, 256, True),  # 40 BH state tiles < 2**31
+    (53687092, 2048, 320, 1, 256, False),  # 40 BH >= 2**31
+    (2 ** 25, 2048, 1, 1, 64, True),      # 64-row chunks: 2**30 items
     (8, 777, 64, 64, 257, False),         # the forward's chunk limit
     (1, 64, 2 ** 20, 64, 256, False),     # the forward's N * P limit
 ])
 def test_ssd_backward_shape_limits(bh, s, p, n, chunk, ok):
     """The backward takes every shape the forward takes while its grids
-    of 64-row sub-tiles (BH * chunks * ceil(Q / 64) blocks) stay under
-    2**31; each limit raises naming it."""
+    stay under 2**31 blocks (BH * chunks * ceil(N / 64) * ceil(P / 64)
+    state tiles, BH * chunks + 2**20 blocks of the last launch; the band
+    blocks' grid, at most BH * chunks, is under both); each limit raises
+    naming it."""
     if ok:
         ssd_mod.check_backward_shape(bh, s, p, n, chunk)
     else:
@@ -457,20 +511,36 @@ def test_ssd_backward_shape_limits(bh, s, p, n, chunk, ok):
 
 @pytest.mark.parametrize("bh,s,p,n,chunk,heads,want", [
     (448, 2048, 64, 64, 256, 112,
-     ((448, 8, 64, 64), (448, 8, 256, 256), (448, 2048, 10), (448, 8),
-      (448, 2048, 64), (448, 2048, 64))),
+     ((448, 8, 64, 64), (448, 2048, 4), (4, 8, 2048, 64),
+      (4, 8, 2048, 64))),
     (16, 2048, 513, 512, 256, 1,
-     ((16, 8, 512, 513), (16, 8, 256, 256), (16, 2048, 24), (16, 8),
-      None, None)),
+     ((16, 8, 512, 513), (16, 2048, 18), None, None)),
     (6, 300, 13, 7, 64, 3,
-     ((6, 5, 7, 13), (6, 5, 64, 64), (6, 300, 4), (6, 5), (6, 300, 7),
-      (6, 300, 7))),
+     ((6, 5, 7, 13), (6, 300, 4), (2, 3, 300, 7), (2, 3, 300, 7))),
 ])
 def test_ssd_backward_scratch_shapes(bh, s, p, n, chunk, heads, want):
-    """The backward's scratch: a state gradient and dS per (lane,
-    chunk), the parts of dcl per row, and each lane's dB, dC only where
-    heads share them."""
+    """The backward's scratch: a state gradient per (lane, chunk), the
+    parts of dcl per row, and the head groups' partial dB, dC only where
+    heads share them; no dS and no per-lane dB, dC."""
     assert ssd_mod.bwd_scratch_shapes(bh, s, p, n, chunk, heads) == want
+    if heads > 1:
+        assert want[2][1] == ssd_mod.head_groups(heads)[1] \
+            <= ssd_mod.HEAD_GROUPS
+
+
+@pytest.mark.parametrize("heads,groups", [(112, (14, 8)), (20, (3, 7))])
+def test_head_group_sums_match_jax_vjp(heads, groups):
+    """dbm and dcm as the kernels sum them (each head group's heads in
+    order, then the groups in order) at heads 112 (zamba2-7b's: 8 groups
+    of 14) and 20 (7 groups, the last of 2), one batch row, with a ragged
+    S (100 rows in chunks of 32): within 2e-5 of max|.| of jax.vjp of
+    the reference's ssd_chunked, dxbar and dla too."""
+    assert ssd_mod.head_groups(heads) == groups
+    xb, la, bm, cm, dy, dst = _inputs(heads, heads, 100, 8, 8, "slow")
+    got = _schedule_grads(xb, la, bm, cm, dy, dst, 32, heads)
+    want = _jax_vjp(_chunked_lanes(32, heads), xb, la, bm, cm, dy, dst)
+    gaps = _gaps([t.numpy() for t in got], want)
+    assert max(gaps) <= SCHEDULE_TIER, gaps
 
 
 # ---------------------------------------------------------------------------
