@@ -92,7 +92,16 @@ library was truncated evicts and rebuilds that library alone, and one of
 a copy of the package with a byte added to a comment of ``megabatch.cu``
 rebuilds that library alone; each serves the paper request and holds K1,
 K2, K5 and K6 against their plain versions.  The example twins (``examples/*_torch.py``) at
-their own sizes on the card, the serving example's included.
+their own sizes on the card, the serving example's included, and the
+text-confounders twin (16 encoders trained inside cross-fitting, every
+attention call K5's float32 forward and backward: 4832 and 4800
+launches), held against the CPU twin at M 1, K 2; the kernels phase
+holds K5's training forward and backward at its (1200, 24, 24, 8) call
+and at h2o-danube-3-4b's training forward.  Each training phase prints
+its step's model-FLOPs share (MFU, at the dense bf16 rate), and the dry
+run (``launch/dryrun.py``, meta tensors on the host) predicts the peak
+memory and operations of train_dense's and train_hybrid's steps beside
+what those phases measured.
 
 Phases: device, build, kernels, estimate_paper, estimate_wide, session,
 same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
@@ -100,7 +109,7 @@ estimate_wave, wave_pool, session_wave, fusion, page_pool,
 estimate_quickstart, estimate_mlp, serve_zamba2, serve_deepseek,
 serve_dense, serve_xlstm, serve_whisper, serve_vlm, same_as_cpu_lm,
 train_dense, train_whisper, train_hybrid, train_xlstm, topology,
-topology_chaos, durable, sanitize, persist, examples.
+topology_chaos, durable, sanitize, persist, examples, dryrun.
 """
 from __future__ import annotations
 
@@ -136,14 +145,14 @@ from repro_torch.data import (                             # noqa: E402
     make_plr_data,
 )
 from repro_torch.compile import persist, plan_buckets, program  # noqa: E402
-from repro_torch.configs import get_arch                  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_arch     # noqa: E402
 from repro_torch.configs.dml_plr_bonus import (            # noqa: E402
     CONFIG, FIG3_MEMORY_GRID, FIG3_SCALING_GRID, USD_PER_GB_S,
 )
 from repro_torch.kernels import (                          # noqa: E402
     build, crossfit_gram, flash_attention, megabatch, ops, ssd_scan,
 )
-from repro_torch.launch import roofline                    # noqa: E402
+from repro_torch.launch import dryrun, roofline            # noqa: E402
 from repro_torch.learners import (                         # noqa: E402
     get_batched_learner, get_learner, kernel_ridge, linear,
 )
@@ -166,7 +175,7 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "serve_xlstm", "serve_whisper", "serve_vlm", "same_as_cpu_lm",
           "train_dense", "train_whisper", "train_hybrid", "train_xlstm",
           "topology", "topology_chaos", "durable", "sanitize", "persist",
-          "examples")
+          "examples", "dryrun")
 LIBRARIES = ("megabatch", "lm", "attn_bwd", "ssd_bwd")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
@@ -385,6 +394,17 @@ CROSS_ATTN_ROWS = {
 ATTN_SHAPES += tuple((*row[:4], dtype, *row[4:])
                      for row, dtypes in CROSS_ATTN_ROWS.values()
                      for dtype in dtypes)
+# the forward that writes the row log-sum-exp (the training form) at the
+# training calls no serve row holds: h2o-danube-3-4b's (B 8 x 32 heads,
+# S 4096, D 120) causal under its window of 4096 (train_dense: 16 a step,
+# remat "full"), and the text-confounders twin's encoder (B 300 x 4 heads,
+# S 24, D 8, not causal, float32; examples), each timed beside
+# scaled_dot_product_attention's forward
+TEXT_ENCODER_ATTN = (1200, 24, 24, 8, "f32", False, None)
+TRAIN_FWD_ATTN_ROWS = (
+    ("h2o_train", (256, 4096, 4096, 120, "bf16", True, 4096)),
+    ("text_encoder", TEXT_ENCODER_ATTN),
+)
 # the deepseek prefill's row: K5 at Dqk 192, Dv 128
 MLA_ATTN_SHAPE = (64, 2048, 2048, 192, "bf16", True, None, 128)
 # (BH, S, P, N, chunk, heads) of the SSD scan, for the same runs (112 SSM
@@ -461,8 +481,24 @@ SSD_TOL = 2e-4
 SSD_SPLIT_TOL = 2e-5
 
 
+# each phase's line and the host clock when it was printed: the phases'
+# walls are the differences (the done line prints them)
+EMITTED = []
+
+
 def emit(phase: str, **kw) -> None:
+    EMITTED.append((phase, time.perf_counter()))
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def _phase_walls(t_start: float) -> dict:
+    """Seconds from the previous phase's line (the start) to each
+    phase's."""
+    walls, last = {}, t_start
+    for phase, t in EMITTED:
+        walls[phase] = t - last
+        last = t
+    return walls
 
 
 def smi_line() -> str:
@@ -778,6 +814,8 @@ def phase_kernels(device):
     xfit, rows["crossfit_gram"] = _xfit_kernel_rows(device, gen)
     attn, rows["flash_attention"] = _attn_kernel_rows(device, gen)
     rows["flash_attention"]["lse_write"] = _lse_write_cost(device, gen)
+    rows["flash_attention"]["train_forward"] = _attn_train_fwd_rows(device,
+                                                                   gen)
     attn_bwd, bwd_rows = _attn_bwd_kernel_rows(device, gen)
     rows["flash_attention_bwd"] = {
         **bwd_rows[MAIN_BWD_ATTN],
@@ -841,7 +879,9 @@ def phase_kernels(device):
         kernels=sorted(KERNELS), shapes=report, blocked_shapes=blocked,
         crossfit_shapes=xfit, attention_shapes=attn,
         attention_backward_shapes=attn_bwd,
-        lse_write=rows["flash_attention"]["lse_write"], ssd_shapes=ssd,
+        lse_write=rows["flash_attention"]["lse_write"],
+        attention_train_forward_shapes=rows["flash_attention"][
+            "train_forward"], ssd_shapes=ssd,
         ssd_backward_shapes=ssd_bwd,
         bound_rates={"bytes_s": PEAK_BYTES_S, "f32_flop_s": PEAK_F32_FLOP_S,
                      "bf16_tensor_core_flop_s": PEAK_BF16_TC_FLOP_S,
@@ -1064,22 +1104,14 @@ def _xfit_kernel_rows(device, gen):
     return report, main
 
 
-def _attn_pairs(sq, skv, causal, window):
-    """(query, key) pairs the mask leaves visible, queries aligned to the
-    keys' suffix: the work this call's inputs need."""
-    qa = np.arange(sq, dtype=np.int64) + (skv - sq)
-    lo = np.maximum(0, qa - window + 1) if window else np.zeros_like(qa)
-    hi = np.minimum(skv, qa + 1) if causal else np.full_like(qa, skv)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def _attn_bound(bh, sq, skv, d, dtype, causal, window, dv=None):
     # QK' and PV: 2 D and 2 Dv operations per visible pair; q, k, v read
     # once and o written once.  bf16 at the bf16 tensor-core rate; float32
     # at the TF32 rate over the split's three passes (the FMA figure is
     # kept beside it as bound_ms_at_f32_fma)
     dv = d if dv is None else dv
-    flops = bh * _attn_pairs(sq, skv, causal, window) * 2 * (d + dv)
+    flops = bh * flash_attention.visible_pairs(sq, skv, causal, window) \
+        * 2 * (d + dv)
     nbytes = TYPES[dtype].itemsize * bh * (sq * d + skv * d + skv * dv
                                            + sq * dv)
     peak = PEAK_BF16_TC_FLOP_S if dtype == "bf16" \
@@ -1288,6 +1320,9 @@ BWD_ATTN_ROWS = (
     # against the CPU in float32
     ("zamba2_train", (128, 2048, 2048, 112, "bf16", True, 32768)),
     ("zamba2_reduced", (16, 64, 64, 32, "f32", True, 64)),
+    # examples/dml_text_confounders_torch.py: each task's encoder (300
+    # documents x 4 heads of depth 8, 24 tokens, not causal) in float32
+    ("text_encoder", TEXT_ENCODER_ATTN),
 )
 MAIN_BWD_ATTN = ("h2o_causal", "bf16")
 # the plain backward holds a few (lanes, Sq, Skv) float32 tensors: it is
@@ -1327,7 +1362,8 @@ def _attn_bwd_bound(bh, sq, skv, d, dtype, causal, window, dv=None):
     # grade: the TF32 rate over three passes (the kernel's six bf16 passes
     # cost the same)
     dv = d if dv is None else dv
-    flops = bh * _attn_pairs(sq, skv, causal, window) * 2 * (3 * d + 2 * dv)
+    flops = bh * flash_attention.visible_pairs(sq, skv, causal, window) \
+        * 2 * (3 * d + 2 * dv)
     size = TYPES[dtype].itemsize
     nbytes = size * bh * (2 * (sq * d + skv * d + skv * dv) + 2 * sq * dv) \
         + 4 * bh * sq
@@ -1532,6 +1568,66 @@ def _attn_bwd_kernel_rows(device, gen):
         del q, k, v, do, o, lse, grads
         torch.cuda.empty_cache()
     return report, rows
+
+
+def _attn_train_fwd_rows(device, gen):
+    """K5's training forward (o and the row log-sum-exp) at every row of
+    TRAIN_FWD_ATTN_ROWS: o on the first BWD_COMPARE_LANES lanes against
+    the plain forward at flash_attention's tiers, lse within LSE_TOL of
+    max|lse|; timed beside the plain forward (over all lanes, a slice at a
+    time) and scaled_dot_product_attention's forward."""
+    rows = {}
+    for name, shape in TRAIN_FWD_ATTN_ROWS:
+        bh, sq, skv, d, dtype, causal, window = shape
+        t = TYPES[dtype]
+        q, k, v = (torch.randn((bh, n, d), generator=gen, device=device)
+                   .to(t) for n in (sq, skv, skv))
+
+        def kernel():
+            return flash_attention._forward_cuda(q, k, v, causal, window,
+                                                 with_lse=True)
+        o, lse = kernel()
+        torch.cuda.synchronize()
+        n = min(bh, BWD_COMPARE_LANES)
+        o0 = flash_attention.flash_attention_plain(
+            q[:n], k[:n], v[:n], causal=causal, window=window)
+        lse0 = flash_attention.flash_attention_lse_plain(
+            q[:n], k[:n], causal=causal, window=window)
+        err = float((o[:n].float() - o0.float()).abs().max())
+        lse_err = float((lse[:n] - lse0).abs().max())
+        ulps = _bf16_ulps(o[:n], o0) if dtype == "bf16" else None
+        tol = ATTN_TOL["bf16"] if dtype == "bf16" else ATTN_F32_SPLIT_TOL
+        assert torch.isfinite(o).all() and err <= tol \
+            and (ulps is None or ulps <= BF16_ULPS), \
+            ("flash_attention (training forward) disagrees", shape, err, ulps)
+        assert lse_err <= LSE_TOL * float(lse0.abs().max()), \
+            ("flash_attention's lse disagrees", shape, lse_err)
+
+        def plain():
+            return [flash_attention.flash_attention_plain(
+                q[i:i + n], k[i:i + n], v[i:i + n], causal=causal,
+                window=window) for i in range(0, bh, n)]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def library():          # (1, BH, S, D); window >= S: causal alone
+            return sdpa(q[None], k[None], v[None], is_causal=causal)[0]
+        lib_err = float((library()[:n].float() - o0.float()).abs().max())
+        nbytes, flops, bound, by, bound_f32 = _attn_bound(*shape)
+        rows[name] = {
+            "shape": list(shape), "compared_lanes": n, "max_abs_err": err,
+            "max_err_bf16_steps": ulps, "lse_max_abs_err": lse_err,
+            "ms": _time_ms(kernel, cold=True),
+            "plain_ms": _time_ms(plain, cold=True, runs=3, warmup=1),
+            "library": f"scaled_dot_product_attention(is_causal={causal}) "
+                       f"on (1, BH, S, D)",
+            "library_ms": _time_ms(library, cold=True),
+            "library_max_abs_err": lib_err,
+            "bound_ms": bound, "bound_by": by,
+            "bound_ms_at_f32_fma": bound_f32, "bytes": nbytes,
+            "operations": flops}
+        del q, k, v, o, lse, o0, lse0
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _lse_write_cost(device, gen):
@@ -2156,9 +2252,11 @@ def _launches_compared(seen, what, device=None):
     compared = {"batched_gram": set(SHAPES), "batched_predict": set(SHAPES),
                 "batched_gram_blocked": set(BLOCKED_SHAPES),
                 "crossfit_gram": set(XFIT_SHAPES),
-                "flash_attention": set(ATTN_SHAPES),
+                "flash_attention": set(ATTN_SHAPES) | {
+                    row for _, row in TRAIN_FWD_ATTN_ROWS},
                 "flash_attention_bwd": {row for _, row in BWD_ATTN_ROWS},
-                "flash_attention_lse": {row for _, row in BWD_ATTN_ROWS},
+                "flash_attention_lse": {row for _, row in BWD_ATTN_ROWS} | {
+                    row for _, row in TRAIN_FWD_ATTN_ROWS},
                 "ssd_scan": {shape for shape, _ in SSD_SHAPES},
                 "ssd_scan_bwd": {row[1] for row in SSD_BWD_ROWS}}
     held = set()
@@ -4997,6 +5095,8 @@ def phase_examples(device, quickstart=None):
         assert train_launches[name] == \
             TRAIN_LM_EXAMPLE_STEPS * cfg_t.n_layers, train_launches
 
+    text = _text_confounders(walls, device)
+
     def summary(res):
         s_ = res.report.summary()
         return {"theta": res.theta, "se": res.se,
@@ -5021,11 +5121,65 @@ def phase_examples(device, quickstart=None):
          train_lm={"full_100m": True, "steps": TRAIN_LM_EXAMPLE_STEPS,
                    "losses": train_losses, "launches": train_launches,
                    "step_wall_s": [h["wall_s"] for h in hist_t]},
+         text_confounders=text,
          tolerance="theta within 4 se of the planted effect; the "
                    "quickstart's repetitions bit for bit "
                    "estimate_quickstart's first 20; serve_lm's tokens "
                    "equal in two runs; train_lm's losses finite and "
-                   "falling")
+                   "falling; text_confounders: finite, K5 launches "
+                   f"{TEXT_LAUNCHES}, at M 1, K 2 the card within "
+                   f"{TEXT_CARD_CPU_TOL[0]} se (theta) and "
+                   f"{TEXT_CARD_CPU_TOL[1]} relative (se) of the CPU twin")
+    return text["launches"]
+
+
+# examples/dml_text_confounders_torch.py at its own size (300 documents,
+# M 2 x K 4 folds x two nuisances = 16 encoders, 150 steps each): K5's
+# float32 forward and backward launches, per task 150 steps of two
+# forwards and two backwards, then two forwards for the prediction
+TEXT_LAUNCHES = {"flash_attention": 16 * (150 * 2 + 2),
+                 "flash_attention_bwd": 16 * 150 * 2}
+# the card against the CPU twin at M 1, K 2 (4 encoders, 150 steps): the
+# CPU twin takes 22.5 s there on the card's host (about 90 s at the full
+# size, past the 60 s this phase can spend).  Held at (theta's gap in se,
+# se's gap relative): measured 0.0099 se and 0.0041 (NVIDIA H100 80GB
+# HBM3, 700.00 W; theta 0.11863 on the card, 0.11810 on the CPU), held at
+# about five times that
+TEXT_CARD_CPU_TOL = (0.05, 0.02)
+
+
+def _text_confounders(walls, device):
+    """The text-confounders twin on the card at its own size (finite, K5's
+    launches exactly TEXT_LAUNCHES), then at M 1, K 2 on the card and on
+    the CPU, held at TEXT_CARD_CPU_TOL; every K5 launch at a compared
+    shape."""
+    text = _example("dml_text_confounders_torch")
+    with _launch_shapes() as seen:
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        full = text.run_small(device=device)
+        torch.cuda.synchronize()
+        walls["text_confounders"] = time.perf_counter() - t0
+        launches = {k: runtime.launch_counts[k] for k in TEXT_LAUNCHES}
+    _launches_compared(seen, "examples/text_confounders")
+    assert launches == TEXT_LAUNCHES, launches
+    assert np.isfinite([full["theta"], full["se"], *full["ci"]]).all() \
+        and full["se"] > 0, full
+    small = {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        small[where] = text.run_small(n_rep=1, n_folds=2, device=dev)
+        walls[f"text_confounders_m1_k2_{where}"] = time.perf_counter() - t0
+    se = small["cpu"]["se"]
+    gap = (abs(small["card"]["theta"] - small["cpu"]["theta"]) / se,
+           abs(small["card"]["se"] - se) / se)
+    assert gap[0] <= TEXT_CARD_CPU_TOL[0] \
+        and gap[1] <= TEXT_CARD_CPU_TOL[1], (gap, small)
+    return {"full": full, "launches": launches,
+            "m1_k2": {**small, "theta_gap_in_se": gap[0],
+                      "se_gap_relative": gap[1]},
+            "launch_shapes": {k: sorted(v, key=str) for k, v in seen.items()
+                              if k.startswith("flash") and v}}
 
 
 # ---------------------------------------------------------------------------
@@ -5112,9 +5266,13 @@ def _train_run(bundle, params, batches, device, *, steps, warmup, lr,
     return params, opt, hist, launches, peak, step_ms
 
 
-def _full_run_record(name, cfg, hist, launches, peak, step_ms, tokens,
+def _full_run_record(name, cfg, hist, launches, peak, step_ms, batch, seq,
                      n_params, n_layers_attn, n_ssd=0, steps=TRAIN_STEPS,
                      attn_forwards=2):
+    """The full run's record; ``mfu`` is the measured step's model-FLOPs
+    share, ``roofline.model_flops`` (6 x active parameters x the batch's
+    tokens) over the median step at the dense bf16 rate."""
+    tokens = batch * seq
     losses = [h["loss"] for h in hist]
     assert len(losses) == steps and all(np.isfinite(losses)), losses
     assert np.mean(losses[-4:]) < losses[0], (name, losses)
@@ -5129,9 +5287,13 @@ def _full_run_record(name, cfg, hist, launches, peak, step_ms, tokens,
     assert per_step["flash_attention_bwd"] == n_layers_attn, per_step
     assert per_step["ssd_scan"] == 2 * n_ssd, per_step
     assert per_step["ssd_scan_bwd"] == n_ssd, per_step
+    useful = roofline.model_flops(cfg, ShapeConfig(name, seq, batch,
+                                                   "train"))
     return {"arch": cfg.name, "params": n_params,
             f"step_ms_median_steps_3_to_{steps}": steady, "step_ms": step_ms,
             "tokens_per_s": tokens / (steady / 1e3),
+            "model_flops": useful,
+            "mfu": useful / (steady / 1e3) / roofline.PEAK_BF16_FLOPS,
             "max_memory_allocated_bytes": peak,
             "k5_launches_per_step": {k: v for k, v in per_step.items()
                                      if k.startswith("flash")},
@@ -5276,7 +5438,7 @@ def phase_train_dense(device):
     _launches_compared(seen, "train_dense")
     full = _full_run_record(
         "train_dense", cfg, hist, launches, peak, step_ms,
-        TRAIN_BATCH * TRAIN_DENSE_SEQ, param_count(bundle.decls),
+        TRAIN_BATCH, TRAIN_DENSE_SEQ, param_count(bundle.decls),
         cfg.n_layers)
     full["reduced"] = {"n_layers": [base.n_layers, TRAIN_DENSE_LAYERS],
                        "why": "24 layers need 63 GB of parameters, "
@@ -5294,7 +5456,7 @@ def phase_train_dense(device):
                    f"curves within {TRAIN_CURVE_TIER} relative; resume bit "
                    f"for bit")
     torch.cuda.empty_cache()
-    return launches
+    return launches, full
 
 
 def phase_train_whisper(device):
@@ -5327,7 +5489,7 @@ def phase_train_whisper(device):
     torch.cuda.empty_cache()
     full = _full_run_record(
         "train_whisper", cfg, hist, launches, peak, step_ms,
-        TRAIN_BATCH * TRAIN_WHISPER_TOKENS, param_count(bundle.decls),
+        TRAIN_BATCH, TRAIN_WHISPER_TOKENS, param_count(bundle.decls),
         cfg.n_encoder_layers + 2 * cfg.n_layers)
     emit("train_whisper", full=full,
          launch_shapes={k: sorted(seen[k], key=str) for k in (
@@ -5416,7 +5578,7 @@ def _ssm_train_phase(what, cfg, base_layers, steps, n_attn, n_ssd, shape,
                                        lr=reduced_lr, ssm=reduced_ssm)
     _launches_compared(seen, what)
     full = _full_run_record(what, cfg, hist, launches, peak, step_ms,
-                            TRAIN_SSM_BATCH * TRAIN_SSM_SEQ,
+                            TRAIN_SSM_BATCH, TRAIN_SSM_SEQ,
                             param_count(bundle.decls), n_attn, n_ssd, steps,
                             attn_forwards=1)
     full["reduced"] = {"n_layers": [base_layers, cfg.n_layers], "why": why}
@@ -5431,7 +5593,7 @@ def _ssm_train_phase(what, cfg, base_layers, steps, n_attn, n_ssd, shape,
                    f"{TRAIN_GRAD_TIER} of each leaf's max|grad|, the loss "
                    f"curves within {TRAIN_CURVE_TIER} relative")
     torch.cuda.empty_cache()
-    return launches
+    return launches, full
 
 
 def phase_train_hybrid(device):
@@ -5474,6 +5636,56 @@ def phase_train_xlstm(device):
         device)
 
 
+# ---------------------------------------------------------------------------
+# the dry run (launch/dryrun.py) of the training phases' configurations, on
+# the host: its predicted peak and operations beside the phases' measured
+# peak and model-FLOPs share (MFU), where those phases ran
+# ---------------------------------------------------------------------------
+def phase_dryrun(measured):
+    """``dryrun.run_cell`` (meta tensors, remat "full", one microbatch as
+    the phases run) at train_dense's and train_hybrid's configurations
+    and shapes: the predicted peak bytes, operations and roofline, beside
+    the measured peak (max_memory_allocated) and MFU of ``measured``, the
+    training phases' records where they ran.  Printed, not held: the dry
+    run's error is a finding."""
+    cells = {}
+    for name, cfg, shape in (
+            ("train_dense",
+             dataclasses.replace(get_arch("h2o-danube-3-4b"),
+                                 n_layers=TRAIN_DENSE_LAYERS),
+             ShapeConfig("train_dense", TRAIN_DENSE_SEQ, TRAIN_BATCH,
+                         "train")),
+            ("train_hybrid",
+             dataclasses.replace(get_arch("zamba2-7b"),
+                                 n_layers=TRAIN_HYBRID_SLOTS),
+             ShapeConfig("train_hybrid", TRAIN_SSM_SEQ, TRAIN_SSM_BATCH,
+                         "train"))):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(cfg.name, shape.name, cfg=cfg, shape=shape)
+        row = {"n_layers": cfg.n_layers,
+               "shape": [shape.global_batch, shape.seq_len],
+               "predicted_peak_bytes": rec["full"]["peak_bytes"],
+               "predicted_flops": rec["full"]["flops"],
+               "predicted_bytes": rec["full"]["bytes"],
+               "full": rec["full"], "roofline": rec["roofline"],
+               "wall_s": time.perf_counter() - t0}
+        got = measured.get(name)
+        if got is not None:
+            row.update(
+                measured_peak_bytes=got["max_memory_allocated_bytes"],
+                peak_predicted_over_measured=(
+                    rec["full"]["peak_bytes"]
+                    / got["max_memory_allocated_bytes"]),
+                measured_mfu=got["mfu"],
+                measured_step_ms=got[f"step_ms_median_steps_3_to_"
+                                     f"{TRAIN_STEPS}"])
+        cells[name] = row
+    emit("dryrun", card=smi_line(), hbm_per_chip=dryrun.HBM_PER_CHIP,
+         total_memory=torch.cuda.get_device_properties(0).total_memory,
+         cells=cells)
+    return cells
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5503,7 +5715,8 @@ def main(argv=None) -> int:
              nvcc=next(ln.strip() for ln in nvcc.stdout.splitlines()
                        if "release" in ln),
              kind=torch.cuda.get_device_name(0),
-             count=torch.cuda.device_count())
+             count=torch.cuda.device_count(),
+             total_memory=torch.cuda.get_device_properties(0).total_memory)
     if "build" in phases:
         t0 = time.perf_counter()
         # one nvcc per source, all started together
@@ -5580,9 +5793,10 @@ def main(argv=None) -> int:
     f32_launches = None
     if "same_as_cpu_lm" in phases:
         f32_launches = phase_same_as_cpu_lm(device)
-    train_launches = None
+    train_launches, train_records = None, {}
     if "train_dense" in phases:
-        train_launches = phase_train_dense(device)
+        train_launches, train_records["train_dense"] = \
+            phase_train_dense(device)
         if launches is not None:
             launches["flash_attention_bwd"] = \
                 train_launches["flash_attention_bwd"]
@@ -5591,11 +5805,14 @@ def main(argv=None) -> int:
         whisper_train_launches = phase_train_whisper(device)
     xlstm_train_launches = None
     if "train_hybrid" in phases:
-        hybrid_launches = phase_train_hybrid(device)
+        hybrid_launches, train_records["train_hybrid"] = \
+            phase_train_hybrid(device)
         if launches is not None:
             launches["ssd_scan_bwd"] = hybrid_launches["ssd_scan_bwd"]
     if "train_xlstm" in phases:
-        xlstm_train_launches = phase_train_xlstm(device)
+        xlstm_train_launches, _ = phase_train_xlstm(device)
+    if "dryrun" in phases:
+        phase_dryrun(train_records)
     topo_launches = None
     if "topology" in phases:
         topo_launches = phase_topology(device)
@@ -5607,17 +5824,21 @@ def main(argv=None) -> int:
         phase_sanitize(device)
     if "persist" in phases:
         phase_persist(device)
+    text_launches = None
     if "examples" in phases:
-        phase_examples(device, quickstart and quickstart["result"])
+        text_launches = phase_examples(device,
+                                       quickstart and quickstart["result"])
 
     if phases != list(PHASES):
         print(json.dumps({"ok": False, "partial": phases,
-                          "seconds": time.perf_counter() - t_start}))
+                          "seconds": time.perf_counter() - t_start,
+                          "phase_walls": _phase_walls(t_start)}))
         return 0
     for name in KERNELS:
         assert launches[name] > 0, f"the main path never launched {name}"
     print(json.dumps({"phase": "done",
-                      "seconds": time.perf_counter() - t_start}))
+                      "seconds": time.perf_counter() - t_start,
+                      "phase_walls": _phase_walls(t_start)}))
     print(smi, flush=True)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5654,7 +5875,19 @@ def main(argv=None) -> int:
                  "lse_write": rows["flash_attention"]["lse_write"],
                  "launches_train_dense": train_launches["flash_attention"],
                  "launches_train_whisper":
-                     whisper_train_launches["flash_attention"]},
+                     whisper_train_launches["flash_attention"],
+                 # the training forward at h2o's call (train_dense's
+                 # launches) and at the text-confounders twin's (the
+                 # examples phase's)
+                 "train_forward": {
+                     "h2o_train": {
+                         **rows["flash_attention"]["train_forward"][
+                             "h2o_train"],
+                         "launches": train_launches["flash_attention"]},
+                     "text_encoder": {
+                         **rows["flash_attention"]["train_forward"][
+                             "text_encoder"],
+                         "launches": text_launches["flash_attention"]}}},
              # K5's backward: its launches are train_dense's full run's
              # (12 steps of h2o-danube-3-4b, 8 layers); every row of the
              # kernels phase, and its launches in train_whisper
@@ -5662,7 +5895,9 @@ def main(argv=None) -> int:
                  k: v for k, v in rows["flash_attention_bwd"].items()
                  if k not in keys} | {
                  "launches_train_whisper":
-                     whisper_train_launches["flash_attention_bwd"]},
+                     whisper_train_launches["flash_attention_bwd"],
+                 "launches_examples_text_confounders":
+                     text_launches["flash_attention_bwd"]},
              # K6's backward: its launches are train_hybrid's full run's
              # (12 steps of zamba2-7b, 10 Mamba2 blocks); every row of the
              # kernels phase, and its launches in train_xlstm

@@ -81,6 +81,15 @@ already repeated: autograd sums their gradients through
 ["flash_attention"]`` where it launches the forward, and
 ``flash_attention_bwd_cuda`` one to ``["flash_attention_bwd"]``
 where it launches the backward, and nowhere else.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) the same route
+takes shape-only stand-ins of the two launches, which launch and count
+nothing: ops of their own (``repro_torch::flash_attention_meta``,
+``flash_attention_bwd_meta``) whose outputs have the kernels' shapes and
+whose operations, for ``torch.utils.flop_counter``, are the kernels' own:
+2 (D + Dv) a visible (query, key) pair forward, 2 (3 D + 2 Dv) backward
+(``visible_pairs``).  The wrapper allocates the scratch the card's would
+(delta, the float32 parts), so a trace sees it.
 ``flash_attention_plain`` is the counterpart of the reference oracle
 ``flash_attention_ref``: what the CPU path and the on-card comparison use;
 ``flash_attention_backward_plain`` is the explicit gradient in float32
@@ -91,9 +100,11 @@ autograd differentiates the plain forward).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import runtime
 from repro_torch.kernels import build
@@ -125,6 +136,16 @@ def visible(sq: int, skv: int, causal: bool, window: Optional[int],
     if window is not None:
         ok &= kpos > qpos - window
     return ok
+
+
+def visible_pairs(sq: int, skv: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """The (query, key) pairs the mask leaves visible, queries aligned to
+    the keys' suffix: the work a call's inputs need."""
+    qa = np.arange(sq, dtype=np.int64) + (skv - sq)
+    lo = np.maximum(0, qa - window + 1) if window else np.zeros_like(qa)
+    hi = np.minimum(skv, qa + 1) if causal else np.full_like(qa, skv)
+    return int(np.maximum(hi - lo, 0).sum())
 
 
 def _scores(q, k, dtype):
@@ -321,6 +342,74 @@ def _forward_cuda(q, k, v, causal: bool, window: Optional[int],
     return o, lse
 
 
+@torch.library.custom_op("repro_torch::flash_attention_meta",
+                         mutates_args=())
+def _forward_meta_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool, window: Optional[int], with_lse: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    raise ValueError("the forward's shape-only stand-in takes meta tensors")
+
+
+@_forward_meta_op.register_fake
+def _(q, k, v, causal, window, with_lse):
+    lse = (q.shape[0], q.shape[1]) if with_lse else (0,)
+    return (q.new_empty((q.shape[0], q.shape[1], v.shape[2])),
+            q.new_empty(lse, dtype=F32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_meta)
+def _forward_flops(q, k, v, causal, window, with_lse, *args, **kwargs):
+    return q[0] * visible_pairs(q[1], k[1], causal, window) * 2 \
+        * (q[2] + v[2])
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd_meta",
+                         mutates_args=())
+def _backward_meta_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      causal: bool, window: Optional[int]
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise ValueError("the backward's shape-only stand-in takes meta tensors")
+
+
+@_backward_meta_op.register_fake
+def _(q, k, v, o, lse, do, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd_meta)
+def _backward_flops(q, k, v, o, lse, do, causal, window, *args, **kwargs):
+    return q[0] * visible_pairs(q[1], k[1], causal, window) * 2 \
+        * (3 * q[2] + 2 * v[2])
+
+
+def _forward_meta(q, k, v, causal: bool, window: Optional[int],
+                  with_lse: bool):
+    """The forward's launch on meta tensors: the checks of the card's,
+    then the shape-only stand-in (no launch, no count)."""
+    bh, sq, skv, d, dv = check_qkv(q, k, v, window)
+    check_kernel_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
+                       window=window)
+    o, lse = _forward_meta_op(q, k, v, causal, window, with_lse)
+    return o, (lse if with_lse else None)
+
+
+def _backward_meta(q, k, v, o, lse, do, causal: bool,
+                   window: Optional[int]):
+    """The backward's launch on meta tensors: the card's checks and
+    scratch (delta; in float32 the parts of q, k, v and dO), then the
+    shape-only stand-in."""
+    bh, sq, skv, d, dv = check_qkv(q, k, v, window)
+    check_backward_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
+                         window=window)
+    # held through the stand-in's call, as the card's through the launch
+    scratch = [torch.empty((bh, sq), dtype=F32, device=q.device)]
+    if q.dtype != torch.bfloat16:
+        scratch += [torch.empty(shape, dtype=torch.bfloat16, device=q.device)
+                    for shape in f32_scratch_shapes(bh, sq, skv, d, dv)]
+    return _backward_meta_op(q, k, v, o, lse, do, causal, window)
+
+
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *,
                                   causal: bool = True,
                                   window: Optional[int] = None):
@@ -369,7 +458,8 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        o, lse = _forward_cuda(q, k, v, causal, window, with_lse=True)
+        forward = _forward_meta if q.is_meta else _forward_cuda
+        o, lse = forward(q, k, v, causal, window, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
@@ -377,20 +467,26 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
-            window=ctx.window)
+        if q.is_meta:
+            dq, dk, dv = _backward_meta(q, k, v, o, lse, do.contiguous(),
+                                        ctx.causal, ctx.window)
+        else:
+            dq, dk, dv = flash_attention_bwd_cuda(
+                q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+                window=ctx.window)
         return dq, dk, dv, None, None
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
-    """Launch the flash-attention kernel for q's type on CUDA tensors;
-    with grad mode on and an input that requires a gradient, through
-    ``FlashAttentionFunction`` (the backward kernels then give it)."""
+    """Launch the flash-attention kernel for q's type on CUDA tensors (on
+    meta tensors, its shape-only stand-in); with grad mode on and an
+    input that requires a gradient, through ``FlashAttentionFunction``
+    (the backward kernels then give it)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         bh, sq, skv, d, dv = check_qkv(q, k, v, window)
         check_backward_shape(bh, sq, skv, d, q.dtype, dv, causal=causal,
                              window=window)
         return FlashAttentionFunction.apply(q, k, v, causal, window)
-    return _forward_cuda(q, k, v, causal, window, with_lse=False)[0]
+    forward = _forward_meta if q.is_meta else _forward_cuda
+    return forward(q, k, v, causal, window, with_lse=False)[0]

@@ -4,7 +4,9 @@ Routing is by where the tensors lie, and by nothing else: tensors on a
 CUDA device go through the hand-written kernel (a build or a launch that
 fails raises), tensors on the CPU — which a caller has to ask for —
 through the kernel's plain PyTorch version.  All operands of one call lie
-on one device.
+on one device.  Attention and the SSD scan also take ``meta`` tensors,
+which the dry run traces (``launch/dryrun.py``): the card's route, with a
+shape-only stand-in of each launch.
 """
 from __future__ import annotations
 
@@ -129,7 +131,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     v (BH, Skv, Dv), float32 or bfloat16, queries aligned to the keys'
     suffix, scaled by 1/sqrt(D).  Returns (BH, Sq, Dv) in q's type."""
     flash_attention_mod.check_qkv(q, k, v, window)
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         return flash_attention_mod.flash_attention_cuda(
             q, k, v, causal=causal, window=window)
     return flash_attention_mod.flash_attention_plain(
@@ -142,7 +144,7 @@ def ssd_scan(xbar, la, bm, cm, *, chunk: int = 256, heads: int = 1):
     plain version steps through time; ``chunk`` is the kernel's tiling and
     does not change the function."""
     ssd_scan_mod.check_ssd(xbar, la, bm, cm, chunk, heads)
-    if xbar.is_cuda:
+    if xbar.is_cuda or xbar.is_meta:
         return ssd_scan_mod.ssd_scan_cuda(xbar, la, bm, cm, chunk=chunk,
                                           heads=heads)
     return ssd_scan_mod.ssd_scan_plain(xbar, la, bm, cm, heads=heads)

@@ -74,13 +74,23 @@ the kernels' lanes, in the inputs' type: ``ssd_scan_backward_plain``
 (autograd through it, float64 on the card) is the yardstick of the
 backward kernels at the path shapes, where the sequential form would keep
 thousands of states for autograd.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) the same route
+takes shape-only stand-ins of the forward's and the backward's launches
+(ops of their own, ``repro_torch::ssd_scan_meta`` and
+``ssd_scan_bwd_meta``), which launch and count nothing: their outputs
+have the kernels' shapes, their operations for
+``torch.utils.flop_counter`` are the function's, 5 N P a row and lane
+forward and 11 N P backward, and the wrapper allocates the scratch the
+card's would (``scratch_shapes``, ``bwd_scratch_shapes``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import runtime
 from repro_torch.kernels import build
@@ -313,6 +323,74 @@ def _forward_cuda(xbar, la, bm, cm, chunk: int, heads: int):
     return y, state, cb, states, decay
 
 
+@torch.library.custom_op("repro_torch::ssd_scan_meta", mutates_args=())
+def _forward_meta_op(xbar: torch.Tensor, la: torch.Tensor, bm: torch.Tensor,
+                     cm: torch.Tensor, chunk: int, heads: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    raise ValueError("the forward's shape-only stand-in takes meta tensors")
+
+
+@_forward_meta_op.register_fake
+def _(xbar, la, bm, cm, chunk, heads):
+    bh, _, p = xbar.shape
+    return torch.empty_like(xbar), xbar.new_empty((bh, bm.shape[-1], p))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_meta)
+def _forward_flops(xbar, la, bm, cm, chunk, heads, *args, **kwargs):
+    bh, s, p = xbar
+    return bh * s * 5 * bm[-1] * p
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd_meta", mutates_args=())
+def _backward_meta_op(xbar: torch.Tensor, la: torch.Tensor,
+                      bm: torch.Tensor, cm: torch.Tensor, cb: torch.Tensor,
+                      states: torch.Tensor, decay: torch.Tensor,
+                      dy: torch.Tensor, dstate: Optional[torch.Tensor],
+                      chunk: int, heads: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    raise ValueError("the backward's shape-only stand-in takes meta tensors")
+
+
+@_backward_meta_op.register_fake
+def _(xbar, la, bm, cm, cb, states, decay, dy, dstate, chunk, heads):
+    return tuple(torch.empty_like(t) for t in (xbar, la, bm, cm))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd_meta)
+def _backward_flops(xbar, la, bm, *args, **kwargs):
+    bh, s, p = xbar
+    return bh * s * 11 * bm[-1] * p
+
+
+def _forward_meta(xbar, la, bm, cm, chunk: int, heads: int):
+    """The forward's launches on meta tensors: the card's checks and
+    scratch, then the shape-only stand-in (no launch, no count)."""
+    bh, s, p, n = check_ssd(xbar, la, bm, cm, chunk, heads)
+    check_kernel_shape(bh, s, p, n, chunk)
+    q = min(int(chunk), s)
+    cb, states, decay = (torch.empty(shape, dtype=F32, device=xbar.device)
+                         for shape in scratch_shapes(bh, s, p, n, q, heads))
+    y, state = _forward_meta_op(xbar, la, bm, cm, q, int(heads))
+    return y, state, cb, states, decay
+
+
+def _backward_meta(xbar, la, bm, cm, cb, states, decay, dy, dstate, *,
+                   chunk: int, heads: int):
+    """The backward's launches on meta tensors: the card's checks and
+    scratch, then the shape-only stand-in."""
+    bh, s, p, n = check_ssd(xbar, la, bm, cm, chunk, heads)
+    check_backward_shape(bh, s, p, n, chunk)
+    q = min(int(chunk), s)
+    # held through the stand-in's call, as the card's through the launch
+    scratch = [torch.empty(shape, dtype=F32, device=xbar.device)
+               for shape in bwd_scratch_shapes(bh, s, p, n, q, heads)
+               if shape is not None]
+    return _backward_meta_op(xbar, la, bm, cm, cb, states, decay, dy,
+                             dstate, q, int(heads))
+
+
 def ssd_scan_bwd_cuda(xbar, la, bm, cm, cb, states, decay, dy, dstate, *,
                       chunk: int, heads: int):
     """Launch the backward kernels on CUDA tensors: (dxbar, dla, dbm, dcm)
@@ -363,8 +441,8 @@ class SsdScanFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xbar, la, bm, cm, chunk: int, heads: int):
-        y, state, cb, states, decay = _forward_cuda(xbar, la, bm, cm, chunk,
-                                                    heads)
+        forward = _forward_meta if xbar.is_meta else _forward_cuda
+        y, state, cb, states, decay = forward(xbar, la, bm, cm, chunk, heads)
         ctx.save_for_backward(xbar, la, bm, cm, cb, states, decay)
         ctx.chunk, ctx.heads = chunk, heads
         ctx.set_materialize_grads(False)
@@ -376,19 +454,22 @@ class SsdScanFunction(torch.autograd.Function):
         dy = torch.zeros_like(xbar) if dy is None else dy.contiguous()
         if dstate is not None:
             dstate = dstate.contiguous()
-        grads = ssd_scan_bwd_cuda(xbar, la, bm, cm, cb, states, decay, dy,
-                                  dstate, chunk=ctx.chunk, heads=ctx.heads)
+        backward = _backward_meta if xbar.is_meta else ssd_scan_bwd_cuda
+        grads = backward(xbar, la, bm, cm, cb, states, decay, dy, dstate,
+                         chunk=ctx.chunk, heads=ctx.heads)
         return (*grads, None, None)
 
 
 def ssd_scan_cuda(xbar, la, bm, cm, *, chunk: int = 256, heads: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the SSD scan's kernels on CUDA tensors; with grad mode on
-    and an input that requires a gradient, through ``SsdScanFunction``
-    (the backward kernels then give it)."""
+    """Launch the SSD scan's kernels on CUDA tensors (on meta tensors,
+    their shape-only stand-in); with grad mode on and an input that
+    requires a gradient, through ``SsdScanFunction`` (the backward
+    kernels then give it)."""
     bh, s, p, n = check_ssd(xbar, la, bm, cm, chunk, heads)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xbar, la, bm, cm)):
         check_backward_shape(bh, s, p, n, chunk)
         return SsdScanFunction.apply(xbar, la, bm, cm, chunk, heads)
-    return _forward_cuda(xbar, la, bm, cm, chunk, heads)[:2]
+    forward = _forward_meta if xbar.is_meta else _forward_cuda
+    return forward(xbar, la, bm, cm, chunk, heads)[:2]

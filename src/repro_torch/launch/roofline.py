@@ -1,4 +1,5 @@
-"""Roofline pricing of megabatch buckets and of their parallelization axes.
+"""Roofline pricing: megabatch buckets and their parallelization axes (the
+DML half), and the LM models' step terms (the LM half).
 
 The DML half of the JAX package's ``launch/roofline.py``: analytic
 operations and bytes of one task lane, the launch overhead, and the
@@ -6,11 +7,22 @@ per-bucket axis candidates the planner (compile/buckets.py) picks from.
 Pure arithmetic on shapes — no device access — except
 ``measure_launch_overhead_s``, which times the device it is given.
 
-Hardware model: one NVIDIA H100 SXM (data sheet): 67 TFLOP/s plain float32
-(the kernels use plain FMA, no tensor cores), 3.35 TB/s HBM3, NVLink 450
-GB/s each way to every other card of the host.
+The LM half (``ProbePlan``, ``probe_plan``, ``solve_extrapolation``,
+``analytic_extra_flops``, ``model_flops``, ``RooflineTerms``) is the
+reference's, retargeted to the port's configs: the dry run
+(``launch/dryrun.py``) counts a step's operations and bytes at two or
+three small depths and extrapolates the layer stacks linearly to the full
+depth; ``model_flops`` is the useful work of a step (6 N tokens to train,
+2 N to prefill), the numerator of the model-FLOPs share (MFU).  The
+reference's HLO-text parser of collective bytes has no counterpart: a
+PyTorch trace has no HLO, and one card has no collective.
 
-  compute term = operations / PEAK_FLOPS
+Hardware model: one NVIDIA H100 SXM (data sheet): 67 TFLOP/s plain float32
+(the estimator's kernels use plain FMA, no tensor cores), 989 TFLOP/s
+dense bf16 on the tensor cores (the LM models' products), 3.35 TB/s HBM3,
+NVLink 450 GB/s each way to every other card of the host.
+
+  compute term = operations / PEAK_FLOPS (estimator), / PEAK_BF16_FLOPS (LM)
   memory term  = bytes / HBM_BW
   wire term    = collective bytes / NVLINK_BW
 """
@@ -18,16 +30,19 @@ from __future__ import annotations
 
 import statistics
 import time
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.runtime import DeviceLike, resolve_device
 
 PEAK_FLOPS = 67e12           # NVIDIA H100 SXM, plain float32 FLOP/s
 HBM_BW = 3.35e12             # NVIDIA H100 SXM, HBM3 bytes/s
 NVLINK_BW = 450e9            # NVIDIA H100 SXM, NVLink bytes/s each way
+PEAK_BF16_FLOPS = 989e12     # NVIDIA H100 SXM, dense bf16 tensor-core FLOP/s
 
 
 # ---------------------------------------------------------------------------
@@ -284,3 +299,161 @@ def axis_candidate_costs(learner: str, params, n_tasks: int, n_pad: int,
     else:
         out.append(("feature", m, float("inf"), False))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The LM half: probe configs (layer-stack trip counts per family), their
+# extrapolation, the analytic terms, and the step's roofline terms
+# ---------------------------------------------------------------------------
+@dataclass
+class ProbePlan:
+    """probes[i] = (cfg_variant, trips vector a_i); full_trips for the real
+    config.  cost_full = c0 + full_trips . c  with [c0, c] solved from probes.
+    """
+    probes: List[Tuple[ArchConfig, Tuple[float, ...]]]
+    full_trips: Tuple[float, ...]
+
+
+def probe_plan(cfg: ArchConfig) -> ProbePlan:
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        head = cfg.moe.first_dense_layers if fam == "moe" else 0
+        full = cfg.n_layers - head
+        return ProbePlan(
+            probes=[(replace(cfg, n_layers=head + 1), (1.0,)),
+                    (replace(cfg, n_layers=head + 2), (2.0,))],
+            full_trips=(float(full),))
+    if fam == "ssm":                      # xlstm: groups of slstm_every
+        per = cfg.ssm.slstm_every or cfg.n_layers
+        return ProbePlan(
+            probes=[(replace(cfg, n_layers=per), (1.0,)),
+                    (replace(cfg, n_layers=2 * per), (2.0,))],
+            full_trips=(float(cfg.n_layers // per),))
+    if fam == "hybrid":                   # groups of 6 + mamba tail
+        per = cfg.shared_attn_every
+        return ProbePlan(
+            probes=[(replace(cfg, n_layers=per), (1.0, 0.0)),
+                    (replace(cfg, n_layers=2 * per), (2.0, 0.0)),
+                    (replace(cfg, n_layers=per + 1), (1.0, 1.0))],
+            full_trips=(float(cfg.n_layers // per),
+                        float(cfg.n_layers % per)))
+    if fam == "audio":                    # encoder / decoder stacks
+        return ProbePlan(
+            probes=[(replace(cfg, n_encoder_layers=1, n_layers=1), (1.0, 1.0)),
+                    (replace(cfg, n_encoder_layers=2, n_layers=1), (2.0, 1.0)),
+                    (replace(cfg, n_encoder_layers=1, n_layers=2), (1.0, 2.0))],
+            full_trips=(float(cfg.n_encoder_layers), float(cfg.n_layers)))
+    if fam == "vlm":                      # groups of cross_attn_every
+        per = cfg.cross_attn_every
+        return ProbePlan(
+            probes=[(replace(cfg, n_layers=per), (1.0,)),
+                    (replace(cfg, n_layers=2 * per), (2.0,))],
+            full_trips=(float(cfg.n_layers // per),))
+    raise KeyError(fam)
+
+
+def solve_extrapolation(plan: ProbePlan,
+                        probe_costs: List[Dict[str, float]]) -> Dict[str, float]:
+    """Least-squares solve of cost = c0 + trips . c per metric key."""
+    keys = set()
+    for c in probe_costs:
+        keys.update(c)
+    a = np.array([[1.0, *trips] for _, trips in plan.probes])
+    out = {}
+    for k in keys:
+        b = np.array([c.get(k, 0.0) for c in probe_costs])
+        coef, *_ = np.linalg.lstsq(a, b, rcond=None)
+        full = coef[0] + float(np.dot(coef[1:], np.array(plan.full_trips)))
+        out[k] = max(full, 0.0)
+    return out
+
+
+def analytic_extra_flops(cfg: ArchConfig, shape: ShapeConfig,
+                         n_devices: int) -> float:
+    """Per-device FLOPs the trace leaves out: the sLSTM's time loop, which
+    the dry run steps once, not once a token (the reference's rolled
+    scan, which its cost analysis counts once)."""
+    if cfg.family != "ssm" or not (cfg.ssm and cfg.ssm.slstm_every):
+        return 0.0
+    n_slstm = cfg.n_layers // cfg.ssm.slstm_every
+    d = cfg.d_model
+    nh = cfg.attention.n_heads
+    hd = d // nh
+    steps = 1 if shape.kind == "decode" else shape.seq_len
+    per_step = 2 * nh * hd * 4 * hd + 40 * d      # R matmul + gate flops
+    total = n_slstm * steps * shape.global_batch * per_step
+    if shape.kind == "train":
+        total *= 3.0                              # fwd + bwd
+    return total / n_devices
+
+
+def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
+    """Useful-model FLOPs for the whole step (all devices)."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.tokens
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.tokens
+    return 2.0 * n_active * shape.global_batch    # one token per sequence
+
+
+@dataclass
+class RooflineTerms:
+    """A step's roofline on ``n_devices`` cards: the compute term at the
+    dense bf16 rate, the memory term at HBM3's, the wire term at
+    NVLink's."""
+    flops_per_dev: float
+    bytes_per_dev: float
+    coll_bytes_per_dev: float
+    n_devices: int
+    model_flops_total: float
+    coll_detail: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops_per_dev / PEAK_BF16_FLOPS
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes_per_dev / HBM_BW
+
+    @property
+    def collective_s(self) -> float:
+        return self.coll_bytes_per_dev / NVLINK_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_s(self) -> float:
+        """No-overlap upper bound on step time."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_ratio(self) -> float:
+        total = self.flops_per_dev * self.n_devices
+        return self.model_flops_total / total if total else 0.0
+
+    @property
+    def mfu_bound(self) -> float:
+        """Model-FLOPs utilization at the roofline bound."""
+        denom = self.step_s * self.n_devices * PEAK_BF16_FLOPS
+        return self.model_flops_total / denom if denom else 0.0
+
+    def to_dict(self) -> Dict:
+        return {
+            "flops_per_dev": self.flops_per_dev,
+            "bytes_per_dev": self.bytes_per_dev,
+            "coll_bytes_per_dev": self.coll_bytes_per_dev,
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "bottleneck": self.bottleneck,
+            "model_flops_total": self.model_flops_total,
+            "useful_ratio": self.useful_ratio,
+            "mfu_bound": self.mfu_bound,
+            "coll_detail": self.coll_detail,
+        }

@@ -15,7 +15,9 @@ folds the heads into the leading axis and calls the hand-written flash
 attention kernel (``kernels.ops.flash_attention``), whose contract is the
 one every prefill in the repo passes: queries at positions ``arange(S)``
 (``positions=None``), aligned to the keys' suffix; positions given as a
-tensor raise there.  Cross-attention (``kv_override``) hands the kernel
+tensor raise there.  Meta tensors (the dry run's trace) take the same
+route, to the kernel's shape-only stand-in.  Cross-attention
+(``kv_override``) hands the kernel
 keys of their own length Skv, never causal and with no window, so that no
 key is masked and the alignment does not matter (the encoder's 1500
 frames against a 400-token prompt, the VLM's 1601 image tokens against
@@ -332,7 +334,7 @@ def _attend(q, k, v, positions, pos, *, causal: bool,
     """The card's kernel route where the tensors lie on the card, the
     reference's chunked math elsewhere.  The keys sit at ``k_positions``
     (``k_pos`` resolved); where both are None, at the queries'."""
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         return flash_attention_heads(q, k, v, positions, k_positions,
                                      causal=causal, window=window)
     return attention_core(q, k, v, pos, pos if k_pos is None else k_pos,

@@ -7,7 +7,9 @@ state per head.  :func:`ssd_chunked` routes by where its tensors lie: on
 the card it calls the hand-written SSD scan kernel (``kernels.ops.
 ssd_scan``) with the heads folded into the lanes and B, C shared by the
 heads of a batch row; on the CPU it runs the reference's chunked math,
-ported line for line.  Decoding (``ssd_step``, ``causal_conv_step``) has
+ported line for line (meta tensors, the dry run's trace, take the card's
+route, to the kernel's shape-only stand-in).  Decoding (``ssd_step``,
+``causal_conv_step``) has
 no kernel in the reference and runs as plain PyTorch on either device.
 
 The mLSTM maps onto the same scan (decay = logsigmoid(f), the state
@@ -18,7 +20,8 @@ state's N and the value depth plus one as P (512 and 513 for
 xlstm-350m).  The sLSTM is a nonlinear recurrence; the reference runs it
 as a ``lax.scan`` outside any Pallas kernel, and the port as a Python loop
 of plain tensor ops over time, on either device (about twenty small
-launches a step on the card).
+launches a step on the card); on meta tensors one step stands for the
+loop.
 
 The reference's sharding ``rules`` argument is dropped (a no-op on one
 card).
@@ -49,7 +52,7 @@ def ssd_chunked(xbar, la, Bm, Cm, chunk: int):
     Bm, Cm: (B,S,N) f32 (shared across heads, n_groups=1).
     Returns y (B,S,H,P) f32 and final state (B,H,N,P).
     """
-    if xbar.is_cuda:
+    if xbar.is_cuda or xbar.is_meta:
         return _ssd_kernel_route(xbar, la, Bm, Cm, chunk)
     b, s, h, pdim = xbar.shape
     n = Bm.shape[-1]
@@ -391,11 +394,19 @@ def slstm_forward(p, cfg: ArchConfig, x, return_state: bool = False):
     carry = tuple(torch.zeros((b, nh, hd), dtype=F32, device=x.device)
                   for _ in range(4))
     r = p["r"].to(F32)
-    hs = []
-    for t in range(steps):
-        carry, h_t = slstm_cell(r, p["b"], nh, hd, carry, wx[:, t])
-        hs.append(h_t)
-    h = torch.stack(hs, dim=1).reshape(b, steps, d).to(x.dtype)
+    if x.is_meta:
+        # the dry run: one step stands for the loop (its operations are
+        # counted by launch/roofline.py's analytic_extra_flops), the
+        # others' outputs shaped alike
+        carry, h_t = slstm_cell(r, p["b"], nh, hd, carry, wx[:, 0])
+        h = h_t[:, None].expand(b, steps, nh, hd)
+    else:
+        hs = []
+        for t in range(steps):
+            carry, h_t = slstm_cell(r, p["b"], nh, hd, carry, wx[:, t])
+            hs.append(h_t)
+        h = torch.stack(hs, dim=1)
+    h = h.reshape(b, steps, d).to(x.dtype)
     h = rms_norm(h, p["gnorm"], cfg.norm_eps)
     u, v = torch.chunk(h @ p["up"], 2, dim=-1)
     out = x + (F.silu(u) * v) @ p["down"]

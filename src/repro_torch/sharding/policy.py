@@ -1,4 +1,12 @@
-"""The topology layer's bucket -> host placement policy.
+"""Named variants of the LM step for the dry run, and the topology
+layer's bucket -> host placement policy.
+
+A variant = (sharding-rule changes, model-build overrides); the dry run's
+``--variant NAME`` applies one.  The table is the JAX package's, field
+for field.  On one card only the overrides act (``attn_chunk``,
+``remat``, ``n_microbatch``): the port's layers take no sharding rules,
+so ``rules_update`` is kept as the reference states it and changes
+nothing here — ``no_seqpar`` and ``dp_heavy`` run as ``default`` does.
 
 ``place_bucket`` scores one megabatch bucket against every host's
 page-pool residency — stack-cached beats pages-resident beats cold — and
@@ -7,13 +15,58 @@ Both are pure functions of the observed pools/queues, so a drain's
 routing is reproducible; and because per-task keys are fixed at compile
 time, no placement they produce can move an estimate.
 
-The placement half of the JAX package's ``sharding/policy.py``, copied;
-its sharding-rule variants for the LM models are not ported.
+The JAX package's ``sharding/policy.py``, copied, less its
+``megabatch_specs`` (the PartitionSpecs of a multi-device program).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+
+@dataclass(frozen=True)
+class Variant:
+    name: str
+    description: str
+    rules_update: Dict[str, object] = field(default_factory=dict)
+    attn_chunk: Optional[int] = None
+    remat: Optional[str] = None
+    n_microbatch: Optional[int] = None
+
+
+VARIANTS: Dict[str, Variant] = {v.name: v for v in [
+    Variant("default", "paper-faithful baseline policy"),
+    Variant("no_seqpar",
+            "hypothesis: sequence-parallel residual constraint is causing "
+            "extra reshard traffic — drop it",
+            rules_update={"seq_shard": None}),
+    Variant("no_seqpar_m16",
+            "no_seqpar trades wire for replicated activation checkpoints; "
+            "recover HBM with 16 microbatches",
+            rules_update={"seq_shard": None}, n_microbatch=16),
+    Variant("dp_heavy",
+            "hypothesis: TP all-reduces dominate — shard FFN/heads over "
+            "(data,model) jointly and keep activations DP-only",
+            rules_update={"act_heads": None, "act_ff": None,
+                          "seq_shard": None}),
+    Variant("remat_dots",
+            "hypothesis: full remat recompute inflates the compute term — "
+            "save matmul outputs instead",
+            remat="dots"),
+    Variant("chunk512", "smaller attention KV chunks (less transient traffic)",
+            attn_chunk=512),
+    Variant("chunk2048", "larger attention KV chunks (fewer softmax passes)",
+            attn_chunk=2048),
+]}
+
+
+def apply_variant(variant: str) -> Variant:
+    """The variant named ``variant``; its ``rules_update`` acts on no
+    rules here (see above).  An unknown name raises ``KeyError``."""
+    if variant not in VARIANTS:
+        raise KeyError(f"unknown variant {variant!r}; known: "
+                       f"{sorted(VARIANTS)}")
+    return VARIANTS[variant]
 
 
 @dataclass(frozen=True)
