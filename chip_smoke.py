@@ -108,8 +108,19 @@ same_as_cpu, estimate_tall, shared_x, raw_request, estimate_irm,
 estimate_wave, wave_pool, session_wave, fusion, page_pool,
 estimate_quickstart, estimate_mlp, serve_zamba2, serve_deepseek,
 serve_dense, serve_xlstm, serve_whisper, serve_vlm, same_as_cpu_lm,
-train_dense, train_whisper, train_hybrid, train_xlstm, topology,
+train_dense, train_whisper, train_hybrid, train_xlstm, topology, mesh,
 topology_chaos, durable, sanitize, persist, examples, dryrun.
+
+The estimator on a mesh of more than one shard (phase mesh): the paper
+request through the sharded backend on 4 simulated shards of the card
+(the card repeated; each launch's lanes split over the shards, the
+fused launch run on each shard's 8 lanes of every block, the predictions
+gathered), cold and warm, bit for bit the one-device drain; the tall
+request on the mesh's data axis (each shard's rows through K3, the
+moments summed over the shards) against data@1; a forced feature@4 on
+the paper's bucket; a topology of 2 hosts of 2 shards; the shard tax
+measured on the mesh; and, with two or more cards, the same on the NCCL
+mesh of every card.
 """
 from __future__ import annotations
 
@@ -153,6 +164,9 @@ from repro_torch.kernels import (                          # noqa: E402
     build, crossfit_gram, flash_attention, megabatch, ops, ssd_scan,
 )
 from repro_torch.launch import dryrun, roofline            # noqa: E402
+from repro_torch.launch.mesh import (                      # noqa: E402
+    make_host_mesh, make_sim_mesh,
+)
 from repro_torch.learners import (                         # noqa: E402
     get_batched_learner, get_learner, kernel_ridge, linear,
 )
@@ -174,8 +188,8 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "estimate_mlp", "serve_zamba2", "serve_deepseek", "serve_dense",
           "serve_xlstm", "serve_whisper", "serve_vlm", "same_as_cpu_lm",
           "train_dense", "train_whisper", "train_hybrid", "train_xlstm",
-          "topology", "topology_chaos", "durable", "sanitize", "persist",
-          "examples", "dryrun")
+          "topology", "mesh", "topology_chaos", "durable", "sanitize",
+          "persist", "examples", "dryrun")
 LIBRARIES = ("megabatch", "lm", "attn_bwd", "ssd_bwd")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
@@ -259,6 +273,9 @@ MAIN_SHAPE = (32, 5104, 33)
 # morphed to 32) in one launch; the wave backend, 5 blocks a wave, then
 # the last full block and the morphed tail
 FUSED_PAPER_SHAPE = (1024, 5104, 33)
+# the same launch on each shard of the mesh phase's 4 simulated shards
+MESH_SHARDS = 4
+MESH_SHARD_SHAPE = (1024 // MESH_SHARDS, 5104, 33)
 FUSED_WAVE_SHAPES = ((160, 5104, 33), (64, 5104, 33))
 TALL_N = 250_000
 # the pool that launches every canonical block on its own, with pages
@@ -286,6 +303,12 @@ PATH_SHAPES = {
     "session_wave": (MAIN_SHAPE, (8, 5104, 33), (32, 5000, 33),
                      (24, 5000, 33)),
     "estimate_quickstart": QUICKSTART_SHAPES,
+    # the mesh phase: the paper's fused launch of 32 blocks on each of 4
+    # shards (8 lanes of every block a shard), the tall request's data@4
+    # predictions (its 20 tasks in a block of 24, each shard's 62500
+    # rows), the forced feature@4's blocks
+    "mesh": (MESH_SHARD_SHAPE, (24, 62500, 33), MAIN_SHAPE,
+             (8, 5104, 33)),
 }
 # the paths' shapes, then a ragged one (odd B, N and P below a tile) and
 # one whose N is a multiple of the kernels' row step
@@ -301,7 +324,10 @@ WIDE_GRAM_SHAPES = ((2, 1000, 2600),)
 # bitwise batched_gram on the merged (B, C*Nc, P)
 MAIN_BLOCKED_SHAPE = (32, 4, 62504, 33)
 TALL_BLOCKED_SHAPES = (MAIN_BLOCKED_SHAPE, (8, 4, 62504, 33))
-BLOCKED_SHAPES = TALL_BLOCKED_SHAPES + ((5, 3, 1003, 7), (32, 4, 65536, 33))
+# the mesh phase's data@4: each shard's 62500 rows in one chunk
+MESH_BLOCKED_SHAPE = (24, 1, 62500, 33)
+BLOCKED_SHAPES = TALL_BLOCKED_SHAPES + ((5, 3, 1003, 7), (32, 4, 65536, 33),
+                                        MESH_BLOCKED_SHAPE)
 # (T, N, P) of the shared-X Gram: the paper request's 1000 tasks in one
 # call (P 17 plus the intercept), a wide one (make_plr_data(60000, 200) at
 # M 4 x K 5 x L 2), a ragged one, and the opaque drain's per-lane call;
@@ -804,6 +830,9 @@ def phase_kernels(device):
             rows.update(batched_gram=gram, batched_predict=pred)
         if shape == FUSED_PAPER_SHAPE:
             rows["fused"] = {"batched_gram": gram, "batched_predict": pred}
+        if shape == MESH_SHARD_SHAPE:
+            rows["mesh_shard"] = {"batched_gram": gram,
+                                  "batched_predict": pred}
         if shape in (QUICKSTART_SHAPES[0], KR128_SHAPE):
             rows[f"p{shape[2]}"] = {"batched_gram": gram,
                                     "batched_predict": pred}
@@ -811,6 +840,9 @@ def phase_kernels(device):
         torch.cuda.empty_cache()
     report += _gram_unaligned_rows(device, gen)
     blocked, rows["batched_gram_blocked"] = _blocked_kernel_rows(device, gen)
+    rows["mesh_blocked"] = next(
+        r["batched_gram_blocked"] for r in blocked
+        if tuple(r["shape"]) == MESH_BLOCKED_SHAPE)
     xfit, rows["crossfit_gram"] = _xfit_kernel_rows(device, gen)
     attn, rows["flash_attention"] = _attn_kernel_rows(device, gen)
     rows["flash_attention"]["lse_write"] = _lse_write_cost(device, gen)
@@ -1928,11 +1960,7 @@ def _page_bytes(plan, data):
 def _counts(launches, calls):
     """The launch counts of a linear-learner drain: ``calls`` of K1 and of
     K2, no other kernel."""
-    return launches == {"batched_gram": calls, "batched_gram_blocked": 0,
-                        "batched_predict": calls, "crossfit_gram": 0,
-                        "flash_attention": 0,
-                        "flash_attention_bwd": 0, "ssd_scan": 0,
-                        "ssd_scan_bwd": 0}
+    return _mesh_counts(launches, calls)
 
 
 def _same_bits(res, res_ref, preds, preds_ref):
@@ -2465,7 +2493,8 @@ def phase_shared_x(device):
                             "batched_predict": 0, "crossfit_gram": 1,
                             "flash_attention": 0,
                             "flash_attention_bwd": 0, "ssd_scan": 0,
-                            "ssd_scan_bwd": 0}, launches
+                            "ssd_scan_bwd": 0, "mesh_sum": 0,
+                            "mesh_gather": 0}, launches
         assert seen["crossfit_gram"] == {MAIN_XFIT_SHAPE}, seen
         _launches_compared(seen, f"shared_x/{learner}")
         total += launches["crossfit_gram"]
@@ -2529,7 +2558,8 @@ def phase_raw_request(device):
                         "batched_predict": 0, "crossfit_gram": lanes,
                         "flash_attention": 0,
                         "flash_attention_bwd": 0, "ssd_scan": 0,
-                        "ssd_scan_bwd": 0}, (launches, lanes)
+                        "ssd_scan_bwd": 0, "mesh_sum": 0,
+                        "mesh_gather": 0}, (launches, lanes)
     assert seen["crossfit_gram"] == {LANE_XFIT_SHAPE}, seen
     _launches_compared(seen, "raw_request")
     info = linear.solve_failures(device)
@@ -3667,7 +3697,8 @@ def phase_serve_zamba2(device):
                         "flash_attention": n_bursts * groups,
                         "flash_attention_bwd": 0,
                         "ssd_scan": n_bursts * n_mamba,
-                        "ssd_scan_bwd": 0}, launches
+                        "ssd_scan_bwd": 0, "mesh_sum": 0,
+                        "mesh_gather": 0}, launches
     _launches_compared(seen, "serve_zamba2")
     assert bool(torch.stack(flags).all()), "serve_zamba2: a logit is not finite"
     assert len(flags) == n_bursts * SERVE_GEN
@@ -4632,6 +4663,248 @@ def phase_topology(device):
                    "predictions atol 5e-4, theta and se 1e-4 relative of "
                    "the sharded backend (estimate_tall's)")
     return launches, tall
+
+
+MESH_TALL_N_REP = 2
+MESH_WARM_RUNS = 3
+
+
+def _mesh_counts(launches, k1, k2=None, k3=0, sums=0, gathers=0):
+    """The launch counts of a mesh drain: ``k1`` calls of K1, ``k2`` of
+    K2 (``k1`` by default), ``k3`` of K3, and the collectives."""
+    return launches == {"batched_gram": k1, "batched_gram_blocked": k3,
+                        "batched_predict": k1 if k2 is None else k2,
+                        "crossfit_gram": 0, "flash_attention": 0,
+                        "flash_attention_bwd": 0, "ssd_scan": 0,
+                        "ssd_scan_bwd": 0, "mesh_sum": sums,
+                        "mesh_gather": gathers}
+
+
+def _counted_drain(sess, plan, data, what, device):
+    """One drain of ``plan`` on ``data``: launch counts set to 0 just
+    before and read just after; the repo's checks on the result; every
+    launch's shape compared (a K1-K3 shape the kernels phase did not
+    compare is held against the plain versions now, uncounted)."""
+    linear.reset_solve_status()
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _launch_shapes() as seen:
+        res = sess.estimate(plan, data)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launch_counts)
+    req = sess.request(res.request_id)
+    _checked(res, req, device, data.theta0 if data.theta0 is not None
+             else TRUE_EFFECT, what)
+    held = _launches_compared(seen, what, device)
+    return {"res": res, "preds": req.gathered_preds(), "wall_s": wall,
+            "launches": launches, "held": held,
+            "shapes": {k: sorted(v) for k, v in seen.items() if v}}
+
+
+def _decisions(sess):
+    return [{"axis": d.axis, "shards": d.shards, "executed": d.executed,
+             "n_tasks": d.n_tasks, "n_pad": d.n_pad, "p_pad": d.p_pad,
+             "est_s": d.est_s} for d in sess.last_run_info.axis_plans]
+
+
+def _mesh_checks(mesh, device, what):
+    """(a) the paper request on ``mesh`` cold and warm, bit for bit the
+    one-device drain; (b) the tall request on the mesh's data axis
+    against data@1; (c) a forced feature@m on the paper's bucket against
+    the task path."""
+    from repro_torch.compile.buckets import AxisDecision
+    from repro_torch.serverless import ShardedBackend
+    m = int(mesh.shape["data"])
+    out = {"shards": m, "collective": mesh.collective,
+           "devices": [str(d) for d in mesh.devices]}
+    bonus = DMLData.from_dict(make_bonus_data())
+    plan = _paper_plan()
+    one = DMLSession(backend="inline", device=device)
+    ref = _counted_drain(one, plan, bonus, f"{what}/one device", device)
+
+    # (a) cold, then warm
+    sess = DMLSession(backend=ShardedBackend(mesh=mesh))
+    planned = _planned_launches(compile_request(plan, bonus))
+    row = {}
+    for phase in ("cold", "warm"):
+        pages0 = sess.backend.pages.stats.snapshot()
+        run = _counted_drain(sess, plan, bonus, f"{what}/paper/{phase}",
+                             device)
+        stats = sess.backend.compiler.stats.summary()
+        pages = sess.backend.pages.stats.delta(pages0)
+        # one K1 and one K2 call a shard per fused kernel call
+        assert _mesh_counts(run["launches"], m * planned["kernel_calls"],
+                            gathers=planned["launches"]), \
+            (run["launches"], planned)
+        bits = _same_bits(run["res"], ref["res"], run["preds"],
+                          ref["preds"])
+        assert bits, f"{what}: {m} shards, {phase}: not bit for bit the " \
+            "one-device drain"
+        if phase == "warm":
+            assert pages.bytes_h2d == 0, pages
+        sharded_fused = [k for k in sess.backend.compiler._programs
+                         if len(k) == 5]
+        assert sharded_fused, "no sharded-fused program was built"
+        row[phase] = {
+            "wall_s": run["wall_s"], "launches": run["launches"],
+            "launches_per_shard": {
+                k: run["launches"][k] / m
+                for k in ("batched_gram", "batched_predict")},
+            "sharded_fused_launches": stats["fused_launches"],
+            "sharded_fused_programs": len(sharded_fused),
+            "shapes": run["shapes"], "held": run["held"],
+            "page_stats": pages.summary(), "axis_plans": _decisions(sess),
+            "theta": run["res"].theta, "se": run["res"].se,
+            "bitwise_equal_to_one_device": bits}
+    # the warm request on the mesh against one device, in turns
+    walls = {"mesh": [], "one_device": []}
+    for _ in range(MESH_WARM_RUNS):
+        for name, s_ in (("one_device", one), ("mesh", sess)):
+            _, wall = _timed_estimate(s_, plan, bonus)
+            walls[name].append(wall)
+    row["warm_wall_s"] = {k: statistics.median(v) for k, v in walls.items()}
+    row["warm_wall_samples_s"] = walls
+    row["planned_one_device"] = planned
+    out["paper"] = row
+
+    # (b) the tall request on the mesh's data axis
+    tall = DMLData.from_dict(make_plr_data(n_obs=TALL_N, dim_x=20,
+                                           theta=0.5))
+    tplan = DMLPlan.for_model("plr", learner="ridge",
+                              learner_params={"reg": 1.0}, n_folds=5,
+                              n_rep=MESH_TALL_N_REP, backend="sharded")
+    data1 = DMLSession(backend="sharded", device=device)
+    d1 = _counted_drain(data1, tplan, tall, f"{what}/tall/data@1", device)
+    sess = DMLSession(backend=ShardedBackend(mesh=mesh))
+    dm = _counted_drain(sess, tplan, tall, f"{what}/tall/data@{m}", device)
+    decisions = _decisions(sess)
+    on_data = all((d["axis"], d["executed"]) == ("data", "data")
+                  for d in decisions)
+    tall_row = {"decisions": decisions, "wall_s": dm["wall_s"],
+                "launches": dm["launches"], "shapes": dm["shapes"],
+                "held": dm["held"], "data1_wall_s": d1["wall_s"],
+                "data1_launches": d1["launches"]}
+    if on_data:
+        # a launch block: K3 and K2 on each shard, the sums of G, b and
+        # the weights, the gather of the predictions
+        blocks = sess.backend.compiler.stats.launches
+        assert _mesh_counts(dm["launches"], 0, m * blocks, k3=m * blocks,
+                            sums=3 * blocks, gathers=blocks), dm["launches"]
+        diff = float(np.abs(dm["preds"] - d1["preds"]).max())
+        rel = (abs(dm["res"].theta - d1["res"].theta) / abs(d1["res"].theta),
+               abs(dm["res"].se - d1["res"].se) / d1["res"].se)
+        assert diff <= 5e-4 and max(rel) < 1e-4, (diff, rel)
+        tall_row.update(max_abs_pred_diff_vs_data1=diff,
+                        rel_theta_se_vs_data1=rel)
+    out["tall"] = tall_row
+
+    # (c) a forced feature@m on the paper's bucket
+    req = compile_request(plan, bonus)
+    bplan = plan_buckets([req])
+    (key,) = bplan.buckets
+    entries = bplan.pending_by_bucket()[key]
+    dec = AxisDecision(bucket=key, axis="feature", shards=m,
+                       n_tasks=len(entries), n_pad=key.n_pad,
+                       p_pad=key.p_pad, mesh_devices=m)
+    cache = program.ProgramCache()
+    linear.reset_solve_status()
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _launch_shapes() as seen:
+        got = program.dispatch_bucket(bplan, cache, key, entries,
+                                      device=device, axis_decision=dec,
+                                      mesh=mesh).harvest()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launch_counts)
+    held = _launches_compared(seen, f"{what}/feature@{m}", device)
+    task = program.dispatch_bucket(bplan, program.ProgramCache(), key,
+                                   entries, device=device).harvest()
+    diff = max(float(np.abs(got[e] - task[e]).max()) for e in task)
+    assert dec.executed == "feature" and diff <= 5e-4, (dec.executed, diff)
+    assert linear.solve_failures(device) == 0
+    blocks = cache.stats.launches
+    assert _mesh_counts(launches, 0, m * blocks, gathers=3 * blocks), \
+        launches
+    out["feature"] = {"wall_s": wall, "launches": launches, "held": held,
+                      "max_abs_pred_diff_vs_task": diff,
+                      "shapes": {k: sorted(v) for k, v in seen.items()
+                                 if v}}
+    return out
+
+
+def phase_mesh(device):
+    """The estimator on a mesh of more than one shard: (a)-(c) of
+    ``_mesh_checks`` on 4 simulated shards of the card (the card
+    repeated: each shard's stage runs there in shard order, the
+    collectives a sum and a concatenation in shard order); (d) a
+    topology of 2 hosts of 2 shards each; (e) K1, K2 and K3 at the
+    shard shapes (the kernels phase compares and times them:
+    MESH_SHARD_SHAPE, MESH_BLOCKED_SHAPE); (f) the shard tax measured
+    on the simulated mesh; (g) the same (a)-(c) on the NCCL mesh of
+    every card, where there are two or more.  Launch counts are set to
+    0 just before each drain and read just after."""
+    from repro_torch.serverless.topology import Topology, TopologyBackend
+    sim = make_sim_mesh(MESH_SHARDS, device)
+    out = {"simulated": _mesh_checks(sim, device, "mesh")}
+    launches = out["simulated"]["paper"]["cold"]["launches"]
+    blocked = out["simulated"]["tall"]["launches"]["batched_gram_blocked"]
+
+    # (d) 2 hosts x 2 shards against the inline drain
+    bonus = DMLData.from_dict(make_bonus_data())
+    plan = _paper_default_plan()
+    (ref, ref_preds), = _inline_refs([(plan, bonus, TRUE_EFFECT)], device)
+    topo = Topology.simulated(2, device=device, shards_per_host=2)
+    sess = DMLSession(backend=TopologyBackend(PoolConfig(n_hosts=2),
+                                              topology=topo))
+    run = _topology_drain(sess, [(plan, bonus, TRUE_EFFECT)],
+                          "mesh/topology 2x2", device)
+    (res,), (preds,) = run["results"], run["preds"]
+    decisions = _decisions(sess)
+    if all(d["executed"] == "task" for d in decisions):
+        bits = _same_bits(res, ref, preds, ref_preds)
+        assert bits, "mesh/topology 2x2: not bit for bit the inline drain"
+    else:
+        bits = False
+        _agree(res, ref, preds, ref_preds, "mesh/topology 2x2")
+    out["topology_2x2"] = {
+        k: run[k] for k in ("wall_s", "launches", "hosts", "waves",
+                            "steals", "held")}
+    out["topology_2x2"].update(
+        decisions=decisions, bitwise_equal_to_inline=bits,
+        host_sharded_caches=len(sess.backend._host_compilers),
+        placements=[{"bucket": list(k), "host": h, "score": s}
+                    for k, (h, s) in run["placements"].items()])
+
+    # (f) the shard tax on the simulated mesh
+    out["shard_overhead_frac"] = roofline.measure_shard_overhead_frac(sim)
+    out["launch_overhead_s"] = roofline.launch_overhead_s()
+
+    # (g) the NCCL mesh of every card
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        nccl = make_host_mesh("cuda")
+        assert nccl.collective == "nccl"
+        out["nccl"] = {"ran": True, **_mesh_checks(nccl, device,
+                                                   "mesh/nccl")}
+    else:
+        out["nccl"] = {"ran": False, "cards": n_cards,
+                       "why": "one CUDA device: an NCCL mesh needs two or "
+                              "more distinct cards; its route is written "
+                              "and unverified here"}
+    emit("mesh", card=smi_line(), **out,
+         tolerance="paper on the mesh: bit for bit the one-device drain "
+                   "(ridge keeps a lane's bits at any batch count); tall "
+                   "data@m and forced feature@m: predictions atol 5e-4 "
+                   "(the reference's axis tier), theta and se 1e-4 "
+                   "relative; topology 2x2: bit for bit the inline drain "
+                   "on the task axis, else the float tier; K1-K3 at the "
+                   "shard shapes: the kernels phase's tiers")
+    return {"batched_gram": launches["batched_gram"],
+            "batched_predict": launches["batched_predict"],
+            "batched_gram_blocked": blocked}
 
 
 def _chaos_drain(pool, job, ref, ref_preds, device):
@@ -5816,6 +6089,9 @@ def main(argv=None) -> int:
     topo_launches = None
     if "topology" in phases:
         topo_launches = phase_topology(device)
+    mesh_launches = None
+    if "mesh" in phases:
+        mesh_launches = phase_mesh(device)
     if "topology_chaos" in phases:
         phase_topology_chaos(device)
     if "durable" in phases:
@@ -5908,7 +6184,11 @@ def main(argv=None) -> int:
                      xlstm_train_launches["ssd_scan_bwd"]},
              "batched_gram_blocked": {
                  "launches_topology":
-                     topo_launches[1]["batched_gram_blocked"]},
+                     topo_launches[1]["batched_gram_blocked"],
+                 "launches_mesh": mesh_launches["batched_gram_blocked"],
+                 "mesh_shard": {"shape": list(MESH_BLOCKED_SHAPE),
+                                **{k: rows["mesh_blocked"][k]
+                                   for k in keys}}},
              "ssd_scan": {**{k: rows["ssd_scan"][k] for k in (
                  "bound_ms_at_f32_fma", "cuda_launches_per_call",
                  "scratch_bytes")},
@@ -5921,9 +6201,15 @@ def main(argv=None) -> int:
     # the wave path (estimate_wave, cold) on both pools, and their rows at
     # the fused paper shape (1024 lanes: the 32 blocks of one launch); on
     # the quickstart (kernel_ridge, cold) and their rows at P 257 and 129;
-    # on the topology path (the paper at 2 hosts, cold; K3: the tall run)
+    # on the topology path (the paper at 2 hosts, cold; K3: the tall run);
+    # on the mesh phase (the paper at 4 simulated shards, cold: K1 and K2
+    # at the shard shape; K3: the tall run's data@4) and their rows at
+    # the shard shapes
     for name in ("batched_gram", "batched_predict"):
         extra[name].update(
+            launches_mesh=mesh_launches[name],
+            mesh_shard={"shape": list(MESH_SHARD_SHAPE),
+                        **{k: rows["mesh_shard"][name][k] for k in keys}},
             launches_per_block=per_block[name],
             launches_estimate_wave=wave_launches[0][name],
             launches_estimate_wave_per_block=wave_launches[1][name],

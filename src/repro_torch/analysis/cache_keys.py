@@ -43,10 +43,7 @@ from repro_torch.analysis.report import Finding
 EXPECTED_CACHES: Tuple[str, ...] = (
     "program_cache",            # ProgramCache.program
     "fused_program_cache",      # ProgramCache.fused_program
-    # the reference's thirteenth, "sharded_fused_program_cache" (the
-    # shard_map-wrapped fused form), waits for the multi-card mesh
-    # (ROADMAP items 10/11b): on one card the sharded backend fuses as
-    # inline does, through fused_program_cache
+    "sharded_fused_program_cache",  # ProgramCache.sharded_fused_program
     "block_layouts",            # compile/program.py::_request_block_layout
     "block_tensors",            # compile/program.py::_block_tensors
     "fold_in_key_tables",       # serverless/backends.py::_segment_key_table
@@ -59,7 +56,7 @@ EXPECTED_CACHES: Tuple[str, ...] = (
     # (PersistentProgramCache._process_put) is what lookup() and store()
     # both remember through
     "persistent_program_cache_process_tier",
-    # the in-mesh axis programs on one card (sharding/gram.py): one per
+    # the in-mesh axis programs (sharding/gram.py): one per
     # (mesh, mesh_axis, family, params), standalone Gram form and the
     # drain's bucket fit-predict form sharing each cache
     "data_gram_programs",       # sharding/gram.py::_data_gram_fn

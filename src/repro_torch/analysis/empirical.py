@@ -24,12 +24,16 @@ fusion phase and the tests named in the README's table):
   (d) **no data-dependent shapes** — a program's outputs have the shape
       ``(key, b_pad, d_pad)`` fixes, whatever the data
       (``data-dependent-shape``);
-  (e) **the axis programs' reassembly on one card** — data@1 sums
-      per-row-block moments and feature@1 gathers the rows: both equal
-      the Gram of the whole rows (``data-axis-psums-moments``,
-      ``feature-axis-gathers-rows``).  The m > 1 half, and the
-      sharded-fused form's wrapping of the fused body, wait for the
-      multi-card mesh (ROADMAP items 10/11b).
+  (e) **the axis programs' reassembly** — on one device and on a
+      simulated mesh of 4 shards, data@m sums the shards' moments and
+      feature@m gathers the rows: both equal the Gram of the whole rows
+      (``data-axis-psums-moments``, ``feature-axis-gathers-rows``);
+  (f) **the sharded-fused program wraps the fused body** — on a
+      simulated mesh of 4 shards, a sharded-fused launch gives the
+      predictions of the unsharded fused launch (bit for bit for the
+      families of ``MORPH_BITWISE_FAMILIES``, whose lanes keep their
+      bits at the shards' B/4, within 1e-6 for the others: the
+      reference's sharded tier) (``sharded-fused-wraps-scan``).
 
 Each check returns ``Finding`` records; ``run()`` is the pass
 ``python -m repro_torch.analysis`` runs as ``empirical``.
@@ -232,11 +236,11 @@ def check_no_data_dependent_shapes() -> List[Finding]:
 
 
 def check_axis_reassembly() -> List[Finding]:
-    """(e) data@1 sums row-block moments, feature@1 gathers the rows."""
-    from repro_torch.launch.mesh import make_host_mesh
+    """(e) data@m sums the shards' moments, feature@m gathers the rows,
+    on one device and on 4 simulated shards."""
+    from repro_torch.launch.mesh import make_host_mesh, make_sim_mesh
     from repro_torch.sharding import gram
     out: List[Finding] = []
-    mesh = make_host_mesh("cpu")
     pages, didx, y, w, _, _ = _operands(5, 4)
     xs = pages[didx]
     g_ref, b_ref = ops.batched_gram(xs, w, y)
@@ -246,19 +250,49 @@ def check_axis_reassembly() -> List[Finding]:
              for s in (slice(0, half), slice(half, N_PAD))]
     g_sum = parts[0][0] + parts[1][0]
     tol = 1e-5 * float(g_ref.abs().max())
-    for rule, (g, b) in (
-            ("data-axis-sums-moments", gram.data_parallel_gram(
-                mesh, xs, w, y)),
-            ("feature-axis-gathers-rows", gram.feature_parallel_gram(
-                mesh, xs, w, y))):
-        err = max(float((g - g_ref).abs().max()),
-                  float((g - g_sum).abs().max()),
-                  float((b - b_ref).abs().max()))
-        if err > tol:
+    for mesh in (make_host_mesh("cpu"), make_sim_mesh(4, "cpu")):
+        m = mesh.shape["data"]
+        for rule, (g, b) in (
+                ("data-axis-sums-moments", gram.data_parallel_gram(
+                    mesh, xs, w, y)),
+                ("feature-axis-gathers-rows", gram.feature_parallel_gram(
+                    mesh, xs, w, y))):
+            err = max(float((g - g_ref).abs().max()),
+                      float((g - g_sum).abs().max()),
+                      float((b - b_ref).abs().max()))
+            if err > tol:
+                out.append(Finding(
+                    "empirical", rule, "sharding/gram.py",
+                    f"on {m} shards the reassembled statistics are "
+                    f"{err:.3g} off the Gram of the whole rows (tolerance "
+                    f"{tol:.3g})"))
+    return out
+
+
+def check_sharded_fused_wraps_fused_body() -> List[Finding]:
+    """(f) a sharded-fused launch on 4 simulated shards gives the
+    unsharded fused launch's predictions."""
+    from repro_torch.launch.mesh import make_sim_mesh
+    from repro_torch.serverless.backends import make_sharded_compiler
+    out: List[Finding] = []
+    for fam in FAMILIES:
+        key = _key(fam)
+        ops_ = _operands(6, 8, g=2)
+        fused = ProgramCache(persist=None).fused_program(
+            key, 8, 2, 2, _thunk(fam))(*ops_)
+        sharded = make_sharded_compiler(make_sim_mesh(4, "cpu"))
+        got = sharded.sharded_fused_program(key, 8, 2, 2, _thunk(fam))(
+            *ops_)
+        if fam in MORPH_BITWISE_FAMILIES:
+            ok, tier = torch.equal(got, fused), "bit for bit"
+        else:
+            ok, tier = torch.allclose(got, fused, rtol=1e-6,
+                                      atol=2e-6), "within 1e-6"
+        if not ok or tuple(got.shape) != (2, 8, N_PAD):
             out.append(Finding(
-                "empirical", rule, "sharding/gram.py",
-                f"the reassembled statistics are {err:.3g} off the Gram "
-                f"of the whole rows (tolerance {tol:.3g})"))
+                "empirical", "sharded-fused-wraps-scan", fam,
+                f"a sharded-fused launch of 2 blocks on 4 shards is not "
+                f"{tier} the unsharded fused launch"))
     return out
 
 
@@ -266,7 +300,9 @@ CHECKS = {"fused-equals-single-block": check_fused_equals_single_block,
           "no-data-derived-prng": check_no_data_derived_prng,
           "morph-classes": check_morph_classes,
           "no-data-dependent-shapes": check_no_data_dependent_shapes,
-          "axis-reassembly": check_axis_reassembly}
+          "axis-reassembly": check_axis_reassembly,
+          "sharded-fused-wraps-fused-body":
+              check_sharded_fused_wraps_fused_body}
 
 
 def run() -> List[Finding]:

@@ -41,6 +41,14 @@ stream both are no-ops.
 Keeping D equal to the launch's own page count (pow2-bucketed), rather
 than the pool's total, keeps program shapes independent of pool history.
 
+A pool on an NCCL mesh (the sharded backend's over several cards) holds
+each page and stack once on each other card of the mesh too
+(``replicas``; sharding/collectives.py::hold_replicas), as the JAX
+package replicates its pages over its mesh; the shards read them there.
+The replicas are the pool's tensors' shadows: ``PageStats`` counts what
+the pool holds on its own device, as the JAX package's counts what its
+pool holds, and a replica leaves with the tensor it copies.
+
 ``PageStats`` feeds the session telemetry (hit rate, bytes uploaded vs
 saved, evictions, stack reuse).  ``PageDirectory`` is the cluster-wide
 map of which pool holds which page: a pool that misses locally but whose
@@ -215,6 +223,8 @@ class PagePool:
         if directory is not None:
             directory.attach(self)
         self.stats = PageStats()
+        # the other cards of an NCCL mesh, each holding every page too
+        self.replicas: Tuple[torch.device, ...] = ()
         self._pages: "OrderedDict[PageKey, torch.Tensor]" = OrderedDict()
         self._nbytes: Dict[PageKey, int] = {}
         self._page_bytes = 0
@@ -255,9 +265,12 @@ class PagePool:
         return self._page_bytes + self._stack_bytes
 
     # ---- cross-stream safety ------------------------------------------
-    def _mark_written(self, key) -> None:
-        """Record that the tensor under ``key`` was just written on the
-        current stream."""
+    def _mark_written(self, key, t: torch.Tensor) -> None:
+        """Record that ``t``, held under ``key``, was just written on the
+        current stream, and copy it to the replica cards."""
+        if self.replicas:
+            from repro_torch.sharding.collectives import hold_replicas
+            hold_replicas(t, self.replicas)
         if self.device.type == "cuda":
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))
@@ -300,7 +313,7 @@ class PagePool:
             host[0, :x.shape[0], :x.shape[1]] = x
             page = upload(host, self.device)             # the one upload
             self.stats.bytes_h2d += nbytes
-        self._mark_written(pkey)
+        self._mark_written(pkey, page)
         self._pages[pkey] = page
         self._nbytes[pkey] = nbytes
         self._page_bytes += nbytes
@@ -405,7 +418,7 @@ class PagePool:
                                device=self.device)
             lanes = lanes + [zero] * (d_pad - len(lanes))
         stack = torch.cat(lanes)
-        self._mark_written(skey)
+        self._mark_written(skey, stack)
         self.stats.stack_builds += 1
         self._stacks[skey] = stack
         self._stack_bytes += d_pad * n_pad * p_pad * 4

@@ -45,6 +45,19 @@ A bucket the axis planner put on the data or feature axis launches the
 in-mesh program of sharding/gram.py instead (the data form streams the
 rows through the CUDA ``batched_gram_blocked``); such launches take the
 pooled pages and the tail packing but never fuse.
+
+**Partitioned caches**: the sharded backend's cache on a mesh of m > 1
+shards (serverless/backends.py::make_sharded_compiler) wraps every
+program in ``partition`` — the task axis split over the mesh's shards,
+each shard's lanes run on its device, the predictions gathered
+(sharding/collectives.py::shard_map) — and every fused program in
+``partition_fused`` around the fused body (``sharded_fused_program``).
+The backend pads B to a multiple of m (``b_align``).  A shard runs B/m
+lanes, so a family of ``MORPH_BITWISE_FAMILIES`` gives every lane the
+one-device bits, and any other family sits in the float tier of a
+lane at another batch count.  A partitioned cache never looks its
+kernel library up in the persistent store, as the JAX package never
+persists a partitioned program.
 ``dispatch_bucket`` enqueues a bucket slice's launches on the device
 without waiting for them: operands are staged through pinned host
 buffers and copied ``non_blocking``, and each launch's result is copied
@@ -226,6 +239,31 @@ def fused_spans(g: int, b_pad: int, n_pad: int, p_pad: int,
     return [(lo, min(lo + per_call, g)) for lo in range(0, g, per_call)]
 
 
+def _fused_body(key: BucketKey, b_pad: int, g: int,
+                batched_fn: Callable) -> Callable:
+    """The body of one launch of ``g`` blocks of ``b_pad`` lanes over a
+    union page stack: a family of ``FUSED_CONCAT_FAMILIES`` calls
+    ``batched_fn`` on the blocks' lanes laid end to end (split by
+    ``fused_spans``), any other once per block."""
+    spans = fused_spans(g, b_pad, key.n_pad, key.p_pad,
+                        bucket_family(key) in FUSED_CONCAT_FAMILIES)
+
+    def run_fused(pages, data_idx, y, w, valid, key_data):
+        outs = []
+        for lo, hi in spans:
+            lanes = (hi - lo) * b_pad
+            xb = pages[data_idx[lo:hi].reshape(lanes)]
+            out = batched_fn(
+                xb, y[lo:hi].reshape(lanes, -1),
+                w[lo:hi].reshape(lanes, -1),
+                valid[lo:hi].reshape(lanes, -1),
+                key_data[lo:hi].reshape((lanes,) + key_data.shape[2:]))
+            outs.append(out.reshape(hi - lo, b_pad, -1))
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    return run_fused
+
+
 class ProgramCache:
     """Spec-keyed cache of megabatch programs.
 
@@ -239,11 +277,27 @@ class ProgramCache:
     ``REPRO_PROGRAM_CACHE_DIR`` configures, else none).  With a store, a
     program's first launch on a CUDA device looks its kernel library up
     in it (``CompileStats.disk_hits``/``disk_misses``).
+
+    ``partition`` / ``partition_fused``: the transforms that spread a
+    program's (a fused program's) task axis over a mesh; with
+    ``partition_fused`` a partitioned cache fuses.  ``partition_axes``
+    names the mesh axes and their sizes the transforms close over, part
+    of every sharded-fused program's key.  A partitioned cache has no
+    store.
     """
 
-    def __init__(self, persist: object = "auto"):
+    def __init__(self, persist: object = "auto",
+                 partition: Optional[Callable] = None,
+                 partition_fused: Optional[Callable] = None,
+                 partition_axes: Optional[Tuple] = None):
         self._programs: Dict[Tuple, Callable] = {}
-        self.persist: Optional[PersistentProgramCache] = \
+        self.partition = partition
+        self.partition_fused = partition_fused
+        self.partition_axes = tuple(partition_axes) if partition_axes \
+            else None
+        partitioned = partition is not None or partition_fused is not None
+        self.persist: Optional[PersistentProgramCache] = None \
+            if partitioned else \
             default_persist() if persist == "auto" else persist
         self.stats = CompileStats()
 
@@ -287,7 +341,11 @@ class ProgramCache:
             xb = pages[data_idx]                       # (B, N_pad, P_pad)
             return batched_fn(xb, y, w, valid, key_data)
 
-        prog = self._programs[pkey] = self._looks_up_library(pkey, key, run)
+        if self.partition is not None:
+            prog = self.partition(run)
+        else:
+            prog = self._looks_up_library(pkey, key, run)
+        self._programs[pkey] = prog
         return prog
 
     @warm_cache(name="fused_program_cache",
@@ -307,25 +365,39 @@ class ProgramCache:
             self.stats.hits += 1
             return prog
         self.stats.misses += 1
-        batched_fn = fn_thunk()
-        spans = fused_spans(g, b_pad, key.n_pad, key.p_pad,
-                            bucket_family(key) in FUSED_CONCAT_FAMILIES)
-
-        def run_fused(pages, data_idx, y, w, valid, key_data):
-            outs = []
-            for lo, hi in spans:
-                lanes = (hi - lo) * b_pad
-                xb = pages[data_idx[lo:hi].reshape(lanes)]
-                out = batched_fn(
-                    xb, y[lo:hi].reshape(lanes, -1),
-                    w[lo:hi].reshape(lanes, -1),
-                    valid[lo:hi].reshape(lanes, -1),
-                    key_data[lo:hi].reshape((lanes,) + key_data.shape[2:]))
-                outs.append(out.reshape(hi - lo, b_pad, -1))
-            return outs[0] if len(outs) == 1 else torch.cat(outs)
-
+        run_fused = _fused_body(key, b_pad, g, fn_thunk())
         prog = self._programs[pkey] = self._looks_up_library(pkey, key,
                                                              run_fused)
+        return prog
+
+    # The sharded-fused program closes over the mesh the partition_fused
+    # transform was built with, so the mesh axes (names + sizes) join the
+    # cache key — the same bucket on a mesh of another size is another
+    # program.  A partitioned cache has no store (__init__).
+    @warm_cache(name="sharded_fused_program_cache",
+                key=("key", "b_pad", "d_pad", "g", "self.partition_axes"),
+                reads=("fn_thunk",), covers={"key": ("fn_thunk",)},
+                ambient=("self",))
+    def sharded_fused_program(self, key: BucketKey, b_pad: int, d_pad: int,
+                              g: int,
+                              fn_thunk: Callable[[], Callable]) -> Callable:
+        """The fused launch spread over the mesh: ``partition_fused``
+        around the fused body, the task axis split and the block axis G
+        replicated (``megabatch_specs(fused=True)``).  Each shard runs
+        the same fused body as ``fused_program`` on its B/m lanes of
+        every block, on its device, and the predictions are gathered on
+        the task axis — so a partitioned drain packs its blocks into
+        fused launches instead of one launch a block."""
+        pkey = (key, b_pad, d_pad, g, ("mesh",) + self.partition_axes)
+        prog = self._programs.get(pkey)
+        if prog is not None:
+            self.stats.hits += 1
+            return prog
+        self.stats.misses += 1
+        shards = dict(self.partition_axes)["data"]
+        prog = self.partition_fused(
+            _fused_body(key, b_pad // shards, g, fn_thunk()))
+        self._programs[pkey] = prog
         return prog
 
     def shapes(self) -> List[Tuple[int, int, int]]:
@@ -899,6 +971,9 @@ def dispatch_bucket(plan: MegabatchPlan, cache: ProgramCache,
             coalesce=coalesce, morph_tolerance=morph_tolerance)
     if axis_decision is not None:
         axis_decision.executed = "task"
+    # a partitioned cache fuses only with its sharded-fused transform
+    fuse = fuse and (cache.partition is None
+                     or cache.partition_fused is not None)
     can_morph = morph_allowed(key, morph_tolerance)
     morph = coalesce and can_morph
     lblocks = _coalesce(blocks, b_block, b_align, morph, fuse)
@@ -945,8 +1020,10 @@ def dispatch_bucket(plan: MegabatchPlan, cache: ProgramCache,
             ys[gi], ws[gi], valids[gi], kds[gi] = y, w, valid, kd
             didx[gi] = _launch_didx(plan, pages, lb, lane_of, n_pad, p_pad)
             _book(cache, pad_acc, plan, key, lb)
-        prog = cache.fused_program(key, b_pad, int(pages_t.shape[0]), g,
-                                   lambda: segment_batched_fn(seg))
+        fused_program = cache.fused_program \
+            if cache.partition_fused is None else cache.sharded_fused_program
+        prog = fused_program(key, b_pad, int(pages_t.shape[0]), g,
+                             lambda: segment_batched_fn(seg))
         out = prog(pages_t, *(upload(a, device)
                               for a in (didx, ys, ws, valids, kds)))
         launches.append(Launch.queue(out, list(group), fused=True))

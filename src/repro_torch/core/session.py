@@ -58,7 +58,10 @@ from repro_torch.core.crossfit import (
 )
 from repro_torch.core.scores import evaluate_score, score_se, solve_theta
 from repro_torch.core.spec import DMLData, DMLPlan, _hashable
-from repro_torch.launch.roofline import measure_launch_overhead_s
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.roofline import (
+    measure_launch_overhead_s, measure_shard_overhead_frac,
+)
 from repro_torch.learners import resolve_params
 from repro_torch.runtime import DeviceLike, resolve_device
 from repro_torch.serverless.backends import (
@@ -218,6 +221,16 @@ def assemble_result(plan: DMLPlan, data: DMLData, req: WorkRequest,
 # ---------------------------------------------------------------------------
 # the session: continuous-admission drain engine
 # ---------------------------------------------------------------------------
+def _planning_mesh(backend):
+    """The mesh the backend's axis planner prices shards on: the sharded
+    backend's, the first topology host's, else the one-device mesh of the
+    backend's device."""
+    mesh = getattr(backend, "mesh", None)
+    if mesh is None and hasattr(backend, "topology"):
+        mesh = backend.topology.hosts[0].mesh
+    return mesh if mesh is not None else make_host_mesh(backend.device)
+
+
 @dataclass
 class _Pending:
     request_id: int
@@ -286,8 +299,10 @@ class DMLSession:
                  session_dir: Optional[str] = None):
         self.backend = make_backend(backend, pool, device=device)
         self.device = self.backend.device   # an instance keeps its own
-        # price the axis planner's launch overhead on this device
+        # price the axis planner's launch overhead on this device, and
+        # its shard tax on the mesh the backend plans for
         measure_launch_overhead_s(self.device)
+        measure_shard_overhead_frac(_planning_mesh(self.backend))
         self.session_dir = session_dir
         if session_dir is not None:
             os.makedirs(session_dir, exist_ok=True)

@@ -147,6 +147,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "smem_grant.cuh"
 
 namespace {
 
@@ -1248,17 +1249,6 @@ bool ab_map3(EncodeTiled enc, CUtensorMap* m, const void* ptr, int bh,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// dynamic shared memory above the 48 KB default needs an opt-in per kernel
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted)
-{
-    if (bytes <= 48 * 1024 || bytes <= *granted) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err == cudaSuccess) *granted = bytes;
-    return err;
-}
-
 // the launch of (2) and (3) at the depth class (DQK, DV), after delta
 template <int DQK, int DV>
 cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v,
@@ -1270,8 +1260,8 @@ cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v,
 {
     using C = AbCfg<DQK, DV, 1>;
     constexpr int SMEM = ab_smem_bytes<C>();
-    static size_t granted = 0;
-    cudaError_t err = allow_smem(attn_bwd_kernel<DQK, DV>, SMEM, &granted);
+    static SmemGrant grant;
+    cudaError_t err = allow_smem(attn_bwd_kernel<DQK, DV>, SMEM, &grant);
     if (err != cudaSuccess) return err;
     const EncodeTiled enc = encoder();
     if (enc == nullptr) return cudaErrorNotSupported;
@@ -1313,9 +1303,9 @@ cudaError_t launch_attn_bwd_f32(const void* qp, const void* kp,
 {
     using C = AbCfg<DQK, DV, AB_PARTS>;
     constexpr int SMEM = ab_smem_bytes<C>();
-    static size_t granted = 0;
+    static SmemGrant grant;
     cudaError_t err = allow_smem(attn_bwd_f32_kernel<DQK, DV>, SMEM,
-                                 &granted);
+                                 &grant);
     if (err != cudaSuccess) return err;
     const EncodeTiled enc = encoder();
     if (enc == nullptr) return cudaErrorNotSupported;

@@ -35,6 +35,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_grant.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -1406,17 +1408,6 @@ ssd_out_kernel(const float* __restrict__ xbar, const float* __restrict__ la,
     }
 }
 
-// dynamic shared memory above the 48 KB default needs an opt-in per kernel
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted)
-{
-    if (bytes <= 48 * 1024 || bytes <= *granted) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err == cudaSuccess) *granted = bytes;
-    return err;
-}
-
 // launch the bfloat16 kernel at depths DQK, DV (Dqk, Dv rounded up to 16)
 template <int DQK, int DV, bool LSE>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
@@ -1424,10 +1415,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       int causal, int window, float scale,
                       cudaStream_t stream)
 {
-    static size_t granted = 0;
+    static SmemGrant grant;
     const size_t smem = tc_smem_bytes(DQK, DV);
     const cudaError_t err = allow_smem(
-        flash_attention_tc_kernel<DQK, DV, LSE>, smem, &granted);
+        flash_attention_tc_kernel<DQK, DV, LSE>, smem, &grant);
     if (err != cudaSuccess) return err;
     const dim3 grid(bh, (sq + TC_BQ - 1) / TC_BQ);
     flash_attention_tc_kernel<DQK, DV, LSE>
@@ -1446,10 +1437,10 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
                         int causal, int window, float scale, bool vec4,
                         cudaStream_t stream)
 {
-    static size_t granted = 0;
+    static SmemGrant grant;
     const size_t smem = tf_smem_bytes(DQK, DV);
     const cudaError_t err = allow_smem(
-        flash_attention_tf32_kernel<DQK, DV, LSE>, smem, &granted);
+        flash_attention_tf32_kernel<DQK, DV, LSE>, smem, &grant);
     if (err != cudaSuccess) return err;
     const int n_qt = (sq + tf_bq(DQK) - 1) / tf_bq(DQK);
     const dim3 grid(bh, n_qt < 65535 ? n_qt : 65535);
@@ -1545,11 +1536,11 @@ extern "C" int repro_ssd_scan(const void* xbar, const void* la,
         || (long long)ntn * npt > 65535
         || (long long)n * p > 65535LL * SSD_PASS_THREADS)
         return (int)cudaErrorInvalidValue;
-    static size_t granted_states = 0, granted_out = 0;
+    static SmemGrant grant_states, grant_out;
     cudaError_t err = allow_smem(ssd_states_kernel, SSD_STATES_SMEM,
-                                 &granted_states);
+                                 &grant_states);
     if (err == cudaSuccess)
-        err = allow_smem(ssd_out_kernel, SSD_OUT_SMEM, &granted_out);
+        err = allow_smem(ssd_out_kernel, SSD_OUT_SMEM, &grant_out);
     if (err != cudaSuccess) return (int)err;
     const cudaStream_t st = (cudaStream_t)stream;
     const bool vec4 = n % 4 == 0 && p % 4 == 0

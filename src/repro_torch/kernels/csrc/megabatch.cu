@@ -25,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_grant.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -1077,20 +1079,17 @@ crossfit_gram_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // launch one instance; dynamic shared memory above 48 KB is opted in once
+// on each device
 template <int SUB, int TT, bool SPAN>
 cudaError_t launch_xfit(const void* x, const void* w, const void* y, void* g,
                         void* bv, int t, int n, int p, int n_tiles,
                         int slots, int packs, int chunks, int ring, int m,
                         size_t smem, cudaStream_t stream)
 {
-    static size_t granted = 0;
-    if (smem > 48 * 1024 && smem > granted) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            crossfit_gram_kernel<SUB, TT, SPAN>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-        granted = smem;
-    }
+    static SmemGrant grant;
+    const cudaError_t err = allow_smem(crossfit_gram_kernel<SUB, TT, SPAN>,
+                                       smem, &grant);
+    if (err != cudaSuccess) return err;
     const int tasks = packs * TT;
     const dim3 grid(chunks * ((t + tasks - 1) / tasks),
                     n_tiles * (n_tiles + 1) / 2);
@@ -1254,27 +1253,23 @@ batched_predict_kernel(const float* __restrict__ xs,
 }
 
 // launch one instance and its combine; dynamic shared memory above 48 KB
-// is opted in once
+// is opted in once on each device
 template <int SI, int SJ, bool PANELS>
 cudaError_t launch_gram(const void* xs, const void* w, const void* y, void* g,
                         void* bv, void* part, const int* table, int b, int n,
                         int p, int chunks, const GramLayout& lay, size_t smem,
                         cudaStream_t stream)
 {
-    static size_t granted = 0;
-    if (smem > 48 * 1024 && smem > granted) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            batched_gram_kernel<SI, SJ, PANELS>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-        granted = smem;
-    }
+    static SmemGrant grant;
+    cudaError_t err = allow_smem(batched_gram_kernel<SI, SJ, PANELS>, smem,
+                                 &grant);
+    if (err != cudaSuccess) return err;
     const int wc = (lay.per_cta + 31) / 32;
     batched_gram_kernel<SI, SJ, PANELS><<<dim3(GRAM_GROUPS * chunks, b),
                                   32 * gram_warps(wc), smem, stream>>>(
         (const float*)xs, (const float*)w, (const float*)y, (float*)part,
         table, n, p, lay);
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     batched_gram_combine_kernel<SI, SJ><<<dim3(chunks, b, SI * SJ), 32 * wc,
                                           0, stream>>>(
@@ -1375,17 +1370,12 @@ extern "C" int repro_batched_predict(const void* xs, const void* beta,
                                      const void* valid, void* out,
                                      int b, int n, int p, void* stream)
 {
-    static size_t granted = 0;
+    static SmemGrant grant;
     const PredLayout lay = pred_layout(p, PRED_SPAN);
     const size_t smem = pred_smem_bytes(lay.rows, lay.stride, p);
     if (smem > (size_t)PRED_SMEM_MAX) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024 && smem > granted) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            batched_predict_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        granted = smem;
-    }
+    const cudaError_t err = allow_smem(batched_predict_kernel, smem, &grant);
+    if (err != cudaSuccess) return (int)err;
     const dim3 grid((n + lay.rows - 1) / lay.rows, b);
     batched_predict_kernel<<<grid, lay.threads, smem,
                              (cudaStream_t)stream>>>(

@@ -189,6 +189,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "smem_grant.cuh"
 
 namespace {
 
@@ -1807,24 +1808,16 @@ extern "C" int repro_ssd_scan_bwd(const void* xbar, const void* la,
         return (int)cudaErrorInvalidValue;
     const EncodeTiled enc = encoder();
     if (enc == nullptr) return (int)cudaErrorNotSupported;
-    static bool granted = false;
-    if (!granted) {
-        cudaError_t e = cudaFuncSetAttribute(
-            ssd_bwd_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            Ring<M_STATE>::SMEM);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(
-                ssd_bwd_band_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                Ring<M_BANDS>::SMEM);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(
-                ssd_bwd_wide_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                Ring<M_WIDE>::SMEM);
-        if (e != cudaSuccess) return (int)e;
-        granted = true;
-    }
+    static SmemGrant grant_state, grant_band, grant_wide;
+    cudaError_t e = allow_smem(ssd_bwd_state_kernel, Ring<M_STATE>::SMEM,
+                               &grant_state);
+    if (e == cudaSuccess)
+        e = allow_smem(ssd_bwd_band_kernel, Ring<M_BANDS>::SMEM,
+                       &grant_band);
+    if (e == cudaSuccess)
+        e = allow_smem(ssd_bwd_wide_kernel, Ring<M_WIDE>::SMEM,
+                       &grant_wide);
+    if (e != cudaSuccess) return (int)e;
     const cudaStream_t st = (cudaStream_t)stream;
 
     Params prm;

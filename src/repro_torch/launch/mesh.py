@@ -1,17 +1,31 @@
-"""Device meshes for the in-mesh executors (sharding/gram.py).
+"""Device meshes for the sharded programs and the in-mesh executors.
 
 A ``DeviceMesh`` is a hashable grid of devices with the JAX package's
-axis names ``("data", "model")``; it keys the in-mesh program cache and
-tells the planner how many shards the "data" axis has.  Only the 1 x 1
-mesh on one device exists so far: the executors' collectives over NCCL
-(``torch.distributed``) are later work, so a mesh of more than one device
-raises ``NotImplementedError``.
+axis names ``("data", "model")``; it keys the in-mesh program caches and
+tells the planner how many shards the "data" axis has.  Its devices are
+one of two kinds, and the mesh records which (``collective``):
+
+``"nccl"``   every device a distinct CUDA device: a shard runs on its own
+             card and the collectives (sharding/collectives.py) are
+             NCCL's, called from this one process over all the cards, as
+             the JAX package's session drives all of its devices from
+             one controller;
+``"local"``  one device repeated: the counterpart of the JAX package's
+             forced host device count
+             (``--xla_force_host_platform_device_count``).  Each shard
+             runs its body on that device, and a collective is a sum or
+             a concatenation in shard order there.  The one-device mesh
+             is this kind with one shard.
+
+A mesh that mixes the two, or repeats some of several devices, raises
+``ValueError``: the caller picks the mesh, and nothing turns one kind
+into the other.
 
 The topology backend's host streams are built from these meshes:
-``make_sim_host_meshes`` gives N simulated hosts one one-device mesh each
-on the same device, and
-``split_pod_meshes`` carves a mesh with a leading "pod" axis into one mesh
-per pod (every mesh the port can build has none).
+``make_sim_host_meshes`` gives N simulated hosts their meshes over the
+visible devices, reusing them round-robin when there are fewer than
+hosts, and ``split_pod_meshes`` carves a mesh with a leading "pod" axis
+into one mesh per pod.
 """
 from __future__ import annotations
 
@@ -44,10 +58,14 @@ class DeviceMesh:
         if size != len(self.devices):
             raise ValueError(f"mesh dims {self.dims} hold {size} devices, "
                              f"got {len(self.devices)}")
-        if size > 1:
-            raise NotImplementedError(
-                f"a mesh of {size} devices needs collectives over NCCL, "
-                "which are not ported yet; only the one-device mesh runs")
+        distinct = set(self.devices)
+        if len(distinct) > 1 and (
+                len(distinct) != len(self.devices)
+                or any(d.type != "cuda" for d in distinct)):
+            raise ValueError(
+                f"a mesh's devices are either distinct CUDA devices (NCCL) "
+                f"or one device repeated (a simulated mesh); got "
+                f"{[str(d) for d in self.devices]}")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -55,14 +73,53 @@ class DeviceMesh:
         return dict(zip(self.axis_names, self.dims))
 
     @property
+    def collective(self) -> str:
+        """``"nccl"`` over distinct cards, ``"local"`` on one device."""
+        return "local" if len(set(self.devices)) == 1 else "nccl"
+
+    @property
     def device(self) -> torch.device:
-        """The device of a one-device mesh."""
+        """The lead device: where a program's operands and results live
+        and the page pool keeps its pages."""
         return self.devices[0]
+
+    @property
+    def shard_devices(self) -> Tuple[torch.device, ...]:
+        """The device of each shard of the "data" axis, in shard order.
+        The estimator's programs split over "data" alone, so every other
+        axis must have size 1."""
+        shape = self.shape
+        if any(size != 1 for name, size in shape.items() if name != "data"):
+            raise ValueError(f"the estimator shards over 'data' only; mesh "
+                             f"{shape} has another axis of more than 1")
+        return self.devices
+
+
+def _visible(device: DeviceLike) -> List[torch.device]:
+    """Every visible CUDA device for ``"cuda"`` without an index, else the
+    one device asked for (the CPU only when asked)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        resolve_device(dev)                    # raises where there is none
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [resolve_device(dev)]
 
 
 def make_host_mesh(device: DeviceLike = "cuda") -> DeviceMesh:
-    """The 1 x 1 ("data", "model") mesh on ``device``."""
-    return DeviceMesh(devices=(resolve_device(device),))
+    """The (n, 1) ("data", "model") mesh over every visible CUDA device
+    (``"cuda"``), as the JAX package's spans ``jax.device_count()``; the
+    1 x 1 mesh on a device named with its index, or on the CPU."""
+    devs = _visible(device)
+    return DeviceMesh(devices=tuple(devs), dims=(len(devs), 1))
+
+
+def make_sim_mesh(n_shards: int, device: DeviceLike = "cuda") -> DeviceMesh:
+    """A simulated (n_shards, 1) mesh: ``device`` repeated, the
+    counterpart of the JAX package's forced host device count."""
+    dev = resolve_device(device)
+    return DeviceMesh(devices=(dev,) * int(n_shards),
+                      dims=(int(n_shards), 1))
 
 
 def split_pod_meshes(mesh: DeviceMesh) -> List[DeviceMesh]:
@@ -81,12 +138,21 @@ def split_pod_meshes(mesh: DeviceMesh) -> List[DeviceMesh]:
             for i in range(mesh.dims[pod_axis])]
 
 
-def make_sim_host_meshes(n_hosts: int,
-                         device: DeviceLike = "cuda") -> List[DeviceMesh]:
-    """N simulated host meshes, each the one-device mesh on ``device`` —
-    pure simulation, as the JAX package reuses its devices round-robin
-    when it has fewer than hosts: residency stays separate because each
-    host owns its own page pool, and each host's work runs on its own
-    CUDA stream (serverless/topology.py).  Spreading hosts over several
-    cards waits for the multi-device meshes."""
-    return [make_host_mesh(device) for _ in range(n_hosts)]
+def make_sim_host_meshes(n_hosts: int, device: DeviceLike = "cuda",
+                         shards_per_host: int = 1) -> List[DeviceMesh]:
+    """N simulated host meshes of ``shards_per_host`` shards each over the
+    visible devices (``_visible``): split contiguously, and a host the
+    devices run out for reuses one device round-robin for all its shards,
+    as the JAX package reuses its devices when it has fewer than hosts.
+    Residency stays separate because each host owns its own page pool,
+    and on the card each host's work runs on its own CUDA stream
+    (serverless/topology.py)."""
+    devs = _visible(device)
+    per = int(shards_per_host)
+    meshes = []
+    for h in range(n_hosts):
+        group = devs[h * per:(h + 1) * per]
+        if len(group) < per:
+            group = [devs[h % len(devs)]] * per
+        meshes.append(DeviceMesh(tuple(group), (per, 1)))
+    return meshes

@@ -5,7 +5,9 @@ The DML half of the JAX package's ``launch/roofline.py``: analytic
 operations and bytes of one task lane, the launch overhead, and the
 per-bucket axis candidates the planner (compile/buckets.py) picks from.
 Pure arithmetic on shapes — no device access — except
-``measure_launch_overhead_s``, which times the device it is given.
+``measure_launch_overhead_s``, which times the device it is given, and
+``measure_shard_overhead_frac``, which times a launch spread over the
+mesh it is given.
 
 The LM half (``ProbePlan``, ``probe_plan``, ``solve_extrapolation``,
 ``analytic_extra_flops``, ``model_flops``, ``RooflineTerms``) is the
@@ -15,7 +17,8 @@ three small depths and extrapolates the layer stacks linearly to the full
 depth; ``model_flops`` is the useful work of a step (6 N tokens to train,
 2 N to prefill), the numerator of the model-FLOPs share (MFU).  The
 reference's HLO-text parser of collective bytes has no counterpart: a
-PyTorch trace has no HLO, and one card has no collective.
+PyTorch trace has no HLO; the mesh collectives
+(sharding/collectives.py) are counted in ``runtime.launch_counts``.
 
 Hardware model: one NVIDIA H100 SXM (data sheet): 67 TFLOP/s plain float32
 (the estimator's kernels use plain FMA, no tensor cores), 989 TFLOP/s
@@ -184,16 +187,79 @@ def bucket_deadline_s(learner: str, params, tasks_per_invocation: int,
 DEVICE_PAGE_ROWS = 1 << 16
 
 # Dispatch tax of an m-way launch relative to the single-device program,
-# as a fraction of one launch overhead per extra shard.  The JAX package
-# measures it per session; here it stays the constant until a multi-GPU
-# mesh exists: on one card it only prices data@1 in the logged candidate
-# table and never changes a decision.
+# as a fraction of one launch overhead per extra shard.  This constant is
+# the FALLBACK an unmeasured process prices with (the JAX package's);
+# ``measure_shard_overhead_frac`` replaces it with a measurement on the
+# mesh a session runs on.
 SHARD_OVERHEAD_FRAC = 0.15
+
+# (device kind, collective, shards) -> measured fraction; the most recent
+# measurement prices
+_MEASURED_SHARD_OVERHEAD_FRAC: Dict[Tuple[str, str, int], float] = {}
+_LAST_SHARD_OVERHEAD_FRAC: Optional[float] = None
 
 
 def shard_overhead_frac() -> float:
-    """Per-extra-shard dispatch tax (fraction of one launch overhead)."""
+    """Per-extra-shard dispatch tax (fraction of one launch overhead):
+    the latest session measurement when one has been taken, else the
+    fallback constant."""
+    if _LAST_SHARD_OVERHEAD_FRAC is not None:
+        return _LAST_SHARD_OVERHEAD_FRAC
     return SHARD_OVERHEAD_FRAC
+
+
+def measure_shard_overhead_frac(mesh, repeats: int = 20) -> float:
+    """Measure the dispatch tax of a launch spread over ``mesh``: a no-op
+    (``x + 1``) plain on the lead device against the same no-op through
+    ``sharding/collectives.py::shard_map`` over the mesh's shards (split,
+    one launch a shard, the gather), each warm, the median of
+    ``repeats`` calls ending in a synchronise.  The extra time, as a
+    fraction of one plain launch per extra shard — the ``launch_cost``
+    model ``axis_candidate_costs`` charges; a one-shard mesh measures
+    the wrapper's own tax as one extra shard — clamped to [0.02, 2.0].
+    Memoized per (device kind, collective, shard count); the value
+    becomes what ``shard_overhead_frac`` returns.  A failed measurement
+    raises; the probe's own collectives are not left in
+    ``runtime.launch_counts``."""
+    global _LAST_SHARD_OVERHEAD_FRAC
+    from repro_torch import runtime
+    from repro_torch.sharding.collectives import shard_map
+    dev = mesh.device
+    m = len(mesh.shard_devices)
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else dev.type
+    memo = (kind, mesh.collective, m)
+    frac = _MEASURED_SHARD_OVERHEAD_FRAC.get(memo)
+    if frac is None:
+        x = torch.zeros((8 * m,), dtype=torch.float32, device=dev)
+        plain = lambda t: t + 1.0                       # noqa: E731
+        sharded = shard_map(plain, mesh, (0,), 0)
+
+        def median_s(fn) -> float:
+            def once():
+                fn(x)
+                for d in set(mesh.devices):
+                    if d.type == "cuda":
+                        torch.cuda.synchronize(d)
+            once()                              # first launch: set-up
+            samples = []
+            for _ in range(max(int(repeats), 3)):
+                t0 = time.perf_counter()
+                once()
+                samples.append(time.perf_counter() - t0)
+            return statistics.median(samples)
+
+        counts = dict(runtime.launch_counts)
+        try:
+            t_plain = max(median_s(plain), 1e-7)
+            t_sharded = median_s(sharded)
+        finally:
+            runtime.launch_counts.update(counts)
+        extra = max(t_sharded - t_plain, 0.0)
+        frac = min(max(extra / (t_plain * max(m - 1, 1)), 0.02), 2.0)
+        _MEASURED_SHARD_OVERHEAD_FRAC[memo] = frac
+    _LAST_SHARD_OVERHEAD_FRAC = frac
+    return frac
 
 
 #: families whose fit is a pure function of (X'X, X'y): the data-parallel

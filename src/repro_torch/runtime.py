@@ -6,7 +6,9 @@
 ``launch_counts``    one plain integer per hand-written kernel, bumped by
                      the kernel's wrapper exactly where it launches (and
                      nowhere else), so a run can show that it really went
-                     through the kernels.
+                     through the kernels; and one per mesh collective
+                     (sharding/collectives.py), bumped where it combines
+                     the shards of a mesh of more than one.
 ``refuse_grad``      the check of every CUDA wrapper whose kernel has no
                      backward (K1-K4: the reference never differentiates
                      them): an input that needs a gradient raises instead
@@ -32,12 +34,14 @@ DeviceLike = Union[str, torch.device]
 # kernel name -> launches since the last reset (see kernels/megabatch.py,
 # kernels/crossfit_gram.py, kernels/flash_attention.py and
 # kernels/ssd_scan.py); "flash_attention_bwd" and "ssd_scan_bwd" count
-# calls of K5's and K6's backward wrappers (several CUDA launches each)
+# calls of K5's and K6's backward wrappers (several CUDA launches each);
+# "mesh_sum" and "mesh_gather" count the collectives over a mesh's shards
 launch_counts: Dict[str, int] = {"batched_gram": 0, "batched_gram_blocked": 0,
                                  "batched_predict": 0, "crossfit_gram": 0,
                                  "flash_attention": 0,
                                  "flash_attention_bwd": 0, "ssd_scan": 0,
-                                 "ssd_scan_bwd": 0}
+                                 "ssd_scan_bwd": 0, "mesh_sum": 0,
+                                 "mesh_gather": 0}
 
 
 def reset_launch_counts() -> None:

@@ -32,9 +32,10 @@ everything, step until idle).
                   (compile/buckets.py::plan_bucket_axis), logged on
                   ``BackendRunInfo.axis_plans`` and executed — a bucket
                   taller than one device page streams its rows through
-                  the blocked Gram kernel (sharding/gram.py).  Only the
-                  one-device mesh exists so far; there its task path is
-                  the inline task path, bit for bit.
+                  the blocked Gram kernel (sharding/gram.py).  On a mesh
+                  of m > 1 shards the task path splits every launch's
+                  lanes over the shards (``make_sharded_compiler``); on
+                  one device it is the inline task path, bit for bit.
   TopologyBackend (serverless/topology.py) per-host drain streams:
                   buckets routed to the host whose PagePool already
                   holds their pages, idle hosts steal, each host's waves
@@ -900,6 +901,11 @@ class _BucketStreamBackend(_StreamBackend):
     that dispatches bucket k+1 books bucket k's results while the device
     executes, so host booking overlaps device execution."""
 
+    def _b_align(self) -> int:
+        """The multiple a launch's B is padded to: the shard count of a
+        partitioned program (1 on one device)."""
+        return 1
+
     def _plan_axis(self, state: DrainState, bkey, entries):
         """Parallelization-axis planning hook: a single-device stream
         has nothing to shard, so the default plans nothing; a mesh-owning
@@ -923,7 +929,8 @@ class _BucketStreamBackend(_StreamBackend):
 
     def _hedge_dispatch_kwargs(self, state: DrainState, bkey, entries,
                                host: int) -> Dict:
-        return {"axis_decision": self._plan_axis(state, bkey, entries),
+        return {"b_align": self._b_align(),
+                "axis_decision": self._plan_axis(state, bkey, entries),
                 "mesh": self._axis_mesh()}
 
     def step(self, state: DrainState) -> bool:
@@ -950,8 +957,8 @@ class _BucketStreamBackend(_StreamBackend):
             running.setdefault(ri, []).append(inv)
         for ri, invs in running.items():
             state.requests[ri].ledger.mark_running(invs)
-        bd = self._dispatch(state, bkey, entries, axis_decision=decision,
-                            mesh=self._axis_mesh())
+        bd = self._dispatch(state, bkey, entries, b_align=self._b_align(),
+                            axis_decision=decision, mesh=self._axis_mesh())
         self._push_bucket(state, q, bd, book)
         state.seen_buckets.add(bkey)
         state.info.buckets = len(state.seen_buckets)
@@ -977,18 +984,42 @@ class InlineBackend(_BucketStreamBackend):
 # ---------------------------------------------------------------------------
 # ShardedBackend — the bucket drain over a device mesh
 # ---------------------------------------------------------------------------
+def make_sharded_compiler(mesh) -> "ProgramCache":
+    """A ProgramCache whose programs spread over ``mesh``'s "data" axis:
+    unfused programs split their task axis over the shards, and fused
+    launches go through the sharded-fused program, the fused body run on
+    each shard's lanes (``megabatch_specs(fused=True)``), so a
+    partitioned cache fuses as an unpartitioned one does.  The mesh axes
+    (names and sizes) are the cache's ``partition_axes``, part of every
+    sharded-fused program's key."""
+    from repro_torch.sharding.collectives import shard_map
+    from repro_torch.sharding.policy import megabatch_specs
+    in_dims, out_dim = megabatch_specs("data")
+    fin_dims, fout_dim = megabatch_specs("data", fused=True)
+    mesh.shard_devices                  # raises on a mesh it cannot split
+    axes = tuple((str(a), int(mesh.shape[a])) for a in mesh.axis_names)
+    return _compile().ProgramCache(
+        partition=lambda fn: shard_map(fn, mesh, in_dims, out_dim),
+        partition_fused=lambda fn: shard_map(fn, mesh, fin_dims, fout_dim),
+        partition_axes=axes)
+
+
 class ShardedBackend(_BucketStreamBackend):
-    """The megabatch drain over ``mesh`` (default: the one-device mesh on
-    ``device``).  Every bucket's parallelization axis is roofline-priced
-    once per drain (compile/buckets.py::plan_bucket_axis), logged on
-    ``BackendRunInfo.axis_plans`` and executed: on one device a bucket
-    whose N_pad fits one device page runs the task program — the inline
-    backend's, from the same kind of ``ProgramCache``, bit for bit, fused
-    as the inline backend fuses (on a one-device mesh the fused program
-    is the unpartitioned one) — and a taller Gram-family bucket runs the
-    data@1 program, which streams its rows as N-chunks through
-    ``batched_gram_blocked`` (pooled pages and tail packing, never
-    fused)."""
+    """The megabatch drain over ``mesh`` (default: ``make_host_mesh`` of
+    ``device``, every visible card for ``"cuda"``).  Every bucket's
+    parallelization axis is roofline-priced once per drain on the mesh's
+    shard count (compile/buckets.py::plan_bucket_axis), logged on
+    ``BackendRunInfo.axis_plans`` and executed: a data or feature
+    decision runs the in-mesh program of sharding/gram.py on the mesh (a
+    taller bucket than one device page streams its rows through
+    ``batched_gram_blocked``; pooled pages and tail packing, never
+    fused), and the task path runs the megabatch programs.  On a mesh of
+    m > 1 shards those come from ``make_sharded_compiler``: B padded to
+    a multiple of m, each shard's lanes on its device, fused launches
+    through the sharded-fused program.  On one device the task path is
+    the inline backend's, from the same kind of ``ProgramCache``, bit
+    for bit.  The page pool lives on the mesh's lead device and, on an
+    NCCL mesh, holds every page once on each card."""
     name = "sharded"
 
     def __init__(self, pool: Optional[PoolConfig] = None,
@@ -998,9 +1029,16 @@ class ShardedBackend(_BucketStreamBackend):
         self.mesh = make_host_mesh(device) if mesh is None else mesh
         self.device = self.mesh.device
         self._init_pools()
+        if self._n_shards() > 1:
+            self.compiler = make_sharded_compiler(self.mesh)
+        if self.pages is not None and self.mesh.collective == "nccl":
+            self.pages.replicas = self.mesh.shard_devices
 
     def _n_shards(self) -> int:
         return int(self.mesh.shape["data"])
+
+    def _b_align(self) -> int:
+        return self._n_shards()
 
     def _plan_axis(self, state: DrainState, bkey, entries):
         """Price the bucket's axis candidates on this mesh, log the
@@ -1016,6 +1054,7 @@ class ShardedBackend(_BucketStreamBackend):
         return state.axis_planned[memo_key]
 
     def _axis_mesh(self):
+        """Data/feature decisions lower onto this backend's mesh."""
         return self.mesh
 
 
@@ -1375,9 +1414,15 @@ BACKEND_NAMES = tuple(BACKENDS) + ("topology",)
 
 
 def make_backend(backend, pool: Optional[PoolConfig] = None,
-                 device: DeviceLike = "cuda"):
-    """Resolve a backend name (or pass through an instance)."""
+                 device: DeviceLike = "cuda", mesh=None):
+    """Resolve a backend name (or pass through an instance); ``mesh``
+    (launch/mesh.py) is the sharded backend's."""
+    if mesh is not None and backend != "sharded":
+        raise ValueError(f"a mesh is the sharded backend's, not "
+                         f"{backend!r}'s")
     if isinstance(backend, str):
+        if backend == "sharded":
+            return ShardedBackend(pool, device=device, mesh=mesh)
         if backend == "topology":
             from repro_torch.serverless.topology import TopologyBackend
             return TopologyBackend(pool, device=device)

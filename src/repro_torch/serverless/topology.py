@@ -1,14 +1,16 @@
 """The topology layer: per-host drain streams with locality-aware bucket
 placement.
 
-The single-stream backends run one drain over one device.  This module
+The single-stream backends run one drain over one mesh.  This module
 models the *cluster*: a ``Topology`` of host meshes, each owning a
-per-host device-resident ``PagePool`` (all pools sharing one
-``PageDirectory``), one drain stream and — on the card — one CUDA stream.
-The hosts are simulated: every host's mesh is the one-device mesh on the
-same card (launch/mesh.py::make_sim_host_meshes), as the JAX package
-reuses its devices when it has fewer than hosts, and what separates them
-is their page pools and their streams.  ``TopologyBackend`` is the
+per-host device-resident ``PagePool`` on its mesh's lead device (all
+pools sharing one ``PageDirectory``), one drain stream and — on the card
+— one CUDA stream.  The hosts are simulated
+(launch/mesh.py::make_sim_host_meshes): each owns a mesh of
+``shards_per_host`` shards over the visible devices, reused round-robin
+when there are fewer than hosts, as the JAX package reuses its devices;
+on one card every host's mesh repeats that card, and what separates the
+hosts is their page pools and their streams.  ``TopologyBackend`` is the
 scheduler over them:
 
   * **placement** — every megabatch bucket is routed to a host by
@@ -36,10 +38,14 @@ scheduler over them:
     independently, pricing cold candidates with the roofline's
     per-bucket estimates until measured durations take over.
   * **axis planning** — every bucket's parallelization axis is
-    roofline-priced on its host's mesh (``plan_bucket_axis``); a tall
-    Gram bucket (``n_pad > DEVICE_PAGE_ROWS``) takes the data@1 program
-    on its host, which streams its rows through the blocked Gram kernel
-    as the sharded backend does.
+    roofline-priced on its host's mesh (``plan_bucket_axis``): a bucket
+    priced task-parallel over a mesh of m > 1 shards dispatches through
+    that host's own sharded program cache (sharded-fused launches on its
+    mesh, B padded to m), every other task bucket through the shared
+    cache, and a data or feature decision runs the in-mesh program on
+    the host's mesh — a tall Gram bucket (``n_pad > DEVICE_PAGE_ROWS``)
+    streams its rows through the blocked Gram kernel as the sharded
+    backend does, and goes only to hosts whose data axis divides it.
   * **fault tolerance** — chaos pools draw identity-keyed verdicts at
     booking (serverless/chaos.py) exactly as the single-stream backends
     do; overdue buckets are hedged onto the least-loaded *other* live
@@ -54,7 +60,11 @@ Determinism: placement and stealing only decide *where* a bucket's
 program runs; per-task keys are fixed at compile time and every host
 runs the programs of one shared ``ProgramCache`` (a program is a closure
 over the kernel wrappers, which launch on the current stream; it holds
-no device tensor), so the results are bit for bit the inline backend's.
+no device tensor), so the buckets the planner keeps on the task axis of
+one device are bit for bit the inline backend's.  A bucket on a host's
+sharded cache runs B/m lanes a shard: bit for bit for the families of
+``MORPH_BITWISE_FAMILIES``, in the float tier for the others
+(compile/program.py).
 """
 from __future__ import annotations
 
@@ -70,7 +80,7 @@ from repro_torch.runtime import DeviceLike
 from repro_torch.serverless.autoscale import TopologyAutoscaler
 from repro_torch.serverless.backends import (
     BackendRunInfo, DrainState, PoolConfig, _compile, _StreamBackend,
-    roofline_pending_inv_s,
+    make_sharded_compiler, roofline_pending_inv_s,
 )
 from repro_torch.serverless.chaos import chaos_plan
 from repro_torch.serverless.dispatch import (
@@ -148,21 +158,25 @@ class Topology:
             dev = mesh.device
             stream = torch.cuda.Stream(device=dev) \
                 if dev.type == "cuda" else None
-            hosts.append(HostMesh(
-                host_id=i, mesh=mesh, device=dev,
-                pool=PagePool(page_pool_bytes, host_id=i,
-                              directory=directory, device=dev),
-                stream=stream))
+            pool = PagePool(page_pool_bytes, host_id=i,
+                            directory=directory, device=dev)
+            if mesh.collective == "nccl":
+                pool.replicas = mesh.devices
+            hosts.append(HostMesh(host_id=i, mesh=mesh, device=dev,
+                                  pool=pool, stream=stream))
         return cls(hosts, directory)
 
     @classmethod
     def simulated(cls, n_hosts: int,
                   page_pool_bytes: int = 256 * 1024 * 1024,
-                  device: DeviceLike = "cuda") -> "Topology":
-        """N simulated hosts on ``device``."""
+                  device: DeviceLike = "cuda",
+                  shards_per_host: int = 1) -> "Topology":
+        """N simulated hosts of ``shards_per_host`` shards each
+        (launch/mesh.py::make_sim_host_meshes)."""
         from repro_torch.launch.mesh import make_sim_host_meshes
-        return cls._from_meshes(make_sim_host_meshes(n_hosts, device),
-                                page_pool_bytes)
+        return cls._from_meshes(
+            make_sim_host_meshes(n_hosts, device, shards_per_host),
+            page_pool_bytes)
 
     @classmethod
     def from_mesh(cls, mesh,
@@ -261,10 +275,11 @@ class TopologyBackend(_StreamBackend):
                 self.pool.page_pool_bytes or 0, device)
         self.topology = topology
         self.device = topology.hosts[0].device
-        # one program cache for every host: the reference's per-host
-        # sharded-fused caches serve multi-device hosts, which the port
-        # cannot build yet
+        # one program cache for every host's single-device launches, and
+        # per host of m > 1 shards its own sharded cache, built on first
+        # use on its mesh and booking into the shared stats
         self.compiler = _compile().ProgramCache()
+        self._host_compilers: Dict[int, object] = {}
         self.autoscaler = TopologyAutoscaler(self.pool, len(topology)) \
             if self.pool.autoscale else None
         self.pages = None               # per-host pools live on the topology
@@ -399,26 +414,44 @@ class TopologyBackend(_StreamBackend):
             state.info.axis_plans.append(decision)
         return decision
 
+    def _host_compiler(self, host_id: int):
+        """This host's sharded program cache, built on its mesh at first
+        use; it books into the backend's one ``CompileStats``."""
+        cache = self._host_compilers.get(host_id)
+        if cache is None:
+            cache = make_sharded_compiler(self.topology.hosts[host_id].mesh)
+            cache.stats = self.compiler.stats
+            self._host_compilers[host_id] = cache
+        return cache
+
     def _bucket_compiler(self, host_id: int, decision):
-        """(program cache, axis mesh) one bucket dispatches through on
-        this host: the shared cache *plus the host's mesh* when the
-        planner picked a data/feature layout — ``dispatch_bucket`` lowers
+        """(program cache, b_align, axis mesh) one bucket dispatches
+        through on this host: the host's sharded cache, B padded to its
+        shard count, when the planner picked an m-way task layout on a
+        host of m > 1 shards; the shared cache *plus the host's mesh*
+        when it picked a data/feature layout — ``dispatch_bucket`` lowers
         those through the in-mesh Gram executors (sharding/gram.py),
         chunk-streaming tall N; the shared cache alone otherwise."""
+        if decision is not None and decision.axis == "task" \
+                and decision.shards > 1 \
+                and self.topology.hosts[host_id].n_devices > 1:
+            return self._host_compiler(host_id), decision.shards, None
         if decision is not None and decision.axis in ("data", "feature"):
-            return self.compiler, self.topology.hosts[host_id].mesh
-        return self.compiler, None
+            return self.compiler, 1, self.topology.hosts[host_id].mesh
+        return self.compiler, 1, None
 
     def _dispatch(self, state: TopologyDrainState, bkey, entries, *,
-                  host: int, **kw):
-        """Launch one bucket slice on ``host``: its device, its page pool
-        (none when the pool's budget is 0 — the pool-off contract stacks
-        pages on the host per launch) and, for everything the launch
-        enqueues, its stream."""
+                  host: int, compiler=None, **kw):
+        """Launch one bucket slice on ``host`` through ``compiler`` (the
+        shared cache by default): its device, its page pool (none when
+        the pool's budget is 0 — the pool-off contract stacks pages on
+        the host per launch) and, for everything the launch enqueues,
+        its stream."""
         h = self.topology.hosts[host]
         with h.on_stream():
             return _compile().dispatch_bucket(
-                state.plan, self.compiler, bkey, entries, device=h.device,
+                state.plan, compiler or self.compiler, bkey, entries,
+                device=h.device,
                 pages=h.pool if h.pool.byte_budget > 0 else None,
                 **self._dispatch_opts(), **kw)
 
@@ -490,8 +523,10 @@ class TopologyBackend(_StreamBackend):
             for ri, invs in running.items():
                 state.requests[ri].ledger.mark_running(invs)
             decision = self._plan_host_axis(state, key, ents, host_id)
-            _, axis_mesh = self._bucket_compiler(host_id, decision)
+            compiler, b_align, axis_mesh = self._bucket_compiler(host_id,
+                                                                 decision)
             bd = self._dispatch(state, key, ents, host=host_id,
+                                compiler=compiler, b_align=b_align,
                                 axis_decision=decision, mesh=axis_mesh)
             self._push_bucket(state, q, bd, book, host=host_id)
             state.seen_buckets.add(key)
@@ -504,11 +539,13 @@ class TopologyBackend(_StreamBackend):
     # ---- fault tolerance ----------------------------------------------
     def _hedge_dispatch_kwargs(self, state: DrainState, bkey, entries,
                                host: int) -> Dict:
-        """A hedge leg runs on ``host`` the program its original runs:
-        the bucket's axis decision (equal on every one-device host) and
-        the mesh that goes with it."""
+        """A hedge leg runs on ``host`` through the shared cache, as the
+        JAX package's does: the bucket's axis decision there and, for a
+        data/feature one, the host's mesh with it.  A task bucket's hedge
+        is the one-device task program, bit for bit its original for the
+        families of ``MORPH_BITWISE_FAMILIES`` wherever that ran."""
         decision = self._plan_host_axis(state, bkey, entries, host)
-        _, axis_mesh = self._bucket_compiler(host, decision)
+        _, _, axis_mesh = self._bucket_compiler(host, decision)
         return {"host": host, "axis_decision": decision, "mesh": axis_mesh}
 
     def _maybe_hedge(self, state: TopologyDrainState) -> int:

@@ -1,5 +1,6 @@
-"""Named variants of the LM step for the dry run, and the topology
-layer's bucket -> host placement policy.
+"""Named variants of the LM step for the dry run, the split of a
+megabatch program over a mesh, and the topology layer's bucket -> host
+placement policy.
 
 A variant = (sharding-rule changes, model-build overrides); the dry run's
 ``--variant NAME`` applies one.  The table is the JAX package's, field
@@ -15,8 +16,13 @@ Both are pure functions of the observed pools/queues, so a drain's
 routing is reproducible; and because per-task keys are fixed at compile
 time, no placement they produce can move an estimate.
 
-The JAX package's ``sharding/policy.py``, copied, less its
-``megabatch_specs`` (the PartitionSpecs of a multi-device program).
+``megabatch_specs`` says which operands of a megabatch program split
+over the mesh's "data" axis and along which dim, the port's form of the
+JAX package's PartitionSpecs (sharding/collectives.py::shard_map applies
+it).
+
+The JAX package's ``sharding/policy.py``, copied; ``megabatch_specs``
+gives dims where the reference gives PartitionSpecs.
 """
 from __future__ import annotations
 
@@ -67,6 +73,24 @@ def apply_variant(variant: str) -> Variant:
         raise KeyError(f"unknown variant {variant!r}; known: "
                        f"{sorted(VARIANTS)}")
     return VARIANTS[variant]
+
+
+def megabatch_specs(batch_axis: str = "data", *, fused: bool = False
+                    ) -> Tuple[Tuple[Optional[int], ...], int]:
+    """``(in_dims, out_dim)`` of a megabatch program ``run(pages,
+    data_idx, y, w, valid, key_data) -> preds`` split over the mesh axis
+    ``batch_axis``: every per-task operand splits on the task axis — the
+    compiler pads B to a multiple of the shard count — and the page stack
+    (None) is replicated, so every shard can gather any task's page; the
+    predictions are reassembled on the task axis.  ``fused=True`` is the
+    fused calling convention, whose operands lead with the block axis G:
+    G is replicated (each shard runs every block) and the task axis is
+    dim 1.  The port's meshes split over "data" alone."""
+    if batch_axis != "data":
+        raise ValueError(f"megabatch programs split over 'data', not "
+                         f"{batch_axis!r}")
+    task = 1 if fused else 0
+    return (None, task, task, task, task, task), task
 
 
 @dataclass(frozen=True)

@@ -173,6 +173,7 @@ def reference_constants(monkeypatch):
     monkeypatch.setattr(troof, "HBM_BW", jroof.HBM_BW)
     monkeypatch.setattr(troof, "NVLINK_BW", jroof.ICI_BW)
     monkeypatch.setattr(troof, "_LAST_MEASURED_S", None)
+    monkeypatch.setattr(troof, "_LAST_SHARD_OVERHEAD_FRAC", None)
     monkeypatch.setattr(jroof, "_MEASURED_LAUNCH_OVERHEAD_S", None)
     monkeypatch.setattr(jroof, "_MEASURED_SHARD_OVERHEAD_FRAC", None)
     assert troof.LAUNCH_OVERHEAD_S == jroof.LAUNCH_OVERHEAD_S
@@ -236,11 +237,23 @@ def test_host_mesh_is_one_by_one():
     assert {mesh: 1}[make_host_mesh("cpu")] == 1
 
 
-def test_multi_device_mesh_raises():
-    with pytest.raises(NotImplementedError, match="NCCL"):
-        DeviceMesh(devices=(CPU, CPU), dims=(2, 1))
+def test_mixed_mesh_and_dims_mismatch_raise():
+    """A mesh is distinct CUDA devices or one device repeated: the CPU
+    repeated is a simulated mesh, and a mix of devices raises, as a dims
+    mismatch does."""
+    sim = DeviceMesh(devices=(CPU, CPU), dims=(2, 1))
+    assert sim.collective == "local" and sim.shape == {"data": 2,
+                                                       "model": 1}
+    with pytest.raises(ValueError, match="distinct CUDA"):
+        DeviceMesh(devices=(CPU, torch.device("meta")), dims=(2, 1))
+    with pytest.raises(ValueError, match="distinct CUDA"):
+        DeviceMesh(devices=(torch.device("cuda", 0), torch.device("cuda", 0),
+                            torch.device("cuda", 1), torch.device("cuda", 1)),
+                   dims=(4, 1))
     with pytest.raises(ValueError):
         DeviceMesh(devices=(CPU,), dims=(1,))
+    with pytest.raises(ValueError):
+        DeviceMesh(devices=(CPU,) * 3, dims=(2, 1))
 
 
 # ---------------------------------------------------------------------------

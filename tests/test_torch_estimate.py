@@ -98,7 +98,8 @@ def test_estimate_matches_reference(case):
                                      "crossfit_gram": 0,
                                      "flash_attention": 0,
                                      "flash_attention_bwd": 0,
-                                     "ssd_scan": 0, "ssd_scan_bwd": 0}
+                                     "ssd_scan": 0, "ssd_scan_bwd": 0,
+                                     "mesh_sum": 0, "mesh_gather": 0}
 
 
 def test_one_shot_estimate_equals_session_estimate():

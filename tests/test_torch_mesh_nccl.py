@@ -1,0 +1,99 @@
+"""The NCCL mesh: every visible card, one shard a card.
+
+These need two or more CUDA devices and skip without them (each test
+decides inside itself, never while the module is imported).  Run them on
+a machine with several cards:
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_mesh_nccl.py``.
+They hold the NCCL route against the simulated mesh of the same shard
+count on the first card: the collectives against the ordered sum (1e-6:
+NCCL's ring may sum in another order) and ``torch.cat`` (exactly), the
+sharded backend's drain bit for bit for ridge (its lanes keep their bits
+at any batch count), and K1 and K2 launched on the second card, whose
+shared-memory grant is that card's own.
+"""
+import numpy as np
+import pytest
+
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import DMLData, DMLPlan, DMLSession
+from repro_torch.data import make_plr_data
+from repro_torch.kernels import megabatch, ops
+from repro_torch.launch.mesh import make_host_mesh, make_sim_mesh
+from repro_torch.serverless import ShardedBackend
+from repro_torch.sharding.collectives import mesh_gather, mesh_sum
+
+pytestmark = pytest.mark.cuda
+
+
+def _cards() -> int:
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"the NCCL mesh needs two or more CUDA devices; "
+                    f"{n} here")
+    return n
+
+
+def test_nccl_collectives_match_the_simulated_mesh():
+    n = _cards()
+    mesh = make_host_mesh("cuda")
+    assert mesh.collective == "nccl" and len(mesh.shard_devices) == n
+    gen = torch.Generator().manual_seed(0)
+    host = [torch.randn(4, 6, generator=gen) for _ in range(n)]
+    want = host[0]
+    for p in host[1:]:
+        want = want + p
+    summed = mesh_sum([p.to(d) for p, d in zip(host, mesh.devices)], mesh)
+    for s, d in zip(summed, mesh.devices):
+        assert s.device == d
+        torch.testing.assert_close(s.cpu(), want, rtol=1e-6, atol=1e-6)
+    for dim in (0, 1):
+        gathered = mesh_gather([p.to(d) for p, d in zip(host,
+                                                        mesh.devices)],
+                               dim, mesh)
+        for g in gathered:
+            assert torch.equal(g.cpu(), torch.cat(host, dim))
+
+
+def test_nccl_sharded_drain_is_the_one_device_drain():
+    _cards()
+    data = DMLData.from_dict(make_plr_data(n_obs=2000, dim_x=20, theta=0.5,
+                                           seed=1))
+    plan = DMLPlan.for_model("plr", learner="ridge",
+                             learner_params={"reg": 1.0}, n_folds=5,
+                             n_rep=10, seed=3)
+    nccl = DMLSession(backend=ShardedBackend(mesh=make_host_mesh("cuda")))
+    one = DMLSession(backend=ShardedBackend(device="cuda:0"))
+    sim = DMLSession(backend=ShardedBackend(
+        mesh=make_sim_mesh(len(nccl.backend.mesh.devices), "cuda:0")))
+    results = [s.estimate(plan, data) for s in (nccl, one, sim)]
+    preds = [s.request(r.request_id).gathered_preds()
+             for s, r in zip((nccl, one, sim), results)]
+    assert np.isfinite(preds[0]).all()
+    for p, r in zip(preds[1:], results[1:]):
+        assert np.array_equal(preds[0], p)
+        assert results[0].theta == r.theta and results[0].se == r.se
+
+
+def test_k1_and_k2_launch_on_the_second_card():
+    """The first launch on cuda:1 above 48 KB of shared memory opts in
+    on that card (csrc/smem_grant.cuh)."""
+    _cards()
+    for dev in ("cuda:0", "cuda:1"):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        xs = torch.randn((32, 5104, 33), generator=gen, device=dev)
+        w = (torch.rand((32, 5104), generator=gen, device=dev)
+             < 0.8).float()
+        y = torch.randn((32, 5104), generator=gen, device=dev)
+        g, b = ops.batched_gram(xs, w, y)
+        g0, b0 = megabatch.batched_gram_plain(xs, w, y)
+        torch.testing.assert_close(g, g0, rtol=1e-4,
+                                   atol=1e-4 * float(g0.abs().max()))
+        torch.testing.assert_close(b, b0, rtol=1e-4,
+                                   atol=1e-4 * float(b0.abs().max()))
+        beta = torch.randn((32, 33), generator=gen, device=dev)
+        out = ops.batched_predict(xs, beta, w)
+        torch.testing.assert_close(
+            out, megabatch.batched_predict_plain(xs, beta, w), rtol=1e-5,
+            atol=1e-5)

@@ -384,12 +384,12 @@ def test_worker_schedule_honored_per_host_stream():
 
 
 def test_topology_from_pod_mesh():
-    """A mesh with a "pod" axis splits into one host stream per pod.  The
-    port's meshes hold one device, so a pod mesh of two hosts needs two
-    cards; not counted where there are fewer."""
+    """A mesh with a "pod" axis splits into one host stream per pod: on
+    two cards, one pod a card; not counted where there are fewer (the
+    simulated pod mesh is tests/test_torch_mesh.py's)."""
     if torch.cuda.device_count() < 2:
-        pytest.skip("a two-pod mesh needs two CUDA devices; meshes of "
-                    "more than one device are not ported yet")
+        pytest.skip("a two-pod mesh of distinct cards needs two CUDA "
+                    "devices")
     from repro_torch.launch.mesh import DeviceMesh
     devs = (torch.device("cuda", 0), torch.device("cuda", 1))
     mesh = DeviceMesh(devs, (2, 1, 1), ("pod", "data", "model"))
