@@ -121,6 +121,20 @@ moments summed over the shards) against data@1; a forced feature@4 on
 the paper's bucket; a topology of 2 hosts of 2 shards; the shard tax
 measured on the mesh; and, with two or more cards, the same on the NCCL
 mesh of every card.
+
+Expert parallelism (phase serve_deepseek, after its one-card serves): the
+full deepseek-v2-lite-16b served again on the same weights with its MoE
+layers expert parallel over a simulated (1, 4) mesh of the card — each
+prefill's MoE layer through the a2a path (two all-to-alls of the capacity
+buffers), each decode step's through dense_ep — served twice with the
+same tokens and timed beside the one-card serve; one MoE layer's a2a
+output on its real input against ``_moe_local`` on each shard's tokens,
+dense_ep at decode against ``_moe_local`` (and in float32 on the first
+four MoE layers), the share of routed rows the per-shard capacity drops;
+qwen2-moe-a2.7b cut to two layers on a (1, 16) mesh, its 60 experts
+padded to 64 and never selected.  same_as_cpu_lm holds the reduced
+deepseek-v2-lite and qwen2-moe on the (1, 4) mesh card against CPU in
+float32.
 """
 from __future__ import annotations
 
@@ -2494,7 +2508,7 @@ def phase_shared_x(device):
                             "flash_attention": 0,
                             "flash_attention_bwd": 0, "ssd_scan": 0,
                             "ssd_scan_bwd": 0, "mesh_sum": 0,
-                            "mesh_gather": 0}, launches
+                            "mesh_gather": 0, "mesh_all_to_all": 0}, launches
         assert seen["crossfit_gram"] == {MAIN_XFIT_SHAPE}, seen
         _launches_compared(seen, f"shared_x/{learner}")
         total += launches["crossfit_gram"]
@@ -2559,7 +2573,8 @@ def phase_raw_request(device):
                         "flash_attention": 0,
                         "flash_attention_bwd": 0, "ssd_scan": 0,
                         "ssd_scan_bwd": 0, "mesh_sum": 0,
-                        "mesh_gather": 0}, (launches, lanes)
+                        "mesh_gather": 0, "mesh_all_to_all": 0}, \
+        (launches, lanes)
     assert seen["crossfit_gram"] == {LANE_XFIT_SHAPE}, seen
     _launches_compared(seen, "raw_request")
     info = linear.solve_failures(device)
@@ -3698,7 +3713,7 @@ def phase_serve_zamba2(device):
                         "flash_attention_bwd": 0,
                         "ssd_scan": n_bursts * n_mamba,
                         "ssd_scan_bwd": 0, "mesh_sum": 0,
-                        "mesh_gather": 0}, launches
+                        "mesh_gather": 0, "mesh_all_to_all": 0}, launches
     _launches_compared(seen, "serve_zamba2")
     assert bool(torch.stack(flags).all()), "serve_zamba2: a logit is not finite"
     assert len(flags) == n_bursts * SERVE_GEN
@@ -3754,12 +3769,14 @@ def _consistency_f32(bundle, params, prompt, device, depth=None):
     return {**out, "dtype": "float32", "n_layers": cfg.n_layers}
 
 
-def _serve(bundle, params, device, prompts, batch, slot_len, what):
+def _serve(bundle, params, device, prompts, batch, slot_len, what,
+           collectives=None):
     """One ``Engine.serve_requests`` of ``prompts`` in ``batch`` slots of
     ``slot_len``, SERVE_GEN tokens each, with the launch counts set to 0
     just before and read just after, and every launch's shape recorded;
     the model's launches (``_prefill_launches`` a burst: a decoder's K5
-    once a layer) and nothing else checked, every logit finite.  Returns
+    once a layer) and the mesh's ``collectives`` (counts over the whole
+    serve) and nothing else checked, every logit finite.  Returns
     (engine, tokens, the emitted record)."""
     cfg = bundle.arch
     engine = Engine(bundle, params, device=device)
@@ -3779,8 +3796,8 @@ def _serve(bundle, params, device, prompts, batch, slot_len, what):
     n_bursts = -(-len(prompts) // batch)
     assert launches == {**{k: 0 for k in launches},
                         **{k: n_bursts * n for k, n in
-                           _prefill_launches(cfg).items()}}, \
-        (what, launches)
+                           _prefill_launches(cfg).items()},
+                        **(collectives or {})}, (what, launches)
     _launches_compared(seen, what)
     assert bool(torch.stack(flags).all()), f"{what}: a logit is not finite"
     assert len(flags) == n_bursts * SERVE_GEN
@@ -3804,6 +3821,226 @@ def _serve(bundle, params, device, prompts, batch, slot_len, what):
     return engine, results, record
 
 
+# expert parallelism: deepseek-v2-lite-16b's experts over a simulated
+# (1, EP_SHARDS) mesh of the card (64 experts: no padding, so the declared
+# tree is serve_deepseek's and its weights serve again); qwen2-moe-a2.7b
+# cut to EP16_LAYERS layers on a (1, EP16) mesh (60 experts padded to 64)
+# at serve_dense's burst (2 slots of SERVE_LEN); the a2a output against
+# _moe_local at the bf16 LM tier of max|y| (EP_TIER), dense_ep against it
+# in float32 on the first EP_F32_LAYERS MoE layers within EP_F32_TIER
+EP_SHARDS, EP16, EP16_LAYERS = 4, 16, 2
+EP_TIER, EP_F32_TIER, EP_F32_LAYERS = 0.08, 1e-6, 4
+
+
+def _ep_collectives(cfg, n_bursts):
+    """The collectives of ``n_bursts`` bursts served with the MoE layers
+    expert parallel: a prefill's MoE layer exchanges twice and means its
+    aux once (a2a), a decode step's sums its output and means its aux
+    (dense_ep)."""
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    return {"mesh_all_to_all": n_bursts * 2 * n_moe,
+            "mesh_sum": n_bursts * n_moe * (1 + 2 * (SERVE_GEN - 1))}
+
+
+@contextlib.contextmanager
+def _captured_moe(path: str):
+    """Record the (layer parameters, input) of every call of
+    ``models/moe.py``'s ``path`` (``_moe_a2a``, ``_moe_dense_ep``)."""
+    from repro_torch.models import moe
+    real, seen = getattr(moe, path), []
+
+    def record(p, cfg, x, *args):
+        seen.append((p, x.clone()))
+        return real(p, cfg, x, *args)
+    setattr(moe, path, record)
+    try:
+        yield seen
+    finally:
+        setattr(moe, path, real)
+
+
+@contextlib.contextmanager
+def _dispatch_drops():
+    """Record (rows dropped, rows) of every capacity dispatch, on the
+    device."""
+    from repro_torch.models import moe
+    real, seen = moe._capacity_dispatch, []
+
+    def record(x_flat, top_w, top_e, e_pad, cap):
+        out = real(x_flat, top_w, top_e, e_pad, cap)
+        seen.append(((~out[-1]).sum(), out[-1].numel()))
+        return out
+    moe._capacity_dispatch = record
+    try:
+        yield seen
+    finally:
+        moe._capacity_dispatch = real
+
+
+def _drop_share(seen) -> float:
+    return sum(int(d) for d, _ in seen) / sum(n for _, n in seen)
+
+
+def _rel_diff(got, want):
+    """(max |got - want|, that over max |want|, bit for bit)."""
+    diff = float((got.float() - want.float()).abs().max())
+    return diff, diff / max(float(want.float().abs().max()), 1e-30), \
+        bool(torch.equal(got, want))
+
+
+def _moe_ep_checks(cfg, bundle, params, ep_bundle, ep_params, mesh,
+                   prompts, device):
+    """(b), (c), (d) of the EP serve on the first burst's tokens: one
+    prefill at ep 1 and one at ep EP_SHARDS with the capacity drops
+    recorded; the first MoE layer's a2a output on its real input against
+    ``_moe_local`` on each shard's tokens, put back in place; the first
+    decode step's dense_ep on every MoE layer's real input against
+    ``_moe_local`` in bf16, and on the first EP_F32_LAYERS layers in
+    float32."""
+    from repro_torch.models import moe
+    from repro_torch.sharding.collectives import join_spec, split_spec
+    e_pad = moe.padded_experts(cfg.moe, EP_SHARDS)
+    spec = (("data",), "model", None)
+    tokens = _burst_tokens(prompts, SERVE_BATCH, SERVE_LEN, device)
+    experts = params["layers"]["moe"]
+
+    def whole(p, i):                  # layer i's routed experts, unplaced
+        return {**p, "wi": experts["wi"][i], "wo": experts["wo"][i]}
+    with torch.inference_mode():
+        with _dispatch_drops() as seen:
+            bundle.prefill_fn(params, {"tokens": tokens})
+        drops = {"ep1": _drop_share(seen)}
+        with _dispatch_drops() as seen, _captured_moe("_moe_a2a") as layers:
+            logits, cache = ep_bundle.prefill_fn(ep_params,
+                                                 {"tokens": tokens})
+        drops[f"ep{EP_SHARDS}"] = _drop_share(seen)
+        p, x = layers[0]
+        del layers[1:]
+        got = moe._moe_a2a(p, cfg, x, e_pad, mesh, "model", ("data",))[0]
+        want = join_spec([moe._moe_local(whole(p, 0), cfg, part, e_pad)[0]
+                          for part in split_spec(x, spec, mesh)], spec, mesh)
+        a2a = _rel_diff(got, want)
+        assert np.isfinite(a2a[1]) and a2a[1] < EP_TIER, ("a2a", a2a)
+        del got, want, layers
+        cache = grow_cache(cfg, cache, 1)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        with _captured_moe("_moe_dense_ep") as layers:
+            ep_bundle.decode_fn(ep_params, cache, {"tokens": tok})
+        del cache
+        dense, dense_f32 = [], []
+        for i, (p, x) in enumerate(layers):
+            got = moe._moe_dense_ep(p, cfg, x, e_pad, mesh, "model",
+                                    ("data",))[0]
+            dense.append(_rel_diff(got, moe._moe_local(whole(p, i), cfg, x,
+                                                       e_pad)[0]))
+            if i < EP_F32_LAYERS:
+                p32 = cast_floating(whole(p, i), torch.float32)
+                got = moe._moe_dense_ep(p32, cfg, x.float(), e_pad, mesh,
+                                        "model", ("data",))[0]
+                dense_f32.append(_rel_diff(got, moe._moe_local(
+                    p32, cfg, x.float(), e_pad)[0]))
+                del p32
+        assert len(layers) == cfg.n_layers - cfg.moe.first_dense_layers
+        assert max(r for _, r, _ in dense) < EP_TIER, ("dense_ep", dense)
+        assert max(r for _, r, _ in dense_f32) < EP_F32_TIER, \
+            ("dense_ep f32", dense_f32)
+    torch.cuda.empty_cache()
+    return {"a2a_layer": {"max_abs_diff": a2a[0], "rel": a2a[1],
+                          "bit_for_bit": a2a[2], "tier": EP_TIER},
+            "dense_ep_decode": {
+                "max_abs_diff": max(d for d, _, _ in dense),
+                "max_rel": max(r for _, r, _ in dense),
+                "layers_bit_for_bit": sum(b for _, _, b in dense),
+                "layers": len(dense), "tier": EP_TIER},
+            "dense_ep_decode_f32": {
+                "max_rel_by_layer": [r for _, r, _ in dense_f32],
+                "tier": EP_F32_TIER},
+            "dropped_row_share": drops}
+
+
+def _serve_ep16(device):
+    """(f): qwen2-moe-a2.7b at full width cut to EP16_LAYERS layers on a
+    simulated (1, EP16) mesh: 60 experts declared padded to 64, 4 a shard;
+    served at serve_dense's burst, every routed expert below 60, the
+    same tokens on a repeat."""
+    from repro_torch.models.param import shard_params
+    from repro_torch.sharding.axes import rules_for
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b"),
+                              n_layers=EP16_LAYERS)
+    mesh = make_sim_mesh((1, EP16), device)
+    rules = rules_for(cfg.name, "train", cfg.d_model)
+    bundle = build_model(cfg, rules, mesh=mesh)
+    wi = bundle.decls["layers"]["moe"]["wi"]
+    assert wi.shape[1] == 64 and cfg.moe.n_routed == 60, wi.shape
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = shard_params(init_tree(bundle.decls, gen, device),
+                          bundle.decls, mesh, rules)
+    assert len(params["layers"]["moe"]["wi"].parts) == EP16
+    prompts = _serve_prompts(cfg.vocab_size, 2, SERVE_LEN, SERVE_LEN // 2)
+    with _recorded_routes() as routes:
+        engine, results, record = _serve(
+            bundle, params, device, prompts, 2, SERVE_LEN,
+            "serve_deepseek/qwen2_moe_ep16",
+            collectives=_ep_collectives(cfg, 1))
+    top = max(int(r.max()) for r in routes)
+    assert top < cfg.moe.n_routed, top
+    again = engine.serve_requests(prompts, batch_size=2,
+                                  prompt_len=SERVE_LEN, n_gen=SERVE_GEN)
+    same = all(np.array_equal(a, b) for a, b in zip(results, again))
+    assert same, "qwen2-moe at ep 16: two identical serves differ"
+    del engine, params
+    torch.cuda.empty_cache()
+    return {**{k: record[k] for k in ("arch", "n_layers", "launches",
+                                      "first_tokens", "bursts")},
+            "experts_declared": int(wi.shape[1]),
+            "routed_calls": len(routes), "largest_expert_routed": top,
+            "second_serve_same_tokens": same}
+
+
+def _serve_moe_ep(cfg, bundle, params, prompts, device, ep1):
+    """The EP serve of serve_deepseek's weights on a simulated (1,
+    EP_SHARDS) mesh of the card: the counted serve (K5 27 a prefill, the
+    collectives of ``_ep_collectives``), a second serve with the same
+    tokens, the checks of ``_moe_ep_checks``, and the agreement of its
+    tokens with the one-card serve's (``ep1``: reported, not held)."""
+    from repro_torch.models.param import shard_params
+    from repro_torch.sharding.axes import MEGATRON_FSDP, rules_for
+    mesh = make_sim_mesh((1, EP_SHARDS), device)
+    rules = rules_for(cfg.name, "train", cfg.d_model)
+    assert rules == MEGATRON_FSDP            # "experts" over "model"
+    ep_bundle = build_model(cfg, rules, mesh=mesh)
+    shapes = tree_map(lambda d: (d.shape, d.dtype), ep_bundle.decls)
+    assert shapes == tree_map(lambda d: (d.shape, d.dtype), bundle.decls)
+    ep_params = shard_params(params, ep_bundle.decls, mesh, rules)
+    n_bursts = -(-len(prompts) // SERVE_BATCH)
+    engine, results, record = _serve(
+        ep_bundle, ep_params, device, prompts, SERVE_BATCH, SERVE_LEN,
+        "serve_deepseek/ep4", collectives=_ep_collectives(cfg, n_bursts))
+    assert record["launch_shapes"]["flash_attention"] == \
+        [str(MLA_ATTN_SHAPE)], record["launch_shapes"]
+    again = engine.serve_requests(prompts, batch_size=SERVE_BATCH,
+                                  prompt_len=SERVE_LEN, n_gen=SERVE_GEN)
+    same = all(np.array_equal(a, b) for a, b in zip(results, again))
+    assert same, "serve_deepseek at ep 4: two identical serves differ"
+    del engine
+    checks = _moe_ep_checks(cfg, bundle, params, ep_bundle, ep_params,
+                            mesh, prompts, device)
+    first = float(np.mean([a[0] == b[0] for a, b in zip(results, ep1)]))
+    every = float(np.mean([np.array_equal(a, b)
+                           for a, b in zip(results, ep1)]))
+    return record, {"mesh": list(mesh.dims), "rules": "MEGATRON_FSDP",
+                    "second_serve_same_tokens": same, **checks,
+                    "first_token_agrees_with_ep1": first,
+                    "all_tokens_agree_with_ep1": every}
+
+
+def _burst_times(record):
+    """Each burst's prefill s and decode ms a step."""
+    return {"prefill_s": [b["prefill_s"] for b in record["bursts"]],
+            "decode_ms_a_step": [1e3 * b["decode_s"] / (SERVE_GEN - 1)
+                                 for b in record["bursts"]]}
+
+
 def phase_serve_deepseek(device):
     """The decoder families' headline path: the full deepseek-v2-lite-16b
     (27 layers: a dense head layer, then 26 with 64 routed experts top-6
@@ -3814,7 +4051,11 @@ def phase_serve_deepseek(device):
     Dv 128; 30 decode steps against the latent cache).  Served twice: the
     MoE combine sums in a fixed order, so the tokens are the same.  Launch
     counts are set to 0 just before the first serve and read just after.
-    The prefill/decode check runs on its first 4 layers in float32."""
+    The prefill/decode check runs on its first 4 layers in float32.  Then
+    the same weights serve again with the MoE layers expert parallel over
+    a simulated (1, 4) mesh of the card (``_serve_moe_ep``: its counts set
+    to 0 just before its first serve and read just after), and qwen2-moe
+    at ep 16 (``_serve_ep16``)."""
     cfg = get_arch("deepseek-v2-lite-16b")
     bundle = build_model(cfg)
     torch.cuda.synchronize()
@@ -3838,12 +4079,27 @@ def phase_serve_deepseek(device):
     assert same, "serve_deepseek: two identical serves differ"
     consistency = _consistency_f32(bundle, params, prompts[0], device,
                                    depth=4)
+    del engine
+    t0 = time.perf_counter()
+    ep_record, ep = _serve_moe_ep(cfg, bundle, params, prompts, device,
+                                  results)
+    del params
+    torch.cuda.empty_cache()
+    ep16 = _serve_ep16(device)
     emit("serve_deepseek", **record, param_bytes_on_card=param_bytes,
          init_s=init_s, second_serve_same_tokens=same,
-         consistency=consistency)
-    del engine, params
-    torch.cuda.empty_cache()
-    return launches
+         consistency=consistency,
+         expert_parallel={**ep, "wall_s": ep_record["wall_s"],
+                          "peak_device_bytes":
+                              ep_record["peak_device_bytes"],
+                          "launches": ep_record["launches"],
+                          "first_tokens": ep_record["first_tokens"],
+                          "timing": {"ep1": _burst_times(record),
+                                     f"ep{EP_SHARDS}":
+                                         _burst_times(ep_record)},
+                          "qwen2_moe_ep16": ep16,
+                          "seconds": time.perf_counter() - t0})
+    return launches, ep_record["launches"]
 
 
 def phase_serve_dense(device):
@@ -4298,6 +4554,49 @@ def _prefill_launches(cfg):
     return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
 
 
+# (e) of expert parallelism: the reduced MoE decoders on a (1, EP_SHARDS)
+# mesh, B 2, S 128 (the a2a path, 64 tokens a shard), 3 decode steps
+# (dense_ep), float32, card against CPU at 1e-4 of max|logits|
+EP_CPU_BATCH, EP_CPU_SEQ, EP_CPU_DECODE, EP_CPU_TIER = 2, 128, 3, 1e-4
+
+
+def _same_as_cpu_ep(name, arch, rng, device):
+    """The reduced ``arch`` built on a simulated (1, EP_SHARDS) mesh of
+    the CPU and of the card under MEGATRON_FSDP (its experts over
+    "model"), the same float32 parameters placed on each
+    (``shard_params``), prefill and EP_CPU_DECODE decode steps fed the
+    CPU's greedy tokens; both sides run the same collectives."""
+    from repro_torch.models.param import shard_params
+    from repro_torch.sharding.axes import MEGATRON_FSDP
+    cfg = get_arch(arch, reduced=True)
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (EP_CPU_BATCH, EP_CPU_SEQ)).astype(np.int32)
+    runs, params = [], None
+    for dev in (torch.device("cpu"), device):
+        mesh = make_sim_mesh((1, EP_SHARDS), dev)
+        bundle = build_model(cfg, MEGATRON_FSDP, mesh=mesh, attn_chunk=32)
+        if params is None:
+            params = cast_floating(init_tree(
+                bundle.decls, torch.Generator().manual_seed(LM_SEED),
+                "cpu"), torch.float32)
+        placed = shard_params(_card_copy(params, dev), bundle.decls, mesh,
+                              MEGATRON_FSDP)
+        runs.append(_lm_run(bundle, placed, tokens, dev, EP_CPU_DECODE,
+                            feed=runs[0][1] if runs else None))
+    cpu, card = runs
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    want = {"mesh_all_to_all": 2 * n_moe,
+            "mesh_sum": n_moe * (1 + 2 * EP_CPU_DECODE)}
+    for side, kernels in ((cpu, 0), (card, cfg.n_layers)):
+        assert {k: side[3][k] for k in want} == want, (name, side[3])
+        assert side[3]["flash_attention"] == kernels, (name, side[3])
+    return {"arch": cfg.name, "batch": EP_CPU_BATCH, "seq": EP_CPU_SEQ,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": "float32", "mesh": [1, EP_SHARDS],
+            "decode_steps": EP_CPU_DECODE, "card_launches": card[3],
+            **_lm_compare(cpu, card, EP_CPU_TIER, name)}
+
+
 def phase_same_as_cpu_lm(device):
     """The card route (K5, K6) against the CPU route (the reference's jnp
     math, ported) on the same parameters and tokens, prefill and two
@@ -4320,7 +4619,9 @@ def phase_same_as_cpu_lm(device):
     ragged S 300, in float32: K6 past 64 against the chunked CPU math; (j)
     the reduced whisper-base over 48 frames (cross-attention at Sq 100 >
     Skv 48) and (k) the reduced VLM against 16 image tokens with its gates
-    at VLM_GATE, both in bf16 at S 100."""
+    at VLM_GATE, both in bf16 at S 100.  Expert parallelism: the reduced
+    qwen2-moe-a2.7b and deepseek-v2-lite-16b on a (1, 4) mesh, B 2, S 128,
+    three decode steps, in float32 at 1e-4 (``_same_as_cpu_ep``)."""
     out = {}
     rng = np.random.default_rng(LM_SEED)
     deepseek = get_arch("deepseek-v2-lite-16b")
@@ -4393,6 +4694,10 @@ def phase_same_as_cpu_lm(device):
                                    ties=ties)}
         del params, cpu, card
         torch.cuda.empty_cache()
+    for name, arch in (("moe_ep4_reduced_f32", "qwen2-moe-a2.7b"),
+                       ("mla_ep4_reduced_f32", "deepseek-v2-lite-16b")):
+        out[name] = _same_as_cpu_ep(name, arch, rng, device)
+        torch.cuda.empty_cache()
     f32_launches = {name: out[name]["card_launches"]["flash_attention"]
                     for name in ("full_width_one_group_f32",
                                  "mla_full_width_two_layers_f32")}
@@ -4405,7 +4710,8 @@ def phase_same_as_cpu_lm(device):
              "300; to keep the CPU side under a minute each",
          tolerance="logits and prefill states within the tier of max|CPU|, "
                    "the same argmax at every step: 0.08 (bf16), 1e-3 "
-                   "(float32); bf16 MoE (d, e): decode rows where the "
+                   "(float32; 1e-4 on the (1, 4) mesh); bf16 MoE (d, "
+                   "e): decode rows where the "
                    "routing agreed in every layer, states on all but "
                    f"{FLIP_ROWS} of their rows (routing flips); bf16 "
                    "decoders (c-e): a differing argmax a tie within one "
@@ -4677,7 +4983,7 @@ def _mesh_counts(launches, k1, k2=None, k3=0, sums=0, gathers=0):
                         "crossfit_gram": 0, "flash_attention": 0,
                         "flash_attention_bwd": 0, "ssd_scan": 0,
                         "ssd_scan_bwd": 0, "mesh_sum": sums,
-                        "mesh_gather": gathers}
+                        "mesh_gather": gathers, "mesh_all_to_all": 0}
 
 
 def _counted_drain(sess, plan, data, what, device):
@@ -6053,8 +6359,10 @@ def main(argv=None) -> int:
             for name in ("flash_attention", "ssd_scan"):
                 launches[name] = served[name]
     mla_launches, dense_launches = None, None
+    ep_launches = None
     if "serve_deepseek" in phases:
-        mla_launches = phase_serve_deepseek(device)["flash_attention"]
+        mla_launches, ep_launches = phase_serve_deepseek(device)
+        mla_launches = mla_launches["flash_attention"]
     if "serve_dense" in phases:
         dense_launches = phase_serve_dense(device)
     family_launches = {}
@@ -6140,6 +6448,12 @@ def main(argv=None) -> int:
                          "launches": f32_launches["full_width_one_group_f32"]},
                  "mla": rows["flash_attention"]["mla"],
                  "launches_serve_deepseek": mla_launches,
+                 # the same serve with the experts over a simulated (1, 4)
+                 # mesh, and its exchanges
+                 "launches_serve_deepseek_ep4": {
+                     k: ep_launches[k] for k in (
+                         "flash_attention", "mesh_all_to_all",
+                         "mesh_sum")},
                  "launches_same_as_cpu_lm_mla_f32":
                      f32_launches["mla_full_width_two_layers_f32"],
                  "launches_serve_dense": dense_launches,

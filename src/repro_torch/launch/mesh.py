@@ -21,6 +21,12 @@ A mesh that mixes the two, or repeats some of several devices, raises
 ``ValueError``: the caller picks the mesh, and nothing turns one kind
 into the other.
 
+The estimator splits over "data" alone (``shard_devices``).  The MoE
+layer's expert parallelism (models/moe.py) also uses the "model" axis: a
+shard's coordinates, its ``axis_index`` and the groups of shards along
+one axis (``axis_groups``) place its tokens and experts and scope its
+collectives.
+
 The topology backend's host streams are built from these meshes:
 ``make_sim_host_meshes`` gives N simulated hosts their meshes over the
 visible devices, reusing them round-robin when there are fewer than
@@ -30,7 +36,7 @@ into one mesh per pod.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -83,6 +89,25 @@ class DeviceMesh:
         and the page pool keeps its pages."""
         return self.devices[0]
 
+    def coords(self, shard: int) -> Tuple[int, ...]:
+        """The coordinates of shard ``shard`` (its place in ``devices``),
+        one per axis."""
+        return tuple(int(c) for c in np.unravel_index(shard, self.dims))
+
+    def axis_index(self, shard: int, axis: str) -> int:
+        """Shard ``shard``'s index along ``axis`` (``jax.lax.axis_index``
+        inside a ``shard_map`` body)."""
+        return self.coords(shard)[self.axis_names.index(axis)]
+
+    def axis_groups(self, axis: str) -> List[Tuple[int, ...]]:
+        """The shards that differ only along ``axis``: one group for each
+        place on the other axes, each group in ``axis`` order (the
+        participants of a collective over ``axis``)."""
+        k = self.axis_names.index(axis)
+        grid = np.arange(len(self.devices)).reshape(self.dims)
+        lines = np.moveaxis(grid, k, -1).reshape(-1, self.dims[k])
+        return [tuple(int(i) for i in line) for line in lines]
+
     @property
     def shard_devices(self) -> Tuple[torch.device, ...]:
         """The device of each shard of the "data" axis, in shard order.
@@ -114,12 +139,15 @@ def make_host_mesh(device: DeviceLike = "cuda") -> DeviceMesh:
     return DeviceMesh(devices=tuple(devs), dims=(len(devs), 1))
 
 
-def make_sim_mesh(n_shards: int, device: DeviceLike = "cuda") -> DeviceMesh:
-    """A simulated (n_shards, 1) mesh: ``device`` repeated, the
-    counterpart of the JAX package's forced host device count."""
+def make_sim_mesh(n_shards: Union[int, Tuple[int, int]],
+                  device: DeviceLike = "cuda") -> DeviceMesh:
+    """A simulated mesh: ``device`` repeated, the counterpart of the JAX
+    package's forced host device count.  ``n_shards`` is the size of the
+    "data" axis (an (n, 1) mesh) or the ("data", "model") dims."""
     dev = resolve_device(device)
-    return DeviceMesh(devices=(dev,) * int(n_shards),
-                      dims=(int(n_shards), 1))
+    dims = (int(n_shards), 1) if isinstance(n_shards, int) \
+        else tuple(int(d) for d in n_shards)
+    return DeviceMesh(devices=(dev,) * int(np.prod(dims)), dims=dims)
 
 
 def split_pod_meshes(mesh: DeviceMesh) -> List[DeviceMesh]:

@@ -20,7 +20,10 @@ stacked leading axes (the port has no scan), on whichever device the
 parameters lie: on the card the prefill's attention and SSD scans go
 through the hand-written kernels (see ``layers`` and ``ssm``).
 ``decode_fn`` updates the cache it is given in place, where the reference
-donates it.  The frames and image patches are cast to their projection's
+donates it.  ``build_model(cfg, rules, mesh)`` declares the reference's
+trees on a mesh (launch/mesh.py); on it the MoE layers run expert
+parallel over the "model" axis (models/moe.py) and every other layer on
+the mesh's lead device.  The frames and image patches are cast to their projection's
 type (the input specs declare them in it).
 
 Training: ``loss_fn`` composes the loss as the reference does — the mean
@@ -34,7 +37,7 @@ through ``SsdScanFunction``), so every family trains on the card.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 from typing import Any, Callable, Dict, Tuple
 
@@ -52,6 +55,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import moe_decls, moe_forward
 from repro_torch.models.param import PDecl, tree_map
+from repro_torch.sharding.axes import rules_for
 
 F32 = torch.float32
 I32 = torch.int32
@@ -257,13 +261,17 @@ def _train_specs(specs_fn):
 # ---------------------------------------------------------------------------
 # decoder-only: the dense and MoE families (GQA, SWA, QKV bias, MLA)
 # ---------------------------------------------------------------------------
-def build_decoder(cfg: ArchConfig, remat: str = "full",
-                  attn_chunk: int = 1024) -> ModelBundle:
-    """The reference's ``build_decoder`` on one card (an expert axis of
-    1): ``layers`` stacked n_layers - first_dense_layers deep, deepseek's
-    leading dense layers stacked under ``head_layers``."""
+def build_decoder(cfg: ArchConfig, rules=None, mesh=None,
+                  remat: str = "full", attn_chunk: int = 1024,
+                  ep_axis: str = "model") -> ModelBundle:
+    """The reference's ``build_decoder``: ``layers`` stacked n_layers -
+    first_dense_layers deep, deepseek's leading dense layers stacked under
+    ``head_layers``.  On a ``mesh`` (launch/mesh.py) the MoE layers run
+    expert parallel over ``ep_axis`` (models/moe.py), with the routed
+    experts declared padded to a multiple of its size; everything else
+    runs on the mesh's lead device."""
     is_moe = cfg.family == "moe"
-    ep = 1
+    ep = mesh.shape[ep_axis] if (is_moe and mesh is not None) else 1
     n_dense_head = cfg.moe.first_dense_layers if is_moe else 0
     n_scan = cfg.n_layers - n_dense_head
     mla = cfg.attention.is_mla
@@ -286,7 +294,8 @@ def build_decoder(cfg: ArchConfig, remat: str = "full",
         """The layer's MLP or MoE on the normed residual: (out, aux)."""
         x = rms_norm(h, lp["ln2"], cfg.norm_eps)
         if "moe" in lp:
-            return moe_forward(lp["moe"], cfg, x, ep=ep)
+            return moe_forward(lp["moe"], cfg, x, mesh=mesh,
+                               ep_axis=ep_axis)
         return mlp_forward(lp["mlp"], x, cfg.act, cfg.glu), None
 
     def layer(lp, h):                 # queries at arange(S): positions None
@@ -384,7 +393,8 @@ def build_decoder(cfg: ArchConfig, remat: str = "full",
 # ---------------------------------------------------------------------------
 # zamba2 hybrid: groups of (shared_attn_every-1 mamba + shared block)
 # ---------------------------------------------------------------------------
-def build_hybrid(cfg: ArchConfig, remat: str = "full",
+def build_hybrid(cfg: ArchConfig, rules=None, mesh=None,
+                 remat: str = "full",
                  attn_chunk: int = 1024) -> ModelBundle:
     per = cfg.shared_attn_every
     n_groups = cfg.n_layers // per
@@ -538,7 +548,8 @@ def build_hybrid(cfg: ArchConfig, remat: str = "full",
 # ---------------------------------------------------------------------------
 # xLSTM: groups of (slstm_every - 1) mLSTM blocks and one sLSTM block
 # ---------------------------------------------------------------------------
-def build_xlstm(cfg: ArchConfig, remat: str = "full",
+def build_xlstm(cfg: ArchConfig, rules=None, mesh=None,
+                remat: str = "full",
                 attn_chunk: int = 1024) -> ModelBundle:
     """The reference's ``build_xlstm``: ``mlstm`` stacked (groups, mLSTM
     blocks a group), ``slstm`` stacked (groups,).  The reduced config
@@ -648,7 +659,8 @@ def build_xlstm(cfg: ArchConfig, remat: str = "full",
 # encoder-decoder (whisper): a non-causal encoder over precomputed frames,
 # a decoder with self- and cross-attention
 # ---------------------------------------------------------------------------
-def build_encdec(cfg: ArchConfig, remat: str = "full",
+def build_encdec(cfg: ArchConfig, rules=None, mesh=None,
+                 remat: str = "full",
                  attn_chunk: int = 1024) -> ModelBundle:
     """The reference's ``build_encdec``.  Sinusoidal positions, no rope.
     The prefill encodes ``batch["frames"]`` (B, T, d_frontend) and runs the
@@ -783,7 +795,8 @@ def build_encdec(cfg: ArchConfig, remat: str = "full",
 # ---------------------------------------------------------------------------
 # VLM: a decoder with a gated cross-attention layer every Nth layer
 # ---------------------------------------------------------------------------
-def build_vlm(cfg: ArchConfig, remat: str = "full",
+def build_vlm(cfg: ArchConfig, rules=None, mesh=None,
+              remat: str = "full",
               attn_chunk: int = 1024) -> ModelBundle:
     """The reference's ``build_vlm``: groups of ``cross_attn_every - 1``
     self-attention layers (rope, causal) and one cross-attention layer
@@ -916,13 +929,28 @@ _BUILDERS = {"dense": build_decoder, "moe": build_decoder,
              "audio": build_encdec, "vlm": build_vlm}
 
 
-def build_model(cfg: ArchConfig, remat: str = "full",
-                attn_chunk: int = 1024) -> ModelBundle:
+def build_model(cfg: ArchConfig, rules=None, mesh=None,
+                remat: str = "full", attn_chunk: int = 1024) -> ModelBundle:
     """The ModelBundle of an architecture, by its family; an unknown
-    family raises ``NotImplementedError``.  ``remat`` is the training
-    form's rematerialisation of the layer bodies (see ``_remat``)."""
+    family raises ``NotImplementedError``.  ``rules`` (sharding/axes.py;
+    by default ``rules_for`` the architecture) and ``mesh`` declare the
+    reference's trees on that mesh: query heads padded to the "model"
+    degree when the rules shard heads, routed experts padded to the
+    expert axis.  ``remat`` is the training form's rematerialisation of
+    the layer bodies (see ``_remat``)."""
     if cfg.family not in _BUILDERS:
         raise NotImplementedError(
             f"unknown family {cfg.family!r} ({cfg.name}); known: "
             f"{sorted(_BUILDERS)}")
-    return _BUILDERS[cfg.family](cfg, remat=remat, attn_chunk=attn_chunk)
+    if rules is None:
+        rules = rules_for(cfg.name, "train", cfg.d_model)
+    # the reference pads Q-heads to the TP degree when heads are
+    # model-sharded (40 -> 48, 56 -> 64), for its partitioner
+    if mesh is not None and rules.to_dict().get("heads") is not None:
+        tp = mesh.shape.get("model", 1)
+        a = cfg.attention
+        if tp > 1 and a.n_heads % tp:
+            pad = ((a.n_heads + tp - 1) // tp) * tp
+            cfg = replace(cfg, attention=replace(a, n_heads=pad))
+    return _BUILDERS[cfg.family](cfg, rules, mesh=mesh, remat=remat,
+                                 attn_chunk=attn_chunk)

@@ -1,14 +1,26 @@
 """Mixture-of-experts FFN of the port: shared + routed experts, top-k
-routing, the reference's single-shard dispatch.
+routing, and the reference's three dispatch paths, chosen by the size of
+the expert axis (``ep``: the mesh's ``ep_axis``) and the token count:
 
-The reference (``repro.models.moe``) has three dispatch paths, chosen by
-the size of the expert axis: ``local`` (one shard: sort + capacity
-scatter), ``a2a`` (expert parallelism over ``all_to_all``) and
-``dense_ep`` (decode across expert shards).  The port runs on one card and
-has the first only; an expert axis larger than 1 raises (ROADMAP items 10
-and 11b).  The grouped expert products are plain batched products
-(``torch.bmm``), as the reference leaves them to XLA outside any Pallas
-kernel.
+* ``local``    — one shard: sort + capacity scatter, no collectives;
+* ``a2a``      — expert parallelism: tokens are cut along the sequence
+                 over the expert axis, each shard routes its own tokens
+                 and fills capacity buffers from its own pool, an
+                 all-to-all sends each expert's rows to the shard that
+                 holds it, the experts run, a second all-to-all brings the
+                 rows back, and each shard combines its tokens;
+* ``dense_ep`` — decode (few tokens): every shard computes its experts'
+                 contributions for all of its tokens in float32, summed
+                 over the expert axis in shard order.
+
+PyTorch has no ``shard_map``: each EP path is its stages between the
+collectives (sharding/collectives.py), each stage run on every shard in
+shard order; a shard reads only its ``e_pad / ep`` slice of ``wi`` and
+``wo`` (a view on a simulated mesh).  The aux loss is the mean over the
+expert axis of each shard's aux, and the value returned is shard 0's (the
+reference's ``out_specs P()`` with its replication check off).  The
+grouped expert products are plain batched products (``torch.bmm``), as
+the reference leaves them to XLA outside any Pallas kernel.
 
 Where the two packages must pick the same tokens:
 * ``top_k`` breaks ties by the lower expert index, as ``jax.lax.top_k``
@@ -26,7 +38,7 @@ products are taken in float32, whatever the activations' type.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -34,6 +46,9 @@ import torch
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.layers import act_fn, mlp_decls, mlp_forward
 from repro_torch.models.param import PDecl
+from repro_torch.sharding.collectives import (
+    mesh_all_to_all, mesh_mean, mesh_sum, on_shard, shard_map_specs,
+)
 
 F32 = torch.float32
 
@@ -162,16 +177,132 @@ def _moe_local(p, cfg: ArchConfig, x, e_pad: int):
     return y.reshape(b, s, d), aux
 
 
-def moe_forward(p, cfg: ArchConfig, x, ep: int = 1):
-    """Routed + shared experts.  Returns (y, aux_loss).  ``ep`` is the
-    size of the expert axis: only 1 (one card) is ported."""
-    if ep != 1:
-        raise NotImplementedError(
-            f"expert parallelism (an expert axis of {ep}: the reference's "
-            "_moe_a2a / _moe_dense_ep) is not ported yet (ROADMAP items 10 "
-            "and 11b); the port runs the single-shard dispatch, ep=1")
+def _moe_a2a(p, cfg: ArchConfig, x, e_pad: int, mesh, ep_axis: str,
+             dp_axes=None):
+    """Expert-parallel dispatch: the tokens cut along the sequence over the
+    expert axis, each expert's rows exchanged with the shard that holds it
+    and back."""
     m = cfg.moe
-    y, aux = _moe_local(p, cfg, x, padded_experts(m, ep))
+    d = x.shape[-1]
+    ep = mesh.shape[ep_axis]
+    e_loc = e_pad // ep
+    devices = mesh.devices
+
+    def stages(xs, routers, wis, wos):
+        sent, books, auxes = [], [], []
+        for i, dev in enumerate(devices):            # route and dispatch
+            with on_shard(dev):
+                xf = xs[i].reshape(-1, d)
+                t = xf.shape[0]
+                top_w, top_e, aux = _route({"router": routers[i]}, m, xf,
+                                           e_pad)
+                cap = _capacity(t, m, e_pad)
+                buf, order, se, pos_c, _, sw, keep = _capacity_dispatch(
+                    xf, top_w, top_e, e_pad, cap)
+                sent.append(buf.reshape(ep, e_loc, cap, d))
+                books.append((order, se, pos_c, sw, keep, t, cap))
+                auxes.append(aux)
+        # recv: (ep, e_loc, cap, d), sender-major groups for local experts
+        recv = mesh_all_to_all(sent, mesh, ep_axis)
+        done = []
+        for i, dev in enumerate(devices):            # the local experts
+            with on_shard(dev):
+                cap = books[i][-1]
+                h = recv[i].transpose(0, 1).reshape(e_loc, ep * cap, d)
+                y = _expert_mlp(wis[i], wos[i], h, cfg.act)
+                done.append(y.reshape(e_loc, ep, cap, d).transpose(0, 1))
+        back = mesh_all_to_all(done, mesh, ep_axis)
+        outs = []
+        for i, dev in enumerate(devices):            # combine
+            with on_shard(dev):
+                order, se, pos_c, sw, keep, t, cap = books[i]
+                y = _combine(back[i].reshape(e_pad, cap, d), order, se,
+                             pos_c, sw, keep, t)
+                outs.append(y.reshape(xs[i].shape))
+        return outs, mesh_mean(auxes, mesh, ep_axis)
+
+    fn = shard_map_specs(
+        stages, mesh,
+        in_specs=((dp_axes, ep_axis, None), (None, None),
+                  (ep_axis, None, None, None), (ep_axis, None, None)),
+        out_specs=((dp_axes, ep_axis, None), ()))
+    return fn(x, p["router"], p["wi"], p["wo"])
+
+
+def _moe_dense_ep(p, cfg: ArchConfig, x, e_pad: int, mesh, ep_axis: str,
+                  dp_axes=None):
+    """Decode path: each expert shard computes its experts' contributions
+    for all of its tokens, weighted in float32 and summed over the expert
+    axis in shard order, then cast."""
+    m = cfg.moe
+    d = x.shape[-1]
+    ep = mesh.shape[ep_axis]
+    e_loc = e_pad // ep
+    devices = mesh.devices
+
+    def stages(xs, routers, wis, wos):
+        parts, auxes = [], []
+        for i, dev in enumerate(devices):
+            with on_shard(dev):
+                xf = xs[i].reshape(-1, d)
+                t = xf.shape[0]
+                top_w, top_e, aux = _route({"router": routers[i]}, m, xf,
+                                           e_pad)
+                e0 = mesh.axis_index(i, ep_axis) * e_loc
+                # weight of each local expert for each token (T, e_loc);
+                # a token's k experts differ, so each (row, column) is
+                # written once a pass
+                w_local = torch.zeros((t, e_loc), dtype=F32, device=xf.device)
+                rows = torch.arange(t, device=xf.device)
+                for j in range(m.top_k):
+                    idx = top_e[:, j] - e0
+                    hit = (idx >= 0) & (idx < e_loc)
+                    col = idx.clamp(0, e_loc - 1)
+                    w_local[rows, col] = w_local[rows, col] + torch.where(
+                        hit, top_w[:, j], torch.zeros_like(top_w[:, j]))
+                h = xf.unsqueeze(0).expand(e_loc, t, d)
+                y = _expert_mlp(wis[i], wos[i], h, cfg.act)     # (e_loc, T, d)
+                parts.append(torch.einsum("etd,te->td", y.to(F32), w_local))
+                auxes.append(aux)
+        summed = mesh_sum(parts, mesh, axis=ep_axis)
+        outs = [o.to(xs[i].dtype).reshape(xs[i].shape)
+                for i, o in enumerate(summed)]
+        return outs, mesh_mean(auxes, mesh, ep_axis)
+
+    fn = shard_map_specs(
+        stages, mesh,
+        in_specs=((dp_axes, None, None), (None, None),
+                  (ep_axis, None, None, None), (ep_axis, None, None)),
+        out_specs=((dp_axes, None, None), ()))
+    return fn(x, p["router"], p["wi"], p["wo"])
+
+
+def moe_forward(p, cfg: ArchConfig, x, mesh=None,
+                ep_axis: Optional[str] = None):
+    """Routed + shared experts.  Returns (y, aux_loss).  With a ``mesh``
+    whose ``ep_axis`` is larger than 1 the routed experts run expert
+    parallel: ``_moe_a2a`` when the sequence splits over the expert axis
+    and the batch holds at least 256 tokens, else ``_moe_dense_ep``; the
+    batch is cut over the data axes where it divides them."""
+    m = cfg.moe
+    ep = mesh.shape[ep_axis] if (mesh is not None and ep_axis) else 1
+    e_pad = padded_experts(m, ep)
+    b, s, _ = x.shape
+    if ep == 1:
+        y, aux = _moe_local(p, cfg, x, e_pad)
+    else:
+        # batch must divide the data axes for the split; degrade to a
+        # replicated batch otherwise (long-context cells with batch 1)
+        dp_axes = ("pod", "data") if "pod" in mesh.shape else ("data",)
+        dp_size = 1
+        for a in dp_axes:
+            dp_size *= mesh.shape[a]
+        if b % dp_size:
+            dp_axes = None
+        if s % ep == 0 and b * s >= 256:
+            y, aux = _moe_a2a(p, cfg, x, e_pad, mesh, ep_axis, dp_axes)
+        else:
+            y, aux = _moe_dense_ep(p, cfg, x, e_pad, mesh, ep_axis, dp_axes)
     if m.d_shared:
         sh = mlp_forward(p["shared"], x, cfg.act, glu=True)
         if m.shared_gate:

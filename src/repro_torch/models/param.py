@@ -1,10 +1,10 @@
 """Parameter declaration trees.
 
 A model is declared once as a tree (nested dicts) of :class:`PDecl`; from
-it come random initialization (:func:`init_tree`), the counts, and the
-cache trees of the serving engine.  The logical axis names of every
-dimension are kept as metadata: on one card nothing is sharded, so nothing
-reads them yet.
+it come random initialization (:func:`init_tree`), the counts, the cache
+trees of the serving engine, and through the logical-axis rules
+(sharding/axes.py) each leaf's spec on a mesh (:func:`spec_tree`,
+:func:`sharding_tree`) and its placement there (:func:`shard_params`).
 
 :func:`params_from_numpy` carries the JAX package's parameters across —
 as numpy arrays, ``jax.tree.map(np.asarray, params)`` — into tensors of
@@ -97,6 +97,51 @@ def init_tree(decls, generator: torch.Generator, device) -> Any:
     ``device``)."""
     device = torch.device(device)
     return tree_map(lambda d: d.initialize(generator, device), decls)
+
+
+def spec_tree(decls, rules):
+    """Each leaf's spec under ``rules`` (sharding/axes.py), without a
+    mesh."""
+    return tree_map(lambda d: rules.resolve(d.logical), decls)
+
+
+def sharding_tree(decls, mesh, rules):
+    """Each leaf's spec on ``mesh``: the rules resolver drops mesh axes a
+    dim cannot evenly use (and frees them for later dims), as the JAX
+    package's jit in_shardings need."""
+    sizes = dict(mesh.shape)
+    return tree_map(lambda d: rules.resolve(d.logical, shape=d.shape,
+                                            mesh_sizes=sizes), decls)
+
+
+def shard_params(params, decls, mesh, rules):
+    """``params`` placed on ``mesh`` by their specs (``sharding_tree``).
+    Only the leaves whose consumer is shard-local code are split: the
+    routed experts' ``wi`` and ``wo``, cut along their "experts" dim
+    (models/moe.py), each a ``ShardedLeaf`` whose parts are views on a
+    simulated mesh and each card's own copy of its slice on an NCCL mesh.
+    Every other leaf stays as it is, on the lead device, where the
+    layers that are not sharded in this port run it.  On an NCCL mesh
+    the lead card also keeps the whole ``wi``/``wo`` for as long as the
+    caller holds ``params``: drop it to keep only the slices."""
+    from repro_torch.sharding.collectives import ShardedLeaf, split_spec
+    specs = dict(tree_paths(sharding_tree(decls, mesh, rules)))
+    logical = {path: d.logical for path, d in tree_paths(decls)}
+
+    def place(path, t):
+        if "experts" not in logical[path]:
+            return t
+        k = logical[path].index("experts")
+        spec = tuple(e if i == k else None
+                     for i, e in enumerate(specs[path]))
+        if spec[k] is None:
+            return t
+        parts = split_spec(t, spec, mesh)
+        if mesh.collective == "nccl":
+            parts = [p.clone() if p.device == t.device else p
+                     for p in parts]
+        return ShardedLeaf(parts, spec, mesh)
+    return tree_map_with_path(place, params)
 
 
 def param_count(decls) -> int:

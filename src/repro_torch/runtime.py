@@ -14,6 +14,12 @@
                      them): an input that needs a gradient raises instead
                      of leaving the launch's output without one.
 ``bounded_put``      shared bounded-FIFO insert for the warm-path caches.
+``mesh_axes``        the mesh axis names the logical-axis rules may map
+                     onto (None: no filtering), as the JAX package's
+                     ``runtime.mesh_axes`` (sharding/axes.py).  Nothing
+                     in the port sets it yet: the JAX package sets its
+                     own only on the dry run's ``--mesh multi`` path,
+                     which the port has still to port.
 
 Float32 matrix products stay in full float32: the port never enables
 TF32, and refuses to load into a process that did.
@@ -35,13 +41,17 @@ DeviceLike = Union[str, torch.device]
 # kernels/crossfit_gram.py, kernels/flash_attention.py and
 # kernels/ssd_scan.py); "flash_attention_bwd" and "ssd_scan_bwd" count
 # calls of K5's and K6's backward wrappers (several CUDA launches each);
-# "mesh_sum" and "mesh_gather" count the collectives over a mesh's shards
+# "mesh_sum", "mesh_gather" and "mesh_all_to_all" count the collectives
+# over a mesh's shards
 launch_counts: Dict[str, int] = {"batched_gram": 0, "batched_gram_blocked": 0,
                                  "batched_predict": 0, "crossfit_gram": 0,
                                  "flash_attention": 0,
                                  "flash_attention_bwd": 0, "ssd_scan": 0,
                                  "ssd_scan_bwd": 0, "mesh_sum": 0,
-                                 "mesh_gather": 0}
+                                 "mesh_gather": 0, "mesh_all_to_all": 0}
+
+# mesh axis names available to the logical-axis rules (None = no filtering)
+mesh_axes = None
 
 
 def reset_launch_counts() -> None:

@@ -25,6 +25,25 @@ more than one shard adds one to ``runtime.launch_counts["mesh_sum"]`` or
 ``["mesh_gather"]``; on one shard there is nothing to combine, the part
 comes back as it is and nothing is counted.
 
+Scoped to one axis (``axis=``: the shards of each group of
+``DeviceMesh.axis_groups(axis)`` combine among themselves, as
+``jax.lax.psum(x, axis)`` does inside a ``shard_map`` body):
+
+``mesh_sum``         with ``axis``, the sum within each group;
+``mesh_mean``        the sum over ``axis`` divided by its size (``pmean``);
+``mesh_all_to_all``  each part's leading dim holds one chunk per shard of
+                     its group, and chunk j of shard i goes to shard j,
+                     where it lands at place i: the JAX package's
+                     ``all_to_all(x, axis, 0, 0, tiled=False)``.  On a
+                     simulated mesh it is an ordered re-stacking of the
+                     chunks; on an NCCL mesh (``torch.cuda.nccl`` has no
+                     all-to-all) each chunk is a peer copy onto the
+                     destination card's current stream, after that stream
+                     waits for the source card's (written, unverified: no
+                     machine with two cards has run it).
+Each call over an axis of more than one shard adds one to its count
+(``mesh_mean`` counts as ``mesh_sum``, ``mesh_all_to_all`` as itself).
+
 ``shard_map`` is the counterpart of the JAX package's ``shard_map`` over
 the "data" axis: its operands split along the dims that
 ``sharding/policy.py::megabatch_specs`` names (the rest are replicated),
@@ -32,12 +51,24 @@ each shard's body runs on its device, and the outputs are gathered.  A
 replicated operand reaches another card through ``on_device``: a tensor
 that a page pool holds once on each card of its mesh
 (``hold_replicas``) is read there, any other is copied.
+
+``shard_map_specs`` is its spec form over any axes: each operand names
+the mesh axes of each of its dims (``(dp_axes, "model", None)`` for the
+JAX package's ``P(dp_axes, "model", None)``), ``split_spec`` cuts it into
+one part per shard (views on a simulated mesh), the staged program gets
+every operand's parts and returns every output's parts, and ``join_spec``
+puts each output together on the lead device.  A dim that no output axis
+names is taken from the shards at place 0 of the other axes: for the
+replicated ``()`` that is shard 0's part, the value the JAX package's
+``shard_map`` returns with its replication check off.  A ``ShardedLeaf``
+(a parameter that ``models/param.py::shard_params`` placed on the mesh)
+hands over its parts when its spec is the one asked for.
 """
 from __future__ import annotations
 
 import contextlib
 import weakref
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,21 +87,38 @@ def _check(parts: Sequence[torch.Tensor], mesh) -> int:
     return m
 
 
-def mesh_sum(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
-    """The sum of one part per shard, one result per shard.  On an NCCL
-    mesh the parts are summed in place (``all_reduce``)."""
-    m = _check(parts, mesh)
-    if m == 1:
+def _group_size(parts: Sequence[torch.Tensor], mesh, axis: str) -> int:
+    if len(parts) != len(mesh.devices):
+        raise ValueError(f"a collective over a mesh of {len(mesh.devices)} "
+                         f"shards got {len(parts)} parts")
+    return mesh.shape[axis]
+
+
+def mesh_sum(parts: Sequence[torch.Tensor], mesh,
+             axis: Optional[str] = None) -> List[torch.Tensor]:
+    """The sum of one part per shard, one result per shard: over every
+    shard of a mesh split over "data" alone, or with ``axis`` within each
+    group of that axis.  On an NCCL mesh the parts are summed in place
+    (``all_reduce``)."""
+    if axis is None:
+        _check(parts, mesh)
+        axis = "data"
+    if _group_size(parts, mesh, axis) == 1:
         return list(parts)
     runtime.launch_counts["mesh_sum"] += 1
-    if mesh.collective == "nccl":
-        parts = [p.contiguous() for p in parts]
-        torch.cuda.nccl.all_reduce(parts)
-        return parts
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p
-    return [total] * m
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    for group in mesh.axis_groups(axis):
+        if mesh.collective == "nccl":
+            summed = [parts[i].contiguous() for i in group]
+            torch.cuda.nccl.all_reduce(summed)
+        else:
+            total = parts[group[0]]
+            for i in group[1:]:
+                total = total + parts[i]
+            summed = [total] * len(group)
+        for i, t in zip(group, summed):
+            out[i] = t
+    return out
 
 
 def mesh_gather(parts: Sequence[torch.Tensor], dim: int,
@@ -90,6 +138,49 @@ def mesh_gather(parts: Sequence[torch.Tensor], dim: int,
         return [o.movedim(0, dim) for o in outs]
     whole = torch.cat(list(parts), dim=dim)
     return [whole] * m
+
+
+def mesh_mean(parts: Sequence[torch.Tensor], mesh,
+              axis: str) -> List[torch.Tensor]:
+    """The mean over ``axis`` of one part per shard: the sum divided by
+    the axis size (``jax.lax.pmean``)."""
+    size = _group_size(parts, mesh, axis)
+    if size == 1:
+        return list(parts)
+    return [t / size for t in mesh_sum(parts, mesh, axis)]
+
+
+def mesh_all_to_all(parts: Sequence[torch.Tensor], mesh,
+                    axis: str) -> List[torch.Tensor]:
+    """Within each group of ``axis``: chunk j (``part[j]``) of the group's
+    shard i goes to its shard j, at place i of the result."""
+    n = _group_size(parts, mesh, axis)
+    if any(p.shape[0] != n for p in parts):
+        raise ValueError(f"an all-to-all over {n} shards needs a leading "
+                         f"dim of {n}; got {[tuple(p.shape) for p in parts]}")
+    if n == 1:
+        return list(parts)
+    runtime.launch_counts["mesh_all_to_all"] += 1
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    for group in mesh.axis_groups(axis):
+        for r, dst in enumerate(group):
+            if mesh.collective != "nccl":
+                out[dst] = torch.stack([parts[src][r] for src in group])
+                continue
+            dev = mesh.devices[dst]
+            stream = torch.cuda.current_stream(dev)
+            head = parts[group[0]]
+            buf = torch.empty((n,) + tuple(head.shape[1:]), dtype=head.dtype,
+                              device=dev)
+            with torch.cuda.device(dev):
+                for j, src in enumerate(group):
+                    if mesh.devices[src] != dev:
+                        stream.wait_stream(
+                            torch.cuda.current_stream(mesh.devices[src]))
+                        parts[src].record_stream(stream)
+                    buf[j].copy_(parts[src][r], non_blocking=True)
+            out[dst] = buf
+    return out
 
 
 def hold_replicas(t: torch.Tensor, devices: Sequence[torch.device]) -> None:
@@ -148,4 +239,124 @@ def shard_map(fn: Callable, mesh, in_dims: Sequence[Optional[int]],
                 outs.append(fn(*shard_args))
         return mesh_gather(outs, out_dim, mesh)[0]
 
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the spec form: operands placed by the mesh axes of each dim
+# ---------------------------------------------------------------------------
+Spec = Tuple[object, ...]
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    """A spec entry (None, an axis name, or a tuple of names) as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _block(mesh, shard: int, entry) -> Tuple[int, int]:
+    """(index, count) of shard ``shard``'s block of a dim split over
+    ``entry``'s axes, row-major over them."""
+    index, count = 0, 1
+    for a in _axes(entry):
+        size = mesh.shape[a]
+        index, count = index * size + mesh.axis_index(shard, a), count * size
+    return index, count
+
+
+def _same_spec(a: Spec, b: Spec) -> bool:
+    return len(a) == len(b) and all(_axes(x) == _axes(y)
+                                    for x, y in zip(a, b))
+
+
+class ShardedLeaf:
+    """A tensor held as one part per shard of ``mesh``, split as ``spec``
+    says (``models/param.py::shard_params``).  Indexing its leading,
+    unsplit dims (``leaf[i]``: one layer of a stacked leaf) indexes every
+    part."""
+
+    def __init__(self, parts: Sequence[torch.Tensor], spec: Spec, mesh):
+        self.parts, self.spec, self.mesh = list(parts), tuple(spec), mesh
+
+    def __getitem__(self, idx):
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        if not all(isinstance(i, int) for i in idx) or any(
+                _axes(e) for e in self.spec[:len(idx)]):
+            raise IndexError(f"a sharded leaf of spec {self.spec} takes "
+                             "integer indexes of its unsplit leading dims")
+        return ShardedLeaf([p[idx] for p in self.parts],
+                           self.spec[len(idx):], self.mesh)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The whole leaf's shape."""
+        return tuple(n * _block(self.mesh, 0, e)[1]
+                     for n, e in zip(self.parts[0].shape, self.spec))
+
+
+def split_spec(x, spec: Spec, mesh) -> List[torch.Tensor]:
+    """One part of ``x`` per shard of ``mesh`` (in ``devices`` order),
+    each dim cut into the blocks its ``spec`` entry names: views of ``x``
+    on a simulated mesh, copies on each shard's card on an NCCL mesh."""
+    if isinstance(x, ShardedLeaf):
+        if not _same_spec(x.spec, spec) or x.mesh != mesh:
+            raise ValueError(f"a leaf placed as {x.spec} is asked for as "
+                             f"{tuple(spec)}; nothing here re-shards it")
+        return list(x.parts)
+    if len(spec) != x.dim():
+        raise ValueError(f"spec {tuple(spec)} for a tensor of shape "
+                         f"{tuple(x.shape)}")
+    parts = []
+    for shard, dev in enumerate(mesh.devices):
+        part = x
+        for dim, entry in enumerate(spec):
+            index, count = _block(mesh, shard, entry)
+            if count == 1:
+                continue
+            if x.shape[dim] % count:
+                raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does "
+                                 f"not split into {count} blocks")
+            size = x.shape[dim] // count
+            part = part.narrow(dim, index * size, size)
+        parts.append(on_device(part, dev))
+    return parts
+
+
+def join_spec(parts: Sequence[torch.Tensor], spec: Spec,
+              mesh) -> torch.Tensor:
+    """The tensor whose ``split_spec`` is ``parts``, on the mesh's lead
+    device; dims split over no axis come from the shards at place 0 of
+    every axis that ``spec`` does not name."""
+    named = {a for e in spec for a in _axes(e)}
+    free = [k for k, a in enumerate(mesh.axis_names) if a not in named]
+    chosen = [s for s in range(len(mesh.devices))
+              if all(mesh.coords(s)[k] == 0 for k in free)]
+    if len(chosen) == 1:
+        return on_device(parts[chosen[0]], mesh.device)
+    head = parts[chosen[0]]
+    counts = [_block(mesh, 0, e)[1] for e in spec]
+    out = torch.empty([n * c for n, c in zip(head.shape, counts)],
+                      dtype=head.dtype, device=mesh.device)
+    for s in chosen:
+        view = out
+        for dim, entry in enumerate(spec):
+            index, count = _block(mesh, s, entry)
+            if count > 1:
+                view = view.narrow(dim, index * head.shape[dim],
+                                   head.shape[dim])
+        view.copy_(parts[s])
+    return out
+
+
+def shard_map_specs(fn: Callable, mesh, in_specs: Sequence[Spec],
+                    out_specs: Sequence[Spec]) -> Callable:
+    """A staged sharded program over any axes of ``mesh``: operand i is
+    cut by ``in_specs[i]`` (``split_spec``), ``fn`` gets each operand's
+    parts in shard order, runs its stages on every shard between the
+    collectives and returns each output's parts, and output j is put
+    together by ``out_specs[j]`` (``join_spec``)."""
+    def run(*args):
+        outs = fn(*[split_spec(a, s, mesh) for a, s in zip(args, in_specs)])
+        return tuple(join_spec(o, s, mesh) for o, s in zip(outs, out_specs))
     return run

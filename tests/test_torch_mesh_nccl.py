@@ -9,7 +9,9 @@ count on the first card: the collectives against the ordered sum (1e-6:
 NCCL's ring may sum in another order) and ``torch.cat`` (exactly), the
 sharded backend's drain bit for bit for ridge (its lanes keep their bits
 at any batch count), and K1 and K2 launched on the second card, whose
-shared-memory grant is that card's own.
+shared-memory grant is that card's own.  Expert parallelism: the
+all-to-all's peer copies, the axis-scoped sum and the reduced MoE layer
+on a (1, n) mesh of the cards against the simulated (1, n) mesh.
 """
 import numpy as np
 import pytest
@@ -17,12 +19,17 @@ import pytest
 # ruff: noqa: E402
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_arch
 from repro_torch.core import DMLData, DMLPlan, DMLSession
 from repro_torch.data import make_plr_data
 from repro_torch.kernels import megabatch, ops
-from repro_torch.launch.mesh import make_host_mesh, make_sim_mesh
+from repro_torch.launch.mesh import DeviceMesh, make_host_mesh, make_sim_mesh
+from repro_torch.models import moe
+from repro_torch.models.param import cast_floating, init_tree
 from repro_torch.serverless import ShardedBackend
-from repro_torch.sharding.collectives import mesh_gather, mesh_sum
+from repro_torch.sharding.collectives import (
+    mesh_all_to_all, mesh_gather, mesh_sum,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +104,35 @@ def test_k1_and_k2_launch_on_the_second_card():
         torch.testing.assert_close(
             out, megabatch.batched_predict_plain(xs, beta, w), rtol=1e-5,
             atol=1e-5)
+
+
+def test_nccl_expert_parallel_matches_the_simulated_mesh():
+    """A (1, n) mesh of the cards: ``mesh_all_to_all`` (peer copies) and
+    the sum over "model" exactly the simulated mesh's, and the reduced
+    deepseek-v2-lite MoE layer (a2a and dense_ep) within 1e-5 of it in
+    float32."""
+    n = _cards()
+    cards = tuple(torch.device("cuda", i) for i in range(n))
+    mesh = DeviceMesh(cards, (1, n))
+    sim = make_sim_mesh((1, n), "cuda:0")
+    gen = torch.Generator().manual_seed(1)
+    host = [torch.randn(n, 3, 5, generator=gen) for _ in range(n)]
+    got = mesh_all_to_all([h.to(d) for h, d in zip(host, cards)], mesh,
+                          "model")
+    want = mesh_all_to_all([h.to("cuda:0") for h in host], sim, "model")
+    for g, w, d in zip(got, want, cards):
+        assert g.device == d and torch.equal(g.cpu(), w.cpu())
+    summed = mesh_sum([h.to(d) for h, d in zip(host, cards)], mesh,
+                      axis="model")
+    for s, w in zip(summed, mesh_sum([h.cuda() for h in host], sim,
+                                     axis="model")):
+        torch.testing.assert_close(s.cpu(), w.cpu(), rtol=1e-6, atol=1e-6)
+    cfg = get_arch("deepseek-v2-lite-16b", reduced=True)
+    p = cast_floating(init_tree(moe.moe_decls(cfg, n),
+                                torch.Generator("cuda:0").manual_seed(0),
+                                "cuda:0"), torch.float32)
+    for shape in ((2, 128 * n), (4, 1)):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen).cuda()
+        y, _ = moe.moe_forward(p, cfg, x, mesh=mesh, ep_axis="model")
+        y0, _ = moe.moe_forward(p, cfg, x, mesh=sim, ep_axis="model")
+        torch.testing.assert_close(y, y0, rtol=1e-5, atol=1e-5)

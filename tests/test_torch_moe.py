@@ -227,15 +227,6 @@ def test_moe_forward_is_deterministic():
     assert torch.equal(a, b)
 
 
-def test_expert_parallel_dispatch_raises():
-    """An expert axis larger than 1 (the reference's _moe_a2a and
-    _moe_dense_ep) is not ported."""
-    _, _, pc, pp = _moe_params("qwen2-moe-a2.7b", "f32")
-    x = torch.zeros((1, 4, pc.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP items 10"):
-        M.moe_forward(pp, pc, x, ep=16)
-
-
 def test_padded_experts_matches_reference():
     for arch in ARCHS:
         for ep in (1, 2, 16, 64):
