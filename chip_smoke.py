@@ -200,10 +200,10 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "raw_request", "estimate_irm", "estimate_wave", "wave_pool",
           "session_wave", "fusion", "page_pool", "estimate_quickstart",
           "estimate_mlp", "serve_zamba2", "serve_deepseek", "serve_dense",
-          "serve_xlstm", "serve_whisper", "serve_vlm", "same_as_cpu_lm",
-          "train_dense", "train_whisper", "train_hybrid", "train_xlstm",
-          "topology", "mesh", "topology_chaos", "durable", "sanitize",
-          "persist", "examples", "dryrun")
+          "serve_tp", "serve_xlstm", "serve_whisper", "serve_vlm",
+          "same_as_cpu_lm", "train_dense", "train_whisper", "train_hybrid",
+          "train_xlstm", "topology", "mesh", "topology_chaos", "durable",
+          "sanitize", "persist", "examples", "dryrun")
 LIBRARIES = ("megabatch", "lm", "attn_bwd", "ssd_bwd")
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, and plain (non tensor
@@ -411,8 +411,19 @@ ATTN_SHAPES = (MAIN_ATTN_SHAPE, (128, 2048, 2048, 112, "f32", True, 32768),
         (64, 2048, 2048, 128, True, None),
         (32, 2048, 2048, 128, True, None),
         (80, 2048, 2048, 128, True, None),
-        (112, 2048, 2048, 128, True, None))
-    for dtype in ("bf16", "f32"))
+        (112, 2048, 2048, 128, True, None),
+        # one shard's prefill on a model degree of m (B x heads / m):
+        # serve_tp's qwen2.5-32b (B 2 x 40 / 4 on (1, 4); B 1 x 40 / 2 on
+        # (2, 2)) and h2o-danube-3-4b (B 2 x 32 / 4, window 4096);
+        # serve_deepseek's MLA on (1, 4) (B 4 x 16 / 4) and qwen2-moe-a2.7b
+        # at ep 16 (B 2 x 16 / 16)
+        (20, 2048, 2048, 128, True, None),
+        (16, 4608, 4608, 120, True, 4096),
+        (16, 2048, 2048, 192, True, None, 128),
+        (2, 2048, 2048, 128, True, None))
+    for dtype in ("bf16", "f32")) + (
+    # serve_tp's NCCL run on two cards (B 2 x 40 / 2), where there are two
+    (40, 2048, 2048, 128, "bf16", True, None),)
 # the three last families' prefills (name -> row and its types):
 # serve_vlm's (B 2 x 64 heads, GQA 64/8 repeated, S 2048, D 128) causal
 # self-attention, in both types (in float32 it sat 2.06e-5 from the plain
@@ -447,6 +458,17 @@ TRAIN_FWD_ATTN_ROWS = (
 )
 # the deepseek prefill's row: K5 at Dqk 192, Dv 128
 MLA_ATTN_SHAPE = (64, 2048, 2048, 192, "bf16", True, None, 128)
+# one shard's K5 launch where the decoders serve tensor parallel over a
+# model degree of m (serve_tp's qwen2.5-32b and h2o-danube-3-4b at m 4,
+# serve_deepseek's EP serve at m 4 and its qwen2-moe at m 16), each timed
+# beside scaled_dot_product_attention (a window shorter than S through an
+# explicit band mask)
+TP_ATTN_SHAPE = (20, 2048, 2048, 128, "bf16", True, None)
+MLA_TP_ATTN_SHAPE = (16, 2048, 2048, 192, "bf16", True, None, 128)
+H2O_TP_ATTN_SHAPE = (16, 4608, 4608, 120, "bf16", True, 4096)
+EP16_ATTN_SHAPE = (2, 2048, 2048, 128, "bf16", True, None)
+TP_SHARD_ROWS = {"qwen": TP_ATTN_SHAPE, "h2o": H2O_TP_ATTN_SHAPE,
+                 "mla": MLA_TP_ATTN_SHAPE, "ep16": EP16_ATTN_SHAPE}
 # (BH, S, P, N, chunk, heads) of the SSD scan, for the same runs (112 SSM
 # heads of 64 a batch row, state 64, chunk 256; the reduced model 8 heads of
 # 16, state 16, chunk 16), then a ragged S; "strong" decay is la = -50; S
@@ -1200,9 +1222,11 @@ def _attn_kernel_rows(device, gen):
     every shape of ATTN_SHAPES.  The main (bf16) row carries the float32
     kernel's row at the same shape beside it (``f32``), the deepseek
     prefill's rows (Dqk 192, Dv 128) beside it (``mla``), and the rows of
-    CROSS_ATTN_ROWS in both types (``families``)."""
-    report, main, f32, mla, families = [], None, None, {}, {}
+    CROSS_ATTN_ROWS in both types (``families``), and one shard's rows of
+    the tensor-parallel serves (``tp_shard``)."""
+    report, main, f32, mla, families, tp = [], None, None, {}, {}, {}
     library_keys = {MAIN_ATTN_SHAPE[:4], MLA_ATTN_SHAPE[:4]} | {
+        row[:4] for row in TP_SHARD_ROWS.values()} | {
         row[:4] for row, _ in CROSS_ATTN_ROWS.values()}
     for shape in ATTN_SHAPES:
         bh, sq, skv, d, dtype, causal, window = shape[:7]
@@ -1250,18 +1274,27 @@ def _attn_kernel_rows(device, gen):
             "bound_ms_at_f32_fma": bound_f32,
             "bytes": nbytes, "operations": flops, **f64,
         }
-        if shape[:4] in library_keys and (sq == skv or not causal) \
-                and (window is None or window >= skv):
+        if shape[:4] in library_keys and (sq == skv or not causal):
             # the serve paths' shapes in both types (zamba2's window 32768
             # is longer than S: causal alone; SDPA's causal mask is aligned
-            # to the top left, so a causal row needs Sq == Skv)
+            # to the top left, so a causal row needs Sq == Skv); a window
+            # shorter than S is SDPA's boolean band mask (causal and
+            # within the window), which its fused backends may refuse
             sdpa = torch.nn.functional.scaled_dot_product_attention
+            band = flash_attention.visible(sq, skv, causal, window, device) \
+                if window is not None and window < skv else None
 
             def library():          # (1, BH, S, D): the fused backends
-                return sdpa(q[None], k[None], v[None], is_causal=causal)[0]
+                if band is None:
+                    return sdpa(q[None], k[None], v[None],
+                                is_causal=causal)[0]
+                return sdpa(q[None], k[None], v[None], attn_mask=band)[0]
 
-            row["library"] = (f"scaled_dot_product_attention(is_causal="
-                              f"{causal}) on (1, BH, S, D)")
+            row["library"] = (
+                f"scaled_dot_product_attention(is_causal={causal}) on (1, "
+                "BH, S, D)" if band is None else
+                "scaled_dot_product_attention(attn_mask=the (S, S) bool "
+                f"band of window {window}) on (1, BH, S, D)")
             try:                    # Dv != D: not every backend takes it
                 lib_err = float((library().float() - o0.float()).abs().max())
             except RuntimeError as err:
@@ -1278,6 +1311,9 @@ def _attn_kernel_rows(device, gen):
             f32 = row
         elif shape[:4] == MLA_ATTN_SHAPE[:4]:
             mla[dtype] = {"shape": list(shape), **row}
+        for name, key in TP_SHARD_ROWS.items():
+            if shape[:4] == key[:4]:
+                tp[f"{name}_{dtype}"] = {"shape": list(shape), **row}
         for name, (key, _) in CROSS_ATTN_ROWS.items():
             if shape == (*key[:4], dtype, *key[4:]):
                 families[f"{name}_{dtype}"] = {"shape": list(shape), **row}
@@ -1291,6 +1327,7 @@ def _attn_kernel_rows(device, gen):
                                           "bound_ms_at_f32_fma")}}
     main["mla"] = mla
     main["families"] = families
+    main["tp_shard"] = tp
     # more queries than keys under a mask raises on the card, in the
     # wrapper and on the model's route (its first queries would see no
     # key), and launches nothing
@@ -3770,14 +3807,15 @@ def _consistency_f32(bundle, params, prompt, device, depth=None):
 
 
 def _serve(bundle, params, device, prompts, batch, slot_len, what,
-           collectives=None):
+           collectives=None, shards=1):
     """One ``Engine.serve_requests`` of ``prompts`` in ``batch`` slots of
     ``slot_len``, SERVE_GEN tokens each, with the launch counts set to 0
     just before and read just after, and every launch's shape recorded;
     the model's launches (``_prefill_launches`` a burst: a decoder's K5
-    once a layer) and the mesh's ``collectives`` (counts over the whole
-    serve) and nothing else checked, every logit finite.  Returns
-    (engine, tokens, the emitted record)."""
+    once a layer, once a layer a shard on a mesh of ``shards``) and the
+    mesh's ``collectives`` (counts over the whole serve) and nothing else
+    checked, every logit finite.  Returns (engine, tokens, the emitted
+    record)."""
     cfg = bundle.arch
     engine = Engine(bundle, params, device=device)
     flags = _logit_recorder(bundle)
@@ -3796,7 +3834,7 @@ def _serve(bundle, params, device, prompts, batch, slot_len, what,
     n_bursts = -(-len(prompts) // batch)
     assert launches == {**{k: 0 for k in launches},
                         **{k: n_bursts * n for k, n in
-                           _prefill_launches(cfg).items()},
+                           _prefill_launches(cfg, shards).items()},
                         **(collectives or {})}, (what, launches)
     _launches_compared(seen, what)
     assert bool(torch.stack(flags).all()), f"{what}: a logit is not finite"
@@ -3832,14 +3870,34 @@ EP_SHARDS, EP16, EP16_LAYERS = 4, 16, 2
 EP_TIER, EP_F32_TIER, EP_F32_LAYERS = 0.08, 1e-6, 4
 
 
-def _ep_collectives(cfg, n_bursts):
-    """The collectives of ``n_bursts`` bursts served with the MoE layers
-    expert parallel: a prefill's MoE layer exchanges twice and means its
-    aux once (a2a), a decode step's sums its output and means its aux
-    (dense_ep)."""
-    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
-    return {"mesh_all_to_all": n_bursts * 2 * n_moe,
-            "mesh_sum": n_bursts * n_moe * (1 + 2 * (SERVE_GEN - 1))}
+def _tp_collectives(cfg, dims, n_bursts, n_gen=None):
+    """The collectives of ``n_bursts`` bursts (a prefill and ``n_gen`` - 1
+    decode steps each) of a decoder served on a (dp, tp) mesh.  Every
+    step: over "model", the vocab-parallel lookup's sum, an attention sum
+    a layer, an MLP sum a dense layer and the logits' gather; over "data"
+    (FSDP), a gather of each of a layer's six placed projections and of
+    the unembedding.  A MoE layer, expert parallel over "model": a
+    prefill's exchanges twice, means its aux once and gathers the shared
+    expert's two leaves (a2a), a decode step's sums its output and means
+    its aux (dense_ep).  (The KV heads split whole; a MoE model on a data
+    axis of one.)"""
+    dp, tp = dims
+    n_gen = SERVE_GEN if n_gen is None else n_gen
+    n = cfg.n_layers
+    n_moe = n - cfg.moe.first_dense_layers if cfg.family == "moe" else 0
+    assert cfg.attention.is_mla or cfg.attention.n_kv_heads % tp == 0
+    assert not (n_moe and dp > 1) and tp > 1
+    sums = 1 + n + (n - n_moe)
+    gathers = 1 + ((6 * n + 1) if dp > 1 else 0)
+    out = {"mesh_sum": n_bursts * n_gen * sums,
+           "mesh_gather": n_bursts * n_gen * gathers,
+           "mesh_all_to_all": 0}
+    if n_moe:
+        out["mesh_all_to_all"] += n_bursts * 2 * n_moe
+        out["mesh_sum"] += n_bursts * n_moe * (1 + 2 * (n_gen - 1))
+        out["mesh_gather"] += n_bursts * n_moe * (2 if cfg.moe.d_shared
+                                                  else 0)
+    return out
 
 
 @contextlib.contextmanager
@@ -3894,9 +3952,11 @@ def _moe_ep_checks(cfg, bundle, params, ep_bundle, ep_params, mesh,
     prefill at ep 1 and one at ep EP_SHARDS with the capacity drops
     recorded; the first MoE layer's a2a output on its real input against
     ``_moe_local`` on each shard's tokens, put back in place; the first
-    decode step's dense_ep on every MoE layer's real input against
-    ``_moe_local`` in bf16, and on the first EP_F32_LAYERS layers in
-    float32."""
+    decode step's dense_ep on every MoE layer's real input, called with
+    the layer's leaves as the serve passed them (the routed experts and
+    the shared expert, whose blocks dense_ep adds into its sum), against
+    ``_moe_local`` plus ``_shared_forward`` on the unplaced leaves in
+    bf16, and on the first EP_F32_LAYERS layers in float32."""
     from repro_torch.models import moe
     from repro_torch.sharding.collectives import join_spec, split_spec
     e_pad = moe.padded_experts(cfg.moe, EP_SHARDS)
@@ -3904,8 +3964,23 @@ def _moe_ep_checks(cfg, bundle, params, ep_bundle, ep_params, mesh,
     tokens = _burst_tokens(prompts, SERVE_BATCH, SERVE_LEN, device)
     experts = params["layers"]["moe"]
 
+    def routed(p):            # the routed part of a captured layer's leaves
+        return {k: p[k] for k in ("router", "wi", "wo")}
+
     def whole(p, i):                  # layer i's routed experts, unplaced
-        return {**p, "wi": experts["wi"][i], "wo": experts["wo"][i]}
+        return {"router": p["router"], "wi": experts["wi"][i],
+                "wo": experts["wo"][i]}
+
+    def served(p, i):     # layer i's routed and shared experts, unplaced
+        out = whole(p, i)
+        for k in ("shared", "shared_gate"):
+            if k in p:
+                out[k] = tree_map(lambda t: t[i], experts[k])
+        return out
+
+    def one_card(q, x):     # the ep 1 layer: routed plus shared experts
+        y = moe._moe_local(q, cfg, x, e_pad)[0]
+        return y + moe._shared_forward(q, cfg, x) if "shared" in q else y
     with torch.inference_mode():
         with _dispatch_drops() as seen:
             bundle.prefill_fn(params, {"tokens": tokens})
@@ -3916,7 +3991,8 @@ def _moe_ep_checks(cfg, bundle, params, ep_bundle, ep_params, mesh,
         drops[f"ep{EP_SHARDS}"] = _drop_share(seen)
         p, x = layers[0]
         del layers[1:]
-        got = moe._moe_a2a(p, cfg, x, e_pad, mesh, "model", ("data",))[0]
+        got = moe._moe_a2a(routed(p), cfg, x, e_pad, mesh, "model",
+                           ("data",))[0]
         want = join_spec([moe._moe_local(whole(p, 0), cfg, part, e_pad)[0]
                           for part in split_spec(x, spec, mesh)], spec, mesh)
         a2a = _rel_diff(got, want)
@@ -3929,16 +4005,16 @@ def _moe_ep_checks(cfg, bundle, params, ep_bundle, ep_params, mesh,
         del cache
         dense, dense_f32 = [], []
         for i, (p, x) in enumerate(layers):
+            assert ("shared" in p, "shared_gate" in p) == (
+                bool(cfg.moe.d_shared), cfg.moe.shared_gate), sorted(p)
             got = moe._moe_dense_ep(p, cfg, x, e_pad, mesh, "model",
                                     ("data",))[0]
-            dense.append(_rel_diff(got, moe._moe_local(whole(p, i), cfg, x,
-                                                       e_pad)[0]))
+            dense.append(_rel_diff(got, one_card(served(p, i), x)))
             if i < EP_F32_LAYERS:
-                p32 = cast_floating(whole(p, i), torch.float32)
+                p32 = cast_floating(served(p, i), torch.float32)
                 got = moe._moe_dense_ep(p32, cfg, x.float(), e_pad, mesh,
                                         "model", ("data",))[0]
-                dense_f32.append(_rel_diff(got, moe._moe_local(
-                    p32, cfg, x.float(), e_pad)[0]))
+                dense_f32.append(_rel_diff(got, one_card(p32, x.float())))
                 del p32
         assert len(layers) == cfg.n_layers - cfg.moe.first_dense_layers
         assert max(r for _, r, _ in dense) < EP_TIER, ("dense_ep", dense)
@@ -3960,9 +4036,9 @@ def _moe_ep_checks(cfg, bundle, params, ep_bundle, ep_params, mesh,
 
 def _serve_ep16(device):
     """(f): qwen2-moe-a2.7b at full width cut to EP16_LAYERS layers on a
-    simulated (1, EP16) mesh: 60 experts declared padded to 64, 4 a shard;
-    served at serve_dense's burst, every routed expert below 60, the
-    same tokens on a repeat."""
+    simulated (1, EP16) mesh: 60 experts declared padded to 64, 4 a shard,
+    one query head a shard; served at serve_dense's burst, every routed
+    expert below 60, the same tokens on a repeat."""
     from repro_torch.models.param import shard_params
     from repro_torch.sharding.axes import rules_for
     cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b"),
@@ -3981,7 +4057,9 @@ def _serve_ep16(device):
         engine, results, record = _serve(
             bundle, params, device, prompts, 2, SERVE_LEN,
             "serve_deepseek/qwen2_moe_ep16",
-            collectives=_ep_collectives(cfg, 1))
+            collectives=_tp_collectives(cfg, (1, EP16), 1), shards=EP16)
+    assert record["launch_shapes"]["flash_attention"] == \
+        [str(EP16_ATTN_SHAPE)], record["launch_shapes"]
     top = max(int(r.max()) for r in routes)
     assert top < cfg.moe.n_routed, top
     again = engine.serve_requests(prompts, batch_size=2,
@@ -3999,10 +4077,12 @@ def _serve_ep16(device):
 
 def _serve_moe_ep(cfg, bundle, params, prompts, device, ep1):
     """The EP serve of serve_deepseek's weights on a simulated (1,
-    EP_SHARDS) mesh of the card: the counted serve (K5 27 a prefill, the
-    collectives of ``_ep_collectives``), a second serve with the same
-    tokens, the checks of ``_moe_ep_checks``, and the agreement of its
-    tokens with the one-card serve's (``ep1``: reported, not held)."""
+    EP_SHARDS) mesh of the card, the dense layers tensor parallel beside
+    the routed experts: the counted serve (K5 27 x EP_SHARDS a prefill at
+    one shard's 4 heads, the collectives of ``_tp_collectives``), a second
+    serve with the same tokens, the checks of ``_moe_ep_checks``, and the
+    agreement of its tokens with the one-card serve's (``ep1``: reported,
+    not held)."""
     from repro_torch.models.param import shard_params
     from repro_torch.sharding.axes import MEGATRON_FSDP, rules_for
     mesh = make_sim_mesh((1, EP_SHARDS), device)
@@ -4015,9 +4095,11 @@ def _serve_moe_ep(cfg, bundle, params, prompts, device, ep1):
     n_bursts = -(-len(prompts) // SERVE_BATCH)
     engine, results, record = _serve(
         ep_bundle, ep_params, device, prompts, SERVE_BATCH, SERVE_LEN,
-        "serve_deepseek/ep4", collectives=_ep_collectives(cfg, n_bursts))
+        "serve_deepseek/ep4",
+        collectives=_tp_collectives(cfg, (1, EP_SHARDS), n_bursts),
+        shards=EP_SHARDS)
     assert record["launch_shapes"]["flash_attention"] == \
-        [str(MLA_ATTN_SHAPE)], record["launch_shapes"]
+        [str(MLA_TP_ATTN_SHAPE)], record["launch_shapes"]
     again = engine.serve_requests(prompts, batch_size=SERVE_BATCH,
                                   prompt_len=SERVE_LEN, n_gen=SERVE_GEN)
     same = all(np.array_equal(a, b) for a, b in zip(results, again))
@@ -4139,6 +4221,190 @@ def phase_serve_dense(device):
         torch.cuda.empty_cache()
     emit("serve_dense", models=models)
     return {m["arch"]: m["launches"]["flash_attention"] for m in models}
+
+
+# serve_tp: the decoder family tensor parallel on simulated meshes of the
+# card under MEGATRON_FSDP (each shard's stage in turn on the one card):
+# (arch, its DENSE_SERVES row's weights and burst, the (data, model)
+# meshes); each against the one-card serve of the same weights and tokens
+# in float32 within TP_F32_TIER of max|logits| at the prefill and every
+# decode step (teacher forced from the same cache) and in bf16 within
+# TP_BF16_TIER, the LM's tier
+TP_SERVES = (("qwen2.5-32b", ((1, 4), (2, 2))),
+             ("h2o-danube-3-4b", ((1, 4),)))
+TP_F32_TIER, TP_BF16_TIER = 1e-4, 0.08
+
+
+def _tp_logits(one, run, tier, what):
+    """A teacher-forced run's logits (``_lm_run``) against the one-card
+    run's: the largest difference over max|logits| at each step, held
+    under ``tier``, and the share of (step, row) greedy picks they share
+    (reported)."""
+    diffs = [float((g - c).abs().max() / c.abs().max())
+             for c, g in zip(one[0], run[0])]
+    assert all(np.isfinite(diffs)) and max(diffs) < tier, (what, diffs)
+    same = [(g.argmax(-1) == c.argmax(-1)).float().mean().item()
+            for c, g in zip(one[0], run[0])]
+    states = {k: float((run[2][k] - v).abs().max() / v.abs().max())
+              for k, v in one[2].items()}
+    assert max(states.values()) < tier, (what, states)
+    return {"logits_rel_err_by_step": diffs, "state_rel_err": states,
+            "argmax_agreement": float(np.mean(same)), "tier": tier}
+
+
+def _serve_tp_nccl(cfg, params, prompts, batch, slot_len, device):
+    """qwen2.5-32b's serve on an NCCL mesh (1, n) of n distinct cards, n 4
+    where there are four and 2 where there are two or three (one shard's
+    K5 launch is then a row the kernels phase holds); not run on one."""
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.param import shard_params
+    from repro_torch.sharding.axes import MEGATRON_FSDP
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        return {"ran": False, "cards": cards,
+                "why": "one CUDA device: an NCCL mesh needs two or more "
+                       "distinct cards; its route is written and "
+                       "unverified here"}
+    n = 4 if cards >= 4 else 2
+    mesh = DeviceMesh(tuple(torch.device("cuda", i) for i in range(n)),
+                      (1, n))
+    bundle = build_model(cfg, MEGATRON_FSDP, mesh=mesh)
+    placed = shard_params(params, bundle.decls, mesh, MEGATRON_FSDP)
+    n_bursts = -(-len(prompts) // batch)
+    engine, results, record = _serve(
+        bundle, placed, device, prompts, batch, slot_len,
+        "serve_tp/nccl", collectives=_tp_collectives(cfg, (1, n), n_bursts),
+        shards=n)
+    del engine, placed
+    return {"ran": True, "cards": n, "launches": record["launches"],
+            **_burst_times(record), "tokens": [r.tolist() for r in results]}
+
+
+def _served_twice(bundle, params, device, prompts, batch, slot_len, what,
+                  **kw):
+    """``_serve`` (counted), then the same requests again: the same tokens
+    held; each serve's prefill s and decode ms a step (the second warm).
+    Returns (the first serve's tokens, its record, the times)."""
+    engine, results, record = _serve(bundle, params, device, prompts,
+                                     batch, slot_len, what, **kw)
+    again = engine.serve_requests(prompts, batch_size=batch,
+                                  prompt_len=slot_len, n_gen=SERVE_GEN)
+    same = all(np.array_equal(x, y) for x, y in zip(results, again))
+    assert same, f"{what}: two identical serves differ"
+    times = {"first": _burst_times(record),
+             "second": _burst_times({"bursts": [
+                 {"prefill_s": r.prefill_s, "decode_s": r.decode_s}
+                 for r in engine.last_results]}),
+             "peak_device_bytes": record["peak_device_bytes"],
+             "second_serve_same_tokens": same}
+    return results, record, times
+
+
+def phase_serve_tp(device):
+    """The decoder family served tensor parallel (models/lm.py
+    ``_decoder_on_mesh``): for each row of TP_SERVES, bf16 weights drawn
+    on the card from LM_SEED, served on one card and then on each
+    simulated mesh of the card through ``build_model(cfg, MEGATRON_FSDP,
+    mesh)`` and ``shard_params`` (views of the same weights), each serve
+    twice (``_served_twice``; the first counted: K5 once a layer a shard
+    at one shard's B x heads / m, every collective exact:
+    ``_tp_collectives``; counts set to 0 just before it and read just
+    after), the share of its tokens the one-card serve shares
+    (reported); then the first burst's prefill and SERVE_GEN - 1 decode
+    steps teacher forced from the one-card tokens, in bf16 and then in
+    float32 (the weights cast), against the one-card run's logits and
+    joined cache.  qwen2.5-32b at full width cut to 2 layers on (1, 4)
+    and (2, 2), h2o-danube-3-4b in full on (1, 4) past its window; then
+    qwen2.5-32b on an NCCL mesh of the cards where there are two or
+    more."""
+    from repro_torch.models.param import shard_params
+    from repro_torch.sharding.axes import MEGATRON_FSDP
+    t0 = time.perf_counter()
+    models, launches, nccl = [], {}, None
+    for arch, meshes in TP_SERVES:
+        _, depth, batch, slot_len, n_prompts = next(
+            row for row in DENSE_SERVES if row[0] == arch)
+        cfg = get_arch(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        a = cfg.attention
+        bundle = build_model(cfg, MEGATRON_FSDP)
+        gen = torch.Generator(device=device).manual_seed(LM_SEED)
+        params = init_tree(bundle.decls, gen, device)
+        window = a.sliding_window
+        lo = window + 1 if window and window < slot_len else slot_len // 2
+        prompts = _serve_prompts(cfg.vocab_size, n_prompts, slot_len, lo)
+        n_bursts = -(-len(prompts) // batch)
+        one_tokens, one, one_times = _served_twice(
+            bundle, params, device, prompts, batch, slot_len,
+            f"serve_tp/{arch}/one_card")
+        tokens = _burst_tokens(prompts, batch, slot_len, device)
+        ref = _lm_run(bundle, params, tokens, device, SERVE_GEN - 1)
+        record = {"arch": arch, "n_layers": cfg.n_layers,
+                  "cut": None if depth is None else
+                  f"depth {get_arch(arch).n_layers} -> {depth}",
+                  "batch": batch, "prompt_len": slot_len,
+                  "prompts": len(prompts),
+                  "one_card": {"launches": one["launches"], **one_times},
+                  "meshes": {}}
+        placed = {}
+        for dims in meshes:
+            mesh = make_sim_mesh(dims, device)
+            name = f"{dims[0]}x{dims[1]}"
+            what = f"serve_tp/{arch}/{name}"
+            tp_bundle = build_model(cfg, MEGATRON_FSDP, mesh=mesh)
+            placed[name] = (mesh, tp_bundle)
+            tp_params = shard_params(params, tp_bundle.decls, mesh,
+                                     MEGATRON_FSDP)
+            results, rec, times = _served_twice(
+                tp_bundle, tp_params, device, prompts, batch, slot_len, what,
+                collectives=_tp_collectives(cfg, dims, n_bursts),
+                shards=len(mesh.devices))
+            shard_row = (batch // dims[0] * a.n_heads // dims[1], slot_len,
+                         slot_len, a.head_dim, "bf16", True, window)
+            assert rec["launch_shapes"]["flash_attention"] == \
+                [str(shard_row)], (what, rec["launch_shapes"])
+            k5 = rec["launches"]["flash_attention"]
+            launches[f"{arch}_{name}"] = k5
+            record["meshes"][name] = {
+                "launches": rec["launches"],
+                "flash_attention_per_shard": k5 // len(mesh.devices),
+                "flash_attention_shape": list(shard_row), **times,
+                "tokens_agree_with_one_card": float(np.mean(
+                    [np.mean(x == y) for x, y in zip(results, one_tokens)])),
+                "bf16": _tp_logits(ref, _lm_run(
+                    tp_bundle, tp_params, tokens, device, SERVE_GEN - 1,
+                    feed=ref[1]), TP_BF16_TIER, what + "/bf16")}
+            del tp_params
+            torch.cuda.empty_cache()
+        if arch == "qwen2.5-32b":
+            nccl = _serve_tp_nccl(cfg, params, prompts, batch, slot_len,
+                                  device)
+        p32 = cast_floating(params, torch.float32)
+        del params, ref
+        ref = _lm_run(bundle, p32, tokens, device, SERVE_GEN - 1)
+        for name, (mesh, tp_bundle) in placed.items():
+            what = f"serve_tp/{arch}/{name}/f32"
+            held = _tp_logits(ref, _lm_run(
+                tp_bundle, shard_params(p32, tp_bundle.decls, mesh,
+                                        MEGATRON_FSDP),
+                tokens, device, SERVE_GEN - 1, feed=ref[1]),
+                TP_F32_TIER, what)
+            assert held["argmax_agreement"] == 1.0, (what, held)
+            record["meshes"][name]["f32"] = held
+        models.append(record)
+        del p32, ref
+        torch.cuda.empty_cache()
+    emit("serve_tp", card=smi_line(), rules="MEGATRON_FSDP", models=models,
+         nccl=nccl, seconds=time.perf_counter() - t0,
+         timing="the shards of a simulated mesh run in turn on one card: "
+                "the times say what the stages cost there, not what four "
+                "cards would take",
+         tolerance=f"float32 logits and joined cache within {TP_F32_TIER} "
+                   "of max|one card| at the prefill and every decode step, "
+                   f"the same argmax; bf16 within {TP_BF16_TIER}, the "
+                   "argmax agreement reported")
+    return launches
 
 
 # serve_whisper: whisper-base at the source's own lengths — (batch, encoder
@@ -4422,7 +4688,9 @@ def _lm_states(cache):
     keys, the xLSTM's mLSTM states and sLSTM carries, the encoder-decoder's
     and VLM's self and cross keys, a decoder's keys (MLA: latents) of every
     stack."""
-    def copy(t):
+    def copy(t):          # a cache placed on a mesh joined first
+        if not isinstance(t, torch.Tensor):
+            t = t.join()
         return t.to("cpu", torch.float32, copy=True)
     if "shared_kv" in cache:
         return {"m_ssm": copy(cache["m_ssm"]),
@@ -4534,12 +4802,13 @@ def _lm_compare(cpu, card, tier, what, flips=False, ties=False):
     return out
 
 
-def _prefill_launches(cfg):
+def _prefill_launches(cfg, shards=1):
     """K5's and K6's launches in one prefill: the hybrid applies its shared
     block once a group and runs K6 in every other slot; the xLSTM runs K6
     once an mLSTM block; the encoder-decoder attends once an encoder layer
     and twice (self, cross) a decoder layer; a decoder or VLM once a
-    layer."""
+    layer, and a decoder on a mesh of ``shards`` once a layer a
+    shard."""
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.shared_attn_every
         return {"flash_attention": groups, "ssd_scan": cfg.n_layers - groups}
@@ -4551,7 +4820,7 @@ def _prefill_launches(cfg):
     if cfg.family == "audio":
         return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers,
                 "ssd_scan": 0}
-    return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+    return {"flash_attention": cfg.n_layers * shards, "ssd_scan": 0}
 
 
 # (e) of expert parallelism: the reduced MoE decoders on a (1, EP_SHARDS)
@@ -4562,10 +4831,11 @@ EP_CPU_BATCH, EP_CPU_SEQ, EP_CPU_DECODE, EP_CPU_TIER = 2, 128, 3, 1e-4
 
 def _same_as_cpu_ep(name, arch, rng, device):
     """The reduced ``arch`` built on a simulated (1, EP_SHARDS) mesh of
-    the CPU and of the card under MEGATRON_FSDP (its experts over
-    "model"), the same float32 parameters placed on each
-    (``shard_params``), prefill and EP_CPU_DECODE decode steps fed the
-    CPU's greedy tokens; both sides run the same collectives."""
+    the CPU and of the card under MEGATRON_FSDP (its experts, heads,
+    widths and vocabulary over "model"), the same float32 parameters
+    placed on each (``shard_params``), prefill and EP_CPU_DECODE decode
+    steps fed the CPU's greedy tokens; both sides run the same
+    collectives, the card K5 once a layer a shard."""
     from repro_torch.models.param import shard_params
     from repro_torch.sharding.axes import MEGATRON_FSDP
     cfg = get_arch(arch, reduced=True)
@@ -4584,10 +4854,8 @@ def _same_as_cpu_ep(name, arch, rng, device):
         runs.append(_lm_run(bundle, placed, tokens, dev, EP_CPU_DECODE,
                             feed=runs[0][1] if runs else None))
     cpu, card = runs
-    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
-    want = {"mesh_all_to_all": 2 * n_moe,
-            "mesh_sum": n_moe * (1 + 2 * EP_CPU_DECODE)}
-    for side, kernels in ((cpu, 0), (card, cfg.n_layers)):
+    want = _tp_collectives(cfg, (1, EP_SHARDS), 1, n_gen=EP_CPU_DECODE + 1)
+    for side, kernels in ((cpu, 0), (card, cfg.n_layers * EP_SHARDS)):
         assert {k: side[3][k] for k in want} == want, (name, side[3])
         assert side[3]["flash_attention"] == kernels, (name, side[3])
     return {"arch": cfg.name, "batch": EP_CPU_BATCH, "seq": EP_CPU_SEQ,
@@ -6365,6 +6633,9 @@ def main(argv=None) -> int:
         mla_launches = mla_launches["flash_attention"]
     if "serve_dense" in phases:
         dense_launches = phase_serve_dense(device)
+    tp_launches = None
+    if "serve_tp" in phases:
+        tp_launches = phase_serve_tp(device)
     family_launches = {}
     for name, phase in (("serve_xlstm", phase_serve_xlstm),
                         ("serve_whisper", phase_serve_whisper),
@@ -6453,7 +6724,11 @@ def main(argv=None) -> int:
                  "launches_serve_deepseek_ep4": {
                      k: ep_launches[k] for k in (
                          "flash_attention", "mesh_all_to_all",
-                         "mesh_sum")},
+                         "mesh_sum", "mesh_gather")},
+                 # one shard's rows at a model degree of 4, and the
+                 # tensor-parallel serves' launches
+                 "tp_shard": rows["flash_attention"]["tp_shard"],
+                 "launches_serve_tp": tp_launches,
                  "launches_same_as_cpu_lm_mla_f32":
                      f32_launches["mla_full_width_two_layers_f32"],
                  "launches_serve_dense": dense_launches,

@@ -21,11 +21,12 @@ A mesh that mixes the two, or repeats some of several devices, raises
 ``ValueError``: the caller picks the mesh, and nothing turns one kind
 into the other.
 
-The estimator splits over "data" alone (``shard_devices``).  The MoE
-layer's expert parallelism (models/moe.py) also uses the "model" axis: a
-shard's coordinates, its ``axis_index`` and the groups of shards along
-one axis (``axis_groups``) place its tokens and experts and scope its
-collectives.
+The estimator splits over "data" alone (``shard_devices``).  The decoder
+family (models/lm.py: tensor parallel over "model", FSDP and the batch
+over "data") and the MoE layer's expert parallelism (models/moe.py) use
+both axes: a shard's coordinates, its ``axis_index`` and the groups of
+shards along one axis (``axis_groups``) place its tokens, heads, widths
+and experts and scope its collectives.
 
 The topology backend's host streams are built from these meshes:
 ``make_sim_host_meshes`` gives N simulated hosts their meshes over the

@@ -40,10 +40,24 @@ device.
 
 The reference's sharding ``rules`` argument and ``logical_constraint``
 calls are dropped: on one card they are no-ops.
+
+On a mesh whose "model" axis has more than one shard the decoder runs
+these layers tensor parallel, as stages (``attn_stage``,
+``attn_decode_stage``, ``mlp_stage``): every shard runs the functions
+above on its own heads or its own slice of the MLP width, with the
+parameter blocks ``tp_attn_params`` and ``tp_mlp_params`` cut for it, and
+the shards' partial outputs are summed over "model" in float32, then
+cast (``tp_sum``).  A shard's query heads are a contiguous run of
+``n_heads / tp``; the KV heads they use are its own block where the KV
+heads divide the degree, else the one KV head its whole run maps to
+(``shard_heads``), taken from ``wk`` / ``wv`` gathered over "model" where
+the placed spec cuts a KV head in the middle.  A split the heads cannot
+take raises ``ValueError`` (``tp_heads``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from dataclasses import replace
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +66,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels import ops
 from repro_torch.models.param import PDecl
+from repro_torch.sharding.collectives import mesh_sum, on_shard, respec
 
 F32 = torch.float32
 
@@ -481,3 +496,161 @@ def _mla_decode(p, a: AttentionConfig, x1, pos, slot_pos, cache):
     o = torch.einsum("bqhr,rhk->bqhk", ctx, wuv)            # absorb W_uv
     out = o.reshape(*o.shape[:2], -1) @ p["wo"]
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over "model": each shard's heads and MLP width
+# ---------------------------------------------------------------------------
+TP_AXIS = "model"
+
+
+def tp_heads(a: AttentionConfig, tp: int) -> AttentionConfig:
+    """The AttentionConfig of one shard's heads at a model degree ``tp``.
+    The query heads must divide the degree, and a shard's run of query
+    heads must use whole KV heads or lie within one KV head's group (the
+    KV heads divide the degree, or the degree divides them); otherwise
+    ``ValueError``."""
+    if a.n_heads % tp:
+        raise ValueError(f"{a.n_heads} query heads do not split over a "
+                         f"model degree of {tp}")
+    hq = a.n_heads // tp
+    if a.is_mla:
+        return replace(a, n_heads=hq)
+    group = a.n_heads // a.n_kv_heads
+    if hq % group and group % hq:
+        raise ValueError(
+            f"GQA {a.n_heads}/{a.n_kv_heads} at a model degree of {tp}: a "
+            f"shard's {hq} query heads straddle a KV group of {group}")
+    return replace(a, n_heads=hq, n_kv_heads=max(hq // group, 1))
+
+
+def shard_heads(a: AttentionConfig, tp: int, j: int) -> Tuple[int, ...]:
+    """(q0, q1, k0, k1): the query heads [q0, q1) of the shard at place
+    ``j`` of "model" and the KV heads [k0, k1) they use (MLA: the same
+    heads)."""
+    hq = a.n_heads // tp
+    q0, q1 = j * hq, (j + 1) * hq
+    if a.is_mla:
+        return q0, q1, q0, q1
+    group = a.n_heads // a.n_kv_heads
+    return q0, q1, q0 // group, (q1 - 1) // group + 1
+
+
+def tp_blocks(leaf, dim: int, ranges: Sequence[Tuple[int, int]], mesh,
+              axis: str = TP_AXIS) -> List[torch.Tensor]:
+    """Each shard's rows [lo, hi) of dim ``dim`` of ``leaf``
+    (``ranges[j]`` for the shard at place j of ``axis``), whole along its
+    other dims: a leaf placed over "data" (FSDP) is gathered there, and
+    one placed over ``axis`` at other places than the ranges (a KV head
+    cut in the middle) is gathered over ``axis`` too, then narrowed."""
+    n = leaf.shape[dim]
+    tp = len(ranges)
+    aligned = n % tp == 0 and all(
+        r == (j * n // tp, (j + 1) * n // tp) for j, r in enumerate(ranges))
+    spec = [None] * len(leaf.shape)
+    if aligned:
+        spec[dim] = axis
+    parts = respec(leaf, tuple(spec), mesh)
+    if aligned:
+        return parts
+    out = []
+    for i, part in enumerate(parts):
+        lo, hi = ranges[mesh.axis_index(i, axis)]
+        out.append(part.narrow(dim, lo, hi - lo))
+    return out
+
+
+def replicated(leaf, mesh) -> List[torch.Tensor]:
+    """``leaf`` whole on every shard (gathered where it is placed)."""
+    return respec(leaf, (None,) * len(leaf.shape), mesh)
+
+
+def tp_attn_params(p, a: AttentionConfig, mesh):
+    """(each shard's attention parameters, the AttentionConfig of its
+    heads): the projections' columns and ``wo``'s rows of its heads (and
+    the biases'); MLA's latent projection ``wdkv`` whole on every
+    shard."""
+    tp = mesh.shape.get(TP_AXIS, 1)
+    local = tp_heads(a, tp)
+    heads = [shard_heads(a, tp, j) for j in range(tp)]
+
+    def cols(name, width, dim, kv=False):
+        ranges = [((k0 if kv else q0) * width, (k1 if kv else q1) * width)
+                  for q0, q1, k0, k1 in heads]
+        return tp_blocks(p[name], dim, ranges, mesh)
+    hd = a.head_dim
+    if a.is_mla:
+        out = {"wq": cols("wq", hd + a.rope_head_dim, 1),
+               "wdkv": replicated(p["wdkv"], mesh),
+               "wuk": cols("wuk", hd, 1), "wuv": cols("wuv", hd, 1),
+               "wo": cols("wo", hd, 0)}
+    else:
+        out = {"wq": cols("wq", hd, 1), "wk": cols("wk", hd, 1, kv=True),
+               "wv": cols("wv", hd, 1, kv=True), "wo": cols("wo", hd, 0)}
+        if a.qkv_bias:
+            out.update(bq=cols("bq", hd, 0), bk=cols("bk", hd, 0, kv=True),
+                       bv=cols("bv", hd, 0, kv=True))
+    return [{k: v[i] for k, v in out.items()}
+            for i in range(len(mesh.devices))], local
+
+
+def tp_mlp_params(p, mesh, axis: str = TP_AXIS):
+    """Each shard's MLP parameters: its block of the width ("ff": ``wi``'s
+    last dim, ``wo``'s rows)."""
+    tp = mesh.shape.get(axis, 1)
+    ff = p["wo"].shape[0]
+    if ff % tp:
+        raise ValueError(f"an MLP width of {ff} does not split over a "
+                         f"model degree of {tp}")
+    ranges = [(j * ff // tp, (j + 1) * ff // tp) for j in range(tp)]
+    wi = tp_blocks(p["wi"], len(p["wi"].shape) - 1, ranges, mesh, axis)
+    wo = tp_blocks(p["wo"], 0, ranges, mesh, axis)
+    return [{"wi": a, "wo": b} for a, b in zip(wi, wo)]
+
+
+def tp_sum(parts: Sequence[torch.Tensor], mesh,
+           dtype: torch.dtype) -> List[torch.Tensor]:
+    """Each shard's partial output summed over "model" in float32, then
+    cast to ``dtype``."""
+    summed = mesh_sum([p.to(F32) for p in parts], mesh, axis=TP_AXIS)
+    return [s.to(dtype) for s in summed]
+
+
+def attn_stage(p, a: AttentionConfig, xs, mesh, *, chunk: int):
+    """Prefill attention over "model": every shard attends with its own
+    heads (one flash-attention launch a shard on the card) and projects
+    them through its rows of ``wo``.  Returns (the output summed over
+    "model", one per shard; each shard's cache pair, its KV heads' keys
+    and values or MLA's latent and rope key)."""
+    ps, local = tp_attn_params(p, a, mesh)
+    outs, kvs = [], []
+    for i, dev in enumerate(mesh.devices):
+        with on_shard(dev):
+            o, kv = attn_forward(ps[i], local, xs[i], chunk=chunk)
+        outs.append(o)
+        kvs.append(kv)
+    return tp_sum(outs, mesh, xs[0].dtype), kvs
+
+
+def attn_decode_stage(p, a: AttentionConfig, xs, pos, slot_pos, caches,
+                      mesh):
+    """One decode step over "model": every shard writes its own KV heads
+    (MLA: its copy of the latent) into its cache and attends with its own
+    heads; the outputs are summed over "model"."""
+    ps, local = tp_attn_params(p, a, mesh)
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        with on_shard(dev):
+            outs.append(attn_decode(ps[i], local, xs[i], pos[i],
+                                    slot_pos[i], caches[i])[0])
+    return tp_sum(outs, mesh, xs[0].dtype)
+
+
+def mlp_stage(p, xs, mesh, act: str, glu: bool):
+    """The MLP over "model": every shard's block of the width, summed."""
+    ps = tp_mlp_params(p, mesh)
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        with on_shard(dev):
+            outs.append(mlp_forward(ps[i], xs[i], act, glu))
+    return tp_sum(outs, mesh, xs[0].dtype)

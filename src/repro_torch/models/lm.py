@@ -20,11 +20,25 @@ stacked leading axes (the port has no scan), on whichever device the
 parameters lie: on the card the prefill's attention and SSD scans go
 through the hand-written kernels (see ``layers`` and ``ssm``).
 ``decode_fn`` updates the cache it is given in place, where the reference
-donates it.  ``build_model(cfg, rules, mesh)`` declares the reference's
-trees on a mesh (launch/mesh.py); on it the MoE layers run expert
-parallel over the "model" axis (models/moe.py) and every other layer on
-the mesh's lead device.  The frames and image patches are cast to their projection's
+donates it.  The frames and image patches are cast to their projection's
 type (the input specs declare them in it).
+
+On a mesh (launch/mesh.py) with an axis of more than one shard,
+``build_model(cfg, rules, mesh)`` declares the reference's trees there and
+the decoder family serves sharded (``_decoder_on_mesh``), with its
+parameters placed by ``models/param.py::shard_params``: the batch rows, the
+decode cache and the positions over "data"; attention heads, MLP width and
+vocabulary over "model" (models/layers.py's stages; the vocab-parallel
+lookup and the logits gathered over "model"); every leaf the rules put
+over "data" (FSDP) gathered before its stage uses it; the MoE layers'
+routed experts expert parallel over "model" (models/moe.py).  Each
+(data, model) shard holds the keys and values of its batch rows and of
+the KV heads its query heads use (MLA: the latent of its batch rows),
+where the reference declares the cache over "kv_seq" (the values are the
+same), and the residual between blocks is whole on every model shard,
+where the reference constrains it to "seq_shard".  The other families
+declare their trees on such a mesh, and their loss, prefill and decode
+raise ``NotImplementedError``.  Training on a mesh is not ported.
 
 Training: ``loss_fn`` composes the loss as the reference does — the mean
 cross-entropy of ``chunked_ce_loss`` (plus the MoE aux term for the
@@ -50,12 +64,17 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
-    attn_decls, attn_decode, attn_forward, mlp_decls, mlp_forward, rms_norm,
-    sinusoidal_pos,
+    attn_decls, attn_decode, attn_decode_stage, attn_forward, attn_stage,
+    mlp_decls, mlp_forward, mlp_stage, replicated, rms_norm, shard_heads,
+    sinusoidal_pos, tp_heads,
 )
 from repro_torch.models.moe import moe_decls, moe_forward
-from repro_torch.models.param import PDecl, tree_map
+from repro_torch.models.param import PDecl, tree_map, tree_map_with_path
 from repro_torch.sharding.axes import rules_for
+from repro_torch.sharding.collectives import (
+    ShardedLeaf, join_spec, mesh_gather, mesh_sum, on_shard, respec,
+    split_spec,
+)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -111,6 +130,13 @@ class ModelBundle:
     decode_fn: Callable
     cache_decls: Callable          # (ShapeConfig) -> PDecl tree
     input_specs: Callable          # (ShapeConfig) -> dict of PDecl
+    mesh: Any = None               # the mesh the bundle runs sharded on
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the bundle runs on a mesh with an axis of more than one
+        shard."""
+        return _sharded(self.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -266,10 +292,9 @@ def build_decoder(cfg: ArchConfig, rules=None, mesh=None,
                   ep_axis: str = "model") -> ModelBundle:
     """The reference's ``build_decoder``: ``layers`` stacked n_layers -
     first_dense_layers deep, deepseek's leading dense layers stacked under
-    ``head_layers``.  On a ``mesh`` (launch/mesh.py) the MoE layers run
-    expert parallel over ``ep_axis`` (models/moe.py), with the routed
-    experts declared padded to a multiple of its size; everything else
-    runs on the mesh's lead device."""
+    ``head_layers``.  On a ``mesh`` (launch/mesh.py) with an axis of more
+    than one shard it serves sharded (``_decoder_on_mesh``), the routed
+    experts declared padded to a multiple of ``ep_axis``'s size."""
     is_moe = cfg.family == "moe"
     ep = mesh.shape[ep_axis] if (is_moe and mesh is not None) else 1
     n_dense_head = cfg.moe.first_dense_layers if is_moe else 0
@@ -386,8 +411,264 @@ def build_decoder(cfg: ArchConfig, rules=None, mesh=None,
         out["cur"] = cur + 1
         return logits, out
 
+    if _sharded(mesh):
+        loss_fn, prefill_fn, decode_fn = _decoder_on_mesh(
+            cfg, mesh, stacks, attn_chunk, ep_axis)
     return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
-                       cache_decls, _train_specs(_token_specs))
+                       cache_decls, _train_specs(_token_specs), mesh)
+
+
+# ---------------------------------------------------------------------------
+# the decoder on a mesh: tensor parallel over "model", FSDP and the batch
+# over "data"
+# ---------------------------------------------------------------------------
+def _sharded(mesh) -> bool:
+    """A mesh with an axis of more than one shard."""
+    return mesh is not None and any(n > 1 for n in mesh.dims)
+
+
+def _refuse_mesh(bundle: ModelBundle, mesh) -> ModelBundle:
+    """``bundle`` recording ``mesh``.  A family that is not sharded yet,
+    declared on a mesh with an axis of more than one shard, keeps the
+    reference's trees there, and its loss, prefill and decode raise
+    ``NotImplementedError`` (they must not run unsharded beside placed
+    leaves)."""
+    if not _sharded(mesh):
+        return replace(bundle, mesh=mesh)
+    cfg = bundle.arch
+
+    def refuse(*_):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a mesh of {dict(mesh.shape)}: "
+            "only the decoder family is sharded (ROADMAP Queue 1 item 1)")
+    return replace(bundle, loss_fn=refuse, prefill_fn=refuse,
+                   decode_fn=refuse, mesh=mesh)
+
+
+def _check_tp(cfg: ArchConfig, tp: int) -> None:
+    """Every width the model axis splits divides its degree; else
+    ``ValueError`` (a prefill or decode step checks before its first
+    launch)."""
+    tp_heads(cfg.attention, tp)
+    widths = {"vocabulary": cfg.vocab_size}
+    if cfg.family == "moe":
+        m = cfg.moe
+        widths.update({"dense head MLP": m.d_first_dense
+                       if m.first_dense_layers else 0,
+                       "shared expert": m.d_shared})
+    else:
+        widths["MLP"] = cfg.d_ff
+    for what, n in widths.items():
+        if n % tp:
+            raise ValueError(f"{cfg.name}: the {what} width {n} does not "
+                             f"split over a model degree of {tp}")
+
+
+def _batch_spec(b: int, mesh):
+    """The batch rows over "data" where they divide it; else every data
+    shard holds them all (as models/moe.py degrades)."""
+    return "data" if b % mesh.shape.get("data", 1) == 0 else None
+
+
+def _kv_spec(name: str, bspec, lead: int = 1):
+    """The spec of a placed cache leaf: keys and values by batch rows and
+    KV heads, MLA's latent by batch rows (the same on every model shard),
+    under ``lead`` stacked dims.  Where a shard's KV head is shared with
+    other model shards (the KV heads fewer than the degree), each holds
+    its own copy, so the joined head dim repeats each KV head."""
+    if name in ("k", "v"):
+        return (None,) * lead + (bspec, None, "model", None)
+    return (None,) * lead + (bspec, None, None)
+
+
+def _each(mesh, fn, *lists):
+    """``fn`` on every shard's items of ``lists``, each on its device."""
+    out = []
+    for i, dev in enumerate(mesh.devices):
+        with on_shard(dev):
+            out.append(fn(*(items[i] for items in lists)))
+    return out
+
+
+def _embed_stage(emb, toks, mesh):
+    """The vocab-parallel lookup: each shard looks up the tokens that fall
+    in its vocab block (zeros for the rest), summed over "model": one
+    nonzero term a row, so exactly the one-device lookup."""
+    blocks = respec(emb, ("model", None), mesh)
+
+    def look(i, tok, block):
+        n = block.shape[0]
+        ids = tok.long() - mesh.axis_index(i, "model") * n
+        hit = (ids >= 0) & (ids < n)
+        e = F.embedding(ids.clamp(0, n - 1), block)
+        return torch.where(hit[..., None], e, torch.zeros_like(e))
+    return mesh_sum(_each(mesh, look, range(len(mesh.devices)), toks,
+                          blocks), mesh, axis="model")
+
+
+def _logits_stage(params, cfg: ArchConfig, hs, mesh, bspec):
+    """Each shard's vocab block of the last position's logits, gathered
+    over "model", the batch joined over "data" on the lead device."""
+    if cfg.tie_embeddings:
+        blocks = [b.T for b in respec(params["emb"], ("model", None), mesh)]
+    else:
+        blocks = respec(params["unemb"], (None, "model"), mesh)
+    parts = _each(mesh, lambda h, u: (h[:, -1] @ u).to(F32), hs, blocks)
+    return join_spec(mesh_gather(parts, -1, mesh, axis="model"),
+                     (bspec, None), mesh)
+
+
+def _decoder_on_mesh(cfg: ArchConfig, mesh, stacks, attn_chunk: int,
+                     ep_axis: str):
+    """(loss_fn, prefill_fn, decode_fn) of the decoder on ``mesh``.  The
+    activations are one tensor per shard (the batch rows of its data
+    place, whole over "model"), and every block is a stage run on each
+    shard in shard order between collectives: the embedding's sum, each
+    attention's and MLP's sum over "model", the logits' gather, the
+    gathers of FSDP-placed leaves; a MoE layer's tokens are joined over
+    "data" for the expert-parallel paths and split again after."""
+    a = cfg.attention
+    tp = mesh.shape.get("model", 1)
+    names = ("c", "krope") if a.is_mla else ("k", "v")
+    n = len(mesh.devices)
+
+    def normed(hs, w):
+        return _each(mesh, lambda h, g: rms_norm(h, g, cfg.norm_eps), hs,
+                     replicated(w, mesh))
+
+    def ffn(lp, hs, bspec):
+        xs = normed(hs, lp["ln2"])
+        if "mlp" in lp:
+            ys = mlp_stage(lp["mlp"], xs, mesh, cfg.act, cfg.glu)
+        elif mesh.shape.get(ep_axis, 1) == 1:
+            # the one-shard path on the whole batch, as the reference's
+            # program runs it (a dispatch's capacity is the whole batch's):
+            # each shard gathers the batch over "data" and the layer, and
+            # keeps its own rows of the output
+            whole = tree_map(lambda t: replicated(t, mesh), lp["moe"])
+            xa = xs if bspec is None else mesh_gather(xs, 0, mesh,
+                                                      axis="data")
+
+            def own(i, x):
+                y = moe_forward(tree_map(lambda v: v[i], whole), cfg, x)[0]
+                if bspec is None:
+                    return y
+                b = xs[i].shape[0]
+                return y.narrow(0, mesh.axis_index(i, "data") * b, b)
+            ys = _each(mesh, own, range(n), xa)
+        else:
+            spec = (bspec, None, None)
+            y, _ = moe_forward(lp["moe"], cfg, join_spec(xs, spec, mesh),
+                               mesh=mesh, ep_axis=ep_axis)
+            ys = split_spec(y, spec, mesh)
+        return _each(mesh, torch.add, hs, ys)
+
+    def loss_fn(params, batch):
+        raise NotImplementedError(
+            "training the decoder on a mesh is not ported (ROADMAP Queue 1 "
+            "item 1)")
+
+    def prefill_fn(params, batch):
+        _check_tp(cfg, tp)
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        bspec = _batch_spec(b, mesh)
+        toks = split_spec(tokens, (bspec, None), mesh)
+        hs = _embed_stage(params["emb"], toks, mesh)
+        cache = {}
+        for name, depth in stacks:
+            got = []
+            for i in range(depth):
+                lp = _index(params[name], i)
+                outs, kv = attn_stage(lp["attn"], a,
+                                      normed(hs, lp["ln1"]), mesh,
+                                      chunk=attn_chunk)
+                hs = ffn(lp, _each(mesh, torch.add, hs, outs), bspec)
+                got.append(kv)
+            cache[name] = {
+                key: ShardedLeaf([torch.stack([kv[sh][k] for kv in got])
+                                  for sh in range(n)],
+                                 _kv_spec(key, bspec), mesh)
+                for k, key in enumerate(names)}
+        logits = _logits_stage(params, cfg, normed(hs, params["lnf"]), mesh,
+                               bspec)
+        pos = _each(mesh, lambda t: _prefill_positions(t.shape[0], s,
+                                                       t.device), toks)
+        cache["slot_pos"] = ShardedLeaf([p for p, _ in pos], (bspec, None),
+                                        mesh)
+        cache["cur"] = ShardedLeaf([c for _, c in pos], (bspec,), mesh)
+        return logits, cache
+
+    def decode_fn(params, cache, batch):
+        _check_tp(cfg, tp)
+        table = cache["slot_pos"]
+        bspec = table.spec[0]
+        cap = table.parts[0].shape[1]
+        adv = _each(mesh, lambda c, t: _advance_pos(
+            {"cur": c, "slot_pos": t}, cap), cache["cur"].parts, table.parts)
+        cur, slot_pos = [c for c, _ in adv], [t for _, t in adv]
+        hs = _embed_stage(params["emb"], split_spec(
+            batch["tokens"], (bspec, None), mesh), mesh)
+        for name, depth in stacks:
+            lc = cache[name]
+            for i in range(depth):
+                lp = _index(params[name], i)
+                caches = [{k: v.parts[sh][i] for k, v in lc.items()}
+                          for sh in range(n)]
+                outs = attn_decode_stage(lp["attn"], a,
+                                         normed(hs, lp["ln1"]), cur,
+                                         slot_pos, caches, mesh)
+                hs = ffn(lp, _each(mesh, torch.add, hs, outs), bspec)
+        logits = _logits_stage(params, cfg, normed(hs, params["lnf"]), mesh,
+                               bspec)
+        out = dict(cache)
+        out["slot_pos"] = ShardedLeaf(slot_pos, table.spec, mesh)
+        out["cur"] = ShardedLeaf([c + 1 for c in cur], cache["cur"].spec,
+                                 mesh)
+        return logits, out
+
+    return loss_fn, prefill_fn, decode_fn
+
+
+def place_cache(cfg: ArchConfig, cache, mesh):
+    """A whole decoder cache (``init_cache``'s) placed as the decoder on
+    ``mesh`` holds it: every shard's batch rows, and its KV heads
+    (``shard_heads``) or MLA's latent; views on a simulated mesh."""
+    tp = mesh.shape.get("model", 1)
+    heads = [shard_heads(cfg.attention, tp, j) for j in range(tp)]
+    bspec = _batch_spec(cache["cur"].shape[0], mesh)
+
+    def place(path, t):
+        key = path[-1]
+        if key == "cur":
+            return ShardedLeaf(respec(t, (bspec,), mesh), (bspec,), mesh)
+        if key == "slot_pos":
+            return ShardedLeaf(respec(t, (bspec, None), mesh),
+                               (bspec, None), mesh)
+        lead = t.dim() - (4 if key in ("k", "v") else 3)
+        spec = _kv_spec(key, bspec, lead)
+        parts = respec(t, spec[:lead + 2] + (None,) * (t.dim() - lead - 2),
+                       mesh)
+        if key in ("k", "v"):
+            parts = [p.narrow(lead + 2, k0, k1 - k0) for p, (_, _, k0, k1)
+                     in zip(parts, (heads[mesh.axis_index(i, "model")]
+                                    for i in range(len(parts))))]
+        return ShardedLeaf(parts, spec, mesh)
+    return tree_map_with_path(place, cache)
+
+
+def join_cache(cfg: ArchConfig, cache):
+    """A cache placed on a mesh put together on the lead device, in the
+    one-device layout: each KV head once."""
+    def join(path, t):
+        if not isinstance(t, ShardedLeaf):
+            return t
+        whole = t.join()
+        if path[-1] in ("k", "v"):
+            whole = whole[..., ::whole.shape[-2]
+                          // cfg.attention.n_kv_heads, :]
+        return whole
+    return tree_map_with_path(join, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -541,8 +822,9 @@ def build_hybrid(cfg: ArchConfig, rules=None, mesh=None,
         out["cur"] = cur + 1
         return logits, out
 
-    return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
-                       cache_decls, _train_specs(_token_specs))
+    bundle = ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
+                         cache_decls, _train_specs(_token_specs))
+    return _refuse_mesh(bundle, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -651,8 +933,9 @@ def build_xlstm(cfg: ArchConfig, rules=None, mesh=None,
         out["cur"] = cache["cur"] + 1
         return logits, out
 
-    return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
-                       cache_decls, _train_specs(_token_specs))
+    bundle = ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
+                         cache_decls, _train_specs(_token_specs))
+    return _refuse_mesh(bundle, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -788,8 +1071,9 @@ def build_encdec(cfg: ArchConfig, rules=None, mesh=None,
             specs["targets"] = PDecl((b, s), ("batch", None), dtype=I32)
         return specs
 
-    return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
-                       cache_decls, input_specs)
+    bundle = ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
+                         cache_decls, input_specs)
+    return _refuse_mesh(bundle, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -919,8 +1203,9 @@ def build_vlm(cfg: ArchConfig, rules=None, mesh=None,
             specs["targets"] = PDecl((b, s), ("batch", None), dtype=I32)
         return specs
 
-    return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
-                       cache_decls, input_specs)
+    bundle = ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
+                         cache_decls, input_specs)
+    return _refuse_mesh(bundle, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,14 @@ the expert axis (``ep``: the mesh's ``ep_axis``) and the token count:
                  contributions for all of its tokens in float32, summed
                  over the expert axis in shard order.
 
+The shared expert on an expert axis of more than one shard: in ``a2a``
+each shard runs it whole on its own tokens, its leaves gathered
+(``_shared_seq``: the tokens are already cut along the sequence, so no
+sum is needed); in ``dense_ep`` each shard runs its block of the shared
+width (tensor parallel, ``tp_mlp_params``) and adds that partial, gated,
+into its float32 contribution before the one sum.  A router or shared
+gate placed over "data" (FSDP) is gathered before use.
+
 PyTorch has no ``shard_map``: each EP path is its stages between the
 collectives (sharding/collectives.py), each stage run on every shard in
 shard order; a shard reads only its ``e_pad / ep`` slice of ``wi`` and
@@ -44,10 +52,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
-from repro_torch.models.layers import act_fn, mlp_decls, mlp_forward
+from repro_torch.models.layers import (
+    act_fn, mlp_decls, mlp_forward, replicated, tp_mlp_params,
+)
 from repro_torch.models.param import PDecl
 from repro_torch.sharding.collectives import (
-    mesh_all_to_all, mesh_mean, mesh_sum, on_shard, shard_map_specs,
+    ShardedLeaf, mesh_all_to_all, mesh_mean, mesh_sum, on_shard,
+    shard_map_specs,
 )
 
 F32 = torch.float32
@@ -161,6 +172,48 @@ def _combine(y_buf, order, se, pos_c, sw, keep, t: int):
     return rows.index_select(0, inv).reshape(t, -1, d).sum(1)
 
 
+def _shared_forward(p, cfg: ArchConfig, x):
+    """The shared expert on ``x``, gated by ``shared_gate`` in float32
+    where the config gates it."""
+    sh = mlp_forward(p["shared"], x, cfg.act, glu=True)
+    if cfg.moe.shared_gate:
+        gate = torch.sigmoid(x.to(F32) @ p["shared_gate"].to(F32))
+        sh = sh * gate.to(sh.dtype)
+    return sh
+
+
+def _whole_on_mesh(leaf, mesh):
+    """A leaf every shard of the EP paths reads whole: as it is when it
+    is a tensor, else gathered where it is placed (``ShardedLeaf`` of
+    spec ``(None, ...)``)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return ShardedLeaf(replicated(leaf, mesh), (None,) * len(leaf.shape),
+                       mesh)
+
+
+def _shared_seq(p, cfg: ArchConfig, x, mesh, ep_axis: str, dp_axes=None):
+    """The a2a path's shared expert: each shard's own tokens (the batch
+    over the data axes, the sequence over the expert axis) through the
+    whole shared expert, its leaves gathered where they are placed."""
+    shared = {k: replicated(v, mesh) for k, v in p["shared"].items()}
+    gate = replicated(p["shared_gate"], mesh) if cfg.moe.shared_gate \
+        else None
+
+    def stages(xs):
+        outs = []
+        for i, dev in enumerate(mesh.devices):
+            with on_shard(dev):
+                q = {"shared": {k: v[i] for k, v in shared.items()}}
+                if gate is not None:
+                    q["shared_gate"] = gate[i]
+                outs.append(_shared_forward(q, cfg, xs[i]))
+        return (outs,)
+
+    spec = (dp_axes, ep_axis, None)
+    return shard_map_specs(stages, mesh, (spec,), (spec,))(x)[0]
+
+
 def _moe_local(p, cfg: ArchConfig, x, e_pad: int):
     """The single-shard routed path (the reference's oracle of its EP
     paths)."""
@@ -233,12 +286,18 @@ def _moe_dense_ep(p, cfg: ArchConfig, x, e_pad: int, mesh, ep_axis: str,
                   dp_axes=None):
     """Decode path: each expert shard computes its experts' contributions
     for all of its tokens, weighted in float32 and summed over the expert
-    axis in shard order, then cast."""
+    axis in shard order, then cast.  Where ``p`` holds the shared expert,
+    each shard adds its block of the shared width's output (gated) into
+    its contribution before the sum."""
     m = cfg.moe
     d = x.shape[-1]
     ep = mesh.shape[ep_axis]
     e_loc = e_pad // ep
     devices = mesh.devices
+    shared = tp_mlp_params(p["shared"], mesh, ep_axis) if "shared" in p \
+        else None
+    gate = replicated(p["shared_gate"], mesh) if "shared_gate" in p \
+        else None
 
     def stages(xs, routers, wis, wos):
         parts, auxes = [], []
@@ -262,7 +321,13 @@ def _moe_dense_ep(p, cfg: ArchConfig, x, e_pad: int, mesh, ep_axis: str,
                         hit, top_w[:, j], torch.zeros_like(top_w[:, j]))
                 h = xf.unsqueeze(0).expand(e_loc, t, d)
                 y = _expert_mlp(wis[i], wos[i], h, cfg.act)     # (e_loc, T, d)
-                parts.append(torch.einsum("etd,te->td", y.to(F32), w_local))
+                part = torch.einsum("etd,te->td", y.to(F32), w_local)
+                if shared is not None:
+                    q = {"shared": shared[i]}
+                    if gate is not None:
+                        q["shared_gate"] = gate[i]
+                    part = part + _shared_forward(q, cfg, xf).to(F32)
+                parts.append(part)
                 auxes.append(aux)
         summed = mesh_sum(parts, mesh, axis=ep_axis)
         outs = [o.to(xs[i].dtype).reshape(xs[i].shape)
@@ -282,31 +347,37 @@ def moe_forward(p, cfg: ArchConfig, x, mesh=None,
     """Routed + shared experts.  Returns (y, aux_loss).  With a ``mesh``
     whose ``ep_axis`` is larger than 1 the routed experts run expert
     parallel: ``_moe_a2a`` when the sequence splits over the expert axis
-    and the batch holds at least 256 tokens, else ``_moe_dense_ep``; the
-    batch is cut over the data axes where it divides them."""
+    and the batch holds at least 256 tokens (the shared expert then
+    ``_shared_seq``), else ``_moe_dense_ep`` (the shared expert's blocks
+    inside it); the batch is cut over the data axes where it divides
+    them."""
     m = cfg.moe
     ep = mesh.shape[ep_axis] if (mesh is not None and ep_axis) else 1
     e_pad = padded_experts(m, ep)
     b, s, _ = x.shape
     if ep == 1:
         y, aux = _moe_local(p, cfg, x, e_pad)
+        if m.d_shared:
+            y = y + _shared_forward(p, cfg, x)
+        return y, m.router_aux_coef * aux
+    # batch must divide the data axes for the split; degrade to a
+    # replicated batch otherwise (long-context cells with batch 1)
+    dp_axes = ("pod", "data") if "pod" in mesh.shape else ("data",)
+    dp_size = 1
+    for a in dp_axes:
+        dp_size *= mesh.shape[a]
+    if b % dp_size:
+        dp_axes = None
+    routed = {"router": _whole_on_mesh(p["router"], mesh), "wi": p["wi"],
+              "wo": p["wo"]}
+    if s % ep == 0 and b * s >= 256:
+        y, aux = _moe_a2a(routed, cfg, x, e_pad, mesh, ep_axis, dp_axes)
+        if m.d_shared:
+            y = y + _shared_seq(p, cfg, x, mesh, ep_axis, dp_axes)
     else:
-        # batch must divide the data axes for the split; degrade to a
-        # replicated batch otherwise (long-context cells with batch 1)
-        dp_axes = ("pod", "data") if "pod" in mesh.shape else ("data",)
-        dp_size = 1
-        for a in dp_axes:
-            dp_size *= mesh.shape[a]
-        if b % dp_size:
-            dp_axes = None
-        if s % ep == 0 and b * s >= 256:
-            y, aux = _moe_a2a(p, cfg, x, e_pad, mesh, ep_axis, dp_axes)
-        else:
-            y, aux = _moe_dense_ep(p, cfg, x, e_pad, mesh, ep_axis, dp_axes)
-    if m.d_shared:
-        sh = mlp_forward(p["shared"], x, cfg.act, glu=True)
-        if m.shared_gate:
-            gate = torch.sigmoid(x.to(F32) @ p["shared_gate"].to(F32))
-            sh = sh * gate.to(sh.dtype)
-        y = y + sh
+        if m.d_shared:
+            routed["shared"] = p["shared"]
+            if m.shared_gate:
+                routed["shared_gate"] = p["shared_gate"]
+        y, aux = _moe_dense_ep(routed, cfg, x, e_pad, mesh, ep_axis, dp_axes)
     return y, m.router_aux_coef * aux

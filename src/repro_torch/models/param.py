@@ -115,27 +115,32 @@ def sharding_tree(decls, mesh, rules):
 
 
 def shard_params(params, decls, mesh, rules):
-    """``params`` placed on ``mesh`` by their specs (``sharding_tree``).
-    Only the leaves whose consumer is shard-local code are split: the
-    routed experts' ``wi`` and ``wo``, cut along their "experts" dim
-    (models/moe.py), each a ``ShardedLeaf`` whose parts are views on a
-    simulated mesh and each card's own copy of its slice on an NCCL mesh.
-    Every other leaf stays as it is, on the lead device, where the
-    layers that are not sharded in this port run it.  On an NCCL mesh
-    the lead card also keeps the whole ``wi``/``wo`` for as long as the
-    caller holds ``params``: drop it to keep only the slices."""
-    from repro_torch.sharding.collectives import ShardedLeaf, split_spec
+    """``params`` placed on ``mesh`` by their specs (``sharding_tree``):
+    each leaf whose spec uses an axis of more than one shard becomes a
+    ``ShardedLeaf`` over all of its spec's axes, whose parts are views of
+    the leaf on a simulated mesh and each card's own copy of its block on
+    an NCCL mesh (the lead card's block copied too: no part of the placed
+    tree keeps the whole leaf alive once the caller drops ``params``).  A
+    leaf whose spec uses only axes of one shard stays as it is on a
+    simulated mesh, and is copied once to every card of an NCCL mesh.
+    The stages that use a leaf (models/layers.py, models/lm.py,
+    models/moe.py) gather what its spec splits and they do not
+    (``respec``)."""
+    from repro_torch.sharding.collectives import (
+        ShardedLeaf, on_device, split_spec,
+    )
     specs = dict(tree_paths(sharding_tree(decls, mesh, rules)))
-    logical = {path: d.logical for path, d in tree_paths(decls)}
+    sizes = dict(mesh.shape)
 
     def place(path, t):
-        if "experts" not in logical[path]:
-            return t
-        k = logical[path].index("experts")
-        spec = tuple(e if i == k else None
-                     for i, e in enumerate(specs[path]))
-        if spec[k] is None:
-            return t
+        spec = specs[path]
+        axes = [a for e in spec if e is not None
+                for a in ((e,) if isinstance(e, str) else e)]
+        if all(sizes.get(a, 1) == 1 for a in axes):
+            if mesh.collective != "nccl":
+                return t
+            return ShardedLeaf([on_device(t, dev) for dev in mesh.devices],
+                               (None,) * t.dim(), mesh)
         parts = split_spec(t, spec, mesh)
         if mesh.collective == "nccl":
             parts = [p.clone() if p.device == t.device else p

@@ -17,9 +17,9 @@
 ``mesh_axes``        the mesh axis names the logical-axis rules may map
                      onto (None: no filtering), as the JAX package's
                      ``runtime.mesh_axes`` (sharding/axes.py).  Nothing
-                     in the port sets it yet: the JAX package sets its
-                     own only on the dry run's ``--mesh multi`` path,
-                     which the port has still to port.
+                     sets it until the dry run's ``--mesh multi`` is
+                     ported (ROADMAP Queue 1 item 1); until then it is
+                     here only for parity with the reference's filter.
 
 Float32 matrix products stay in full float32: the port never enables
 TF32, and refuses to load into a process that did.

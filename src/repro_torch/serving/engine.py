@@ -11,7 +11,10 @@ The engine runs on the card unless the caller asks for the CPU
 ``torch.inference_mode()``; the decode cache is updated in place (the
 reference donates it), and the generated tokens stay on the device until
 the burst ends.  Times are taken on the host's clock after
-``torch.cuda.synchronize()`` on the card.
+``torch.cuda.synchronize()`` on the card.  A bundle built on a mesh takes
+parameters placed by ``models/param.py::shard_params``; its cache is held
+one part a shard (``ShardedLeaf``) and its logits come back on the lead
+device.
 """
 from __future__ import annotations
 
@@ -24,13 +27,15 @@ import torch
 
 from repro_torch import runtime
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.models.lm import ModelBundle
+from repro_torch.models.lm import ModelBundle, place_cache
 from repro_torch.models.param import tree_leaves, tree_map_with_path
+from repro_torch.sharding.collectives import ShardedLeaf
 
 
 def init_cache(bundle: ModelBundle, shape: ShapeConfig, device="cuda"):
     """An empty decode cache of ``shape`` on ``device``: zeros, slot
-    tables -1, ``cur`` 0."""
+    tables -1, ``cur`` 0; placed as the decoder holds it
+    (``models/lm.py::place_cache``) where the bundle runs on a mesh."""
     device = runtime.resolve_device(device)
 
     def mk(path, d):
@@ -39,7 +44,10 @@ def init_cache(bundle: ModelBundle, shape: ShapeConfig, device="cuda"):
             return torch.full(d.shape, fill, dtype=torch.int32, device=device)
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
 
-    return tree_map_with_path(mk, bundle.cache_decls(shape))
+    cache = tree_map_with_path(mk, bundle.cache_decls(shape))
+    if bundle.sharded:
+        cache = place_cache(bundle.arch, cache, bundle.mesh)
+    return cache
 
 
 def _pad_axis(arr, axis: int, grow: int, fill):
@@ -54,7 +62,8 @@ def grow_cache(cfg, cache, n_extra: int):
     """Extend KV-cache capacity after prefill so decoding does not
     ring-evict live context.  SWA caches stay capped at the window
     (eviction is then semantically correct).  Static cross-attention KV
-    is never grown: its decode attends to every slot."""
+    is never grown: its decode attends to every slot.  A cache placed on
+    a mesh grows each shard's part."""
     if "slot_pos" not in cache:
         return cache                       # recurrent state: O(1), no growth
     cur_cap = cache["slot_pos"].shape[-1]
@@ -66,7 +75,7 @@ def grow_cache(cfg, cache, n_extra: int):
     if grow <= 0:
         return cache
 
-    def visit(path, arr):
+    def pad(path, arr):
         leaf = path[-1]
         if "cross_kv" in path:
             return arr
@@ -77,6 +86,12 @@ def grow_cache(cfg, cache, n_extra: int):
         if leaf == "slot_pos":
             return _pad_axis(arr, arr.dim() - 1, grow, -1)
         return arr
+
+    def visit(path, arr):
+        if isinstance(arr, ShardedLeaf):
+            return ShardedLeaf([pad(path, p) for p in arr.parts], arr.spec,
+                               arr.mesh)
+        return pad(path, arr)
 
     return tree_map_with_path(visit, cache)
 

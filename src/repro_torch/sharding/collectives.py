@@ -30,6 +30,8 @@ Scoped to one axis (``axis=``: the shards of each group of
 ``jax.lax.psum(x, axis)`` does inside a ``shard_map`` body):
 
 ``mesh_sum``         with ``axis``, the sum within each group;
+``mesh_gather``      with ``axis``, the concatenation within each group,
+                     in that axis' order;
 ``mesh_mean``        the sum over ``axis`` divided by its size (``pmean``);
 ``mesh_all_to_all``  each part's leading dim holds one chunk per shard of
                      its group, and chunk j of shard i goes to shard j,
@@ -43,6 +45,10 @@ Scoped to one axis (``axis=``: the shards of each group of
                      machine with two cards has run it).
 Each call over an axis of more than one shard adds one to its count
 (``mesh_mean`` counts as ``mesh_sum``, ``mesh_all_to_all`` as itself).
+``respec`` lays a placed parameter out as a stage asks: it gathers the
+dims the leaf splits over an axis the stage does not (the FSDP gather over
+"data", counted as ``mesh_gather``) and narrows the dims the stage splits
+and the leaf does not (a view on a simulated mesh).
 
 ``shard_map`` is the counterpart of the JAX package's ``shard_map`` over
 the "data" axis: its operands split along the dims that
@@ -121,23 +127,34 @@ def mesh_sum(parts: Sequence[torch.Tensor], mesh,
     return out
 
 
-def mesh_gather(parts: Sequence[torch.Tensor], dim: int,
-                mesh) -> List[torch.Tensor]:
+def mesh_gather(parts: Sequence[torch.Tensor], dim: int, mesh,
+                axis: Optional[str] = None) -> List[torch.Tensor]:
     """One part per shard concatenated along ``dim`` in shard order, one
-    result per shard."""
-    m = _check(parts, mesh)
-    if m == 1:
+    result per shard: over every shard of a mesh split over "data" alone,
+    or with ``axis`` within each group of that axis, in that axis' order
+    (``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``)."""
+    if axis is None:
+        _check(parts, mesh)
+        axis = "data"
+    if _group_size(parts, mesh, axis) == 1:
         return list(parts)
     runtime.launch_counts["mesh_gather"] += 1
-    if mesh.collective == "nccl":
-        # all_gather concatenates along the leading dim
-        src = [p.movedim(dim, 0).contiguous() for p in parts]
-        outs = [torch.empty((m * s.shape[0],) + tuple(s.shape[1:]),
-                            dtype=s.dtype, device=s.device) for s in src]
-        torch.cuda.nccl.all_gather(src, outs)
-        return [o.movedim(0, dim) for o in outs]
-    whole = torch.cat(list(parts), dim=dim)
-    return [whole] * m
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    for group in mesh.axis_groups(axis):
+        if mesh.collective == "nccl":
+            # all_gather concatenates along the leading dim
+            src = [parts[i].movedim(dim, 0).contiguous() for i in group]
+            outs = [torch.empty((len(src) * t.shape[0],)
+                                + tuple(t.shape[1:]), dtype=t.dtype,
+                                device=t.device) for t in src]
+            torch.cuda.nccl.all_gather(src, outs)
+            joined = [o.movedim(0, dim) for o in outs]
+        else:
+            joined = [torch.cat([parts[i] for i in group], dim=dim)] \
+                * len(group)
+        for i, t in zip(group, joined):
+            out[i] = t
+    return out
 
 
 def mesh_mean(parts: Sequence[torch.Tensor], mesh,
@@ -294,6 +311,15 @@ class ShardedLeaf:
         return tuple(n * _block(self.mesh, 0, e)[1]
                      for n, e in zip(self.parts[0].shape, self.spec))
 
+    @property
+    def device(self) -> torch.device:
+        """The mesh's lead device."""
+        return self.mesh.device
+
+    def join(self) -> torch.Tensor:
+        """The whole leaf on the mesh's lead device (``join_spec``)."""
+        return join_spec(self.parts, self.spec, self.mesh)
+
 
 def split_spec(x, spec: Spec, mesh) -> List[torch.Tensor]:
     """One part of ``x`` per shard of ``mesh`` (in ``devices`` order),
@@ -320,6 +346,42 @@ def split_spec(x, spec: Spec, mesh) -> List[torch.Tensor]:
             size = x.shape[dim] // count
             part = part.narrow(dim, index * size, size)
         parts.append(on_device(part, dev))
+    return parts
+
+
+def respec(x, spec: Spec, mesh) -> List[torch.Tensor]:
+    """The parts of ``x`` (a ``ShardedLeaf`` of ``mesh``, or a whole
+    tensor) laid out as ``spec`` asks, one per shard: each dim that ``x``
+    splits over axes that ``spec`` does not name there is gathered over
+    them (``mesh_gather(axis=)``, innermost axis first), then each dim
+    that ``spec`` splits and the gathered parts do not is narrowed to the
+    shard's block (a view).  A whole tensor is every shard's part (a copy
+    on each other card of an NCCL mesh)."""
+    if isinstance(x, ShardedLeaf):
+        if x.mesh != mesh:
+            raise ValueError("a leaf placed on another mesh")
+        have, parts = x.spec, list(x.parts)
+    else:
+        have = (None,) * x.dim()
+        parts = [on_device(x, dev) for dev in mesh.devices]
+    if len(spec) != len(have):
+        raise ValueError(f"spec {tuple(spec)} for a leaf of spec {have}")
+    for dim, (got, want) in enumerate(zip(have, spec)):
+        if _axes(got) == _axes(want):
+            continue
+        for a in reversed(_axes(got)):
+            parts = mesh_gather(parts, dim, mesh, axis=a)
+        if not _axes(want):
+            continue
+        cut = []
+        for shard, part in enumerate(parts):
+            index, count = _block(mesh, shard, want)
+            if part.shape[dim] % count:
+                raise ValueError(f"dim {dim} of shape {tuple(part.shape)} "
+                                 f"does not split into {count} blocks")
+            size = part.shape[dim] // count
+            cut.append(part.narrow(dim, index * size, size))
+        parts = cut
     return parts
 
 

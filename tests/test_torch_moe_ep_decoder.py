@@ -3,6 +3,10 @@ expert parallel over "model" — against the JAX package's jitted
 ``build_model(cfg, rules, mesh)`` on the same mesh, on the CPU, in
 float32.
 
+Its dense layers run tensor parallel over "model" too: attention, the dense
+head layer, the shared experts and the vocabulary, beside the routed
+experts' expert parallelism.
+
 The reference runs once, in a subprocess, on four forced host devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4`` set before JAX is
 imported) and hands back numpy arrays: its parameters (drawn from a JAX
@@ -11,8 +15,9 @@ a2a path: 64 tokens a shard), and three greedy decode steps (dense_ep),
 with the tokens it fed.  Both build under MEGATRON_FSDP, the rules of the
 full model, whose "experts" map to "model" (the reduced width would pick
 SMALL_DP, which leaves the experts unplaced).  The port gets the same
-parameters, placed on a simulated mesh by ``shard_params`` (the routed
-experts split, one slice a shard), and is fed the reference's tokens.
+parameters, placed on a simulated mesh by ``shard_params`` (every leaf
+by its spec: the routed experts one slice a shard, the heads, widths and
+vocabulary over "model"), and is fed the reference's tokens.
 Tier: the float32 LM tier, 1e-4 of the reference's largest logit
 magnitude, and the same argmax at every step.
 """
@@ -137,17 +142,25 @@ def test_decoder_on_mesh_matches_reference(reference, port, step):
 
 
 def test_decoder_on_mesh_runs_the_expert_parallel_paths(port):
-    """Every MoE layer of the prefill exchanges twice (a2a) and means its
-    aux once; every decode step's MoE layer sums and means (dense_ep);
-    the routed experts are placed one slice a shard."""
+    """Every MoE layer of the prefill exchanges twice (a2a), means its
+    aux once and gathers the shared expert's two leaves over "model" to
+    run it on each shard's own tokens; every decode step's MoE layer sums
+    (dense_ep, the shared expert's blocks inside) and means.  Beside
+    them, tensor parallel over "model": the vocab-parallel lookup's sum,
+    an attention sum a layer, the dense head layer's MLP sum, and the
+    logits' gather, in every step.  The routed experts are placed one
+    slice a shard."""
     cfg = get_arch(ARCH, reduced=True)
-    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    n_dense = cfg.moe.first_dense_layers
+    n_moe = cfg.n_layers - n_dense
+    tp_sums = 1 + cfg.n_layers + n_dense
     prefill, *decodes = port[1]
-    assert (prefill["mesh_all_to_all"], prefill["mesh_sum"]) == \
-        (2 * n_moe, n_moe)
+    assert (prefill["mesh_all_to_all"], prefill["mesh_sum"],
+            prefill["mesh_gather"]) == \
+        (2 * n_moe, tp_sums + n_moe, 1 + 2 * n_moe)
     for counts in decodes:
-        assert (counts["mesh_all_to_all"], counts["mesh_sum"]) == \
-            (0, 2 * n_moe)
+        assert (counts["mesh_all_to_all"], counts["mesh_sum"],
+                counts["mesh_gather"]) == (0, tp_sums + 2 * n_moe, 1)
     wi = port[2]["layers"]["moe"]["wi"]
     assert isinstance(wi, ShardedLeaf)
     assert wi.spec == (None, "model", None, None, None)
