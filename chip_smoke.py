@@ -143,6 +143,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import shutil
 import statistics
@@ -420,8 +421,19 @@ ATTN_SHAPES = (MAIN_ATTN_SHAPE, (128, 2048, 2048, 112, "f32", True, 32768),
         (20, 2048, 2048, 128, True, None),
         (16, 4608, 4608, 120, True, 4096),
         (16, 2048, 2048, 192, True, None, 128),
-        (2, 2048, 2048, 128, True, None))
-    for dtype in ("bf16", "f32")) + (
+        (2, 2048, 2048, 128, True, None),
+        # serve_tp's families on a mesh: zamba2-7b's shared block a shard
+        # (B 4 x 32 / 4 on (1, 4), B 2 x 32 / 2 on (2, 2)); whisper-base
+        # data parallel on (2, 2), one row a shard (B 1 x 8 heads): the
+        # encoder over 1500 frames, the decoder's self-attention over 400
+        # tokens and its cross-attention against the frames
+        (32, 2048, 2048, 112, True, 32768),
+        (8, 1500, 1500, 64, False, None),
+        (8, 400, 400, 64, True, None),
+        (8, 400, 1500, 64, False, None))
+    for dtype in ("bf16", "f32")
+    if (*shape[:4], dtype, *shape[4:]) != (32, 2048, 2048, 112, "bf16",
+                                           True, 32768)) + (
     # serve_tp's NCCL run on two cards (B 2 x 40 / 2), where there are two
     (40, 2048, 2048, 128, "bf16", True, None),)
 # the three last families' prefills (name -> row and its types):
@@ -467,8 +479,16 @@ TP_ATTN_SHAPE = (20, 2048, 2048, 128, "bf16", True, None)
 MLA_TP_ATTN_SHAPE = (16, 2048, 2048, 192, "bf16", True, None, 128)
 H2O_TP_ATTN_SHAPE = (16, 4608, 4608, 120, "bf16", True, 4096)
 EP16_ATTN_SHAPE = (2, 2048, 2048, 128, "bf16", True, None)
+# serve_tp's families: zamba2-7b's shared block a shard, whisper-base's
+# encoder, decoder self- and cross-attention a shard (data parallel)
+ZAMBA2_TP_ATTN_SHAPE = (32, 2048, 2048, 112, "bf16", True, 32768)
+WHISPER_DP_ATTN_ROWS = {
+    "whisper_enc": (8, 1500, 1500, 64, "bf16", False, None),
+    "whisper_self": (8, 400, 400, 64, "bf16", True, None),
+    "whisper_cross": (8, 400, 1500, 64, "bf16", False, None)}
 TP_SHARD_ROWS = {"qwen": TP_ATTN_SHAPE, "h2o": H2O_TP_ATTN_SHAPE,
-                 "mla": MLA_TP_ATTN_SHAPE, "ep16": EP16_ATTN_SHAPE}
+                 "mla": MLA_TP_ATTN_SHAPE, "ep16": EP16_ATTN_SHAPE,
+                 "zamba2": ZAMBA2_TP_ATTN_SHAPE, **WHISPER_DP_ATTN_ROWS}
 # (BH, S, P, N, chunk, heads) of the SSD scan, for the same runs (112 SSM
 # heads of 64 a batch row, state 64, chunk 256; the reduced model 8 heads of
 # 16, state 16, chunk 16), then a ragged S; "strong" decay is la = -50; S
@@ -500,6 +520,16 @@ SSD_SHAPES += ((XLSTM_SSD_SHAPE, "slow"),
 # normalizer
 SSD_SHAPES += (((32, 64, 16, 16, 16, 8), "slow"),
                ((16, 64, 33, 32, 16, 1), "slow"))
+# one shard's scan where serve_tp serves the families on a mesh:
+# zamba2-7b tensor parallel (B 4 x 112 / 4 SSM heads on (1, 4), B 2 x
+# 112 / 2 on (2, 2): heads 28 and 56, bm and cm read by the 28 or 56
+# lanes of their batch row) and xlstm-350m data parallel on (1, 4) (one
+# batch row a shard: 4 heads as lanes)
+SSD_TP_SHARD_SHAPES = {"tp4": (112, 2048, 64, 64, 256, 28),
+                       "tp2": (112, 2048, 64, 64, 256, 56)}
+XLSTM_DP_SSD_SHAPE = (4, 2048, 513, 512, 256, 1)
+SSD_SHAPES += tuple((shape, "slow") for shape in (
+    *SSD_TP_SHARD_SHAPES.values(), XLSTM_DP_SSD_SHAPE))
 # (name, (BH, S, P, N, chunk, heads), decay, d(final state) given, lanes
 # the float64 plain backward takes) of K6's backward: the training paths'
 # calls (zamba2-7b at 4 x 2048 tokens: its yardstick on one batch row's
@@ -1748,8 +1778,13 @@ def _ssd_kernel_rows(device, gen):
     """The SSD scan against its plain sequential version — y and the final
     state — at every shape of SSD_SHAPES.  No single PyTorch call computes
     the scan: library_ms is None.  The main row (zamba2's) carries
-    xlstm-350m's row beside it (``xlstm``)."""
-    report, main, xlstm = [], None, None
+    xlstm-350m's row beside it (``xlstm``), and one shard's rows where
+    serve_tp serves the two families on a mesh (``tp_shard``: zamba2
+    tensor parallel at heads 28 and 56; ``dp_shard``: xlstm data
+    parallel)."""
+    report, main, xlstm, shards = [], None, None, {}
+    timed = (MAIN_SSD_SHAPE, XLSTM_SSD_SHAPE, XLSTM_DP_SSD_SHAPE,
+             *SSD_TP_SHARD_SHAPES.values())
     for shape, decay in SSD_SHAPES:
         bh, s, p, n, chunk, heads = shape
         x, la, bm, cm = _ssd_inputs(shape, decay, device, gen)
@@ -1781,9 +1816,14 @@ def _ssd_kernel_rows(device, gen):
             "bound_ms_at_f32_fma": bound_f32,
             "bytes": nbytes, "operations": flops,
         }
-        if shape in (MAIN_SSD_SHAPE, XLSTM_SSD_SHAPE):
+        if shape in timed:
             row["plain_ms"] = _time_ms(lambda: ssd_scan.ssd_scan_plain(
                 x, la, bm, cm, heads=heads), cold=True, runs=5, warmup=1)
+        for name, key in (*SSD_TP_SHARD_SHAPES.items(),
+                          ("dp", XLSTM_DP_SSD_SHAPE)):
+            if shape == key:
+                shards[name] = {"shape": list(shape), **row}
+        if shape in (MAIN_SSD_SHAPE, XLSTM_SSD_SHAPE):
             # one wrapper call (one count): its CUDA launches as a captured
             # CUDA graph holds them, and the scratch it allocates beside y and
             # the state as the device allocator counts it (the peak of the
@@ -1806,6 +1846,8 @@ def _ssd_kernel_rows(device, gen):
         del x, la, bm, cm, y, st, y0, st0
         torch.cuda.empty_cache()
     main["xlstm"] = xlstm
+    main["tp_shard"] = {k: shards[k] for k in SSD_TP_SHARD_SHAPES}
+    main["dp_shard"] = shards["dp"]
     return report, main
 
 
@@ -4225,31 +4267,65 @@ def phase_serve_dense(device):
 
 # serve_tp: the decoder family tensor parallel on simulated meshes of the
 # card under MEGATRON_FSDP (each shard's stage in turn on the one card):
-# (arch, its DENSE_SERVES row's weights and burst, the (data, model)
-# meshes); each against the one-card serve of the same weights and tokens
+# (arch, the (data, model) meshes, the depth kept; its DENSE_SERVES row's
+# burst); each against the one-card serve of the same weights and tokens
 # in float32 within TP_F32_TIER of max|logits| at the prefill and every
 # decode step (teacher forced from the same cache) and in bf16 within
-# TP_BF16_TIER, the LM's tier
-TP_SERVES = (("qwen2.5-32b", ((1, 4), (2, 2))),
-             ("h2o-danube-3-4b", ((1, 4),)))
+# TP_BF16_TIER, the LM's tier.  h2o-danube-3-4b is cut from 24 layers to
+# 8 (its prompts still past its window): its four shards' decode steps in
+# turn took the longest of the phase, and the script has a time limit
+TP_SERVES = (("qwen2.5-32b", ((1, 4), (2, 2)), 2),
+             ("h2o-danube-3-4b", ((1, 4),), 8))
 TP_F32_TIER, TP_BF16_TIER = 1e-4, 0.08
 
 
-def _tp_logits(one, run, tier, what):
+def _tp_logits(one, run, tier, what, hold=True):
     """A teacher-forced run's logits (``_lm_run``) against the one-card
     run's: the largest difference over max|logits| at each step, held
-    under ``tier``, and the share of (step, row) greedy picks they share
-    (reported)."""
+    under ``tier`` (reported only where not ``hold``), and the share of
+    (step, row) greedy picks they share (reported)."""
     diffs = [float((g - c).abs().max() / c.abs().max())
              for c, g in zip(one[0], run[0])]
-    assert all(np.isfinite(diffs)) and max(diffs) < tier, (what, diffs)
+    assert all(np.isfinite(diffs)), (what, diffs)
+    assert not hold or max(diffs) < tier, (what, diffs)
     same = [(g.argmax(-1) == c.argmax(-1)).float().mean().item()
             for c, g in zip(one[0], run[0])]
     states = {k: float((run[2][k] - v).abs().max() / v.abs().max())
               for k, v in one[2].items()}
-    assert max(states.values()) < tier, (what, states)
+    assert not hold or max(states.values()) < tier, (what, states)
     return {"logits_rel_err_by_step": diffs, "state_rel_err": states,
-            "argmax_agreement": float(np.mean(same)), "tier": tier}
+            "argmax_agreement": float(np.mean(same)), "tier": tier,
+            "held": hold}
+
+
+def _by_rows(bundle, params, tokens, device, rows, ref, extra):
+    """The one-card program teacher forced (``ref``'s tokens) on each
+    block of ``rows`` batch rows alone, what a data-parallel shard runs:
+    each step's logits, the blocks joined along the batch."""
+    runs = [_lm_run(bundle, params, tokens[r:r + rows], device,
+                    SERVE_GEN - 1, feed=[f[r:r + rows] for f in ref[1]],
+                    extra=extra and {k: v[r:r + rows]
+                                     for k, v in extra.items()})
+            for r in range(0, tokens.shape[0], rows)]
+    return [torch.cat([run[0][k] for run in runs])
+            for k in range(len(ref[0]))]
+
+
+def _dp_logits(one, run, by_rows, tier, what):
+    """A data-parallel mesh run in bf16 bit for bit at every step against
+    the one-card program on each shard's rows (``_by_rows``), and against
+    the one-card run of the whole batch (``_tp_logits``, reported: the
+    card's bf16 products round by the batch's size, which the one-card
+    program's own runs by rows and of the whole batch show beside it)."""
+    out = _tp_logits(one, run, tier, what, hold=False)
+    same = all(torch.equal(g, r) for g, r in zip(run[0], by_rows))
+    assert same, (what, "the mesh differs from the one-card program on "
+                  "the same rows")
+    out["same_bits_as_one_card_by_rows"] = same
+    out["one_card_by_rows_vs_batch_rel_err_by_step"] = [
+        float((r - c).abs().max() / c.abs().max())
+        for c, r in zip(one[0], by_rows)]
+    return out
 
 
 def _serve_tp_nccl(cfg, params, prompts, batch, slot_len, device):
@@ -4300,6 +4376,233 @@ def _served_twice(bundle, params, device, prompts, batch, slot_len, what,
     return results, record, times
 
 
+# the families beyond the decoders on a mesh: (arch, rules, depth kept or
+# None for all, meshes) — zamba2-7b under MEGATRON_FSDP (tensor parallel:
+# its SSM heads, attention heads, MLP width and vocabulary over "model")
+# at full width cut to 12 layer slots (2 groups of 5 Mamba-2 blocks and
+# the shared block), serve_zamba2's burst (SERVE_PROMPTS prompts in
+# SERVE_BATCH slots of SERVE_LEN); xlstm-350m under SMALL_DP (data
+# parallel) cut to 8 blocks (7 mLSTM and an sLSTM), the same burst;
+# whisper-base whole under SMALL_DP through Engine.generate at
+# serve_whisper's WHISPER_SERVE (4 x 1500 frames, 400-token prompts)
+FAMILY_MESH_SERVES = (("zamba2-7b", "MEGATRON_FSDP", 12, ((1, 4), (2, 2))),
+                      ("xlstm-350m", "SMALL_DP", 8, ((1, 4),)),
+                      ("whisper-base", "SMALL_DP", None, ((2, 2),)))
+# the leaves a data-parallel decode step does not read (gathers it skips)
+DECODE_UNUSED = {"audio": ("encoder", "enc_lnf", "frontend_proj"),
+                 "vlm": ("img_proj",)}
+
+
+def _hybrid_collectives(cfg, dims, n_steps):
+    """The collectives of ``n_steps`` prefill or decode steps of the hybrid
+    on a (dp, tp) mesh, G groups and M Mamba-2 blocks: over "model", the
+    lookup's sum, two sums a Mamba-2 block (gnorm's sum of squares,
+    out_proj's partials) and two a shared-block application (attention,
+    MLP), a gather of each block's in_proj (its flat "ff" placement cuts
+    across the z, x, bm, cm, dt pieces) and of the logits; over "data"
+    (FSDP), a gather of each block's in_proj and out_proj, of the shared
+    block's six projections at each application and of the
+    unembedding."""
+    dp, tp = dims
+    groups = cfg.n_layers // cfg.shared_attn_every
+    mamba = cfg.n_layers - groups
+    sums = (1 + 2 * mamba + 2 * groups) if tp > 1 else 0
+    gathers = (1 + mamba if tp > 1 else 0) \
+        + ((2 * mamba + 6 * groups + 1) if dp > 1 else 0)
+    return {"mesh_sum": n_steps * sums, "mesh_gather": n_steps * gathers,
+            "mesh_all_to_all": 0}
+
+
+def _dp_collectives(bundle, mesh, rules, n_prefill, n_decode):
+    """The collectives of ``n_prefill`` prefills and ``n_decode`` decode
+    steps of a family data parallel on ``mesh``: each step gathers every
+    leaf it reads whole, once over each axis of more than one shard that
+    the leaf's spec splits it over (``sharding_tree``, which
+    tests/test_torch_dp_mesh.py holds against the reference's); no
+    sum."""
+    from repro_torch.models.param import sharding_tree, tree_paths
+    sizes = dict(mesh.shape)
+    skip = DECODE_UNUSED.get(bundle.arch.family, ())
+
+    def gathers(skipped):
+        return sum(sizes.get(a, 1) > 1
+                   for path, spec in tree_paths(sharding_tree(
+                       bundle.decls, mesh, rules)) if path[0] not in skipped
+                   for e in spec if e is not None
+                   for a in ((e,) if isinstance(e, str) else e))
+    return {"mesh_sum": 0, "mesh_all_to_all": 0,
+            "mesh_gather": n_prefill * gathers(())
+            + n_decode * gathers(skip)}
+
+
+def _in_proj_gather(cfg, params, mesh):
+    """What the Mamba-2 block's ``in_proj`` gather costs a block and a
+    step (``ssm.tp_mamba2_params`` gathers the leaf whole, its flat "ff"
+    placement cutting across the pieces a shard takes): the bytes each
+    card would receive on an NCCL mesh (every card holds 1 / m of the
+    leaf), and on this simulated mesh the gather's time (a copy on the
+    card) and the whole per-shard cut's (``kernels`` timer, L2
+    flushed)."""
+    block = {k: v[0, 0] for k, v in params["mamba"].items()}
+    leaf = block["in_proj"]
+    nbytes = math.prod(leaf.shape) * 2
+    n = len(mesh.devices)
+    return {"in_proj_bytes": nbytes,
+            "nccl_bytes_received_a_card": nbytes - nbytes // n,
+            "gather_ms": _time_ms(lambda: lm_layers.replicated(leaf, mesh),
+                                  cold=True),
+            "tp_mamba2_params_ms": _time_ms(
+                lambda: ssm_blocks.tp_mamba2_params(block, cfg, mesh),
+                cold=True),
+            "blocks": cfg.n_layers - cfg.n_layers // cfg.shared_attn_every}
+
+
+def _family_mesh_serve(arch, rules_name, depth, meshes, device):
+    """One row of FAMILY_MESH_SERVES: bf16 weights drawn on the card from
+    LM_SEED, served on one card (counted) and then on each simulated mesh
+    of the card (``build_model(cfg, rules, mesh)``, ``shard_params``:
+    views of the same weights), twice (the first counted: K5 and K6 once
+    a shard at a shard's shape, every collective exact), the share of its
+    tokens the one card's serve shares; then the first burst teacher
+    forced from the one card's tokens, in bf16 and in float32, its logits
+    and joined states against the one card's (a data-parallel mesh in
+    bf16 also bit for bit against the one-card program on each shard's
+    rows: ``_dp_logits``).  Returns (the record, K5 and K6 launches of
+    the counted mesh serves by mesh)."""
+    from repro_torch.models.param import shard_params
+    from repro_torch.sharding import axes
+    rules = getattr(axes, rules_name)
+    full = get_arch(arch)
+    cfg = full if depth is None else dataclasses.replace(full,
+                                                         n_layers=depth)
+    bundle = build_model(cfg, rules)
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = init_tree(bundle.decls, gen, device)
+    s = cfg.ssm
+    if cfg.family == "audio":
+        b, n_frames, n_tok = WHISPER_SERVE
+        rng = np.random.default_rng(LM_SEED)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, n_tok))
+                 .astype(np.int32),
+                 "frames": rng.standard_normal((b, n_frames, cfg.d_frontend),
+                                               dtype=np.float32)}
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        extra = {"frames": torch.as_tensor(batch["frames"])}
+        n_prefill, n_decode = 1, SERVE_GEN - 1
+
+        def serve(bnd, prm, what, twice=True, **kw):
+            # a generate of whisper is short: twice on one card too
+            res, rec = _generate_twice(bnd, prm, device, batch, what, **kw)
+            first = {"prefill_s": [rec["prefill_s"]],
+                     "decode_ms_a_step": [rec["decode_s"] * 1e3
+                                          / (SERVE_GEN - 1)]}
+            return [res.tokens], rec, {"first": first,
+                                       "second": rec["second"],
+                                       "peak_device_bytes":
+                                           rec["peak_device_bytes"]}
+    else:
+        prompts = _serve_prompts(cfg.vocab_size, SERVE_PROMPTS, SERVE_LEN,
+                                 SERVE_LEN // 2)
+        tokens = _burst_tokens(prompts, SERVE_BATCH, SERVE_LEN, device)
+        extra = None
+        b = SERVE_BATCH
+        n_bursts = -(-SERVE_PROMPTS // SERVE_BATCH)
+        n_prefill, n_decode = n_bursts, n_bursts * (SERVE_GEN - 1)
+
+        def serve(bnd, prm, what, twice=True, **kw):
+            if twice:
+                return _served_twice(bnd, prm, device, prompts, SERVE_BATCH,
+                                     SERVE_LEN, what, **kw)
+            _, results, rec = _serve(bnd, prm, device, prompts, SERVE_BATCH,
+                                     SERVE_LEN, what, **kw)
+            return results, rec, {"first": _burst_times(rec),
+                                  "peak_device_bytes":
+                                      rec["peak_device_bytes"]}
+    one_tokens, one, one_times = serve(bundle, params,
+                                       f"serve_tp/{arch}/one_card",
+                                       twice=False)
+    ref = _lm_run(bundle, params, tokens, device, SERVE_GEN - 1, extra=extra)
+    record = {"arch": arch, "rules": rules_name, "n_layers": cfg.n_layers,
+              "cut": None if depth is None else
+              f"depth {full.n_layers} -> {depth}", "batch": b,
+              "one_card": {"launches": one["launches"], **one_times},
+              "meshes": {}}
+    placed, launches = {}, {}
+    for dims in meshes:
+        mesh = make_sim_mesh(dims, device)
+        n = len(mesh.devices)
+        name = f"{dims[0]}x{dims[1]}"
+        what = f"serve_tp/{arch}/{name}"
+        m_bundle = build_model(cfg, rules, mesh=mesh)
+        m_params = shard_params(params, m_bundle.decls, mesh, rules)
+        if cfg.family == "hybrid":
+            collectives = _hybrid_collectives(cfg, dims, n_prefill + n_decode)
+        else:
+            collectives = _dp_collectives(m_bundle, mesh, rules, n_prefill,
+                                          n_decode)
+        results, rec, times = serve(m_bundle, m_params, what,
+                                    collectives=collectives, shards=n)
+        rows = b // n if cfg.family != "hybrid" else b // dims[0]
+        if cfg.family == "hybrid":
+            nh = s.expand * cfg.d_model // s.head_dim
+            a = cfg.attention
+            want = {"ssd_scan": [str((rows * nh // dims[1], SERVE_LEN,
+                                      s.head_dim, s.state_dim, s.chunk,
+                                      nh // dims[1]))],
+                    "flash_attention": [str((rows * a.n_heads // dims[1],
+                                             SERVE_LEN, SERVE_LEN,
+                                             a.head_dim, "bf16", True,
+                                             a.sliding_window))]}
+        elif cfg.family == "ssm":
+            want = {"ssd_scan": [str(XLSTM_DP_SSD_SHAPE)]}
+            assert rows * cfg.attention.n_heads == XLSTM_DP_SSD_SHAPE[0]
+        else:
+            want = {"flash_attention": sorted(
+                str(row) for row in WHISPER_DP_ATTN_ROWS.values())}
+            assert rows * cfg.attention.n_heads == 8
+        assert rec["launch_shapes"] == want, (what, rec["launch_shapes"])
+        launches[name] = {k: rec["launches"][k]
+                          for k in ("flash_attention", "ssd_scan")}
+        run = _lm_run(m_bundle, m_params, tokens, device, SERVE_GEN - 1,
+                      feed=ref[1], extra=extra)
+        if cfg.family == "hybrid":
+            bf16 = _tp_logits(ref, run, TP_BF16_TIER, what + "/bf16")
+        else:
+            # each shard runs the one-device program on its rows: held
+            # bit for bit against that; against the whole batch's run
+            # the bf16 products round otherwise (reported)
+            bf16 = _dp_logits(ref, run, _by_rows(
+                bundle, params, tokens, device, rows, ref, extra),
+                TP_BF16_TIER, what + "/bf16")
+        record["meshes"][name] = {
+            "launches": rec["launches"], "launch_shapes": want,
+            "per_shard": {k: v // n for k, v in launches[name].items()},
+            **times,
+            "tokens_agree_with_one_card": float(np.mean(
+                [np.mean(x == y) for x, y in zip(results, one_tokens)])),
+            "bf16": bf16}
+        if cfg.family == "hybrid":
+            record["meshes"][name]["in_proj_gather"] = _in_proj_gather(
+                cfg, m_params, mesh)
+        placed[name] = (mesh, m_bundle)
+        del m_params, run
+        torch.cuda.empty_cache()
+    p32 = cast_floating(params, torch.float32)
+    del params, ref
+    ref = _lm_run(bundle, p32, tokens, device, SERVE_GEN - 1, extra=extra)
+    for name, (mesh, m_bundle) in placed.items():
+        what = f"serve_tp/{arch}/{name}/f32"
+        run = _lm_run(m_bundle, shard_params(p32, m_bundle.decls, mesh,
+                                             rules),
+                      tokens, device, SERVE_GEN - 1, feed=ref[1], extra=extra)
+        held = _tp_logits(ref, run, TP_F32_TIER, what)
+        assert held["argmax_agreement"] == 1.0, (what, held)
+        record["meshes"][name]["f32"] = held
+    del p32, ref
+    torch.cuda.empty_cache()
+    return record, launches
+
+
 def phase_serve_tp(device):
     """The decoder family served tensor parallel (models/lm.py
     ``_decoder_on_mesh``): for each row of TP_SERVES, bf16 weights drawn
@@ -4314,15 +4617,19 @@ def phase_serve_tp(device):
     steps teacher forced from the one-card tokens, in bf16 and then in
     float32 (the weights cast), against the one-card run's logits and
     joined cache.  qwen2.5-32b at full width cut to 2 layers on (1, 4)
-    and (2, 2), h2o-danube-3-4b in full on (1, 4) past its window; then
+    and (2, 2), h2o-danube-3-4b cut to 8 layers on (1, 4) past its
+    window; then
     qwen2.5-32b on an NCCL mesh of the cards where there are two or
-    more."""
+    more.  Then the families of FAMILY_MESH_SERVES the same way
+    (``_family_mesh_serve``): zamba2-7b tensor parallel, xlstm-350m and
+    whisper-base data parallel.  Returns K5's launches of each counted
+    mesh serve, and K6's."""
     from repro_torch.models.param import shard_params
     from repro_torch.sharding.axes import MEGATRON_FSDP
     t0 = time.perf_counter()
     models, launches, nccl = [], {}, None
-    for arch, meshes in TP_SERVES:
-        _, depth, batch, slot_len, n_prompts = next(
+    for arch, meshes, depth in TP_SERVES:
+        _, _, batch, slot_len, n_prompts = next(
             row for row in DENSE_SERVES if row[0] == arch)
         cfg = get_arch(arch)
         if depth is not None:
@@ -4395,7 +4702,20 @@ def phase_serve_tp(device):
         models.append(record)
         del p32, ref
         torch.cuda.empty_cache()
-    emit("serve_tp", card=smi_line(), rules="MEGATRON_FSDP", models=models,
+    ssd_launches = {}
+    for arch, rules_name, depth, meshes in FAMILY_MESH_SERVES:
+        record, counted = _family_mesh_serve(arch, rules_name, depth, meshes,
+                                             device)
+        models.append(record)
+        for name, got in counted.items():
+            if got["flash_attention"]:
+                launches[f"{arch}_{name}"] = got["flash_attention"]
+            if got["ssd_scan"]:
+                ssd_launches[f"{arch}_{name}"] = got["ssd_scan"]
+    emit("serve_tp", card=smi_line(), rules={
+             "decoders": "MEGATRON_FSDP",
+             **{arch: rules for arch, rules, _, _ in FAMILY_MESH_SERVES}},
+         models=models,
          nccl=nccl, seconds=time.perf_counter() - t0,
          timing="the shards of a simulated mesh run in turn on one card: "
                 "the times say what the stages cost there, not what four "
@@ -4404,7 +4724,7 @@ def phase_serve_tp(device):
                    "of max|one card| at the prefill and every decode step, "
                    f"the same argmax; bf16 within {TP_BF16_TIER}, the "
                    "argmax agreement reported")
-    return launches
+    return launches, ssd_launches
 
 
 # serve_whisper: whisper-base at the source's own lengths — (batch, encoder
@@ -4488,6 +4808,13 @@ def _seeded_model(cfg, device):
         torch.cuda.memory_allocated()
 
 
+# the steps over which serve_xlstm captures and traces one sLSTM layer:
+# the loop launches the same kernels every step, so its launches and
+# device time a step need no more; the profiler's sessions of the 2048
+# steps of a prefill (43 053 kernels) took the longest of the phase
+SLSTM_TRACE_STEPS = 512
+
+
 def phase_serve_xlstm(device):
     """The xLSTM family's headline path: the full xlstm-350m (24 layers: 3
     groups of 7 mLSTM blocks and an sLSTM block; each mLSTM's 4 heads of
@@ -4498,10 +4825,11 @@ def phase_serve_xlstm(device):
     launches at XLSTM_SSD_SHAPE; 30 decode steps of the recurrent state).
     Served twice: the same tokens.  Launch counts are set to 0 just before
     the first serve and read just after.  Then one prefill of the first
-    burst with K6's and the sLSTM loop's device spans, the loop's CUDA
-    launches as a captured CUDA graph holds them, its busy time as the
-    profiler traces it, and the prefill/decode check in float32 (the
-    reference's check, which its reduced xlstm runs on no block)."""
+    burst with K6's and the sLSTM loop's device spans, one sLSTM layer's
+    CUDA launches as a captured CUDA graph holds them and its busy time as
+    the profiler traces it over SLSTM_TRACE_STEPS steps, and the
+    prefill/decode check in float32 (the reference's check, which its
+    reduced xlstm runs on no block)."""
     cfg = get_arch("xlstm-350m")
     bundle, params, init_s, param_bytes = _seeded_model(cfg, device)
     prompts = _serve_prompts(cfg.vocab_size, SERVE_PROMPTS, SERVE_LEN,
@@ -4519,8 +4847,8 @@ def phase_serve_xlstm(device):
         {"tokens": _burst_tokens(prompts, SERVE_BATCH, SERVE_LEN, device)},
         [(ssd_scan, "ssd_scan_cuda"), (ssm_blocks, "slstm_forward")])
     gen = torch.Generator(device=device).manual_seed(LM_SEED)
-    x = torch.randn((SERVE_BATCH, SERVE_LEN, cfg.d_model), generator=gen,
-                    device=device).to(torch.bfloat16)
+    x = torch.randn((SERVE_BATCH, SLSTM_TRACE_STEPS, cfg.d_model),
+                    generator=gen, device=device).to(torch.bfloat16)
     layer = tree_map(lambda t: t[0], params["slstm"])
     with torch.inference_mode():
         launches = _graph_launches(
@@ -4531,7 +4859,7 @@ def phase_serve_xlstm(device):
     slstm = {"cuda_launches_per_layer": launches,
              "device_ms_per_layer": None if traced is None else
              sum(t for _, t in traced.values()),
-             "steps": SERVE_LEN, "batch": SERVE_BATCH}
+             "steps": SLSTM_TRACE_STEPS, "batch": SERVE_BATCH}
     del x
     consistency = _consistency_f32(bundle, params, prompts[0], device)
     emit("serve_xlstm", **record, param_bytes_on_card=param_bytes,
@@ -4542,13 +4870,15 @@ def phase_serve_xlstm(device):
     return record["launches"]
 
 
-def _generate_twice(bundle, params, device, batch, what):
+def _generate_twice(bundle, params, device, batch, what, collectives=None,
+                    shards=1):
     """``Engine.generate`` of ``batch`` (tokens and the family's frames or
     image patches), SERVE_GEN tokens, with the launch counts set to 0 just
     before and read just after and every launch's shape recorded, then
-    again: the model's launches (``_prefill_launches``) and nothing else,
-    every logit finite, the same tokens twice.  Returns (the result, the
-    emitted record)."""
+    again: the model's launches (``_prefill_launches``, on a mesh of
+    ``shards``), the mesh's ``collectives`` and nothing else, every logit
+    finite, the same tokens twice.  Returns (the result, the emitted
+    record; its ``second`` the warm generate's times)."""
     cfg = bundle.arch
     engine = Engine(bundle, params, device=device)
     flags = _logit_recorder(bundle)
@@ -4563,7 +4893,8 @@ def _generate_twice(bundle, params, device, batch, what):
     launches = dict(runtime.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     assert launches == {**{k: 0 for k in launches},
-                        **_prefill_launches(cfg)}, (what, launches)
+                        **_prefill_launches(cfg, shards),
+                        **(collectives or {})}, (what, launches)
     _launches_compared(seen, what)
     assert bool(torch.stack(flags).all()), f"{what}: a logit is not finite"
     assert len(flags) == SERVE_GEN
@@ -4582,6 +4913,9 @@ def _generate_twice(bundle, params, device, batch, what):
               "launch_shapes": {k: sorted(map(str, v))
                                 for k, v in seen.items() if v},
               "second_generate_same_tokens": same,
+              "second": {"prefill_s": [again.prefill_s],
+                         "decode_ms_a_step": [again.decode_s * 1e3
+                                              / (SERVE_GEN - 1)]},
               "first_tokens": res.tokens[:, :4].tolist()}
     return res, record
 
@@ -4807,20 +5141,21 @@ def _prefill_launches(cfg, shards=1):
     block once a group and runs K6 in every other slot; the xLSTM runs K6
     once an mLSTM block; the encoder-decoder attends once an encoder layer
     and twice (self, cross) a decoder layer; a decoder or VLM once a
-    layer, and a decoder on a mesh of ``shards`` once a layer a
+    layer.  On a mesh of ``shards`` (tensor or data parallel) each once a
     shard."""
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.shared_attn_every
-        return {"flash_attention": groups, "ssd_scan": cfg.n_layers - groups}
-    if cfg.family == "ssm":
+        out = {"flash_attention": groups, "ssd_scan": cfg.n_layers - groups}
+    elif cfg.family == "ssm":
         per = cfg.ssm.slstm_every or cfg.n_layers
         n_m = per - 1 if cfg.ssm.slstm_every else per
-        return {"flash_attention": 0,
-                "ssd_scan": cfg.n_layers // per * n_m}
-    if cfg.family == "audio":
-        return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers,
-                "ssd_scan": 0}
-    return {"flash_attention": cfg.n_layers * shards, "ssd_scan": 0}
+        out = {"flash_attention": 0, "ssd_scan": cfg.n_layers // per * n_m}
+    elif cfg.family == "audio":
+        out = {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers,
+               "ssd_scan": 0}
+    else:
+        out = {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+    return {k: n * shards for k, n in out.items()}
 
 
 # (e) of expert parallelism: the reduced MoE decoders on a (1, EP_SHARDS)
@@ -6633,9 +6968,9 @@ def main(argv=None) -> int:
         mla_launches = mla_launches["flash_attention"]
     if "serve_dense" in phases:
         dense_launches = phase_serve_dense(device)
-    tp_launches = None
+    tp_launches, tp_ssd_launches = None, None
     if "serve_tp" in phases:
-        tp_launches = phase_serve_tp(device)
+        tp_launches, tp_ssd_launches = phase_serve_tp(device)
     family_launches = {}
     for name, phase in (("serve_xlstm", phase_serve_xlstm),
                         ("serve_whisper", phase_serve_whisper),
@@ -6785,7 +7120,13 @@ def main(argv=None) -> int:
                            "launches": family_launches["serve_xlstm"][
                                "ssd_scan"],
                            "launches_same_as_cpu_lm_f32":
-                               f32_launches["xlstm_ssd_scan"]}}}
+                               f32_launches["xlstm_ssd_scan"]},
+                 # one shard's rows where serve_tp serves zamba2-7b tensor
+                 # parallel and xlstm-350m data parallel, and the counted
+                 # mesh serves' launches (all shards)
+                 "tp_shard": rows["ssd_scan"]["tp_shard"],
+                 "dp_shard": rows["ssd_scan"]["dp_shard"],
+                 "launches_serve_tp": tp_ssd_launches}}
     # K1's and K2's launches on the per-block pool (estimate_paper), on
     # the wave path (estimate_wave, cold) on both pools, and their rows at
     # the fused paper shape (1024 lanes: the 32 blocks of one launch); on

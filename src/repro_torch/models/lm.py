@@ -24,21 +24,37 @@ donates it.  The frames and image patches are cast to their projection's
 type (the input specs declare them in it).
 
 On a mesh (launch/mesh.py) with an axis of more than one shard,
-``build_model(cfg, rules, mesh)`` declares the reference's trees there and
-the decoder family serves sharded (``_decoder_on_mesh``), with its
-parameters placed by ``models/param.py::shard_params``: the batch rows, the
-decode cache and the positions over "data"; attention heads, MLP width and
-vocabulary over "model" (models/layers.py's stages; the vocab-parallel
-lookup and the logits gathered over "model"); every leaf the rules put
-over "data" (FSDP) gathered before its stage uses it; the MoE layers'
-routed experts expert parallel over "model" (models/moe.py).  Each
-(data, model) shard holds the keys and values of its batch rows and of
-the KV heads its query heads use (MLA: the latent of its batch rows),
-where the reference declares the cache over "kv_seq" (the values are the
-same), and the residual between blocks is whole on every model shard,
-where the reference constrains it to "seq_shard".  The other families
-declare their trees on such a mesh, and their loss, prefill and decode
-raise ``NotImplementedError``.  Training on a mesh is not ported.
+``build_model(cfg, rules, mesh)`` declares the reference's trees there,
+its parameters placed by ``models/param.py::shard_params``, and every
+family serves sharded by the rules (``_on_mesh``):
+
+* the decoder family (dense, MoE), whatever the rules, and the hybrid
+  under rules that put heads over "model" (MEGATRON_FSDP, zamba2-7b's),
+  tensor parallel (``_decoder_on_mesh``, ``_hybrid_on_mesh``): the batch
+  rows, the decode cache and the positions over "data"; attention heads,
+  MLP width, the Mamba-2 blocks' SSM heads (models/ssm.py's stages) and
+  the vocabulary over "model" (models/layers.py's stages; the
+  vocab-parallel lookup and the logits gathered over "model"); every
+  leaf the rules put over "data" (FSDP) gathered before its stage uses
+  it; the MoE layers' routed experts expert parallel over "model"
+  (models/moe.py).  Each (data, model) shard holds the keys and values
+  of its batch rows and of the KV heads its query heads use (MLA: the
+  latent of its batch rows), where the reference declares the cache over
+  "kv_seq", and the hybrid's SSM states of its SSM heads and conv window
+  of its x channels with bm and cm (the values are the same); the
+  residual between blocks is whole on every model shard, where the
+  reference constrains it to "seq_shard";
+* every other family (hybrid, xLSTM, encoder-decoder, VLM) under rules
+  that put the batch over "model" and no heads there (SMALL_DP,
+  xlstm-350m's and whisper-base's), data parallel over every axis the
+  rules give the batch (``_data_parallel``): the parameters gathered
+  whole, the family's one-device prefill and decode on each shard's
+  rows, the cache held by batch rows.
+
+The bundle places and joins its decode cache (``ModelBundle.place_cache``,
+``join_cache``).  The xLSTM, encoder-decoder and VLM under rules that put
+heads over "model" raise ``NotImplementedError``; training on a mesh is
+not ported.
 
 Training: ``loss_fn`` composes the loss as the reference does — the mean
 cross-entropy of ``chunked_ce_loss`` (plus the MoE aux term for the
@@ -51,9 +67,10 @@ through ``SsdScanFunction``), so every family trains on the card.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from functools import partial
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,8 +86,10 @@ from repro_torch.models.layers import (
     sinusoidal_pos, tp_heads,
 )
 from repro_torch.models.moe import moe_decls, moe_forward
-from repro_torch.models.param import PDecl, tree_map, tree_map_with_path
-from repro_torch.sharding.axes import rules_for
+from repro_torch.models.param import (
+    PDecl, tree_map, tree_map_with_path, tree_paths,
+)
+from repro_torch.sharding.axes import MEGATRON_FSDP, SMALL_DP, rules_for
 from repro_torch.sharding.collectives import (
     ShardedLeaf, join_spec, mesh_gather, mesh_sum, on_shard, respec,
     split_spec,
@@ -131,6 +150,11 @@ class ModelBundle:
     cache_decls: Callable          # (ShapeConfig) -> PDecl tree
     input_specs: Callable          # (ShapeConfig) -> dict of PDecl
     mesh: Any = None               # the mesh the bundle runs sharded on
+    # on such a mesh: a whole (one-device) decode cache placed as the
+    # bundle's prefill holds it, and a placed cache joined back into the
+    # one-device layout on the lead device
+    place_cache: Optional[Callable] = None
+    join_cache: Optional[Callable] = None
 
     @property
     def sharded(self) -> bool:
@@ -260,9 +284,12 @@ def _stacked(xs, *lead):
     return torch.stack(xs).reshape(*lead, *xs[0].shape)
 
 
-def _prefill_positions(b: int, s: int, device):
-    """A prefill's slot table (slot i holds position i) and ``cur``."""
-    return (torch.arange(s, dtype=I32, device=device).repeat(b, 1),
+def _prefill_positions(b: int, s: int, device, cap: Optional[int] = None):
+    """A prefill's slot table and ``cur``: slot i holds position i, or,
+    where the cache keeps only the last ``cap`` positions, position s - cap
+    + i."""
+    cap = s if cap is None else cap
+    return (torch.arange(s - cap, s, dtype=I32, device=device).repeat(b, 1),
             torch.full((b,), s, dtype=I32, device=device))
 
 
@@ -415,7 +442,9 @@ def build_decoder(cfg: ArchConfig, rules=None, mesh=None,
         loss_fn, prefill_fn, decode_fn = _decoder_on_mesh(
             cfg, mesh, stacks, attn_chunk, ep_axis)
     return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
-                       cache_decls, _train_specs(_token_specs), mesh)
+                       cache_decls, _train_specs(_token_specs), mesh,
+                       place_cache=lambda c: place_cache(cfg, c, mesh),
+                       join_cache=partial(join_cache, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -427,22 +456,58 @@ def _sharded(mesh) -> bool:
     return mesh is not None and any(n > 1 for n in mesh.dims)
 
 
-def _refuse_mesh(bundle: ModelBundle, mesh) -> ModelBundle:
-    """``bundle`` recording ``mesh``.  A family that is not sharded yet,
-    declared on a mesh with an axis of more than one shard, keeps the
-    reference's trees there, and its loss, prefill and decode raise
-    ``NotImplementedError`` (they must not run unsharded beside placed
-    leaves)."""
+def _rule_axes(rules, name: str) -> Tuple[str, ...]:
+    """The mesh axes ``rules`` give the logical axis ``name``."""
+    entry = rules.to_dict().get(name)
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
+def _rules_name(rules) -> str:
+    for name, table in (("MEGATRON_FSDP", MEGATRON_FSDP),
+                        ("SMALL_DP", SMALL_DP)):
+        if rules == table:
+            return name
+    return (f"rules putting heads on {_rule_axes(rules, 'heads')} and the "
+            f"batch on {_rule_axes(rules, 'batch')}")
+
+
+def _no_training(cfg: ArchConfig):
+    def refuse(*_):
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family}) on a mesh is not ported "
+            "(ROADMAP Queue 1 item 1)")
+    return refuse
+
+
+def _on_mesh(bundle: ModelBundle, rules, mesh,
+             tensor_parallel: Optional[Callable] = None) -> ModelBundle:
+    """``bundle`` recording ``mesh``, and on a mesh with an axis of more
+    than one shard its sharded form by the rules: ``tensor_parallel``
+    (the hybrid's) where they put heads over "model"; the data-parallel
+    form (``_data_parallel``) where they put the batch over "model" and
+    no heads there (SMALL_DP).  Any other pair keeps the reference's
+    trees, and its loss, prefill, decode and cache placement raise
+    ``NotImplementedError`` naming the family and the rules (they must
+    not run unsharded beside placed leaves)."""
     if not _sharded(mesh):
         return replace(bundle, mesh=mesh)
     cfg = bundle.arch
+    if rules is None:
+        rules = rules_for(cfg.name, "train", cfg.d_model)
+    heads = "model" in _rule_axes(rules, "heads")
+    if heads and tensor_parallel is not None:
+        return tensor_parallel(bundle)
+    if not heads and "model" in _rule_axes(rules, "batch"):
+        return _data_parallel(bundle, rules, mesh)
 
     def refuse(*_):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a mesh of {dict(mesh.shape)}: "
-            "only the decoder family is sharded (ROADMAP Queue 1 item 1)")
+            f"{cfg.name} ({cfg.family}) under {_rules_name(rules)} on a mesh "
+            f"of {dict(mesh.shape)}: not ported (ROADMAP Queue 1 item 1)")
     return replace(bundle, loss_fn=refuse, prefill_fn=refuse,
-                   decode_fn=refuse, mesh=mesh)
+                   decode_fn=refuse, place_cache=refuse, join_cache=refuse,
+                   mesh=mesh)
 
 
 def _check_tp(cfg: ArchConfig, tp: int) -> None:
@@ -450,6 +515,8 @@ def _check_tp(cfg: ArchConfig, tp: int) -> None:
     ``ValueError`` (a prefill or decode step checks before its first
     launch)."""
     tp_heads(cfg.attention, tp)
+    if cfg.family == "hybrid":
+        S.tp_ssm_heads(cfg, tp)
     widths = {"vocabulary": cfg.vocab_size}
     if cfg.family == "moe":
         m = cfg.moe
@@ -488,6 +555,13 @@ def _each(mesh, fn, *lists):
         with on_shard(dev):
             out.append(fn(*(items[i] for items in lists)))
     return out
+
+
+def _normed(hs, w, mesh, eps: float):
+    """Each shard's activations RMS-normed by ``w`` (whole on every
+    shard)."""
+    return _each(mesh, lambda h, g: rms_norm(h, g, eps), hs,
+                 replicated(w, mesh))
 
 
 def _embed_stage(emb, toks, mesh):
@@ -531,10 +605,7 @@ def _decoder_on_mesh(cfg: ArchConfig, mesh, stacks, attn_chunk: int,
     tp = mesh.shape.get("model", 1)
     names = ("c", "krope") if a.is_mla else ("k", "v")
     n = len(mesh.devices)
-
-    def normed(hs, w):
-        return _each(mesh, lambda h, g: rms_norm(h, g, cfg.norm_eps), hs,
-                     replicated(w, mesh))
+    normed = partial(_normed, mesh=mesh, eps=cfg.norm_eps)
 
     def ffn(lp, hs, bspec):
         xs = normed(hs, lp["ln2"])
@@ -562,11 +633,6 @@ def _decoder_on_mesh(cfg: ArchConfig, mesh, stacks, attn_chunk: int,
                                mesh=mesh, ep_axis=ep_axis)
             ys = split_spec(y, spec, mesh)
         return _each(mesh, torch.add, hs, ys)
-
-    def loss_fn(params, batch):
-        raise NotImplementedError(
-            "training the decoder on a mesh is not ported (ROADMAP Queue 1 "
-            "item 1)")
 
     def prefill_fn(params, batch):
         _check_tp(cfg, tp)
@@ -603,10 +669,7 @@ def _decoder_on_mesh(cfg: ArchConfig, mesh, stacks, attn_chunk: int,
         _check_tp(cfg, tp)
         table = cache["slot_pos"]
         bspec = table.spec[0]
-        cap = table.parts[0].shape[1]
-        adv = _each(mesh, lambda c, t: _advance_pos(
-            {"cur": c, "slot_pos": t}, cap), cache["cur"].parts, table.parts)
-        cur, slot_pos = [c for c, _ in adv], [t for _, t in adv]
+        cur, slot_pos = _advance_shards(cache, mesh)
         hs = _embed_stage(params["emb"], split_spec(
             batch["tokens"], (bspec, None), mesh), mesh)
         for name, depth in stacks:
@@ -627,13 +690,25 @@ def _decoder_on_mesh(cfg: ArchConfig, mesh, stacks, attn_chunk: int,
                                  mesh)
         return logits, out
 
-    return loss_fn, prefill_fn, decode_fn
+    return _no_training(cfg), prefill_fn, decode_fn
+
+
+def _advance_shards(cache, mesh):
+    """``_advance_pos`` on every shard's slot table and ``cur``: (cur,
+    slot_pos), one per shard."""
+    table = cache["slot_pos"]
+    cap = table.parts[0].shape[1]
+    adv = _each(mesh, lambda c, t: _advance_pos({"cur": c, "slot_pos": t},
+                                                cap),
+                cache["cur"].parts, table.parts)
+    return [c for c, _ in adv], [t for _, t in adv]
 
 
 def place_cache(cfg: ArchConfig, cache, mesh):
-    """A whole decoder cache (``init_cache``'s) placed as the decoder on
-    ``mesh`` holds it: every shard's batch rows, and its KV heads
-    (``shard_heads``) or MLA's latent; views on a simulated mesh."""
+    """The decoder bundle's ``place_cache``: a whole decoder cache
+    (``init_cache``'s) placed as the decoder on ``mesh`` holds it: every
+    shard's batch rows, and its KV heads (``shard_heads``) or MLA's
+    latent; views on a simulated mesh."""
     tp = mesh.shape.get("model", 1)
     heads = [shard_heads(cfg.attention, tp, j) for j in range(tp)]
     bspec = _batch_spec(cache["cur"].shape[0], mesh)
@@ -658,8 +733,9 @@ def place_cache(cfg: ArchConfig, cache, mesh):
 
 
 def join_cache(cfg: ArchConfig, cache):
-    """A cache placed on a mesh put together on the lead device, in the
-    one-device layout: each KV head once."""
+    """The decoder bundle's ``join_cache``: a cache placed on a mesh put
+    together on the lead device, in the one-device layout: each KV head
+    once."""
     def join(path, t):
         if not isinstance(t, ShardedLeaf):
             return t
@@ -780,11 +856,9 @@ def build_hybrid(cfg: ArchConfig, rules=None, mesh=None,
         cache = {
             "m_ssm": st["m_ssm"], "m_conv": st["m_conv"],
             "shared_kv": {"k": st["k"][:, :, -cap:], "v": st["v"][:, :, -cap:]},
-            "slot_pos": torch.arange(s - cap, s, dtype=I32,
-                                     device=tokens.device)
-            .repeat(b, 1),
-            "cur": torch.full((b,), s, dtype=I32, device=tokens.device),
         }
+        cache["slot_pos"], cache["cur"] = _prefill_positions(
+            b, s, tokens.device, cap)
         if n_tail:
             cache["t_ssm"], cache["t_conv"] = st["t_ssm"], st["t_conv"]
         return logits, cache
@@ -824,7 +898,191 @@ def build_hybrid(cfg: ArchConfig, rules=None, mesh=None,
 
     bundle = ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
                          cache_decls, _train_specs(_token_specs))
-    return _refuse_mesh(bundle, mesh)
+    return _on_mesh(bundle, rules, mesh, lambda b: _hybrid_on_mesh(
+        b, mesh, n_groups, n_m, n_tail, attn_chunk))
+
+
+# ---------------------------------------------------------------------------
+# the hybrid on a mesh: the Mamba-2 blocks' SSM heads, the shared block's
+# attention heads and MLP width and the vocabulary over "model"; FSDP and
+# the batch over "data"
+# ---------------------------------------------------------------------------
+_SSM_STATES = ("m_ssm", "t_ssm")
+_CONV_STATES = ("m_conv", "t_conv")
+
+
+def _hybrid_on_mesh(bundle: ModelBundle, mesh, n_groups: int, n_m: int,
+                    n_tail: int, attn_chunk: int) -> ModelBundle:
+    """The hybrid ``bundle`` tensor parallel on ``mesh``, its blocks as
+    stages run on each shard in shard order between collectives, as
+    ``_decoder_on_mesh`` runs the decoder's: every Mamba-2 block through
+    ``ssm.mamba2_stage`` / ``mamba2_decode_stage`` (its SSM heads over
+    "model"), the shared block through ``attn_stage`` /
+    ``attn_decode_stage`` and ``mlp_stage`` at every application, the
+    vocab-parallel lookup and logits; the batch rows, positions and every
+    cache leaf over "data".  The cache is held by heads: each shard's SSM
+    states of its heads, its conv window of its x channels with bm and cm
+    (whole on every model shard), the shared block's keys and values of
+    its KV heads (``_kv_spec``)."""
+    cfg = bundle.arch
+    a = cfg.attention
+    tp = mesh.shape.get("model", 1)
+    n = len(mesh.devices)
+    normed = partial(_normed, mesh=mesh, eps=cfg.norm_eps)
+
+    def mlp_half(lp, hs):
+        ys = mlp_stage(lp["mlp"], normed(hs, lp["ln2"]), mesh, cfg.act,
+                       cfg.glu)
+        return _each(mesh, torch.add, hs, ys)
+
+    def prefill_fn(params, batch):
+        _check_tp(cfg, tp)
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        bspec = _batch_spec(b, mesh)
+        toks = split_spec(tokens, (bspec, None), mesh)
+        hs = _embed_stage(params["emb"], toks, mesh)
+        lp = params["shared"]
+        mamba, tail, kvs = [], [], []
+        for g in range(n_groups):
+            for i in range(n_m):
+                hs, st = S.mamba2_stage(_index(params["mamba"], g, i), cfg,
+                                        hs, mesh)
+                mamba.append(st)
+            outs, kv = attn_stage(lp["attn"], a, normed(hs, lp["ln1"]), mesh,
+                                  chunk=attn_chunk)
+            hs = mlp_half(lp, _each(mesh, torch.add, hs, outs))
+            kvs.append(kv)
+        for i in range(n_tail):
+            hs, st = S.mamba2_stage(_index(params["tail"], i), cfg, hs, mesh)
+            tail.append(st)
+        logits = _logits_stage(params, cfg, normed(hs, params["lnf"]), mesh,
+                               bspec)
+        cap = min(s, a.sliding_window) if a.sliding_window else s
+
+        def held(got, k, lead, spec):
+            return ShardedLeaf([_stacked([st[sh][k] for st in got], *lead)
+                                for sh in range(n)], spec, mesh)
+        cache = {
+            "m_ssm": held(mamba, 0, (n_groups, n_m),
+                          (None, None, bspec, "model", None, None)),
+            "m_conv": held(mamba, 1, (n_groups, n_m),
+                           (None, None, bspec, None, "model")),
+            "shared_kv": {key: ShardedLeaf(
+                [torch.stack([kv[sh][k] for kv in kvs])[:, :, -cap:]
+                 for sh in range(n)], _kv_spec(key, bspec), mesh)
+                for k, key in enumerate(("k", "v"))},
+        }
+        if n_tail:
+            cache["t_ssm"] = held(tail, 0, (n_tail,),
+                                  (None, bspec, "model", None, None))
+            cache["t_conv"] = held(tail, 1, (n_tail,),
+                                   (None, bspec, None, "model"))
+        pos = _each(mesh, lambda t: _prefill_positions(t.shape[0], s,
+                                                       t.device, cap), toks)
+        cache["slot_pos"] = ShardedLeaf([p for p, _ in pos], (bspec, None),
+                                        mesh)
+        cache["cur"] = ShardedLeaf([c for _, c in pos], (bspec,), mesh)
+        return logits, cache
+
+    def decode_fn(params, cache, batch):
+        _check_tp(cfg, tp)
+        bspec = cache["slot_pos"].spec[0]
+        cur, slot_pos = _advance_shards(cache, mesh)
+        hs = _embed_stage(params["emb"], split_spec(
+            batch["tokens"], (bspec, None), mesh), mesh)
+
+        def mamba_step(hs, lp, ssm, conv):
+            """One block's step; its states (a layer's view of each
+            shard's part) updated in place."""
+            hs, new = S.mamba2_decode_stage(
+                lp, cfg, hs, [{"ssm": x, "conv": c}
+                              for x, c in zip(ssm, conv)], mesh)
+            for x, c, st in zip(ssm, conv, new):
+                x.copy_(st["ssm"])
+                c.copy_(st["conv"])
+            return hs
+
+        kv = cache["shared_kv"]
+        lp = params["shared"]
+        for g in range(n_groups):
+            for i in range(n_m):
+                hs = mamba_step(hs, _index(params["mamba"], g, i),
+                                [t[g, i] for t in cache["m_ssm"].parts],
+                                [t[g, i] for t in cache["m_conv"].parts])
+            caches = [{"k": kv["k"].parts[sh][g], "v": kv["v"].parts[sh][g]}
+                      for sh in range(n)]
+            outs = attn_decode_stage(lp["attn"], a, normed(hs, lp["ln1"]),
+                                     cur, slot_pos, caches, mesh)
+            hs = mlp_half(lp, _each(mesh, torch.add, hs, outs))
+        for i in range(n_tail):
+            hs = mamba_step(hs, _index(params["tail"], i),
+                            [t[i] for t in cache["t_ssm"].parts],
+                            [t[i] for t in cache["t_conv"].parts])
+        logits = _logits_stage(params, cfg, normed(hs, params["lnf"]), mesh,
+                               bspec)
+        out = dict(cache)
+        out["slot_pos"] = ShardedLeaf(slot_pos, cache["slot_pos"].spec, mesh)
+        out["cur"] = ShardedLeaf([c + 1 for c in cur], cache["cur"].spec,
+                                 mesh)
+        return logits, out
+
+    return replace(bundle, loss_fn=_no_training(cfg), prefill_fn=prefill_fn,
+                   decode_fn=decode_fn,
+                   place_cache=partial(_place_hybrid_cache, cfg, mesh=mesh),
+                   join_cache=partial(_join_hybrid_cache, cfg), mesh=mesh)
+
+
+def _place_hybrid_cache(cfg: ArchConfig, cache, mesh):
+    """A whole hybrid cache (``init_cache``'s) placed as the hybrid on
+    ``mesh`` holds it: the shared keys, values and positions as the
+    decoder's (``place_cache``); each shard's SSM states of its heads and
+    conv window of its x channels and bm, cm, copies of its own (a decode
+    step updates them in place)."""
+    out = place_cache(cfg, {k: v for k, v in cache.items()
+                            if k not in _SSM_STATES + _CONV_STATES}, mesh)
+    s = cfg.ssm
+    tp = mesh.shape.get("model", 1)
+    dl = S.tp_ssm_heads(cfg, tp) * s.head_dim
+    di = dl * tp
+    bspec = _batch_spec(cache["cur"].shape[0], mesh)
+    for key in _SSM_STATES:
+        if key in cache:
+            lead = cache[key].dim() - 4
+            spec = (None,) * lead + (bspec, "model", None, None)
+            out[key] = ShardedLeaf([p.clone() for p in respec(
+                cache[key], spec, mesh)], spec, mesh)
+    for key in _CONV_STATES:
+        if key in cache:
+            lead = cache[key].dim() - 3
+            rows = respec(cache[key], (None,) * lead + (bspec, None, None),
+                          mesh)
+            parts = [torch.cat([p.narrow(-1, mesh.axis_index(i, "model")
+                                         * dl, dl),
+                                p.narrow(-1, di, 2 * s.state_dim)], dim=-1)
+                     for i, p in enumerate(rows)]
+            out[key] = ShardedLeaf(parts, (None,) * lead
+                                   + (bspec, None, "model"), mesh)
+    return out
+
+
+def _join_hybrid_cache(cfg: ArchConfig, cache):
+    """A hybrid cache placed on a mesh put together on the lead device in
+    the one-device layout: each KV head once, every shard's SSM heads, the
+    conv window's x channels of every shard and bm, cm once."""
+    out = join_cache(cfg, {k: v for k, v in cache.items()
+                           if k not in _CONV_STATES})
+    n2 = 2 * cfg.ssm.state_dim
+    for key in _CONV_STATES:
+        if key in cache:
+            leaf = cache[key]
+            dl = leaf.parts[0].shape[-1] - n2
+            xs = join_spec([p[..., :dl] for p in leaf.parts], leaf.spec,
+                           leaf.mesh)
+            bc = join_spec([p[..., dl:] for p in leaf.parts],
+                           leaf.spec[:-1] + (None,), leaf.mesh)
+            out[key] = torch.cat([xs, bc], dim=-1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -935,7 +1193,7 @@ def build_xlstm(cfg: ArchConfig, rules=None, mesh=None,
 
     bundle = ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
                          cache_decls, _train_specs(_token_specs))
-    return _refuse_mesh(bundle, mesh)
+    return _on_mesh(bundle, rules, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1073,7 +1331,7 @@ def build_encdec(cfg: ArchConfig, rules=None, mesh=None,
 
     bundle = ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
                          cache_decls, input_specs)
-    return _refuse_mesh(bundle, mesh)
+    return _on_mesh(bundle, rules, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1205,7 +1463,96 @@ def build_vlm(cfg: ArchConfig, rules=None, mesh=None,
 
     bundle = ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
                          cache_decls, input_specs)
-    return _refuse_mesh(bundle, mesh)
+    return _on_mesh(bundle, rules, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel form: the batch over every mesh axis the rules give it,
+# the parameters gathered whole, each shard the family's one-device step
+# ---------------------------------------------------------------------------
+# the batch's inputs split by rows, and the leaves a decode step never reads
+_BATCH_INPUTS = ("tokens", "frames", "img")
+_DECODE_UNUSED = {"audio": ("encoder", "enc_lnf", "frontend_proj"),
+                  "vlm": ("img_proj",)}
+
+
+def _dp_entry(b: int, axes: Tuple[str, ...], mesh):
+    """The spec entry of ``b`` batch rows over ``axes``, the axes they do
+    not divide dropped from the right, as the rules' resolver drops them
+    (every shard of a dropped axis holds the same rows)."""
+    while axes and b % math.prod(mesh.shape[x] for x in axes):
+        axes = axes[:-1]
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def _data_parallel(bundle: ModelBundle, rules, mesh) -> ModelBundle:
+    """``bundle`` data parallel on ``mesh``: the batch-dim inputs (tokens,
+    frames, image patches) split by rows over the mesh axes the rules give
+    "batch" (``_dp_entry``); every parameter gathered whole on each shard
+    where its placement splits it (``respec``: the leaves a step reads,
+    each once a step); the family's own one-device prefill and decode run
+    on each shard's rows, shard after shard; the logits joined on the lead
+    device and every cache leaf held by batch rows (``ShardedLeaf``), each
+    shard's rows its own copy."""
+    cfg = bundle.arch
+    axes = tuple(x for x in _rule_axes(rules, "batch")
+                 if x in mesh.axis_names)
+    rows = {path: d.logical.index("batch") for path, d in tree_paths(
+        bundle.cache_decls(ShapeConfig("mesh", 1, 1, "decode")))}
+    n = len(mesh.devices)
+    one_prefill, one_decode = bundle.prefill_fn, bundle.decode_fn
+
+    def spec(t, dim: int, entry):
+        out = [None] * t.dim()
+        out[dim] = entry
+        return tuple(out)
+
+    def whole(params, skip=()):
+        parts = tree_map(lambda t: replicated(t, mesh),
+                         {k: v for k, v in params.items() if k not in skip})
+        return [tree_map(lambda p: p[i], parts) for i in range(n)]
+
+    def run(step, entry):
+        outs = []
+        for i, dev in enumerate(mesh.devices):
+            with on_shard(dev):
+                outs.append(step(i))
+        logits = join_spec([o[0] for o in outs], (entry, None), mesh)
+        held = [dict(tree_paths(o[1])) for o in outs]
+        cache = tree_map_with_path(lambda path, t: ShardedLeaf(
+            [h[path] for h in held], spec(t, rows[path], entry), mesh),
+            outs[0][1])
+        return logits, cache
+
+    def prefill_fn(params, batch):
+        entry = _dp_entry(batch["tokens"].shape[0], axes, mesh)
+        inputs = {k: split_spec(v, spec(v, 0, entry), mesh)
+                  for k, v in batch.items() if k in _BATCH_INPUTS}
+        ws = whole(params)
+        return run(lambda i: one_prefill(
+            ws[i], {k: v[i] for k, v in inputs.items()}), entry)
+
+    def decode_fn(params, cache, batch):
+        entry = cache["cur"].spec[0]
+        toks = split_spec(batch["tokens"], (entry, None), mesh)
+        ws = whole(params, _DECODE_UNUSED.get(cfg.family, ()))
+        return run(lambda i: one_decode(
+            ws[i], tree_map(lambda leaf: leaf.parts[i], cache),
+            {"tokens": toks[i]}), entry)
+
+    def place(cache):
+        entry = _dp_entry(cache["cur"].shape[0], axes, mesh)
+
+        def one(path, t):
+            s = spec(t, rows[path], entry)
+            return ShardedLeaf([p.clone() for p in split_spec(t, s, mesh)],
+                               s, mesh)
+        return tree_map_with_path(one, cache)
+
+    return replace(bundle, loss_fn=_no_training(cfg), prefill_fn=prefill_fn,
+                   decode_fn=decode_fn, place_cache=place,
+                   join_cache=partial(tree_map, lambda t: t.join()),
+                   mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,13 @@ launches a step on the card); on meta tensors one step stands for the
 loop.
 
 The reference's sharding ``rules`` argument is dropped (a no-op on one
-card).
+card).  On a mesh whose "model" axis has more than one shard the hybrid
+runs the Mamba-2 block tensor parallel (``mamba2_stage``,
+``mamba2_decode_stage``): every shard takes ``nh / tp`` of the SSM heads
+(``tp_mamba2_params``: its columns of ``in_proj``, its conv channels and
+per-head leaves, its rows of ``out_proj``), scans them (one SSD scan
+launch a shard on the card), and ``gnorm``'s sum of squares and the
+``out_proj`` partials are summed over "model" in float32.
 """
 from __future__ import annotations
 
@@ -36,8 +42,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import (
+    TP_AXIS, replicated, rms_norm, tp_blocks, tp_sum,
+)
 from repro_torch.models.param import PDecl
+from repro_torch.sharding.collectives import mesh_sum, on_shard
 
 F32 = torch.float32
 
@@ -155,36 +164,49 @@ def mamba2_decls(cfg: ArchConfig) -> Dict[str, PDecl]:
     }
 
 
-def _mamba2_split(p, cfg, h):
+def _mamba2_split(h, cfg, heads: int):
+    """in_proj's output cut into z, x, bm, cm, dt for ``heads`` SSM heads
+    (all of them, or a shard's)."""
     s = cfg.ssm
-    di = s.expand * cfg.d_model
+    dl = heads * s.head_dim
+    return torch.split(h, [dl, dl, s.state_dim, s.state_dim, heads], dim=-1)
+
+
+def _mamba2_mix(p, cfg: ArchConfig, x, heads: int):
+    """The block up to its gate, on ``heads`` SSM heads with ``p`` cut for
+    them: (y * silu(z) in x's type, the final state, the conv input)."""
+    s = cfg.ssm
     n = s.state_dim
-    nh = di // s.head_dim
-    z, xc, bm, cm, dt = torch.split(h, [di, di, n, n, nh], dim=-1)
-    return z, xc, bm, cm, dt, di, n, nh
+    hin = rms_norm(x, p["norm"], cfg.norm_eps)
+    h = hin @ p["in_proj"]
+    z, xc, bm, cm, dt = _mamba2_split(h, cfg, heads)
+    dl = xc.shape[-1]
+    conv_in = torch.cat([xc, bm, cm], dim=-1)
+    conv_out = F.silu(causal_conv(conv_in, p["conv_w"], p["conv_b"]))
+    xc, bm, cm = torch.split(conv_out, [dl, n, n], dim=-1)
+    dt = F.softplus(dt.to(F32) + p["dt_bias"])                  # (B,S,h)
+    la = -torch.exp(p["a_log"]) * dt
+    xh = xc.reshape(*xc.shape[:2], heads, s.head_dim).to(F32)
+    xbar = xh * dt[..., None]
+    y, s_fin = ssd_chunked(xbar, la, bm.to(F32), cm.to(F32), s.chunk)
+    y = y + p["d_skip"][:, None] * xh
+    y = y.reshape(*x.shape[:2], dl).to(x.dtype)
+    return y * F.silu(z), s_fin, conv_in
+
+
+def _conv_state(conv_in, cw: int):
+    """The last cw - 1 conv inputs (zeros before the sequence)."""
+    return F.pad(conv_in, (0, 0, cw - 1, 0))[:, -(cw - 1):]
 
 
 def mamba2_forward(p, cfg: ArchConfig, x, return_state: bool = False):
     s = cfg.ssm
-    hin = rms_norm(x, p["norm"], cfg.norm_eps)
-    h = hin @ p["in_proj"]
-    z, xc, bm, cm, dt, di, n, nh = _mamba2_split(p, cfg, h)
-    conv_in = torch.cat([xc, bm, cm], dim=-1)
-    conv_out = F.silu(causal_conv(conv_in, p["conv_w"], p["conv_b"]))
-    xc, bm, cm = torch.split(conv_out, [di, n, n], dim=-1)
-    dt = F.softplus(dt.to(F32) + p["dt_bias"])                  # (B,S,nh)
-    la = -torch.exp(p["a_log"]) * dt
-    xh = xc.reshape(*xc.shape[:2], nh, s.head_dim).to(F32)
-    xbar = xh * dt[..., None]
-    y, s_fin = ssd_chunked(xbar, la, bm.to(F32), cm.to(F32), s.chunk)
-    y = y + p["d_skip"][:, None] * xh
-    y = y.reshape(*x.shape[:2], di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
+    nh = s.expand * cfg.d_model // s.head_dim
+    g, s_fin, conv_in = _mamba2_mix(p, cfg, x, nh)
+    y = rms_norm(g, p["gnorm"], cfg.norm_eps)
     out = x + y @ p["out_proj"]
     if return_state:
-        cw = s.conv_dim
-        conv_state = F.pad(conv_in, (0, 0, cw - 1, 0))[:, -(cw - 1):]
-        return out, (s_fin, conv_state)
+        return out, (s_fin, _conv_state(conv_in, s.conv_dim))
     return out
 
 
@@ -200,27 +222,156 @@ def mamba2_init_state(cfg: ArchConfig, batch: int, device):
     }
 
 
-def mamba2_decode(p, cfg: ArchConfig, x1, state):
-    """x1: (B,1,d). state: {"ssm","conv"}. Returns (out (B,1,d), state)."""
+def _mamba2_step_mix(p, cfg: ArchConfig, x1, state, heads: int):
+    """One decode step up to the gate, on ``heads`` SSM heads: (y *
+    silu(z), the new state)."""
     s = cfg.ssm
+    n = s.state_dim
     hin = rms_norm(x1[:, 0], p["norm"], cfg.norm_eps)
     h = hin @ p["in_proj"]
-    z, xc, bm, cm, dt, di, n, nh = _mamba2_split(p, cfg, h)
+    z, xc, bm, cm, dt = _mamba2_split(h, cfg, heads)
+    dl = xc.shape[-1]
     conv_in = torch.cat([xc, bm, cm], dim=-1)
     conv_state, conv_out = causal_conv_step(
         state["conv"], conv_in, p["conv_w"], p["conv_b"])
     conv_out = F.silu(conv_out)
-    xc, bm, cm = torch.split(conv_out, [di, n, n], dim=-1)
-    dt = F.softplus(dt.to(F32) + p["dt_bias"])                  # (B,nh)
+    xc, bm, cm = torch.split(conv_out, [dl, n, n], dim=-1)
+    dt = F.softplus(dt.to(F32) + p["dt_bias"])                  # (B,h)
     la = -torch.exp(p["a_log"]) * dt
-    xh = xc.reshape(-1, nh, s.head_dim).to(F32)
+    xh = xc.reshape(-1, heads, s.head_dim).to(F32)
     ssm, y = ssd_step(state["ssm"], xh * dt[..., None], la,
                       bm.to(F32), cm.to(F32))
     y = y + p["d_skip"][:, None] * xh
-    y = y.reshape(-1, di).to(x1.dtype)
-    y = rms_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
+    y = y.reshape(-1, dl).to(x1.dtype)
+    return y * F.silu(z), {"ssm": ssm, "conv": conv_state}
+
+
+def mamba2_decode(p, cfg: ArchConfig, x1, state):
+    """x1: (B,1,d). state: {"ssm","conv"}. Returns (out (B,1,d), state)."""
+    s = cfg.ssm
+    nh = s.expand * cfg.d_model // s.head_dim
+    g, state = _mamba2_step_mix(p, cfg, x1, state, nh)
+    y = rms_norm(g, p["gnorm"], cfg.norm_eps)
     out = x1 + (y @ p["out_proj"])[:, None]
-    return out, {"ssm": ssm, "conv": conv_state}
+    return out, state
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 over "model": each shard's SSM heads
+# ---------------------------------------------------------------------------
+def tp_ssm_heads(cfg: ArchConfig, tp: int) -> int:
+    """The SSM heads of one shard at a model degree ``tp``; ``ValueError``
+    where they (and so the inner width) do not split."""
+    s = cfg.ssm
+    nh = s.expand * cfg.d_model // s.head_dim
+    if nh % tp:
+        raise ValueError(f"{nh} SSM heads (inner width {nh * s.head_dim}) "
+                         f"do not split over a model degree of {tp}")
+    return nh // tp
+
+
+def tp_mamba2_params(p, cfg: ArchConfig, mesh):
+    """Each shard's Mamba-2 parameters for its ``nh / tp`` SSM heads: the
+    columns of ``in_proj`` that give its heads' z, x and dt and the whole
+    bm and cm (the reference's flat "ff" placement cuts across those
+    pieces, so the leaf is gathered whole and narrowed); ``conv_w`` /
+    ``conv_b`` narrowed to its x channels and bm, cm; ``dt_bias``,
+    ``a_log``, ``d_skip`` and ``gnorm`` to its heads; ``out_proj``'s rows
+    of its heads."""
+    tp = mesh.shape.get(TP_AXIS, 1)
+    s = cfg.ssm
+    n = s.state_dim
+    hl = tp_ssm_heads(cfg, tp)
+    dl = hl * s.head_dim
+    di = dl * tp
+    in_proj = replicated(p["in_proj"], mesh)
+    conv_w = replicated(p["conv_w"], mesh)
+    conv_b = replicated(p["conv_b"], mesh)
+    out_proj = tp_blocks(p["out_proj"], 0,
+                         [(j * dl, (j + 1) * dl) for j in range(tp)], mesh)
+    per_head = {k: replicated(p[k], mesh)
+                for k in ("norm", "dt_bias", "a_log", "d_skip", "gnorm")}
+
+    def cols(t, spans):
+        return torch.cat([t.narrow(-1, a, w) for a, w in spans], dim=-1)
+    out = []
+    for i in range(len(mesh.devices)):
+        j = mesh.axis_index(i, TP_AXIS)
+        chans = [(j * dl, dl), (di, 2 * n)]
+        out.append({
+            "norm": per_head["norm"][i],
+            "in_proj": cols(in_proj[i], [(j * dl, dl), (di + j * dl, dl),
+                                         (2 * di, 2 * n),
+                                         (2 * di + 2 * n + j * hl, hl)]),
+            "conv_w": cols(conv_w[i], chans),
+            "conv_b": cols(conv_b[i], chans),
+            **{k: per_head[k][i].narrow(0, j * hl, hl)
+               for k in ("dt_bias", "a_log", "d_skip")},
+            "gnorm": per_head["gnorm"][i].narrow(0, j * dl, dl),
+            "out_proj": out_proj[i]})
+    return out
+
+
+def _gnorm_out_stage(ps, cfg: ArchConfig, gs, mesh):
+    """``gnorm`` (an RMS over the whole inner width: each shard's float32
+    sum of squares summed over "model") and ``out_proj`` (each shard's
+    rows, the partials summed over "model" in float32): the block's
+    output before the residual, one per shard."""
+    width = cfg.ssm.expand * cfg.d_model
+    sq = []
+    for i, dev in enumerate(mesh.devices):
+        with on_shard(dev):
+            sq.append(torch.sum(torch.square(gs[i].to(F32)), dim=-1,
+                                keepdim=True))
+    total = mesh_sum(sq, mesh, axis=TP_AXIS)
+    parts = []
+    for i, dev in enumerate(mesh.devices):
+        with on_shard(dev):
+            g = gs[i]
+            inv = torch.rsqrt(total[i] / width + cfg.norm_eps).to(g.dtype)
+            parts.append((g * inv * ps[i]["gnorm"]) @ ps[i]["out_proj"])
+    return tp_sum(parts, mesh, gs[0].dtype)
+
+
+def mamba2_stage(p, cfg: ArchConfig, xs, mesh):
+    """The Mamba-2 block's prefill over "model": every shard runs its own
+    SSM heads (one SSD scan launch a shard on the card, ``heads`` = nh /
+    tp); returns (the outputs, one per shard; each shard's (final state of
+    its heads, conv state of its x channels and bm, cm))."""
+    ps = tp_mamba2_params(p, cfg, mesh)
+    hl = tp_ssm_heads(cfg, mesh.shape.get(TP_AXIS, 1))
+    gs, states = [], []
+    for i, dev in enumerate(mesh.devices):
+        with on_shard(dev):
+            g, s_fin, conv_in = _mamba2_mix(ps[i], cfg, xs[i], hl)
+        gs.append(g)
+        states.append((s_fin, _conv_state(conv_in, cfg.ssm.conv_dim)))
+    ys = _gnorm_out_stage(ps, cfg, gs, mesh)
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        with on_shard(dev):
+            outs.append(xs[i] + ys[i])
+    return outs, states
+
+
+def mamba2_decode_stage(p, cfg: ArchConfig, xs, states, mesh):
+    """One decode step of the Mamba-2 block over "model": every shard
+    steps its own heads' state and its conv window; returns (the outputs,
+    the new states), one per shard."""
+    ps = tp_mamba2_params(p, cfg, mesh)
+    hl = tp_ssm_heads(cfg, mesh.shape.get(TP_AXIS, 1))
+    gs, new = [], []
+    for i, dev in enumerate(mesh.devices):
+        with on_shard(dev):
+            g, st = _mamba2_step_mix(ps[i], cfg, xs[i], states[i], hl)
+        gs.append(g)
+        new.append(st)
+    ys = _gnorm_out_stage(ps, cfg, gs, mesh)
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        with on_shard(dev):
+            outs.append(xs[i] + ys[i][:, None])
+    return outs, new
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,14 @@ reference donates it), and the generated tokens stay on the device until
 the burst ends.  Times are taken on the host's clock after
 ``torch.cuda.synchronize()`` on the card.  A bundle built on a mesh takes
 parameters placed by ``models/param.py::shard_params``; its cache is held
-one part a shard (``ShardedLeaf``) and its logits come back on the lead
-device.
+one part a shard (``ShardedLeaf``), placed and joined by the bundle
+(``ModelBundle.place_cache`` / ``join_cache``), and its logits come back
+on the lead device.  Every family serves on such a mesh (models/lm.py):
+the decoders (dense, MoE) and the hybrid tensor parallel under rules
+that put heads over "model" (MEGATRON_FSDP), every family but the
+decoders data parallel under rules that put the batch over "model" and
+no heads there (SMALL_DP); the VLM, xLSTM and encoder-decoder under
+heads over "model" raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,15 +33,15 @@ import torch
 
 from repro_torch import runtime
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.models.lm import ModelBundle, place_cache
+from repro_torch.models.lm import ModelBundle
 from repro_torch.models.param import tree_leaves, tree_map_with_path
 from repro_torch.sharding.collectives import ShardedLeaf
 
 
 def init_cache(bundle: ModelBundle, shape: ShapeConfig, device="cuda"):
     """An empty decode cache of ``shape`` on ``device``: zeros, slot
-    tables -1, ``cur`` 0; placed as the decoder holds it
-    (``models/lm.py::place_cache``) where the bundle runs on a mesh."""
+    tables -1, ``cur`` 0; placed as the bundle's prefill holds it
+    (``ModelBundle.place_cache``) where the bundle runs on a mesh."""
     device = runtime.resolve_device(device)
 
     def mk(path, d):
@@ -46,7 +52,7 @@ def init_cache(bundle: ModelBundle, shape: ShapeConfig, device="cuda"):
 
     cache = tree_map_with_path(mk, bundle.cache_decls(shape))
     if bundle.sharded:
-        cache = place_cache(bundle.arch, cache, bundle.mesh)
+        cache = bundle.place_cache(cache)
     return cache
 
 

@@ -426,15 +426,34 @@ def test_mesh_gather_over_an_axis_matches_all_gather(reference, axis):
 @pytest.mark.parametrize("arch", ("zamba2-7b", "xlstm-350m", "whisper-base",
                                   "llama-3.2-vision-90b"))
 def test_other_families_refuse_a_mesh(arch):
-    """The families not sharded yet declare the reference's trees on a
-    mesh with an axis above 1, and their loss, prefill and decode raise
-    there; on the 1 x 1 mesh they run as before."""
+    """The xLSTM, encoder-decoder and VLM families under rules that put
+    heads over "model" (MEGATRON_FSDP) are not sharded: on a mesh with an
+    axis above 1 they declare the reference's trees, and their loss,
+    prefill and decode raise there, naming the family and the rules.  The
+    hybrid serves tensor parallel under those rules: its prefill runs on
+    (1, 2), and only its training raises.  On the 1 x 1 mesh every family
+    runs as before."""
     cfg = get_arch(arch, reduced=True)
-    bundle = build_model(cfg, MEGATRON_FSDP,
-                         mesh=make_sim_mesh((1, 2), "cpu"))
-    for fn in (bundle.loss_fn, bundle.prefill_fn, bundle.decode_fn):
+    mesh = make_sim_mesh((1, 2), "cpu")
+    bundle = build_model(cfg, MEGATRON_FSDP, mesh=mesh)
+    if cfg.family == "hybrid":
         with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            fn({}, {})
+            bundle.loss_fn({}, {})
+        params = cast_floating(init_tree(
+            bundle.decls, torch.Generator().manual_seed(0), "cpu"),
+            torch.float32)
+        with torch.inference_mode():
+            logits, _ = bundle.prefill_fn(
+                shard_params(params, bundle.decls, mesh, MEGATRON_FSDP),
+                {"tokens": torch.zeros((2, 8), dtype=torch.int32)})
+        assert logits.shape == (2, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+    else:
+        for fn in (bundle.loss_fn, bundle.prefill_fn, bundle.decode_fn):
+            with pytest.raises(NotImplementedError,
+                               match="Queue 1 item 1") as err:
+                fn({}, {})
+            assert f"({cfg.family}) under MEGATRON_FSDP" in str(err.value)
     one = build_model(cfg, MEGATRON_FSDP, mesh=make_sim_mesh((1, 1), "cpu"))
     assert one.prefill_fn is not None and one.mesh is not None
 
