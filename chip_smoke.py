@@ -203,7 +203,7 @@ PHASES = ("device", "build", "kernels", "estimate_paper", "estimate_wide",
           "estimate_mlp", "serve_zamba2", "serve_deepseek", "serve_dense",
           "serve_tp", "serve_xlstm", "serve_whisper", "serve_vlm",
           "same_as_cpu_lm", "train_dense", "train_whisper", "train_hybrid",
-          "train_xlstm", "topology", "mesh", "topology_chaos", "durable",
+          "train_xlstm", "train_tp", "topology", "mesh", "topology_chaos", "durable",
           "sanitize", "persist", "examples", "dryrun")
 LIBRARIES = ("megabatch", "lm", "attn_bwd", "ssd_bwd")
 
@@ -430,7 +430,12 @@ ATTN_SHAPES = (MAIN_ATTN_SHAPE, (128, 2048, 2048, 112, "f32", True, 32768),
         (32, 2048, 2048, 112, True, 32768),
         (8, 1500, 1500, 64, False, None),
         (8, 400, 400, 64, True, None),
-        (8, 400, 1500, 64, False, None))
+        (8, 400, 1500, 64, False, None),
+        # serve_tp's VLM, llama-3.2-vision-90b: one shard's cross-attention
+        # against the image's 1601 tokens (B 2 x 64 / 4 on (1, 4), B 1 x 64
+        # / 2 on (2, 2)); its self-attention a shard is qwen2-moe-a2.7b's
+        # (32, 2048, 2048, 128) causal row above
+        (32, 2048, 1601, 128, False, None))
     for dtype in ("bf16", "f32")
     if (*shape[:4], dtype, *shape[4:]) != (32, 2048, 2048, 112, "bf16",
                                            True, 32768)) + (
@@ -464,9 +469,16 @@ ATTN_SHAPES += tuple((*row[:4], dtype, *row[4:])
 # S 24, D 8, not causal, float32; examples), each timed beside
 # scaled_dot_product_attention's forward
 TEXT_ENCODER_ATTN = (1200, 24, 24, 8, "f32", False, None)
+# train_tp's shards: h2o-danube-3-4b trained tensor parallel (B 4 x 32 / 4
+# on (1, 4), B 2 x 32 / 2 on (2, 2)) in bf16, and its float32 check (B 2 x
+# 32 / 4, B 1 x 32 / 2, S 1024)
+H2O_TP_TRAIN_ATTN = (32, 4096, 4096, 120, "bf16", True, 4096)
+H2O_TP_CHECK_ATTN = (16, 1024, 1024, 120, "f32", True, 4096)
 TRAIN_FWD_ATTN_ROWS = (
     ("h2o_train", (256, 4096, 4096, 120, "bf16", True, 4096)),
     ("text_encoder", TEXT_ENCODER_ATTN),
+    ("h2o_train_tp", H2O_TP_TRAIN_ATTN),
+    ("h2o_check_tp", H2O_TP_CHECK_ATTN),
 )
 # the deepseek prefill's row: K5 at Dqk 192, Dv 128
 MLA_ATTN_SHAPE = (64, 2048, 2048, 192, "bf16", True, None, 128)
@@ -486,9 +498,14 @@ WHISPER_DP_ATTN_ROWS = {
     "whisper_enc": (8, 1500, 1500, 64, "bf16", False, None),
     "whisper_self": (8, 400, 400, 64, "bf16", True, None),
     "whisper_cross": (8, 400, 1500, 64, "bf16", False, None)}
+# serve_tp's VLM a shard on (1, 4) and (2, 2): its self- and cross-attention
+VLM_TP_ATTN_ROWS = {
+    "vlm_self": (32, 2048, 2048, 128, "bf16", True, None),
+    "vlm_cross": (32, 2048, 1601, 128, "bf16", False, None)}
 TP_SHARD_ROWS = {"qwen": TP_ATTN_SHAPE, "h2o": H2O_TP_ATTN_SHAPE,
                  "mla": MLA_TP_ATTN_SHAPE, "ep16": EP16_ATTN_SHAPE,
-                 "zamba2": ZAMBA2_TP_ATTN_SHAPE, **WHISPER_DP_ATTN_ROWS}
+                 "zamba2": ZAMBA2_TP_ATTN_SHAPE, **WHISPER_DP_ATTN_ROWS,
+                 **VLM_TP_ATTN_ROWS}
 # (BH, S, P, N, chunk, heads) of the SSD scan, for the same runs (112 SSM
 # heads of 64 a batch row, state 64, chunk 256; the reduced model 8 heads of
 # 16, state 16, chunk 16), then a ragged S; "strong" decay is la = -50; S
@@ -1436,6 +1453,10 @@ BWD_ATTN_ROWS = (
     # examples/dml_text_confounders_torch.py: each task's encoder (300
     # documents x 4 heads of depth 8, 24 tokens, not causal) in float32
     ("text_encoder", TEXT_ENCODER_ATTN),
+    # train_tp: h2o-danube-3-4b's shard on (1, 4) and (2, 2), bf16, and its
+    # float32 check's
+    ("h2o_train_tp", H2O_TP_TRAIN_ATTN),
+    ("h2o_check_tp", H2O_TP_CHECK_ATTN),
 )
 MAIN_BWD_ATTN = ("h2o_causal", "bf16")
 # the plain backward holds a few (lanes, Sq, Skv) float32 tensors: it is
@@ -2050,6 +2071,11 @@ def _page_bytes(plan, data):
     return key.n_pad * key.p_pad * 4
 
 
+def _no_launches():
+    """Every count of ``runtime.launch_counts`` at 0."""
+    return dict.fromkeys(runtime.launch_counts, 0)
+
+
 def _counts(launches, calls):
     """The launch counts of a linear-learner drain: ``calls`` of K1 and of
     K2, no other kernel."""
@@ -2582,12 +2608,7 @@ def phase_shared_x(device):
             torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         launches = dict(runtime.launch_counts)
-        assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
-                            "batched_predict": 0, "crossfit_gram": 1,
-                            "flash_attention": 0,
-                            "flash_attention_bwd": 0, "ssd_scan": 0,
-                            "ssd_scan_bwd": 0, "mesh_sum": 0,
-                            "mesh_gather": 0, "mesh_all_to_all": 0}, launches
+        assert launches == {**_no_launches(), "crossfit_gram": 1}, launches
         assert seen["crossfit_gram"] == {MAIN_XFIT_SHAPE}, seen
         _launches_compared(seen, f"shared_x/{learner}")
         total += launches["crossfit_gram"]
@@ -2647,12 +2668,7 @@ def phase_raw_request(device):
     launches = dict(runtime.launch_counts)
     stats = backend.compiler.stats.summary()
     lanes = stats["padded_tasks"]              # live and padding lanes
-    assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
-                        "batched_predict": 0, "crossfit_gram": lanes,
-                        "flash_attention": 0,
-                        "flash_attention_bwd": 0, "ssd_scan": 0,
-                        "ssd_scan_bwd": 0, "mesh_sum": 0,
-                        "mesh_gather": 0, "mesh_all_to_all": 0}, \
+    assert launches == {**_no_launches(), "crossfit_gram": lanes}, \
         (launches, lanes)
     assert seen["crossfit_gram"] == {LANE_XFIT_SHAPE}, seen
     _launches_compared(seen, "raw_request")
@@ -3786,13 +3802,9 @@ def phase_serve_zamba2(device):
     # Mamba2 blocks: 26 and 136 launches over the two prefills
     groups = cfg.n_layers // cfg.shared_attn_every
     n_mamba = cfg.n_layers - groups
-    assert launches == {"batched_gram": 0, "batched_gram_blocked": 0,
-                        "batched_predict": 0, "crossfit_gram": 0,
+    assert launches == {**_no_launches(),
                         "flash_attention": n_bursts * groups,
-                        "flash_attention_bwd": 0,
-                        "ssd_scan": n_bursts * n_mamba,
-                        "ssd_scan_bwd": 0, "mesh_sum": 0,
-                        "mesh_gather": 0, "mesh_all_to_all": 0}, launches
+                        "ssd_scan": n_bursts * n_mamba}, launches
     _launches_compared(seen, "serve_zamba2")
     assert bool(torch.stack(flags).all()), "serve_zamba2: a logit is not finite"
     assert len(flags) == n_bursts * SERVE_GEN
@@ -4356,6 +4368,39 @@ def _serve_tp_nccl(cfg, params, prompts, batch, slot_len, device):
             **_burst_times(record), "tokens": [r.tolist() for r in results]}
 
 
+def _nccl_skipped(cards: int, need: int):
+    """The record of an NCCL run this machine cannot make."""
+    return {"ran": False, "cards": cards,
+            "why": f"{cards} CUDA device(s): this NCCL mesh needs {need} "
+                   "distinct cards; its route is written and unverified "
+                   "here"}
+
+
+def _vlm_tp_nccl(cfg, rules, params, batch, one_tokens, device):
+    """The VLM's generate on an NCCL mesh (1, 4) of four distinct cards
+    (one shard's K5 launches at the rows the kernels phase holds), the
+    share of its tokens the one card's generate shares; not run on fewer
+    cards."""
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.param import shard_params
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        return _nccl_skipped(cards, 4)
+    mesh = DeviceMesh(tuple(torch.device("cuda", i) for i in range(4)),
+                      (1, 4))
+    bundle = build_model(cfg, rules, mesh=mesh)
+    placed = shard_params(params, bundle.decls, mesh, rules)
+    res, rec = _generate_twice(bundle, placed, device, batch,
+                               "serve_tp/vlm/nccl",
+                               collectives=_vlm_collectives(
+                                   cfg, (1, 4), 1, SERVE_GEN - 1), shards=4)
+    del placed
+    return {"ran": True, "cards": 4, "launches": rec["launches"],
+            "prefill_s": rec["prefill_s"], "decode_s": rec["decode_s"],
+            "tokens_agree_with_one_card": float(np.mean(
+                res.tokens == one_tokens[0]))}
+
+
 def _served_twice(bundle, params, device, prompts, batch, slot_len, what,
                   **kw):
     """``_serve`` (counted), then the same requests again: the same tokens
@@ -4384,10 +4429,18 @@ def _served_twice(bundle, params, device, prompts, batch, slot_len, what,
 # SERVE_BATCH slots of SERVE_LEN); xlstm-350m under SMALL_DP (data
 # parallel) cut to 8 blocks (7 mLSTM and an sLSTM), the same burst;
 # whisper-base whole under SMALL_DP through Engine.generate at
-# serve_whisper's WHISPER_SERVE (4 x 1500 frames, 400-token prompts)
+# serve_whisper's WHISPER_SERVE (4 x 1500 frames, 400-token prompts);
+# llama-3.2-vision-90b under MEGATRON_FSDP (tensor parallel: heads, MLP
+# width and vocabulary over "model"; the gates at VLM_GATE) at full width
+# cut to VLM_TP_LAYERS (one group of four self-attention layers and a
+# cross-attention layer) through Engine.generate at serve_vlm's prompts
+# (VLM_BATCH x VLM_LEN tokens against one tile's 1601 patch embeddings)
+VLM_TP_LAYERS = 5
 FAMILY_MESH_SERVES = (("zamba2-7b", "MEGATRON_FSDP", 12, ((1, 4), (2, 2))),
                       ("xlstm-350m", "SMALL_DP", 8, ((1, 4),)),
-                      ("whisper-base", "SMALL_DP", None, ((2, 2),)))
+                      ("whisper-base", "SMALL_DP", None, ((2, 2),)),
+                      ("llama-3.2-vision-90b", "MEGATRON_FSDP",
+                       VLM_TP_LAYERS, ((1, 4), (2, 2))))
 # the leaves a data-parallel decode step does not read (gathers it skips)
 DECODE_UNUSED = {"audio": ("encoder", "enc_lnf", "frontend_proj"),
                  "vlm": ("img_proj",)}
@@ -4411,6 +4464,23 @@ def _hybrid_collectives(cfg, dims, n_steps):
         + ((2 * mamba + 6 * groups + 1) if dp > 1 else 0)
     return {"mesh_sum": n_steps * sums, "mesh_gather": n_steps * gathers,
             "mesh_all_to_all": 0}
+
+
+def _vlm_collectives(cfg, dims, n_prefill, n_decode):
+    """The collectives of ``n_prefill`` prefills and ``n_decode`` decode
+    steps of the VLM tensor parallel on a (dp, tp) mesh (its KV heads
+    split whole), L layers, self and cross alike: over "model", the
+    lookup's sum, an attention and an MLP sum a layer (the gate scales
+    the attention's sum) and the logits' gather; over "data" (FSDP), a
+    gather of each layer's six projections and of the unembedding, and a
+    prefill's gather of ``img_proj``."""
+    dp, tp = dims
+    n = cfg.n_layers
+    assert cfg.attention.n_kv_heads % tp == 0 and tp > 1
+    steps = n_prefill + n_decode
+    return {"mesh_sum": steps * (1 + 2 * n), "mesh_all_to_all": 0,
+            "mesh_gather": steps * (1 + ((6 * n + 1) if dp > 1 else 0))
+            + (n_prefill if dp > 1 else 0)}
 
 
 def _dp_collectives(bundle, mesh, rules, n_prefill, n_decode):
@@ -4479,19 +4549,29 @@ def _family_mesh_serve(arch, rules_name, depth, meshes, device):
     gen = torch.Generator(device=device).manual_seed(LM_SEED)
     params = init_tree(bundle.decls, gen, device)
     s = cfg.ssm
-    if cfg.family == "audio":
-        b, n_frames, n_tok = WHISPER_SERVE
+    if cfg.family in ("audio", "vlm"):
         rng = np.random.default_rng(LM_SEED)
-        batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, n_tok))
-                 .astype(np.int32),
-                 "frames": rng.standard_normal((b, n_frames, cfg.d_frontend),
-                                               dtype=np.float32)}
+        if cfg.family == "audio":
+            b, n_frames, n_tok = WHISPER_SERVE
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, n_tok))
+                     .astype(np.int32),
+                     "frames": rng.standard_normal(
+                         (b, n_frames, cfg.d_frontend), dtype=np.float32)}
+        else:
+            params["cross_layers"]["gate"].fill_(VLM_GATE)
+            b = VLM_BATCH
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, VLM_LEN))
+                     .astype(np.int32),
+                     "img": rng.standard_normal(
+                         (b, cfg.n_frontend_tokens, cfg.d_frontend),
+                         dtype=np.float32)}
         tokens = torch.as_tensor(batch["tokens"], device=device)
-        extra = {"frames": torch.as_tensor(batch["frames"])}
+        extra = {k: torch.as_tensor(v) for k, v in batch.items()
+                 if k != "tokens"}
         n_prefill, n_decode = 1, SERVE_GEN - 1
 
         def serve(bnd, prm, what, twice=True, **kw):
-            # a generate of whisper is short: twice on one card too
+            # a generate is short: twice on one card too
             res, rec = _generate_twice(bnd, prm, device, batch, what, **kw)
             first = {"prefill_s": [rec["prefill_s"]],
                      "decode_ms_a_step": [rec["decode_s"] * 1e3
@@ -4535,15 +4615,27 @@ def _family_mesh_serve(arch, rules_name, depth, meshes, device):
         what = f"serve_tp/{arch}/{name}"
         m_bundle = build_model(cfg, rules, mesh=mesh)
         m_params = shard_params(params, m_bundle.decls, mesh, rules)
+        tensor_parallel = cfg.family in ("hybrid", "vlm")
         if cfg.family == "hybrid":
             collectives = _hybrid_collectives(cfg, dims, n_prefill + n_decode)
+        elif cfg.family == "vlm":
+            collectives = _vlm_collectives(cfg, dims, n_prefill, n_decode)
         else:
             collectives = _dp_collectives(m_bundle, mesh, rules, n_prefill,
                                           n_decode)
         results, rec, times = serve(m_bundle, m_params, what,
                                     collectives=collectives, shards=n)
-        rows = b // n if cfg.family != "hybrid" else b // dims[0]
-        if cfg.family == "hybrid":
+        rows = b // dims[0] if tensor_parallel else b // n
+        if cfg.family == "vlm":
+            a = cfg.attention
+            bh = rows * a.n_heads // dims[1]
+            want = {"flash_attention": sorted(str(row) for row in (
+                (bh, VLM_LEN, VLM_LEN, a.head_dim, "bf16", True, None),
+                (bh, VLM_LEN, cfg.n_frontend_tokens, a.head_dim, "bf16",
+                 False, None)))}
+            assert sorted(map(str, VLM_TP_ATTN_ROWS.values())) \
+                == want["flash_attention"]
+        elif cfg.family == "hybrid":
             nh = s.expand * cfg.d_model // s.head_dim
             a = cfg.attention
             want = {"ssd_scan": [str((rows * nh // dims[1], SERVE_LEN,
@@ -4565,7 +4657,7 @@ def _family_mesh_serve(arch, rules_name, depth, meshes, device):
                           for k in ("flash_attention", "ssd_scan")}
         run = _lm_run(m_bundle, m_params, tokens, device, SERVE_GEN - 1,
                       feed=ref[1], extra=extra)
-        if cfg.family == "hybrid":
+        if tensor_parallel:
             bf16 = _tp_logits(ref, run, TP_BF16_TIER, what + "/bf16")
         else:
             # each shard runs the one-device program on its rows: held
@@ -4587,6 +4679,9 @@ def _family_mesh_serve(arch, rules_name, depth, meshes, device):
         placed[name] = (mesh, m_bundle)
         del m_params, run
         torch.cuda.empty_cache()
+    if cfg.family == "vlm":
+        record["nccl"] = _vlm_tp_nccl(cfg, rules, params, batch, one_tokens,
+                                      device)
     p32 = cast_floating(params, torch.float32)
     del params, ref
     ref = _lm_run(bundle, p32, tokens, device, SERVE_GEN - 1, extra=extra)
@@ -5581,12 +5676,10 @@ MESH_WARM_RUNS = 3
 def _mesh_counts(launches, k1, k2=None, k3=0, sums=0, gathers=0):
     """The launch counts of a mesh drain: ``k1`` calls of K1, ``k2`` of
     K2 (``k1`` by default), ``k3`` of K3, and the collectives."""
-    return launches == {"batched_gram": k1, "batched_gram_blocked": k3,
+    return launches == {**_no_launches(), "batched_gram": k1,
+                        "batched_gram_blocked": k3,
                         "batched_predict": k1 if k2 is None else k2,
-                        "crossfit_gram": 0, "flash_attention": 0,
-                        "flash_attention_bwd": 0, "ssd_scan": 0,
-                        "ssd_scan_bwd": 0, "mesh_sum": sums,
-                        "mesh_gather": gathers, "mesh_all_to_all": 0}
+                        "mesh_sum": sums, "mesh_gather": gathers}
 
 
 def _counted_drain(sess, plan, data, what, device):
@@ -6422,17 +6515,19 @@ def _grad_gap(got, want):
 
 
 def _train_run(bundle, params, batches, device, *, steps, warmup, lr,
-               log_every=1):
+               log_every=1, mesh=None):
     """``Trainer.run`` over pre-made batches (host data made before the
     clock starts): (params, opt state, history, K5 and K6 launches, peak
-    bytes, the step times in ms from the history's wall clock)."""
+    bytes, the step times in ms from the history's wall clock).  On a
+    ``mesh`` the whole parameters and optimizer state are placed first
+    (``Trainer.place``) and the launches hold the collectives too."""
     from repro_torch.train import (
         OptConfig, Trainer, TrainerConfig, init_opt_state,
     )
     ocfg = OptConfig(lr=lr, warmup_steps=warmup, total_steps=steps)
     trainer = Trainer(bundle, ocfg, TrainerConfig(steps=steps,
-                                                  log_every=log_every))
-    opt = init_opt_state(params, ocfg)
+                                                  log_every=log_every), mesh)
+    params, opt = trainer.place(params, init_opt_state(params, ocfg))
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -6440,7 +6535,8 @@ def _train_run(bundle, params, batches, device, *, steps, warmup, lr,
     params, opt, hist = trainer.run(params, opt, iter(batches))
     launches = {k: runtime.launch_counts[k]
                 for k in ("flash_attention", "flash_attention_bwd",
-                          "ssd_scan", "ssd_scan_bwd")}
+                          "ssd_scan", "ssd_scan_bwd")
+                + (MESH_COUNTS if mesh is not None else ())}
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
         else None
     walls = [h["wall_s"] for h in hist]
@@ -6819,6 +6915,190 @@ def phase_train_xlstm(device):
 
 
 # ---------------------------------------------------------------------------
+# train_tp: the dense decoder trained on simulated meshes of the card
+# (models/lm.py ``_decoder_on_mesh``'s loss_fn, train/trainer.py
+# ``Trainer(mesh)``): h2o-danube-3-4b at full width, tensor parallel over
+# "model", FSDP and the batch over "data"
+# ---------------------------------------------------------------------------
+TRAIN_TP_MESHES = ((1, 4), (2, 2))
+# (a) one value_and_grad in float32, each mesh against the one card's
+# loss_fn in the same process: (layers, batch, tokens a sequence)
+TRAIN_TP_CHECK = (2, 2, 1024)
+# (b) the trainer: bf16 parameters, float32 master and moments, remat
+# "full", steps of batch x tokens, each mesh and the one card from the same
+# parameters and batches; the loss curves within TRAIN_TP_CURVE_TIER
+# relative of the one card's (bf16 products round otherwise across the
+# shards' sums: train_dense's measured tier, tests/test_torch_train.py)
+TRAIN_TP_LAYERS, TRAIN_TP_BATCH, TRAIN_TP_SEQ, TRAIN_TP_STEPS = 4, 4, 4096, 6
+TRAIN_TP_CURVE_TIER = 2e-2
+MESH_COUNTS = ("mesh_sum", "mesh_gather", "mesh_sum_bwd", "mesh_gather_bwd")
+
+
+def _mesh_value_and_grad(bundle, params, batch, mesh, device):
+    """(loss, the joined gradients in flattening order) of
+    ``bundle.loss_fn`` on ``mesh``: each shard's share of each block, the
+    shares summed over the shards that hold it (the trainer's route)."""
+    from repro_torch.sharding.collectives import ShardedLeaf
+    from repro_torch.train.trainer import reduce_shares, shares_of, to_device
+    loss, _, shares = shares_of(bundle.loss_fn, params,
+                                to_device(batch, device), mesh)
+    grads = reduce_shares(shares, params, mesh)
+    return float(loss), [g.join() if isinstance(g, ShardedLeaf) else g
+                         for g in tree_leaves(grads)]
+
+
+def _train_tp_check(device):
+    """(a): TRAIN_TP_CHECK's model in float32 (remat "none"), one
+    value_and_grad on each mesh against the one card's: the loss within
+    TRAIN_LOSS_TIER relative, every joined gradient leaf within
+    TRAIN_GRAD_TIER of its max|grad|, K5's training forward (with its
+    log-sum-exp) and backward once a layer a shard; and on an NCCL mesh of
+    the cards where there are four."""
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.models.param import shard_params
+    from repro_torch.sharding.axes import MEGATRON_FSDP
+    layers, batch_rows, seq = TRAIN_TP_CHECK
+    cfg = dataclasses.replace(get_arch("h2o-danube-3-4b"), n_layers=layers)
+    one = build_model(cfg, MEGATRON_FSDP, remat="none")
+    p32 = cast_floating(init_tree(one.decls, torch.Generator(
+        device=device).manual_seed(LM_SEED), device), torch.float32)
+    batch = SyntheticLM(LMDataConfig(cfg.vocab_size, seq, batch_rows,
+                                     seed=0)).batch(0)
+    loss1, _, g1 = _loss_and_grads(one, p32, batch, device)
+    out = {"arch": cfg.name, "n_layers": layers, "batch": batch_rows,
+           "seq": seq, "dtype": "f32", "loss_one_card": loss1, "meshes": {}}
+
+    def check(mesh, what):
+        bundle = build_model(cfg, MEGATRON_FSDP, mesh=mesh, remat="none")
+        placed = shard_params(p32, bundle.decls, mesh, MEGATRON_FSDP)
+        torch.cuda.synchronize()
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = _mesh_value_and_grad(bundle, placed, batch, mesh,
+                                           device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: runtime.launch_counts[k] for k in (
+            "flash_attention", "flash_attention_bwd", *MESH_COUNTS)}
+        n = len(mesh.devices)
+        rel = abs(loss - loss1) / abs(loss1)
+        gap = _grad_gap(grads, g1)
+        assert rel <= TRAIN_LOSS_TIER and gap <= TRAIN_GRAD_TIER, \
+            (what, rel, gap)
+        assert launches["flash_attention"] == launches[
+            "flash_attention_bwd"] == layers * n, (what, launches)
+        return {"loss": loss, "loss_rel_err": rel, "grad_gap_of_max": gap,
+                "launches": launches, "wall_s": wall}
+    with _launch_shapes() as seen:
+        for dims in TRAIN_TP_MESHES:
+            out["meshes"][f"{dims[0]}x{dims[1]}"] = check(
+                make_sim_mesh(dims, device), f"train_tp/check/{dims}")
+    _launches_compared(seen, "train_tp/check")
+    out["launch_shapes"] = {k: sorted(map(str, v))
+                            for k, v in seen.items() if v}
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        from repro_torch.launch.mesh import DeviceMesh
+        out["nccl"] = {"ran": True, "cards": 4, **check(DeviceMesh(
+            tuple(torch.device("cuda", i) for i in range(4)), (1, 4)),
+            "train_tp/check/nccl")}
+    else:
+        out["nccl"] = _nccl_skipped(cards, 4)
+    del p32, g1
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_tp(device):
+    """The dense decoder trained on a mesh: (a) ``_train_tp_check``; (b)
+    h2o-danube-3-4b at full width cut to TRAIN_TP_LAYERS of 24 layers,
+    bf16 parameters drawn on the card from LM_SEED, float32 master and
+    moments, remat "full", TRAIN_TP_STEPS steps of TRAIN_TP_BATCH x
+    TRAIN_TP_SEQ tokens of SyntheticLM(seed=0) through ``Trainer.run`` on
+    one card and then through ``Trainer(bundle, opt_cfg, tcfg, mesh)`` on
+    each simulated mesh of TRAIN_TP_MESHES from the same parameters
+    (placed: views of a copy): step ms (median of steps 3 on), peak
+    bytes, K5's forward and backward launches a step a shard (remat
+    "full": two forwards and a backward a layer), the collectives a step,
+    the loss curve within TRAIN_TP_CURVE_TIER of the one card's.  Every
+    mesh K5 launch at a shape the kernels phase compared.  Returns K5's
+    forward and backward launches of the (1, 4) run."""
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.sharding.axes import MEGATRON_FSDP
+    t0 = time.perf_counter()
+    check = _train_tp_check(device)
+    base = get_arch("h2o-danube-3-4b")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_TP_LAYERS)
+    one = build_model(cfg, MEGATRON_FSDP, remat="full")
+    data = SyntheticLM(LMDataConfig(cfg.vocab_size, TRAIN_TP_SEQ,
+                                    TRAIN_TP_BATCH, seed=0))
+    batches = [data.batch(i) for i in range(TRAIN_TP_STEPS)]
+    whole = init_tree(one.decls, torch.Generator(device=device).manual_seed(
+        LM_SEED), device)
+    runs = {}
+
+    def run(bundle, mesh, name):
+        params = tree_map(lambda t: t.clone(), whole)
+        _, _, hist, launches, peak, step_ms = _train_run(
+            bundle, params, batches, device, steps=TRAIN_TP_STEPS,
+            warmup=2, lr=TRAIN_LR, mesh=mesh)
+        del params
+        torch.cuda.empty_cache()
+        losses = [h["loss"] for h in hist]
+        assert len(losses) == TRAIN_TP_STEPS and all(np.isfinite(losses)), \
+            (name, losses)
+        shards = 1 if mesh is None else len(mesh.devices)
+        per = {k: v / TRAIN_TP_STEPS / shards for k, v in launches.items()
+               if k.startswith("flash")}
+        assert per["flash_attention"] == 2 * cfg.n_layers \
+            and per["flash_attention_bwd"] == cfg.n_layers, (name, per)
+        runs[name] = {
+            "step_ms_median_steps_3_on": statistics.median(step_ms[2:]),
+            "step_ms": step_ms, "max_memory_allocated_bytes": peak,
+            "k5_launches_per_step_per_shard": per,
+            "collectives_per_step": {k: launches.get(k, 0) / TRAIN_TP_STEPS
+                                     for k in MESH_COUNTS},
+            "losses": losses, "grad_norms": [h["grad_norm"] for h in hist]}
+        return launches
+    run(one, None, "one_card")
+    counted = None
+    with _launch_shapes() as seen:
+        for dims in TRAIN_TP_MESHES:
+            mesh = make_sim_mesh(dims, device)
+            name = f"{dims[0]}x{dims[1]}"
+            got = run(build_model(cfg, MEGATRON_FSDP, mesh=mesh,
+                                  remat="full"), mesh, name)
+            counted = counted or got
+            gap = max(abs(a - b) / b for a, b in zip(
+                runs[name]["losses"], runs["one_card"]["losses"]))
+            assert gap <= TRAIN_TP_CURVE_TIER, (name, gap, runs[name])
+            runs[name]["curve_rel_gap_to_one_card"] = gap
+            runs[name]["step_ratio_to_one_card"] = (
+                runs[name]["step_ms_median_steps_3_on"]
+                / runs["one_card"]["step_ms_median_steps_3_on"])
+    _launches_compared(seen, "train_tp")
+    del whole
+    torch.cuda.empty_cache()
+    emit("train_tp", card=smi_line(), check=check,
+         train={"arch": cfg.name, "n_layers": [base.n_layers, cfg.n_layers],
+                "batch": TRAIN_TP_BATCH, "seq": TRAIN_TP_SEQ,
+                "steps": TRAIN_TP_STEPS, "remat": "full",
+                "params": param_count(one.decls), "runs": runs,
+                "launch_shapes": {k: sorted(map(str, v))
+                                  for k, v in seen.items() if v}},
+         seconds=time.perf_counter() - t0,
+         timing="the shards of a simulated mesh run in turn on one card: "
+                "the step times say what the stages cost there, not what "
+                "four cards would take",
+         tolerance=f"(a) float32: loss within {TRAIN_LOSS_TIER} relative, "
+                   f"every gradient leaf within {TRAIN_GRAD_TIER} of its "
+                   f"max|grad| of the one card's; (b) each step's loss "
+                   f"within {TRAIN_TP_CURVE_TIER} relative of the one "
+                   "card's")
+    return counted
+
+
+# ---------------------------------------------------------------------------
 # the dry run (launch/dryrun.py) of the training phases' configurations, on
 # the host: its predicted peak and operations beside the phases' measured
 # peak and model-FLOPs share (MFU), where those phases ran
@@ -6998,6 +7278,9 @@ def main(argv=None) -> int:
             launches["ssd_scan_bwd"] = hybrid_launches["ssd_scan_bwd"]
     if "train_xlstm" in phases:
         xlstm_train_launches, _ = phase_train_xlstm(device)
+    tp_train_launches = None
+    if "train_tp" in phases:
+        tp_train_launches = phase_train_tp(device)
     if "dryrun" in phases:
         phase_dryrun(train_records)
     topo_launches = None
@@ -7087,7 +7370,17 @@ def main(argv=None) -> int:
                      "text_encoder": {
                          **rows["flash_attention"]["train_forward"][
                              "text_encoder"],
-                         "launches": text_launches["flash_attention"]}}},
+                         "launches": text_launches["flash_attention"]},
+                     # one shard's training forward where train_tp trains
+                     # h2o-danube-3-4b on (1, 4) and (2, 2) (the (1, 4)
+                     # run's launches, all shards), and its float32 check's
+                     "h2o_train_tp": {
+                         **rows["flash_attention"]["train_forward"][
+                             "h2o_train_tp"],
+                         "launches_train_tp_1x4":
+                             tp_train_launches["flash_attention"]},
+                     "h2o_check_tp": rows["flash_attention"][
+                         "train_forward"]["h2o_check_tp"]}},
              # K5's backward: its launches are train_dense's full run's
              # (12 steps of h2o-danube-3-4b, 8 layers); every row of the
              # kernels phase, and its launches in train_whisper
@@ -7096,6 +7389,8 @@ def main(argv=None) -> int:
                  if k not in keys} | {
                  "launches_train_whisper":
                      whisper_train_launches["flash_attention_bwd"],
+                 "launches_train_tp_1x4":
+                     tp_train_launches["flash_attention_bwd"],
                  "launches_examples_text_confounders":
                      text_launches["flash_attention_bwd"]},
              # K6's backward: its launches are train_hybrid's full run's

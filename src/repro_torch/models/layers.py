@@ -616,33 +616,42 @@ def tp_sum(parts: Sequence[torch.Tensor], mesh,
     return [s.to(dtype) for s in summed]
 
 
-def attn_stage(p, a: AttentionConfig, xs, mesh, *, chunk: int):
+def attn_stage(p, a: AttentionConfig, xs, mesh, *, chunk: int,
+               kv_xs: Optional[Sequence[torch.Tensor]] = None):
     """Prefill attention over "model": every shard attends with its own
     heads (one flash-attention launch a shard on the card) and projects
-    them through its rows of ``wo``.  Returns (the output summed over
-    "model", one per shard; each shard's cache pair, its KV heads' keys
-    and values or MLA's latent and rope key)."""
+    them through its rows of ``wo``.  ``kv_xs`` (one per shard: the
+    image's or an encoder's activations) makes it cross-attention: each
+    shard projects its own KV heads' keys and values from its part, no
+    rope, no mask (``attn_forward``'s ``kv_override``).  Returns (the
+    output summed over "model", one per shard; each shard's cache pair,
+    its KV heads' keys and values or MLA's latent and rope key)."""
     ps, local = tp_attn_params(p, a, mesh)
     outs, kvs = [], []
     for i, dev in enumerate(mesh.devices):
         with on_shard(dev):
-            o, kv = attn_forward(ps[i], local, xs[i], chunk=chunk)
+            o, kv = attn_forward(ps[i], local, xs[i], chunk=chunk,
+                                 kv_override=None if kv_xs is None
+                                 else (kv_xs[i], None))
         outs.append(o)
         kvs.append(kv)
     return tp_sum(outs, mesh, xs[0].dtype), kvs
 
 
 def attn_decode_stage(p, a: AttentionConfig, xs, pos, slot_pos, caches,
-                      mesh):
+                      mesh, *, cross: bool = False):
     """One decode step over "model": every shard writes its own KV heads
     (MLA: its copy of the latent) into its cache and attends with its own
-    heads; the outputs are summed over "model"."""
+    heads; the outputs are summed over "model".  ``cross`` reads each
+    shard's static cross keys and values instead (no rope, no write,
+    every slot valid)."""
     ps, local = tp_attn_params(p, a, mesh)
     outs = []
     for i, dev in enumerate(mesh.devices):
         with on_shard(dev):
             outs.append(attn_decode(ps[i], local, xs[i], pos[i],
-                                    slot_pos[i], caches[i])[0])
+                                    slot_pos[i], caches[i],
+                                    use_rope=not cross, cross=cross)[0])
     return tp_sum(outs, mesh, xs[0].dtype)
 
 

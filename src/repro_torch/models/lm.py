@@ -28,22 +28,26 @@ On a mesh (launch/mesh.py) with an axis of more than one shard,
 its parameters placed by ``models/param.py::shard_params``, and every
 family serves sharded by the rules (``_on_mesh``):
 
-* the decoder family (dense, MoE), whatever the rules, and the hybrid
-  under rules that put heads over "model" (MEGATRON_FSDP, zamba2-7b's),
-  tensor parallel (``_decoder_on_mesh``, ``_hybrid_on_mesh``): the batch
+* the decoder family (dense, MoE), whatever the rules, and the hybrid and
+  the VLM under rules that put heads over "model" (MEGATRON_FSDP,
+  zamba2-7b's and llama-3.2-vision-90b's), tensor parallel
+  (``_decoder_on_mesh``, ``_hybrid_on_mesh``, ``_vlm_on_mesh``): the batch
   rows, the decode cache and the positions over "data"; attention heads,
   MLP width, the Mamba-2 blocks' SSM heads (models/ssm.py's stages) and
   the vocabulary over "model" (models/layers.py's stages; the
   vocab-parallel lookup and the logits gathered over "model"); every
   leaf the rules put over "data" (FSDP) gathered before its stage uses
   it; the MoE layers' routed experts expert parallel over "model"
-  (models/moe.py).  Each (data, model) shard holds the keys and values
-  of its batch rows and of the KV heads its query heads use (MLA: the
-  latent of its batch rows), where the reference declares the cache over
-  "kv_seq", and the hybrid's SSM states of its SSM heads and conv window
-  of its x channels with bm and cm (the values are the same); the
-  residual between blocks is whole on every model shard, where the
-  reference constrains it to "seq_shard";
+  (models/moe.py); the VLM's cross-attention layers project the image's
+  keys and values on each shard for its KV heads, the gate applied after
+  the sum over "model".  Each (data, model) shard holds the keys and
+  values of its batch rows and of the KV heads its query heads use (MLA:
+  the latent of its batch rows; the VLM's cross keys and values alike),
+  where the reference declares the cache over "kv_seq" (the VLM's cross
+  cache by batch rows alone), and the hybrid's SSM states of its SSM
+  heads and conv window of its x channels with bm and cm (the values are
+  the same); the residual between blocks is whole on every model shard,
+  where the reference constrains it to "seq_shard";
 * every other family (hybrid, xLSTM, encoder-decoder, VLM) under rules
   that put the batch over "model" and no heads there (SMALL_DP,
   xlstm-350m's and whisper-base's), data parallel over every axis the
@@ -52,9 +56,12 @@ family serves sharded by the rules (``_on_mesh``):
   rows, the cache held by batch rows.
 
 The bundle places and joins its decode cache (``ModelBundle.place_cache``,
-``join_cache``).  The xLSTM, encoder-decoder and VLM under rules that put
-heads over "model" raise ``NotImplementedError``; training on a mesh is
-not ported.
+``join_cache``).  The xLSTM and encoder-decoder under rules that put
+heads over "model" raise ``NotImplementedError``.  On a mesh the dense
+decoders train (``_decoder_on_mesh``'s ``loss_fn``: the prefill's stages
+under autograd, the collectives' backwards their adjoints); the MoE
+decoder, the hybrid, the VLM and the data-parallel form raise in
+``loss_fn`` (ROADMAP Queue 1 item 1).
 
 Training: ``loss_fn`` composes the loss as the reference does — the mean
 cross-entropy of ``chunked_ce_loss`` (plus the MoE aux term for the
@@ -155,6 +162,7 @@ class ModelBundle:
     # one-device layout on the lead device
     place_cache: Optional[Callable] = None
     join_cache: Optional[Callable] = None
+    rules: Any = None              # the logical-axis rules it was built by
 
     @property
     def sharded(self) -> bool:
@@ -440,7 +448,7 @@ def build_decoder(cfg: ArchConfig, rules=None, mesh=None,
 
     if _sharded(mesh):
         loss_fn, prefill_fn, decode_fn = _decoder_on_mesh(
-            cfg, mesh, stacks, attn_chunk, ep_axis)
+            cfg, mesh, stacks, attn_chunk, ep_axis, remat)
     return ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
                        cache_decls, _train_specs(_token_specs), mesh,
                        place_cache=lambda c: place_cache(cfg, c, mesh),
@@ -592,15 +600,71 @@ def _logits_stage(params, cfg: ArchConfig, hs, mesh, bspec):
                      (bspec, None), mesh)
 
 
+def _mlp_half(cfg: ArchConfig, lp, hs, mesh):
+    """Each shard's residual plus the layer's MLP of its ``ln2``-normed
+    residual, the MLP over "model" (``mlp_stage``)."""
+    ys = mlp_stage(lp["mlp"], _normed(hs, lp["ln2"], mesh, cfg.norm_eps),
+                   mesh, cfg.act, cfg.glu)
+    return _each(mesh, torch.add, hs, ys)
+
+
+def _mesh_ce_loss(params, cfg: ArchConfig, hs, tgts, mesh, bspec,
+                  n_rows: int, chunk: int = 512):
+    """``chunked_ce_loss`` on a mesh: each shard's rows (whole over
+    "model") cut into chunks of ``chunk`` positions; a chunk's logits are
+    formed on each shard for its vocab block in float32 and gathered over
+    "model" (one chunk holds rows x chunk x vocab float32 logits a shard:
+    65.5 MB a row at h2o-danube-3-4b's 32000), each row's log-sum-exp
+    less its target's logit summed per chunk on each shard, the sums of
+    the shards at place 0 of "model" added over "data" (``join_spec``),
+    then across chunks; the mean over ``n_rows`` x the positions.  Each
+    chunk is checkpointed under grad mode, as the one-device loss's."""
+    if cfg.tie_embeddings:
+        blocks = [b.T for b in respec(params["emb"], ("model", None), mesh)]
+    else:
+        blocks = respec(params["unemb"], (None, "model"), mesh)
+    s = hs[0].shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunked_ce_loss: sequence length {s} is not a "
+                         f"multiple of the chunk {chunk}")
+
+    def nll(logits, t):
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+        return torch.sum(lse - gold)[None]
+
+    def body(hcs, tcs, us):
+        parts = _each(mesh, lambda h, u: (h @ u).to(F32), hcs, us)
+        logits = mesh_gather(parts, -1, mesh, axis="model")
+        return join_spec(_each(mesh, nll, logits, tcs), (bspec,),
+                         mesh).sum()
+
+    body = _remat(body, "full")
+    tot = torch.zeros((), dtype=F32, device=mesh.device)
+    for c0 in range(0, s, chunk):
+        tot = tot + body([h[:, c0:c0 + chunk] for h in hs],
+                         [t[:, c0:c0 + chunk] for t in tgts], blocks)
+    return tot / (n_rows * s)
+
+
 def _decoder_on_mesh(cfg: ArchConfig, mesh, stacks, attn_chunk: int,
-                     ep_axis: str):
+                     ep_axis: str, remat: str):
     """(loss_fn, prefill_fn, decode_fn) of the decoder on ``mesh``.  The
     activations are one tensor per shard (the batch rows of its data
     place, whole over "model"), and every block is a stage run on each
     shard in shard order between collectives: the embedding's sum, each
     attention's and MLP's sum over "model", the logits' gather, the
     gathers of FSDP-placed leaves; a MoE layer's tokens are joined over
-    "data" for the expert-parallel paths and split again after."""
+    "data" for the expert-parallel paths and split again after.
+
+    ``loss_fn`` (the dense family; the MoE family's raises) runs the
+    prefill's stages under autograd, each layer under ``remat`` as the
+    one-device form wraps it, and the mean cross-entropy of
+    ``_mesh_ce_loss``.  Every collective's backward is its adjoint
+    (sharding/collectives.py), so the gradient of each shard's part of a
+    parameter is that shard's share of the whole gradient; the trainer
+    sums the shares of a block over the shards that hold it."""
     a = cfg.attention
     tp = mesh.shape.get("model", 1)
     names = ("c", "krope") if a.is_mla else ("k", "v")
@@ -658,17 +722,12 @@ def _decoder_on_mesh(cfg: ArchConfig, mesh, stacks, attn_chunk: int,
                 for k, key in enumerate(names)}
         logits = _logits_stage(params, cfg, normed(hs, params["lnf"]), mesh,
                                bspec)
-        pos = _each(mesh, lambda t: _prefill_positions(t.shape[0], s,
-                                                       t.device), toks)
-        cache["slot_pos"] = ShardedLeaf([p for p, _ in pos], (bspec, None),
-                                        mesh)
-        cache["cur"] = ShardedLeaf([c for _, c in pos], (bspec,), mesh)
+        cache.update(_placed_positions(toks, s, mesh, bspec))
         return logits, cache
 
     def decode_fn(params, cache, batch):
         _check_tp(cfg, tp)
-        table = cache["slot_pos"]
-        bspec = table.spec[0]
+        bspec = cache["slot_pos"].spec[0]
         cur, slot_pos = _advance_shards(cache, mesh)
         hs = _embed_stage(params["emb"], split_spec(
             batch["tokens"], (bspec, None), mesh), mesh)
@@ -684,13 +743,52 @@ def _decoder_on_mesh(cfg: ArchConfig, mesh, stacks, attn_chunk: int,
                 hs = ffn(lp, _each(mesh, torch.add, hs, outs), bspec)
         logits = _logits_stage(params, cfg, normed(hs, params["lnf"]), mesh,
                                bspec)
-        out = dict(cache)
-        out["slot_pos"] = ShardedLeaf(slot_pos, table.spec, mesh)
-        out["cur"] = ShardedLeaf([c + 1 for c in cur], cache["cur"].spec,
-                                 mesh)
-        return logits, out
+        return logits, _stepped(cache, cur, slot_pos, mesh)
 
-    return _no_training(cfg), prefill_fn, decode_fn
+    def layer(lp, hs):
+        outs, _ = attn_stage(lp["attn"], a, normed(hs, lp["ln1"]), mesh,
+                             chunk=attn_chunk)
+        return ffn(lp, _each(mesh, torch.add, hs, outs), None)
+
+    train_layer = _remat(layer, remat)
+
+    def loss_fn(params, batch):
+        _check_tp(cfg, tp)
+        tokens = batch["tokens"]
+        b = tokens.shape[0]
+        bspec = _batch_spec(b, mesh)
+        toks = split_spec(tokens, (bspec, None), mesh)
+        tgts = split_spec(batch["targets"], (bspec, None), mesh)
+        hs = _embed_stage(params["emb"], toks, mesh)
+        for name, depth in stacks:
+            for i in range(depth):
+                hs = train_layer(_index(params[name], i), hs)
+        ce = _mesh_ce_loss(params, cfg, normed(hs, params["lnf"]), tgts,
+                           mesh, bspec, b)
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=F32,
+                                                 device=mesh.device)}
+
+    if cfg.family == "moe":
+        loss_fn = _no_training(cfg)
+    return loss_fn, prefill_fn, decode_fn
+
+
+def _placed_positions(toks, s: int, mesh, bspec, cap: Optional[int] = None):
+    """A prefill's slot table and ``cur`` (``_prefill_positions``) for
+    each shard's rows ``toks``, held by batch rows."""
+    pos = _each(mesh, lambda t: _prefill_positions(t.shape[0], s, t.device,
+                                                   cap), toks)
+    return {"slot_pos": ShardedLeaf([p for p, _ in pos], (bspec, None), mesh),
+            "cur": ShardedLeaf([c for _, c in pos], (bspec,), mesh)}
+
+
+def _stepped(cache, cur, slot_pos, mesh):
+    """``cache`` after a decode step on ``mesh``: each shard's advanced
+    slot table (``_advance_shards``) and its ``cur`` plus one."""
+    out = dict(cache)
+    out["slot_pos"] = ShardedLeaf(slot_pos, cache["slot_pos"].spec, mesh)
+    out["cur"] = ShardedLeaf([c + 1 for c in cur], cache["cur"].spec, mesh)
+    return out
 
 
 def _advance_shards(cache, mesh):
@@ -929,11 +1027,7 @@ def _hybrid_on_mesh(bundle: ModelBundle, mesh, n_groups: int, n_m: int,
     tp = mesh.shape.get("model", 1)
     n = len(mesh.devices)
     normed = partial(_normed, mesh=mesh, eps=cfg.norm_eps)
-
-    def mlp_half(lp, hs):
-        ys = mlp_stage(lp["mlp"], normed(hs, lp["ln2"]), mesh, cfg.act,
-                       cfg.glu)
-        return _each(mesh, torch.add, hs, ys)
+    mlp_half = partial(_mlp_half, cfg, mesh=mesh)
 
     def prefill_fn(params, batch):
         _check_tp(cfg, tp)
@@ -978,11 +1072,7 @@ def _hybrid_on_mesh(bundle: ModelBundle, mesh, n_groups: int, n_m: int,
                                   (None, bspec, "model", None, None))
             cache["t_conv"] = held(tail, 1, (n_tail,),
                                    (None, bspec, None, "model"))
-        pos = _each(mesh, lambda t: _prefill_positions(t.shape[0], s,
-                                                       t.device, cap), toks)
-        cache["slot_pos"] = ShardedLeaf([p for p, _ in pos], (bspec, None),
-                                        mesh)
-        cache["cur"] = ShardedLeaf([c for _, c in pos], (bspec,), mesh)
+        cache.update(_placed_positions(toks, s, mesh, bspec, cap))
         return logits, cache
 
     def decode_fn(params, cache, batch):
@@ -1021,11 +1111,7 @@ def _hybrid_on_mesh(bundle: ModelBundle, mesh, n_groups: int, n_m: int,
                             [t[i] for t in cache["t_conv"].parts])
         logits = _logits_stage(params, cfg, normed(hs, params["lnf"]), mesh,
                                bspec)
-        out = dict(cache)
-        out["slot_pos"] = ShardedLeaf(slot_pos, cache["slot_pos"].spec, mesh)
-        out["cur"] = ShardedLeaf([c + 1 for c in cur], cache["cur"].spec,
-                                 mesh)
-        return logits, out
+        return logits, _stepped(cache, cur, slot_pos, mesh)
 
     return replace(bundle, loss_fn=_no_training(cfg), prefill_fn=prefill_fn,
                    decode_fn=decode_fn,
@@ -1463,7 +1549,112 @@ def build_vlm(cfg: ArchConfig, rules=None, mesh=None,
 
     bundle = ModelBundle(cfg, decls, loss_fn, prefill_fn, decode_fn,
                          cache_decls, input_specs)
-    return _on_mesh(bundle, rules, mesh)
+    return _on_mesh(bundle, rules, mesh, lambda b: _vlm_on_mesh(
+        b, mesh, n_groups, n_self, attn_chunk))
+
+
+# ---------------------------------------------------------------------------
+# the VLM on a mesh: the decoder's stages for its self-attention layers, a
+# cross-attention stage against the projected image, the gate after the
+# sum over "model"
+# ---------------------------------------------------------------------------
+def _vlm_on_mesh(bundle: ModelBundle, mesh, n_groups: int, n_self: int,
+                 attn_chunk: int) -> ModelBundle:
+    """The VLM ``bundle`` tensor parallel on ``mesh``, as
+    ``_decoder_on_mesh`` runs the decoder: the self-attention layers
+    through ``attn_stage`` / ``attn_decode_stage`` and ``mlp_stage``, the
+    vocab-parallel lookup and logits, the batch rows, image patches, cache
+    and positions over "data".  The image is projected on each shard
+    (``img_proj`` gathered whole where FSDP places it over "data"), and
+    each cross-attention layer is ``attn_stage`` against it: each shard
+    projects its own KV heads' keys and values from the image (no rope,
+    no mask), and the gate scales the output after its float32 sum over
+    "model" (``h + tanh(gate) * sum``, as the reference scales the whole
+    output).  The cache is held by KV heads and batch rows, the cross
+    keys and values as the self ones (``_kv_spec``), where the reference
+    declares the cross cache by batch rows alone (the values are the
+    same); the decoder's ``place_cache`` and ``join_cache`` serve it.
+    Training on a mesh is not ported."""
+    cfg = bundle.arch
+    a = cfg.attention
+    tp = mesh.shape.get("model", 1)
+    n = len(mesh.devices)
+    normed = partial(_normed, mesh=mesh, eps=cfg.norm_eps)
+    mlp_half = partial(_mlp_half, cfg, mesh=mesh)
+    names = ("k", "v")
+
+    def gated(cp, hs, outs):
+        return _each(mesh, lambda h, o, g: h + torch.tanh(g).to(h.dtype) * o,
+                     hs, outs, replicated(cp["gate"], mesh))
+
+    def prefill_fn(params, batch):
+        _check_tp(cfg, tp)
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        bspec = _batch_spec(b, mesh)
+        toks = split_spec(tokens, (bspec, None), mesh)
+        imgs = split_spec(batch["img"], (bspec, None, None), mesh)
+        img_h = _each(mesh, lambda x, w: x.to(w.dtype) @ w, imgs,
+                      replicated(params["img_proj"], mesh))
+        hs = _embed_stage(params["emb"], toks, mesh)
+        kvs, xkvs = [], []
+        for g in range(n_groups):
+            for i in range(n_self):
+                lp = _index(params["self_layers"], g, i)
+                outs, kv = attn_stage(lp["attn"], a, normed(hs, lp["ln1"]),
+                                      mesh, chunk=attn_chunk)
+                hs = mlp_half(lp, _each(mesh, torch.add, hs, outs))
+                kvs.append(kv)
+            cp = _index(params["cross_layers"], g)
+            outs, xkv = attn_stage(cp["attn"], a, normed(hs, cp["ln1"]),
+                                   mesh, chunk=attn_chunk, kv_xs=img_h)
+            hs = mlp_half(cp, gated(cp, hs, outs))
+            xkvs.append(xkv)
+        logits = _logits_stage(params, cfg, normed(hs, params["lnf"]), mesh,
+                               bspec)
+        cache = {
+            "self_kv": {key: ShardedLeaf(
+                [_stacked([kv[sh][k] for kv in kvs], n_groups, n_self)
+                 for sh in range(n)], _kv_spec(key, bspec, 2), mesh)
+                for k, key in enumerate(names)},
+            "cross_kv": {key: ShardedLeaf(
+                [torch.stack([kv[sh][k] for kv in xkvs]) for sh in range(n)],
+                _kv_spec(key, bspec), mesh)
+                for k, key in enumerate(names)},
+        }
+        cache.update(_placed_positions(toks, s, mesh, bspec))
+        return logits, cache
+
+    def decode_fn(params, cache, batch):
+        _check_tp(cfg, tp)
+        bspec = cache["slot_pos"].spec[0]
+        cur, slot_pos = _advance_shards(cache, mesh)
+        hs = _embed_stage(params["emb"], split_spec(
+            batch["tokens"], (bspec, None), mesh), mesh)
+        sk, xk = cache["self_kv"], cache["cross_kv"]
+        for g in range(n_groups):
+            for i in range(n_self):
+                lp = _index(params["self_layers"], g, i)
+                caches = [{k: v.parts[sh][g, i] for k, v in sk.items()}
+                          for sh in range(n)]
+                outs = attn_decode_stage(lp["attn"], a,
+                                         normed(hs, lp["ln1"]), cur,
+                                         slot_pos, caches, mesh)
+                hs = mlp_half(lp, _each(mesh, torch.add, hs, outs))
+            cp = _index(params["cross_layers"], g)
+            caches = [{k: v.parts[sh][g] for k, v in xk.items()}
+                      for sh in range(n)]
+            outs = attn_decode_stage(cp["attn"], a, normed(hs, cp["ln1"]),
+                                     cur, slot_pos, caches, mesh, cross=True)
+            hs = mlp_half(cp, gated(cp, hs, outs))
+        logits = _logits_stage(params, cfg, normed(hs, params["lnf"]), mesh,
+                               bspec)
+        return logits, _stepped(cache, cur, slot_pos, mesh)
+
+    return replace(bundle, loss_fn=_no_training(cfg), prefill_fn=prefill_fn,
+                   decode_fn=decode_fn,
+                   place_cache=lambda c: place_cache(cfg, c, mesh),
+                   join_cache=partial(join_cache, cfg), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1584,5 +1775,6 @@ def build_model(cfg: ArchConfig, rules=None, mesh=None,
         if tp > 1 and a.n_heads % tp:
             pad = ((a.n_heads + tp - 1) // tp) * tp
             cfg = replace(cfg, attention=replace(a, n_heads=pad))
-    return _BUILDERS[cfg.family](cfg, rules, mesh=mesh, remat=remat,
-                                 attn_chunk=attn_chunk)
+    bundle = _BUILDERS[cfg.family](cfg, rules, mesh=mesh, remat=remat,
+                                   attn_chunk=attn_chunk)
+    return replace(bundle, rules=rules)

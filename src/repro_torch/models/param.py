@@ -4,7 +4,10 @@ A model is declared once as a tree (nested dicts) of :class:`PDecl`; from
 it come random initialization (:func:`init_tree`), the counts, the cache
 trees of the serving engine, and through the logical-axis rules
 (sharding/axes.py) each leaf's spec on a mesh (:func:`spec_tree`,
-:func:`sharding_tree`) and its placement there (:func:`shard_params`).
+:func:`sharding_tree`), its placement there (:func:`shard_params`) and
+which shards hold each of its blocks (:func:`placed_blocks`: the
+optimizer writes each block once, the trainer sums a block's gradient
+over its replicas).
 
 :func:`params_from_numpy` carries the JAX package's parameters across —
 as numpy arrays, ``jax.tree.map(np.asarray, params)`` — into tensors of
@@ -147,6 +150,40 @@ def shard_params(params, decls, mesh, rules):
                      for p in parts]
         return ShardedLeaf(parts, spec, mesh)
     return tree_map_with_path(place, params)
+
+
+@dataclass(frozen=True)
+class Block:
+    """One distinct block of a placed leaf: the shards whose parts hold
+    it (in shard order) and the mesh axes of more than one shard that its
+    spec does not name, over which it is replicated."""
+    shards: Tuple[int, ...]
+    replicas: Tuple[str, ...]
+
+    @property
+    def owner(self) -> int:
+        """The shard that speaks for the block (place 0 of its replica
+        axes): the one a sum over blocks reads."""
+        return self.shards[0]
+
+
+def placed_blocks(leaf, mesh) -> Tuple[Block, ...]:
+    """The distinct blocks of ``leaf`` on ``mesh`` (a ``ShardedLeaf``, or
+    a tensor that every shard shares), in the order of their owners.  On
+    a simulated mesh the parts of one block are views of one storage (a
+    tensor leaf is that one storage itself); on an NCCL mesh each card
+    holds its own copy."""
+    from repro_torch.sharding.collectives import ShardedLeaf, _axes, _block
+    spec = leaf.spec if isinstance(leaf, ShardedLeaf) \
+        else (None,) * len(leaf.shape)
+    named = {a for e in spec for a in _axes(e)}
+    replicas = tuple(a for a in mesh.axis_names
+                     if mesh.shape[a] > 1 and a not in named)
+    groups = {}
+    for shard in range(len(mesh.devices)):
+        key = tuple(_block(mesh, shard, e)[0] for e in spec)
+        groups.setdefault(key, []).append(shard)
+    return tuple(Block(tuple(g), replicas) for g in groups.values())
 
 
 def param_count(decls) -> int:

@@ -42,13 +42,15 @@ DeviceLike = Union[str, torch.device]
 # kernels/ssd_scan.py); "flash_attention_bwd" and "ssd_scan_bwd" count
 # calls of K5's and K6's backward wrappers (several CUDA launches each);
 # "mesh_sum", "mesh_gather" and "mesh_all_to_all" count the collectives
-# over a mesh's shards
+# over a mesh's shards, "mesh_sum_bwd" and "mesh_gather_bwd" those of
+# their backwards under autograd (a sum and a reduce-scatter)
 launch_counts: Dict[str, int] = {"batched_gram": 0, "batched_gram_blocked": 0,
                                  "batched_predict": 0, "crossfit_gram": 0,
                                  "flash_attention": 0,
                                  "flash_attention_bwd": 0, "ssd_scan": 0,
                                  "ssd_scan_bwd": 0, "mesh_sum": 0,
-                                 "mesh_gather": 0, "mesh_all_to_all": 0}
+                                 "mesh_gather": 0, "mesh_all_to_all": 0,
+                                 "mesh_sum_bwd": 0, "mesh_gather_bwd": 0}
 
 # mesh axis names available to the logical-axis rules (None = no filtering)
 mesh_axes = None

@@ -50,6 +50,24 @@ dims the leaf splits over an axis the stage does not (the FSDP gather over
 "data", counted as ``mesh_gather``) and narrows the dims the stage splits
 and the leaf does not (a view on a simulated mesh).
 
+Under autograd (grad mode on, a part that needs a gradient) ``mesh_sum``,
+``mesh_gather`` (``respec``'s gathers with it), ``split_spec`` and
+``join_spec`` run as ``torch.autograd.Function``s whose backward is the
+adjoint of the forward, on both routes (the simulated mesh's CPU tests
+hold the rules the NCCL route uses): a sum's is the sum of the output
+gradients over the same groups ("mesh_sum_bwd"), a gather's the group's
+sum of the gradients with each shard keeping its own slice, a
+reduce-scatter ("mesh_gather_bwd"); a split's adds each part's gradient
+into its block, a join's hands each shard it read its block of the
+gradient and every other shard zeros.  The port's sharded programs hold
+one copy of the residual a shard and read their outputs from the shards
+at place 0 (``join_spec``), so these adjoints, not Megatron's identity
+and slice (which assume an identity-forward, sum-backward operator at
+every stage's input), give each shard its share of every gradient.  The
+NCCL backwards are ``torch.cuda.nccl`` ``all_reduce`` and
+``reduce_scatter`` (written, unverified: no machine with two cards has
+run them).  ``mesh_all_to_all`` has no backward here.
+
 ``shard_map`` is the counterpart of the JAX package's ``shard_map`` over
 the "data" axis: its operands split along the dims that
 ``sharding/policy.py::megabatch_specs`` names (the rest are replicated),
@@ -100,22 +118,39 @@ def _group_size(parts: Sequence[torch.Tensor], mesh, axis: str) -> int:
     return mesh.shape[axis]
 
 
+def _tracked(parts: Sequence[torch.Tensor]) -> bool:
+    """Whether autograd records a collective of ``parts``: grad mode is
+    on and a part needs a gradient."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in parts)
+
+
 def mesh_sum(parts: Sequence[torch.Tensor], mesh,
              axis: Optional[str] = None) -> List[torch.Tensor]:
     """The sum of one part per shard, one result per shard: over every
     shard of a mesh split over "data" alone, or with ``axis`` within each
     group of that axis.  On an NCCL mesh the parts are summed in place
-    (``all_reduce``)."""
+    (``all_reduce``).  Under autograd (``_MeshSum``) the backward is the
+    adjoint: the output gradients summed over the same groups."""
     if axis is None:
         _check(parts, mesh)
         axis = "data"
     if _group_size(parts, mesh, axis) == 1:
         return list(parts)
-    runtime.launch_counts["mesh_sum"] += 1
+    if _tracked(parts):
+        return list(_MeshSum.apply(mesh, axis, *parts))
+    return _sum(parts, mesh, axis, "mesh_sum")
+
+
+def _sum(parts, mesh, axis: str, count: str,
+         own: bool = False) -> List[torch.Tensor]:
+    """``mesh_sum``'s collective, counted as ``count``; ``own``: the NCCL
+    route sums copies, never a part in place (autograd's tensors)."""
+    runtime.launch_counts[count] += 1
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
     for group in mesh.axis_groups(axis):
         if mesh.collective == "nccl":
-            summed = [parts[i].contiguous() for i in group]
+            summed = [parts[i].clone(memory_format=torch.contiguous_format)
+                      if own else parts[i].contiguous() for i in group]
             torch.cuda.nccl.all_reduce(summed)
         else:
             total = parts[group[0]]
@@ -132,12 +167,21 @@ def mesh_gather(parts: Sequence[torch.Tensor], dim: int, mesh,
     """One part per shard concatenated along ``dim`` in shard order, one
     result per shard: over every shard of a mesh split over "data" alone,
     or with ``axis`` within each group of that axis, in that axis' order
-    (``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``)."""
+    (``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``).  Under
+    autograd (``_MeshGather``) the backward is the adjoint, a
+    reduce-scatter: each shard's part gets its slice of the group's sum of
+    the output gradients."""
     if axis is None:
         _check(parts, mesh)
         axis = "data"
     if _group_size(parts, mesh, axis) == 1:
         return list(parts)
+    if _tracked(parts):
+        return list(_MeshGather.apply(mesh, axis, dim, *parts))
+    return _gather(parts, dim, mesh, axis)
+
+
+def _gather(parts, dim: int, mesh, axis: str) -> List[torch.Tensor]:
     runtime.launch_counts["mesh_gather"] += 1
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
     for group in mesh.axis_groups(axis):
@@ -155,6 +199,64 @@ def mesh_gather(parts: Sequence[torch.Tensor], dim: int, mesh,
         for i, t in zip(group, joined):
             out[i] = t
     return out
+
+
+def _reduce_scatter(grads, dim: int, mesh, axis: str) -> List[torch.Tensor]:
+    """The adjoint of ``_gather``: within each group, the sum of the
+    gradients of the gathered outputs, each shard keeping its own slice
+    along ``dim`` (``reduce_scatter`` on an NCCL mesh), counted as
+    "mesh_gather_bwd"."""
+    runtime.launch_counts["mesh_gather_bwd"] += 1
+    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    for group in mesh.axis_groups(axis):
+        n = len(group)
+        if mesh.collective == "nccl":
+            src = [grads[i].movedim(dim, 0).contiguous() for i in group]
+            outs = [torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
+                                dtype=t.dtype, device=t.device) for t in src]
+            torch.cuda.nccl.reduce_scatter(src, outs)
+            for i, o in zip(group, outs):
+                out[i] = o.movedim(0, dim)
+            continue
+        total = grads[group[0]]
+        for i in group[1:]:
+            total = total + grads[i]
+        size = total.shape[dim] // n
+        for j, i in enumerate(group):
+            out[i] = total.narrow(dim, j * size, size)
+    return out
+
+
+class _MeshSum(torch.autograd.Function):
+    """``mesh_sum`` under autograd.  On a simulated mesh one sum is every
+    shard's output (the same tensor), so autograd may hand a group's
+    gradients to one of its outputs: the backward sums each group first,
+    which is the adjoint whichever output holds them."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, *parts):
+        ctx.mesh, ctx.axis = mesh, axis
+        return tuple(_sum(parts, mesh, axis, "mesh_sum", own=True))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(_sum(grads, ctx.mesh, ctx.axis,
+                                         "mesh_sum_bwd", own=True))
+
+
+class _MeshGather(torch.autograd.Function):
+    """``mesh_gather`` under autograd; its backward is ``_reduce_scatter``
+    (a group's gradients summed first, as in ``_MeshSum``)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *parts):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return tuple(_gather(parts, dim, mesh, axis))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None) + tuple(_reduce_scatter(
+            grads, ctx.dim, ctx.mesh, ctx.axis))
 
 
 def mesh_mean(parts: Sequence[torch.Tensor], mesh,
@@ -324,7 +426,10 @@ class ShardedLeaf:
 def split_spec(x, spec: Spec, mesh) -> List[torch.Tensor]:
     """One part of ``x`` per shard of ``mesh`` (in ``devices`` order),
     each dim cut into the blocks its ``spec`` entry names: views of ``x``
-    on a simulated mesh, copies on each shard's card on an NCCL mesh."""
+    on a simulated mesh, copies on each shard's card on an NCCL mesh.
+    Under autograd (``_SplitSpec``) the backward is the adjoint: each
+    part's gradient added into its block of ``x``'s, on ``x``'s device
+    (a block several shards hold gets the sum of theirs)."""
     if isinstance(x, ShardedLeaf):
         if not _same_spec(x.spec, spec) or x.mesh != mesh:
             raise ValueError(f"a leaf placed as {x.spec} is asked for as "
@@ -333,20 +438,42 @@ def split_spec(x, spec: Spec, mesh) -> List[torch.Tensor]:
     if len(spec) != x.dim():
         raise ValueError(f"spec {tuple(spec)} for a tensor of shape "
                          f"{tuple(x.shape)}")
-    parts = []
-    for shard, dev in enumerate(mesh.devices):
-        part = x
-        for dim, entry in enumerate(spec):
-            index, count = _block(mesh, shard, entry)
-            if count == 1:
-                continue
-            if x.shape[dim] % count:
-                raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does "
-                                 f"not split into {count} blocks")
-            size = x.shape[dim] // count
-            part = part.narrow(dim, index * size, size)
-        parts.append(on_device(part, dev))
-    return parts
+    if _tracked([x]):
+        return list(_SplitSpec.apply(mesh, tuple(spec), x))
+    return [on_device(_cut(x, spec, mesh, shard), dev)
+            for shard, dev in enumerate(mesh.devices)]
+
+
+def _cut(x: torch.Tensor, spec: Spec, mesh, shard: int) -> torch.Tensor:
+    """Shard ``shard``'s block of ``x`` by ``spec`` (a view)."""
+    part = x
+    for dim, entry in enumerate(spec):
+        index, count = _block(mesh, shard, entry)
+        if count == 1:
+            continue
+        if x.shape[dim] % count:
+            raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does "
+                             f"not split into {count} blocks")
+        size = x.shape[dim] // count
+        part = part.narrow(dim, index * size, size)
+    return part
+
+
+class _SplitSpec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, spec, x):
+        ctx.mesh, ctx.spec = mesh, spec
+        ctx.shape, ctx.dtype, ctx.device = x.shape, x.dtype, x.device
+        return tuple(on_device(_cut(x, spec, mesh, shard), dev)
+                     for shard, dev in enumerate(mesh.devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = torch.zeros(ctx.shape, dtype=ctx.dtype, device=ctx.device)
+        for shard, g in enumerate(grads):
+            _cut(out, ctx.spec, ctx.mesh, shard).add_(
+                on_device(g, ctx.device))
+        return None, None, out
 
 
 def respec(x, spec: Spec, mesh) -> List[torch.Tensor]:
@@ -389,11 +516,25 @@ def join_spec(parts: Sequence[torch.Tensor], spec: Spec,
               mesh) -> torch.Tensor:
     """The tensor whose ``split_spec`` is ``parts``, on the mesh's lead
     device; dims split over no axis come from the shards at place 0 of
-    every axis that ``spec`` does not name."""
+    every axis that ``spec`` does not name.  Under autograd
+    (``_JoinSpec``) the backward is the adjoint: each of those shards gets
+    its block of the gradient, every other shard zeros."""
+    if _tracked(parts):
+        return _JoinSpec.apply(mesh, tuple(spec), *parts)
+    return _join(parts, spec, mesh)
+
+
+def _chosen(spec: Spec, mesh) -> List[int]:
+    """The shards ``join_spec`` reads: place 0 of every axis that
+    ``spec`` does not name."""
     named = {a for e in spec for a in _axes(e)}
     free = [k for k, a in enumerate(mesh.axis_names) if a not in named]
-    chosen = [s for s in range(len(mesh.devices))
-              if all(mesh.coords(s)[k] == 0 for k in free)]
+    return [s for s in range(len(mesh.devices))
+            if all(mesh.coords(s)[k] == 0 for k in free)]
+
+
+def _join(parts, spec: Spec, mesh) -> torch.Tensor:
+    chosen = _chosen(spec, mesh)
     if len(chosen) == 1:
         return on_device(parts[chosen[0]], mesh.device)
     head = parts[chosen[0]]
@@ -401,14 +542,26 @@ def join_spec(parts: Sequence[torch.Tensor], spec: Spec,
     out = torch.empty([n * c for n, c in zip(head.shape, counts)],
                       dtype=head.dtype, device=mesh.device)
     for s in chosen:
-        view = out
-        for dim, entry in enumerate(spec):
-            index, count = _block(mesh, s, entry)
-            if count > 1:
-                view = view.narrow(dim, index * head.shape[dim],
-                                   head.shape[dim])
-        view.copy_(parts[s])
+        _cut(out, spec, mesh, s).copy_(parts[s])
     return out
+
+
+class _JoinSpec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, spec, *parts):
+        ctx.mesh, ctx.spec = mesh, spec
+        ctx.parts = [(p.shape, p.dtype, p.device) for p in parts]
+        out = _join(parts, spec, mesh)
+        return out.clone() if any(out is p for p in parts) else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        chosen = set(_chosen(ctx.spec, ctx.mesh))
+        grads = [on_device(_cut(grad, ctx.spec, ctx.mesh, s), dev)
+                 if s in chosen else torch.zeros(shape, dtype=dtype,
+                                                 device=dev)
+                 for s, (shape, dtype, dev) in enumerate(ctx.parts)]
+        return (None, None) + tuple(grads)
 
 
 def shard_map_specs(fn: Callable, mesh, in_specs: Sequence[Spec],

@@ -8,7 +8,9 @@ bfloat16 stored as its uint16 bits).  Files are
 ``ckpt_{step:08d}.msgpack``.  Writes are atomic (a temporary file, then
 ``os.replace``), keep a rolling window of checkpoints (3 by default), and
 move serialisation and IO to a writer thread after a synchronous
-device-to-host copy.  One card writes the whole tree.
+device-to-host copy.  One card writes the whole tree: a leaf placed on a
+mesh (``ShardedLeaf``) is joined first, so a checkpoint written on a mesh
+holds the same bytes as one written on one device.
 """
 from __future__ import annotations
 
@@ -22,9 +24,12 @@ import numpy as np
 import torch
 
 from repro_torch.models.param import tree_map_with_path, tree_paths
+from repro_torch.sharding.collectives import ShardedLeaf
 
 
-def _record(t: torch.Tensor) -> Dict[str, Any]:
+def _record(t) -> Dict[str, Any]:
+    if isinstance(t, ShardedLeaf):
+        t = t.join()
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         arr = t.view(torch.int16).numpy().view(np.uint16)

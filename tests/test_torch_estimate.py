@@ -100,7 +100,8 @@ def test_estimate_matches_reference(case):
                                      "flash_attention_bwd": 0,
                                      "ssd_scan": 0, "ssd_scan_bwd": 0,
                                      "mesh_sum": 0, "mesh_gather": 0,
-                                     "mesh_all_to_all": 0}
+                                     "mesh_all_to_all": 0,
+                                     "mesh_sum_bwd": 0, "mesh_gather_bwd": 0}
 
 
 def test_one_shot_estimate_equals_session_estimate():

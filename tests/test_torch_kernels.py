@@ -180,7 +180,8 @@ def test_cpu_tensors_never_launch_a_kernel():
                                      "flash_attention_bwd": 0,
                                      "ssd_scan": 0, "ssd_scan_bwd": 0,
                                      "mesh_sum": 0, "mesh_gather": 0,
-                                     "mesh_all_to_all": 0}
+                                     "mesh_all_to_all": 0,
+                                     "mesh_sum_bwd": 0, "mesh_gather_bwd": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "ndim"])

@@ -12,8 +12,9 @@ at any batch count), and K1 and K2 launched on the second card, whose
 shared-memory grant is that card's own.  Expert parallelism: the
 all-to-all's peer copies, the axis-scoped sum and the reduced MoE layer
 on a (1, n) mesh of the cards against the simulated (1, n) mesh.  Tensor
-parallelism: the reduced qwen2.5-32b decoder served on a (1, n) mesh of
-the cards against the simulated (1, n) mesh.
+parallelism: the reduced qwen2.5-32b decoder served and trained, and the
+reduced VLM served, on a (1, n) mesh of the cards against the simulated
+(1, n) mesh.
 """
 import dataclasses
 
@@ -177,5 +178,101 @@ def test_nccl_tensor_parallel_decoder_matches_the_simulated_mesh():
                 steps.append(logits.cpu())
         runs.append(steps)
     for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_nccl_tensor_parallel_vlm_matches_the_simulated_mesh():
+    """The reduced VLM (2n query heads over n KV heads, gates 0.5 and
+    -0.7) on a (1, n) mesh of the cards, the cross keys and values
+    projected on each card from its copy of the image: the prefill's last
+    logits, two decode steps and the joined cache within 1e-5 of the
+    simulated (1, n) mesh's in float32."""
+    n = _cards()
+    cfg = get_arch("llama-3.2-vision-90b", reduced=True)
+    if cfg.vocab_size % n or cfg.d_ff % n:
+        pytest.skip(f"the reduced widths do not split over {n} cards")
+    cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, n_heads=2 * n, n_kv_heads=n))
+    cards = tuple(torch.device("cuda", i) for i in range(n))
+    gen = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64),
+                                     dtype=torch.int32, generator=gen),
+             "img": torch.randn((2, cfg.n_frontend_tokens, cfg.d_frontend),
+                                generator=gen)}
+    runs = []
+    for mesh in (DeviceMesh(cards, (1, n)), make_sim_mesh((1, n), "cuda:0")):
+        bundle = build_model(cfg, MEGATRON_FSDP, mesh=mesh)
+        params = cast_floating(init_tree(
+            bundle.decls, torch.Generator("cuda:0").manual_seed(0),
+            "cuda:0"), torch.float32)
+        params["cross_layers"]["gate"] = torch.tensor(
+            [[0.5], [-0.7]], device="cuda:0")
+        params = shard_params(params, bundle.decls, mesh, MEGATRON_FSDP)
+        with torch.inference_mode():
+            logits, cache = bundle.prefill_fn(
+                params, {k: v.cuda() for k, v in batch.items()})
+            steps = [logits.cpu()]
+            cache = grow_cache(cfg, cache, 2)
+            for _ in range(2):
+                tok = steps[-1].argmax(-1)[:, None].to(torch.int32).cuda()
+                logits, cache = bundle.decode_fn(params, cache,
+                                                 {"tokens": tok})
+                steps.append(logits.cpu())
+        runs.append((steps, bundle.join_cache(cache)))
+    for got, want in zip(runs[0][0], runs[1][0]):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    for stack in ("self_kv", "cross_kv"):
+        got, want = runs[0][1][stack]["k"], runs[1][1][stack]["k"]
+        torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_nccl_mesh_training_matches_the_simulated_mesh():
+    """The reduced qwen2.5-32b trained on a (1, n) mesh of the cards:
+    the collectives' backwards (``all_reduce`` for a sum, a
+    ``reduce_scatter`` for a gather) and the replicas' all-reduce give
+    the loss and every joined gradient of the simulated (1, n) mesh
+    within 1e-5 in float32, and one placed AdamW step writes every card's
+    copy of a replicated block alike."""
+    from repro_torch.train import OptConfig, adamw_update, init_opt_state
+    from repro_torch.train.optimizer import shard_opt_state
+    from repro_torch.train.trainer import reduce_shares, shares_of
+    from repro_torch.sharding.collectives import ShardedLeaf
+    from repro_torch.models.param import tree_leaves
+    n = _cards()
+    cfg = get_arch("qwen2.5-32b", reduced=True)
+    if cfg.vocab_size % n or cfg.d_ff % n:
+        pytest.skip(f"the reduced widths do not split over {n} cards")
+    cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, n_heads=2 * n, n_kv_heads=n))
+    cards = tuple(torch.device("cuda", i) for i in range(n))
+    gen = torch.Generator().manual_seed(3)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                              generator=gen).cuda()
+             for k in ("tokens", "targets")}
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    runs = []
+    for mesh in (DeviceMesh(cards, (1, n)), make_sim_mesh((1, n), "cuda:0")):
+        bundle = build_model(cfg, MEGATRON_FSDP, mesh=mesh, remat="full")
+        whole = cast_floating(init_tree(
+            bundle.decls, torch.Generator("cuda:0").manual_seed(0),
+            "cuda:0"), torch.float32)
+        params = shard_params(whole, bundle.decls, mesh, MEGATRON_FSDP)
+        loss, _, shares = shares_of(bundle.loss_fn, params, batch, mesh)
+        grads = reduce_shares(shares, params, mesh)
+        state = shard_opt_state(init_opt_state(whole, opt), bundle.decls,
+                                mesh, MEGATRON_FSDP)
+        params, _, _ = adamw_update(params, grads, state, opt, mesh)
+        lnf = params["lnf"]
+        if isinstance(lnf, ShardedLeaf):
+            for part in lnf.parts[1:]:
+                assert torch.equal(part.cpu(), lnf.parts[0].cpu())
+        runs.append((float(loss), [
+            (g.join() if isinstance(g, ShardedLeaf) else g).cpu()
+            for g in tree_leaves(grads)]))
+    assert abs(runs[0][0] - runs[1][0]) <= 1e-5 * abs(runs[1][0])
+    for got, want in zip(runs[0][1], runs[1][1]):
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-5 * float(want.abs().max()))

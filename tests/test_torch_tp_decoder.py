@@ -426,26 +426,30 @@ def test_mesh_gather_over_an_axis_matches_all_gather(reference, axis):
 @pytest.mark.parametrize("arch", ("zamba2-7b", "xlstm-350m", "whisper-base",
                                   "llama-3.2-vision-90b"))
 def test_other_families_refuse_a_mesh(arch):
-    """The xLSTM, encoder-decoder and VLM families under rules that put
-    heads over "model" (MEGATRON_FSDP) are not sharded: on a mesh with an
-    axis above 1 they declare the reference's trees, and their loss,
-    prefill and decode raise there, naming the family and the rules.  The
-    hybrid serves tensor parallel under those rules: its prefill runs on
-    (1, 2), and only its training raises.  On the 1 x 1 mesh every family
-    runs as before."""
+    """The xLSTM and encoder-decoder families under rules that put heads
+    over "model" (MEGATRON_FSDP) are not sharded: on a mesh with an axis
+    above 1 they declare the reference's trees, and their loss, prefill
+    and decode raise there, naming the family and the rules.  The hybrid
+    and the VLM serve tensor parallel under those rules: their prefill
+    runs on (1, 2), and only their training raises.  On the 1 x 1 mesh
+    every family runs as before."""
     cfg = get_arch(arch, reduced=True)
     mesh = make_sim_mesh((1, 2), "cpu")
     bundle = build_model(cfg, MEGATRON_FSDP, mesh=mesh)
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "vlm"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
             bundle.loss_fn({}, {})
         params = cast_floating(init_tree(
             bundle.decls, torch.Generator().manual_seed(0), "cpu"),
             torch.float32)
+        batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32)}
+        if cfg.family == "vlm":
+            batch["img"] = torch.zeros((2, cfg.n_frontend_tokens,
+                                        cfg.d_frontend))
         with torch.inference_mode():
             logits, _ = bundle.prefill_fn(
                 shard_params(params, bundle.decls, mesh, MEGATRON_FSDP),
-                {"tokens": torch.zeros((2, 8), dtype=torch.int32)})
+                batch)
         assert logits.shape == (2, cfg.vocab_size)
         assert bool(torch.isfinite(logits).all())
     else:
